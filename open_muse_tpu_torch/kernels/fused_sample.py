@@ -1,0 +1,81 @@
+"""CFG combine + vocab crop + Gumbel-max sample + confidence in one pass
+(csrc/fused_sample.cu).
+
+Counterpart of ``open_muse_tpu/ops/pallas/fused_sample.py
+fused_categorical_cfg``.  Sampling matches JAX only in distribution; with
+the same explicit ``gumbel`` noise the token ids match exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import on_cpu, require_cuda, stream_handle
+from ._build import check, library
+
+__all__ = ["fused_categorical_cfg", "fused_categorical_cfg_plain", "sample_gumbel",
+           "draw_seed"]
+
+
+def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Gumbel(0, 1) noise on the CPU from ``generator``, drawn as
+    ``jax.random.gumbel`` does: -log(-log(u)), u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A 63-bit seed for the in-kernel Philox stream, from a CPU generator."""
+    return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator))
+
+
+def fused_categorical_cfg_plain(logits, guidance, vocab_limit: int, gumbel):
+    """crop -> fp32 -> u + g (c - u) -> argmax(x + gumbel), first index on
+    ties -> (ids int32, exp(x[id] - logsumexp(x)))."""
+    b = logits.shape[0] // 2
+    x = logits[..., :vocab_limit].float()
+    cond, uncond = x[:b], x[b:]
+    x = uncond + guidance * (cond - uncond)
+    ids = torch.argmax(x + gumbel[..., :vocab_limit], dim=-1)
+    sel = torch.exp(torch.gather(x, -1, ids[..., None])[..., 0] - torch.logsumexp(x, -1))
+    return ids.to(torch.int32), sel
+
+
+def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None,
+                          generator: torch.Generator | None = None):
+    """logits (2B, S, V_raw), cond rows first -> (ids (B, S) int32,
+    sel (B, S) fp32).  Noise is either ``gumbel`` (B, S, >= vocab_limit)
+    fp32, or drawn from the CPU ``generator`` (the card's kernel seeds its
+    Philox stream from it)."""
+    two_b, s, v_raw = logits.shape
+    b = two_b // 2
+    if two_b % 2 or not 0 < vocab_limit <= v_raw:
+        raise ValueError(f"bad logits {tuple(logits.shape)} / vocab_limit {vocab_limit}")
+    if (gumbel is None) == (generator is None):
+        raise ValueError("pass exactly one of gumbel= and generator=")
+    if gumbel is not None and (gumbel.shape[:2] != (b, s) or gumbel.shape[2] < vocab_limit):
+        raise ValueError(f"gumbel {tuple(gumbel.shape)} does not cover ({b}, {s}, "
+                         f"{vocab_limit})")
+    if on_cpu(logits, gumbel):
+        if gumbel is None:
+            gumbel = sample_gumbel((b, s, vocab_limit), generator)
+        return fused_categorical_cfg_plain(logits, guidance, vocab_limit, gumbel)
+    require_cuda("fused_categorical_cfg", (torch.bfloat16, torch.float32), logits)
+    if gumbel is not None:
+        require_cuda("fused_categorical_cfg", (torch.float32,), gumbel)
+        if gumbel.device != logits.device:
+            raise ValueError(f"fused_categorical_cfg: gumbel on {gumbel.device}, "
+                             f"logits on {logits.device}")
+    seed = 0 if generator is None else draw_seed(generator)
+    ids = torch.empty((b, s), dtype=torch.int32, device=logits.device)
+    sel = torch.empty((b, s), dtype=torch.float32, device=logits.device)
+    check(library().muse_cfg_sample(
+        logits.data_ptr(), int(logits.dtype == torch.bfloat16), b * s, v_raw, vocab_limit,
+        float(guidance), None if gumbel is None else gumbel.data_ptr(),
+        0 if gumbel is None else gumbel.shape[2], seed, ids.data_ptr(), sel.data_ptr(),
+        stream_handle(logits)), "fused_categorical_cfg")
+    fused_categorical_cfg.launches += 1
+    return ids, sel
+
+
+fused_categorical_cfg.launches = 0

@@ -1,0 +1,137 @@
+"""Weight conversion between the JAX package and the port, config reading,
+checkpoint loading, and the port's hygiene (no jax import, no kernel launch
+for CPU tensors)."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import jax
+import torch
+
+from open_muse_tpu.core.convert import flatten_dict
+from open_muse_tpu.models.clip_text import CLIPTextEncoder as JaxCLIP
+from open_muse_tpu.models.taming_vqgan import VQGANModel as JaxVQGAN
+from open_muse_tpu.models.transformer_v2 import MaskGiTUViT_v2 as JaxUViT
+from open_muse_tpu_torch import kernels
+from open_muse_tpu_torch.core.convert import flax_key_candidates, jax_params_to_state_dict
+from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+from test_torch_models import (CLIP_TINY, UVIT_TINY, VQGAN_TINY, port_of, random_params,
+                               uvit_inputs)
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CASES = {
+    "uvit": (JaxUViT, MaskGiTUViT_v2, UVIT_TINY),
+    "uvit_down_up": (JaxUViT, MaskGiTUViT_v2, {**UVIT_TINY, "force_down_up_sample": True}),
+    "clip": (JaxCLIP, CLIPTextEncoder, CLIP_TINY),
+    "vqgan": (JaxVQGAN, VQGANModel, VQGAN_TINY),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_every_leaf_maps_to_one_port_key(case):
+    jax_cls, port_cls, cfg = CASES[case]
+    jm = jax_cls(**cfg, _defer_init=True)
+    flat = random_params(jm, 0)
+    port = port_cls(port_cls.config_from_dict(jm.config.to_dict()))
+    state, unused = jax_params_to_state_dict(flat, port)
+    # each port key took a distinct leaf, with the port's shape
+    assert len(state) == len(flat) - len(unused)
+    for key, value in state.items():
+        assert value.shape == port.state_dict()[key].shape, key
+    if case == "vqgan":  # decode side only
+        assert unused and all(k.startswith(("encoder.", "quant_conv.")) for k in unused)
+    else:
+        assert not unused, unused
+
+
+@pytest.mark.parametrize("case", ["uvit", "clip", "vqgan"])
+def test_jax_loader_reads_port_state_dict_bit_for_bit(case):
+    """The port's keys are the ones the JAX loader maps: loading the port's
+    state_dict into the JAX model reproduces its params exactly."""
+    jax_cls, port_cls, cfg = CASES[case]
+    jm = jax_cls(**cfg, _defer_init=True)
+    flat = random_params(jm, 1)
+    port, _ = port_of(jm, port_cls, flat)
+    back = jax_cls(**cfg, _defer_init=True)
+    missing, unexpected = back.load_torch_weights(
+        {k: v.numpy() for k, v in port.state_dict().items()}, strict=False)
+    assert not unexpected, unexpected
+    if case == "vqgan":
+        assert all(k.startswith(("encoder.", "quant_conv.")) for k in missing)
+    else:
+        assert not missing, missing
+    got = flatten_dict(back.params)
+    for key, value in got.items():
+        np.testing.assert_array_equal(np.asarray(value), flat[key], err_msg=key)
+
+
+def test_flax_key_candidates():
+    assert flax_key_candidates("down_blocks.0.res_blocks.1.channelwise.2.gamma") == [
+        "down_blocks_0.res_blocks_1.channelwise_2.gamma"]
+    assert flax_key_candidates("transformer_layers.3.ffn.wi_0.weight")[0] == \
+        "transformer_layers_3.ffn.wi_0.kernel"
+
+
+def test_from_pretrained_reads_config_and_safetensors(tmp_path):
+    from safetensors.torch import save_file
+
+    jm = JaxUViT(**UVIT_TINY, _defer_init=True)
+    port, _ = port_of(jm, MaskGiTUViT_v2, random_params(jm, 2))
+    jm.save_config(str(tmp_path))  # the JAX package's config.json format
+    save_file({k: v.contiguous() for k, v in port.state_dict().items()},
+              str(tmp_path / "model.safetensors"))
+    loaded = MaskGiTUViT_v2.from_pretrained(str(tmp_path)).eval()
+    assert loaded.config == port.config
+    ids, ehs, cond, micro = (torch.from_numpy(a) for a in uvit_inputs(0))
+    with torch.no_grad():
+        assert torch.equal(loaded(ids.long(), ehs, cond, micro), port(ids.long(), ehs, cond, micro))
+
+
+def test_clip_config_from_full_clip_model_dict():
+    cfg = CLIPTextEncoder.config_from_dict(
+        {"projection_dim": 768, "text_config": {"hidden_size": 768, "vocab_size": 49408}})
+    assert (cfg.hidden_size, cfg.projection_dim) == (768, 768)
+
+
+def test_port_imports_no_jax():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO_ROOT!r})
+        import torch
+        import open_muse_tpu_torch
+        from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+        from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+        from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+        from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+        m = MaskGiTUViT_v2(**{json.dumps(UVIT_TINY)!s}).eval()
+        with torch.no_grad():
+            out = m(torch.zeros(1, 16, dtype=torch.long), torch.zeros(1, 7, 48),
+                    torch.zeros(1, 32), torch.zeros(1, 5))
+        assert out.shape == (1, 16, 64)
+        bad = [name for name in sys.modules if name.split(".")[0] in ("jax", "flax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_cpu_calls_launch_nothing():
+    kernels.reset_launch_counts()
+    jm = JaxUViT(**UVIT_TINY, _defer_init=True)
+    port, _ = port_of(jm, MaskGiTUViT_v2, random_params(jm, 3))
+    ids, ehs, cond, micro = (torch.from_numpy(a) for a in uvit_inputs(4))
+    with torch.no_grad():
+        port.generate2(ehs, cond, micro[:1], empty_embeds=ehs[:1], empty_cond_embeds=cond[:1],
+                       timesteps=2, guidance_scale=2.0, seq_len=16,
+                       generator=torch.Generator().manual_seed(0))
+    assert kernels.launch_counts() == {fn.__name__: 0 for fn in kernels.WRAPPERS}
