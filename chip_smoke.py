@@ -1,12 +1,22 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``open_muse_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the serving shapes, then answers three
-full-width 256px / batch-1 / 12-step CFG text-to-image requests through
-``PipelineMuse.text2image`` with seeded random weights and checks that every
-kernel of the path ran.  Exits non-zero on any failure or without a GPU.
+forward and backward kernel against its plain PyTorch version at the shapes
+of its path, then drives the port's two paths at full width with seeded
+random weights:
 
-    python3 chip_smoke.py     # one GPU; about a minute on an H100
+- serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
+  ``PipelineMuse.text2image``;
+- training: ``training.train_muse.main`` on ``configs/laiona6plus_uvit_clip.yaml``
+  at batch 16 on a seeded synthetic pre-encoded shard (one repeated batch),
+  then a resume from its checkpoint; before it, one forward and backward
+  with the kernels against one with the plain versions.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after; the run fails unless every kernel of the path launched.  Exits
+non-zero on any failure or without a GPU.
+
+    python3 chip_smoke.py     # one GPU; a few minutes on an H100
 
 The second-to-last line is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -37,6 +47,12 @@ SOURCES = {
                         "open_muse_tpu/ops/pallas/glu_matmul.py:275"),
     "fused_categorical_cfg": ("open_muse_tpu_torch/csrc/fused_sample.cu",
                               "open_muse_tpu/ops/pallas/fused_sample.py:302"),
+    "attn_sublayer_self_bwd": ("open_muse_tpu_torch/csrc/attn_sublayer.cu",
+                               "open_muse_tpu/ops/pallas/attn_sublayer.py:599"),
+    "attn_sublayer_cross_bwd": ("open_muse_tpu_torch/csrc/attn_sublayer.cu",
+                                "open_muse_tpu/ops/pallas/attn_sublayer.py:637"),
+    "glu_down_matmul_bwd": ("open_muse_tpu_torch/csrc/glu_matmul.cu",
+                            "open_muse_tpu/ops/pallas/glu_matmul.py:189"),
 }
 
 
@@ -70,10 +86,11 @@ def errors(got, ref):
 
 # -- phase 3: each kernel against its plain version -------------------------
 
-def check_glu(device, gen):
+def check_glu(device, gen, m):
+    """m rows: 512 when serving (2 x 256 tokens), 4096 when training."""
     from open_muse_tpu_torch.kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 
-    m, k, n = 512, 2816, 1024  # 2 x 256 tokens, intermediate 2816, hidden 1024
+    k, n = 2816, 1024  # intermediate 2816, hidden 1024
     bf = torch.bfloat16
     a = torch.randn(m, k, generator=gen).to(device, bf)
     b = torch.randn(m, k, generator=gen).to(device, bf)
@@ -101,15 +118,17 @@ def _sublayer_inputs(device, gen, b=2, s=256, d=1024):
                 adaln=rand(b, 2 * d, scale=0.1), wout=rand(d, d, scale=d ** -0.5))
 
 
-def check_sublayers(device, gen):
+def check_sublayers(device, gen, b):
+    """b batch rows of 256 tokens: 2 when serving (CFG at bs1), 16 when
+    training."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     d, heads, bf = 1024, 16, torch.bfloat16
     results = {}
-    inp = _sublayer_inputs(device, gen)
+    inp = _sublayer_inputs(device, gen, b=b)
     wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(device, bf)
     wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(device, bf)
-    kv = torch.randn(2, 77, 2 * d, generator=gen).to(device, bf)
+    kv = torch.randn(b, 77, 2 * d, generator=gen).to(device, bf)
     cases = {
         "attn_sublayer_self": (
             lambda res: A.attn_sublayer_self(inp["x"], res, inp["ln_scale"], inp["adaln"],
@@ -134,7 +153,7 @@ def check_sublayers(device, gen):
             ok &= rel <= tol and h_equal
             worst = max(worst, max_abs)
             log(f"[kernel] {name} x {tuple(inp['x'].shape)} res={'given' if res is not None else 'None'}"
-                f"{' kv (2, 77, 2048)' if 'cross' in name else ''} bf16: max_abs {max_abs:.3e} "
+                f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16: max_abs {max_abs:.3e} "
                 f"rel {rel:.3e} (tol rel {tol}: bf16 roundings of qkv / probs / output), "
                 f"residual bit-equal {h_equal} {'ok' if rel <= tol and h_equal else 'FAIL'}")
         timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
@@ -197,11 +216,113 @@ def kernel_phase(device):
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(0)
-    report = {}
-    ok, err, t = check_glu(device, gen)
-    report["glu_down_matmul"] = (ok, err, t)
-    report.update(check_sublayers(device, gen))
+    report = {"glu_down_matmul": check_glu(device, gen, 2 * TRAIN_S)}
+    report.update(check_sublayers(device, gen, 2))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
+    for name, (ok, err, (ms, plain_ms)) in report.items():
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events)")
+    # the training path runs the forward kernels at batch 16 too
+    train = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S)}
+    train.update(check_sublayers(device, gen, TRAIN_B))
+    for name, (ok, err, (ms, plain_ms)) in train.items():
+        log(f"[time] {name} at the training shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"(median, CUDA events)")
+        serving_ok, serving_err, timing = report[name]
+        report[name] = (serving_ok and ok, max(serving_err, err), timing)
+    kernels.reset_launch_counts()
+    return report
+
+
+# -- backward kernels against their plain versions --------------------------
+
+# the training shapes: 16 x 256 tokens, hidden 1024, 16 heads, 77 text keys,
+# GLU rows 4096 x intermediate 2816
+TRAIN_B, TRAIN_S, HIDDEN, HEADS, KV_LEN, INTER = 16, 256, 1024, 16, 77, 2816
+# bf16 inputs on both sides; the kernels keep dh, the logits, the softmax
+# statistics and D = rowsum(dO * O) in fp32 where the plain versions round
+# their einsum outputs to bf16, and sum in another order: max |error| over
+# max |reference| per output
+BWD_TOL = 5e-2
+
+
+def _check_outputs(name, names, got, ref, again, shapes):
+    worst, ok = 0.0, True
+    for out_name, mine, want, twice in zip(names, got, ref, again):
+        max_abs, rel = errors(mine, want)
+        equal = torch.equal(mine, twice)
+        finite = bool(torch.isfinite(mine).all())
+        good = rel <= BWD_TOL and equal and finite
+        ok &= good
+        worst = max(worst, max_abs)
+        log(f"[kernel] {name} {shapes} {out_name} {tuple(mine.shape)}: max_abs {max_abs:.3e} "
+            f"rel {rel:.3e} (tol rel {BWD_TOL}), two calls bit-equal {equal}, finite {finite} "
+            f"{'ok' if good else 'FAIL'}")
+    return ok, worst
+
+
+def check_glu_bwd(device, gen):
+    from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd,
+                                                        glu_down_matmul_bwd_plain)
+
+    m, bf = TRAIN_B * TRAIN_S, torch.bfloat16
+    a = torch.randn(m, INTER, generator=gen).to(device, bf)
+    b = torch.randn(m, INTER, generator=gen).to(device, bf)
+    wo = (torch.randn(HIDDEN, INTER, generator=gen) * INTER ** -0.5).to(device, bf)
+    g = (torch.randn(m, HIDDEN, generator=gen) * m ** -0.5).to(device, bf)
+    got, again = glu_down_matmul_bwd(a, b, wo, g), glu_down_matmul_bwd(a, b, wo, g)
+    ok, worst = _check_outputs("glu_down_matmul_bwd", ("da", "db", "dwo"), got,
+                               glu_down_matmul_bwd_plain(a, b, wo, g), again,
+                               f"a,b {tuple(a.shape)} g {tuple(g.shape)} bf16")
+    timing = (time_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
+              time_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
+    return ok, worst, timing
+
+
+def check_sublayer_bwd(device, gen):
+    from open_muse_tpu_torch.kernels import attn_sublayer as A
+
+    d, bf = HIDDEN, torch.bfloat16
+    rand = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device, bf)  # noqa: E731
+    inp = _sublayer_inputs(device, gen, b=TRAIN_B, s=TRAIN_S, d=d)
+    wqkv, wq = rand(3 * d, d, scale=d ** -0.5), rand(d, d, scale=d ** -0.5)
+    kv = rand(TRAIN_B, KV_LEN, 2 * d)
+    g_out, g_res = rand(TRAIN_B, TRAIN_S, d, scale=0.01), rand(TRAIN_B, TRAIN_S, d, scale=0.01)
+    common = (inp["ln_scale"], inp["adaln"])
+    cases = {
+        "attn_sublayer_self_bwd": (
+            ("dx", "dres", "dln", "dadaln", "dwqkv", "dwout"),
+            lambda res: A.attn_sublayer_self_bwd(inp["x"], res, *common, wqkv, inp["wout"],
+                                                 g_out, g_res, HEADS),
+            lambda res: A.attn_sublayer_self_bwd_plain(inp["x"], res, *common, wqkv,
+                                                       inp["wout"], g_out, g_res, HEADS)),
+        "attn_sublayer_cross_bwd": (
+            ("dx", "dres", "dln", "dadaln", "dwq", "dwout", "dkv"),
+            lambda res: A.attn_sublayer_cross_bwd(inp["x"], res, *common, wq, inp["wout"], kv,
+                                                  g_out, g_res, HEADS),
+            lambda res: A.attn_sublayer_cross_bwd_plain(inp["x"], res, *common, wq, inp["wout"],
+                                                        kv, g_out, g_res, HEADS)),
+    }
+    results = {}
+    for name, (names, kern, plain) in cases.items():
+        ok, worst = True, 0.0
+        for res in (inp["res"], None):
+            shapes = (f"x {tuple(inp['x'].shape)} res={'given' if res is not None else 'None'}"
+                      f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16")
+            ref = plain(torch.zeros_like(inp["x"]) if res is None else res)
+            case_ok, case_worst = _check_outputs(name, names, kern(res), ref, kern(res), shapes)
+            ok &= case_ok
+            worst = max(worst, case_worst)
+        timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
+        results[name] = (ok, worst, timing)
+    return results
+
+
+def backward_kernel_phase(device):
+    from open_muse_tpu_torch import kernels
+
+    gen = torch.Generator().manual_seed(1)
+    report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen)}
+    report.update(check_sublayer_bwd(device, gen))
     for name, (ok, err, (ms, plain_ms)) in report.items():
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events)")
     kernels.reset_launch_counts()
@@ -309,8 +430,10 @@ def request_phase(device, smi):
 
     pipe = build_pipeline(device)
     layers = pipe.transformer.config.num_hidden_layers
-    expected = {"attn_sublayer_self": layers * TIMESTEPS, "attn_sublayer_cross": layers * TIMESTEPS,
-                "glu_down_matmul": layers * TIMESTEPS, "fused_categorical_cfg": TIMESTEPS}
+    expected = {name: 0 for name in kernels.launch_counts()}  # no backward kernel
+    expected.update({"attn_sublayer_self": layers * TIMESTEPS,
+                     "attn_sublayer_cross": layers * TIMESTEPS,
+                     "glu_down_matmul": layers * TIMESTEPS, "fused_categorical_cfg": TIMESTEPS})
     warm, *_ = one_request(pipe, device, PROMPTS[-1], 99)
     log(f"[request] warm-up {warm * 1e3:.1f} ms")
     if not check_logits(pipe, device):
@@ -360,6 +483,229 @@ def profile_request(pipe, device, median_s):
         log(f"[profile] {line}")
 
 
+# -- the training path at full width ------------------------------------------
+
+TRAIN_STEPS, CODES_PER_IMAGE = 8, 16
+# the train step under the config's per-layer gradient checkpointing: each
+# trunk layer's forward runs once and again in the backward, its backward once
+LAYERS = 22
+EXPECTED_TRAIN_LAUNCHES = {
+    "attn_sublayer_self": 2 * LAYERS * TRAIN_STEPS, "attn_sublayer_cross": 2 * LAYERS * TRAIN_STEPS,
+    "glu_down_matmul": 2 * LAYERS * TRAIN_STEPS, "fused_categorical_cfg": 0,
+    "attn_sublayer_self_bwd": LAYERS * TRAIN_STEPS, "attn_sublayer_cross_bwd": LAYERS * TRAIN_STEPS,
+    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS}
+# bounds of the full-width gradient check, kernels vs plain versions, both in
+# bf16 autocast through 22 layers: per trunk tensor
+GRAD_REL_TOL, GRAD_COS_MIN = 0.1, 0.99
+
+
+def train_batch(device):
+    gen = torch.Generator(device=device).manual_seed(11)
+    return {"image_tokens": torch.randint(0, 8192, (TRAIN_B, TRAIN_S), generator=gen,
+                                          device=device),
+            "encoder_hidden_states": torch.randn(TRAIN_B, KV_LEN, 768, generator=gen,
+                                                 device=device),
+            "cond_embeds": torch.randn(TRAIN_B, 768, generator=gen, device=device),
+            "micro_conds": torch.tensor([[512.0, 512.0, 0.0, 0.0, 6.0]] * TRAIN_B, device=device)}
+
+
+def gradient_check(device):
+    """One forward + backward of the research-default model at batch 16 with
+    the kernels and one with the plain versions, on the same weights, batch
+    and masking noise (bf16 autocast, fp32 weights, per-layer checkpointing,
+    as the trainer runs)."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training.masking import draw_masking_noise, mask_or_random_replace_tokens
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
+    model.set_gradient_checkpointing(True)
+    batch = train_batch(device)
+    noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(3),
+                               8192)
+    input_ids, labels, _, _ = mask_or_random_replace_tokens(
+        batch["image_tokens"], model.config.mask_token_id, get_mask_schedule("cosine"), noise)
+    grads, losses = {}, {}
+    for use_kernels in (True, False):
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", torch.bfloat16):
+            _, loss = model(input_ids, batch["encoder_hidden_states"], batch["cond_embeds"],
+                            batch["micro_conds"], labels=labels, use_kernels=use_kernels)
+        loss.backward()
+        losses[use_kernels] = loss.item()
+        grads[use_kernels] = {n: p.grad.clone() for n, p in model.named_parameters()
+                              if p.grad is not None}
+    names = [n for n, _ in model.named_parameters()]
+    missing = [n for n in names if n not in grads[True]]
+    bad = [n for n, g in grads[True].items()
+           if not bool(torch.isfinite(g).all()) or not bool(g.abs().sum() > 0)]
+    worst_rel, worst_cos = (0.0, ""), (1.0, "")
+    for n in names:
+        if not n.startswith("transformer_layers."):
+            continue
+        got, ref = grads[True][n].double().flatten(), grads[False][n].double().flatten()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=0).item()
+        worst_rel = max(worst_rel, (rel, n))
+        worst_cos = min(worst_cos, (cos, n))
+    trunk = sum(n.startswith("transformer_layers.") for n in names)
+    ok = (not missing and not bad and worst_rel[0] <= GRAD_REL_TOL and worst_cos[0] >= GRAD_COS_MIN
+          and all(torch.isfinite(torch.tensor(v)) for v in losses.values()))
+    log(f"[grad] full-width model ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"params) at batch {TRAIN_B}: loss kernels {losses[True]:.6f} plain {losses[False]:.6f} "
+        f"(diff {abs(losses[True] - losses[False]):.3e}); {len(names)} parameters, "
+        f"missing grads {missing[:4]}, zero or non-finite {bad[:4]}")
+    log(f"[grad] {trunk} trunk tensors, kernels vs plain: worst relative error "
+        f"{worst_rel[0]:.3e} ({worst_rel[1]}; bound {GRAD_REL_TOL}), worst cosine "
+        f"{worst_cos[0]:.6f} ({worst_cos[1]}; bound {GRAD_COS_MIN}) {'ok' if ok else 'FAIL'}")
+    del model, grads
+    torch.cuda.empty_cache()
+    return ok
+
+
+def write_shard(path, samples=32, seed=0):
+    """A seeded pre-encoded shard in the dialect of scripts/pre_encode.py at
+    the config's shapes: tokens (256,) in [0, 8192) (each image uses 16
+    codes, so a repeated batch is learnable), CLIP penultimate states
+    (77, 768) fp16, pooled (768,) fp16, and LAION metadata that passes the
+    config's quality filter."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    def npy(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        return buf.getvalue()
+
+    rs = np.random.RandomState(seed)
+    meta = json.dumps({"width": 512, "height": 512, "pwatermark": 0.1, "aesthetic": 6.5})
+    with tarfile.open(path, "w") as tf:
+        for i in range(samples):
+            codes = rs.choice(8192, CODES_PER_IMAGE, replace=False)
+            for ext, data in (
+                    ("vq_f16.npy", npy(rs.choice(codes, TRAIN_S).astype(np.int32))),
+                    ("clip_penultimate.npy", npy(rs.randn(KV_LEN, 768).astype(np.float16))),
+                    ("clip_pooled.npy", npy(rs.randn(768).astype(np.float16))),
+                    ("json", meta.encode())):
+                info = tarfile.TarInfo(f"{i:05d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def profile_train_step(state, device, median_s, out_dir):
+    """Device time by kernel for one more train step (outside the counted
+    run); the table goes to ``out_dir/profile_train_step.txt``.  The busy
+    share is device kernel time over the unprofiled median step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training import trainer as T
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    step = T.make_uvit_train_step(get_mask_schedule("cosine"), 8255, codebook_size=8192,
+                                  autocast_dtype=torch.bfloat16)
+    batch = train_batch(device)
+    noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(4),
+                               8192)
+    float(step(state, batch, noise)["loss"])  # warm-up outside the profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(state, batch, noise)["loss"])
+        seconds = time.perf_counter() - t0
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    table = events.table(sort_by="self_device_time_total", row_limit=50)
+    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+        f.write(table)
+    busy = device_us / 1e6 / median_s
+    log(f"[profile] train step {seconds * 1e3:.1f} ms under the profiler, device kernel time "
+        f"{device_us / 1e3:.1f} ms; against the {median_s * 1e3:.1f} ms median step: busy share "
+        f"{busy:.3f}, idle share {1 - busy:.3f}")
+    for line in table.splitlines()[:16]:
+        log(f"[profile] {line}")
+
+
+def training_phase(device, smi, out_dir):
+    """train_muse.main on the research config at batch 16, then main again
+    resuming from its checkpoint; returns the launch counts of the first."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.training import train_muse
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=runs)
+    try:
+        shard = os.path.join(work, "synthetic-000.tar")
+        write_shard(shard)
+        out = os.path.join(work, "out")
+        overrides = [f"dataset.params.train_shards_path_or_url={shard}",
+                     "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                     "experiment.log_every=1", f"experiment.save_every={TRAIN_STEPS}",
+                     f"training.batch_size={TRAIN_B}", "training.pre_encode=true",
+                     "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                     f"training.max_train_steps={TRAIN_STEPS}"]
+        argv = ["config=" + os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml")] + overrides
+        for arg in argv:
+            log(f"[train] argument {arg}")
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_muse.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [m["loss"] for m in logged]
+        finite = all(v == v and abs(v) != float("inf") for v in losses)
+        falling = losses[-1] < losses[0]
+        steps_ok = [m["step"] for m in logged] == list(range(1, TRAIN_STEPS + 1))
+        counts_ok = launches == EXPECTED_TRAIN_LAUNCHES
+        for m in logged:
+            log(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+                f"masking {m['avg_masking_rate']:.3f} lr {m['lr']:.2e} "
+                f"step_time {m['step_time'] * 1e3:.1f} ms")
+        step_times = [m["step_time"] for m in logged[1:]]  # the first step warms up
+        median = statistics.median(step_times)
+        log(f"[train] {TRAIN_STEPS} steps in {wall:.1f} s (model build and checkpoint "
+            f"included): losses finite {finite}, last {losses[-1]:.4f} < first {losses[0]:.4f} "
+            f"{falling}, launches {launches} (expected {EXPECTED_TRAIN_LAUNCHES}) "
+            f"{'ok' if counts_ok else 'FAIL'}")
+        log(f"[train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host clock, "
+            f"synchronised), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
+            f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated) on {smi}")
+
+        # resume "latest": step and every tensor as saved
+        resumed = train_muse.main(argv + ["experiment.resume_from_checkpoint=latest"])
+        mine = dict(state.model.named_parameters())
+        params_equal = all(torch.equal(p, mine[n]) for n, p in resumed.model.named_parameters())
+        ema_equal = all(torch.equal(v, state.ema.shadow[n]) for n, v in resumed.ema.shadow.items())
+        opt_equal = resumed.optimizer.count == state.optimizer.count == TRAIN_STEPS
+        resume_ok = resumed.step == state.step == TRAIN_STEPS and params_equal and ema_equal \
+            and opt_equal
+        log(f"[train] resumed from {sorted(d for d in os.listdir(out) if d.startswith('checkpoint'))}: "
+            f"step {resumed.step}, params equal {params_equal}, EMA equal {ema_equal}, "
+            f"optimizer count {resumed.optimizer.count} {'ok' if resume_ok else 'FAIL'}")
+        del resumed
+        torch.cuda.empty_cache()
+        profile_train_step(state, device, median, out_dir)
+        ok = finite and falling and steps_ok and counts_ok and resume_ok
+        return ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- main -------------------------------------------------------------------
 
 def device_line() -> str:
@@ -398,15 +744,23 @@ def main() -> int:
         f.write(_build.build_log)
 
     report = kernel_phase(device)
+    report.update(backward_kernel_phase(device))
     failed = [name for name, (ok, _, _) in report.items() if not ok]
-    launches = request_phase(device, smi)
+    paths = {"serving": request_phase(device, smi)}
+    if not gradient_check(device):
+        failed.append("full-width gradient check")
+    train_ok, paths["training"] = training_phase(device, smi, out_dir)
+    if not train_ok:
+        failed.append("training phase")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name], "max_abs_err": err,
-         "ms": t[0], "plain_ms": t[1]} for name, (ok, err, t) in report.items()]}))
+         "replaces": SOURCES[name][1], "launches": sum(p[name] for p in paths.values()),
+         "launches_by_path": {path: p[name] for path, p in paths.items()},
+         "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+        for name, (ok, err, t) in report.items()]}))
     if failed:
-        raise SystemExit(f"chip_smoke: kernel checks failed: {failed}")
+        raise SystemExit(f"chip_smoke: checks failed: {failed}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -8,25 +8,43 @@
 //                                                   bf16 probs, fp32 PV sum)
 //   out = concat_h(o_h) @ Wout^T                   -> (out, h)
 //
+// and backward: given g_out and g_res (the gradient of h), the data-side
+// gradients dx (= dres), d(adaln) (B, 2D), d(ln) (D,), and a, dqkv (or dq
+// and d[k|v]) and the attention output for the weight-gradient products,
+// which stay in torch as JAX leaves them to XLA (attn_sublayer.py:628-633).
+//
 // Replaces the Pallas TPU kernels open_muse_tpu/ops/pallas/attn_sublayer.py
-// `attn_sublayer_self` (body `_self_kernel`) and `attn_sublayer_cross` (body
-// `_cross_kernel`), with the precision staging of their oracles
-// `_xla_ref_self` / `_xla_ref_cross`.
+// `attn_sublayer_self` (body `_self_kernel`), `attn_sublayer_cross` (body
+// `_cross_kernel`), `_self_bwd_pallas` (body `_self_bwd_kernel`) and
+// `_cross_bwd_pallas` (body `_cross_bwd_kernel`), with the precision staging
+// of their oracles `_xla_ref_self` / `_xla_ref_cross` and of the Pallas
+// backward bodies.
 //
 // What bounds it on the H100: at the serving shape (2 x 256 rows, hidden
 // 1024, 16 heads of 64, 77 text keys) each sublayer moves ~8 MB of weights
-// and ~5 MB of activations for ~4 GFLOP; the TPU kernel's grid of one cell
-// per batch element would put 2 blocks on 132 SMs.
+// and ~5 MB of activations for ~4 GFLOP; at the training shape (16 x 256
+// rows) the backward does ~5x the forward's products.  The TPU kernels' grid
+// of one cell per batch element would put 2 - 16 blocks on 132 SMs.
 //
-// What the design does about it: a chain of four launches on one stream, each
-// with enough blocks to fill the card -- a row kernel (one block per row), the
-// shared tiled GEMM (64 x 64 tiles), an attention kernel with one block per
-// (batch, head, 64-query tile), and the GEMM again.  The attention kernel
-// streams keys in tiles of 64: a first pass takes each row's max and sum, a
-// second writes normalised bf16 probabilities and accumulates PV, so any key
-// length fits in shared memory; key columns >= kv_len are masked in the
-// kernel instead of padding kv.  Fusing the chain into fewer launches is left
-// for later work.
+// What the design does about it: chains of launches on one stream, each with
+// enough blocks to fill the card.
+// - Forward: a row kernel (one block per row), the shared tiled GEMM (64 x 64
+//   tiles), an attention kernel with one block per (batch, head, 64-query
+//   tile), and the GEMM again.  The attention kernel streams keys in tiles of
+//   64: a first pass takes each row's max and sum, a second writes normalised
+//   bf16 probabilities and accumulates PV, so any key length fits in shared
+//   memory; key columns >= kv_len are masked in the kernel instead of padding
+//   kv.
+// - Backward (FlashAttention-2 split): the row kernel again (recompute a,
+//   keeping 1/rms), the GEMM for the recomputed projection and for
+//   dattn = g_out @ Wout, the attention kernel as a pre-pass that also keeps
+//   each row's max and sum and D = rowsum(dattn * out), a dk/dv kernel with
+//   one block per (batch, head, 64-key tile) looping over query tiles, a dq
+//   kernel with one block per (batch, head, 64-query tile) looping over key
+//   tiles, the GEMM for da = dqkv @ Wqkv, and three row/column kernels for the
+//   rmsnorm / AdaLN backward.  d(adaln) and d(ln) are reduced in two stages
+//   (per 32-row chunk, then over chunks) without atomics, so two calls give
+//   bit-equal results.
 #include <cfloat>
 #include <cmath>
 
@@ -35,14 +53,15 @@
 namespace {
 
 constexpr int kRowThreads = 256;
-using kProjTile = muse::GemmTile<64, 64>;  // BN 64, BK 64
+using kProjTile = muse::GemmTile<64, 64, 64>;  // BM 64, BN 64, BK 64
 
-// h = x + res; a = adaln(rmsnorm(h)), one block per row.
+// h = x + res; a = adaln(rmsnorm(h)), one block per row.  rstd_out, when
+// given, keeps the unrounded fp32 1/rms of each row for the backward.
 __global__ void __launch_bounds__(kRowThreads)
 rmsnorm_adaln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ res,
                      const __nv_bfloat16* __restrict__ ln, const __nv_bfloat16* __restrict__ adaln,
-                     __nv_bfloat16* __restrict__ h_out, __nv_bfloat16* __restrict__ a_out, int S,
-                     int D, float eps) {
+                     __nv_bfloat16* __restrict__ h_out, __nv_bfloat16* __restrict__ a_out,
+                     float* __restrict__ rstd_out, int S, int D, float eps) {
   const int64_t row = blockIdx.x;
   const int batch = int(row / S);
   const __nv_bfloat16* xr = x + row * D;
@@ -65,7 +84,9 @@ rmsnorm_adaln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
     float total = 0.f;
     for (int i = 0; i < kRowThreads / 32; ++i) total += warp_sums[i];
     // rsqrt in fp32, cast to bf16 (_xla_ref_self: rsqrt(var + eps).astype(h.dtype))
-    inv_rms = __bfloat162float(__float2bfloat16_rn(rsqrtf(total / float(D) + eps)));
+    const float r = rsqrtf(total / float(D) + eps);
+    inv_rms = __bfloat162float(__float2bfloat16_rn(r));
+    if (rstd_out) rstd_out[row] = r;
   }
   __syncthreads();
 
@@ -99,9 +120,16 @@ struct AttnArgs {
   __nv_bfloat16* out;
   int64_t q_bs, q_rs;    // batch / row strides of q (elements)
   int64_t kv_bs, kv_rs;  // batch / row strides of k and v
-  int64_t o_bs, o_rs;
+  int64_t o_bs, o_rs;    // of out, and of dout
   int S, L, kv_len;
   float scale;
+  // backward pre-pass only (nullptr in the forward): each query row's max
+  // and sum of exp, (B, H, S) fp32, and D = rowsum(dout * out) from the fp32
+  // output before rounding, with dout laid out like out.
+  float* stat_m;
+  float* stat_s;
+  const __nv_bfloat16* dout;
+  float* delta;
 };
 
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
@@ -194,6 +222,11 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
     s = (m > -INFINITY ? s * expf(m - mm) : 0.f) + (m_o > -INFINITY ? s_o * expf(m_o - mm) : 0.f);
     m = mm;
   }
+  const int64_t stat_row = (int64_t(batch) * gridDim.y + head) * p.S + q0 + warp * 16 + my_row;
+  if (p.stat_m && lane % 2 == 0 && q0 + warp * 16 + my_row < p.S) {
+    p.stat_m[stat_row] = m;
+    p.stat_s[stat_row] = s;
+  }
 
   // pass 2: probabilities in bf16, PV accumulated in fp32
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_o[kHeadDim / 16];
@@ -232,6 +265,17 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
   for (int j = 0; j < kHeadDim / 16; ++j)
     wmma::store_matrix_sync(Sw + j * 16, acc_o[j], kLdf, wmma::mem_row_major);
   __syncwarp();
+  if (p.delta) {  // D = rowsum(dout * out), two lanes per row
+    const int q = q0 + warp * 16 + my_row;
+    float d = 0.f;
+    if (q < p.S) {
+      const __nv_bfloat16* dr = p.dout + batch * p.o_bs + q * p.o_rs + head * kHeadDim + my_col0;
+      for (int c = 0; c < kHeadDim / 2; ++c)
+        d += Sw[my_row * kLdf + my_col0 + c] * __bfloat162float(dr[c]);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (lane % 2 == 0 && q < p.S) p.delta[stat_row] = d;
+  }
   __nv_bfloat16* ob = p.out + batch * p.o_bs + head * kHeadDim;
   for (int idx = lane; idx < 16 * kHeadDim / 2; idx += 32) {
     const int r = idx / (kHeadDim / 2);
@@ -243,25 +287,405 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: attention (FlashAttention-2 split at 64-wide tiles)
+// ---------------------------------------------------------------------------
+
+struct AttnBwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* stat_m;  // (B, H, S) row max of the scaled logits
+  const float* stat_s;  // (B, H, S) row sum of exp
+  const float* delta;   // (B, H, S) rowsum(dout * out)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int64_t q_bs, q_rs, kv_bs, kv_rs, do_bs, do_rs, dq_bs, dq_rs, dkv_bs, dkv_rs;
+  int S, L, kv_len;
+  float scale;
+};
+
+constexpr size_t kBwdSmem = sizeof(__nv_bfloat16) * 5 * 64 * kLdh +
+                            sizeof(float) * 2 * 64 * kLdf + sizeof(float) * 3 * 64;
+
+using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                                     nvcuda::wmma::row_major>;
+using FragBRow = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                                        nvcuda::wmma::row_major>;
+using FragBCol = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                                        nvcuda::wmma::col_major>;
+using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+
+// out (16 x 64 fp32, ld kLdf) = A (16 x 64 rows, ld kLdh) x B^T, with B
+// given as 64 rows of 64 (ld kLdh): the product of two row sets.
+__device__ __forceinline__ void rows_by_rows_t(float* out, const __nv_bfloat16* a,
+                                               const __nv_bfloat16* b) {
+  using namespace nvcuda;
+  FragA fa[kHeadDim / 16];
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) wmma::load_matrix_sync(fa[kk], a + kk * 16, kLdh);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      FragBCol fb;
+      wmma::load_matrix_sync(fb, b + j * 16 * kLdh + kk * 16, kLdh);
+      wmma::mma_sync(acc, fa[kk], fb, acc);
+    }
+    wmma::store_matrix_sync(out + j * 16, acc, kLdf, wmma::mem_row_major);
+  }
+}
+
+// acc (16 x 64) += A (16 x 64, ld kLdh) x B (64 x 64 rows, ld kLdh)
+__device__ __forceinline__ void accumulate_rows(FragC* acc, const __nv_bfloat16* a,
+                                                const __nv_bfloat16* b) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    FragA fa;
+    wmma::load_matrix_sync(fa, a + kk * 16, kLdh);
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 16; ++j) {
+      FragBRow fb;
+      wmma::load_matrix_sync(fb, b + kk * 16 * kLdh + j * 16, kLdh);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+}
+
+// Write a warp's 16 x 64 fp32 accumulator as bf16 rows row0.. (< rows) of dst.
+__device__ __forceinline__ void store_rows(float* scratch, const FragC* acc, __nv_bfloat16* dst,
+                                           int64_t row_stride, int row0, int rows) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 16; ++j)
+    wmma::store_matrix_sync(scratch + j * 16, acc[j], kLdf, wmma::mem_row_major);
+  __syncwarp();
+  const int lane = threadIdx.x % 32;
+  for (int idx = lane; idx < 16 * kHeadDim / 2; idx += 32) {
+    const int r = idx / (kHeadDim / 2);
+    const int col = (idx % (kHeadDim / 2)) * 2;
+    if (row0 + r < rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + r) * row_stride + col) =
+          __floats2bfloat162_rn(scratch[r * kLdf + col], scratch[r * kLdf + col + 1]);
+  }
+  __syncwarp();
+}
+
+// dK, dV for one (key tile, head, batch); warp w owns keys 16w..16w+15 and
+// loops over all query tiles.  Keys >= kv_len get zero rows.
+__global__ void __launch_bounds__(kAttnThreads) attention_dkdv_kernel(AttnBwdArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + 64 * kLdh;
+  __nv_bfloat16* Qs = Vs + 64 * kLdh;
+  __nv_bfloat16* dOs = Qs + 64 * kLdh;
+  __nv_bfloat16* Pb = dOs + 64 * kLdh;
+  float* Sf = reinterpret_cast<float*>(Pb + 64 * kLdh);
+  float* dPf = Sf + 64 * kLdf;
+  float* st = dPf + 64 * kLdf;  // m | s | D of the current query tile
+
+  const int k0 = blockIdx.x * kKTile;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t stat_base = (int64_t(batch) * gridDim.y + head) * p.S;
+  load_tile(Ks, p.k + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, min(kKTile, p.L - k0));
+  load_tile(Vs, p.v + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, min(kKTile, p.L - k0));
+
+  float* Sw = Sf + warp * 16 * kLdf;
+  float* dPw = dPf + warp * 16 * kLdf;
+  __nv_bfloat16* Pw = Pb + warp * 16 * kLdh;
+  const int my_row = lane / 2;
+  const int my_col0 = (lane % 2) * (kQTile / 2);
+  const bool key_ok = k0 + warp * 16 + my_row < p.kv_len;
+
+  FragC acc_dk[kHeadDim / 16], acc_dv[kHeadDim / 16];
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 16; ++j) {
+    nvcuda::wmma::fill_fragment(acc_dk[j], 0.f);
+    nvcuda::wmma::fill_fragment(acc_dv[j], 0.f);
+  }
+
+  for (int q0 = 0; q0 < p.S; q0 += kQTile) {
+    const int q_valid = min(kQTile, p.S - q0);
+    load_tile(Qs, p.q + batch * p.q_bs + q0 * p.q_rs + head * kHeadDim, p.q_rs, q_valid);
+    load_tile(dOs, p.dout + batch * p.do_bs + q0 * p.do_rs + head * kHeadDim, p.do_rs, q_valid);
+    if (threadIdx.x < kQTile) {
+      const int i = threadIdx.x;
+      const bool ok = i < q_valid;
+      st[i] = ok ? p.stat_m[stat_base + q0 + i] : 0.f;
+      st[64 + i] = ok ? p.stat_s[stat_base + q0 + i] : 1.f;
+      st[128 + i] = ok ? p.delta[stat_base + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    rows_by_rows_t(Sw, Ks + warp * 16 * kLdh, Qs);  // S^T: this warp's keys x 64 queries
+    __syncwarp();
+    for (int c = 0; c < kQTile / 2; ++c) {  // P^T, fp32 in Sw and bf16 in Pw
+      const int col = my_col0 + c;
+      float prob = 0.f;
+      if (key_ok && col < q_valid)
+        prob = expf(Sw[my_row * kLdf + col] * p.scale - st[col]) / st[64 + col];
+      Sw[my_row * kLdf + col] = prob;
+      Pw[my_row * kLdh + col] = __float2bfloat16_rn(prob);
+    }
+    __syncwarp();
+    accumulate_rows(acc_dv, Pw, dOs);                // dV += P^T dO
+    rows_by_rows_t(dPw, Vs + warp * 16 * kLdh, dOs);  // dP^T = V dO^T
+    __syncwarp();
+    for (int c = 0; c < kQTile / 2; ++c) {  // dS^T = P^T (dP^T - D) * scale, bf16
+      const int col = my_col0 + c;
+      const float ds = (Sw[my_row * kLdf + col] * (dPw[my_row * kLdf + col] - st[128 + col])) * p.scale;
+      Pw[my_row * kLdh + col] = __float2bfloat16_rn(ds);
+    }
+    __syncwarp();
+    accumulate_rows(acc_dk, Pw, Qs);  // dK += dS^T Q
+    __syncthreads();
+  }
+
+  const int key0 = k0 + warp * 16;
+  store_rows(Sw, acc_dk, p.dk + batch * p.dkv_bs + head * kHeadDim, p.dkv_rs, key0, p.L);
+  store_rows(Sw, acc_dv, p.dv + batch * p.dkv_bs + head * kHeadDim, p.dkv_rs, key0, p.L);
+}
+
+// dQ for one (query tile, head, batch); warp w owns queries 16w..16w+15 and
+// loops over all key tiles.
+__global__ void __launch_bounds__(kAttnThreads) attention_dq_kernel(AttnBwdArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + 64 * kLdh;
+  __nv_bfloat16* Ks = dOs + 64 * kLdh;
+  __nv_bfloat16* Vs = Ks + 64 * kLdh;
+  __nv_bfloat16* Pb = Vs + 64 * kLdh;
+  float* Sf = reinterpret_cast<float*>(Pb + 64 * kLdh);
+  float* dPf = Sf + 64 * kLdf;
+
+  const int q0 = blockIdx.x * kQTile;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q_valid = min(kQTile, p.S - q0);
+  load_tile(Qs, p.q + batch * p.q_bs + q0 * p.q_rs + head * kHeadDim, p.q_rs, q_valid);
+  load_tile(dOs, p.dout + batch * p.do_bs + q0 * p.do_rs + head * kHeadDim, p.do_rs, q_valid);
+
+  float* Sw = Sf + warp * 16 * kLdf;
+  float* dPw = dPf + warp * 16 * kLdf;
+  __nv_bfloat16* Pw = Pb + warp * 16 * kLdh;
+  const int my_row = lane / 2;
+  const int my_col0 = (lane % 2) * (kKTile / 2);
+  const int q = q0 + warp * 16 + my_row;
+  const bool q_ok = q < p.S;
+  const int64_t stat = (int64_t(batch) * gridDim.y + head) * p.S + q;
+  const float m = q_ok ? p.stat_m[stat] : 0.f;
+  const float s = q_ok ? p.stat_s[stat] : 1.f;
+  const float dlt = q_ok ? p.delta[stat] : 0.f;
+
+  FragC acc_dq[kHeadDim / 16];
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 16; ++j) nvcuda::wmma::fill_fragment(acc_dq[j], 0.f);
+
+  for (int k0 = 0; k0 < p.L; k0 += kKTile) {
+    const int k_valid = min(kKTile, p.L - k0);
+    load_tile(Ks, p.k + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, k_valid);
+    load_tile(Vs, p.v + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, k_valid);
+    __syncthreads();
+    rows_by_rows_t(Sw, Qs + warp * 16 * kLdh, Ks);    // S = Q K^T
+    rows_by_rows_t(dPw, dOs + warp * 16 * kLdh, Vs);  // dP = dO V^T
+    __syncwarp();
+    for (int c = 0; c < kKTile / 2; ++c) {  // dS = P (dP - D) * scale, bf16
+      const int col = my_col0 + c;
+      float ds = 0.f;
+      if (q_ok && k0 + col < p.kv_len) {
+        const float prob = expf(Sw[my_row * kLdf + col] * p.scale - m) / s;
+        ds = (prob * (dPw[my_row * kLdf + col] - dlt)) * p.scale;
+      }
+      Pw[my_row * kLdh + col] = __float2bfloat16_rn(ds);
+    }
+    __syncwarp();
+    accumulate_rows(acc_dq, Pw, Ks);  // dQ += dS K
+    __syncthreads();
+  }
+  store_rows(Sw, acc_dq, p.dq + batch * p.dq_bs + head * kHeadDim, p.dq_rs, q0 + warp * 16, p.S);
+}
+
+// ---------------------------------------------------------------------------
+// Backward: rmsnorm / AdaLN (attn_sublayer.py `_rms_adaln_bwd`)
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkRows = 32;  // rows per partial sum of d(adaln) and d(ln)
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// dx = bf16(bf16(r * (dn - hhat * mean_D(dn * hhat))) + g_res), one block per
+// row, with hhat = bf16(h * bf16(r)) and dn = da * (1 + adaln_scale) * ln.
+__global__ void __launch_bounds__(kRowThreads)
+rms_adaln_bwd_row_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ da,
+                         const __nv_bfloat16* __restrict__ ln,
+                         const __nv_bfloat16* __restrict__ adaln,
+                         const __nv_bfloat16* __restrict__ g_res, const float* __restrict__ rstd,
+                         __nv_bfloat16* __restrict__ dx, int S, int D) {
+  const int64_t row = blockIdx.x;
+  const int batch = int(row / S);
+  const float r = rstd[row];
+  const float r_b = bf16_round(r);
+  const __nv_bfloat16* scale = adaln + int64_t(batch) * 2 * D;
+  const __nv_bfloat16* hr = h + row * D;
+  const __nv_bfloat16* dar = da + row * D;
+  auto dn_hhat = [&](int i, float& dn, float& hhat) {
+    hhat = bf16_round(__bfloat162float(hr[i]) * r_b);
+    dn = (__bfloat162float(dar[i]) * (1.0f + __bfloat162float(scale[i]))) * __bfloat162float(ln[i]);
+  };
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < D; i += kRowThreads) {
+    float dn, hhat;
+    dn_hhat(i, dn, hhat);
+    acc += dn * hhat;
+  }
+  __shared__ float warp_sums[kRowThreads / 32];
+  __shared__ float mean;
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int i = 0; i < kRowThreads / 32; ++i) total += warp_sums[i];
+    mean = total / float(D);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < D; i += kRowThreads) {
+    float dn, hhat;
+    dn_hhat(i, dn, hhat);
+    const float dh = r * (dn - hhat * mean);
+    dx[row * D + i] = __float2bfloat16_rn(bf16_round(dh) + __bfloat162float(g_res[row * D + i]));
+  }
+}
+
+// Per 32-row chunk of one batch element, one thread per column: partial sums
+// of d(scale) = da * n2, d(shift) = da and d(ln) = da * (1 + scale) * hhat,
+// written to partial[(batch * chunks + chunk) * 3 + {0, 1, 2}][D].
+__global__ void __launch_bounds__(kRowThreads)
+rms_adaln_bwd_col_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ da,
+                         const __nv_bfloat16* __restrict__ ln,
+                         const __nv_bfloat16* __restrict__ adaln, const float* __restrict__ rstd,
+                         float* __restrict__ partial, int S, int D) {
+  const int d = blockIdx.x * kRowThreads + threadIdx.x;
+  if (d >= D) return;
+  const int chunk = blockIdx.y;
+  const int batch = blockIdx.z;
+  const float one_plus = 1.0f + __bfloat162float(adaln[int64_t(batch) * 2 * D + d]);
+  const float ln_d = __bfloat162float(ln[d]);
+  float ds = 0.f, dt = 0.f, dl = 0.f;
+  const int s1 = min(S, (chunk + 1) * kChunkRows);
+  for (int s = chunk * kChunkRows; s < s1; ++s) {
+    const int64_t row = int64_t(batch) * S + s;
+    const float hhat = bf16_round(__bfloat162float(h[row * D + d]) * bf16_round(rstd[row]));
+    const float n2 = bf16_round(hhat * ln_d);
+    const float daf = __bfloat162float(da[row * D + d]);
+    ds += daf * n2;
+    dt += daf;
+    dl += (daf * one_plus) * hhat;
+  }
+  float* out = partial + (int64_t(batch) * gridDim.y + chunk) * 3 * D;
+  out[d] = ds;
+  out[D + d] = dt;
+  out[2 * D + d] = dl;
+}
+
+// d(adaln)[b] = [sum over b's chunks of d(scale) | of d(shift)] (blockIdx.y
+// < B) and d(ln) = sum over every chunk (blockIdx.y == B), in a fixed order.
+__global__ void __launch_bounds__(kRowThreads)
+rms_adaln_bwd_reduce_kernel(const float* __restrict__ partial, __nv_bfloat16* __restrict__ dadaln,
+                            __nv_bfloat16* __restrict__ dln, int B, int D, int chunks) {
+  const int d = blockIdx.x * kRowThreads + threadIdx.x;
+  if (d >= D) return;
+  const int b = blockIdx.y;
+  if (b < B) {
+    float ds = 0.f, dt = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const float* in = partial + (int64_t(b) * chunks + c) * 3 * D;
+      ds += in[d];
+      dt += in[D + d];
+    }
+    dadaln[int64_t(b) * 2 * D + d] = __float2bfloat16_rn(ds);
+    dadaln[int64_t(b) * 2 * D + D + d] = __float2bfloat16_rn(dt);
+  } else {
+    float dl = 0.f;
+    for (int i = 0; i < B * chunks; ++i) dl += partial[int64_t(i) * 3 * D + 2 * D + d];
+    dln[d] = __float2bfloat16_rn(dl);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch helpers
+// ---------------------------------------------------------------------------
+
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  configured = err == cudaSuccess;
+  return err;
+}
+
 cudaError_t launch_attention(const AttnArgs& args, int B, int H, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kAttnSmem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  const cudaError_t err = set_smem(attention_kernel, kAttnSmem, configured);
+  if (err != cudaSuccess) return err;
   dim3 grid((args.S + kQTile - 1) / kQTile, H, B);
   attention_kernel<<<grid, kAttnThreads, kAttnSmem, stream>>>(args);
   return cudaGetLastError();
 }
 
+// q/k/v pointers and strides of one sublayer: `kv` == nullptr selects self
+// attention over proj = qkv (B, S, 3D); otherwise proj = q (B, S, D) and kv
+// the (B, L, 2D) [k|v] projection of the text context.
+AttnArgs attn_args(const __nv_bfloat16* proj, const __nv_bfloat16* kv, int S, int D, int L,
+                   int kv_len) {
+  AttnArgs args{};
+  const bool self_attn = kv == nullptr;
+  const int n_in = self_attn ? 3 * D : D;
+  args.q = proj;
+  args.q_bs = int64_t(S) * n_in;
+  args.q_rs = n_in;
+  if (self_attn) {
+    args.k = proj + D;
+    args.v = proj + 2 * D;
+    args.kv_bs = args.q_bs;
+    args.kv_rs = args.q_rs;
+    args.L = S;
+    args.kv_len = S;
+  } else {
+    args.k = kv;
+    args.v = kv + D;
+    args.kv_bs = int64_t(L) * 2 * D;
+    args.kv_rs = 2 * D;
+    args.L = L;
+    args.kv_len = kv_len;
+  }
+  args.o_bs = int64_t(S) * D;
+  args.o_rs = D;
+  args.S = S;
+  args.scale = 1.0f / sqrtf(float(kHeadDim));
+  return args;
+}
+
 }  // namespace
 
-// One sublayer as four launches on `stream`.  `kv` == nullptr selects the
-// self sublayer: w_in is Wqkv (3D, D) and qkv_buf is (B, S, 3D).  Otherwise
-// w_in is Wq (D, D), qkv_buf is (B, S, D) and kv is the (B, L, 2D) [k|v]
-// projection of the text context.  res may be nullptr (zeros).
+// One sublayer forward as four launches on `stream`.  `kv` == nullptr selects
+// the self sublayer: w_in is Wqkv (3D, D) and qkv_buf is (B, S, 3D).
+// Otherwise w_in is Wq (D, D), qkv_buf is (B, S, D) and kv is the (B, L, 2D)
+// [k|v] projection of the text context.  res may be nullptr (zeros).
 extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln,
                                   const void* adaln, const void* w_in, const void* w_out,
                                   const void* kv, void* h_out, void* a_buf, void* qkv_buf,
@@ -272,46 +696,143 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
   const int rows = B * S;
   rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
       static_cast<const bf*>(x), static_cast<const bf*>(res), static_cast<const bf*>(ln),
-      static_cast<const bf*>(adaln), static_cast<bf*>(h_out), static_cast<bf*>(a_buf), S, D, eps);
+      static_cast<const bf*>(adaln), static_cast<bf*>(h_out), static_cast<bf*>(a_buf), nullptr, S,
+      D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const bool self_attn = kv == nullptr;
-  const int n_in = self_attn ? 3 * D : D;
+  const int n_in = kv == nullptr ? 3 * D : D;
   err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{static_cast<const bf*>(a_buf), D},
-                             static_cast<const bf*>(w_in), static_cast<bf*>(qkv_buf), rows, n_in, D,
-                             stream);
+                                        static_cast<const bf*>(w_in), static_cast<bf*>(qkv_buf),
+                                        rows, n_in, D, stream);
   if (err != cudaSuccess) return int(err);
 
-  AttnArgs args;
-  args.q = static_cast<const bf*>(qkv_buf);
-  args.q_bs = int64_t(S) * n_in;
-  args.q_rs = n_in;
-  if (self_attn) {
-    args.k = args.q + D;
-    args.v = args.q + 2 * D;
-    args.kv_bs = args.q_bs;
-    args.kv_rs = args.q_rs;
-    args.L = S;
-    args.kv_len = S;
-  } else {
-    args.k = static_cast<const bf*>(kv);
-    args.v = args.k + D;
-    args.kv_bs = int64_t(L) * 2 * D;
-    args.kv_rs = 2 * D;
-    args.L = L;
-    args.kv_len = kv_len;
-  }
+  AttnArgs args = attn_args(static_cast<const bf*>(qkv_buf), static_cast<const bf*>(kv), S, D, L,
+                            kv_len);
   args.out = static_cast<bf*>(attn_buf);
-  args.o_bs = int64_t(S) * D;
-  args.o_rs = D;
-  args.S = S;
-  args.scale = 1.0f / sqrtf(float(kHeadDim));
   err = launch_attention(args, B, H, stream);
   if (err != cudaSuccess) return int(err);
 
   err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{static_cast<const bf*>(attn_buf), D},
-                             static_cast<const bf*>(w_out), static_cast<bf*>(out), rows, D, D,
-                             stream);
+                                        static_cast<const bf*>(w_out), static_cast<bf*>(out), rows,
+                                        D, D, stream);
   return int(err);
+}
+
+// One sublayer backward as ten launches on `stream`, inputs as the forward's
+// plus g_out and g_res (B, S, D).  Outputs: dx (B, S, D) -- also the
+// gradient of res --, dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv
+// (B, S, 3D) or dq (B, S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D).
+// Scratch: h (B, S, D), proj like dproj, dattn (B, S, D), stats (3, B, H, S)
+// fp32, rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 * D) fp32.
+extern "C" int muse_attn_sublayer_bwd(
+    const void* x, const void* res, const void* ln, const void* adaln, const void* w_in,
+    const void* w_out, const void* kv, const void* g_out, const void* g_res, void* dx,
+    void* dadaln, void* dln, void* a_buf, void* dproj, void* attn_buf, void* dkv, void* h_buf,
+    void* proj_buf, void* dattn_buf, void* stats, void* rstd, void* partial, int B, int S, int D,
+    int H, int L, int kv_len, float eps, void* stream_ptr) {
+  using bf = __nv_bfloat16;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int rows = B * S;
+  const bool self_attn = kv == nullptr;
+  const int n_in = self_attn ? 3 * D : D;
+  const bf* ln_ = static_cast<const bf*>(ln);
+  const bf* adaln_ = static_cast<const bf*>(adaln);
+  bf* h = static_cast<bf*>(h_buf);
+  bf* a = static_cast<bf*>(a_buf);
+  bf* dattn = static_cast<bf*>(dattn_buf);
+  float* rstd_ = static_cast<float*>(rstd);
+
+  // recompute a (and keep 1/rms), the projection, and dattn = g_out @ Wout
+  rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
+      static_cast<const bf*>(x), static_cast<const bf*>(res), ln_, adaln_, h, a, rstd_, S, D, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{a, D}, static_cast<const bf*>(w_in),
+                                        static_cast<bf*>(proj_buf), rows, n_in, D, stream);
+  if (err != cudaSuccess) return int(err);
+  err = muse::launch_gemm_nn<kProjTile>(static_cast<const bf*>(g_out),
+                                        static_cast<const bf*>(w_out), dattn, rows, D, D, stream);
+  if (err != cudaSuccess) return int(err);
+
+  // attention: pre-pass (out, row stats, D), then dk/dv and dq
+  const int64_t n_stats = int64_t(B) * H * S;
+  float* stats_ = static_cast<float*>(stats);
+  AttnArgs args = attn_args(static_cast<const bf*>(proj_buf), static_cast<const bf*>(kv), S, D, L,
+                            kv_len);
+  args.out = static_cast<bf*>(attn_buf);
+  args.stat_m = stats_;
+  args.stat_s = stats_ + n_stats;
+  args.dout = dattn;
+  args.delta = stats_ + 2 * n_stats;
+  err = launch_attention(args, B, H, stream);
+  if (err != cudaSuccess) return int(err);
+
+  AttnBwdArgs bargs{};
+  bargs.q = args.q;
+  bargs.k = args.k;
+  bargs.v = args.v;
+  bargs.dout = dattn;
+  bargs.stat_m = args.stat_m;
+  bargs.stat_s = args.stat_s;
+  bargs.delta = args.delta;
+  bargs.q_bs = args.q_bs;
+  bargs.q_rs = args.q_rs;
+  bargs.kv_bs = args.kv_bs;
+  bargs.kv_rs = args.kv_rs;
+  bargs.do_bs = int64_t(S) * D;
+  bargs.do_rs = D;
+  bargs.S = S;
+  bargs.L = args.L;
+  bargs.kv_len = args.kv_len;
+  bargs.scale = args.scale;
+  bf* dproj_ = static_cast<bf*>(dproj);
+  bargs.dq = dproj_;
+  bargs.dq_bs = int64_t(S) * n_in;
+  bargs.dq_rs = n_in;
+  if (self_attn) {
+    bargs.dk = dproj_ + D;
+    bargs.dv = dproj_ + 2 * D;
+    bargs.dkv_bs = bargs.dq_bs;
+    bargs.dkv_rs = bargs.dq_rs;
+  } else {
+    bargs.dk = static_cast<bf*>(dkv);
+    bargs.dv = bargs.dk + D;
+    bargs.dkv_bs = int64_t(L) * 2 * D;
+    bargs.dkv_rs = 2 * D;
+  }
+  static bool dkdv_configured = false, dq_configured = false;
+  err = set_smem(attention_dkdv_kernel, kBwdSmem, dkdv_configured);
+  if (err != cudaSuccess) return int(err);
+  err = set_smem(attention_dq_kernel, kBwdSmem, dq_configured);
+  if (err != cudaSuccess) return int(err);
+  attention_dkdv_kernel<<<dim3((bargs.L + kKTile - 1) / kKTile, H, B), kAttnThreads, kBwdSmem,
+                          stream>>>(bargs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  attention_dq_kernel<<<dim3((S + kQTile - 1) / kQTile, H, B), kAttnThreads, kBwdSmem, stream>>>(
+      bargs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  // da = dproj @ W_in (into the dattn buffer, consumed above), then the
+  // rmsnorm / AdaLN backward
+  bf* da = dattn;
+  err = muse::launch_gemm_nn<kProjTile>(dproj_, static_cast<const bf*>(w_in), da, rows, D, n_in,
+                                        stream);
+  if (err != cudaSuccess) return int(err);
+  rms_adaln_bwd_row_kernel<<<rows, kRowThreads, 0, stream>>>(
+      h, da, ln_, adaln_, static_cast<const bf*>(g_res), rstd_, static_cast<bf*>(dx), S, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int chunks = (S + kChunkRows - 1) / kChunkRows;
+  const int col_blocks = (D + kRowThreads - 1) / kRowThreads;
+  rms_adaln_bwd_col_kernel<<<dim3(col_blocks, chunks, B), kRowThreads, 0, stream>>>(
+      h, da, ln_, adaln_, rstd_, static_cast<float*>(partial), S, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  rms_adaln_bwd_reduce_kernel<<<dim3(col_blocks, B + 1), kRowThreads, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<bf*>(dadaln), static_cast<bf*>(dln), B, D,
+      chunks);
+  return int(cudaGetLastError());
 }

@@ -1,24 +1,53 @@
-// GLU down-projection: out = bf16((gelu_erf(a) * b) in fp32) @ wo^T, fp32 accumulate.
+// GLU down-projection, forward and backward.
 //
-// Replaces the Pallas TPU kernel open_muse_tpu/ops/pallas/glu_matmul.py
-// `glu_down_matmul` (body `_kernel`), the FFN down-projection of every trunk
-// layer of MaskGiTUViT_v2.
+// Forward:  out = bf16((gelu_erf(a) * b) in fp32) @ wo^T, fp32 accumulate.
+// Backward: dh = g @ wo (fp32, never stored)
+//           da = bf16(dh * b * gelu'(a)),  db = bf16(dh * gelu(a))
+//           dwo = g^T @ bf16(gelu(a) * b), fp32 accumulate over the rows
+//
+// Replaces the Pallas TPU kernels open_muse_tpu/ops/pallas/glu_matmul.py
+// `glu_down_matmul` (body `_kernel`) and its backward `_bwd_pallas` (body
+// `_bwd_kernel`), the FFN down-projection of every trunk layer of
+// MaskGiTUViT_v2.  wo is the torch nn.Linear weight (N, K).
 //
 // What bounds it on the H100: at the serving shape (a, b: 512 x 2816 bf16,
-// wo: 1024 x 2816 bf16) it reads 2.9 MB of activations and 5.8 MB of weight
-// for 3 GFLOP, about 340 FLOP per byte, near the card's bf16 ridge; and M =
-// 512 rows give only 8 row tiles of 64.
+// wo: 1024 x 2816 bf16) the forward reads 2.9 MB of activations and 5.8 MB
+// of weight for 3 GFLOP, about 340 FLOP per byte, near the card's bf16 ridge.
+// At the training shape (4096 rows) the backward is two 23.6 GFLOP products
+// plus an erf per element of a (M, K) panel in each: compute-bound, with the
+// GELU work on the CUDA cores competing with the tensor cores.
 //
-// What the design does about it: the GLU product is computed in the GEMM's
-// A-tile prologue (registers -> shared memory) and never written to device
-// memory.  Each column tile recomputes it, so the tile is wide (64 x 128, on
-// eight warps): 8 x 8 = 64 blocks, a measured 17% faster than 64 x 64 tiles
-// here.  erf is CUDA's `erff`, not the Abramowitz-Stegun polynomial the TPU
-// kernel needs because Mosaic has no erf.
+// What the design does about it:
+// - Forward: the GLU product is computed in the GEMM's A-tile prologue
+//   (registers -> shared memory) and never written to device memory.  Each
+//   column tile recomputes it, so the tile is wide (64 x 128, on eight warps).
+// - Backward, dh: one GEMM g (M, N) x wo (N, K) whose epilogue reads a and b,
+//   evaluates gelu and gelu' with erff in fp32 and writes da and db, so the
+//   fp32 dh never reaches device memory (the TPU kernel keeps it in VMEM).
+// - Backward, dwo: one GEMM g^T (N, M) x h (M, K) whose B-operand prologue
+//   recomputes h = bf16(gelu(a) * b).  Every block with the same K columns
+//   recomputes its slice of h, so the tile is tall along N: 128 rows of the
+//   1024 give each h element 1024 / 128 = 8 evaluations, the same ratio as the
+//   forward (1024 / 128 column tiles).  A 256-row tile (4 evaluations) was
+//   slower (0.392 vs 0.329 ms on an H100 at M 4096), as were 64-row tiles
+//   (16 evaluations, 0.44 - 0.63 ms): the K step of 32 keeps the prefetch
+//   registers low enough for two blocks per SM.  The sum over the M rows runs
+//   inside one block in fp32: no atomics, so two calls give bit-equal results.
+// erf is CUDA's `erff`, not the Abramowitz-Stegun polynomial the TPU kernel
+// needs because Mosaic has no erf.
 #include "gemm_tile.cuh"
 
 namespace {
 
+constexpr float kSqrtHalf = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * kSqrtHalf));
+}
+
+// Eight consecutive gelu(a) * b values of one row, computed on the way to
+// shared memory.
 struct GluLoader {
   const __nv_bfloat16* a;
   const __nv_bfloat16* b;
@@ -26,8 +55,8 @@ struct GluLoader {
   struct Frag {
     uint4 va, vb;
   };
-  __device__ __forceinline__ Frag fetch(int row, int k) const {
-    const int64_t off = row * ld + k;
+  __device__ __forceinline__ Frag fetch(int outer, int inner) const {
+    const int64_t off = outer * ld + inner;
     return Frag{*reinterpret_cast<const uint4*>(a + off), *reinterpret_cast<const uint4*>(b + off)};
   }
   __device__ __forceinline__ Frag zero() const {
@@ -38,17 +67,37 @@ struct GluLoader {
     pa.u = f.va;
     pb.u = f.vb;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float x = __bfloat162float(pa.h[i]);
-      const float y = __bfloat162float(pb.h[i]);
-      const float gelu = 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-      out.h[i] = __float2bfloat16_rn(gelu * y);
-    }
+    for (int i = 0; i < 8; ++i)
+      out.h[i] = __float2bfloat16_rn(gelu_erf(__bfloat162float(pa.h[i])) * __bfloat162float(pb.h[i]));
     return out.u;
   }
 };
 
-using kGluTile = muse::GemmTile<128, 64>;  // BN 128, BK 64
+// dh epilogue: da = dh * b * gelu'(a), db = dh * gelu(a), both bf16.
+struct GluGradEpilogue {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  __nv_bfloat16* da;
+  __nv_bfloat16* db;
+  int64_t ld;
+  __device__ __forceinline__ void one(int64_t off, float dh) const {
+    const float x = __bfloat162float(a[off]);
+    const float y = __bfloat162float(b[off]);
+    const float cdf = 0.5f * (1.0f + erff(x * kSqrtHalf));
+    const float pdf = expf(-0.5f * x * x) * kInvSqrt2Pi;
+    da[off] = __float2bfloat16_rn(dh * y * (cdf + x * pdf));
+    db[off] = __float2bfloat16_rn(dh * (x * cdf));
+  }
+  __device__ __forceinline__ void store2(int r, int col, float v0, float v1) const {
+    one(r * ld + col, v0);
+    one(r * ld + col + 1, v1);
+  }
+  __device__ __forceinline__ void store1(int r, int col, float v) const { one(r * ld + col, v); }
+};
+
+using kGluTile = muse::GemmTile<64, 128, 64>;     // forward: BM 64, BN 128, BK 64
+using kGluDhTile = muse::GemmTile<64, 128, 32>;   // dh with the da/db epilogue
+using kGluDwoTile = muse::GemmTile<128, 64, 32>;  // dwo: tall along N (see above)
 
 }  // namespace
 
@@ -58,4 +107,24 @@ extern "C" int muse_glu_down(const void* a, const void* b, const void* wo, void*
   return static_cast<int>(muse::launch_gemm_tn<kGluTile>(loader, static_cast<const __nv_bfloat16*>(wo),
                                                static_cast<__nv_bfloat16*>(out), M, N, K,
                                                static_cast<cudaStream_t>(stream)));
+}
+
+// a, b, da, db (M, K); wo, dwo (N, K); g (M, N).  K and N multiples of 8.
+extern "C" int muse_glu_down_bwd(const void* a, const void* b, const void* wo, const void* g,
+                                 void* da, void* db, void* dwo, int M, int N, int K, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf* a_ = static_cast<const bf*>(a);
+  const bf* b_ = static_cast<const bf*>(b);
+  const bf* g_ = static_cast<const bf*>(g);
+  // dh (M, K) = g (M, N) x wo (N, K) rows, consumed by the epilogue
+  cudaError_t err = muse::launch_gemm<kGluDhTile, true, false>(
+      muse::RowLoader{g_, N}, muse::RowLoader{static_cast<const bf*>(wo), K},
+      GluGradEpilogue{a_, b_, static_cast<bf*>(da), static_cast<bf*>(db), K}, M, K, N, s);
+  if (err != cudaSuccess) return int(err);
+  // dwo (N, K) = g^T (N, M) x h (M, K): g read as (M, N) rows, h recomputed
+  err = muse::launch_gemm<kGluDwoTile, false, false>(
+      muse::RowLoader{g_, N}, GluLoader{a_, b_, K}, muse::StoreBf16{static_cast<bf*>(dwo), K}, N, K,
+      M, s);
+  return int(err);
 }

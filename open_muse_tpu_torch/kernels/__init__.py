@@ -2,7 +2,10 @@
 
 Every wrapper takes the plain version for tensors on the CPU, and for CUDA
 tensors launches its kernel or raises: there is no fallback.  Each wrapper
-counts its launches in a plain integer attribute, ``wrapper.launches``.
+counts its launches in a plain integer attribute, ``wrapper.launches``.  The
+forward wrappers are ``torch.autograd.Function``s whose backward is the
+matching backward wrapper, so one Function runs the plain versions on the CPU
+and the kernels on the card in both directions.
 """
 
 from __future__ import annotations
@@ -34,15 +37,24 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-from .attn_sublayer import attn_sublayer_cross, attn_sublayer_self  # noqa: E402
+def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
+    """The fp32 staging of the plain versions; float64 stays float64 so that
+    ``gradcheck`` can run through them."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
+                            attn_sublayer_self, attn_sublayer_self_bwd)
 from .fused_sample import fused_categorical_cfg  # noqa: E402
-from .glu_matmul import glu_down_matmul  # noqa: E402
+from .glu_matmul import glu_down_matmul, glu_down_matmul_bwd  # noqa: E402
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul",
-           "attn_sublayer_self", "attn_sublayer_cross", "fused_categorical_cfg"]
+           "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
+           "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
-            fused_categorical_cfg)
+            fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
+            glu_down_matmul_bwd)
 
 
 def launch_counts() -> dict:

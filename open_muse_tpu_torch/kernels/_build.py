@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` at first use and bind them with ctypes.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, cached under ``_build/`` in the package directory by
-a hash of the sources and flags.  Nothing is compiled when this module is
-imported: the CPU tests import every module of the port.
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, cached under ``_build/`` in the package directory by a hash of the
+sources and flags.  Nothing is compiled when this module is imported: the CPU
+tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -22,13 +23,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "muse_glu_down": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "muse_glu_down_bwd": [_P] * 7 + [_I] * 3 + [_P],
     "muse_attn_sublayer": [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P],
+    "muse_attn_sublayer_bwd": [_P] * 22 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_cfg_sample": [_P, _I, _I, _I, _I, ctypes.c_float, _P, ctypes.c_int64,
                         ctypes.c_uint64, _P, _P, _P],
 }
@@ -50,6 +53,28 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _compile_and_link(cu, tmp: Path, target: Path) -> str:
+    """One nvcc per source, all running at once, then one link; returns
+    nvcc's output."""
+    nvcc = _nvcc()
+    objects = [tmp / f"{path.stem}.o" for path in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for path, obj in zip(cu, objects)]
+    logs = [f"== {path.name}\n{proc.communicate()[0]}" for path, proc in zip(cu, procs)]
+    failed = [path.name for path, proc in zip(cu, procs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    linked = tmp / target.name
+    proc = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(linked),
+                           *map(str, objects)], capture_output=True, text=True)
+    logs.append(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n" + "\n".join(logs))
+    os.replace(linked, target)
+    return "\n".join(logs)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled on the first call."""
     global _lib, build_log
@@ -64,15 +89,8 @@ def library() -> ctypes.CDLL:
         target = BUILD_DIR / f"libmuse_kernels_{digest.hexdigest()[:16]}.so"
         if not target.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, target)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                build_log = _compile_and_link(cu, Path(tmp), target)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

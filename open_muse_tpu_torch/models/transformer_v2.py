@@ -6,7 +6,9 @@ decode loop.  Both trunk attention sublayers run through the fused CUDA
 kernels (``kernels.attn_sublayer``) when the config and shapes allow, the
 FFN down-projection through ``kernels.glu_matmul`` and the CFG sampling tail
 through ``kernels.fused_sample``; ``forward(..., use_kernels=False)`` runs
-the plain PyTorch path on the same weights.
+the plain PyTorch path on the same weights.  With ``labels`` the forward also
+returns the masked-token loss, and ``set_gradient_checkpointing(True)``
+recomputes each trunk layer in the backward, as JAX's ``remat`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
@@ -28,6 +31,7 @@ from ..kernels.fused_sample import fused_categorical_cfg
 from ..kernels.fused_sample import sample_gumbel as gumbel_noise
 from ..kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 from ..ops import sampling
+from ..ops.losses import cross_entropy_loss, weighted_cross_entropy_loss
 from ..ops.layers import (AdaLNModulation, Attention, GlobalResponseNorm, LayerNorm, Norm,
                           sinusoidal_encode)
 
@@ -317,7 +321,8 @@ class ConvMlmLayer(nn.Module):
 
 class MaskGiTUViT_v2(ModelMixin, nn.Module):
     """The U-ViT: ``forward(input_ids (B, S), encoder_hidden_states (B, L, E),
-    cond_embeds (B, C), micro_conds (B, 5))`` -> logits (B, S, codebook).
+    cond_embeds (B, C), micro_conds (B, 5))`` -> logits (B, S, codebook),
+    or (logits, loss) when ``labels`` are given.
 
     ``forward(..., use_kernels=False)`` runs the plain PyTorch path instead
     of the CUDA kernels; on CPU tensors both compute the plain versions."""
@@ -347,20 +352,35 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
         self.project_from_hidden = nn.Linear(d, cfg.block_out_channels[-1], bias=cfg.use_bias)
         self.up_blocks = nn.ModuleList([UpsampleBlock(cfg, c)])
         self.mlm_layer = ConvMlmLayer(cfg)
+        self.gradient_checkpointing = False
 
     @property
     def dtype(self) -> torch.dtype:
         return self.encoder_proj.weight.dtype
 
-    def step_context(self, encoder_hidden_states, cond_embeds, micro_conds):
-        """Every tensor derived only from the text and conditioning inputs,
-        constant across MaskGIT decode steps."""
+    def set_gradient_checkpointing(self, mode) -> None:
+        """``True`` recomputes each trunk layer in the backward (JAX's full
+        ``remat``, ``torch.utils.checkpoint``); ``False`` keeps every
+        activation.  JAX's ``'dots'`` policy is not ported."""
+        if isinstance(mode, str):
+            raise NotImplementedError(
+                f"gradient_checkpointing={mode!r}: the port takes true or false; the 'dots' "
+                "policy (keep matmul outputs, recompute the rest) is not ported yet")
+        self.gradient_checkpointing = bool(mode)
+
+    def conditioning(self, encoder_hidden_states, cond_embeds, micro_conds):
+        """(projected text states, conditioning vector)."""
         cfg, dtype = self.config, self.dtype
         ehs = self.encoder_proj_layer_norm(self.encoder_proj(encoder_hidden_states.to(dtype)))
         micro = sinusoidal_encode(micro_conds.reshape(-1), cfg.micro_cond_encode_dim)
         micro = micro.reshape(micro_conds.shape[0], -1)
         cond = torch.cat([cond_embeds.float(), micro.float()], dim=1).to(dtype)
-        cond = self.cond_embed(cond)
+        return ehs, self.cond_embed(cond)
+
+    def step_context(self, encoder_hidden_states, cond_embeds, micro_conds):
+        """Every tensor derived only from the text and conditioning inputs,
+        constant across MaskGIT decode steps."""
+        ehs, cond = self.conditioning(encoder_hidden_states, cond_embeds, micro_conds)
         return {
             "ehs": ehs,
             "cond": cond,
@@ -370,25 +390,42 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
         }
 
     def forward(self, input_ids, encoder_hidden_states=None, cond_embeds=None,
-                micro_conds=None, step_ctx=None, use_kernels: bool = True):
+                micro_conds=None, labels=None, loss_weight=None, label_smoothing: float = 0.0,
+                step_ctx=None, use_kernels: bool = True):
+        """Without ``step_ctx`` (training) every text- and cond-derived tensor
+        is computed inside its own block, in the autograd graph and, under
+        gradient checkpointing, inside the recomputed layer."""
         if step_ctx is None:
-            step_ctx = self.step_context(encoder_hidden_states, cond_embeds, micro_conds)
-        ehs, cond = step_ctx["ehs"], step_ctx["cond"]
+            ehs, cond = self.conditioning(encoder_hidden_states, cond_embeds, micro_conds)
+            ctx_down = ctx_up = None
+            ctx_layers = [None] * len(self.transformer_layers)
+        else:
+            ehs, cond = step_ctx["ehs"], step_ctx["cond"]
+            ctx_down, ctx_layers, ctx_up = step_ctx["down"], step_ctx["layers"], step_ctx["up"]
         x = self.embed(input_ids)
-        x = self.down_blocks[0](x, cond, ehs, step_ctx["down"])
+        x = self.down_blocks[0](x, cond, ehs, ctx_down)
         batch, height, width, channels = x.shape
         x = x.reshape(batch, height * width, channels)
         x = self.project_to_hidden(self.project_to_hidden_norm(x))
         residual = None
-        for layer, ctx in zip(self.transformer_layers, step_ctx["layers"]):
-            x, residual = layer(x, ehs, cond, residual, ctx, use_kernels)
+        remat = self.gradient_checkpointing and step_ctx is None and torch.is_grad_enabled()
+        for layer, ctx in zip(self.transformer_layers, ctx_layers):
+            if remat:
+                x, residual = checkpoint(layer, x, ehs, cond, residual, None, use_kernels,
+                                         use_reentrant=False)
+            else:
+                x, residual = layer(x, ehs, cond, residual, ctx, use_kernels)
         x = x + residual
         x = self.project_from_hidden(self.project_from_hidden_norm(x))
-        x = self.up_blocks[0](x.reshape(batch, height, width, channels), cond, ehs,
-                              step_ctx["up"])
+        x = self.up_blocks[0](x.reshape(batch, height, width, channels), cond, ehs, ctx_up)
         batch, height, width, channels = x.shape
-        logits = self.mlm_layer(x)
-        return logits.reshape(batch, height * width, -1)
+        logits = self.mlm_layer(x).reshape(batch, height * width, -1)
+        if labels is None:
+            return logits
+        if loss_weight is not None:
+            return logits, weighted_cross_entropy_loss(logits, labels, loss_weight,
+                                                       label_smoothing)
+        return logits, cross_entropy_loss(logits, labels, label_smoothing)
 
     @torch.no_grad()
     def generate2(self, encoder_hidden_states, cond_embeds, micro_conds, empty_embeds=None,

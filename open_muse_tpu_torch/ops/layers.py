@@ -130,7 +130,8 @@ def dot_product_attention(query, key, value, scale: float | None = None, mask=No
     marks logits replaced by the fp32 minimum."""
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
+    acc = torch.promote_types(query.dtype, torch.float32)
+    logits = torch.einsum("bqhd,bkhd->bhqk", query.to(acc), key.to(acc)) * scale
     if mask is not None:
         logits = logits.masked_fill(mask, torch.finfo(torch.float32).min)
     weights = logits.softmax(dim=-1).to(value.dtype)

@@ -111,6 +111,9 @@ def test_port_imports_no_jax():
         from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
         from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
         from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+        from open_muse_tpu_torch.training import train_muse
+        from open_muse_tpu_torch.training.data import PreEncodedDataset
+        PreEncodedDataset("shard-000.tar", 2)  # the shard split asks jax unless given a rank
         m = MaskGiTUViT_v2(**{json.dumps(UVIT_TINY)!s}).eval()
         with torch.no_grad():
             out = m(torch.zeros(1, 16, dtype=torch.long), torch.zeros(1, 7, 48),

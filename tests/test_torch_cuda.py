@@ -12,7 +12,8 @@ import torch
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.kernels import attn_sublayer as A
 from open_muse_tpu_torch.kernels.fused_sample import fused_categorical_cfg_plain
-from open_muse_tpu_torch.kernels.glu_matmul import glu_down_matmul_plain
+from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd_plain,
+                                                    glu_down_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +82,91 @@ def test_cfg_sampler_kernel_matches_plain(device, dtype):
     assert bool(((ids == ref_ids) | ~clear).all())
     assert _rel(sel, ref_sel) <= 1e-4
     assert bool((ids < 8192).all())
+
+
+# -- backward kernels ------------------------------------------------------------
+
+def _sublayer_bwd_inputs(gen, b, s, d, kv_len):
+    return dict(x=_rand(gen, b, s, d), res=_rand(gen, b, s, d), ln=1 + _rand(gen, d, scale=0.1),
+                adaln=_rand(gen, b, 2 * d, scale=0.1), wqkv=_rand(gen, 3 * d, d, scale=d ** -0.5),
+                wq=_rand(gen, d, d, scale=d ** -0.5), wout=_rand(gen, d, d, scale=d ** -0.5),
+                kv=_rand(gen, b, kv_len, 2 * d), g_out=_rand(gen, b, s, d, scale=0.1),
+                g_res=_rand(gen, b, s, d, scale=0.1))
+
+
+# bf16 on both sides with roundings in different places (the kernel keeps
+# dh, logits and softmax statistics in fp32 where the plain version rounds
+# its einsum outputs to bf16): max |error| over max |reference|
+BWD_TOL = 5e-2
+
+
+@pytest.mark.parametrize("b,s,kv_len", [(4, 256, 77), (2, 100, 130)])
+def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
+    """Ragged query and key tiles (100 rows, 130 keys); every output against
+    the plain backward, and two calls bit-equal."""
+    gen = torch.Generator().manual_seed(s)
+    d, h = 1024, 16
+    p = _sublayer_bwd_inputs(gen, b, s, d, kv_len)
+    for res in (p["res"], None):
+        rr = torch.zeros_like(p["x"]) if res is None else res
+        args = (p["x"], res, p["ln"], p["adaln"], p["wqkv"], p["wout"], p["g_out"], p["g_res"], h)
+        before = kernels.attn_sublayer_self_bwd.launches
+        got = kernels.attn_sublayer_self_bwd(*args)
+        assert kernels.attn_sublayer_self_bwd.launches == before + 1
+        again = kernels.attn_sublayer_self_bwd(*args)
+        ref = A.attn_sublayer_self_bwd_plain(p["x"], rr, *args[2:])
+        for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwqkv", "dwout"),
+                                           got, ref, again):
+            assert _rel(mine, want) <= BWD_TOL, (name, _rel(mine, want))
+            assert torch.equal(mine, twice), name
+        args = (p["x"], res, p["ln"], p["adaln"], p["wq"], p["wout"], p["kv"], p["g_out"],
+                p["g_res"], h)
+        got = kernels.attn_sublayer_cross_bwd(*args)
+        again = kernels.attn_sublayer_cross_bwd(*args)
+        ref = A.attn_sublayer_cross_bwd_plain(p["x"], rr, *args[2:])
+        for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwq", "dwout", "dkv"),
+                                           got, ref, again):
+            assert _rel(mine, want) <= BWD_TOL, (name, _rel(mine, want))
+            assert torch.equal(mine, twice), name
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 2816, 1024), (100, 96, 136)])
+def test_glu_backward_kernel_matches_plain(device, m, k, n):
+    gen = torch.Generator().manual_seed(m)
+    a, b = _rand(gen, m, k), _rand(gen, m, k)
+    wo, g = _rand(gen, n, k, scale=k ** -0.5), _rand(gen, m, n, scale=0.1)
+    got = kernels.glu_down_matmul_bwd(a, b, wo, g)
+    again = kernels.glu_down_matmul_bwd(a, b, wo, g)
+    ref = glu_down_matmul_bwd_plain(a, b, wo, g)
+    for name, mine, want, twice in zip(("da", "db", "dwo"), got, ref, again):
+        assert _rel(mine, want) <= BWD_TOL, (name, _rel(mine, want))
+        assert torch.equal(mine, twice), name
+
+
+def test_training_backward_reaches_every_parameter(device):
+    """Regression for the graph cut: a requires_grad forward through the
+    kernels under bf16 autocast gives every parameter of a small model a
+    finite, non-zero gradient, and runs every backward kernel."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+
+    torch.manual_seed(0)
+    model = MaskGiTUViT_v2(hidden_size=128, cond_embed_dim=32, micro_cond_encode_dim=8,
+                           micro_cond_embed_dim=40, encoder_hidden_size=48, vocab_size=68,
+                           codebook_size=64, in_channels=32, block_out_channels=(32,),
+                           num_res_blocks=1, block_num_heads=2, num_hidden_layers=2,
+                           num_attention_heads=2, intermediate_size=256).to(device)
+    model.set_gradient_checkpointing(True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ids = torch.randint(0, 64, (2, 16), generator=gen, device=device)
+    labels = torch.where(torch.rand(2, 16, generator=gen, device=device) < 0.5, ids, -100)
+    kernels.reset_launch_counts()
+    with torch.autocast("cuda", torch.bfloat16):
+        _, loss = model(ids, torch.randn(2, 7, 48, device=device), torch.randn(2, 32, device=device),
+                        torch.tensor([[512, 512, 0, 0, 6.0]] * 2, device=device), labels=labels)
+    loss.backward()
+    counts = kernels.launch_counts()
+    for name in ("attn_sublayer_self", "attn_sublayer_cross", "glu_down_matmul"):
+        assert counts[name] == 4 and counts[name + "_bwd"] == 2, counts
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()) and bool(p.grad.abs().sum() > 0), name
