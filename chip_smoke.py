@@ -2,19 +2,24 @@
 
 Builds the port's CUDA kernels from ``open_muse_tpu_torch/csrc``, holds each
 forward and backward kernel against its plain PyTorch version at the shapes
-of its path, then drives the port's two paths at full width with seeded
-random weights:
+of its path, then drives the port's paths at full width with seeded random
+weights:
 
 - serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
   ``PipelineMuse.text2image``;
+- serving_nocfg: three such requests at guidance 0 (the CFG-free sampler);
+- inpainting: three 256px / batch-1 / 12-step CFG requests through
+  ``PipelineMuseInpainting.inpaint`` (the VQGAN encoder and ``vq_argmin``);
+- pre_encode: ``scripts.pre_encode.main`` over a synthetic shard of 1024
+  seeded 256px images with captions, models loaded by ``from_pretrained``;
 - training: ``training.train_muse.main`` on ``configs/laiona6plus_uvit_clip.yaml``
   at batch 16 on a seeded synthetic pre-encoded shard (one repeated batch),
   then a resume from its checkpoint; before it, one forward and backward
   with the kernels against one with the plain versions.
 
 Each path runs with the launch counters set to 0 just before it and read
-just after; the run fails unless every kernel of the path launched.  Exits
-non-zero on any failure or without a GPU.
+just after; the run fails unless every kernel of the path launched exactly
+as often as the path needs.  Exits non-zero on any failure or without a GPU.
 
     python3 chip_smoke.py     # one GPU; a few minutes on an H100
 
@@ -53,7 +58,28 @@ SOURCES = {
                                 "open_muse_tpu/ops/pallas/attn_sublayer.py:637"),
     "glu_down_matmul_bwd": ("open_muse_tpu_torch/csrc/glu_matmul.cu",
                             "open_muse_tpu/ops/pallas/glu_matmul.py:189"),
+    "fused_categorical": ("open_muse_tpu_torch/csrc/fused_sample.cu",
+                          "open_muse_tpu/ops/pallas/fused_sample.py:119"),
+    "vq_argmin": ("open_muse_tpu_torch/csrc/vq_argmin.cu",
+                  "open_muse_tpu/ops/pallas/vq_argmin.py:66"),
 }
+
+# the least time the card could take for a kernel's work (H100 SXM datasheet
+# rates at 700 W): bytes moved over the memory rate, operations over the peak
+# rate of their type; the larger of the two
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+BOUNDS = {}  # kernel -> (bytes, operations, type), from the timed inputs
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(name):
+    moved, ops, kind = BOUNDS[name]
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def log(msg: str) -> None:
@@ -108,6 +134,7 @@ def check_glu(device, gen, m):
         f"{errors(ref, exact)[0]:.3e} {'ok' if ok else 'FAIL'}")
     timing = (time_ms(lambda: glu_down_matmul(a, b, wo)),
               time_ms(lambda: glu_down_matmul_plain(a, b, wo)))
+    BOUNDS.setdefault("glu_down_matmul", (nbytes(a, b, wo, got), 2 * m * k * n, "bf16"))
     return ok, max_abs, timing
 
 
@@ -158,6 +185,13 @@ def check_sublayers(device, gen, b):
                 f"residual bit-equal {h_equal} {'ok' if rel <= tol and h_equal else 'FAIL'}")
         timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        # the q(kv) and output projections, and QK^T and PV over the keys
+        s = inp["x"].shape[1]
+        keys, proj = (s, 4 * d * d) if "self" in name else (77, 2 * d * d)
+        ops = 2 * b * s * proj + 4 * b * heads * s * keys * (d // heads)
+        moved = nbytes(inp["x"], inp["res"], inp["ln_scale"], inp["adaln"], *kern(inp["res"]),
+                       *((wqkv,) if "self" in name else (wq, kv)), inp["wout"])
+        BOUNDS.setdefault(name, (moved, ops, "bf16"))
     return results
 
 
@@ -207,9 +241,115 @@ def check_sampler(device, gen):
 
     timing = (time_ms(lambda: fused_categorical_cfg(logits, guidance, v, gumbel=gumbel)),
               time_ms(lambda: fused_categorical_cfg_plain(logits, guidance, v, gumbel)))
+    # fp32: the combine (3), x + g (1), the running max and sum with one exp (3)
+    BOUNDS["fused_categorical_cfg"] = (nbytes(logits, gumbel, ids, sel), 7 * b * s * v, "fp32")
     log(f"[kernel] fused_categorical_cfg Philox route: "
         f"{time_ms(lambda: fused_categorical_cfg(logits, guidance, v, generator=ph_gen)):.4f} ms")
     return ids_ok and sel_ok and philox_ok, max_abs, timing
+
+
+def check_categorical(device, gen):
+    """The CFG-free sampler at the serving shape, raw bf16 logits (1, 256,
+    8256) cropped to the 8192 codes: explicit noise (ids exactly equal, sel
+    rel 1e-5) and the Philox route (chi-square against softmax, as for the
+    CFG sampler)."""
+    from scipy.stats import chi2
+
+    from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical,
+                                                          fused_categorical_plain)
+
+    b, s, v_raw, v = 1, 256, 8256, 8192
+    logits = (torch.randn(b, s, v_raw, generator=gen) * 2).to(device, torch.bfloat16)
+    gumbel = -torch.log(-torch.log(torch.rand(b, s, v, generator=gen).clamp_min(1e-30)))
+    gumbel = gumbel.to(device)
+    ids, sel = fused_categorical(logits, v, gumbel=gumbel)
+    ref_ids, ref_sel = fused_categorical_plain(logits, v, gumbel)
+    ids_ok = torch.equal(ids, ref_ids)
+    max_abs, rel = errors(sel, ref_sel)
+    sel_ok = rel <= 1e-5
+    log(f"[kernel] fused_categorical logits {tuple(logits.shape)} bf16 cropped to {v}, explicit "
+        f"gumbel: ids exactly equal {ids_ok} ({int((ids == ref_ids).sum())}/{ids.numel()}); sel "
+        f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 1e-5: logsumexp order) "
+        f"{'ok' if ids_ok and sel_ok else 'FAIL'}")
+
+    rows, small_v, v_lim = 1 << 16, 20, 16
+    row = torch.linspace(-2.0, 1.0, small_v)
+    small = row.expand(1, rows, small_v).contiguous().to(device, torch.bfloat16)
+    ph_gen = torch.Generator().manual_seed(4321)
+    ids_p, sel_p = fused_categorical(small, v_lim, generator=ph_gen)
+    probs = torch.softmax(small[0, 0, :v_lim].float(), -1).cpu()
+    counts = torch.bincount(ids_p.flatten().long().cpu(), minlength=v_lim).double()
+    expected = probs.double() * rows
+    stat = float(((counts - expected) ** 2 / expected).sum())
+    p_value = float(chi2.sf(stat, v_lim - 1))
+    sel_match = torch.allclose(sel_p.flatten().cpu(), probs[ids_p.flatten().long().cpu()],
+                               rtol=1e-5, atol=0)
+    in_range = bool((ids_p < v_lim).all())
+    philox_ok = p_value > 1e-6 and sel_match and in_range
+    log(f"[kernel] fused_categorical Philox: {rows} draws over {v_lim} of {small_v} columns: "
+        f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
+        f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if philox_ok else 'FAIL'}")
+
+    timing = (time_ms(lambda: fused_categorical(logits, v, gumbel=gumbel)),
+              time_ms(lambda: fused_categorical_plain(logits, v, gumbel)))
+    philox_ms = time_ms(lambda: fused_categorical(logits, v, generator=ph_gen))
+    philox_bound = nbytes(logits[..., :v], ids, sel) / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] fused_categorical Philox route: {philox_ms:.4f} ms (bound {philox_bound:.4f} "
+        f"ms: the cropped logits read once)")
+    # fp32: x + g (1), the running max and sum with one exp (3); the cropped
+    # columns only
+    BOUNDS["fused_categorical"] = (nbytes(logits[..., :v], gumbel, ids, sel), 4 * b * s * v,
+                                   "fp32")
+    return ids_ok and sel_ok and philox_ok, max_abs, timing
+
+
+# the VQ search shapes: a pre-encode batch of 64 images (64 x 256 latent
+# rows) and one 256px inpainting request, against the 8192-code codebook
+VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192)}
+VQ_RTOL = 1e-5
+
+
+def check_vq(device, gen):
+    """vq_argmin against vq_argmin_plain in fp32, TF32 off, at both path
+    shapes: ids equal except at rows whose two best plain scores lie within
+    VQ_RTOL of the squared distances' scale, where the kernel's pick is
+    within that of the minimum; two calls bit-equal."""
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin, vq_argmin_plain, vq_near_ties
+
+    ok, timing, worst = True, None, 0.0
+    for path, (n, c, k) in VQ_SHAPES.items():
+        # latents and codes of one scale, as an encoder's quant_conv output
+        # and its codebook are
+        z = torch.randn(n, c, generator=gen).to(device)
+        cb = torch.randn(k, c, generator=gen).to(device)
+        ids = vq_argmin(z, cb)
+        again = vq_argmin(z, cb)
+        ref = vq_argmin_plain(z, cb)
+        near, gap, over = vq_near_ties(ids, z, cb, VQ_RTOL)
+        differ = ids != ref
+        case_ok = (torch.equal(ids, again) and bool((~differ | near).all())
+                   and bool((over[differ] <= 0).all()) and bool(((ids >= 0) & (ids < k)).all()))
+        ok &= case_ok
+        picked = max(over.max().item() + VQ_RTOL, 0.0)  # the kernel's pick above the minimum
+        worst = max(worst, picked)
+        log(f"[kernel] vq_argmin z ({n}, {c}) codebook ({k}, {c}) fp32 ({path}): "
+            f"{int(differ.sum())} of {n} ids differ from plain, all at near-ties "
+            f"{bool((~differ | near).all())}; {int(near.sum())} rows whose best two plain scores "
+            f"lie within {VQ_RTOL} of the scale (|z|^2 + max |e|^2), smallest gap "
+            f"{gap.min().item():.3e}; the kernel's pick above the plain minimum by at most "
+            f"{picked:.3e} of the scale (bound {VQ_RTOL}); two calls bit-equal "
+            f"{torch.equal(ids, again)} {'ok' if case_ok else 'FAIL'}")
+        ms = (time_ms(lambda: vq_argmin(z, cb), reps=10, trials=5),
+              time_ms(lambda: vq_argmin_plain(z, cb), reps=10, trials=5))
+        log(f"[time] vq_argmin ({path}, N {n}): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms "
+            f"(median, CUDA events); bound {2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms "
+            f"(2NKC fp32 operations)")
+        if timing is None:  # the pre-encode shape is the kernel's row in the report
+            timing = ms
+            BOUNDS["vq_argmin"] = (nbytes(z, cb, ids), 2 * n * k * c, "fp32")
+        del z, cb, ref
+    # the report's error column: the worst pick's score gap in units of the scale
+    return ok, worst, timing
 
 
 def kernel_phase(device):
@@ -219,6 +359,8 @@ def kernel_phase(device):
     report = {"glu_down_matmul": check_glu(device, gen, 2 * TRAIN_S)}
     report.update(check_sublayers(device, gen, 2))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
+    report["fused_categorical"] = check_categorical(device, gen)
+    report["vq_argmin"] = check_vq(device, gen)
     for name, (ok, err, (ms, plain_ms)) in report.items():
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events)")
     # the training path runs the forward kernels at batch 16 too
@@ -275,6 +417,8 @@ def check_glu_bwd(device, gen):
                                f"a,b {tuple(a.shape)} g {tuple(g.shape)} bf16")
     timing = (time_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
               time_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
+    # dh = g wo and dwo = h^T g
+    BOUNDS["glu_down_matmul_bwd"] = (nbytes(a, b, wo, g, *got), 4 * m * INTER * HIDDEN, "bf16")
     return ok, worst, timing
 
 
@@ -314,6 +458,16 @@ def check_sublayer_bwd(device, gen):
             worst = max(worst, case_worst)
         timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        # the products of this backward, forward recompute included: self
+        # recomputes qkv and takes dattn, dWout, dWqkv, da (11 d x d
+        # products per row), cross recomputes q and takes dattn, dWout, dWq,
+        # da (5); attention recomputes S and O and takes dP, dV, dQ, dK (6)
+        keys, proj = (TRAIN_S, 11) if "self" in name else (KV_LEN, 5)
+        rows = TRAIN_B * TRAIN_S
+        ops = 2 * rows * proj * d * d + 12 * TRAIN_B * HEADS * TRAIN_S * keys * (d // HEADS)
+        moved = nbytes(inp["x"], inp["res"], *common, inp["wout"], g_out, g_res,
+                       *((wqkv,) if "self" in name else (wq, kv)), *kern(inp["res"]))
+        BOUNDS[name] = (moved, ops, "bf16")
     return results
 
 
@@ -358,7 +512,7 @@ def build_pipeline(device):
     from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
     from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
     from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
-    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuseInpainting
 
     with torch.device(device):
         transformer = MaskGiTUViT_v2(MaskGiTUViT_v2Config())  # research defaults
@@ -375,8 +529,8 @@ def build_pipeline(device):
     counts = {name: sum(p.numel() for p in m.parameters())
               for name, m in (("uvit", transformer), ("clip", text_encoder), ("vqgan", vae))}
     log(f"[model] params {counts}; uvit/clip bf16, vqgan fp32")
-    return PipelineMuse(vae=vae, transformer=transformer, text_encoder=text_encoder,
-                        tokenizer=SimpleTokenizer(49408, 77))
+    return PipelineMuseInpainting(vae=vae, transformer=transformer, text_encoder=text_encoder,
+                                  tokenizer=SimpleTokenizer(49408, 77))
 
 
 def check_logits(pipe, device):
@@ -400,8 +554,9 @@ def check_logits(pipe, device):
     return ok
 
 
-def one_request(pipe, device, prompt, seed):
-    """One 256px / bs1 / 12-step CFG request through PipelineMuse.text2image;
+def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None):
+    """One 256px / bs1 / 12-step request through PipelineMuse.text2image, or
+    through PipelineMuseInpainting.inpaint with ``inpaint=(pixels, mask)``;
     returns (seconds, images, tokens, launch deltas)."""
     from open_muse_tpu_torch import kernels
 
@@ -410,13 +565,17 @@ def one_request(pipe, device, prompt, seed):
     vae.decode_code = lambda tokens: (captured.append(tokens), type(vae).decode_code(vae, tokens))[1]
     ids = torch.as_tensor(pipe.tokenizer([prompt])["input_ids"], dtype=torch.long)
     micro = torch.tensor([[512, 512, 0, 0, 6.0]])
+    gen = torch.Generator().manual_seed(seed)
     before = kernels.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        images = pipe.text2image(ids, micro, torch.Generator().manual_seed(seed),
-                                 timesteps=TIMESTEPS, guidance_scale=GUIDANCE,
-                                 temperature=TEMPERATURE, seq_len=256)
+        if inpaint is None:
+            images = pipe.text2image(ids, micro, gen, timesteps=TIMESTEPS, guidance_scale=guidance,
+                                     temperature=TEMPERATURE, seq_len=256)
+        else:
+            images = pipe.inpaint(*inpaint, ids, micro, gen, timesteps=TIMESTEPS,
+                                  guidance_scale=guidance, temperature=TEMPERATURE)
         torch.cuda.synchronize()
     finally:
         del vae.decode_code  # back to the class's method
@@ -425,62 +584,278 @@ def one_request(pipe, device, prompt, seed):
     return seconds, images, captured[0], {k: after[k] - before[k] for k in after}
 
 
-def request_phase(device, smi):
+def expected_request_launches(layers, sampler, vq=0):
+    """Per request: every trunk layer's sublayers and GLU at each of the 12
+    steps, the sampler once a step, no backward kernel."""
     from open_muse_tpu_torch import kernels
 
-    pipe = build_pipeline(device)
-    layers = pipe.transformer.config.num_hidden_layers
-    expected = {name: 0 for name in kernels.launch_counts()}  # no backward kernel
+    expected = {name: 0 for name in kernels.launch_counts()}
     expected.update({"attn_sublayer_self": layers * TIMESTEPS,
                      "attn_sublayer_cross": layers * TIMESTEPS,
-                     "glu_down_matmul": layers * TIMESTEPS, "fused_categorical_cfg": TIMESTEPS})
-    warm, *_ = one_request(pipe, device, PROMPTS[-1], 99)
-    log(f"[request] warm-up {warm * 1e3:.1f} ms")
-    if not check_logits(pipe, device):
-        raise SystemExit("chip_smoke: kernel forward disagrees with the plain forward")
+                     "glu_down_matmul": layers * TIMESTEPS, sampler: TIMESTEPS})
+    if vq:
+        expected["vq_argmin"] = vq
+    return expected
+
+
+def run_requests(pipe, smi, path, expected, guidance=GUIDANCE, inpaint=None, check=None):
+    """Three requests with the launch counters set to 0 before them; each
+    must give a finite (1, 256, 256, 3) image, tokens in [0, 8192), the
+    expected launches and pass ``check(tokens)``.  Returns (median seconds,
+    the path's launch counts)."""
+    from open_muse_tpu_torch import kernels
 
     kernels.reset_launch_counts()
     latencies = []
     for i, prompt in enumerate(PROMPTS[:3]):
-        seconds, images, tokens, delta = one_request(pipe, device, prompt, seed=i)
+        seconds, images, tokens, delta = one_request(pipe, prompt, i, guidance, inpaint)
         finite = bool(torch.isfinite(images).all())
         tokens_ok = bool(((tokens >= 0) & (tokens < 8192)).all())
+        extra = "" if check is None else check(tokens)
         ok = (tuple(images.shape) == (1, 256, 256, 3) and finite and tokens_ok
-              and delta == expected)
-        log(f"[request] {i}: {prompt!r} seed {i}: {seconds * 1e3:.1f} ms, image "
+              and delta == expected and not extra.endswith("FAIL"))
+        log(f"[{path}] {i}: {prompt!r} seed {i}: {seconds * 1e3:.1f} ms, image "
             f"{tuple(images.shape)} finite {finite} range [{images.min().item():.3f}, "
             f"{images.max().item():.3f}], tokens in [0, 8192) {tokens_ok} "
-            f"({tokens.unique().numel()} distinct), launches {delta} {'ok' if ok else 'FAIL'}")
+            f"({tokens.unique().numel()} distinct){extra}, launches {delta} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"chip_smoke: request {i} failed (expected launches {expected})")
+            raise SystemExit(f"chip_smoke: {path} request {i} failed (expected launches "
+                             f"{expected})")
         latencies.append(seconds)
-    log(f"[latency] median request {statistics.median(latencies) * 1e3:.1f} ms over 3 "
-        f"(256px, bs1, {TIMESTEPS} steps, CFG {GUIDANCE}; host clock, synchronised) on {smi}")
     launches = kernels.launch_counts()
-    profile_request(pipe, device, statistics.median(latencies))
+    median = statistics.median(latencies)
+    log(f"[latency] {path}: median request {median * 1e3:.1f} ms over 3 (256px, bs1, "
+        f"{TIMESTEPS} steps, guidance {guidance}; host clock, synchronised) on {smi}")
+    return median, launches
+
+
+def request_phase(pipe, device, smi):
+    layers = pipe.transformer.config.num_hidden_layers
+    warm, *_ = one_request(pipe, PROMPTS[-1], 99)
+    log(f"[request] warm-up {warm * 1e3:.1f} ms")
+    if not check_logits(pipe, device):
+        raise SystemExit("chip_smoke: kernel forward disagrees with the plain forward")
+    median, launches = run_requests(pipe, smi, "serving",
+                                    expected_request_launches(layers, "fused_categorical_cfg"))
+    profiled("request", lambda: one_request(pipe, PROMPTS[3], 3), median,
+             "profile_request.txt", rows=18)
     return launches
 
 
-def profile_request(pipe, device, median_s):
-    """Device time by kernel for one more request (outside the counted run);
-    the table goes to chiprun_out/profile_request.txt.  The busy share is
-    device kernel time over the unprofiled median latency."""
+def nocfg_phase(pipe, smi):
+    """Guidance 0, as a guidance-distilled student serves: batch 1 through
+    the trunk and the CFG-free sampler."""
+    layers = pipe.transformer.config.num_hidden_layers
+    warm, *_ = one_request(pipe, PROMPTS[-1], 98, guidance=0.0)
+    log(f"[serving_nocfg] warm-up {warm * 1e3:.1f} ms")
+    median, launches = run_requests(pipe, smi, "serving_nocfg",
+                                    expected_request_launches(layers, "fused_categorical"),
+                                    guidance=0.0)
+    profiled("CFG-free request", lambda: one_request(pipe, PROMPTS[3], 3, guidance=0.0), median,
+             "profile_request_nocfg.txt")
+    return launches
+
+
+def inpainting_phase(pipe, device, smi):
+    """A seeded 256 x 256 image with the centre 8 x 8 of its 16 x 16 tokens
+    repainted under CFG 8.0."""
+    layers = pipe.transformer.config.num_hidden_layers
+    gen = torch.Generator().manual_seed(21)
+    pixels = torch.rand(1, 256, 256, 3, generator=gen).to(device)
+    mask = torch.zeros(16, 16, dtype=torch.bool)
+    mask[4:12, 4:12] = True
+    mask = mask.reshape(-1)
+    with torch.no_grad():
+        codes = pipe.vae.get_code(pixels)[0].cpu()
+
+    def kept(tokens):
+        same = torch.equal(tokens[0].cpu()[~mask], codes[~mask])
+        return f", {int((~mask).sum())} tokens outside the mask equal the encoded ones {same}" + (
+            "" if same else " FAIL")
+
+    warm, *_ = one_request(pipe, PROMPTS[-1], 97, inpaint=(pixels, mask))
+    log(f"[inpainting] warm-up {warm * 1e3:.1f} ms; mask {int(mask.sum())} of {mask.numel()} "
+        f"tokens")
+    median, launches = run_requests(pipe, smi, "inpainting",
+                                    expected_request_launches(layers, "fused_categorical_cfg",
+                                                              vq=1),
+                                    inpaint=(pixels, mask), check=kept)
+    profiled("inpainting request", lambda: one_request(pipe, PROMPTS[3], 3,
+                                                       inpaint=(pixels, mask)),
+             median, "profile_inpainting.txt")
+    return launches
+
+
+def profiled(label, fn, unprofiled_s, filename, rows=16):
+    """Run ``fn`` once more under the profiler (outside any counted run);
+    the table of device time by kernel goes to ``chiprun_out/filename``.
+    The busy share is device kernel time over ``unprofiled_s``, the same
+    work's host-clock time without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seconds, *_ = one_request(pipe, device, PROMPTS[3], seed=3)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
-    with open(os.path.join(HERE, "chiprun_out", "profile_request.txt"), "w") as f:
+    table = events.table(sort_by="self_device_time_total", row_limit=50)
+    with open(os.path.join(HERE, "chiprun_out", filename), "w") as f:
         f.write(table)
-    busy = device_us / 1e6 / median_s
-    log(f"[profile] request {seconds * 1e3:.1f} ms under the profiler, device kernel time "
-        f"{device_us / 1e3:.1f} ms; against the {median_s * 1e3:.1f} ms median: busy share "
-        f"{busy:.3f}, idle share {1 - busy:.3f}")
-    for line in table.splitlines()[:18]:
+    busy = device_us / 1e6 / unprofiled_s
+    log(f"[profile] {label} {seconds * 1e3:.1f} ms under the profiler, device kernel time "
+        f"{device_us / 1e3:.1f} ms; against the {unprofiled_s * 1e3:.1f} ms without it: busy "
+        f"share {busy:.3f}, idle share {1 - busy:.3f}")
+    for line in table.splitlines()[:rows]:
         log(f"[profile] {line}")
+
+
+# -- the pre-encode path at full width ------------------------------------------
+
+# 16 batches: a steady window of 15 after the first batch's warm-up
+PRE_ENCODE_IMAGES, PRE_ENCODE_BATCH = 1024, 64
+
+
+def write_image_shard(path, samples, seed=0):
+    """A raw webdataset shard: ``samples`` seeded 256 x 256 PNG images (smooth
+    colour fields with noise) with captions and LAION-style metadata;
+    returns the images as uint8 (samples, 256, 256, 3)."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:256, 0:256] / 255.0
+    images = []
+    with tarfile.open(path, "w") as tf:
+        for i in range(samples):
+            base = rs.rand(3, 3) @ np.stack([yy, xx, np.ones_like(xx)]).reshape(3, -1)
+            img = base.T.reshape(256, 256, 3) + 0.1 * rs.randn(256, 256, 3)
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            images.append(img)
+            png = io.BytesIO()
+            Image.fromarray(img).save(png, format="PNG")
+            meta = json.dumps({"width": 256, "height": 256, "aesthetic": 6.0})
+            for ext, data in (("png", png.getvalue()), ("txt", PROMPTS[i % 4].encode()),
+                              ("json", meta.encode())):
+                info = tarfile.TarInfo(f"{i:05d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    return np.stack(images)
+
+
+def read_members(path):
+    """{sample key: {member name: numpy array or bytes}} of a tar shard."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    out = {}
+    with tarfile.open(path) as tf:
+        for m in tf.getmembers():
+            key, name = m.name.split(".", 1)
+            data = tf.extractfile(m).read()
+            out.setdefault(key, {})[name] = np.load(io.BytesIO(data)) if name.endswith(".npy") \
+                else data
+    return out
+
+
+def pre_encode_phase(pipe, device, smi):
+    """scripts.pre_encode.main on a shard of 1024 seeded images at batch 64,
+    with the serving VQGAN (f16, 8192 codes) and text tower written by
+    save_pretrained and loaded by from_pretrained(device="cuda") in fp32."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin_plain
+    from open_muse_tpu_torch.scripts import pre_encode
+    from open_muse_tpu_torch.training.data import PreEncodedDataset
+    from open_muse_tpu_torch.training.train_muse import prepare_batch
+    from open_muse_tpu_torch.utils.config import Config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pre_encode_", dir=runs)
+    try:
+        shard = os.path.join(work, "raw-000.tar")
+        pixels = write_image_shard(shard, PRE_ENCODE_IMAGES)
+        vq_dir, clip_dir = os.path.join(work, "vqgan"), os.path.join(work, "clip")
+        pipe.vae.save_pretrained(vq_dir)
+        pipe.text_encoder.save_pretrained(clip_dir)
+        out = os.path.join(work, "encoded")
+        argv = ["--shards", shard, "--output-dir", out, "--vae-f16", vq_dir, "--text-encoder",
+                clip_dir, "--batch-size", str(PRE_ENCODE_BATCH), "--resolution", "256",
+                "--device", "cuda"]
+        log(f"[pre_encode] arguments {' '.join(argv)}")
+        expected = {name: 0 for name in kernels.launch_counts()}
+        expected["vq_argmin"] = PRE_ENCODE_IMAGES // PRE_ENCODE_BATCH
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = pre_encode.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+
+        members = read_members(os.path.join(out, os.path.basename(shard)))
+        want = {"vq_f16.npy": ((256,), np.int32), "clip_penultimate.npy": ((77, 768), np.float16),
+                "clip_pooled.npy": ((768,), np.float16)}
+        layout_ok = sorted(members) == [f"{i:05d}" for i in range(PRE_ENCODE_IMAGES)] and all(
+            sorted(m) == sorted(list(want) + ["json", "txt"])
+            and all((m[k].shape, m[k].dtype) == (shape, np.dtype(dt))
+                    for k, (shape, dt) in want.items())
+            and all(np.isfinite(m[k].astype(np.float32)).all() for k in want)
+            for m in members.values())
+        tokens = torch.from_numpy(np.stack([members[f"{i:05d}"]["vq_f16.npy"]
+                                            for i in range(PRE_ENCODE_IMAGES)]))
+        range_ok = bool(((tokens >= 0) & (tokens < 8192)).all())
+        # the all-plain get_code on the same pixels (PNG is lossless and a
+        # 256 x 256 image passes the resize and crop unchanged)
+        vae = pipe.vae
+        plain = []
+        with torch.no_grad():
+            for i in range(0, PRE_ENCODE_IMAGES, PRE_ENCODE_BATCH):
+                images = torch.from_numpy(pixels[i:i + PRE_ENCODE_BATCH]).to(device).float() / 255.0
+                latents = vae._latents(images)
+                plain.append(vq_argmin_plain(latents.reshape(-1, latents.shape[-1]),
+                                             vae.quantize.embedding.weight)
+                             .reshape(latents.shape[0], -1).cpu())
+        agree = (tokens == torch.cat(plain).to(tokens.dtype)).double().mean().item()
+        batch = next(iter(PreEncodedDataset(os.path.join(out, os.path.basename(shard)), 16,
+                                            shuffle_buffer_size=32)))
+        tensors = prepare_batch(batch, Config({"training": {}}), 768, device)
+        read_ok = (tuple(tensors["image_tokens"].shape) == (16, 256)
+                   and tuple(tensors["encoder_hidden_states"].shape) == (16, 77, 768)
+                   and tuple(tensors["cond_embeds"].shape) == (16, 768))
+        ok = (launches == expected and layout_ok and range_ok and agree >= 0.999 and read_ok
+              and stats["n_samples"] == PRE_ENCODE_IMAGES)
+        log(f"[pre_encode] {stats['n_samples']} images in {stats['n_batches']} batches of "
+            f"{PRE_ENCODE_BATCH}: members named, shaped and typed as scripts/pre_encode.py "
+            f"writes them {layout_ok}; tokens in [0, 8192) {range_ok}; equal to the all-plain "
+            f"get_code {agree:.6f} (bound >= 0.999); read back by PreEncodedDataset and "
+            f"prepare_batch {read_ok}; launches {launches} (expected {expected}) "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[pre_encode] {stats['imgs_per_sec']:.1f} images/s over the run "
+            f"({stats['total_s']:.2f} s, model loading excluded, first batch included), "
+            f"{stats.get('steady_imgs_per_sec', float('nan')):.1f} images/s after the first "
+            f"batch; {wall:.2f} s with loading (host clock) on {smi}")
+        # the whole entry point again, models loading included, into another directory
+        again = argv[:argv.index("--output-dir") + 1] + [out + "_profiled"] + \
+            argv[argv.index("--output-dir") + 2:]
+        profiled("pre-encode run", lambda: pre_encode.main(again), wall,
+                 "profile_pre_encode.txt")
+        return ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # -- the training path at full width ------------------------------------------
@@ -493,7 +868,7 @@ EXPECTED_TRAIN_LAUNCHES = {
     "attn_sublayer_self": 2 * LAYERS * TRAIN_STEPS, "attn_sublayer_cross": 2 * LAYERS * TRAIN_STEPS,
     "glu_down_matmul": 2 * LAYERS * TRAIN_STEPS, "fused_categorical_cfg": 0,
     "attn_sublayer_self_bwd": LAYERS * TRAIN_STEPS, "attn_sublayer_cross_bwd": LAYERS * TRAIN_STEPS,
-    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS}
+    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS, "fused_categorical": 0, "vq_argmin": 0}
 # bounds of the full-width gradient check, kernels vs plain versions, both in
 # bf16 autocast through 22 layers: per trunk tensor
 GRAD_REL_TOL, GRAD_COS_MIN = 0.1, 0.99
@@ -596,12 +971,9 @@ def write_shard(path, samples=32, seed=0):
                 tf.addfile(info, io.BytesIO(data))
 
 
-def profile_train_step(state, device, median_s, out_dir):
+def profile_train_step(state, device, median_s):
     """Device time by kernel for one more train step (outside the counted
-    run); the table goes to ``out_dir/profile_train_step.txt``.  The busy
-    share is device kernel time over the unprofiled median step time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    run), against the unprofiled median step time."""
     from open_muse_tpu_torch.ops.sampling import get_mask_schedule
     from open_muse_tpu_torch.training import trainer as T
     from open_muse_tpu_torch.training.masking import draw_masking_noise
@@ -612,25 +984,11 @@ def profile_train_step(state, device, median_s, out_dir):
     noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(4),
                                8192)
     float(step(state, batch, noise)["loss"])  # warm-up outside the profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        float(step(state, batch, noise)["loss"])
-        seconds = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    table = events.table(sort_by="self_device_time_total", row_limit=50)
-    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
-        f.write(table)
-    busy = device_us / 1e6 / median_s
-    log(f"[profile] train step {seconds * 1e3:.1f} ms under the profiler, device kernel time "
-        f"{device_us / 1e3:.1f} ms; against the {median_s * 1e3:.1f} ms median step: busy share "
-        f"{busy:.3f}, idle share {1 - busy:.3f}")
-    for line in table.splitlines()[:16]:
-        log(f"[profile] {line}")
+    profiled("train step", lambda: float(step(state, batch, noise)["loss"]), median_s,
+             "profile_train_step.txt")
 
 
-def training_phase(device, smi, out_dir):
+def training_phase(device, smi):
     """train_muse.main on the research config at batch 16, then main again
     resuming from its checkpoint; returns the launch counts of the first."""
     import shutil
@@ -699,7 +1057,7 @@ def training_phase(device, smi, out_dir):
             f"optimizer count {resumed.optimizer.count} {'ok' if resume_ok else 'FAIL'}")
         del resumed
         torch.cuda.empty_cache()
-        profile_train_step(state, device, median, out_dir)
+        profile_train_step(state, device, median)
         ok = finite and falling and steps_ok and counts_ok and resume_ok
         return ok, launches
     finally:
@@ -743,22 +1101,46 @@ def main() -> int:
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         f.write(_build.build_log)
 
+    phase_t0 = time.perf_counter()
     report = kernel_phase(device)
     report.update(backward_kernel_phase(device))
     failed = [name for name, (ok, _, _) in report.items() if not ok]
-    paths = {"serving": request_phase(device, smi)}
+    log(f"[phase] kernel checks {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    pipe = build_pipeline(device)
+    paths = {"serving": request_phase(pipe, device, smi)}
+    paths["serving_nocfg"] = nocfg_phase(pipe, smi)
+    paths["inpainting"] = inpainting_phase(pipe, device, smi)
+    pre_ok, paths["pre_encode"] = pre_encode_phase(pipe, device, smi)
+    if not pre_ok:
+        failed.append("pre_encode phase")
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"[phase] serving, serving_nocfg, inpainting, pre_encode {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
     if not gradient_check(device):
         failed.append("full-width gradient check")
-    train_ok, paths["training"] = training_phase(device, smi, out_dir)
+    train_ok, paths["training"] = training_phase(device, smi)
     if not train_ok:
         failed.append("training phase")
+    log(f"[phase] gradient check and training {time.perf_counter() - phase_t0:.1f} s")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": sum(p[name] for p in paths.values()),
-         "launches_by_path": {path: p[name] for path, p in paths.items()},
-         "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
-        for name, (ok, err, t) in report.items()]}))
+    rows = []
+    for name, (ok, err, t) in report.items():
+        bound, bound_by = bound_ms(name)
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name][0],
+                     "replaces": SOURCES[name][1],
+                     "launches": sum(p[name] for p in paths.values()),
+                     "launches_by_path": {path: p[name] for path, p in paths.items()},
+                     "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": None})
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    if missing:
+        failed.append(f"kernels never launched on a path: {missing}")
+    print(smi)
+    print(json.dumps({"kernels": rows}))
     if failed:
         raise SystemExit(f"chip_smoke: checks failed: {failed}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
-// CFG sampling tail of one MaskGIT decode step, in one pass over the logits:
+// Sampling tail of one MaskGIT decode step, in one pass over the logits:
 //
 //   x     = u + g * (c - u)      fp32, columns < vocab_limit (codebook crop)
 //   id    = argmax(x + gumbel)   lowest index wins ties
 //   sel   = exp(x[id] - logsumexp(x))
 //
-// c and u are the cond and uncond halves of the raw (2B, S, V_raw) logits.
-// Replaces the Pallas TPU kernel open_muse_tpu/ops/pallas/fused_sample.py
-// `fused_categorical_cfg` (body `_cfg_kernel`).
+// With CFG, c and u are the cond and uncond halves of the raw (2B, S, V_raw)
+// logits; without (kCfg = false), x is the cropped fp32 logit itself.
+// Replaces the Pallas TPU kernels open_muse_tpu/ops/pallas/fused_sample.py
+// `fused_categorical_cfg` (body `_cfg_kernel`) and `fused_categorical` (body
+// `_kernel`; the JAX loop crops and casts to fp32 before it, this kernel
+// reads the raw bf16 logits and crops in place, the same function).
 //
 // Noise: either an explicit fp32 gumbel tensor (tests and comparisons, as the
 // TPU kernel's `gumbel=`), or a counter-based Philox4x32-10 stream in place of
@@ -14,7 +17,8 @@
 // torch.Generator, with one counter per (row, column).
 //
 // What bounds it on the H100: reading the logits -- 2 x 256 x 8192 bf16 = 8 MB
-// per serving step -- plus one exp and (with Philox) two logs per element.
+// per serving step with CFG, half that without -- plus one exp and (with
+// Philox) two logs per element.
 // What the design does about it: one block per row streams both halves once
 // with coalesced loads, keeps a running (best score, index, logit) and an
 // online (max, sum) per thread, and merges them with warp shuffles; the
@@ -79,22 +83,24 @@ __device__ __forceinline__ void merge(Best& a, const Best& b) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
+template <typename T, bool kCfg>
 __global__ void __launch_bounds__(kThreads)
-cfg_sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, float guidance,
-                  const float* __restrict__ gumbel, int64_t g_stride, uint64_t seed,
-                  int* __restrict__ ids, float* __restrict__ sel) {
+sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, float guidance,
+              const float* __restrict__ gumbel, int64_t g_stride, uint64_t seed,
+              int* __restrict__ ids, float* __restrict__ sel) {
   const int row = blockIdx.x;
   const T* cond = logits + int64_t(row) * v_raw;
-  const T* uncond = logits + (int64_t(N) + row) * v_raw;
+  const T* uncond = kCfg ? logits + (int64_t(N) + row) * v_raw : nullptr;
   const float* g_row = gumbel ? gumbel + row * g_stride : nullptr;
 
   Best best{-INFINITY, -INFINITY, -INFINITY, 0.f, 0x7fffffff};
   for (int v = threadIdx.x; v < vocab_limit; v += kThreads) {
-    const float c = to_f32(cond[v]);
-    const float u = to_f32(uncond[v]);
-    // no FMA contraction: the same roundings as u + g * (c - u) in XLA / torch
-    const float x = __fadd_rn(u, __fmul_rn(guidance, __fsub_rn(c, u)));
+    float x = to_f32(cond[v]);
+    if constexpr (kCfg) {
+      const float u = to_f32(uncond[v]);
+      // no FMA contraction: the same roundings as u + g * (c - u) in XLA / torch
+      x = __fadd_rn(u, __fmul_rn(guidance, __fsub_rn(x, u)));
+    }
     const float noise = g_row ? g_row[v] : gumbel_from_bits(philox_bits(seed, row, v));
     const float score = __fadd_rn(x, noise);
     if (score > best.score) {  // v increases per thread: the first index wins ties
@@ -129,6 +135,22 @@ cfg_sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limi
   }
 }
 
+template <bool kCfg>
+int launch(const void* logits, int logits_bf16, int N, int v_raw, int vocab_limit, float guidance,
+           const float* gumbel, int64_t g_stride, uint64_t seed, int* ids, float* sel,
+           void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (logits_bf16)
+    sample_kernel<__nv_bfloat16, kCfg><<<N, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(logits), N, v_raw, vocab_limit, guidance, gumbel,
+        g_stride, seed, ids, sel);
+  else
+    sample_kernel<float, kCfg><<<N, kThreads, 0, stream>>>(static_cast<const float*>(logits), N,
+                                                           v_raw, vocab_limit, guidance, gumbel,
+                                                           g_stride, seed, ids, sel);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // logits: (2N, v_raw), cond rows first; bf16 when logits_bf16 != 0, else fp32.
@@ -137,14 +159,14 @@ extern "C" int muse_cfg_sample(const void* logits, int logits_bf16, int N, int v
                                int vocab_limit, float guidance, const float* gumbel,
                                int64_t g_stride, uint64_t seed, int* ids, float* sel,
                                void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (logits_bf16)
-    cfg_sample_kernel<__nv_bfloat16><<<N, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(logits), N, v_raw, vocab_limit, guidance, gumbel,
-        g_stride, seed, ids, sel);
-  else
-    cfg_sample_kernel<float><<<N, kThreads, 0, stream>>>(static_cast<const float*>(logits), N,
-                                                         v_raw, vocab_limit, guidance, gumbel,
-                                                         g_stride, seed, ids, sel);
-  return int(cudaGetLastError());
+  return launch<true>(logits, logits_bf16, N, v_raw, vocab_limit, guidance, gumbel, g_stride,
+                      seed, ids, sel, stream_ptr);
+}
+
+// logits: (N, v_raw); no guidance.  Otherwise as muse_cfg_sample.
+extern "C" int muse_sample(const void* logits, int logits_bf16, int N, int v_raw,
+                           int vocab_limit, const float* gumbel, int64_t g_stride, uint64_t seed,
+                           int* ids, float* sel, void* stream_ptr) {
+  return launch<false>(logits, logits_bf16, N, v_raw, vocab_limit, 0.f, gumbel, g_stride, seed,
+                       ids, sel, stream_ptr);
 }

@@ -45,16 +45,18 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
 
 from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
                             attn_sublayer_self, attn_sublayer_self_bwd)
-from .fused_sample import fused_categorical_cfg  # noqa: E402
+from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
 from .glu_matmul import glu_down_matmul, glu_down_matmul_bwd  # noqa: E402
+from .vq_argmin import vq_argmin  # noqa: E402
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul",
            "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
-           "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg"]
+           "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
+           "fused_categorical", "vq_argmin"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
-            glu_down_matmul_bwd)
+            glu_down_matmul_bwd, fused_categorical, vq_argmin)
 
 
 def launch_counts() -> dict:

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "muse_attn_sublayer_bwd": [_P] * 22 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_cfg_sample": [_P, _I, _I, _I, _I, ctypes.c_float, _P, ctypes.c_int64,
                         ctypes.c_uint64, _P, _P, _P],
+    "muse_sample": [_P, _I, _I, _I, _I, _P, ctypes.c_int64, ctypes.c_uint64, _P, _P, _P],
+    "muse_vq_argmin": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

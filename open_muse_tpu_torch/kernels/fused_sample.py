@@ -1,9 +1,10 @@
-"""CFG combine + vocab crop + Gumbel-max sample + confidence in one pass
+"""Vocab crop + (CFG combine +) Gumbel-max sample + confidence in one pass
 (csrc/fused_sample.cu).
 
-Counterpart of ``open_muse_tpu/ops/pallas/fused_sample.py
-fused_categorical_cfg``.  Sampling matches JAX only in distribution; with
-the same explicit ``gumbel`` noise the token ids match exactly.
+Counterparts of ``open_muse_tpu/ops/pallas/fused_sample.py``
+``fused_categorical_cfg`` and ``fused_categorical``.  Sampling matches JAX
+only in distribution; with the same explicit ``gumbel`` noise the token ids
+match exactly.
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ import torch
 from . import on_cpu, require_cuda, stream_handle
 from ._build import check, library
 
-__all__ = ["fused_categorical_cfg", "fused_categorical_cfg_plain", "sample_gumbel",
-           "draw_seed"]
+__all__ = ["fused_categorical", "fused_categorical_plain", "fused_categorical_cfg",
+           "fused_categorical_cfg_plain", "sample_gumbel", "draw_seed"]
 
 
 def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
@@ -29,27 +30,30 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator))
 
 
-def fused_categorical_cfg_plain(logits, guidance, vocab_limit: int, gumbel):
-    """crop -> fp32 -> u + g (c - u) -> argmax(x + gumbel), first index on
-    ties -> (ids int32, exp(x[id] - logsumexp(x)))."""
-    b = logits.shape[0] // 2
+def fused_categorical_plain(logits, vocab_limit: int, gumbel):
+    """crop -> fp32 -> argmax(x + gumbel), first index on ties -> (ids int32,
+    exp(x[id] - logsumexp(x)))."""
     x = logits[..., :vocab_limit].float()
-    cond, uncond = x[:b], x[b:]
-    x = uncond + guidance * (cond - uncond)
     ids = torch.argmax(x + gumbel[..., :vocab_limit], dim=-1)
     sel = torch.exp(torch.gather(x, -1, ids[..., None])[..., 0] - torch.logsumexp(x, -1))
     return ids.to(torch.int32), sel
 
 
-def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None,
-                          generator: torch.Generator | None = None):
-    """logits (2B, S, V_raw), cond rows first -> (ids (B, S) int32,
-    sel (B, S) fp32).  Noise is either ``gumbel`` (B, S, >= vocab_limit)
-    fp32, or drawn from the CPU ``generator`` (the card's kernel seeds its
-    Philox stream from it)."""
-    two_b, s, v_raw = logits.shape
-    b = two_b // 2
-    if two_b % 2 or not 0 < vocab_limit <= v_raw:
+def fused_categorical_cfg_plain(logits, guidance, vocab_limit: int, gumbel):
+    """crop -> fp32 -> u + g (c - u) -> the CFG-free sampler."""
+    b = logits.shape[0] // 2
+    x = logits[..., :vocab_limit].float()
+    return fused_categorical_plain(x[b:] + guidance * (x[:b] - x[b:]), vocab_limit, gumbel)
+
+
+def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generator, *guidance):
+    """Shared by both wrappers: check the noise, then the plain version for
+    CPU tensors or, for CUDA tensors, the kernel behind the C function
+    ``entry`` (``guidance`` passed after ``vocab_limit``), counted in
+    ``wrapper.launches``."""
+    name = wrapper.__name__
+    s, v_raw = logits.shape[1:]
+    if not 0 < vocab_limit <= v_raw:
         raise ValueError(f"bad logits {tuple(logits.shape)} / vocab_limit {vocab_limit}")
     if (gumbel is None) == (generator is None):
         raise ValueError("pass exactly one of gumbel= and generator=")
@@ -59,23 +63,46 @@ def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None
     if on_cpu(logits, gumbel):
         if gumbel is None:
             gumbel = sample_gumbel((b, s, vocab_limit), generator)
-        return fused_categorical_cfg_plain(logits, guidance, vocab_limit, gumbel)
-    require_cuda("fused_categorical_cfg", (torch.bfloat16, torch.float32), logits)
+        return plain(logits, *guidance, vocab_limit, gumbel)
+    require_cuda(name, (torch.bfloat16, torch.float32), logits)
     if gumbel is not None:
-        require_cuda("fused_categorical_cfg", (torch.float32,), gumbel)
+        require_cuda(name, (torch.float32,), gumbel)
         if gumbel.device != logits.device:
-            raise ValueError(f"fused_categorical_cfg: gumbel on {gumbel.device}, "
-                             f"logits on {logits.device}")
+            raise ValueError(f"{name}: gumbel on {gumbel.device}, logits on {logits.device}")
     seed = 0 if generator is None else draw_seed(generator)
     ids = torch.empty((b, s), dtype=torch.int32, device=logits.device)
     sel = torch.empty((b, s), dtype=torch.float32, device=logits.device)
-    check(library().muse_cfg_sample(
+    check(getattr(library(), entry)(
         logits.data_ptr(), int(logits.dtype == torch.bfloat16), b * s, v_raw, vocab_limit,
-        float(guidance), None if gumbel is None else gumbel.data_ptr(),
+        *guidance, None if gumbel is None else gumbel.data_ptr(),
         0 if gumbel is None else gumbel.shape[2], seed, ids.data_ptr(), sel.data_ptr(),
-        stream_handle(logits)), "fused_categorical_cfg")
-    fused_categorical_cfg.launches += 1
+        stream_handle(logits)), name)
+    wrapper.launches += 1
     return ids, sel
 
 
+def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None,
+                          generator: torch.Generator | None = None):
+    """logits (2B, S, V_raw), cond rows first -> (ids (B, S) int32,
+    sel (B, S) fp32).  Noise is either ``gumbel`` (B, S, >= vocab_limit)
+    fp32, or drawn from the CPU ``generator`` (the card's kernel seeds its
+    Philox stream from it)."""
+    if logits.shape[0] % 2:
+        raise ValueError(f"CFG logits {tuple(logits.shape)} need cond and uncond halves")
+    return _sample(fused_categorical_cfg, "muse_cfg_sample", fused_categorical_cfg_plain, logits,
+                   logits.shape[0] // 2, vocab_limit, gumbel, generator, float(guidance))
+
+
 fused_categorical_cfg.launches = 0
+
+
+def fused_categorical(logits, vocab_limit: int, gumbel=None,
+                      generator: torch.Generator | None = None):
+    """The CFG-free sampler: logits (B, S, V_raw) -> (ids (B, S) int32,
+    sel (B, S) fp32) over the first ``vocab_limit`` columns.  Noise as for
+    ``fused_categorical_cfg``."""
+    return _sample(fused_categorical, "muse_sample", fused_categorical_plain, logits,
+                   logits.shape[0], vocab_limit, gumbel, generator)
+
+
+fused_categorical.launches = 0

@@ -129,6 +129,7 @@ class CLIPTextEncoder(ModelMixin, nn.Module):
     embeddings then every layer, last_hidden_state, text_embeds (B, P))."""
 
     config_class = CLIPTextConfig
+    _class_name = "CLIPTextModelWithProjection"
 
     def __init__(self, config: CLIPTextConfig | None = None, **kwargs):
         super().__init__()

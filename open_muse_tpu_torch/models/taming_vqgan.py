@@ -1,12 +1,17 @@
-"""Taming-transformers VQGAN, decode side, in PyTorch.
+"""Taming-transformers VQGAN in PyTorch: the encode and the decode side.
 
-Counterpart of the decode path of ``open_muse_tpu/models/taming_vqgan.py``:
-codebook lookup -> post_quant_conv -> Decoder.  Computes in NCHW inside and
-takes and returns NHWC tensors, as the JAX package does.  Plain PyTorch in
-fp32: JAX runs it outside any Pallas kernel.
+Counterpart of ``open_muse_tpu/models/taming_vqgan.py``: Encoder ->
+quant_conv -> nearest-code search (the ``vq_argmin`` kernel) on the encode
+side, codebook lookup -> post_quant_conv -> Decoder on the decode side.
+Computes in NCHW inside and takes and returns NHWC tensors, as the JAX
+package does (``encode`` / ``get_code`` take NCHW too).  The convolutions
+are plain PyTorch in fp32: JAX runs them outside any Pallas kernel.
 
-Reproduced reference quirk: an up block applies its attention only when it
-has more than one (``len(attn) > 1``).
+Reproduced reference quirks:
+  * a block applies its attention only when it has more than one
+    (``len(attn) > 1``), though a down block with one still holds its
+    parameters;
+  * Downsample pads (0, 1, 0, 1), then runs a VALID stride-2 conv.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from ..core.modeling import ModelMixin
 from ..ops.layers import dot_product_attention
 from ..ops.vq import VectorQuantizer
 
-__all__ = ["VQGANConfig", "VQGANModel"]
+__all__ = ["VQGANConfig", "VQGANModel", "to_nhwc"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +92,40 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class Downsample(nn.Module):
+    def __init__(self, channels: int, with_conv: bool):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2) if with_conv else None
+
+    def forward(self, x):
+        if self.conv is None:
+            return F.avg_pool2d(x, 2, 2)
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class DownsamplingBlock(nn.Module):
+    """num_res_blocks ResnetBlocks (+ attention at attn_resolutions)."""
+
+    def __init__(self, cfg: VQGANConfig, curr_res: int, block_idx: int):
+        super().__init__()
+        block_in = cfg.hidden_channels * ((1,) + tuple(cfg.channel_mult))[block_idx]
+        block_out = cfg.hidden_channels * cfg.channel_mult[block_idx]
+        n = cfg.num_res_blocks
+        self.block = nn.ModuleList(
+            [ResnetBlock(block_in if j == 0 else block_out, block_out) for j in range(n)])
+        self.attn = nn.ModuleList(
+            [AttnBlock(block_out) for _ in range(n)] if curr_res in cfg.attn_resolutions else [])
+        last = block_idx == cfg.num_resolutions - 1
+        self.downsample = None if last else Downsample(block_out, cfg.resample_with_conv)
+
+    def forward(self, h):
+        for j, block in enumerate(self.block):
+            h = block(h)
+            if len(self.attn) > 1:
+                h = self.attn[j](h)
+        return h if self.downsample is None else self.downsample(h)
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int, with_conv: bool):
         super().__init__()
@@ -134,6 +173,25 @@ class MidBlock(nn.Module):
         return self.block_2(h)
 
 
+class Encoder(nn.Module):
+    def __init__(self, cfg: VQGANConfig):
+        super().__init__()
+        self.conv_in = nn.Conv2d(cfg.num_channels, cfg.hidden_channels, 3, padding=1)
+        self.down = nn.ModuleList(
+            [DownsamplingBlock(cfg, cfg.resolution // 2 ** i, i)
+             for i in range(cfg.num_resolutions)])
+        mid_channels = cfg.hidden_channels * cfg.channel_mult[-1]
+        self.mid = MidBlock(cfg, mid_channels)
+        self.norm_out = _group_norm(mid_channels)
+        self.conv_out = nn.Conv2d(mid_channels, cfg.z_channels, 3, padding=1)
+
+    def forward(self, pixel_values):
+        h = self.conv_in(pixel_values)
+        for block in self.down:
+            h = block(h)
+        return self.conv_out(F.silu(self.norm_out(self.mid(h))))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VQGANConfig):
         super().__init__()
@@ -155,19 +213,43 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
+def to_nhwc(pixel_values):
+    """Accept NCHW (the reference layout) or NHWC images; return NHWC."""
+    if pixel_values.dim() == 4 and pixel_values.shape[1] == 3 and pixel_values.shape[-1] != 3:
+        return pixel_values.permute(0, 2, 3, 1)
+    return pixel_values
+
+
 class VQGANModel(ModelMixin, nn.Module):
-    """Decode side of the taming VQGAN: ``decode_code(ids (B, N))`` -> NHWC
-    images (B, R, R, 3)."""
+    """The taming VQGAN: ``get_code(images)`` -> ids (B, N), ``encode`` ->
+    (z_q NHWC, ids), ``decode_code(ids (B, N))`` -> NHWC images
+    (B, R, R, 3)."""
 
     config_class = VQGANConfig
+    _class_name = "VQGANModel"
 
     def __init__(self, config: VQGANConfig | None = None, **kwargs):
         super().__init__()
         cfg = config if config is not None else self.config_from_dict(kwargs)
         self.config = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim)
+        self.quant_conv = nn.Conv2d(cfg.z_channels, cfg.quantized_embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.quantized_embed_dim, cfg.z_channels, 1)
+
+    def _latents(self, pixel_values):
+        """NHWC or NCHW images -> NHWC latents before quantization."""
+        h = to_nhwc(pixel_values).permute(0, 3, 1, 2)
+        return self.quant_conv(self.encoder(h)).permute(0, 2, 3, 1)
+
+    def encode(self, pixel_values):
+        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64)."""
+        return self.quantize(self._latents(pixel_values))
+
+    def get_code(self, pixel_values):
+        """Images in [0, 1] -> code ids (B, H*W) int64."""
+        return self.quantize.get_code(self._latents(pixel_values))
 
     def decode(self, quantized_states):
         """NHWC latents -> NHWC images."""

@@ -27,7 +27,7 @@ from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
 from ..kernels.attn_sublayer import (attn_sublayer_cross, attn_sublayer_self,
                                      sublayer_shapes_supported)
-from ..kernels.fused_sample import fused_categorical_cfg
+from ..kernels.fused_sample import fused_categorical, fused_categorical_cfg
 from ..kernels.fused_sample import sample_gumbel as gumbel_noise
 from ..kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 from ..ops import sampling
@@ -328,6 +328,7 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
     of the CUDA kernels; on CPU tensors both compute the plain versions."""
 
     config_class = MaskGiTUViT_v2Config
+    _class_name = "MaskGiTUViT_v2"
 
     def __init__(self, config: MaskGiTUViT_v2Config | None = None, **kwargs):
         super().__init__()
@@ -521,13 +522,8 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
                                                  cfg.codebook_size, gumbel=g,
                                                  generator=None if g is not None else generator)
         else:
-            # the CFG-free sampling kernel (fused_categorical) is not ported yet
-            if g is None:
-                g = gumbel_noise((batch, seq_len, cfg.codebook_size), generator).to(device)
-            logits = raw[..., :cfg.codebook_size].float()
-            sampled = torch.argmax(logits + g[..., :cfg.codebook_size], dim=-1)
-            sel = torch.exp(torch.gather(logits, -1, sampled[..., None])[..., 0]
-                            - torch.logsumexp(logits, -1))
+            sampled, sel = fused_categorical(raw, cfg.codebook_size, gumbel=g,
+                                             generator=None if g is not None else generator)
         mg = (gumbel_noise((batch, seq_len), generator).to(device) if mask_gumbel is None
               else mask_gumbel[step].to(device))
         unknown = ids == cfg.mask_token_id

@@ -1,35 +1,284 @@
-"""Batches of pre-encoded samples from webdataset-style tar shards.
+"""Webdataset-style tar shards: streaming, decoding, filtering and batches of
+pre-encoded samples.
 
-Counterpart of the ``pre_encode`` branch of ``open_muse_tpu/training/data.py``
-``Text2ImageDataset``: image tokens and text embeddings stored as ``.npy``
-(or ``.pth``) members, a metadata quality filter, a shuffle buffer and
-numpy batches.  It reuses that module's jax-free pieces (``ShardSource``,
-``tar_samples``, ``decode_sample``, ``_prefetch``) and passes the process
-rank to ``ShardSource`` (one process: rank 0 of 1); left out, ``ShardSource``
-asks jax for it.
+The port's own copy of the jax-free pieces of
+``open_muse_tpu/training/data.py``: brace expansion, (``pipe:``) tar
+streaming with key grouping that skips corrupt members, the per-process shard
+split (the rank and the process count are given, never looked up), sample
+decoding, the resize-and-crop image transform, the metadata quality filter
+and a background prefetch thread.  ``PreEncodedDataset`` is the counterpart
+of the ``pre_encode`` branch of ``Text2ImageDataset``.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import logging
+import os
+import queue
 import random
+import re
+import subprocess
 import tarfile
-from typing import Any, Callable, Dict, Iterator, List, Optional
+import threading
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
-from open_muse_tpu.training.data import ShardSource, _prefetch, decode_sample, tar_samples
-
-__all__ = ["PreEncodedDataset"]
+__all__ = ["braceexpand", "expand_urls", "tar_samples", "ShardSource", "decode_sample",
+           "image_transform", "WebdatasetSelect", "PreEncodedDataset"]
 
 logger = logging.getLogger(__name__)
+
+_BRACE_RE = re.compile(r"\{(\d+)\.\.(\d+)\}")
+
+
+def braceexpand(pattern: str) -> List[str]:
+    """'{00000..00004}.tar' -> 5 urls; several ranges and comma alternation
+    '{a,b}' expand left to right, as bash does."""
+    m_range = _BRACE_RE.search(pattern)
+    m_alt = re.search(r"\{([^{}]*,[^{}]*)\}", pattern)
+    if m_range and (m_alt is None or m_range.start() < m_alt.start()):
+        lo, hi = m_range.group(1), m_range.group(2)
+        out = []
+        for i in range(int(lo), int(hi) + 1):
+            out.extend(braceexpand(pattern[: m_range.start()] + str(i).zfill(len(lo))
+                                   + pattern[m_range.end():]))
+        return out
+    if m_alt:
+        out = []
+        for alt in m_alt.group(1).split(","):
+            out.extend(braceexpand(pattern[: m_alt.start()] + alt + pattern[m_alt.end():]))
+        return out
+    return [pattern]
+
+
+def expand_urls(urls) -> List[str]:
+    """str | list[str] with brace patterns -> a flat list of shards."""
+    if isinstance(urls, str):
+        urls = [urls]
+    out = []
+    for u in urls:
+        out.extend(braceexpand(u))
+    return out
+
+
+def _open_shard(url: str):
+    """A local path, or 'pipe:cmd ...' whose standard output is the tar."""
+    if url.startswith("pipe:"):
+        proc = subprocess.Popen(url[5:], shell=True, stdout=subprocess.PIPE, bufsize=1 << 20)
+        return proc.stdout
+    return open(url, "rb")
+
+
+def tar_samples(url: str, handler: str = "warn") -> Iterator[Dict[str, bytes]]:
+    """Stream key-grouped samples from one tar shard: members 'key.ext' group
+    into {'__key__': key, '__url__': url, ext: bytes, ...}.  Unreadable
+    members are skipped; a corrupt or truncated shard ends the stream with a
+    warning unless ``handler == "raise"``."""
+    try:
+        stream = _open_shard(url)
+    except OSError:
+        if handler == "raise":
+            raise
+        return
+    current_key = None
+    sample: Dict[str, Any] = {}
+    try:
+        with tarfile.open(fileobj=stream, mode="r|*") as tf:
+            for member in tf:
+                if not member.isfile():
+                    continue
+                name = member.name
+                if name.startswith("./"):
+                    name = name[2:]
+                if "." not in name:
+                    continue
+                key, ext = name.split(".", 1)
+                try:
+                    data = tf.extractfile(member).read()
+                except Exception:
+                    continue
+                if key != current_key:
+                    if current_key is not None and sample:
+                        yield sample
+                    current_key = key
+                    sample = {"__key__": key, "__url__": url}
+                sample[ext.lower()] = data
+            if current_key is not None and sample:
+                yield sample
+    except (tarfile.TarError, EOFError, OSError) as e:
+        if handler == "raise":
+            raise
+        logger.warning("skipping corrupt shard %s: %s", url, e)
+    finally:
+        try:
+            stream.close()
+        except Exception:
+            pass
+
+
+class ShardSource:
+    """This process's share of the shards (every ``process_count``-th from
+    ``process_index``), resampled with replacement forever
+    (``resample=True``) or walked once, optionally shuffled."""
+
+    def __init__(self, urls, *, process_index: int, process_count: int, shuffle: bool = True,
+                 resample: bool = True, seed: Optional[int] = None):
+        # a bare dataset name resolves to a shard-list YAML in configs/
+        if isinstance(urls, str) and "." not in os.path.basename(urls):
+            repo_configs = os.path.join(os.path.dirname(os.path.dirname(
+                os.path.dirname(os.path.abspath(__file__)))), "configs")
+            for base in (os.path.join(os.getcwd(), "configs"), repo_configs):
+                candidate = os.path.join(base, f"{urls}.yaml")
+                if os.path.isfile(candidate):
+                    import yaml
+
+                    with open(candidate) as f:
+                        urls = yaml.safe_load(f)
+                    break
+        self.urls = expand_urls(urls)[process_index::max(1, process_count)]
+        if not self.urls:
+            raise ValueError(f"no shards for process {process_index} of {process_count}")
+        self.shuffle = shuffle
+        self.resample = resample
+        self.rng = random.Random(seed)
+
+    def __iter__(self) -> Iterator[str]:
+        if self.resample:
+            while True:
+                yield self.rng.choice(self.urls)
+        else:
+            urls = list(self.urls)
+            if self.shuffle:
+                self.rng.shuffle(urls)
+            yield from urls
+
+
+_IMG_EXTS = ("jpg", "jpeg", "png", "webp")
+
+
+def decode_sample(sample: Dict[str, bytes], pre_encoded: bool = False) -> Dict[str, Any]:
+    """Raw members -> 'image' (PIL RGB), 'text', 'metadata', 'class_id', and
+    with ``pre_encoded`` every '.npy' / '.pth' member as an array."""
+    out = {"__key__": sample.get("__key__")}
+    for ext, data in sample.items():
+        if ext.startswith("__"):
+            continue
+        if ext in _IMG_EXTS:
+            from PIL import Image
+
+            out["image"] = Image.open(io.BytesIO(data)).convert("RGB")
+        elif ext in ("txt", "text", "caption"):
+            out["text"] = data.decode("utf-8")
+        elif ext == "json":
+            out["metadata"] = json.loads(data)
+        elif ext.endswith("pth") and pre_encoded:
+            import torch
+
+            out[ext] = torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+        elif ext.endswith("npy") and pre_encoded:
+            out[ext] = np.load(io.BytesIO(data))
+        elif ext == "cls":
+            out["class_id"] = int(data.decode("utf-8"))
+    return out
+
+
+def image_transform(image, resolution: int = 256, rng: Optional[random.Random] = None,
+                    center_crop: bool = False, normalize: bool = True):
+    """Resize the shorter side to ``resolution`` (bilinear), crop a square
+    (centred or at random) -> (NHWC array, float in [0, 1] or uint8 with
+    ``normalize=False``; orig_size (width, height); crop_coords (top,
+    left))."""
+    from PIL import Image
+
+    rng = rng or random
+    w, h = image.size
+    orig_size = (w, h)
+    scale = resolution / min(w, h)
+    image = image.resize((max(resolution, round(w * scale)),
+                          max(resolution, round(h * scale))), Image.BILINEAR)
+    w2, h2 = image.size
+    if center_crop:
+        left, top = (w2 - resolution) // 2, (h2 - resolution) // 2
+    else:
+        left = rng.randint(0, w2 - resolution) if w2 > resolution else 0
+        top = rng.randint(0, h2 - resolution) if h2 > resolution else 0
+    image = image.crop((left, top, left + resolution, top + resolution))
+    if normalize:
+        arr = np.asarray(image, dtype=np.float32) / 255.0
+    else:
+        arr = np.asarray(image, dtype=np.uint8)
+    return arr, orig_size, (top, left)
+
+
+class WebdatasetSelect:
+    """Metadata quality filter across the LAION / COYO metadata dialects: min
+    size, watermark probability, aesthetic score, nsfw, spawning opt-out,
+    getty."""
+
+    def __init__(self, min_size: int = 256, max_pwatermark: float = 0.5,
+                 min_aesthetic_score: float = 4.75,
+                 require_marked_as_ok_by_spawning: bool = False,
+                 require_marked_as_not_getty: bool = False, max_pnsfw: Optional[float] = None):
+        self.min_size = min_size
+        self.max_pwatermark = max_pwatermark
+        self.min_aesthetic_score = min_aesthetic_score
+        self.require_marked_as_ok_by_spawning = require_marked_as_ok_by_spawning
+        self.require_marked_as_not_getty = require_marked_as_not_getty
+        self.max_pnsfw = max_pnsfw
+
+    def __call__(self, sample: Dict[str, Any]) -> bool:
+        meta = sample.get("metadata")
+        if meta is None:
+            return False
+        w = meta.get("width", meta.get("WIDTH", meta.get("original_width")))
+        h = meta.get("height", meta.get("HEIGHT", meta.get("original_height")))
+        if w is None or h is None or w < self.min_size or h < self.min_size:
+            return False
+        pw = meta.get("pwatermark", meta.get("watermark_score"))
+        if pw is not None and pw > self.max_pwatermark:
+            return False
+        aes = meta.get("aesthetic", meta.get("AESTHETIC_SCORE", meta.get("aesthetic_score")))
+        if aes is not None and aes < self.min_aesthetic_score:
+            return False
+        nsfw = meta.get("pnsfw", meta.get("punsafe", meta.get("nsfw_score")))
+        if self.max_pnsfw is not None and nsfw is not None and nsfw > self.max_pnsfw:
+            return False
+        if self.require_marked_as_ok_by_spawning and meta.get("optout", False):
+            return False
+        if self.require_marked_as_not_getty and "getty" in str(meta.get("url", "")).lower():
+            return False
+        return True
+
+
+def _prefetch(iterator: Iterable, depth: int = 4) -> Iterator:
+    """Run ``iterator`` in a background thread, ``depth`` items ahead."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        yield item
 
 
 class PreEncodedDataset:
     """Yields dicts of stacked numpy arrays, one entry per ``.npy`` / ``.pth``
     member (``vq_f16.npy``, ``clip_penultimate.npy``, ``clip_pooled.npy``, ...)
     plus ``__keys__``, from shards resampled with replacement;
-    ``select`` filters on the decoded sample (its ``metadata``)."""
+    ``select`` filters on the decoded sample (its ``metadata``).  One
+    process: rank 0 of 1."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,

@@ -5,9 +5,10 @@ Run:  python -m open_muse_tpu_torch.training.train_muse config=configs/xxx.yaml 
 Counterpart of ``open_muse_tpu/training/train_muse.py`` ``main`` for its
 ``training.pre_encode: true`` branch: image tokens and CLIP embeddings come
 from pre-encoded shards, so neither the text tower nor the VQ model is
-built.  Flow: config (``open_muse_tpu/utils/config.py``, yaml only) ->
-model on the GPU (the CPU without one) -> optimizer, schedule, EMA -> resume
--> loop { batch, masking noise, train step, metrics.jsonl, checkpoint }.
+built.  Flow: config (``utils/config.py``, yaml only) -> model on the card
+(the override ``device=cpu`` runs it on the CPU; CUDA asked for and absent
+raises) -> optimizer, schedule, EMA -> resume -> loop
+{ batch, masking noise, train step, metrics.jsonl, checkpoint }.
 ``mixed_precision: bf16`` keeps fp32 weights and runs the step under bf16
 autocast.  Evaluation, generation, inpainting panels, wandb and multi-host
 runs are not ported.
@@ -24,14 +25,13 @@ import time
 import numpy as np
 import torch
 
-from open_muse_tpu.training.data import WebdatasetSelect
-from open_muse_tpu.utils.config import load_config
-
+from ..core.modeling import resolve_device
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
+from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
 from . import trainer as T
-from .data import PreEncodedDataset
+from .data import PreEncodedDataset, WebdatasetSelect
 from .ema import EMA
 from .lr_schedules import get_scheduler
 from .masking import draw_masking_noise
@@ -109,10 +109,12 @@ def build_state(config, device) -> T.TrainState:
 
 
 def main(argv=None) -> T.TrainState:
+    """Train from ``argv`` (``config=path.yaml`` and ``a.b=value``
+    overrides) on the override ``device=``, else ``cuda``."""
     config = load_config(argv if argv is not None else sys.argv[1:])
+    device = resolve_device(config.get("device", "cuda"))
     seed = config.training.get("seed", 42)
     set_seed(seed)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     if not config.training.get("pre_encode", False):
         raise NotImplementedError("the port trains from pre-encoded shards only "
                                   "(training.pre_encode=true)")

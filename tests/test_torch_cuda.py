@@ -11,7 +11,9 @@ import torch
 
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.kernels import attn_sublayer as A
-from open_muse_tpu_torch.kernels.fused_sample import fused_categorical_cfg_plain
+from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical_cfg_plain,
+                                                      fused_categorical_plain)
+from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin_plain, vq_near_ties
 from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd_plain,
                                                     glu_down_matmul_plain)
 
@@ -82,6 +84,46 @@ def test_cfg_sampler_kernel_matches_plain(device, dtype):
     assert bool(((ids == ref_ids) | ~clear).all())
     assert _rel(sel, ref_sel) <= 1e-4
     assert bool((ids < 8192).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sampler_kernel_matches_plain(device, dtype):
+    """The CFG-free sampler on raw (1, 256, 8256) logits cropped to 8192,
+    explicit noise: ids exactly equal (the same fp32 score x + g on both
+    sides), sel to rel 1e-5 (logsumexp summation order); the launch
+    counted."""
+    gen = torch.Generator().manual_seed(1)
+    logits = (torch.randn(1, 256, 8256, generator=gen) * 2).to(device, dtype)
+    noise = -torch.log(-torch.log(torch.rand(1, 256, 8192, generator=gen).clamp_min(1e-30)))
+    noise = noise.to(device)
+    before = kernels.fused_categorical.launches
+    ids, sel = kernels.fused_categorical(logits, 8192, gumbel=noise)
+    assert kernels.fused_categorical.launches == before + 1
+    ref_ids, ref_sel = fused_categorical_plain(logits, 8192, noise)
+    assert torch.equal(ids, ref_ids)
+    assert _rel(sel, ref_sel) <= 1e-5
+    seeded = kernels.fused_categorical(logits, 8192, generator=torch.Generator().manual_seed(2))
+    again = kernels.fused_categorical(logits, 8192, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(seeded[0], again[0]) and bool((seeded[0] < 8192).all())
+
+
+@pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130)])
+def test_vq_argmin_kernel_matches_plain(device, n, c, k):
+    """fp32, TF32 off: ids equal except at rows whose two best plain scores
+    lie within 1e-5 of the squared distances' scale (summation order), where
+    the kernel's pick is within that of the minimum; two calls bit-equal;
+    ragged rows, codes and C."""
+    gen = torch.Generator().manual_seed(n)
+    z = torch.randn(n, c, generator=gen).to(device)
+    cb = torch.randn(k, c, generator=gen).to(device)
+    before = kernels.vq_argmin.launches
+    ids = kernels.vq_argmin(z, cb)
+    assert kernels.vq_argmin.launches == before + 1
+    assert torch.equal(ids, kernels.vq_argmin(z, cb))
+    ref = vq_argmin_plain(z, cb)
+    near, _, pick_gap = vq_near_ties(ids, z, cb)
+    assert bool(((ids == ref) | near).all())
+    assert bool((pick_gap[ids != ref] <= 0).all())
 
 
 # -- backward kernels ------------------------------------------------------------

@@ -66,7 +66,7 @@ def _metrics(out):
 def test_train_muse_main_trains_saves_and_resumes(tmp_path):
     shard, out = str(tmp_path / "enc-000.tar"), str(tmp_path / "out")
     make_preencoded_shard(shard, 16)
-    state = main(_argv(shard, out, 4))
+    state = main(_argv(shard, out, 4) + ["device=cpu"])
     assert state.step == 4 and state.optimizer.count == 4
     logged = _metrics(out)
     assert [m["step"] for m in logged] == [1, 2, 3, 4]
@@ -79,7 +79,7 @@ def test_train_muse_main_trains_saves_and_resumes(tmp_path):
 
     # resume "latest" with nothing left to do: step, params, EMA and
     # optimizer are those of the first run
-    again = main(_argv(shard, out, 4, resume="latest"))
+    again = main(_argv(shard, out, 4, resume="latest") + ["device=cpu"])
     assert again.step == 4 and again.optimizer.count == 4
     mine = dict(state.model.named_parameters())
     for name, p in again.model.named_parameters():
@@ -90,6 +90,6 @@ def test_train_muse_main_trains_saves_and_resumes(tmp_path):
         assert torch.equal(moments["exp_avg_sq"], first[idx]["exp_avg_sq"])
 
     # and training on from there
-    more = main(_argv(shard, out, 6, resume="latest"))
+    more = main(_argv(shard, out, 6, resume="latest") + ["device=cpu"])
     assert more.step == 6
     assert [m["step"] for m in _metrics(out)][-2:] == [5, 6]
