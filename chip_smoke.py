@@ -7,6 +7,9 @@ weights:
 
 - serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
   ``PipelineMuse.text2image``;
+- class_conditional: three 256px / batch-1 / 8-step ImageNet class-id
+  requests through ``PipelineMuse(is_class_conditioned=True)`` with the v1
+  ``MaskGitTransformer`` of ``configs/imagenet.yaml`` and the MaskGIT VQGAN;
 - serving_nocfg: three such requests at guidance 0 (the CFG-free sampler);
 - inpainting: three 256px / batch-1 / 12-step CFG requests through
   ``PipelineMuseInpainting.inpaint`` (the VQGAN encoder and ``vq_argmin``);
@@ -62,6 +65,12 @@ SOURCES = {
                           "open_muse_tpu/ops/pallas/fused_sample.py:119"),
     "vq_argmin": ("open_muse_tpu_torch/csrc/vq_argmin.cu",
                   "open_muse_tpu/ops/pallas/vq_argmin.py:66"),
+    "fused_residual_rmsnorm": ("open_muse_tpu_torch/csrc/fused_norm.cu",
+                               "open_muse_tpu/ops/pallas/fused_norm.py:105"),
+    "fused_residual_layernorm": ("open_muse_tpu_torch/csrc/fused_norm.cu",
+                                 "open_muse_tpu/ops/pallas/fused_norm.py:112"),
+    "flash_attention": ("open_muse_tpu_torch/csrc/flash_attention.cu",
+                        "open_muse_tpu/ops/pallas/flash_attention.py:60"),
 }
 
 # the least time the card could take for a kernel's work (H100 SXM datasheet
@@ -70,6 +79,9 @@ SOURCES = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 BOUNDS = {}  # kernel -> (bytes, operations, type), from the timed inputs
+# kernel -> ms of one PyTorch call computing the same function on the timed
+# inputs (a yardstick only: the port never calls it)
+LIBRARY_MS = {}
 
 
 def nbytes(*tensors) -> int:
@@ -101,6 +113,36 @@ def time_ms(fn, reps: int = 20, trials: int = 7) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, trials: int = 7) -> float:
+    """Device time of one call: median over ``trials`` of the mean of
+    ``reps`` calls replayed from one captured CUDA graph, by CUDA events.
+    The replay has no host enqueue in it, so a call of a few microseconds
+    is timed as the device runs it, launch gaps included."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -352,6 +394,122 @@ def check_vq(device, gen):
     return ok, worst, timing
 
 
+# the rows timed by graph_ms; the others by time_ms
+GRAPH_TIMED = ("fused_residual_rmsnorm", "fused_residual_layernorm", "flash_attention")
+# the norms' path shapes: v1's 257 tokens (class + 256) and v2's CFG batch of
+# 2 x 256 at width 768 with a residual, v1's 3072-wide mid-MLP norm without;
+# the report's row is the residual-free shape, where one PyTorch call
+# (F.rms_norm / F.layer_norm) computes the same function
+NORM_SHAPES = (((1, 257, 768), True), ((2, 256, 768), True), ((1, 257, 3072), False))
+NORM_EPS, NORM_TOL = 1e-6, 1e-2
+
+
+def check_norms(device, gen):
+    """Both fused norms against their plain versions in bf16 (no bias, as
+    on the paths): out to NORM_TOL (fp32 arithmetic on both sides with one
+    cast at the end: at most about one bf16 rounding apart), the prenorm sum
+    bit-equal (x itself without a residual), two calls bit-equal."""
+    from torch.nn import functional as F
+
+    from open_muse_tpu_torch.kernels.fused_norm import (
+        fused_residual_layernorm, fused_residual_layernorm_plain, fused_residual_rmsnorm,
+        fused_residual_rmsnorm_plain)
+
+    bf = torch.bfloat16
+    cases = {
+        "fused_residual_rmsnorm": (
+            lambda x, r, w: fused_residual_rmsnorm(x, r, w, NORM_EPS),
+            lambda x, r, w: fused_residual_rmsnorm_plain(x, r, w, NORM_EPS),
+            lambda x, w: F.rms_norm(x, (x.shape[-1],), w, NORM_EPS), 5),
+        "fused_residual_layernorm": (
+            lambda x, r, w: fused_residual_layernorm(x, r, w, None, NORM_EPS),
+            lambda x, r, w: fused_residual_layernorm_plain(x, r, w, None, NORM_EPS),
+            lambda x, w: F.layer_norm(x, (x.shape[-1],), w, None, NORM_EPS), 8),
+    }
+    results = {}
+    for name, (kern, plain, lib, flops) in cases.items():
+        ok, worst = True, 0.0
+        for shape, with_res in NORM_SHAPES:
+            x = (torch.randn(*shape, generator=gen) * 2).to(device, bf)
+            res = torch.randn(*shape, generator=gen).to(device, bf) if with_res else None
+            w = (1 + 0.1 * torch.randn(shape[-1], generator=gen)).to(device, bf)
+            out, pre = kern(x, res, w)
+            ref, ref_pre = plain(x, res, w)
+            max_abs, rel = errors(out, ref)
+            pre_ok = torch.equal(pre, ref_pre) and ((pre is x) == (res is None))
+            twice = torch.equal(out, kern(x, res, w)[0])
+            case_ok = rel <= NORM_TOL and pre_ok and twice and bool(torch.isfinite(out).all())
+            ok &= case_ok
+            worst = max(worst, max_abs)
+            ms = (graph_ms(lambda: kern(x, res, w)), graph_ms(lambda: plain(x, res, w)))
+            log(f"[kernel] {name} x {shape} res={'given' if with_res else 'None'} bf16: max_abs "
+                f"{max_abs:.3e} rel {rel:.3e} (tol rel {NORM_TOL}: one bf16 rounding), prenorm "
+                f"bit-equal {pre_ok}, two calls bit-equal {twice}; kernel {ms[0]:.4f} ms, plain "
+                f"{ms[1]:.4f} ms (CUDA graph replay) {'ok' if case_ok else 'FAIL'}")
+        # the last shape, residual-free, is the report's row
+        lib_ms = graph_ms(lambda: lib(x, w))
+        lib_err = errors(lib(x, w), ref)[1]
+        log(f"[kernel] {name} library call on x {shape}: {lib_ms:.4f} ms (CUDA graph replay; "
+            f"rel {lib_err:.3e} vs plain)")
+        LIBRARY_MS[name] = lib_ms
+        results[name] = (ok, worst, ms)
+        # x read and out written once, the scale read once; fp32 operations
+        # a row element: the moments and the affine
+        BOUNDS[name] = (nbytes(x, w, out), flops * x.numel(), "fp32")
+    return results
+
+
+# flash attention at the paths' shapes: v1's self-attention (257 tokens, 16
+# heads of 48, q / k / v views into the fused projection) and v2's block
+# cross-attention (2 x 256 queries, 12 heads of 64, 77 text keys as views into
+# the [k | v] projection); the report's row is v1's
+ATTN_TOL = 2e-2
+
+
+def _attention_inputs(device, gen, b, tq, tk, heads, d):
+    bf = torch.bfloat16
+    if tq == tk:
+        qkv = torch.randn(b, tq, 3 * heads * d, generator=gen).to(device, bf)
+        return qkv.reshape(b, tq, 3 * heads, d).chunk(3, dim=2)
+    q = torch.randn(b, tq, heads, d, generator=gen).to(device, bf)
+    kv = torch.randn(b, tk, 2 * heads * d, generator=gen).to(device, bf)
+    return (q, *kv.reshape(b, tk, 2 * heads, d).chunk(2, dim=2))
+
+
+def check_flash(device, gen):
+    """flash_attention against flash_attention_plain in bf16: out to ATTN_TOL
+    (the kernel rounds P to bf16 as the plain version does, but sums QK^T,
+    the softmax and PV in another order), two calls bit-equal; SDPA on the
+    same inputs timed as the library call."""
+    from torch.nn import functional as F
+
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    ok, worst, row = True, 0.0, None
+    for b, tq, tk, heads, d in ((2, 256, 77, 12, 64), (1, 257, 257, 16, 48)):
+        q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
+        out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+        max_abs, rel = errors(out, ref)
+        twice = torch.equal(out, flash_attention(q, k, v))
+        case_ok = rel <= ATTN_TOL and twice and bool(torch.isfinite(out).all())
+        ok &= case_ok
+        worst = max(worst, max_abs)
+        ms = (graph_ms(lambda: flash_attention(q, k, v)),
+              graph_ms(lambda: flash_attention_plain(q, k, v)))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        lib_ms = graph_ms(sdpa)
+        lib_err = errors(sdpa().transpose(1, 2), ref)[1]
+        log(f"[kernel] flash_attention q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: max_abs "
+            f"{max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), two calls "
+            f"bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {lib_ms:.4f} ms "
+            f"(CUDA graph replay; rel {lib_err:.3e} vs plain) {'ok' if case_ok else 'FAIL'}")
+        # q, k, v read and o written once; QK^T and PV
+        row = (ms, lib_ms, (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16"))
+    ms, LIBRARY_MS["flash_attention"], BOUNDS["flash_attention"] = row
+    return ok, worst, ms
+
+
 def kernel_phase(device):
     from open_muse_tpu_torch import kernels
 
@@ -361,8 +519,11 @@ def kernel_phase(device):
     report["fused_categorical_cfg"] = check_sampler(device, gen)
     report["fused_categorical"] = check_categorical(device, gen)
     report["vq_argmin"] = check_vq(device, gen)
+    report.update(check_norms(device, gen))
+    report["flash_attention"] = check_flash(device, gen)
     for name, (ok, err, (ms, plain_ms)) in report.items():
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events)")
+        how = "CUDA graph replay" if name in GRAPH_TIMED else "CUDA events"
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, {how})")
     # the training path runs the forward kernels at batch 16 too
     train = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S)}
     train.update(check_sublayers(device, gen, TRAIN_B))
@@ -584,39 +745,53 @@ def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None):
     return seconds, images, captured[0], {k: after[k] - before[k] for k in after}
 
 
-def expected_request_launches(layers, sampler, vq=0):
-    """Per request: every trunk layer's sublayers and GLU at each of the 12
-    steps, the sampler once a step, no backward kernel."""
+def expected_request_launches(cfg, sampler, vq=0):
+    """Per request of the U-ViT ``cfg``, no backward kernel.  At each of the
+    12 steps: every trunk layer's two sublayers and GLU, its GLU pre-norm (a
+    LayerNorm); each of the down and up stacks' num_res_blocks
+    AttentionBlock2Ds two flash attentions and two RMSNorms, each ResBlock
+    one RMSNorm; the RMSNorms of ConvEmbed, the two projections and the MLM
+    head; the sampler once.  Once a request: encoder_proj_layer_norm, in the
+    step context."""
     from open_muse_tpu_torch import kernels
 
+    layers, blocks = cfg.num_hidden_layers, 2 * cfg.num_res_blocks
     expected = {name: 0 for name in kernels.launch_counts()}
     expected.update({"attn_sublayer_self": layers * TIMESTEPS,
                      "attn_sublayer_cross": layers * TIMESTEPS,
-                     "glu_down_matmul": layers * TIMESTEPS, sampler: TIMESTEPS})
+                     "glu_down_matmul": layers * TIMESTEPS, sampler: TIMESTEPS,
+                     "flash_attention": 2 * blocks * TIMESTEPS,
+                     "fused_residual_rmsnorm": (3 * blocks + 4) * TIMESTEPS + 1,
+                     "fused_residual_layernorm": layers * TIMESTEPS})
     if vq:
         expected["vq_argmin"] = vq
     return expected
 
 
-def run_requests(pipe, smi, path, expected, guidance=GUIDANCE, inpaint=None, check=None):
+def run_requests(pipe, smi, path, expected, guidance=GUIDANCE, inpaint=None, check=None,
+                 request=None, codebook=8192, steps=TIMESTEPS):
     """Three requests with the launch counters set to 0 before them; each
-    must give a finite (1, 256, 256, 3) image, tokens in [0, 8192), the
-    expected launches and pass ``check(tokens)``.  Returns (median seconds,
-    the path's launch counts)."""
+    must give a finite (1, 256, 256, 3) image, tokens in [0, codebook), the
+    expected launches and pass ``check(tokens)``.  ``request(i)`` replaces
+    the text request (``one_request`` with the i-th prompt).  Returns
+    (median seconds, the path's launch counts)."""
     from open_muse_tpu_torch import kernels
 
+    if request is None:
+        request = lambda i: (repr(PROMPTS[i]), *one_request(pipe, PROMPTS[i], i, guidance,  # noqa: E731
+                                                             inpaint))
     kernels.reset_launch_counts()
     latencies = []
-    for i, prompt in enumerate(PROMPTS[:3]):
-        seconds, images, tokens, delta = one_request(pipe, prompt, i, guidance, inpaint)
+    for i in range(3):
+        label, seconds, images, tokens, delta = request(i)
         finite = bool(torch.isfinite(images).all())
-        tokens_ok = bool(((tokens >= 0) & (tokens < 8192)).all())
+        tokens_ok = bool(((tokens >= 0) & (tokens < codebook)).all())
         extra = "" if check is None else check(tokens)
         ok = (tuple(images.shape) == (1, 256, 256, 3) and finite and tokens_ok
               and delta == expected and not extra.endswith("FAIL"))
-        log(f"[{path}] {i}: {prompt!r} seed {i}: {seconds * 1e3:.1f} ms, image "
+        log(f"[{path}] {i}: {label} seed {i}: {seconds * 1e3:.1f} ms, image "
             f"{tuple(images.shape)} finite {finite} range [{images.min().item():.3f}, "
-            f"{images.max().item():.3f}], tokens in [0, 8192) {tokens_ok} "
+            f"{images.max().item():.3f}], tokens in [0, {codebook}) {tokens_ok} "
             f"({tokens.unique().numel()} distinct){extra}, launches {delta} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -626,18 +801,18 @@ def run_requests(pipe, smi, path, expected, guidance=GUIDANCE, inpaint=None, che
     launches = kernels.launch_counts()
     median = statistics.median(latencies)
     log(f"[latency] {path}: median request {median * 1e3:.1f} ms over 3 (256px, bs1, "
-        f"{TIMESTEPS} steps, guidance {guidance}; host clock, synchronised) on {smi}")
+        f"{steps} steps, guidance {guidance}; host clock, synchronised) on {smi}")
     return median, launches
 
 
 def request_phase(pipe, device, smi):
-    layers = pipe.transformer.config.num_hidden_layers
+    cfg = pipe.transformer.config
     warm, *_ = one_request(pipe, PROMPTS[-1], 99)
     log(f"[request] warm-up {warm * 1e3:.1f} ms")
     if not check_logits(pipe, device):
         raise SystemExit("chip_smoke: kernel forward disagrees with the plain forward")
     median, launches = run_requests(pipe, smi, "serving",
-                                    expected_request_launches(layers, "fused_categorical_cfg"))
+                                    expected_request_launches(cfg, "fused_categorical_cfg"))
     profiled("request", lambda: one_request(pipe, PROMPTS[3], 3), median,
              "profile_request.txt", rows=18)
     return launches
@@ -646,11 +821,11 @@ def request_phase(pipe, device, smi):
 def nocfg_phase(pipe, smi):
     """Guidance 0, as a guidance-distilled student serves: batch 1 through
     the trunk and the CFG-free sampler."""
-    layers = pipe.transformer.config.num_hidden_layers
+    cfg = pipe.transformer.config
     warm, *_ = one_request(pipe, PROMPTS[-1], 98, guidance=0.0)
     log(f"[serving_nocfg] warm-up {warm * 1e3:.1f} ms")
     median, launches = run_requests(pipe, smi, "serving_nocfg",
-                                    expected_request_launches(layers, "fused_categorical"),
+                                    expected_request_launches(cfg, "fused_categorical"),
                                     guidance=0.0)
     profiled("CFG-free request", lambda: one_request(pipe, PROMPTS[3], 3, guidance=0.0), median,
              "profile_request_nocfg.txt")
@@ -660,7 +835,7 @@ def nocfg_phase(pipe, smi):
 def inpainting_phase(pipe, device, smi):
     """A seeded 256 x 256 image with the centre 8 x 8 of its 16 x 16 tokens
     repainted under CFG 8.0."""
-    layers = pipe.transformer.config.num_hidden_layers
+    cfg = pipe.transformer.config
     gen = torch.Generator().manual_seed(21)
     pixels = torch.rand(1, 256, 256, 3, generator=gen).to(device)
     mask = torch.zeros(16, 16, dtype=torch.bool)
@@ -678,12 +853,118 @@ def inpainting_phase(pipe, device, smi):
     log(f"[inpainting] warm-up {warm * 1e3:.1f} ms; mask {int(mask.sum())} of {mask.numel()} "
         f"tokens")
     median, launches = run_requests(pipe, smi, "inpainting",
-                                    expected_request_launches(layers, "fused_categorical_cfg",
-                                                              vq=1),
+                                    expected_request_launches(cfg, "fused_categorical_cfg", vq=1),
                                     inpaint=(pixels, mask), check=kept)
     profiled("inpainting request", lambda: one_request(pipe, PROMPTS[3], 3,
                                                        inpaint=(pixels, mask)),
              median, "profile_inpainting.txt")
+    return launches
+
+
+# -- the class-conditional path at full width -----------------------------------
+
+# configs/imagenet.yaml: training.generation_timesteps; the pipeline's default
+# (2, 0) temperature anneal
+CLASS_TIMESTEPS = 8
+CLASS_IDS = (207, 360, 970, 88)
+
+
+def build_class_pipeline(device):
+    """MaskGitTransformer at configs/imagenet.yaml's model.transformer (24
+    layers, hidden 768) in bf16 and the MaskGIT VQGAN at its defaults (f16,
+    1024 codes) in fp32, seeded random weights."""
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN, MaskGitVQGANConfig
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+    from open_muse_tpu_torch.utils.config import load_config
+
+    config = load_config(["config=" + os.path.join(HERE, "configs", "imagenet.yaml")])
+    # YAML 1.1 reads "1e-6" as a string
+    tcfg = {k: float(v) if k == "layer_norm_eps" else v
+            for k, v in config.model.transformer.to_dict().items()}
+    with torch.device(device):
+        transformer = MaskGitTransformer(MaskGitTransformer.config_from_dict(tcfg))
+        vae = MaskGitVQGAN(MaskGitVQGANConfig())
+    randomize_(transformer, 10)
+    randomize_(vae, 11)
+    transformer.to(torch.bfloat16).eval()
+    vae.eval()
+    counts = {name: sum(p.numel() for p in m.parameters())
+              for name, m in (("maskgit_v1", transformer), ("maskgit_vqgan", vae))}
+    log(f"[class_conditional] params {counts}; v1 bf16, vqgan fp32; transformer config {tcfg}")
+    return PipelineMuse(vae=vae, transformer=transformer, is_class_conditioned=True)
+
+
+def one_class_request(pipe, class_id, seed):
+    """One 256px / bs1 / 8-step request through PipelineMuse(class_ids=...);
+    returns (label, seconds, images, tokens, launch deltas)."""
+    from open_muse_tpu_torch import kernels
+
+    captured = []
+    vae = pipe.vae
+    vae.decode_code = lambda tokens: (captured.append(tokens), type(vae).decode_code(vae, tokens))[1]
+    gen = torch.Generator().manual_seed(seed)
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        images = pipe(class_ids=[class_id], timesteps=CLASS_TIMESTEPS, generator=gen,
+                      return_pil=False)
+        torch.cuda.synchronize()
+    finally:
+        del vae.decode_code
+    seconds = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    return (f"class {class_id}", seconds, images, captured[0],
+            {k: after[k] - before[k] for k in after})
+
+
+def check_class_logits(pipe, device):
+    """One full-width v1 forward (class token + 256 tokens, half masked)
+    with the kernels against the all-plain forward."""
+    t = pipe.transformer
+    cfg = t.config
+    gen = torch.Generator(device=device).manual_seed(6)
+    tokens = torch.randint(0, cfg.codebook_size, (1, cfg.num_vq_tokens), generator=gen,
+                           device=device)
+    tokens[torch.rand(tokens.shape, generator=gen, device=device) < 0.5] = cfg.mask_token_id
+    ids = torch.cat([torch.full((1, 1), cfg.codebook_size + CLASS_IDS[0], device=device), tokens], 1)
+    with torch.no_grad():
+        ctx = t.step_context()
+        fused = t(ids, step_ctx=ctx, use_kernels=True)
+        plain = t(ids, step_ctx=ctx, use_kernels=False)
+    max_abs, rel = errors(fused, plain)
+    ok = rel <= 5e-2 and bool(torch.isfinite(fused).all())
+    log(f"[logits] full-width v1 forward {tuple(fused.shape)} bf16, kernels vs all-plain: "
+        f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 5e-2: bf16 roundings through "
+        f"{cfg.num_hidden_layers} layers) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def class_conditional_phase(device, smi):
+    """Three ImageNet class-id requests.  Per request, at each of the 8
+    steps: each layer's self-attention (flash_attention) and its four
+    LayerNorms (attention, post-attention, pre- and mid-MLP), the final and
+    MLM-head LayerNorms, the sampler once."""
+    from open_muse_tpu_torch import kernels
+
+    pipe = build_class_pipeline(device)
+    cfg = pipe.transformer.config
+    expected = {name: 0 for name in kernels.launch_counts()}
+    expected.update({"flash_attention": cfg.num_hidden_layers * CLASS_TIMESTEPS,
+                     "fused_residual_layernorm": (4 * cfg.num_hidden_layers + 2) * CLASS_TIMESTEPS,
+                     "fused_categorical": CLASS_TIMESTEPS})
+    warm = one_class_request(pipe, CLASS_IDS[-1], 96)[1]
+    log(f"[class_conditional] warm-up {warm * 1e3:.1f} ms")
+    if not check_class_logits(pipe, device):
+        raise SystemExit("chip_smoke: v1 kernel forward disagrees with the plain forward")
+    median, launches = run_requests(
+        pipe, smi, "class_conditional", expected, guidance=0.0, codebook=cfg.codebook_size,
+        steps=CLASS_TIMESTEPS, request=lambda i: one_class_request(pipe, CLASS_IDS[i], i))
+    profiled("class-conditional request", lambda: one_class_request(pipe, CLASS_IDS[3], 3),
+             median, "profile_class_conditional.txt")
+    del pipe
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -862,13 +1143,22 @@ def pre_encode_phase(pipe, device, smi):
 
 TRAIN_STEPS, CODES_PER_IMAGE = 8, 16
 # the train step under the config's per-layer gradient checkpointing: each
-# trunk layer's forward runs once and again in the backward, its backward once
-LAYERS = 22
+# trunk layer's forward (its sublayers, GLU and GLU pre-norm) runs once and
+# again in the backward, its backward once; the down and up stacks' 2 x 3
+# ResBlock + AttentionBlock2D pairs once (one RMSNorm a ResBlock, two
+# RMSNorms and two attentions an AttentionBlock2D), and the RMSNorms of the
+# text projection, ConvEmbed, the two projections and the MLM head once.
+# The norms and attention have no backward kernel (the plain versions'
+# gradients).
+LAYERS, BLOCKS = 22, 2 * 3
 EXPECTED_TRAIN_LAUNCHES = {
     "attn_sublayer_self": 2 * LAYERS * TRAIN_STEPS, "attn_sublayer_cross": 2 * LAYERS * TRAIN_STEPS,
     "glu_down_matmul": 2 * LAYERS * TRAIN_STEPS, "fused_categorical_cfg": 0,
     "attn_sublayer_self_bwd": LAYERS * TRAIN_STEPS, "attn_sublayer_cross_bwd": LAYERS * TRAIN_STEPS,
-    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS, "fused_categorical": 0, "vq_argmin": 0}
+    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS, "fused_categorical": 0, "vq_argmin": 0,
+    "fused_residual_rmsnorm": (3 * BLOCKS + 5) * TRAIN_STEPS,
+    "fused_residual_layernorm": 2 * LAYERS * TRAIN_STEPS,
+    "flash_attention": 2 * BLOCKS * TRAIN_STEPS}
 # bounds of the full-width gradient check, kernels vs plain versions, both in
 # bf16 autocast through 22 layers: per trunk tensor
 GRAD_REL_TOL, GRAD_COS_MIN = 0.1, 0.99
@@ -1120,6 +1410,10 @@ def main() -> int:
     log(f"[phase] serving, serving_nocfg, inpainting, pre_encode {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
+    paths["class_conditional"] = class_conditional_phase(device, smi)
+    log(f"[phase] class_conditional {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
     if not gradient_check(device):
         failed.append("full-width gradient check")
     train_ok, paths["training"] = training_phase(device, smi)
@@ -1135,7 +1429,7 @@ def main() -> int:
                      "launches": sum(p[name] for p in paths.values()),
                      "launches_by_path": {path: p[name] for path, p in paths.items()},
                      "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": LIBRARY_MS.get(name)})
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         failed.append(f"kernels never launched on a path: {missing}")

@@ -5,7 +5,12 @@ tensors launches its kernel or raises: there is no fallback.  Each wrapper
 counts its launches in a plain integer attribute, ``wrapper.launches``.  The
 forward wrappers are ``torch.autograd.Function``s whose backward is the
 matching backward wrapper, so one Function runs the plain versions on the CPU
-and the kernels on the card in both directions.
+and the kernels on the card in both directions.  The fused norms and
+``flash_attention`` have no backward kernel, as their TPU kernels have none:
+their Functions launch the kernel forward and take the gradient of the plain
+version, recomputed from the saved inputs (``plain_vjp``).  Under CUDA
+autocast every Function casts its inputs to bf16, the one type the kernels
+take.
 """
 
 from __future__ import annotations
@@ -33,6 +38,23 @@ def require_cuda(name: str, dtypes, *tensors) -> None:
             raise ValueError(f"{name}: tensors must be contiguous and 16-byte aligned")
 
 
+def plain_vjp(plain, inputs, grads, needs):
+    """The backward of a kernel without a backward kernel: recompute
+    ``plain(*inputs)`` under autograd and return the gradients of the inputs
+    flagged in ``needs`` (None for the others) given the outputs' ``grads``
+    (None for an output without a gradient)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        wrt = [t for t, n in zip(leaves, needs) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and wrt else ())
+    return tuple(next(got, None) if n else None for n in needs)
+
+
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -45,6 +67,8 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
 
 from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
                             attn_sublayer_self, attn_sublayer_self_bwd)
+from .flash_attention import flash_attention  # noqa: E402
+from .fused_norm import fused_residual_layernorm, fused_residual_rmsnorm  # noqa: E402
 from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
 from .glu_matmul import glu_down_matmul, glu_down_matmul_bwd  # noqa: E402
 from .vq_argmin import vq_argmin  # noqa: E402
@@ -52,11 +76,13 @@ from .vq_argmin import vq_argmin  # noqa: E402
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul",
            "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
-           "fused_categorical", "vq_argmin"]
+           "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
+           "flash_attention"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
-            glu_down_matmul_bwd, fused_categorical, vq_argmin)
+            glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
+            fused_residual_layernorm, flash_attention)
 
 
 def launch_counts() -> dict:

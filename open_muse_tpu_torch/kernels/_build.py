@@ -36,6 +36,9 @@ _SIGNATURES = {
                         ctypes.c_uint64, _P, _P, _P],
     "muse_sample": [_P, _I, _I, _I, _I, _P, ctypes.c_int64, ctypes.c_uint64, _P, _P, _P],
     "muse_vq_argmin": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "muse_fused_norm": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _P],
+    "muse_flash_attention": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64),
+                                                   ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

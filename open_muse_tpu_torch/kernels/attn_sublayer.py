@@ -22,9 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.layers import dot_product_attention
 from . import at_least_fp32, on_cpu, require_cuda, stream_handle
 from ._build import check, library
+from .flash_attention import flash_attention_plain
 
 __all__ = ["attn_sublayer_self", "attn_sublayer_cross", "attn_sublayer_self_plain",
            "attn_sublayer_cross_plain", "attn_sublayer_self_bwd", "attn_sublayer_cross_bwd",
@@ -58,7 +58,7 @@ def _heads(t, num_heads):
 
 def _attend(q, k, v, num_heads):
     b, s, d = q.shape
-    out = dot_product_attention(_heads(q, num_heads), _heads(k, num_heads),
+    out = flash_attention_plain(_heads(q, num_heads), _heads(k, num_heads),
                                 _heads(v, num_heads))
     return out.reshape(b, s, d)
 

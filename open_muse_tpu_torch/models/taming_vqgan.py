@@ -87,7 +87,10 @@ class AttnBlock(nn.Module):
         h = self.norm(x)
         b, c, hh, ww = x.shape
         tokens = lambda t: t.reshape(b, c, 1, hh * ww).permute(0, 3, 2, 1)  # noqa: E731 (B, HW, 1, C)
-        out = dot_product_attention(tokens(self.q(h)), tokens(self.k(h)), tokens(self.v(h)))
+        # one head over all channels, fp32: its own einsums in JAX, never
+        # the attention kernel
+        out = dot_product_attention(tokens(self.q(h)), tokens(self.k(h)), tokens(self.v(h)),
+                                    use_kernels=False)
         out = out.permute(0, 3, 2, 1).reshape(b, c, hh, ww)
         return x + self.proj_out(out)
 

@@ -36,7 +36,7 @@ from ..ops.layers import (AdaLNModulation, Attention, GlobalResponseNorm, LayerN
                           sinusoidal_encode)
 
 __all__ = ["MaskGiTUViT_v2", "MaskGiTUViT_v2Config", "decode_schedules",
-           "parallel_decode_loop"]
+           "parallel_decode_loop", "decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +105,8 @@ class Norm2D(nn.Module):
         super().__init__()
         self.norm = _norm(cfg, dim)
 
-    def forward(self, x):
-        return self.norm(x)
+    def forward(self, x, use_kernels: bool = True):
+        return self.norm(x, use_kernels=use_kernels)
 
 
 class ConvEmbed(nn.Module):
@@ -118,11 +118,11 @@ class ConvEmbed(nn.Module):
         self.layer_norm = _norm(cfg, cfg.in_channels)
         self.conv = nn.Conv2d(cfg.in_channels, cfg.block_out_channels[0], 1, bias=cfg.use_bias)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, use_kernels: bool = True):
         batch, seq_len = input_ids.shape
         side = math.isqrt(seq_len)
         x = self.embeddings(input_ids).reshape(batch, side, side, -1)
-        return _conv1x1(self.conv, self.layer_norm(x))
+        return _conv1x1(self.conv, self.layer_norm(x, use_kernels=use_kernels))
 
 
 class ResBlock(nn.Module):
@@ -140,8 +140,8 @@ class ResBlock(nn.Module):
             nn.Linear(inner, channels, bias=cfg.use_bias))
         self.adaLN_modulation = AdaLNModulation(cfg.hidden_size, channels, cfg.use_bias)
 
-    def forward(self, x, cond_embeds, adaln_cache=None):
-        h = self.channelwise(self.norm(_nhwc_conv(self.depthwise, x)))
+    def forward(self, x, cond_embeds, adaln_cache=None, use_kernels: bool = True):
+        h = self.channelwise(self.norm(_nhwc_conv(self.depthwise, x), use_kernels))
         return self.adaLN_modulation(h + x, cond_embeds, cached=adaln_cache)
 
 
@@ -165,14 +165,14 @@ class AttentionBlock2D(nn.Module):
         return {"kv1": self.attention.precompute_kv(mapped),
                 "kv2": self.crossattention.precompute_kv(mapped)}
 
-    def forward(self, x, encoder_hidden_states, ctx=None):
+    def forward(self, x, encoder_hidden_states, ctx=None, use_kernels: bool = True):
         ctx = ctx if ctx is not None else self.precompute(encoder_hidden_states)
         b, hh, ww, c = x.shape
         h = x.reshape(b, hh * ww, c)
-        h1, residual = self.attn_layer_norm(h, return_residual=True)
-        h1 = self.attention(h1, cached_kv=ctx["kv1"])
-        h2, residual = self.crossattn_layer_norm(h1, residual)
-        h2 = self.crossattention(h2, cached_kv=ctx["kv2"])
+        h1, residual = self.attn_layer_norm(h, return_residual=True, use_kernels=use_kernels)
+        h1 = self.attention(h1, cached_kv=ctx["kv1"], use_kernels=use_kernels)
+        h2, residual = self.crossattn_layer_norm(h1, residual, use_kernels=use_kernels)
+        h2 = self.crossattention(h2, cached_kv=ctx["kv2"], use_kernels=use_kernels)
         return (h2 + residual).reshape(b, hh, ww, c)
 
 
@@ -191,10 +191,10 @@ class _ResAttnStack(nn.Module):
                  "attn": ab.precompute(encoder_hidden_states)}
                 for rb, ab in zip(self.res_blocks, self.attention_blocks)]
 
-    def _stack(self, x, cond_embeds, encoder_hidden_states, ctx):
+    def _stack(self, x, cond_embeds, encoder_hidden_states, ctx, use_kernels):
         for i, (rb, ab) in enumerate(zip(self.res_blocks, self.attention_blocks)):
-            x = rb(x, cond_embeds, adaln_cache=None if ctx is None else ctx[i]["adaln"])
-            x = ab(x, encoder_hidden_states, None if ctx is None else ctx[i]["attn"])
+            x = rb(x, cond_embeds, None if ctx is None else ctx[i]["adaln"], use_kernels)
+            x = ab(x, encoder_hidden_states, None if ctx is None else ctx[i]["attn"], use_kernels)
         return x
 
 
@@ -208,10 +208,10 @@ class DownsampleBlock(_ResAttnStack):
                                                    bias=cfg.use_bias))
                            if cfg.force_down_up_sample else None)
 
-    def forward(self, x, cond_embeds, encoder_hidden_states, ctx=None):
+    def forward(self, x, cond_embeds, encoder_hidden_states, ctx=None, use_kernels: bool = True):
         if self.downsample is not None:
-            x = _nhwc_conv(self.downsample[1], self.downsample[0](x))
-        return self._stack(x, cond_embeds, encoder_hidden_states, ctx)
+            x = _nhwc_conv(self.downsample[1], self.downsample[0](x, use_kernels))
+        return self._stack(x, cond_embeds, encoder_hidden_states, ctx, use_kernels)
 
 
 class UpsampleBlock(_ResAttnStack):
@@ -225,10 +225,10 @@ class UpsampleBlock(_ResAttnStack):
                                                           bias=cfg.use_bias))
                          if cfg.force_down_up_sample else None)
 
-    def forward(self, x, cond_embeds, encoder_hidden_states, ctx=None):
-        x = self._stack(x, cond_embeds, encoder_hidden_states, ctx)
+    def forward(self, x, cond_embeds, encoder_hidden_states, ctx=None, use_kernels: bool = True):
+        x = self._stack(x, cond_embeds, encoder_hidden_states, ctx, use_kernels)
         if self.upsample is not None:
-            x = _nhwc_conv(self.upsample[1], self.upsample[0](x))
+            x = _nhwc_conv(self.upsample[1], self.upsample[0](x, use_kernels))
         return x
 
 
@@ -246,7 +246,8 @@ class GLUFeedForward(nn.Module):
         self.wo = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=cfg.use_bias)
 
     def forward(self, x, cond_embeds, residual=None, adaln_cache=None, use_kernels=True):
-        x, residual = self.pre_mlp_layer_norm(x, residual, return_residual=True)
+        x, residual = self.pre_mlp_layer_norm(x, residual, return_residual=True,
+                                              use_kernels=use_kernels)
         x = self.adaLN_modulation(x, cond_embeds, cached=adaln_cache)
         a, b = self.wi_0(x), self.wi_1(x)
         k = a.shape[-1]
@@ -297,12 +298,13 @@ class TransformerLayer(nn.Module):
                 self.crossattention.query.weight, self.crossattention.out.weight,
                 ctx["cross_kv"], cfg.num_attention_heads, cfg.layer_norm_eps)
         else:
-            x, residual = self.attn_layer_norm(x, residual, return_residual=True)
+            x, residual = self.attn_layer_norm(x, residual, return_residual=True,
+                                               use_kernels=use_kernels)
             x = self.self_attn_adaLN_modulation(x, cond_embeds, cached=ctx["self_adaln"])
-            x = self.attention(x, qkv_weight=ctx["wqkv"])
-            x, residual = self.crossattn_layer_norm(x, residual)
+            x = self.attention(x, qkv_weight=ctx["wqkv"], use_kernels=use_kernels)
+            x, residual = self.crossattn_layer_norm(x, residual, use_kernels=use_kernels)
             x = self.cross_attn_adaLN_modulation(x, cond_embeds, cached=ctx["cross_adaln"])
-            x = self.crossattention(x, cached_kv=ctx["cross_kv"])
+            x = self.crossattention(x, cached_kv=ctx["cross_kv"], use_kernels=use_kernels)
         return self.ffn(x, cond_embeds, residual, ctx["ffn_adaln"], use_kernels)
 
 
@@ -315,8 +317,8 @@ class ConvMlmLayer(nn.Module):
         self.layer_norm = Norm2D(cfg, cfg.in_channels)
         self.conv2 = nn.Conv2d(cfg.in_channels, cfg.codebook_size, 1, bias=cfg.use_bias)
 
-    def forward(self, x):
-        return _conv1x1(self.conv2, self.layer_norm(_conv1x1(self.conv1, x)))
+    def forward(self, x, use_kernels: bool = True):
+        return _conv1x1(self.conv2, self.layer_norm(_conv1x1(self.conv1, x), use_kernels))
 
 
 class MaskGiTUViT_v2(ModelMixin, nn.Module):
@@ -369,10 +371,12 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
                 "policy (keep matmul outputs, recompute the rest) is not ported yet")
         self.gradient_checkpointing = bool(mode)
 
-    def conditioning(self, encoder_hidden_states, cond_embeds, micro_conds):
+    def conditioning(self, encoder_hidden_states, cond_embeds, micro_conds,
+                     use_kernels: bool = True):
         """(projected text states, conditioning vector)."""
         cfg, dtype = self.config, self.dtype
-        ehs = self.encoder_proj_layer_norm(self.encoder_proj(encoder_hidden_states.to(dtype)))
+        ehs = self.encoder_proj_layer_norm(self.encoder_proj(encoder_hidden_states.to(dtype)),
+                                           use_kernels=use_kernels)
         micro = sinusoidal_encode(micro_conds.reshape(-1), cfg.micro_cond_encode_dim)
         micro = micro.reshape(micro_conds.shape[0], -1)
         cond = torch.cat([cond_embeds.float(), micro.float()], dim=1).to(dtype)
@@ -397,17 +401,18 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
         is computed inside its own block, in the autograd graph and, under
         gradient checkpointing, inside the recomputed layer."""
         if step_ctx is None:
-            ehs, cond = self.conditioning(encoder_hidden_states, cond_embeds, micro_conds)
+            ehs, cond = self.conditioning(encoder_hidden_states, cond_embeds, micro_conds,
+                                          use_kernels)
             ctx_down = ctx_up = None
             ctx_layers = [None] * len(self.transformer_layers)
         else:
             ehs, cond = step_ctx["ehs"], step_ctx["cond"]
             ctx_down, ctx_layers, ctx_up = step_ctx["down"], step_ctx["layers"], step_ctx["up"]
-        x = self.embed(input_ids)
-        x = self.down_blocks[0](x, cond, ehs, ctx_down)
+        x = self.embed(input_ids, use_kernels)
+        x = self.down_blocks[0](x, cond, ehs, ctx_down, use_kernels)
         batch, height, width, channels = x.shape
         x = x.reshape(batch, height * width, channels)
-        x = self.project_to_hidden(self.project_to_hidden_norm(x))
+        x = self.project_to_hidden(self.project_to_hidden_norm(x, use_kernels=use_kernels))
         residual = None
         remat = self.gradient_checkpointing and step_ctx is None and torch.is_grad_enabled()
         for layer, ctx in zip(self.transformer_layers, ctx_layers):
@@ -417,10 +422,11 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
             else:
                 x, residual = layer(x, ehs, cond, residual, ctx, use_kernels)
         x = x + residual
-        x = self.project_from_hidden(self.project_from_hidden_norm(x))
-        x = self.up_blocks[0](x.reshape(batch, height, width, channels), cond, ehs, ctx_up)
+        x = self.project_from_hidden(self.project_from_hidden_norm(x, use_kernels=use_kernels))
+        x = self.up_blocks[0](x.reshape(batch, height, width, channels), cond, ehs, ctx_up,
+                              use_kernels)
         batch, height, width, channels = x.shape
-        logits = self.mlm_layer(x).reshape(batch, height * width, -1)
+        logits = self.mlm_layer(x, use_kernels).reshape(batch, height * width, -1)
         if labels is None:
             return logits
         if loss_weight is not None:
@@ -508,33 +514,50 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
     if (generator is None) == (sample_gumbel is None or mask_gumbel is None):
         raise ValueError("pass either generator= or both sample_gumbel= and mask_gumbel=")
     cfg = model.config
-    device = input_ids.device
-    batch = input_ids.shape[0]
+    if input_ids.shape[1] != seq_len:
+        raise ValueError(f"input_ids {tuple(input_ids.shape)} vs seq_len {seq_len}")
     step_ctx = model.step_context(ehs, conds, micros)
     ids = input_ids.long()
     sampled = ids
     for step in range(timesteps):
         model_input = torch.cat([ids, ids], dim=0) if use_cfg else ids
         raw = model(model_input, step_ctx=step_ctx)
-        g = None if sample_gumbel is None else sample_gumbel[step].to(device)
-        if use_cfg:
-            sampled, sel = fused_categorical_cfg(raw, float(guidance_scales[step]),
-                                                 cfg.codebook_size, gumbel=g,
-                                                 generator=None if g is not None else generator)
-        else:
-            sampled, sel = fused_categorical(raw, cfg.codebook_size, gumbel=g,
-                                             generator=None if g is not None else generator)
-        mg = (gumbel_noise((batch, seq_len), generator).to(device) if mask_gumbel is None
-              else mask_gumbel[step].to(device))
-        unknown = ids == cfg.mask_token_id
-        sampled = torch.where(unknown, sampled.long(), ids)
-        mask_len = torch.floor(seq_len * mask_ratios[step]).to(device)
-        mask_len = torch.clamp(torch.minimum(unknown.sum(-1, keepdim=True).float() - 1.0,
-                                             mask_len), min=1.0)
-        # the sampler's confidence is taken at the raw samples; known
-        # positions are pinned to fp32 max so they are never re-masked
-        selected = torch.where(unknown, sel, torch.finfo(torch.float32).max)
-        masking = sampling.mask_by_random_topk(mask_len, selected, float(temperatures[step]),
-                                               mg)
-        ids = torch.where(masking, cfg.mask_token_id, sampled)
+        ids, sampled = decode_step(
+            raw, ids, step, mask_token_id=cfg.mask_token_id, codebook_size=cfg.codebook_size,
+            guidance_scale=float(guidance_scales[step]) if use_cfg else None,
+            mask_ratio=mask_ratios[step], temperature=float(temperatures[step]),
+            generator=generator, sample_gumbel=sample_gumbel, mask_gumbel=mask_gumbel)
     return sampled
+
+
+def decode_step(raw, ids, step: int, *, mask_token_id: int, codebook_size: int,
+                guidance_scale, mask_ratio, temperature: float, generator=None,
+                sample_gumbel=None, mask_gumbel=None):
+    """One MaskGIT step after the forward, shared by the v1 and v2 decodes:
+    sample every position from the raw logits (B, S, >= codebook) (CFG
+    halves, cond first, when ``guidance_scale`` is not None), keep the
+    known tokens, and re-mask the ``floor(S * mask_ratio)`` least confident
+    of the unknown ones (at least 1, at most all but one).  Returns (ids for
+    the next step, the committed samples).  Noise: step ``step`` of
+    ``sample_gumbel`` / ``mask_gumbel``, else drawn from ``generator``."""
+    batch, seq_len = ids.shape
+    device = ids.device
+    g = None if sample_gumbel is None else sample_gumbel[step].to(device)
+    draw = None if g is not None else generator
+    if guidance_scale is not None:
+        sampled, sel = fused_categorical_cfg(raw, guidance_scale, codebook_size, gumbel=g,
+                                             generator=draw)
+    else:
+        sampled, sel = fused_categorical(raw, codebook_size, gumbel=g, generator=draw)
+    mg = (gumbel_noise((batch, seq_len), generator).to(device) if mask_gumbel is None
+          else mask_gumbel[step].to(device))
+    unknown = ids == mask_token_id
+    sampled = torch.where(unknown, sampled.long(), ids)
+    mask_len = torch.floor(seq_len * mask_ratio).to(device)
+    mask_len = torch.clamp(torch.minimum(unknown.sum(-1, keepdim=True).float() - 1.0, mask_len),
+                           min=1.0)
+    # the sampler's confidence is taken at the raw samples; known positions
+    # are pinned to fp32 max so they are never re-masked
+    selected = torch.where(unknown, sel, torch.finfo(torch.float32).max)
+    masking = sampling.mask_by_random_topk(mask_len, selected, temperature, mg)
+    return torch.where(masking, mask_token_id, sampled), sampled

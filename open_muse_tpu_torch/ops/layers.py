@@ -3,6 +3,13 @@
 
 Parameter names follow the open-muse torch modules (``weight`` / ``bias`` /
 ``gamma`` / ``beta``), so reference checkpoints load with ``load_state_dict``.
+
+Where the JAX package sends a layer to a Pallas kernel, the port sends it to
+the kernel's wrapper: ``RMSNorm`` to ``fused_residual_rmsnorm``, ``LayerNorm``
+to ``fused_residual_layernorm`` and an unmasked ``dot_product_attention`` to
+``flash_attention``; the wrappers are differentiable.  ``use_kernels=False``
+takes the code below them instead: the XLA path's staging, which in fp32
+computes what the kernels' plain versions do.
 """
 
 from __future__ import annotations
@@ -13,8 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_norm import fused_residual_layernorm, fused_residual_rmsnorm
+
 __all__ = ["RMSNorm", "LayerNorm", "Norm", "GlobalResponseNorm", "AdaLNModulation",
            "sinusoidal_encode", "dot_product_attention", "Attention"]
+
+
+def _result(out, prenorm, residual, return_residual):
+    return (out, prenorm) if residual is not None or return_residual else out
 
 
 class RMSNorm(nn.Module):
@@ -27,7 +41,12 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim)) if elementwise_affine else None
 
-    def forward(self, x, residual=None, return_residual: bool = False):
+    def forward(self, x, residual=None, return_residual: bool = False, use_kernels: bool = True):
+        if use_kernels:
+            out, prenorm = fused_residual_rmsnorm(
+                x.contiguous(), None if residual is None else residual.contiguous(),
+                self.weight, self.eps)
+            return _result(out, prenorm, residual, return_residual)
         if residual is not None:
             x = x + residual
         prenorm = x
@@ -35,9 +54,7 @@ class RMSNorm(nn.Module):
         out = x * torch.rsqrt(var + self.eps).to(x.dtype)
         if self.weight is not None:
             out = out * self.weight.to(out.dtype)
-        if residual is not None or return_residual:
-            return out, prenorm
-        return out
+        return _result(out, prenorm, residual, return_residual)
 
 
 class LayerNorm(nn.Module):
@@ -51,7 +68,12 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim)) if elementwise_affine else None
         self.bias = nn.Parameter(torch.zeros(dim)) if elementwise_affine and use_bias else None
 
-    def forward(self, x, residual=None, return_residual: bool = False):
+    def forward(self, x, residual=None, return_residual: bool = False, use_kernels: bool = True):
+        if use_kernels:
+            out, prenorm = fused_residual_layernorm(
+                x.contiguous(), None if residual is None else residual.contiguous(),
+                self.weight, self.bias, self.eps)
+            return _result(out, prenorm, residual, return_residual)
         if residual is not None:
             x = x + residual
         prenorm = x
@@ -63,9 +85,7 @@ class LayerNorm(nn.Module):
             out = out * self.weight.to(out.dtype)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
-        if residual is not None or return_residual:
-            return out, prenorm
-        return out
+        return _result(out, prenorm, residual, return_residual)
 
 
 def Norm(dim, norm_type: str = "layernorm", eps: float = 1e-5, use_bias: bool = False,
@@ -124,10 +144,15 @@ def sinusoidal_encode(features, embedding_dim: int, max_positions: float = 10000
     return emb
 
 
-def dot_product_attention(query, key, value, scale: float | None = None, mask=None):
+def dot_product_attention(query, key, value, scale: float | None = None, mask=None,
+                          use_kernels: bool = True):
     """(B, T, H, D) attention: fp32 logits and softmax, probabilities cast
     to the value dtype before PV.  ``mask`` (broadcast to (B, H, Tq, Tk))
-    marks logits replaced by the fp32 minimum."""
+    marks logits replaced by the fp32 minimum.  ``use_kernels`` sends an
+    unmasked call at the default scale to ``flash_attention``, as
+    ``MUSE_TPU_PALLAS_ATTN=1`` does in JAX; masked calls stay here."""
+    if mask is None and scale is None and use_kernels:
+        return flash_attention(query, key, value)
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     acc = torch.promote_types(query.dtype, torch.float32)
@@ -169,7 +194,10 @@ class Attention(nn.Module):
     def precompute_kv(self, context):
         return F.linear(context, *self._cat((self.key, self.value)))
 
-    def forward(self, hidden_states, context=None, cached_kv=None, qkv_weight=None):
+    def forward(self, hidden_states, context=None, cached_kv=None, qkv_weight=None,
+                attention_mask=None, use_kernels: bool = True):
+        """``attention_mask`` (broadcast to (B, H, Tq, Tk), True = masked
+        out) keeps the call on the plain path, as in JAX."""
         if context is None and cached_kv is None:
             w, b = qkv_weight if qkv_weight is not None else self.qkv_weight()
             q, k, v = F.linear(hidden_states, w, b).chunk(3, dim=-1)
@@ -181,5 +209,6 @@ class Attention(nn.Module):
         heads, hd = self.num_heads, self.hidden_size // self.num_heads
         attn = dot_product_attention(q.reshape(bsz, q_len, heads, hd),
                                      k.reshape(bsz, k.shape[1], heads, hd),
-                                     v.reshape(bsz, v.shape[1], heads, hd))
+                                     v.reshape(bsz, v.shape[1], heads, hd),
+                                     mask=attention_mask, use_kernels=use_kernels)
         return self.out(attn.reshape(bsz, q_len, self.hidden_size))

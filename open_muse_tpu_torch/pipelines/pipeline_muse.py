@@ -1,13 +1,16 @@
-"""Text -> image and inpainting pipelines, the counterparts of
-``open_muse_tpu/pipelines/pipeline_muse.py`` ``PipelineMuse`` (text prompts)
-and ``PipelineMuseInpainting``.
+"""Text -> image, class -> image and inpainting pipelines, the counterparts
+of ``open_muse_tpu/pipelines/pipeline_muse.py`` ``PipelineMuse`` (text
+prompts, or ImageNet class ids with ``is_class_conditioned=True``) and
+``PipelineMuseInpainting``.
 
 Flow: tokenize -> CLIP encode (penultimate hidden state + projected pooled
 embedding) -> empty-prompt embeddings for CFG -> micro-conds ->
 ``MaskGiTUViT_v2.generate2`` -> VQGAN ``decode_code`` -> NHWC float images.
 Inpainting first encodes the image to VQGAN tokens (``get_code``, the
 ``vq_argmin`` kernel) and starts the decode from them with the masked
-tokens set to the mask token.  The transformer may run in bf16 while the
+tokens set to the mask token.  The class-conditional flow has no text
+tower: class ids -> ``MaskGitTransformer.generate2(class_ids=...)`` ->
+``MaskGitVQGAN.decode_code``.  The transformer may run in bf16 while the
 VQGAN stays fp32.
 """
 
@@ -25,15 +28,17 @@ __all__ = ["PipelineMuse", "PipelineMuseInpainting"]
 
 
 class PipelineMuse:
-    def __init__(self, vae, transformer, text_encoder, tokenizer):
+    def __init__(self, vae, transformer, is_class_conditioned: bool = False, text_encoder=None,
+                 tokenizer=None):
         self.vae = vae
         self.transformer = transformer
+        self.is_class_conditioned = is_class_conditioned
         self.text_encoder = text_encoder
         self.tokenizer = tokenizer
 
     @property
     def device(self) -> torch.device:
-        return self.transformer.encoder_proj.weight.device
+        return next(self.transformer.parameters()).device
 
     def _tokenize(self, texts: List[str]) -> torch.Tensor:
         out = self.tokenizer(texts, padding="max_length", truncation=True,
@@ -49,16 +54,30 @@ class PipelineMuse:
         return last, None
 
     @torch.no_grad()
-    def __call__(self, text: Union[str, List[str]], negative_text: Optional[Union[str, List[str]]] = "",
+    def __call__(self, text: Optional[Union[str, List[str]]] = None,
+                 negative_text: Optional[Union[str, List[str]]] = "",
+                 class_ids: Optional[Union[int, List[int]]] = None,
                  timesteps: int = 16, noise_schedule: str = "cosine",
                  guidance_scale: float = 10.0, guidance_schedule=None,
                  temperature: Union[float, Tuple[float, float]] = (2, 0),
                  num_images_per_prompt: int = 1, generator: torch.Generator | None = None,
-                 orig_size=(512, 512), crop_coords=(0, 0),
+                 noise=None, orig_size=(512, 512), crop_coords=(0, 0),
                  aesthetic_score: float = 6.0, transformer_seq_len: Optional[int] = None,
                  clip_skip: Optional[int] = None, return_pil: bool = True):
-        """Text prompts -> images (PIL, or an NHWC float tensor with
-        ``return_pil=False``); noise comes from the CPU ``generator``."""
+        """Text prompts or class ids -> images (PIL, or an NHWC float tensor
+        with ``return_pil=False``).  Noise comes from the CPU ``generator``;
+        the class-conditional decode also takes ``noise=(sample_gumbel (T,
+        B, S, V), mask_gumbel (T, B, S))``."""
+        if (text is None) == (class_ids is None):
+            raise ValueError("pass exactly one of text and class_ids")
+        if class_ids is not None:
+            class_ids = np.repeat(np.asarray(class_ids).reshape(-1), num_images_per_prompt)
+            tokens = self.transformer.generate2(
+                class_ids=torch.as_tensor(class_ids, device=self.device), timesteps=timesteps,
+                guidance_scale=guidance_scale, temperature=temperature,
+                noise_schedule=get_mask_schedule(noise_schedule), generator=generator,
+                noise=noise)
+            return self._images(tokens, return_pil)
         if isinstance(text, str):
             text = [text]
         ehs, pooled = self._encode_text(self._tokenize(text), clip_skip)
@@ -85,6 +104,9 @@ class PipelineMuse:
             guidance_schedule=guidance_schedule, temperature=temperature,
             noise_schedule=get_mask_schedule(noise_schedule), generator=generator,
             seq_len=transformer_seq_len, **inputs)
+        return self._images(tokens, return_pil)
+
+    def _images(self, tokens, return_pil: bool):
         images = self.vae.decode_code(tokens)
         if not return_pil:
             return images
@@ -194,10 +216,7 @@ class PipelineMuseInpainting(PipelineMuse):
             timesteps=timesteps, guidance_scale=guidance_scale,
             guidance_schedule=guidance_schedule, temperature=temperature, generator=generator,
             noise=noise, seq_len=start_ids.shape[1], **inputs)
-        images = self.vae.decode_code(tokens)
-        if not return_pil:
-            return images
-        return [self.to_pil_image(img) for img in images.float().cpu().numpy()]
+        return self._images(tokens, return_pil)
 
     @staticmethod
     def _preprocess_image(image, image_size: int) -> torch.Tensor:

@@ -108,6 +108,9 @@ def test_port_imports_no_jax():
                                                                  PipelineMuseInpainting)
         from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
         from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+        from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+        from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+        from open_muse_tpu_torch.kernels import flash_attention, fused_residual_layernorm
         from open_muse_tpu_torch.training import train_muse
         from open_muse_tpu_torch.training.data import PreEncodedDataset, ShardSource
         from open_muse_tpu_torch.scripts import pre_encode
@@ -120,7 +123,17 @@ def test_port_imports_no_jax():
             out = m(torch.zeros(1, 16, dtype=torch.long), torch.zeros(1, 7, 48),
                     torch.zeros(1, 32), torch.zeros(1, 5))
             codes = VQGANModel(**{json.dumps(VQGAN_TINY)!s}).get_code(torch.zeros(1, 32, 32, 3))
+            v1 = MaskGitTransformer(vocab_size=69, hidden_size=32, num_hidden_layers=1,
+                                    num_attention_heads=2, intermediate_size=64,
+                                    codebook_size=64, num_vq_tokens=16,
+                                    max_position_embeddings=17, num_classes=4).eval()
+            tokens = v1.generate2(class_ids=[1], timesteps=2,
+                                  generator=torch.Generator().manual_seed(0))
+            images = MaskGitVQGAN(resolution=32, hidden_channels=32, channel_mult=(1, 2),
+                                  num_res_blocks=1, z_channels=16, num_embeddings=64,
+                                  quantized_embed_dim=16).decode_code(tokens)
         assert out.shape == (1, 16, 64) and codes.shape == (1, 256)
+        assert tokens.shape == (1, 16) and images.shape == (1, 8, 8, 3)
         bad = [name for name in sys.modules
                if name.split(".")[0] in ("jax", "flax", "jaxlib", "open_muse_tpu")]
         assert not bad, bad

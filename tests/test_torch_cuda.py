@@ -185,18 +185,27 @@ def test_glu_backward_kernel_matches_plain(device, m, k, n):
         assert torch.equal(mine, twice), name
 
 
+def _small_v2(device):
+    """Two trunk layers and one down / up block pair, heads of 64 in the
+    trunk and in the attention blocks (the sublayer and attention kernels'
+    head width), fp32 weights."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+
+    return MaskGiTUViT_v2(hidden_size=128, cond_embed_dim=32, micro_cond_encode_dim=8,
+                          micro_cond_embed_dim=40, encoder_hidden_size=48, vocab_size=68,
+                          codebook_size=64, in_channels=32, block_out_channels=(128,),
+                          num_res_blocks=1, block_num_heads=2, num_hidden_layers=2,
+                          num_attention_heads=2, intermediate_size=256).to(device)
+
+
 def test_training_backward_reaches_every_parameter(device):
     """Regression for the graph cut: a requires_grad forward through the
     kernels under bf16 autocast gives every parameter of a small model a
-    finite, non-zero gradient, and runs every backward kernel."""
-    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
-
+    finite, non-zero gradient, and runs every backward kernel.  The norm and
+    attention kernels launch in the forward (the trunk's GLU pre-norm again
+    in the checkpointed recompute) and take the plain versions' gradients."""
     torch.manual_seed(0)
-    model = MaskGiTUViT_v2(hidden_size=128, cond_embed_dim=32, micro_cond_encode_dim=8,
-                           micro_cond_embed_dim=40, encoder_hidden_size=48, vocab_size=68,
-                           codebook_size=64, in_channels=32, block_out_channels=(32,),
-                           num_res_blocks=1, block_num_heads=2, num_hidden_layers=2,
-                           num_attention_heads=2, intermediate_size=256).to(device)
+    model = _small_v2(device)
     model.set_gradient_checkpointing(True)
     gen = torch.Generator(device=device).manual_seed(0)
     ids = torch.randint(0, 64, (2, 16), generator=gen, device=device)
@@ -209,6 +218,149 @@ def test_training_backward_reaches_every_parameter(device):
     counts = kernels.launch_counts()
     for name in ("attn_sublayer_self", "attn_sublayer_cross", "glu_down_matmul"):
         assert counts[name] == 4 and counts[name + "_bwd"] == 2, counts
+    # the blocks' two attentions twice, their three RMSNorms twice, the embed,
+    # projection, head and text-projection RMSNorms; the GLU pre-norms twice
+    assert counts["flash_attention"] == 4, counts
+    assert counts["fused_residual_rmsnorm"] == 11, counts
+    assert counts["fused_residual_layernorm"] == 4, counts
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()) and bool(p.grad.abs().sum() > 0), name
+
+
+# -- fused norms and flash attention ------------------------------------------
+
+# bf16 on both sides with one cast at the end of fp32 arithmetic: the kernels
+# and the plain versions differ by the order of their sums, at most about one
+# bf16 rounding of the output
+NORM_TOL, ATTN_TOL = 1e-2, 2e-2
+
+
+@pytest.mark.parametrize("shape,with_residual", [((1, 257, 768), True), ((2, 256, 768), True),
+                                                 ((1, 257, 3072), False)])
+def test_fused_norm_kernels_match_plain(device, shape, with_residual):
+    """Both kernels at the paths' shapes, LayerNorm with and without a
+    bias; the prenorm sum bit-equal (x itself without a residual), two calls
+    bit-equal, one launch each."""
+    from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_plain,
+                                                        fused_residual_rmsnorm_plain)
+
+    gen = torch.Generator().manual_seed(shape[-1])
+    x = _rand(gen, *shape, scale=2.0)
+    res = _rand(gen, *shape) if with_residual else None
+    scale, bias = 1 + _rand(gen, shape[-1], scale=0.1), _rand(gen, shape[-1], scale=0.1)
+    cases = {
+        "rms": (lambda: kernels.fused_residual_rmsnorm(x, res, scale),
+                lambda: fused_residual_rmsnorm_plain(x, res, scale), kernels.fused_residual_rmsnorm),
+        "ln": (lambda: kernels.fused_residual_layernorm(x, res, scale, bias),
+               lambda: fused_residual_layernorm_plain(x, res, scale, bias),
+               kernels.fused_residual_layernorm),
+        "ln_nobias": (lambda: kernels.fused_residual_layernorm(x, res, scale, None),
+                      lambda: fused_residual_layernorm_plain(x, res, scale, None),
+                      kernels.fused_residual_layernorm),
+    }
+    for name, (kern, plain, wrapper) in cases.items():
+        before = wrapper.launches
+        out, pre = kern()
+        assert wrapper.launches == before + 1, name
+        ref, ref_pre = plain()
+        assert _rel(out, ref) <= NORM_TOL, (name, _rel(out, ref))
+        assert torch.equal(pre, ref_pre), name
+        assert (pre is x) == (res is None), name
+        assert torch.equal(out, kern()[0]), name
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77)])
+def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
+    """v1's self-attention (ragged 257 x 257, head_dim 48) and v2's block
+    cross-attention (77 keys, head_dim 64), the inputs as views into fused
+    [q | k | v] / [k | v] projections; two calls bit-equal."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+
+    gen = torch.Generator().manual_seed(kv_len)
+    b, tq, h, d = q_shape
+    if tq == kv_len:
+        q, k, v = _rand(gen, b, tq, 3 * h * d).reshape(b, tq, 3 * h, d).chunk(3, dim=2)
+    else:
+        q = _rand(gen, b, tq, h, d)
+        k, v = _rand(gen, b, kv_len, 2 * h * d).reshape(b, kv_len, 2 * h, d).chunk(2, dim=2)
+    before = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v)
+    assert kernels.flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v)
+    assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
+    assert torch.equal(out, kernels.flash_attention(q, k, v))
+
+
+def test_norm_and_attention_wrappers_raise_on_inputs_they_do_not_take(device):
+    gen = torch.Generator().manual_seed(3)
+    x, scale = _rand(gen, 4, 64), 1 + _rand(gen, 64, scale=0.1)
+    with pytest.raises(ValueError):  # not contiguous
+        kernels.fused_residual_rmsnorm(x.t().contiguous().t(), None, scale)
+    with pytest.raises(TypeError):  # float64
+        kernels.fused_residual_layernorm(x.double(), None, scale.double(), None)
+    with pytest.raises(TypeError):  # scale of another type than x
+        kernels.fused_residual_rmsnorm(x, None, scale.float())
+    q = _rand(gen, 1, 8, 2, 48)
+    with pytest.raises(TypeError):  # fp32
+        kernels.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):  # heads not D apart
+        kernels.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    odd = _rand(gen, 1, 8, 2, 40)
+    with pytest.raises(ValueError):  # head_dim not a kernel instantiation
+        kernels.flash_attention(odd, odd, odd)
+
+
+def test_norm_and_attention_kernels_launch_under_autograd(device):
+    """Inputs that require grad launch the kernels once each; the backward
+    gives the plain versions' gradients (bf16 inputs, fp32 arithmetic on
+    both sides: ATTN_TOL)."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+    from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_plain,
+                                                        fused_residual_rmsnorm_plain)
+
+    gen = torch.Generator().manual_seed(4)
+    x0, r0 = _rand(gen, 2, 16, 64), _rand(gen, 2, 16, 64)
+    s0, q0 = 1 + _rand(gen, 64, scale=0.1), _rand(gen, 1, 16, 2, 64)
+
+    def run(rms, ln, attn):
+        x, r, s, q = (t.clone().requires_grad_() for t in (x0, r0, s0, q0))
+        out, _ = rms(x, None, s)
+        out2, pre = ln(x, r, s)
+        att = attn(q, q, q)
+        (out.float().sum() + out2.float().square().sum() + pre.float().sum()
+         + att.float().square().sum()).backward()
+        return x.grad, r.grad, s.grad, q.grad
+
+    kernels.reset_launch_counts()
+    got = run(kernels.fused_residual_rmsnorm,
+              lambda x, r, s: kernels.fused_residual_layernorm(x, r, s, None),
+              kernels.flash_attention)
+    counts = kernels.launch_counts()
+    assert {k: n for k, n in counts.items() if n} == {
+        "fused_residual_rmsnorm": 1, "fused_residual_layernorm": 1, "flash_attention": 1}
+    want = run(fused_residual_rmsnorm_plain,
+               lambda x, r, s: fused_residual_layernorm_plain(x, r, s, None),
+               flash_attention_plain)
+    for name, g, w in zip(("dx", "dres", "dscale", "dq"), got, want):
+        assert _rel(g, w) <= ATTN_TOL, (name, _rel(g, w))
+
+
+def test_v2_forward_under_autocast_runs_every_forward_kernel(device):
+    """A no-grad forward of an fp32 model under bf16 autocast: the wrappers
+    cast their inputs to bf16 and launch; logits finite and within the
+    bf16 forward tolerance of the use_kernels=False forward."""
+    torch.manual_seed(1)
+    model = _small_v2(device).eval()
+    gen = torch.Generator(device=device).manual_seed(1)
+    ids = torch.randint(0, 64, (2, 16), generator=gen, device=device)
+    args = (ids, torch.randn(2, 7, 48, device=device), torch.randn(2, 32, device=device),
+            torch.tensor([[512, 512, 0, 0, 6.0]] * 2, device=device))
+    kernels.reset_launch_counts()
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        fused = model(*args)
+        counts = kernels.launch_counts()
+        plain = model(*args, use_kernels=False)
+    assert counts["flash_attention"] == 4 and counts["fused_residual_rmsnorm"] == 11, counts
+    assert counts["fused_residual_layernorm"] == 2 and counts["glu_down_matmul"] == 2, counts
+    assert bool(torch.isfinite(fused).all()) and _rel(fused, plain) <= 5e-2

@@ -61,20 +61,36 @@ def test_vq_argmin_duplicate_code_takes_the_earlier_index():
     assert (got[:50] == 17).all()
 
 
+@pytest.fixture
+def fp32_products():
+    """Both frameworks' fp32 products at full fp32 precision for the test,
+    whatever an earlier test in the same worker process left set."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    with jax.default_matmul_precision("highest"), torch.autocast("cpu", enabled=False):
+        yield
+    torch.set_float32_matmul_precision(saved)
+
+
 @pytest.mark.parametrize("k", [64, 1024])
 @pytest.mark.parametrize("metric", ["sq_l2", "l2"])
-def test_nearest_codes_and_distances_match_jax(metric, k):
+def test_nearest_codes_and_distances_match_jax(metric, k, fp32_products):
     """K = 64 takes the JAX distance-matrix argmin, K = 1024 its kernel:
-    ids exactly equal; distances to rtol 1e-5 (fp32, summation order), with
-    an absolute floor of 1e-5 of their scale for the square root near 0."""
+    distances to rtol 1e-5 (fp32, summation order), with an absolute floor
+    of 1e-5 of their scale for the square root near 0; ids equal, except
+    where JAX's own fp32 distances to its pick and to the port's are equal
+    (the square root and the |z|^2 term round near-ties together, and the
+    JAX argmin takes the first of equal values)."""
     z, cb = _latents(k, 500, 16, k)
     want_d = np.asarray(jax_vq.compute_distances(jnp.asarray(z), jnp.asarray(cb), metric))
     want_ids = np.asarray(jax_vq.nearest_codebook_indices(jnp.asarray(z), jnp.asarray(cb),
                                                           metric))
     got_d = vq.compute_distances(torch.from_numpy(z), torch.from_numpy(cb), metric).numpy()
-    got_ids = vq.nearest_codebook_indices(torch.from_numpy(z), torch.from_numpy(cb), metric)
+    got_ids = vq.nearest_codebook_indices(torch.from_numpy(z), torch.from_numpy(cb),
+                                          metric).numpy()
     np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5 * np.abs(want_d).max())
-    np.testing.assert_array_equal(got_ids.numpy(), want_ids)
+    rows = np.nonzero(got_ids != want_ids)[0]
+    np.testing.assert_array_equal(want_d[rows, got_ids[rows]], want_d[rows, want_ids[rows]])
 
 
 @pytest.fixture(scope="module")
