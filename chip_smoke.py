@@ -2,8 +2,9 @@
 
 Builds the port's CUDA kernels from ``open_muse_tpu_torch/csrc``, holds each
 forward and backward kernel against its plain PyTorch version at the shapes
-of its path, then drives the port's paths at full width with seeded random
-weights:
+of its path (each timed, with its plain version, by replaying calls from a
+CUDA graph: device time without the host's enqueue), then drives the port's
+paths at full width with seeded random weights:
 
 - serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
   ``PipelineMuse.text2image``;
@@ -33,6 +34,7 @@ The second-to-last line is the kernel report as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -98,22 +100,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, trials: int = 7) -> float:
-    """Median over ``trials`` of the mean time of ``reps`` back-to-back
-    launches, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+@functools.lru_cache(maxsize=None)
+def _warm_up_stream() -> torch.cuda.Stream:
+    """One side stream for every graph warm-up: cuBLAS keeps a workspace
+    for each stream it has run on."""
+    return torch.cuda.Stream()
 
 
 def graph_ms(fn, reps: int = 20, trials: int = 7) -> float:
@@ -121,7 +112,7 @@ def graph_ms(fn, reps: int = 20, trials: int = 7) -> float:
     ``reps`` calls replayed from one captured CUDA graph, by CUDA events.
     The replay has no host enqueue in it, so a call of a few microseconds
     is timed as the device runs it, launch gaps included."""
-    stream = torch.cuda.Stream()
+    stream = _warm_up_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):  # warm-up outside the capture
         fn()
@@ -174,8 +165,8 @@ def check_glu(device, gen, m):
         f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel {tol}: bf16 output rounding and "
         f"sum order); vs fp32 product: kernel {errors(got, exact)[0]:.3e}, plain "
         f"{errors(ref, exact)[0]:.3e} {'ok' if ok else 'FAIL'}")
-    timing = (time_ms(lambda: glu_down_matmul(a, b, wo)),
-              time_ms(lambda: glu_down_matmul_plain(a, b, wo)))
+    timing = (graph_ms(lambda: glu_down_matmul(a, b, wo)),
+              graph_ms(lambda: glu_down_matmul_plain(a, b, wo)))
     BOUNDS.setdefault("glu_down_matmul", (nbytes(a, b, wo, got), 2 * m * k * n, "bf16"))
     return ok, max_abs, timing
 
@@ -225,7 +216,8 @@ def check_sublayers(device, gen, b):
                 f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16: max_abs {max_abs:.3e} "
                 f"rel {rel:.3e} (tol rel {tol}: bf16 roundings of qkv / probs / output), "
                 f"residual bit-equal {h_equal} {'ok' if rel <= tol and h_equal else 'FAIL'}")
-        timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
+        timing = (graph_ms(lambda: kern(inp["res"])),
+                  graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
         # the q(kv) and output projections, and QK^T and PV over the keys
         s = inp["x"].shape[1]
@@ -281,12 +273,12 @@ def check_sampler(device, gen):
         f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
         f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if philox_ok else 'FAIL'}")
 
-    timing = (time_ms(lambda: fused_categorical_cfg(logits, guidance, v, gumbel=gumbel)),
-              time_ms(lambda: fused_categorical_cfg_plain(logits, guidance, v, gumbel)))
+    timing = (graph_ms(lambda: fused_categorical_cfg(logits, guidance, v, gumbel=gumbel)),
+              graph_ms(lambda: fused_categorical_cfg_plain(logits, guidance, v, gumbel)))
     # fp32: the combine (3), x + g (1), the running max and sum with one exp (3)
     BOUNDS["fused_categorical_cfg"] = (nbytes(logits, gumbel, ids, sel), 7 * b * s * v, "fp32")
-    log(f"[kernel] fused_categorical_cfg Philox route: "
-        f"{time_ms(lambda: fused_categorical_cfg(logits, guidance, v, generator=ph_gen)):.4f} ms")
+    philox_ms = graph_ms(lambda: fused_categorical_cfg(logits, guidance, v, generator=ph_gen))
+    log(f"[kernel] fused_categorical_cfg Philox route: {philox_ms:.4f} ms")
     return ids_ok and sel_ok and philox_ok, max_abs, timing
 
 
@@ -332,9 +324,9 @@ def check_categorical(device, gen):
         f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
         f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if philox_ok else 'FAIL'}")
 
-    timing = (time_ms(lambda: fused_categorical(logits, v, gumbel=gumbel)),
-              time_ms(lambda: fused_categorical_plain(logits, v, gumbel)))
-    philox_ms = time_ms(lambda: fused_categorical(logits, v, generator=ph_gen))
+    timing = (graph_ms(lambda: fused_categorical(logits, v, gumbel=gumbel)),
+              graph_ms(lambda: fused_categorical_plain(logits, v, gumbel)))
+    philox_ms = graph_ms(lambda: fused_categorical(logits, v, generator=ph_gen))
     philox_bound = nbytes(logits[..., :v], ids, sel) / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] fused_categorical Philox route: {philox_ms:.4f} ms (bound {philox_bound:.4f} "
         f"ms: the cropped logits read once)")
@@ -381,10 +373,10 @@ def check_vq(device, gen):
             f"{gap.min().item():.3e}; the kernel's pick above the plain minimum by at most "
             f"{picked:.3e} of the scale (bound {VQ_RTOL}); two calls bit-equal "
             f"{torch.equal(ids, again)} {'ok' if case_ok else 'FAIL'}")
-        ms = (time_ms(lambda: vq_argmin(z, cb), reps=10, trials=5),
-              time_ms(lambda: vq_argmin_plain(z, cb), reps=10, trials=5))
+        ms = (graph_ms(lambda: vq_argmin(z, cb), reps=10, trials=5),
+              graph_ms(lambda: vq_argmin_plain(z, cb), reps=10, trials=5))
         log(f"[time] vq_argmin ({path}, N {n}): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms "
-            f"(median, CUDA events); bound {2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms "
+            f"(median, CUDA graph replay); bound {2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms "
             f"(2NKC fp32 operations)")
         if timing is None:  # the pre-encode shape is the kernel's row in the report
             timing = ms
@@ -394,13 +386,13 @@ def check_vq(device, gen):
     return ok, worst, timing
 
 
-# the rows timed by graph_ms; the others by time_ms
-GRAPH_TIMED = ("fused_residual_rmsnorm", "fused_residual_layernorm", "flash_attention")
 # the norms' path shapes: v1's 257 tokens (class + 256) and v2's CFG batch of
-# 2 x 256 at width 768 with a residual, v1's 3072-wide mid-MLP norm without;
-# the report's row is the residual-free shape, where one PyTorch call
-# (F.rms_norm / F.layer_norm) computes the same function
-NORM_SHAPES = (((1, 257, 768), True), ((2, 256, 768), True), ((1, 257, 3072), False))
+# 2 x 256 at width 768 with a residual, v2's trunk pre-MLP LayerNorm at 1024
+# with one, v1's 3072-wide mid-MLP norm without; the report's row is the
+# residual-free shape, where one PyTorch call (F.rms_norm / F.layer_norm)
+# computes the same function
+NORM_SHAPES = (((1, 257, 768), True), ((2, 256, 768), True), ((2, 256, 1024), True),
+               ((1, 257, 3072), False))
 NORM_EPS, NORM_TOL = 1e-6, 1e-2
 
 
@@ -441,11 +433,15 @@ def check_norms(device, gen):
             case_ok = rel <= NORM_TOL and pre_ok and twice and bool(torch.isfinite(out).all())
             ok &= case_ok
             worst = max(worst, max_abs)
-            ms = (graph_ms(lambda: kern(x, res, w)), graph_ms(lambda: plain(x, res, w)))
+            ms = (graph_ms(lambda: kern(x, res, w)),
+                  graph_ms(lambda: plain(x, res, w)))
+            # x (and res) read, out (and prenorm) written, the scale read once
+            moved = nbytes(x, res, w, out, None if res is None else pre)
             log(f"[kernel] {name} x {shape} res={'given' if with_res else 'None'} bf16: max_abs "
                 f"{max_abs:.3e} rel {rel:.3e} (tol rel {NORM_TOL}: one bf16 rounding), prenorm "
                 f"bit-equal {pre_ok}, two calls bit-equal {twice}; kernel {ms[0]:.4f} ms, plain "
-                f"{ms[1]:.4f} ms (CUDA graph replay) {'ok' if case_ok else 'FAIL'}")
+                f"{ms[1]:.4f} ms (CUDA graph replay), bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"(bytes) {'ok' if case_ok else 'FAIL'}")
         # the last shape, residual-free, is the report's row
         lib_ms = graph_ms(lambda: lib(x, w))
         lib_err = errors(lib(x, w), ref)[1]
@@ -459,10 +455,16 @@ def check_norms(device, gen):
     return results
 
 
-# flash attention at the paths' shapes: v1's self-attention (257 tokens, 16
-# heads of 48, q / k / v views into the fused projection) and v2's block
-# cross-attention (2 x 256 queries, 12 heads of 64, 77 text keys as views into
-# the [k | v] projection); the report's row is v1's
+# flash attention (b, tq, tk, heads, d): v2's block attention (2 x 256
+# queries, 12 heads of 64, the 77 text keys as views into the [k | v]
+# projection: both attentions of an AttentionBlock2D) when serving and at the
+# training batch of 16; 256 keys at head_dim 64, the split one-pass variant
+# that v1 takes at 48, and 1025, above the one-pass capacity of 288 keys
+# (the two-pass variant), which no path launches; last v1's self-attention
+# (257 tokens, 16 heads of 48, q / k / v views into the fused projection),
+# the report's row
+FLASH_SHAPES = ((2, 256, 256, 12, 64), (2, 256, 77, 12, 64), (16, 256, 77, 12, 64),
+                (1, 1025, 1025, 16, 64), (1, 257, 257, 16, 48))
 ATTN_TOL = 2e-2
 
 
@@ -486,7 +488,7 @@ def check_flash(device, gen):
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     ok, worst, row = True, 0.0, None
-    for b, tq, tk, heads, d in ((2, 256, 77, 12, 64), (1, 257, 257, 16, 48)):
+    for b, tq, tk, heads, d in FLASH_SHAPES:
         q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
         out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
         max_abs, rel = errors(out, ref)
@@ -500,12 +502,14 @@ def check_flash(device, gen):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         lib_ms = graph_ms(sdpa)
         lib_err = errors(sdpa().transpose(1, 2), ref)[1]
+        # q, k, v read and o written once; QK^T and PV
+        row = (ms, lib_ms, (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16"))
+        BOUNDS["flash_attention"] = row[2]
         log(f"[kernel] flash_attention q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: max_abs "
             f"{max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), two calls "
             f"bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {lib_ms:.4f} ms "
-            f"(CUDA graph replay; rel {lib_err:.3e} vs plain) {'ok' if case_ok else 'FAIL'}")
-        # q, k, v read and o written once; QK^T and PV
-        row = (ms, lib_ms, (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16"))
+            f"(CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
+            f"{bound_ms('flash_attention')[0]:.4f} ms {'ok' if case_ok else 'FAIL'}")
     ms, LIBRARY_MS["flash_attention"], BOUNDS["flash_attention"] = row
     return ok, worst, ms
 
@@ -522,14 +526,14 @@ def kernel_phase(device):
     report.update(check_norms(device, gen))
     report["flash_attention"] = check_flash(device, gen)
     for name, (ok, err, (ms, plain_ms)) in report.items():
-        how = "CUDA graph replay" if name in GRAPH_TIMED else "CUDA events"
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, {how})")
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
+            f"CUDA graph replay)")
     # the training path runs the forward kernels at batch 16 too
     train = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S)}
     train.update(check_sublayers(device, gen, TRAIN_B))
     for name, (ok, err, (ms, plain_ms)) in train.items():
         log(f"[time] {name} at the training shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"(median, CUDA events)")
+            f"(median, CUDA graph replay)")
         serving_ok, serving_err, timing = report[name]
         report[name] = (serving_ok and ok, max(serving_err, err), timing)
     kernels.reset_launch_counts()
@@ -576,8 +580,8 @@ def check_glu_bwd(device, gen):
     ok, worst = _check_outputs("glu_down_matmul_bwd", ("da", "db", "dwo"), got,
                                glu_down_matmul_bwd_plain(a, b, wo, g), again,
                                f"a,b {tuple(a.shape)} g {tuple(g.shape)} bf16")
-    timing = (time_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
-              time_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
+    timing = (graph_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
+              graph_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
     # dh = g wo and dwo = h^T g
     BOUNDS["glu_down_matmul_bwd"] = (nbytes(a, b, wo, g, *got), 4 * m * INTER * HIDDEN, "bf16")
     return ok, worst, timing
@@ -617,7 +621,8 @@ def check_sublayer_bwd(device, gen):
             case_ok, case_worst = _check_outputs(name, names, kern(res), ref, kern(res), shapes)
             ok &= case_ok
             worst = max(worst, case_worst)
-        timing = (time_ms(lambda: kern(inp["res"])), time_ms(lambda: plain(inp["res"])))
+        timing = (graph_ms(lambda: kern(inp["res"])),
+                  graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
         # the products of this backward, forward recompute included: self
         # recomputes qkv and takes dattn, dWout, dWqkv, da (11 d x d
@@ -639,7 +644,8 @@ def backward_kernel_phase(device):
     report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen)}
     report.update(check_sublayer_bwd(device, gen))
     for name, (ok, err, (ms, plain_ms)) in report.items():
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA events)")
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
+            f"CUDA graph replay)")
     kernels.reset_launch_counts()
     return report
 
@@ -1388,8 +1394,9 @@ def main() -> int:
     log(f"[build] nvcc sm_90a build + load {time.perf_counter() - t0:.1f} s")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
-        f.write(_build.build_log)
+    if _build.build_log:  # empty when the library was already built
+        with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
+            f.write(_build.build_log)
 
     phase_t0 = time.perf_counter()
     report = kernel_phase(device)

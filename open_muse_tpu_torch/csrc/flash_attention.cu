@@ -10,28 +10,48 @@
 // `flash_attention` (body `_kernel`), which holds a group of (batch, head)
 // pairs' whole K/V in VMEM, pads K/V to 128 lanes and masks the pad.  Neither
 // the grouping nor the padding is carried over: here a block owns one
-// (batch, head) pair and 64 query rows, and walks K/V in 64-key tiles,
-// masking the ragged last tile in place.
+// (batch, head) pair and a tile of query rows and masks the ragged keys in
+// place.  The exact staging rules out online-softmax rescaling of an
+// unnormalised PV: P is rounded to bf16 only after the exact row sum is known.
 //
-// What bounds it on the H100: at the paths' shapes (T 257 / 256 x 77, D 48 /
-// 64) the bytes (q, k, v read once, o written once: 1.6 MB for v1's
-// (1, 257, 16, 48)) and the 4 B H Tq Tk D operations (0.2 GFLOP there) are
-// both a microsecond or less; a kernel this small is bound by its launch and
-// its few blocks, not by either.
+// What bounds it on the H100: at the paths' shapes (v1's self-attention
+// (1, 257, 16, 48); v2's block attention (2, 256, 12, 64) over the 77 text
+// keys, 16 rows of batch when training) neither bytes (1.6 MB at v1: 0.5 us)
+// nor operations (0.2 GFLOP: 0.2 us) but latency: how many dependent memory
+// round trips a block waits on, how long one warp's chain of mma, exp and
+// shuffles is, and how many SMs hold a block at all.
 //
-// What the design does about it, and about exactness: four warps, each
-// holding 16 query rows as mma.sync m16n8k16 A fragments in registers
-// (loaded once from device memory); K tiles ([key][d]) and V tiles transposed
-// ([d][key]) in padded shared memory, so every B fragment is one 32-bit
-// shared load without bank conflicts.  Two passes over the keys keep the
-// TPU kernel's staging exact: the first computes each row's max and sum of
-// exponentials (online, in fp32), the second recomputes S, forms the
-// normalised weights P = exp(S - max) / sum, rounds them to the input type
-// as the TPU kernel does before its PV product, and accumulates P V in fp32.
-// The rows' statistics never leave registers and S never reaches device
-// memory.  Query rows, keys and the batch / token strides are free: q, k and
-// v may be views into a fused projection (token stride 3 H D for a packed
-// [q | k | v]), with no padding and no copy.
+// What the design does about it: one pass over K, with all of a (batch,
+// head) pair's K and V, rounded up to 16 keys and zero-filled, copied into
+// dynamic shared memory by cp.async 16-byte copies issued at once, K as one
+// commit group and V as a second, while the Q fragments load straight into
+// registers.  The block waits once for K, computes S once (mma.sync
+// m16n8k16, K fragments by ldmatrix) and keeps it in registers, takes the
+// row max, exp and the row sum while V is still arriving, then forms P =
+// exp * (1 / sum) rounded to bf16 and P V (V fragments by ldmatrix.trans on
+// row-major V, so no transposed copy).  exp is ex2.approx with log2(e) folded into the
+// scale and the division a product with the row sum's IEEE reciprocal: both
+// within a few fp32 ulps of the TPU kernel's exp(S - max) / sum, far below
+// the bf16 rounding of P that follows.  Blocks hold 4 groups of 16 query
+// rows (64 rows); S's register footprint is fixed at compile time, so the
+// capacity follows Tk.  Variant rule, on Tk before the launch:
+//
+//  * Tk <= 80 (v2's 77 text keys): one warp a group over every key, 128
+//    threads; S is 40 floats a thread.
+//  * 80 < Tk <= 288 (v1's 257): two warps a group, each over its
+//    half of the 16-key chunks (at most 9), 256 threads; the halves' row
+//    maxima and sums meet in shared memory (sums added in warp order) and
+//    the second warp's partial P V is added to the first's before the store.
+//  * Tk > 288: no path launches it; two passes over 64-key tiles, four
+//    warps, 64 query rows a block: the first pass takes each row's max and
+//    sum of exponentials online, the second recomputes S, forms P in bf16
+//    and accumulates P V, with K and V loaded synchronously and V transposed
+//    into padded shared memory.
+//
+// All count as one launch of the wrapper.  Query rows, keys and the batch /
+// token strides are free: q, k and v may be views into a fused projection
+// (token stride 3 H D for a packed [q | k | v]), with no padding and no copy.
+// No atomics: two calls are bit-equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -40,14 +60,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 16;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows a block
-constexpr int kBlockK = 64;                      // keys a tile
-constexpr int kKPad = kBlockK + 8;               // V^T row length in shared memory
-
 using T = __nv_bfloat16;
+
+constexpr int kRowsPerWarp = 16;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -74,14 +90,292 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// strides in elements: sb between batch rows, st between tokens; heads are D
-// apart and d is contiguous
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without staging in registers; bytes 0 copies
+// nothing and zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const T* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const T* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the A fragments of Q K^T for query rows r0 and r0 + 8 (zeros past Tq)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H, int Tq, int Tk,
-                       int64_t q_sb, int64_t q_st, int64_t k_sb, int64_t k_st, int64_t v_sb,
-                       int64_t v_st, float scale) {
+__device__ __forceinline__ void load_q(uint32_t qf[D / 16][4], const T* qb, int64_t q_st, int r0,
+                                       int Tq, int t4) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const int c = kc * 16 + t4 * 2;
+    qf[kc][0] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c) : 0u;
+    qf[kc][1] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c) : 0u;
+    qf[kc][2] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c + 8) : 0u;
+    qf[kc][3] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c + 8) : 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// one pass: Tk <= kMaxKeys
+
+constexpr int kMaxKeys = 288;  // the one-pass capacity: two warps of 9 chunks of 16 keys
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>  // wait until at most kPending committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <int D>
+__host__ __device__ constexpr int one_pass_row() { return D + 8; }  // K / V row in shared memory
+
+// dynamic shared memory: K and V rounded up to 16 keys, then with kSplit > 1
+// the partial P V of the warps that do not store
+template <int D, int kGroups, int kSplit>
+size_t one_pass_smem(int Tk) {
+  return 2 * size_t((Tk + 15) / 16 * 16) * one_pass_row<D>() * sizeof(T) +
+         size_t(kGroups) * (kSplit - 1) * kRowsPerWarp * D * sizeof(float);
+}
+
+// A block holds kGroups groups of 16 query rows of one (batch, head) pair;
+// kSplit warps share a group, each over its own run of at most kChunks
+// 16-key chunks.  Strides in elements: sb between batch rows, st between
+// tokens; heads are D apart and d is contiguous.
+template <int D, int kGroups, int kSplit, int kChunks>
+__global__ void __launch_bounds__(32 * kGroups * kSplit)
+one_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, int H, int Tq, int Tk, int64_t q_sb, int64_t q_st,
+                int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, float scale_log2) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int kThreads = 32 * kGroups * kSplit;
+  constexpr int kRow = one_pass_row<D>();  // 112 / 144 bytes: ldmatrix rows on distinct banks
+  constexpr int kDChunks = D / 8;          // 16-byte chunks a row; 8-column C tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red_m[kGroups][kSplit][kRowsPerWarp], red_l[kGroups][kSplit][kRowsPerWarp];
+  const int chunks = (Tk + 15) / 16;
+  const int keys = chunks * 16;  // rows staged: Tk rounded up, zero-filled
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + keys * kRow;
+  float4* part = reinterpret_cast<float4*>(Vs + keys * kRow);  // the split warps' P V
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / kSplit, half = warp % kSplit;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* kb = k + b * k_sb + int64_t(h) * D;
+  const T* vb = v + b * v_sb + int64_t(h) * D;
+
+  // every copy of K, then of V, in flight at once: two commit groups, so S
+  // and the softmax run while V is still arriving
+  for (int idx = threadIdx.x; idx < keys * kDChunks; idx += kThreads) {
+    const int r = idx / kDChunks, c = (idx % kDChunks) * 8;
+    cp_async16(Ks + r * kRow + c, r < Tk ? kb + r * k_st + c : kb, r < Tk ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < keys * kDChunks; idx += kThreads) {
+    const int r = idx / kDChunks, c = (idx % kDChunks) * 8;
+    cp_async16(Vs + r * kRow + c, r < Tk ? vb + r * v_st + c : vb, r < Tk ? 16 : 0);
+  }
+  cp_async_commit();
+  // meanwhile this thread's Q fragments, straight into registers
+  const int r0 = blockIdx.x * (kGroups * kRowsPerWarp) + grp * kRowsPerWarp + g;
+  uint32_t qf[D / 16][4];
+  load_q<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
+  // this warp's chunks [c0, c1)
+  const int per = (chunks + kSplit - 1) / kSplit;
+  const int c0 = half * per, c1 = min(chunks, c0 + per);
+  cp_async_wait<1>();  // K
+  __syncthreads();
+
+  // S for the group's 16 rows and this warp's keys, once, in the log2
+  // domain: s[n] is the m16n8 C fragment of keys (c0 * 2 + n) * 8 .. + 7,
+  // (s[n][0], s[n][1]) row g and (s[n][2], s[n][3]) row g + 8 at keys + t4*2
+  // and + 1; masked keys -inf
+  float s[2 * kChunks][4];
+  // ldmatrix row of lane: keys (lane & 7) + 8 (lane >> 4), d 8 ((lane >> 3) & 1)
+  const T* kl = Ks + ((lane & 7) + ((lane >> 4) << 3)) * kRow + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (c0 + j < c1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * j][e] = s[2 * j + 1][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t bf[4];  // (b0, b1) of the chunk's keys 0 .. 7, then of 8 .. 15
+        ldmatrix_x4(bf, kl + (c0 + j) * 16 * kRow + kc * 16);
+        mma16816(s[2 * j], qf[kc], bf);
+        mma16816(s[2 * j + 1], qf[kc], bf + 2);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int key = (c0 + j) * 16 + (e >> 2) * 8 + t4 * 2 + (e & 1);
+        float& x = s[2 * j + (e >> 2)][e & 3];
+        x = key < Tk ? x * scale_log2 : -INFINITY;
+      }
+    }
+  }
+
+  // the rows' max and sum over every key; 2^(S' - max') with S' = S log2(e)
+  // is exp(S - max).  Row g in the fragments' elements 0, 1; g + 8 in 2, 3
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (c0 + j < c1) {
+#pragma unroll
+      for (int n = 2 * j; n < 2 * j + 2; ++n) {
+        m0 = fmaxf(m0, fmaxf(s[n][0], s[n][1]));
+        m1 = fmaxf(m1, fmaxf(s[n][2], s[n][3]));
+      }
+    }
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  if constexpr (kSplit > 1) {
+    if (t4 == 0) {
+      red_m[grp][half][g] = m0;
+      red_m[grp][half][g + 8] = m1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kSplit; ++w) {
+      m0 = fmaxf(m0, red_m[grp][w][g]);
+      m1 = fmaxf(m1, red_m[grp][w][g + 8]);
+    }
+  }  // finite: key 0 is never masked
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (c0 + j < c1) {
+#pragma unroll
+      for (int n = 2 * j; n < 2 * j + 2; ++n) {
+        s[n][0] = ex2(s[n][0] - m0);
+        s[n][1] = ex2(s[n][1] - m0);
+        s[n][2] = ex2(s[n][2] - m1);
+        s[n][3] = ex2(s[n][3] - m1);
+        l0 += s[n][0] + s[n][1];
+        l1 += s[n][2] + s[n][3];
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if constexpr (kSplit > 1) {  // the warps' sums added in warp order, the same in each
+    if (t4 == 0) {
+      red_l[grp][half][g] = l0;
+      red_l[grp][half][g + 8] = l1;
+    }
+    __syncthreads();
+    l0 = l1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplit; ++w) {
+      l0 += red_l[grp][w][g];
+      l1 += red_l[grp][w][g + 8];
+    }
+  }
+  const float inv0 = __frcp_rn(l0), inv1 = __frcp_rn(l1);
+
+  // O = P V over this warp's keys, with P normalised, then rounded to bf16
+  float acc[kDChunks][4];
+#pragma unroll
+  for (int n = 0; n < kDChunks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  cp_async_wait<0>();  // V
+  __syncthreads();
+  // ldmatrix.trans row of lane: keys (lane & 7) + 8 ((lane >> 3) & 1), d 8 (lane >> 4)
+  const T* vl = Vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow + ((lane >> 4) << 3);
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (c0 + j < c1) {
+      uint32_t pa[4];  // the A fragment of P for the chunk's 16 keys
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int n = 2 * j + hi;
+        pa[2 * hi] = pack2(s[n][0] * inv0, s[n][1] * inv0);
+        pa[2 * hi + 1] = pack2(s[n][2] * inv1, s[n][3] * inv1);
+      }
+#pragma unroll
+      for (int n = 0; n < kDChunks; n += 2) {  // (b0, b1) of d n*8 .. +7, then of n*8+8 .. +15
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vl + (c0 + j) * 16 * kRow + n * 8);
+        mma16816(acc[n], pa, bf);
+        mma16816(acc[n + 1], pa, bf + 2);
+      }
+    }
+  }
+
+  // the group's first warp adds the others' partial sums, in warp order, and stores
+  if constexpr (kSplit > 1) {
+    float4* mine = part + ((grp * (kSplit - 1)) * kDChunks) * 32 + lane;
+    if (half > 0) {
+#pragma unroll
+      for (int n = 0; n < kDChunks; ++n)
+        mine[((half - 1) * kDChunks + n) * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+    __syncthreads();
+    if (half > 0) return;
+#pragma unroll
+    for (int w = 1; w < kSplit; ++w) {
+#pragma unroll
+      for (int n = 0; n < kDChunks; ++n) {
+        const float4 p = mine[((w - 1) * kDChunks + n) * 32];
+        acc[n][0] += p.x;
+        acc[n][1] += p.y;
+        acc[n][2] += p.z;
+        acc[n][3] += p.w;
+      }
+    }
+  }
+  const int64_t o_st = int64_t(H) * D;
+  T* ob = o + (int64_t(b) * Tq * H + h) * D;
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < kDChunks; ++n) {
+    const int c = n * 8 + t4 * 2;
+    if (r0 < Tq) *reinterpret_cast<uint32_t*>(ob + r0 * o_st + c) = pack2(acc[n][0], acc[n][1]);
+    if (r1 < Tq) *reinterpret_cast<uint32_t*>(ob + r1 * o_st + c) = pack2(acc[n][2], acc[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// two passes: Tk > kMaxKeys
+
+constexpr int kTwoWarps = 4;
+constexpr int kTwoThreads = 32 * kTwoWarps;
+constexpr int kBlockK = 64;                      // keys a tile
+constexpr int kKPad = kBlockK + 8;               // V^T row length in shared memory
+
+template <int D>
+__global__ void __launch_bounds__(kTwoThreads)
+two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, int H, int Tq, int Tk, int64_t q_sb, int64_t q_st,
+                int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int kDPad = D + 8;  // K row length in shared memory
   constexpr int kChunks = D / 8;
@@ -91,26 +385,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const T* qb = q + b * q_sb + int64_t(h) * D;
   const T* kb = k + b * k_sb + int64_t(h) * D;
   const T* vb = v + b * v_sb + int64_t(h) * D;
   const int64_t o_st = int64_t(H) * D;
   T* ob = o + (int64_t(b) * Tq * H + h) * D;
 
-  // this thread's two query rows and their A fragments for Q K^T
-  const int r0 = blockIdx.x * kBlockQ + warp * kRowsPerWarp + g, r1 = r0 + 8;
+  const int r0 = blockIdx.x * (kTwoWarps * kRowsPerWarp) + warp * kRowsPerWarp + g, r1 = r0 + 8;
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qf[kc][0] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c) : 0u;
-    qf[kc][1] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c) : 0u;
-    qf[kc][2] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c + 8) : 0u;
-    qf[kc][3] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c + 8) : 0u;
-  }
+  load_q<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
 
   auto load_k = [&](int j0) {
-    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kTwoThreads) {
       const int r = idx / kChunks, c = (idx % kChunks) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (j0 + r < Tk) val = *reinterpret_cast<const uint4*>(kb + (j0 + r) * k_st + c);
@@ -118,7 +403,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
   auto load_v = [&](int j0) {
-    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kTwoThreads) {
       const int r = idx / kChunks, c = (idx % kChunks) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (j0 + r < Tk) val = *reinterpret_cast<const uint4*>(vb + (j0 + r) * v_st + c);
@@ -128,9 +413,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  // S for this warp's 16 rows and the tile's 64 keys: s[n] is the m16n8 C
-  // fragment of keys n*8 .. n*8+7; (s[n][0], s[n][1]) row g, (s[n][2],
-  // s[n][3]) row g+8, columns t4*2 and t4*2+1; masked keys are -inf
+  // S for this warp's 16 rows and the tile's 64 keys, laid out as in the
+  // one-pass kernel; masked keys are -inf
   float s[kBlockK / 8][4];
   auto scores = [&](int j0) {
 #pragma unroll
@@ -189,15 +473,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     scores(j0);
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      // the A fragment of P for keys kk*16 .. kk*16+15: C fragments 2kk, 2kk+1
       uint32_t pa[4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int n = 2 * kk + half;
         pa[2 * half] = pack2(__fdiv_rn(expf(s[n][0] - m[0]), l[0]),
-                                __fdiv_rn(expf(s[n][1] - m[0]), l[0]));
+                             __fdiv_rn(expf(s[n][1] - m[0]), l[0]));
         pa[2 * half + 1] = pack2(__fdiv_rn(expf(s[n][2] - m[1]), l[1]),
-                                    __fdiv_rn(expf(s[n][3] - m[1]), l[1]));
+                                 __fdiv_rn(expf(s[n][3] - m[1]), l[1]));
       }
 #pragma unroll
       for (int n = 0; n < kChunks; ++n) {
@@ -217,14 +500,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D, int kGroups, int kSplit, int kChunks>
+int launch_one_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
+                    const int64_t* s, float scale, cudaStream_t stream) {
+  auto kernel = one_pass_kernel<D, kGroups, kSplit, kChunks>;
+  const size_t smem = one_pass_smem<D, kGroups, kSplit>(Tk);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  constexpr int rows = kGroups * kRowsPerWarp;
+  const dim3 grid((Tq + rows - 1) / rows, B * H);
+  kernel<<<grid, 32 * kGroups * kSplit, smem, stream>>>(
+      q, k, v, o, H, Tq, Tk, s[0], s[1], s[2], s[3], s[4], s[5], scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
-           const int64_t* strides, float scale, cudaStream_t stream) {
-  const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_attention_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Tq, Tk, strides[0], strides[1], strides[2], strides[3], strides[4],
-      strides[5], scale);
+           const int64_t* s, float scale, cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(o);
+  if (Tk <= 80) {
+    return launch_one_pass<D, 4, 1, 5>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
+  } else if (Tk <= kMaxKeys) {
+    return launch_one_pass<D, 4, 2, kMaxKeys / 32>(qp, kp, vp, op, B, H, Tq, Tk, s, scale,
+                                                   stream);
+  } else {
+    constexpr int rows = kTwoWarps * kRowsPerWarp;
+    const dim3 grid((Tq + rows - 1) / rows, B * H);
+    two_pass_kernel<D><<<grid, kTwoThreads, 0, stream>>>(
+        qp, kp, vp, op, H, Tq, Tk, s[0], s[1], s[2], s[3], s[4], s[5], scale);
+  }
   return int(cudaGetLastError());
 }
 
@@ -234,6 +542,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 // blocks), each with d contiguous, heads D apart, and the batch and
 // token strides given in elements (multiples of 8; pointers 16-byte aligned);
 // o (B, Tq, H, D) contiguous.  strides: q_sb, q_st, k_sb, k_st, v_sb, v_st.
+// Tk <= 288 takes the one-pass kernel, larger Tk the two-pass one.
 extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int Tq, int Tk, int D, const int64_t* strides,
                                     float scale, void* stream_ptr) {

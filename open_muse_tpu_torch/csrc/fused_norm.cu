@@ -10,20 +10,34 @@
 // Pallas TPU kernels open_muse_tpu/ops/pallas/fused_norm.py
 // `fused_residual_rmsnorm` (body `_rms_kernel`) and `fused_residual_layernorm`
 // (body `_ln_kernel`), which take blocks of 256 rows into VMEM; here the
-// kernel kind is a template flag on one kernel.
+// kernel kind is a template flag.
 //
-// What bounds it on the H100: the bytes.  Each row is read once (x, and the
-// residual when given) and written once or twice (out, and prenorm with a
-// residual); a few fp32 operations an element are nothing beside that at
-// 3.35 TB/s.  A (2, 256, 768) bf16 call with a residual moves 3.1 MB: ~0.9 us.
+// What bounds it on the H100: latency, not the bytes.  Each row is read once
+// (x, and the residual when given) and written once or twice (out, and
+// prenorm with a residual): 3.16 MB at v1's (1, 257, 3072), 0.94 us at
+// 3.35 TB/s, and a few fp32 operations an element are nothing beside that.
+// What a call of a few microseconds waits on is its memory round trips in a
+// row and how many SMs hold a block.
 //
-// What the design does about it: one warp per row, four rows a block, 16-byte
-// loads and stores where the row width allows (a multiple of 8 elements),
-// scalar ones otherwise, so any width works.  The fp32 row is kept
-// in shared memory between the passes, so device memory is read once; the
-// LayerNorm variance is a second pass over that copy (the TPU kernel's
-// mean((h - mean)^2), not E[h^2] - mean^2).  Warp shuffles reduce; no block
-// barrier, no atomics, so two calls are bit-equal.
+// What the design does about it.  Variant rule, chosen on the width D before
+// launch:
+//
+//  * D 768 and 1024 (v2's blocks and trunk, v1's hidden width): a warp a
+//    row, two rows a block; each lane holds 3 / 4 16-byte vectors of the row.
+//  * D 3072 (v1's mid-MLP norm): a block of 128 threads a row, 3 vectors a
+//    thread, so (1, 257, 3072) runs 257 blocks on the 132 SMs; the warps'
+//    partial sums meet in shared memory, one float a warp, added in warp
+//    order.
+//
+//    In both, the row lives in registers.  Every thread issues all of its
+//    16-byte loads of x, the residual, the scale and the bias before any
+//    arithmetic, so they are in flight together and the row costs one round
+//    trip; the LayerNorm variance is a second sweep over the registers.
+//  * Any other width, D % 8 != 0 included: a warp a row, four rows a block,
+//    16-byte loads where the width is a multiple of 8 and scalar ones
+//    otherwise, the fp32 row kept in shared memory between the sweeps.
+//
+// Sums run in a fixed order, with no atomics: two calls are bit-equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -31,8 +45,7 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 4;  // one warp a row
-constexpr int kThreads = 32 * kRowsPerBlock;
+constexpr int kVec = 8;  // bf16 elements in 16 bytes
 constexpr int kDefaultSmem = 48 * 1024;
 
 using T = __nv_bfloat16;
@@ -56,21 +69,136 @@ __device__ __forceinline__ float affine(float h, float mean, float inv, const T*
   return y;
 }
 
+// ---------------------------------------------------------------------------
+// the row in registers: D = kVecs * kRowThreads * 8
+
+// the sum of v over the kRowThreads threads of a row, in a fixed order;
+// red holds one float a warp of the row
+template <int kRowThreads>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  v = warp_sum(v);
+  if constexpr (kRowThreads == 32) {
+    return v;
+  } else {
+    constexpr int kWarps = kRowThreads / 32;
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += red[w];
+    return total;
+  }
+}
+
+template <bool kLayerNorm, int kVecs, int kRowThreads, int kRowsPerBlock>
+__global__ void __launch_bounds__(kRowThreads * kRowsPerBlock)
+register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const T* __restrict__ scale, const T* __restrict__ bias,
+                    T* __restrict__ out, T* __restrict__ prenorm, int rows, float eps) {
+  static_assert(kRowThreads == 32 || kRowsPerBlock == 1, "a block of warps holds one row");
+  constexpr int D = kVecs * kRowThreads * kVec;
+  __shared__ float red[2][kRowThreads / 32];  // the two moments' per-warp sums
+  const int t = threadIdx.x % kRowThreads;
+  const int64_t row = int64_t(blockIdx.x) * kRowsPerBlock + threadIdx.x / kRowThreads;
+  if (row >= rows) return;  // whole warps of a warp-a-row block only: no barrier there
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * D);
+  const uint4* rr = reinterpret_cast<const uint4*>(res + row * D);
+  const uint4* sr = reinterpret_cast<const uint4*>(scale);
+  const uint4* br = reinterpret_cast<const uint4*>(bias);
+
+  // every load first: vector i of this thread is the row's vector i * kRowThreads + t
+  uint4 xv[kVecs], rv[kVecs] = {}, sv[kVecs] = {}, bv[kVecs] = {};
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) xv[i] = xr[i * kRowThreads + t];
+  if (res != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) rv[i] = rr[i * kRowThreads + t];
+  }
+  if (scale != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) sv[i] = sr[i * kRowThreads + t];
+  }
+  if (bias != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) bv[i] = br[i * kRowThreads + t];
+  }
+
+  // h = x (+ res) in fp32, the prenorm out, the first moment
+  float h[kVecs][kVec];
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const T* xe = reinterpret_cast<const T*>(&xv[i]);
+    const T* re = reinterpret_cast<const T*>(&rv[i]);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) h[i][j] = to_f(xe[j]) + (res != nullptr ? to_f(re[j]) : 0.f);
+    if (res != nullptr) {
+      uint4 pv;
+      T* pe = reinterpret_cast<T*>(&pv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) pe[j] = from_f(h[i][j]);
+      reinterpret_cast<uint4*>(prenorm + row * D)[i * kRowThreads + t] = pv;
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc += kLayerNorm ? h[i][j] : h[i][j] * h[i][j];
+  }
+  acc = row_sum<kRowThreads>(acc, red[0]);
+
+  float mean = 0.f, var;
+  if (kLayerNorm) {
+    mean = acc / D;
+    float acc2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i)
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float d = h[i][j] - mean;
+        acc2 += d * d;
+      }
+    var = row_sum<kRowThreads>(acc2, red[1]) / D;
+  } else {
+    var = acc / D;
+  }
+  const float inv = __frsqrt_rn(var + eps);
+
+  // the normalised row with its affine, one cast
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const T* se = reinterpret_cast<const T*>(&sv[i]);
+    const T* be = reinterpret_cast<const T*>(&bv[i]);
+    uint4 ov;
+    T* oe = reinterpret_cast<T*>(&ov);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      float y = (h[i][j] - mean) * inv;
+      if (scale != nullptr) y *= to_f(se[j]);
+      if (bias != nullptr) y += to_f(be[j]);
+      oe[j] = from_f(y);
+    }
+    reinterpret_cast<uint4*>(out + row * D)[i * kRowThreads + t] = ov;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// any width: a warp a row, the fp32 row in shared memory
+
+constexpr int kGenericRows = 4;  // one warp a row
+constexpr int kGenericThreads = 32 * kGenericRows;
+
 template <bool kLayerNorm>
-__global__ void __launch_bounds__(kThreads)
-fused_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                  const T* __restrict__ scale, const T* __restrict__ bias,
-                  T* __restrict__ out, T* __restrict__ prenorm, int rows, int D, float eps) {
-  extern __shared__ float srow[];  // kRowsPerBlock rows of D floats
-  constexpr int kVec = 8;  // bf16 elements in 16 bytes
+__global__ void __launch_bounds__(kGenericThreads)
+generic_kernel(const T* __restrict__ x, const T* __restrict__ res,
+               const T* __restrict__ scale, const T* __restrict__ bias,
+               T* __restrict__ out, T* __restrict__ prenorm, int rows, int D, float eps) {
+  extern __shared__ float srow[];  // kGenericRows rows of D floats
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t row = int64_t(blockIdx.x) * kRowsPerBlock + warp;
+  const int64_t row = int64_t(blockIdx.x) * kGenericRows + warp;
   if (row >= rows) return;  // whole warps only: no block barrier below
   float* h = srow + warp * D;
   const int64_t base = row * D;
   const bool vec = D % kVec == 0;
 
-  // pass 1: h = x (+ res) in fp32 into shared memory, prenorm out, first moment
+  // sweep 1: h = x (+ res) in fp32 into shared memory, prenorm out, first moment
   float acc = 0.f;
   if (vec) {
     for (int v = lane; v < D / kVec; v += 32) {
@@ -125,7 +253,7 @@ fused_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
   const float inv = __frsqrt_rn(var + eps);
 
-  // pass 2: the normalised row with its affine, one cast
+  // sweep 2: the normalised row with its affine, one cast
   if (vec) {
     for (int v = lane; v < D / kVec; v += 32) {
       uint4 ov;
@@ -141,35 +269,59 @@ fused_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+struct Args {
+  const T *x, *res, *scale, *bias;
+  T *out, *prenorm;
+  int rows;
+  float eps;
+};
+
+template <bool kLayerNorm, int kVecs, int kRowThreads, int kRowsPerBlock>
+int launch_register_row(const Args& a, cudaStream_t stream) {
+  const int blocks = (a.rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  register_row_kernel<kLayerNorm, kVecs, kRowThreads, kRowsPerBlock>
+      <<<blocks, kRowThreads * kRowsPerBlock, 0, stream>>>(a.x, a.res, a.scale, a.bias, a.out,
+                                                            a.prenorm, a.rows, a.eps);
+  return int(cudaGetLastError());
+}
+
 template <bool kLayerNorm>
-int launch(const void* x, const void* res, const void* scale, const void* bias, void* out,
-           void* prenorm, int rows, int D, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRowsPerBlock * size_t(D);
-  auto kernel = fused_norm_kernel<kLayerNorm>;
+int launch(const Args& a, int D, cudaStream_t stream) {
+  switch (D) {
+    case 768: return launch_register_row<kLayerNorm, 3, 32, 2>(a, stream);
+    case 1024: return launch_register_row<kLayerNorm, 4, 32, 2>(a, stream);
+    case 3072: return launch_register_row<kLayerNorm, 3, 128, 1>(a, stream);
+    default: break;
+  }
+  const size_t smem = sizeof(float) * kGenericRows * size_t(D);
+  auto kernel = generic_kernel<kLayerNorm>;
   if (smem > kDefaultSmem) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<T*>(out), static_cast<T*>(prenorm), rows, D, eps);
+  const int blocks = (a.rows + kGenericRows - 1) / kGenericRows;
+  kernel<<<blocks, kGenericThreads, smem, stream>>>(a.x, a.res, a.scale, a.bias, a.out,
+                                                    a.prenorm, a.rows, D, a.eps);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, res (rows, D); scale, bias (D,); out, prenorm (rows, D); all bf16,
-// contiguous, 16-byte aligned.  res, scale,
-// bias and prenorm may be null (prenorm must be given with res).
-// layer_norm 0 = RMSNorm, 1 = LayerNorm.
+// contiguous, 16-byte aligned.  res, scale, bias and prenorm may be null
+// (prenorm must be given with res).  layer_norm 0 = RMSNorm, 1 = LayerNorm.
+// D 768, 1024 and 3072 keep the row in registers; other widths take the
+// generic kernel.
 extern "C" int muse_fused_norm(const void* x, const void* res, const void* scale,
                                const void* bias, void* out, void* prenorm, int rows, int D,
                                float eps, int layer_norm, void* stream_ptr) {
   if (rows <= 0 || D <= 0 || (res != nullptr && prenorm == nullptr))
     return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  return layer_norm ? launch<true>(x, res, scale, bias, out, prenorm, rows, D, eps, stream)
-                    : launch<false>(x, res, scale, bias, out, prenorm, rows, D, eps, stream);
+  const Args a{static_cast<const T*>(x),     static_cast<const T*>(res),
+               static_cast<const T*>(scale), static_cast<const T*>(bias),
+               static_cast<T*>(out),         static_cast<T*>(prenorm),
+               rows,                         eps};
+  return layer_norm ? launch<true>(a, D, stream) : launch<false>(a, D, stream);
 }

@@ -13,7 +13,12 @@ weights cast to the input type before the PV product, and PV summed in fp32
     attention blocks), any Tq and Tk, and views whose (H, D) axes are
     contiguous with batch and token strides that are multiples of 8 elements
     (the q / k / v chunks of a fused projection), at 16-byte aligned
-    addresses.
+    addresses.  Up to 288 keys (every path: v1's 257, v2's 77) a
+    block stages all of K and V in shared memory and computes S once, one
+    warp over every key of 16 query rows up to 80 keys and two warps each
+    over half of them above; more keys take the source's two-pass variant.
+    The choice is made on Tk before the launch, and every variant counts as
+    one launch of this wrapper.
 The TPU kernel has no VJP (JAX enables it for inference only), so there is
 no backward kernel: the backward recomputes the plain version from the saved
 inputs and takes its gradient.

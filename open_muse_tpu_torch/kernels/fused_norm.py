@@ -11,7 +11,9 @@ Both wrappers are ``torch.autograd.Function``s:
   * CPU tensors: the plain version;
   * CUDA tensors: the kernel (x, residual, scale and bias bf16, contiguous,
     16-byte aligned; under CUDA autocast they are cast to bf16 first), or a
-    raise.
+    raise.  Widths 768, 1024 and 3072 (the paths') keep the row in
+    registers; every other width takes the source's generic variant.  The
+    choice is made on the width before the launch.
 The TPU kernels have no VJP (JAX enables them for inference only,
 ``ops/layers.py:30-37``), so neither has a backward kernel: the backward
 recomputes the plain version from the saved inputs and takes its gradient.

@@ -237,11 +237,13 @@ NORM_TOL, ATTN_TOL = 1e-2, 2e-2
 
 
 @pytest.mark.parametrize("shape,with_residual", [((1, 257, 768), True), ((2, 256, 768), True),
-                                                 ((1, 257, 3072), False)])
+                                                 ((2, 256, 1024), True), ((1, 257, 3072), False),
+                                                 ((3, 37, 100), True)])
 def test_fused_norm_kernels_match_plain(device, shape, with_residual):
-    """Both kernels at the paths' shapes, LayerNorm with and without a
-    bias; the prenorm sum bit-equal (x itself without a residual), two calls
-    bit-equal, one launch each."""
+    """Both kernels at the paths' shapes (widths 768, 1024, 3072: the row in
+    registers) and at a width of the generic variant (100, not a multiple of
+    8), LayerNorm with and without a bias; the prenorm sum bit-equal (x
+    itself without a residual), two calls bit-equal, one launch each."""
     from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_plain,
                                                         fused_residual_rmsnorm_plain)
 
@@ -270,11 +272,17 @@ def test_fused_norm_kernels_match_plain(device, shape, with_residual):
         assert torch.equal(out, kern()[0]), name
 
 
-@pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77)])
+@pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77),
+                                            ((2, 256, 12, 64), 256), ((16, 256, 12, 64), 77),
+                                            ((1, 1025, 16, 64), 1025)])
 def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
-    """v1's self-attention (ragged 257 x 257, head_dim 48) and v2's block
-    cross-attention (77 keys, head_dim 64), the inputs as views into fused
-    [q | k | v] / [k | v] projections; two calls bit-equal."""
+    """v1's self-attention (ragged 257 x 257, head_dim 48: the one-pass
+    variant with two warps a row group), v2's block attention over the 77
+    text keys (head_dim 64: one warp a row group) when serving and at the
+    training batch, 256 keys at head_dim 64 (two warps a row group), and
+    1025 keys, above the one-pass capacity of 288: the two-pass variant.
+    The inputs as views into fused [q | k | v] / [k | v] projections; two
+    calls bit-equal."""
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
 
     gen = torch.Generator().manual_seed(kv_len)
