@@ -25,7 +25,8 @@ Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
 as often as the path needs.  Exits non-zero on any failure or without a GPU.
 
-    python3 chip_smoke.py     # one GPU; a few minutes on an H100
+    python3 chip_smoke.py                 # one GPU; a few minutes on an H100
+    python3 chip_smoke.py --gemm-sweep    # only the Hopper GEMM's variants
 
 The second-to-last line is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -145,8 +146,64 @@ def errors(got, ref):
 
 # -- phase 3: each kernel against its plain version -------------------------
 
-def check_glu(device, gen, m):
-    """m rows: 512 when serving (2 x 256 tokens), 4096 when training."""
+def launch_split(fn, calls: int = 10):
+    """Device time of each kernel one call of ``fn`` launches, in launch
+    order: (name, median microseconds) from a torch.profiler trace of
+    ``calls`` eager calls.  Kernel time only, without the gaps between
+    launches that a graph replay also counts.  Run it after the graph
+    timings: once the profiler has run, a graph replay in the same process
+    reads 0.3 - 0.6 us slower a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda e: e.time_range.start)
+    # the trace may miss the window's first event: whole calls from the end
+    per = round(len(kernels) / calls)
+    kernels = kernels[len(kernels) % per:] if per else []
+    groups = [kernels[i:i + per] for i in range(0, len(kernels), per)]
+    if not groups or any([e.name for e in g] != [e.name for e in groups[0]] for g in groups):
+        log(f"[split] {len(kernels)} kernel events for {calls} calls do not split into calls")
+        return []
+
+    def short(name):  # "void muse::sm90::gemm_tn_kernel<64, ...>(...)" -> "gemm_tn_kernel<64>"
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+        base, _, args = name.partition("<")
+        return base.split("::")[-1] + (f"<{args.split(',')[0].rstrip('>')}>" if args else "")
+
+    return [(short(groups[0][i].name),
+             statistics.median(g[i].time_range.elapsed_us() for g in groups)) for i in range(per)]
+
+
+def log_split(label, fn):
+    split = launch_split(fn)
+    parts = ", ".join(f"{name} {us:.2f}" for name, us in split) or "not measured"
+    log(f"[split] {label}, device us a launch (torch.profiler, median of ~10 calls): {parts}; "
+        f"sum {sum(us for _, us in split):.2f}")
+
+
+def log_product_alone(label, a, w):
+    """The bare product inside a kernel, ``a @ w.T`` on the same bf16
+    operands: the port's Hopper GEMM alone beside cuBLAS (graph replay)."""
+    from open_muse_tpu_torch.kernels.gemm import linear_tn
+
+    ours, cublas = graph_ms(lambda: linear_tn(a, w)), graph_ms(lambda: a @ w.t())
+    log(f"[product] {label} {tuple(a.shape)} x {tuple(w.shape)}^T alone: Hopper GEMM "
+        f"{ours:.4f} ms, cuBLAS torch.matmul {cublas:.4f} ms (CUDA graph replay)")
+    return ours, cublas
+
+
+def check_glu(device, gen, m, timed=True, splits=None):
+    """m rows: 512 when serving (2 x 256 tokens), 4096 when training; other
+    row counts check the ragged edge (``timed=False``).  Appends the
+    kernel's (label, call) to ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 
     k, n = 2816, 1024  # intermediate 2816, hidden 1024
@@ -156,17 +213,23 @@ def check_glu(device, gen, m):
     wo = (torch.randn(n, k, generator=gen) * k ** -0.5).to(device, bf)
     got, ref = glu_down_matmul(a, b, wo), glu_down_matmul_plain(a, b, wo)
     max_abs, rel = errors(got, ref)
+    twice = torch.equal(got, glu_down_matmul(a, b, wo))
     # both against an fp32 product of the same bf16 GLU operand
-    hidden = (torch.nn.functional.gelu(a.float()) * b.float()).to(bf).float()
-    exact = hidden @ wo.float().t()
+    hidden = (torch.nn.functional.gelu(a.float()) * b.float()).to(bf)
+    exact = hidden.float() @ wo.float().t()
     tol = 2e-2
-    ok = rel <= tol
+    ok = rel <= tol and twice and bool(torch.isfinite(got).all())
     log(f"[kernel] glu_down_matmul a,b {tuple(a.shape)} wo {tuple(wo.shape)} bf16: "
         f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel {tol}: bf16 output rounding and "
         f"sum order); vs fp32 product: kernel {errors(got, exact)[0]:.3e}, plain "
-        f"{errors(ref, exact)[0]:.3e} {'ok' if ok else 'FAIL'}")
+        f"{errors(ref, exact)[0]:.3e}; two calls bit-equal {twice} {'ok' if ok else 'FAIL'}")
+    if not timed:
+        return ok, max_abs, None
     timing = (graph_ms(lambda: glu_down_matmul(a, b, wo)),
               graph_ms(lambda: glu_down_matmul_plain(a, b, wo)))
+    if splits is not None:
+        splits.append((f"glu_down_matmul a,b {tuple(a.shape)}", lambda: glu_down_matmul(a, b, wo)))
+    log_product_alone("glu_down_matmul", hidden, wo)
     BOUNDS.setdefault("glu_down_matmul", (nbytes(a, b, wo, got), 2 * m * k * n, "bf16"))
     return ok, max_abs, timing
 
@@ -178,14 +241,16 @@ def _sublayer_inputs(device, gen, b=2, s=256, d=1024):
                 adaln=rand(b, 2 * d, scale=0.1), wout=rand(d, d, scale=d ** -0.5))
 
 
-def check_sublayers(device, gen, b):
-    """b batch rows of 256 tokens: 2 when serving (CFG at bs1), 16 when
-    training."""
+def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
+    """b batch rows of s tokens: 2 x 256 when serving (CFG at bs1), 16 x 256
+    when training; other token counts check the ragged edge
+    (``timed=False``).  Appends the self sublayer's (label, call) to
+    ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     d, heads, bf = 1024, 16, torch.bfloat16
     results = {}
-    inp = _sublayer_inputs(device, gen, b=b)
+    inp = _sublayer_inputs(device, gen, b=b, s=s)
     wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(device, bf)
     wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(device, bf)
     kv = torch.randn(b, 77, 2 * d, generator=gen).to(device, bf)
@@ -210,17 +275,32 @@ def check_sublayers(device, gen, b):
             ref, ref_h = plain(torch.zeros_like(inp["x"]) if res is None else res)
             max_abs, rel = errors(out, ref)
             h_equal = torch.equal(h, ref_h)
-            ok &= rel <= tol and h_equal
+            again = kern(res)
+            twice = torch.equal(out, again[0]) and torch.equal(h, again[1])
+            case_ok = rel <= tol and h_equal and twice and bool(torch.isfinite(out).all())
+            ok &= case_ok
             worst = max(worst, max_abs)
             log(f"[kernel] {name} x {tuple(inp['x'].shape)} res={'given' if res is not None else 'None'}"
                 f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16: max_abs {max_abs:.3e} "
                 f"rel {rel:.3e} (tol rel {tol}: bf16 roundings of qkv / probs / output), "
-                f"residual bit-equal {h_equal} {'ok' if rel <= tol and h_equal else 'FAIL'}")
+                f"residual bit-equal {h_equal}, two calls bit-equal {twice} "
+                f"{'ok' if case_ok else 'FAIL'}")
+        if not timed:
+            results[name] = (ok, worst, None)
+            continue
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        if "self" in name:
+            if splits is not None:
+                splits.append((f"{name} x {tuple(inp['x'].shape)}",
+                               functools.partial(kern, inp["res"])))
+            acts = torch.randn(b, s, d, generator=gen).to(device, bf).reshape(b * s, d)
+            qkv_ms = log_product_alone(f"{name} qkv projection", acts, wqkv)
+            out_ms = log_product_alone(f"{name} out projection", acts, inp["wout"])
+            log(f"[product] {name} both projections alone: Hopper GEMM "
+                f"{qkv_ms[0] + out_ms[0]:.4f} ms, cuBLAS {qkv_ms[1] + out_ms[1]:.4f} ms")
         # the q(kv) and output projections, and QK^T and PV over the keys
-        s = inp["x"].shape[1]
         keys, proj = (s, 4 * d * d) if "self" in name else (77, 2 * d * d)
         ops = 2 * b * s * proj + 4 * b * heads * s * keys * (d // heads)
         moved = nbytes(inp["x"], inp["res"], inp["ln_scale"], inp["adaln"], *kern(inp["res"]),
@@ -397,52 +477,59 @@ NORM_EPS, NORM_TOL = 1e-6, 1e-2
 
 
 def check_norms(device, gen):
-    """Both fused norms against their plain versions in bf16 (no bias, as
-    on the paths): out to NORM_TOL (fp32 arithmetic on both sides with one
-    cast at the end: at most about one bf16 rounding apart), the prenorm sum
-    bit-equal (x itself without a residual), two calls bit-equal."""
+    """Both fused norms in both stagings against their plain versions in
+    bf16 (no bias, as on the paths): out to NORM_TOL (the Pallas staging:
+    fp32 arithmetic with one cast at the end; the model staging: the same
+    roundings op for op; either way the moments are summed in another order,
+    so at most about one bf16 rounding apart), the prenorm sum bit-equal (x
+    itself without a residual), two calls bit-equal.  The report's row is the
+    model staging, the one the paths run."""
     from torch.nn import functional as F
 
-    from open_muse_tpu_torch.kernels.fused_norm import (
-        fused_residual_layernorm, fused_residual_layernorm_plain, fused_residual_rmsnorm,
-        fused_residual_rmsnorm_plain)
+    from open_muse_tpu_torch.kernels import fused_norm as N
 
     bf = torch.bfloat16
     cases = {
         "fused_residual_rmsnorm": (
-            lambda x, r, w: fused_residual_rmsnorm(x, r, w, NORM_EPS),
-            lambda x, r, w: fused_residual_rmsnorm_plain(x, r, w, NORM_EPS),
+            lambda x, r, w, st: N.fused_residual_rmsnorm(x, r, w, NORM_EPS, staging=st),
+            {"pallas": lambda x, r, w: N.fused_residual_rmsnorm_plain(x, r, w, NORM_EPS),
+             "model": lambda x, r, w: N.fused_residual_rmsnorm_model_plain(x, r, w, NORM_EPS)},
             lambda x, w: F.rms_norm(x, (x.shape[-1],), w, NORM_EPS), 5),
         "fused_residual_layernorm": (
-            lambda x, r, w: fused_residual_layernorm(x, r, w, None, NORM_EPS),
-            lambda x, r, w: fused_residual_layernorm_plain(x, r, w, None, NORM_EPS),
+            lambda x, r, w, st: N.fused_residual_layernorm(x, r, w, None, NORM_EPS, staging=st),
+            {"pallas": lambda x, r, w: N.fused_residual_layernorm_plain(x, r, w, None, NORM_EPS),
+             "model": lambda x, r, w: N.fused_residual_layernorm_model_plain(x, r, w, None,
+                                                                            NORM_EPS)},
             lambda x, w: F.layer_norm(x, (x.shape[-1],), w, None, NORM_EPS), 8),
     }
     results = {}
-    for name, (kern, plain, lib, flops) in cases.items():
+    for name, (kern, plains, lib, flops) in cases.items():
         ok, worst = True, 0.0
         for shape, with_res in NORM_SHAPES:
             x = (torch.randn(*shape, generator=gen) * 2).to(device, bf)
             res = torch.randn(*shape, generator=gen).to(device, bf) if with_res else None
             w = (1 + 0.1 * torch.randn(shape[-1], generator=gen)).to(device, bf)
-            out, pre = kern(x, res, w)
-            ref, ref_pre = plain(x, res, w)
-            max_abs, rel = errors(out, ref)
-            pre_ok = torch.equal(pre, ref_pre) and ((pre is x) == (res is None))
-            twice = torch.equal(out, kern(x, res, w)[0])
-            case_ok = rel <= NORM_TOL and pre_ok and twice and bool(torch.isfinite(out).all())
-            ok &= case_ok
-            worst = max(worst, max_abs)
-            ms = (graph_ms(lambda: kern(x, res, w)),
-                  graph_ms(lambda: plain(x, res, w)))
-            # x (and res) read, out (and prenorm) written, the scale read once
-            moved = nbytes(x, res, w, out, None if res is None else pre)
-            log(f"[kernel] {name} x {shape} res={'given' if with_res else 'None'} bf16: max_abs "
-                f"{max_abs:.3e} rel {rel:.3e} (tol rel {NORM_TOL}: one bf16 rounding), prenorm "
-                f"bit-equal {pre_ok}, two calls bit-equal {twice}; kernel {ms[0]:.4f} ms, plain "
-                f"{ms[1]:.4f} ms (CUDA graph replay), bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                f"(bytes) {'ok' if case_ok else 'FAIL'}")
-        # the last shape, residual-free, is the report's row
+            for staging in N.STAGINGS:
+                plain = plains[staging]
+                out, pre = kern(x, res, w, staging)
+                ref, ref_pre = plain(x, res, w)
+                max_abs, rel = errors(out, ref)
+                pre_ok = torch.equal(pre, ref_pre) and ((pre is x) == (res is None))
+                twice = torch.equal(out, kern(x, res, w, staging)[0])
+                case_ok = (rel <= NORM_TOL and pre_ok and twice
+                           and bool(torch.isfinite(out).all()))
+                ok &= case_ok
+                worst = max(worst, max_abs)
+                ms = (graph_ms(lambda: kern(x, res, w, staging)),
+                      graph_ms(lambda: plain(x, res, w)))
+                # x (and res) read, out (and prenorm) written, the scale read once
+                moved = nbytes(x, res, w, out, None if res is None else pre)
+                log(f"[kernel] {name} {staging} staging x {shape} res={'given' if with_res else 'None'}"
+                    f" bf16: max_abs {max_abs:.3e} rel {rel:.3e} (tol rel {NORM_TOL}: one bf16 "
+                    f"rounding), prenorm bit-equal {pre_ok}, two calls bit-equal {twice}; kernel "
+                    f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms (CUDA graph replay), bound "
+                    f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) {'ok' if case_ok else 'FAIL'}")
+        # the last shape, residual-free, in the model staging is the report's row
         lib_ms = graph_ms(lambda: lib(x, w))
         lib_err = errors(lib(x, w), ref)[1]
         log(f"[kernel] {name} library call on x {shape}: {lib_ms:.4f} ms (CUDA graph replay; "
@@ -514,12 +601,14 @@ def check_flash(device, gen):
     return ok, worst, ms
 
 
-def kernel_phase(device):
+def kernel_phase(device, splits):
+    """Every forward kernel against its plain version; appends the calls to
+    split by launch to ``splits``."""
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(0)
-    report = {"glu_down_matmul": check_glu(device, gen, 2 * TRAIN_S)}
-    report.update(check_sublayers(device, gen, 2))
+    report = {"glu_down_matmul": check_glu(device, gen, 2 * TRAIN_S, splits=splits)}
+    report.update(check_sublayers(device, gen, 2, splits=splits))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
     report["fused_categorical"] = check_categorical(device, gen)
     report["vq_argmin"] = check_vq(device, gen)
@@ -529,11 +618,15 @@ def kernel_phase(device):
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
             f"CUDA graph replay)")
     # the training path runs the forward kernels at batch 16 too
-    train = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S)}
-    train.update(check_sublayers(device, gen, TRAIN_B))
+    train = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S, splits=splits)}
+    train.update(check_sublayers(device, gen, TRAIN_B, splits=splits))
     for name, (ok, err, (ms, plain_ms)) in train.items():
         log(f"[time] {name} at the training shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
             f"(median, CUDA graph replay)")
+    # ragged edges: 300 GLU rows (not a multiple of the tiles), 100 tokens
+    ragged = {"glu_down_matmul": check_glu(device, gen, 300, timed=False)}
+    ragged.update(check_sublayers(device, gen, 2, s=100, timed=False))
+    for name, (ok, err, _) in {**train, **ragged}.items():
         serving_ok, serving_err, timing = report[name]
         report[name] = (serving_ok and ok, max(serving_err, err), timing)
     kernels.reset_launch_counts()
@@ -1360,7 +1453,59 @@ def training_phase(device, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the Hopper GEMM's variants ---------------------------------------------
+
+# the products of kernels 7 and 9: the GLU down-projection, the qkv and the
+# out projections, at the serving and the training rows, and ragged rows;
+# last a trivial product, what a launch and a cluster cost by themselves
+SWEEP_SHAPES = ((512, 1024, 2816), (512, 3072, 1024), (512, 1024, 1024), (4096, 1024, 2816),
+                (4096, 3072, 1024), (4096, 1024, 1024), (300, 1024, 2816), (200, 3072, 1024),
+                (7, 24, 40))
+
+
+def gemm_sweep(device) -> bool:
+    """Every tile width x K split of the Hopper GEMM alone at SWEEP_SHAPES,
+    beside cuBLAS and the variant the kernels' rule picks: device us a call
+    (graph replay), each variant within 1e-2 rel of an fp32 product and two
+    calls bit-equal.  The data behind the rule in csrc/gemm_sm90.cuh."""
+    from open_muse_tpu_torch.kernels.gemm import SPLITS, TILE_WIDTHS, linear_tn
+
+    gen, ok = torch.Generator().manual_seed(2), True
+    for m, n, k in SWEEP_SHAPES:
+        a = torch.randn(m, k, generator=gen).to(device, torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(device, torch.bfloat16)
+        exact = a.float() @ w.float().t()
+        cells = [f"cuBLAS {graph_ms(lambda: a @ w.t()) * 1e3:.2f}"]
+        for tile in (*((t, s) for t in TILE_WIDTHS for s in SPLITS), (0, 0)):
+            out = linear_tn(a, w, *tile)
+            good = errors(out, exact)[1] <= 1e-2 and torch.equal(out, linear_tn(a, w, *tile))
+            ok &= good
+            label = "rule" if tile == (0, 0) else f"{tile[0]}/{tile[1]}"
+            cells.append(f"{label} {graph_ms(lambda: linear_tn(a, w, *tile)) * 1e3:.2f}"
+                         f"{'' if good else ' FAIL'}")
+        log(f"[sweep] ({m}, {n}, {k}) us, tile width / K split: " + ", ".join(cells))
+    return ok
+
+
 # -- main -------------------------------------------------------------------
+
+# the kernels of PR 6's designs, whose ptxas lines the run prints
+PTXAS_KERNELS = ("gemm_tn_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel")
+
+
+def ptxas_report(build_log: str, names):
+    """One line per compiled entry whose mangled name holds one of ``names``:
+    the entry, its stack / spills and its registers / shared memory."""
+    lines, out = build_log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(n in line for n in names):
+            entry = line.split("'")[1] if "'" in line else line
+            detail = [lines[j].replace("ptxas info    :", "").strip()
+                      for j in range(i + 1, min(i + 4, len(lines)))
+                      if "spill" in lines[j] or "Used" in lines[j]]
+            out.append(f"{entry}: " + "; ".join(detail))
+    return out
+
 
 def device_line() -> str:
     try:
@@ -1373,7 +1518,10 @@ def device_line() -> str:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--gemm-sweep", action="store_true",
+                        help="only time every variant of the Hopper GEMM at the paths' shapes")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1387,6 +1535,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log("[device] tf32 off for matmul and cuDNN; bf16 reduced-precision reductions off")
 
+    from open_muse_tpu_torch import kernels
     from open_muse_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -1397,10 +1546,22 @@ def main() -> int:
     if _build.build_log:  # empty when the library was already built
         with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
             f.write(_build.build_log)
+        for line in ptxas_report(_build.build_log, PTXAS_KERNELS):
+            log(f"[ptxas] {line}")
+
+    if args.gemm_sweep:
+        if not gemm_sweep(device):
+            raise SystemExit("chip_smoke: a GEMM variant failed")
+        return 0
 
     phase_t0 = time.perf_counter()
-    report = kernel_phase(device)
+    splits = []  # kernels 7 and 9 by launch, profiled after every graph timing
+    report = kernel_phase(device, splits)
     report.update(backward_kernel_phase(device))
+    for label, fn in splits:
+        log_split(label, fn)
+    del splits
+    kernels.reset_launch_counts()
     failed = [name for name, (ok, _, _) in report.items() if not ok]
     log(f"[phase] kernel checks {time.perf_counter() - phase_t0:.1f} s")
 

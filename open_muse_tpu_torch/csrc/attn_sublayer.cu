@@ -28,13 +28,23 @@
 //
 // What the design does about it: chains of launches on one stream, each with
 // enough blocks to fill the card.
-// - Forward: a row kernel (one block per row), the shared tiled GEMM (64 x 64
-//   tiles), an attention kernel with one block per (batch, head, 64-query
-//   tile), and the GEMM again.  The attention kernel streams keys in tiles of
-//   64: a first pass takes each row's max and sum, a second writes normalised
-//   bf16 probabilities and accumulates PV, so any key length fits in shared
-//   memory; key columns >= kv_len are masked in the kernel instead of padding
-//   kv.
+// - Self forward (kernel 9): a row kernel with the row in registers (a warp a
+//   row at width 1024, every 16-byte load of x, res, ln and the AdaLN rows
+//   issued before any arithmetic; the block-a-row kernel below at other
+//   widths), the qkv projection on the Hopper GEMM of gemm_sm90.cuh (TMA,
+//   wgmma), flash_attention.cu's one-pass kernel through its launcher
+//   (`muse_flash_attention`: K and V of a (batch, head) pair staged once by
+//   cp.async, S in registers, P rounded to bf16 after the exact row sum, up
+//   to 288 keys; its two-pass kernel above) reading q / k / v as strided
+//   views of the (B, S, 3D) projection, and the out projection on the Hopper
+//   GEMM with K split over a cluster at 512 rows.
+// - Cross forward (kernel 10): the block-a-row kernel, the shared `wmma`
+//   GEMM of gemm_tile.cuh (64 x 64 tiles), an attention kernel with one block
+//   per (batch, head, 64-query tile), and the GEMM again.  The attention
+//   kernel streams keys in tiles of 64: a first pass takes each row's max and
+//   sum, a second writes normalised bf16 probabilities and accumulates PV, so
+//   any key length fits in shared memory; key columns >= kv_len are masked
+//   in the kernel instead of padding kv.
 // - Backward (FlashAttention-2 split): the row kernel again (recompute a,
 //   keeping 1/rms), the GEMM for the recomputed projection and for
 //   dattn = g_out @ Wout, the attention kernel as a pre-pass that also keeps
@@ -48,7 +58,14 @@
 #include <cfloat>
 #include <cmath>
 
+#include "bf16x2.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
+
+// flash_attention.cu's launcher: the self path's attention
+extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                    int H, int Tq, int Tk, int D, const int64_t* strides,
+                                    float scale, void* stream_ptr);
 
 namespace {
 
@@ -100,6 +117,86 @@ rmsnorm_adaln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
     const float one_plus = __bfloat162float(__float2bfloat16_rn(1.0f + __bfloat162float(scale[i])));
     const float t = __bfloat162float(__float2bfloat16_rn(n * one_plus));
     ar[i] = __float2bfloat16_rn(t + __bfloat162float(shift[i]));
+  }
+}
+
+// The same h and a with the row in registers: a warp a row of width kVecs *
+// 256, kRegRows rows a block.  Each lane holds kVecs 16-byte vectors of x,
+// res, ln, scale and shift, all loaded before any arithmetic, so the row
+// costs one round trip; the roundings are the kernel's above, op for op, each
+// converting two values at once (bf16x2.cuh; a takes five of them an
+// element).
+constexpr int kRegRows = 2;
+
+using bf2 = __nv_bfloat162;
+using muse::pair;
+using muse::round2;
+
+template <int kVecs>
+__global__ void __launch_bounds__(32 * kRegRows)
+rmsnorm_adaln_rows_kernel(const uint4* __restrict__ x, const uint4* __restrict__ res,
+                          const uint4* __restrict__ ln, const __nv_bfloat16* __restrict__ adaln,
+                          uint4* __restrict__ h_out, uint4* __restrict__ a_out, int rows, int S,
+                          float eps) {
+  constexpr int D = kVecs * 256, kRowVecs = D / 8;
+  const int lane = threadIdx.x % 32;
+  const int64_t row = int64_t(blockIdx.x) * kRegRows + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps: no block barrier below
+  const uint4* scale = reinterpret_cast<const uint4*>(adaln + (row / S) * 2 * D);
+  const uint4* shift = scale + kRowVecs;
+  uint4 xv[kVecs], rv[kVecs] = {}, lv[kVecs], sv[kVecs], tv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) xv[i] = x[row * kRowVecs + i * 32 + lane];
+  if (res != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) rv[i] = res[row * kRowVecs + i * 32 + lane];
+  }
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    lv[i] = ln[i * 32 + lane];
+    sv[i] = scale[i * 32 + lane];
+    tv[i] = shift[i * 32 + lane];
+  }
+
+  // h = bf16(x + res), its sum of squares
+  float2 h[kVecs][4];
+  float sumsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    uint4 hv = xv[i];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float2 v = pair(xv[i], p);
+      if (res != nullptr) {
+        const float2 r = pair(rv[i], p);
+        const bf2 hb = __floats2bfloat162_rn(v.x + r.x, v.y + r.y);
+        reinterpret_cast<bf2*>(&hv)[p] = hb;
+        v = __bfloat1622float2(hb);
+      }
+      h[i][p] = v;
+      sumsq += v.x * v.x;
+      sumsq += v.y * v.y;
+    }
+    h_out[row * kRowVecs + i * 32 + lane] = hv;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sumsq += __shfl_xor_sync(0xffffffffu, sumsq, off);
+  const float inv_rms = __bfloat162float(__float2bfloat16_rn(rsqrtf(sumsq / float(D) + eps)));
+
+  // a = bf16(bf16(bf16(bf16(h * r) * ln) * bf16(1 + scale)) + shift)
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    uint4 av;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 l = pair(lv[i], p), sc = pair(sv[i], p), sh = pair(tv[i], p);
+      float2 n = round2(make_float2(h[i][p].x * inv_rms, h[i][p].y * inv_rms));
+      n = round2(make_float2(n.x * l.x, n.y * l.y));
+      const float2 one_plus = round2(make_float2(1.0f + sc.x, 1.0f + sc.y));
+      const float2 t = round2(make_float2(n.x * one_plus.x, n.y * one_plus.y));
+      reinterpret_cast<bf2*>(&av)[p] = __floats2bfloat162_rn(t.x + sh.x, t.y + sh.y);
+    }
+    a_out[row * kRowVecs + i * 32 + lane] = av;
   }
 }
 
@@ -694,17 +791,42 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
   using bf = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
-  rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
-      static_cast<const bf*>(x), static_cast<const bf*>(res), static_cast<const bf*>(ln),
-      static_cast<const bf*>(adaln), static_cast<bf*>(h_out), static_cast<bf*>(a_buf), nullptr, S,
-      D, eps);
+  const bool self_attn = kv == nullptr;
+  if (self_attn && D == 1024) {
+    rmsnorm_adaln_rows_kernel<4><<<(rows + kRegRows - 1) / kRegRows, 32 * kRegRows, 0, stream>>>(
+        static_cast<const uint4*>(x), static_cast<const uint4*>(res),
+        static_cast<const uint4*>(ln), static_cast<const bf*>(adaln), static_cast<uint4*>(h_out),
+        static_cast<uint4*>(a_buf), rows, S, eps);
+  } else {
+    rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(res), static_cast<const bf*>(ln),
+        static_cast<const bf*>(adaln), static_cast<bf*>(h_out), static_cast<bf*>(a_buf),
+        nullptr, S, D, eps);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const int n_in = kv == nullptr ? 3 * D : D;
+  if (self_attn) {
+    const bf* a = static_cast<const bf*>(a_buf);
+    bf* qkv = static_cast<bf*>(qkv_buf);
+    err = muse::sm90::gemm_tn(a, static_cast<const bf*>(w_in), muse::StoreBf16{qkv, 3 * D}, rows,
+                              3 * D, D, stream);
+    if (err != cudaSuccess) return int(err);
+    // q, k, v: views of the projection, token stride 3D, heads of 64
+    const int64_t sb = int64_t(S) * 3 * D, st = 3 * D;
+    const int64_t strides[6] = {sb, st, sb, st, sb, st};
+    const int status = muse_flash_attention(qkv, qkv + D, qkv + 2 * D, attn_buf, B, H, S, S,
+                                            kHeadDim, strides, 1.0f / sqrtf(float(kHeadDim)),
+                                            stream);
+    if (status != 0) return status;
+    return int(muse::sm90::gemm_tn(static_cast<const bf*>(attn_buf),
+                                   static_cast<const bf*>(w_out),
+                                   muse::StoreBf16{static_cast<bf*>(out), D}, rows, D, D, stream));
+  }
+
   err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{static_cast<const bf*>(a_buf), D},
                                         static_cast<const bf*>(w_in), static_cast<bf*>(qkv_buf),
-                                        rows, n_in, D, stream);
+                                        rows, D, D, stream);
   if (err != cudaSuccess) return int(err);
 
   AttnArgs args = attn_args(static_cast<const bf*>(qkv_buf), static_cast<const bf*>(kv), S, D, L,

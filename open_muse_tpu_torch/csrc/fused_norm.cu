@@ -1,16 +1,23 @@
 // Residual add + RMSNorm or LayerNorm over the last axis, one pass over the
 // rows:
 //
-//   h        = x (+ residual)                     fp32
-//   prenorm  = h cast to the input type            (written only with a residual)
+//   h        = x (+ residual)
+//   prenorm  = h in the input type                 (written only with a residual)
 //   RMS:  out = h * rsqrt(mean(h^2) + eps) * scale
 //   LN:   out = (h - mean(h)) * rsqrt(mean((h - mean)^2) + eps) * scale (+ bias)
 //
-// the moments and the affine in fp32, one cast at the end.  Replaces the
-// Pallas TPU kernels open_muse_tpu/ops/pallas/fused_norm.py
+// Replaces the Pallas TPU kernels open_muse_tpu/ops/pallas/fused_norm.py
 // `fused_residual_rmsnorm` (body `_rms_kernel`) and `fused_residual_layernorm`
 // (body `_ln_kernel`), which take blocks of 256 rows into VMEM; here the
-// kernel kind is a template flag.
+// kernel kind is a template flag.  A second template flag picks the staging:
+//
+//  * the Pallas kernels' (kModel = false): h, the moments and the affine in
+//    fp32, one cast at the end;
+//  * the JAX model's (kModel = true), as the layers the model runs compute it
+//    (open_muse_tpu/ops/layers.py RMSNorm / LayerNorm): h = x + residual
+//    rounded to the input type, the moments of that h in fp32, the rsqrt
+//    factor (RMS) or the normalised value (LN) rounded to the input type,
+//    then the scale and the bias each applied in the input type.
 //
 // What bounds it on the H100: latency, not the bytes.  Each row is read once
 // (x, and the residual when given) and written once or twice (out, and
@@ -43,6 +50,8 @@
 
 #include <cstdint>
 
+#include "bf16x2.cuh"
+
 namespace {
 
 constexpr int kVec = 8;  // bf16 elements in 16 bytes
@@ -59,14 +68,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out = ((h - mean) * inv) * scale + bias for one element; scale / bias may
-// be null (no affine, no bias)
-__device__ __forceinline__ float affine(float h, float mean, float inv, const T* scale,
-                                        const T* bias, int i) {
-  float y = (h - mean) * inv;
-  if (scale != nullptr) y *= to_f(scale[i]);
-  if (bias != nullptr) y += to_f(bias[i]);
-  return y;
+// Every rounding to the input type converts two values at once
+// (bf16x2.cuh): the model staging rounds up to four times an element.
+using T2 = __nv_bfloat162;
+using muse::pair;
+using muse::round2;
+
+// h = x + residual of two elements: fp32, or rounded to the input type in the
+// model staging; *pre gets h in the input type (the prenorm output)
+template <bool kModel>
+__device__ __forceinline__ float2 residual_sum2(float2 x, float2 r, T2* pre) {
+  const float2 h = make_float2(x.x + r.x, x.y + r.y);
+  *pre = __floats2bfloat162_rn(h.x, h.y);
+  return kModel ? __bfloat1622float2(*pre) : h;
+}
+
+// the normalising factor: rounded to the input type for RMS in the model
+// staging (jax.lax.rsqrt(var + eps).astype(x.dtype))
+template <bool kModel, bool kLayerNorm>
+__device__ __forceinline__ float norm_factor(float var, float eps) {
+  const float inv = __frsqrt_rn(var + eps);
+  return kModel && !kLayerNorm ? __bfloat162float(from_f(inv)) : inv;
+}
+
+// out = ((h - mean) * inv) * scale + bias for two elements, in fp32 or, in
+// the model staging, rounded to the input type after each step; has_scale /
+// has_bias false: no affine, no bias
+template <bool kModel>
+__device__ __forceinline__ T2 normed2(float2 h, float mean, float inv, bool has_scale, float2 s,
+                                      bool has_bias, float2 b) {
+  float2 y = make_float2((h.x - mean) * inv, (h.y - mean) * inv);
+  if (kModel) y = round2(y);
+  if (has_scale) {
+    y = make_float2(y.x * s.x, y.y * s.y);
+    if (kModel) y = round2(y);
+  }
+  if (has_bias) {
+    y = make_float2(y.x + b.x, y.y + b.y);
+    if (kModel) y = round2(y);
+  }
+  return __floats2bfloat162_rn(y.x, y.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -90,7 +131,7 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
   }
 }
 
-template <bool kLayerNorm, int kVecs, int kRowThreads, int kRowsPerBlock>
+template <bool kLayerNorm, bool kModel, int kVecs, int kRowThreads, int kRowsPerBlock>
 __global__ void __launch_bounds__(kRowThreads * kRowsPerBlock)
 register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
                     const T* __restrict__ scale, const T* __restrict__ bias,
@@ -123,22 +164,22 @@ register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
     for (int i = 0; i < kVecs; ++i) bv[i] = br[i * kRowThreads + t];
   }
 
-  // h = x (+ res) in fp32, the prenorm out, the first moment
+  // h = x (+ res), the prenorm out, the first moment
   float h[kVecs][kVec];
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
-    const T* xe = reinterpret_cast<const T*>(&xv[i]);
-    const T* re = reinterpret_cast<const T*>(&rv[i]);
+    uint4 pv;
+    T2* pe = reinterpret_cast<T2*>(&pv);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) h[i][j] = to_f(xe[j]) + (res != nullptr ? to_f(re[j]) : 0.f);
-    if (res != nullptr) {
-      uint4 pv;
-      T* pe = reinterpret_cast<T*>(&pv);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) pe[j] = from_f(h[i][j]);
-      reinterpret_cast<uint4*>(prenorm + row * D)[i * kRowThreads + t] = pv;
+    for (int p = 0; p < kVec / 2; ++p) {
+      const float2 v = res != nullptr
+                           ? residual_sum2<kModel>(pair(xv[i], p), pair(rv[i], p), &pe[p])
+                           : pair(xv[i], p);
+      h[i][2 * p] = v.x;
+      h[i][2 * p + 1] = v.y;
     }
+    if (res != nullptr) reinterpret_cast<uint4*>(prenorm + row * D)[i * kRowThreads + t] = pv;
 #pragma unroll
     for (int j = 0; j < kVec; ++j) acc += kLayerNorm ? h[i][j] : h[i][j] * h[i][j];
   }
@@ -159,22 +200,17 @@ register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
   } else {
     var = acc / D;
   }
-  const float inv = __frsqrt_rn(var + eps);
+  const float inv = norm_factor<kModel, kLayerNorm>(var, eps);
 
-  // the normalised row with its affine, one cast
+  // the normalised row with its affine
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
-    const T* se = reinterpret_cast<const T*>(&sv[i]);
-    const T* be = reinterpret_cast<const T*>(&bv[i]);
     uint4 ov;
-    T* oe = reinterpret_cast<T*>(&ov);
+    T2* oe = reinterpret_cast<T2*>(&ov);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float y = (h[i][j] - mean) * inv;
-      if (scale != nullptr) y *= to_f(se[j]);
-      if (bias != nullptr) y += to_f(be[j]);
-      oe[j] = from_f(y);
-    }
+    for (int p = 0; p < kVec / 2; ++p)
+      oe[p] = normed2<kModel>(make_float2(h[i][2 * p], h[i][2 * p + 1]), mean, inv,
+                              scale != nullptr, pair(sv[i], p), bias != nullptr, pair(bv[i], p));
     reinterpret_cast<uint4*>(out + row * D)[i * kRowThreads + t] = ov;
   }
 }
@@ -185,7 +221,7 @@ register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
 constexpr int kGenericRows = 4;  // one warp a row
 constexpr int kGenericThreads = 32 * kGenericRows;
 
-template <bool kLayerNorm>
+template <bool kLayerNorm, bool kModel>
 __global__ void __launch_bounds__(kGenericThreads)
 generic_kernel(const T* __restrict__ x, const T* __restrict__ res,
                const T* __restrict__ scale, const T* __restrict__ bias,
@@ -198,24 +234,27 @@ generic_kernel(const T* __restrict__ x, const T* __restrict__ res,
   const int64_t base = row * D;
   const bool vec = D % kVec == 0;
 
-  // sweep 1: h = x (+ res) in fp32 into shared memory, prenorm out, first moment
+  // sweep 1: h = x (+ res) into shared memory, prenorm out, first moment
   float acc = 0.f;
   if (vec) {
     for (int v = lane; v < D / kVec; v += 32) {
       const uint4 xv = reinterpret_cast<const uint4*>(x + base)[v];
-      const T* xe = reinterpret_cast<const T*>(&xv);
       float f[kVec];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) f[i] = to_f(xe[i]);
+      for (int p = 0; p < kVec / 2; ++p) {
+        f[2 * p] = pair(xv, p).x;
+        f[2 * p + 1] = pair(xv, p).y;
+      }
       if (res != nullptr) {
         const uint4 rv = reinterpret_cast<const uint4*>(res + base)[v];
-        const T* re = reinterpret_cast<const T*>(&rv);
         uint4 pv;
-        T* pe = reinterpret_cast<T*>(&pv);
+        T2* pe = reinterpret_cast<T2*>(&pv);
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          f[i] += to_f(re[i]);
-          pe[i] = from_f(f[i]);
+        for (int p = 0; p < kVec / 2; ++p) {
+          const float2 h2 = residual_sum2<kModel>(make_float2(f[2 * p], f[2 * p + 1]),
+                                                  pair(rv, p), &pe[p]);
+          f[2 * p] = h2.x;
+          f[2 * p + 1] = h2.y;
         }
         reinterpret_cast<uint4*>(prenorm + base)[v] = pv;
       }
@@ -229,8 +268,10 @@ generic_kernel(const T* __restrict__ x, const T* __restrict__ res,
     for (int i = lane; i < D; i += 32) {
       float f = to_f(x[base + i]);
       if (res != nullptr) {
-        f += to_f(res[base + i]);
-        prenorm[base + i] = from_f(f);
+        T2 pre;
+        const float r = to_f(res[base + i]);
+        f = residual_sum2<kModel>(make_float2(f, f), make_float2(r, r), &pre).x;
+        prenorm[base + i] = pre.x;
       }
       h[i] = f;
       acc += kLayerNorm ? f : f * f;
@@ -251,21 +292,26 @@ generic_kernel(const T* __restrict__ x, const T* __restrict__ res,
   } else {
     var = acc / D;
   }
-  const float inv = __frsqrt_rn(var + eps);
+  const float inv = norm_factor<kModel, kLayerNorm>(var, eps);
+  // elements i and j (j = i for one element alone)
+  auto elems = [&](int i, int j) {
+    const float2 s2 = scale ? make_float2(to_f(scale[i]), to_f(scale[j])) : make_float2(0.f, 0.f);
+    const float2 b2 = bias ? make_float2(to_f(bias[i]), to_f(bias[j])) : make_float2(0.f, 0.f);
+    return normed2<kModel>(make_float2(h[i], h[j]), mean, inv, scale != nullptr, s2,
+                           bias != nullptr, b2);
+  };
 
-  // sweep 2: the normalised row with its affine, one cast
+  // sweep 2: the normalised row with its affine
   if (vec) {
     for (int v = lane; v < D / kVec; v += 32) {
       uint4 ov;
-      T* oe = reinterpret_cast<T*>(&ov);
+      T2* oe = reinterpret_cast<T2*>(&ov);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        oe[i] = from_f(affine(h[v * kVec + i], mean, inv, scale, bias, v * kVec + i));
+      for (int p = 0; p < kVec / 2; ++p) oe[p] = elems(v * kVec + 2 * p, v * kVec + 2 * p + 1);
       reinterpret_cast<uint4*>(out + base)[v] = ov;
     }
   } else {
-    for (int i = lane; i < D; i += 32)
-      out[base + i] = from_f(affine(h[i], mean, inv, scale, bias, i));
+    for (int i = lane; i < D; i += 32) out[base + i] = elems(i, i).x;
   }
 }
 
@@ -276,25 +322,25 @@ struct Args {
   float eps;
 };
 
-template <bool kLayerNorm, int kVecs, int kRowThreads, int kRowsPerBlock>
+template <bool kLayerNorm, bool kModel, int kVecs, int kRowThreads, int kRowsPerBlock>
 int launch_register_row(const Args& a, cudaStream_t stream) {
   const int blocks = (a.rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  register_row_kernel<kLayerNorm, kVecs, kRowThreads, kRowsPerBlock>
+  register_row_kernel<kLayerNorm, kModel, kVecs, kRowThreads, kRowsPerBlock>
       <<<blocks, kRowThreads * kRowsPerBlock, 0, stream>>>(a.x, a.res, a.scale, a.bias, a.out,
                                                             a.prenorm, a.rows, a.eps);
   return int(cudaGetLastError());
 }
 
-template <bool kLayerNorm>
+template <bool kLayerNorm, bool kModel>
 int launch(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
-    case 768: return launch_register_row<kLayerNorm, 3, 32, 2>(a, stream);
-    case 1024: return launch_register_row<kLayerNorm, 4, 32, 2>(a, stream);
-    case 3072: return launch_register_row<kLayerNorm, 3, 128, 1>(a, stream);
+    case 768: return launch_register_row<kLayerNorm, kModel, 3, 32, 2>(a, stream);
+    case 1024: return launch_register_row<kLayerNorm, kModel, 4, 32, 2>(a, stream);
+    case 3072: return launch_register_row<kLayerNorm, kModel, 3, 128, 1>(a, stream);
     default: break;
   }
   const size_t smem = sizeof(float) * kGenericRows * size_t(D);
-  auto kernel = generic_kernel<kLayerNorm>;
+  auto kernel = generic_kernel<kLayerNorm, kModel>;
   if (smem > kDefaultSmem) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -310,12 +356,13 @@ int launch(const Args& a, int D, cudaStream_t stream) {
 
 // x, res (rows, D); scale, bias (D,); out, prenorm (rows, D); all bf16,
 // contiguous, 16-byte aligned.  res, scale, bias and prenorm may be null
-// (prenorm must be given with res).  layer_norm 0 = RMSNorm, 1 = LayerNorm.
-// D 768, 1024 and 3072 keep the row in registers; other widths take the
-// generic kernel.
+// (prenorm must be given with res).  layer_norm 0 = RMSNorm, 1 = LayerNorm;
+// model_staging 0 = the Pallas kernels' staging, 1 = the JAX model's.  D 768,
+// 1024 and 3072 keep the row in registers; other widths take the generic
+// kernel.
 extern "C" int muse_fused_norm(const void* x, const void* res, const void* scale,
                                const void* bias, void* out, void* prenorm, int rows, int D,
-                               float eps, int layer_norm, void* stream_ptr) {
+                               float eps, int layer_norm, int model_staging, void* stream_ptr) {
   if (rows <= 0 || D <= 0 || (res != nullptr && prenorm == nullptr))
     return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -323,5 +370,7 @@ extern "C" int muse_fused_norm(const void* x, const void* res, const void* scale
                static_cast<const T*>(scale), static_cast<const T*>(bias),
                static_cast<T*>(out),         static_cast<T*>(prenorm),
                rows,                         eps};
-  return layer_norm ? launch<true>(a, D, stream) : launch<false>(a, D, stream);
+  if (model_staging)
+    return layer_norm ? launch<true, true>(a, D, stream) : launch<false, true>(a, D, stream);
+  return layer_norm ? launch<true, false>(a, D, stream) : launch<false, false>(a, D, stream);
 }

@@ -11,16 +11,20 @@
 // MaskGiTUViT_v2.  wo is the torch nn.Linear weight (N, K).
 //
 // What bounds it on the H100: at the serving shape (a, b: 512 x 2816 bf16,
-// wo: 1024 x 2816 bf16) the forward reads 2.9 MB of activations and 5.8 MB
-// of weight for 3 GFLOP, about 340 FLOP per byte, near the card's bf16 ridge.
+// wo: 1024 x 2816 bf16) the forward reads 5.8 MB of activations and 5.8 MB
+// of weight for 3 GFLOP, about 260 FLOP per byte, near the card's bf16 ridge.
 // At the training shape (4096 rows) the backward is two 23.6 GFLOP products
 // plus an erf per element of a (M, K) panel in each: compute-bound, with the
 // GELU work on the CUDA cores competing with the tensor cores.
 //
 // What the design does about it:
-// - Forward: the GLU product is computed in the GEMM's A-tile prologue
-//   (registers -> shared memory) and never written to device memory.  Each
-//   column tile recomputes it, so the tile is wide (64 x 128, on eight warps).
+// - Forward, two launches: an elementwise kernel computes h = bf16(gelu(a)
+//   * b) once per element, with 16-byte loads and stores, into a (M, K) bf16
+//   scratch the wrapper allocates (2.9 MB at the serving shape, which stays
+//   in L2); then the Hopper GEMM of gemm_sm90.cuh (TMA, wgmma; at 512 rows
+//   64-wide tiles with K split over clusters of two) reads h and wo.  The PR 1 design computed the
+//   product in the `wmma` GEMM's A-tile prologue, once for each of the 8
+//   column tiles: 11.5 M erff for 1.44 M elements.
 // - Backward, dh: one GEMM g (M, N) x wo (N, K) whose epilogue reads a and b,
 //   evaluates gelu and gelu' with erff in fp32 and writes da and db, so the
 //   fp32 dh never reaches device memory (the TPU kernel keeps it in VMEM).
@@ -35,6 +39,9 @@
 //   inside one block in fp32: no atomics, so two calls give bit-equal results.
 // erf is CUDA's `erff`, not the Abramowitz-Stegun polynomial the TPU kernel
 // needs because Mosaic has no erf.
+#include <algorithm>
+
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -95,18 +102,36 @@ struct GluGradEpilogue {
   __device__ __forceinline__ void store1(int r, int col, float v) const { one(r * ld + col, v); }
 };
 
-using kGluTile = muse::GemmTile<64, 128, 64>;     // forward: BM 64, BN 128, BK 64
+// h = bf16(gelu(a) * b), eight elements a thread step, as GluLoader does
+__global__ void __launch_bounds__(256)
+glu_product_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, uint4* __restrict__ h,
+                   int64_t vectors) {
+  GluLoader glu{};
+  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < vectors;
+       i += int64_t(gridDim.x) * blockDim.x)
+    h[i] = glu.transform(GluLoader::Frag{a[i], b[i]});
+}
+
 using kGluDhTile = muse::GemmTile<64, 128, 32>;   // dh with the da/db epilogue
 using kGluDwoTile = muse::GemmTile<128, 64, 32>;  // dwo: tall along N (see above)
 
 }  // namespace
 
-extern "C" int muse_glu_down(const void* a, const void* b, const void* wo, void* out, int M,
-                             int N, int K, void* stream) {
-  GluLoader loader{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), K};
-  return static_cast<int>(muse::launch_gemm_tn<kGluTile>(loader, static_cast<const __nv_bfloat16*>(wo),
-                                               static_cast<__nv_bfloat16*>(out), M, N, K,
-                                               static_cast<cudaStream_t>(stream)));
+// a, b, h (M, K); wo (N, K); out (M, N).  K a multiple of 8, N even; h is
+// the scratch for the GLU product.
+extern "C" int muse_glu_down(const void* a, const void* b, const void* wo, void* h, void* out,
+                             int M, int N, int K, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t vectors = int64_t(M) * K / 8;
+  const int blocks = int(std::min<int64_t>((vectors + 255) / 256, 8 * muse::sm90::sm_count()));
+  glu_product_kernel<<<blocks, 256, 0, s>>>(static_cast<const uint4*>(a),
+                                            static_cast<const uint4*>(b), static_cast<uint4*>(h),
+                                            vectors);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return int(muse::sm90::gemm_tn(static_cast<const bf*>(h), static_cast<const bf*>(wo),
+                                 muse::StoreBf16{static_cast<bf*>(out), N}, M, N, K, s));
 }
 
 // a, b, da, db (M, K); wo, dwo (N, K); g (M, N).  K and N multiples of 8.

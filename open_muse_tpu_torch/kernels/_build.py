@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "muse_glu_down": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "muse_glu_down": [_P] * 5 + [_I] * 3 + [_P],
     "muse_glu_down_bwd": [_P] * 7 + [_I] * 3 + [_P],
     "muse_attn_sublayer": [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_attn_sublayer_bwd": [_P] * 22 + [_I] * 6 + [ctypes.c_float, _P],
@@ -36,9 +36,10 @@ _SIGNATURES = {
                         ctypes.c_uint64, _P, _P, _P],
     "muse_sample": [_P, _I, _I, _I, _I, _P, ctypes.c_int64, ctypes.c_uint64, _P, _P, _P],
     "muse_vq_argmin": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "muse_fused_norm": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _P],
+    "muse_fused_norm": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _P],
     "muse_flash_attention": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64),
                                                    ctypes.c_float, _P],
+    "muse_gemm_tn": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -77,7 +77,8 @@ def _forward(a, b, wo):
     if k % 8 or n % 2:
         raise ValueError(f"glu_down_matmul: K={k} must be a multiple of 8 and N={n} even")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    check(library().muse_glu_down(a.data_ptr(), b.data_ptr(), wo.data_ptr(),
+    hidden = torch.empty_like(a)  # the kernel's scratch for bf16(gelu(a) * b)
+    check(library().muse_glu_down(a.data_ptr(), b.data_ptr(), wo.data_ptr(), hidden.data_ptr(),
                                   out.data_ptr(), m, n, k, stream_handle(a)),
           "glu_down_matmul")
     glu_down_matmul.launches += 1

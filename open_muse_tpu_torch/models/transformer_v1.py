@@ -303,14 +303,15 @@ class MaskGitTransformer(ModelMixin, nn.Module):
     def generate2(self, input_ids=None, class_ids=None, encoder_hidden_states=None,
                   negative_embeds=None, temperature=1.0, timesteps: int = 18,
                   guidance_scale: float = 0.0, noise_schedule=sampling.cosine_schedule,
-                  generator=None, noise=None):
+                  generator=None, noise=None, **unused_kwargs):
         """Original-MaskGIT parallel decode -> the token ids (B, S) committed
         at the last step.  ``class_ids`` (B,) are shifted past the codebook
         and prepended at every step; text states take CFG when
         ``guidance_scale > 0`` (none for class ids).  Noise comes from the
         CPU ``generator`` or is ``noise=(sample_gumbel (T, B, S, >= codebook),
         mask_gumbel (T, B, S))``, as the JAX loop draws them from its key
-        chain."""
+        chain.  The v2-only inputs a text pipeline passes (``cond_embeds``,
+        ``empty_embeds``, ...) are ignored, as in the JAX model."""
         cfg = self.config
         device = self.transformer_layers[0].attention.query.weight.device
         if class_ids is not None:

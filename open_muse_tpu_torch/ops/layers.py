@@ -7,9 +7,12 @@ Parameter names follow the open-muse torch modules (``weight`` / ``bias`` /
 Where the JAX package sends a layer to a Pallas kernel, the port sends it to
 the kernel's wrapper: ``RMSNorm`` to ``fused_residual_rmsnorm``, ``LayerNorm``
 to ``fused_residual_layernorm`` and an unmasked ``dot_product_attention`` to
-``flash_attention``; the wrappers are differentiable.  ``use_kernels=False``
-takes the code below them instead: the XLA path's staging, which in fp32
-computes what the kernels' plain versions do.
+``flash_attention``; the wrappers are differentiable.  The norms take the
+kernels' model staging, which rounds where the JAX layers round (the sum,
+the rsqrt factor or normalised value, and the affine in the input type), so
+a bf16 model computes what the JAX model computes off the TPU.
+``use_kernels=False`` takes the code below them instead: the same staging
+written out, bit for bit the norm kernels' plain model staging.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ class RMSNorm(nn.Module):
         if use_kernels:
             out, prenorm = fused_residual_rmsnorm(
                 x.contiguous(), None if residual is None else residual.contiguous(),
-                self.weight, self.eps)
+                self.weight, self.eps, staging="model")
             return _result(out, prenorm, residual, return_residual)
         if residual is not None:
             x = x + residual
@@ -72,7 +75,7 @@ class LayerNorm(nn.Module):
         if use_kernels:
             out, prenorm = fused_residual_layernorm(
                 x.contiguous(), None if residual is None else residual.contiguous(),
-                self.weight, self.bias, self.eps)
+                self.weight, self.bias, self.eps, staging="model")
             return _result(out, prenorm, residual, return_residual)
         if residual is not None:
             x = x + residual

@@ -21,7 +21,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..models.transformer_v2 import decode_schedules, parallel_decode_loop
+from ..models.transformer_v2 import MaskGiTUViT_v2, decode_schedules, parallel_decode_loop
 from ..ops.sampling import get_mask_schedule
 
 __all__ = ["PipelineMuse", "PipelineMuseInpainting"]
@@ -65,9 +65,12 @@ class PipelineMuse:
                  aesthetic_score: float = 6.0, transformer_seq_len: Optional[int] = None,
                  clip_skip: Optional[int] = None, return_pil: bool = True):
         """Text prompts or class ids -> images (PIL, or an NHWC float tensor
-        with ``return_pil=False``).  Noise comes from the CPU ``generator``;
-        the class-conditional decode also takes ``noise=(sample_gumbel (T,
-        B, S, V), mask_gumbel (T, B, S))``."""
+        with ``return_pil=False``).  Noise comes from the CPU ``generator`` or
+        is ``noise=(sample_gumbel (T, B, S, V), mask_gumbel (T, B, S))``.
+        Text serves a v2 ``MaskGiTUViT_v2`` and a v1 ``MaskGitTransformer``
+        (its ``generate2``, the reference's ``use_maskgit_generate=True``):
+        ``guidance_schedule`` and ``transformer_seq_len`` reach v2 only, and
+        the micro-conditioning only a config with ``add_micro_cond_embeds``."""
         if (text is None) == (class_ids is None):
             raise ValueError("pass exactly one of text and class_ids")
         if class_ids is not None:
@@ -96,14 +99,18 @@ class PipelineMuse:
         ehs = ehs.repeat_interleave(num_images_per_prompt, 0)
         if pooled is not None:
             pooled = pooled.repeat_interleave(num_images_per_prompt, 0)
-        micro_conds = torch.tensor([list(orig_size) + list(crop_coords) + [aesthetic_score]],
-                                   dtype=torch.float32, device=self.device)
+        config = self.transformer.config
+        if getattr(config, "add_micro_cond_embeds", False):
+            inputs["micro_conds"] = torch.tensor(
+                [list(orig_size) + list(crop_coords) + [aesthetic_score]], dtype=torch.float32,
+                device=self.device)
+        if isinstance(self.transformer, MaskGiTUViT_v2):
+            inputs.update(guidance_schedule=guidance_schedule, seq_len=transformer_seq_len)
         tokens = self.transformer.generate2(
-            encoder_hidden_states=ehs, cond_embeds=pooled, micro_conds=micro_conds,
-            timesteps=timesteps, guidance_scale=guidance_scale,
-            guidance_schedule=guidance_schedule, temperature=temperature,
-            noise_schedule=get_mask_schedule(noise_schedule), generator=generator,
-            seq_len=transformer_seq_len, **inputs)
+            encoder_hidden_states=ehs, cond_embeds=pooled, timesteps=timesteps,
+            guidance_scale=guidance_scale, temperature=temperature,
+            noise_schedule=get_mask_schedule(noise_schedule), generator=generator, noise=noise,
+            **inputs)
         return self._images(tokens, return_pil)
 
     def _images(self, tokens, return_pil: bool):

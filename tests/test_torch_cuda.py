@@ -36,9 +36,12 @@ def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("m,k,n", [(512, 2816, 1024), (100, 96, 130)])
+@pytest.mark.parametrize("m,k,n", [(512, 2816, 1024), (4096, 2816, 1024), (300, 2816, 1024),
+                                   (100, 96, 130)])
 def test_glu_kernel_matches_plain(device, m, k, n):
-    """Ragged M and N tiles too; rel 2e-2 (bf16 output rounding)."""
+    """The serving and training rows, ragged M (300 rows: not a multiple of
+    the GEMM's tiles) and ragged N and K tiles; rel 2e-2 (bf16 output
+    rounding); two calls bit-equal."""
     gen = torch.Generator().manual_seed(m)
     a, b = _rand(gen, m, k), _rand(gen, m, k)
     wo = _rand(gen, n, k, scale=k ** -0.5)
@@ -46,26 +49,50 @@ def test_glu_kernel_matches_plain(device, m, k, n):
     got = kernels.glu_down_matmul(a, b, wo)
     assert kernels.glu_down_matmul.launches == before + 1
     assert _rel(got, glu_down_matmul_plain(a, b, wo)) <= 2e-2
+    assert torch.equal(got, kernels.glu_down_matmul(a, b, wo))
 
 
-@pytest.mark.parametrize("s,kv_len", [(256, 77), (100, 130)])
-def test_sublayer_kernels_match_plain(device, s, kv_len):
-    """Ragged query and key tiles; rel 3e-2 (bf16 roundings of qkv, probs
-    and output); the prenorm residual bit-equal."""
+@pytest.mark.parametrize("b,s,kv_len", [(2, 256, 77), (16, 256, 77), (2, 100, 130)])
+def test_sublayer_kernels_match_plain(device, b, s, kv_len):
+    """The serving and training batches and ragged query and key tiles; rel
+    3e-2 (bf16 roundings of qkv, probs and output); the prenorm residual
+    bit-equal; two calls bit-equal."""
     gen = torch.Generator().manual_seed(s)
-    b, d, h = 2, 1024, 16
+    d, h = 1024, 16
     x, res = _rand(gen, b, s, d), _rand(gen, b, s, d)
     ln, adaln = 1 + _rand(gen, d, scale=0.1), _rand(gen, b, 2 * d, scale=0.1)
     wqkv, wq = _rand(gen, 3 * d, d, scale=d ** -0.5), _rand(gen, d, d, scale=d ** -0.5)
     wout, kv = _rand(gen, d, d, scale=d ** -0.5), _rand(gen, b, kv_len, 2 * d)
     for r in (res, None):
         rr = torch.zeros_like(x) if r is None else r
-        out, hh = kernels.attn_sublayer_self(x, r, ln, adaln, wqkv, wout, h)
-        ref, ref_h = A.attn_sublayer_self_plain(x, rr, ln, adaln, wqkv, wout, h)
-        assert _rel(out, ref) <= 3e-2 and torch.equal(hh, ref_h)
-        out, hh = kernels.attn_sublayer_cross(x, r, ln, adaln, wq, wout, kv, h)
-        ref, ref_h = A.attn_sublayer_cross_plain(x, rr, ln, adaln, wq, wout, kv, h)
-        assert _rel(out, ref) <= 3e-2 and torch.equal(hh, ref_h)
+        for kern, plain, args in (
+                (kernels.attn_sublayer_self, A.attn_sublayer_self_plain, (wqkv, wout)),
+                (kernels.attn_sublayer_cross, A.attn_sublayer_cross_plain, (wq, wout, kv))):
+            out, hh = kern(x, r, ln, adaln, *args, h)
+            ref, ref_h = plain(x, rr, ln, adaln, *args, h)
+            assert _rel(out, ref) <= 3e-2 and torch.equal(hh, ref_h), kern.__name__
+            again, again_h = kern(x, r, ln, adaln, *args, h)
+            assert torch.equal(out, again) and torch.equal(hh, again_h), kern.__name__
+
+
+@pytest.mark.parametrize("m,n,k", [(512, 1024, 2816), (200, 3072, 1024), (300, 130, 96),
+                                   (7, 24, 40)])
+@pytest.mark.parametrize("tile_width,split", [(0, 0), (64, 1), (64, 2), (128, 1), (128, 4),
+                                              (256, 1), (256, 2)])
+def test_hopper_gemm_matches_linear(device, m, n, k, tile_width, split):
+    """The mainloop of kernels 7 and 9 alone: every tile width, K splits
+    over clusters of 2 and 4 (with a share of no k step at (7, 24, 40)),
+    ragged M, N and K; within 1e-2 rel of an fp32 product of the same bf16
+    operands (bf16 output rounding, fp32 sums in another order); two calls
+    bit-equal."""
+    from open_muse_tpu_torch.kernels.gemm import linear_tn
+
+    gen = torch.Generator().manual_seed(m + n + k)
+    a, w = _rand(gen, m, k), _rand(gen, n, k, scale=k ** -0.5)
+    out = linear_tn(a, w, tile_width, split)
+    assert out.shape == (m, n)
+    assert _rel(out, a.float() @ w.float().t()) <= 1e-2
+    assert torch.equal(out, linear_tn(a, w, tile_width, split))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -230,36 +257,42 @@ def test_training_backward_reaches_every_parameter(device):
 
 # -- fused norms and flash attention ------------------------------------------
 
-# bf16 on both sides with one cast at the end of fp32 arithmetic: the kernels
-# and the plain versions differ by the order of their sums, at most about one
-# bf16 rounding of the output
+# bf16 on both sides with the same roundings (one cast at the end of fp32
+# arithmetic, or the model staging's op by op): the kernels and the plain
+# versions differ by the order of their sums, at most about one bf16
+# rounding of the output
 NORM_TOL, ATTN_TOL = 1e-2, 2e-2
 
 
+@pytest.mark.parametrize("staging", ["pallas", "model"])
 @pytest.mark.parametrize("shape,with_residual", [((1, 257, 768), True), ((2, 256, 768), True),
                                                  ((2, 256, 1024), True), ((1, 257, 3072), False),
                                                  ((3, 37, 100), True)])
-def test_fused_norm_kernels_match_plain(device, shape, with_residual):
-    """Both kernels at the paths' shapes (widths 768, 1024, 3072: the row in
-    registers) and at a width of the generic variant (100, not a multiple of
-    8), LayerNorm with and without a bias; the prenorm sum bit-equal (x
-    itself without a residual), two calls bit-equal, one launch each."""
-    from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_plain,
-                                                        fused_residual_rmsnorm_plain)
+def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
+    """Both kernels in both stagings (the Pallas kernels': fp32 affine, one
+    cast; the JAX model's: rounded op for op) at the paths' shapes (widths
+    768, 1024, 3072: the row in registers) and at a width of the generic
+    variant (100, not a multiple of 8), LayerNorm with and without a bias;
+    the prenorm sum bit-equal (x itself without a residual), two calls
+    bit-equal, one launch each."""
+    from open_muse_tpu_torch.kernels import fused_norm as N
 
+    model = staging == "model"
+    rms_plain = N.fused_residual_rmsnorm_model_plain if model else N.fused_residual_rmsnorm_plain
+    ln_plain = (N.fused_residual_layernorm_model_plain if model
+                else N.fused_residual_layernorm_plain)
     gen = torch.Generator().manual_seed(shape[-1])
     x = _rand(gen, *shape, scale=2.0)
     res = _rand(gen, *shape) if with_residual else None
     scale, bias = 1 + _rand(gen, shape[-1], scale=0.1), _rand(gen, shape[-1], scale=0.1)
     cases = {
-        "rms": (lambda: kernels.fused_residual_rmsnorm(x, res, scale),
-                lambda: fused_residual_rmsnorm_plain(x, res, scale), kernels.fused_residual_rmsnorm),
-        "ln": (lambda: kernels.fused_residual_layernorm(x, res, scale, bias),
-               lambda: fused_residual_layernorm_plain(x, res, scale, bias),
-               kernels.fused_residual_layernorm),
-        "ln_nobias": (lambda: kernels.fused_residual_layernorm(x, res, scale, None),
-                      lambda: fused_residual_layernorm_plain(x, res, scale, None),
-                      kernels.fused_residual_layernorm),
+        "rms": (lambda: kernels.fused_residual_rmsnorm(x, res, scale, staging=staging),
+                lambda: rms_plain(x, res, scale), kernels.fused_residual_rmsnorm),
+        "ln": (lambda: kernels.fused_residual_layernorm(x, res, scale, bias, staging=staging),
+               lambda: ln_plain(x, res, scale, bias), kernels.fused_residual_layernorm),
+        "ln_nobias": (lambda: kernels.fused_residual_layernorm(x, res, scale, None,
+                                                               staging=staging),
+                      lambda: ln_plain(x, res, scale, None), kernels.fused_residual_layernorm),
     }
     for name, (kern, plain, wrapper) in cases.items():
         before = wrapper.launches

@@ -99,6 +99,40 @@ def test_uvit_forward_matches_jax_both_port_paths():
             assert_close(port(*args, use_kernels=use_kernels), ref, 1e-4)
 
 
+# bf16 on both sides: max |error| <= BF16_REL x max |reference|.  The norms
+# round where the JAX layers round (the model staging), but the bf16 matmuls,
+# convolutions, gelu and softmax of XLA's CPU fusions round at other places
+# than torch's kernels, so a few bf16 ulps build up over the layers (2.5% of
+# the logits' range at most for UVIT_TINY, 1.7% for the v1 cases).
+BF16_REL = 4e-2
+
+
+def assert_bf16_paths_agree_and_match(port, ref, *args, **kwargs):
+    """The port in bf16 on both of its paths: the kernel wrappers (plain
+    versions on the CPU) and ``use_kernels=False`` give the same bits -- the
+    norm wrappers' model staging is the unfused layers' staging -- and both
+    are within BF16_REL of the JAX model's bf16 output."""
+    with torch.no_grad():
+        routed = port(*args, **kwargs)
+        plain = port(*args, use_kernels=False, **kwargs)
+    assert routed.dtype == torch.bfloat16 and torch.equal(routed, plain)
+    assert_close(routed.float(), np.asarray(jnp.asarray(ref, jnp.float32)), BF16_REL)
+
+
+def test_uvit_bf16_forward_matches_jax_and_port_paths_agree():
+    jm = JaxUViT(**UVIT_TINY, dtype=jnp.bfloat16, _defer_init=True)
+    port, unused = port_of(jm, MaskGiTUViT_v2, random_params(jm, 0))
+    assert not unused, unused
+    jm.astype(jnp.bfloat16)
+    ids, ehs, cond, micro = uvit_inputs(1)
+    ref = jm(jnp.asarray(ids), jnp.asarray(ehs, jnp.bfloat16), jnp.asarray(cond, jnp.bfloat16),
+             jnp.asarray(micro))
+    assert_bf16_paths_agree_and_match(
+        port.to(torch.bfloat16), ref, torch.from_numpy(ids).long(),
+        torch.from_numpy(ehs).bfloat16(), torch.from_numpy(cond).bfloat16(),
+        torch.from_numpy(micro))
+
+
 def test_uvit_down_up_sample_matches_jax():
     """force_down_up_sample: the stride-2 conv and the transposed conv (whose
     kernel the converter flips to torch's convolution order)."""

@@ -1,10 +1,12 @@
 """The fused-norm and flash-attention kernels' plain versions against the JAX
-package's Pallas kernels in interpret mode, on the CPU in fp32.
+package's Pallas kernels in interpret mode, on the CPU in fp32, and the
+norms' model staging against the JAX model's layers in bf16.
 
 ``fused_residual_rmsnorm_plain`` / ``fused_residual_layernorm_plain`` and
 ``flash_attention_plain`` are what the port's wrappers compute for CPU
-tensors and what ``chip_smoke.py`` holds the CUDA kernels against.  Inputs
-come from numpy seeds; each test states its tolerance.
+tensors and what ``chip_smoke.py`` holds the CUDA kernels against; the
+``*_model_plain`` versions are the staging the port's model layers take.
+Inputs come from numpy seeds; each test states its tolerance.
 """
 
 import numpy as np
@@ -12,12 +14,16 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from open_muse_tpu.ops.layers import LayerNorm as JaxLayerNorm
+from open_muse_tpu.ops.layers import RMSNorm as JaxRMSNorm
 from open_muse_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from open_muse_tpu.ops.pallas.fused_norm import (fused_residual_layernorm as jax_layernorm,
                                                  fused_residual_rmsnorm as jax_rmsnorm)
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
-from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_plain,
+from open_muse_tpu_torch.kernels.fused_norm import (fused_residual_layernorm_model_plain,
+                                                    fused_residual_layernorm_plain,
+                                                    fused_residual_rmsnorm_model_plain,
                                                     fused_residual_rmsnorm_plain)
 from open_muse_tpu_torch.ops import layers
 
@@ -68,6 +74,63 @@ def test_layernorm_plain_matches_jax_kernel(shape, with_residual, with_bias):
     got, pre = fused_residual_layernorm_plain(_t(x), _t(res), _t(scale), _t(bias), 1e-5)
     _close(got, want, NORM_RTOL)
     np.testing.assert_array_equal(pre.numpy(), np.asarray(want_pre))
+
+
+# bf16 on both sides, the model staging against the JAX model's layers: the
+# prenorm sum bit-equal; the normed rows bit-equal except where the LayerNorm
+# moments, fp32 sums taken in another order than XLA's, move a value across a
+# bf16 rounding boundary (about 2 in 10^5 elements): at most a fraction
+# MODEL_DIFFERING of the elements may differ, each by at most one bf16 ulp
+# (2^-7 of its magnitude).  The Pallas staging, which applies the affine in
+# fp32 and rounds once, fails this: 34 - 42% of its elements differ from the
+# JAX layers, by up to 2 ulps (asserted below).
+MODEL_DIFFERING = 1e-4
+
+
+def _bf16(a):
+    return None if a is None else torch.from_numpy(a).bfloat16()
+
+
+def _differing(got, want):
+    """The fraction of elements that differ; asserts each within one ulp."""
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    diff = got != want
+    assert np.all(np.abs(got - want)[diff] <= 2.0 ** -7 * np.abs(want)[diff])
+    return diff.mean()
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("width", [768, 1024])
+@pytest.mark.parametrize("with_residual", [True, False])
+def test_model_staging_norms_match_jax_layers_in_bf16(kind, width, with_residual):
+    """The plain model staging against ``open_muse_tpu.ops.layers`` RMSNorm /
+    LayerNorm (with bias) in bf16, and bit for bit against the port's own
+    ``use_kernels=False`` layers, the JAX staging written in torch."""
+    x, res, scale, bias = _rows(width + with_residual, (4, 33, width), with_residual)
+    xb, rb = jnp.asarray(x, jnp.bfloat16), None if res is None else jnp.asarray(res, jnp.bfloat16)
+    xt, rt, st, bt = _bf16(x), _bf16(res), _bf16(scale), _bf16(bias)
+    params = {"scale": jnp.asarray(scale, jnp.bfloat16)}
+    if kind == "rms":
+        want, want_pre = JaxRMSNorm(width).apply({"params": params}, xb, rb, return_residual=True)
+        got, pre = fused_residual_rmsnorm_model_plain(xt, rt, st, 1e-6)
+        old, _ = fused_residual_rmsnorm_plain(xt, rt, st, 1e-6)
+        port = layers.RMSNorm(width, 1e-6)
+    else:
+        params["bias"] = jnp.asarray(bias, jnp.bfloat16)
+        want, want_pre = JaxLayerNorm(width, use_bias=True).apply(
+            {"params": params}, xb, rb, return_residual=True)
+        got, pre = fused_residual_layernorm_model_plain(xt, rt, st, bt, 1e-5)
+        old, _ = fused_residual_layernorm_plain(xt, rt, st, bt, 1e-5)
+        port = layers.LayerNorm(width, 1e-5, use_bias=True)
+        port.bias.data = bt.clone()
+    np.testing.assert_array_equal(pre.float().numpy(), np.asarray(want_pre.astype(jnp.float32)))
+    assert _differing(got, want) <= MODEL_DIFFERING
+    assert (old.float().numpy() != np.asarray(want.astype(jnp.float32))).mean() > 0.3
+    port.weight.data = st.clone()
+    with torch.no_grad():
+        ref, ref_pre = port.bfloat16()(xt, rt, return_residual=True, use_kernels=False)
+        routed, _ = port(xt, rt, return_residual=True)
+    assert torch.equal(got, ref) and torch.equal(pre, ref_pre) and torch.equal(routed, ref)
 
 
 def test_norm_wrappers_on_cpu_return_x_as_prenorm_and_launch_nothing():
@@ -143,20 +206,27 @@ def _grads(fn, inputs):
     return outs, [None if t is None else t.grad for t in leaves]
 
 
+@pytest.mark.parametrize("staging", ["pallas", "model"])
 @pytest.mark.parametrize("kind", ["rms", "ln"])
 @pytest.mark.parametrize("with_residual", [True, False])
-def test_norm_wrappers_differentiate_as_the_plain_versions(kind, with_residual):
-    """The wrappers' backward (the plain version recomputed and
-    differentiated) equals autograd through the plain version, prenorm
+def test_norm_wrappers_differentiate_as_the_plain_versions(kind, with_residual, staging):
+    """The wrappers' backward (the plain version of the staging recomputed
+    and differentiated) equals autograd through that plain version, prenorm
     gradient included, in fp32; gradcheck in float64."""
     x, res, scale, bias = (_t(a) for a in _rows(11, (2, 5, 24), with_residual))
+    model = staging == "model"
     if kind == "rms":
-        wrapper = lambda x, r, s, b: kernels.fused_residual_rmsnorm(x, r, s, 1e-6)  # noqa: E731
-        plain = lambda x, r, s, b: fused_residual_rmsnorm_plain(x, r, s, 1e-6)  # noqa: E731
+        wrapper = lambda x, r, s, b: kernels.fused_residual_rmsnorm(  # noqa: E731
+            x, r, s, 1e-6, staging=staging)
+        plain_fn = fused_residual_rmsnorm_model_plain if model else fused_residual_rmsnorm_plain
+        plain = lambda x, r, s, b: plain_fn(x, r, s, 1e-6)  # noqa: E731
         bias = None
     else:
-        wrapper = lambda x, r, s, b: kernels.fused_residual_layernorm(x, r, s, b, 1e-5)  # noqa: E731
-        plain = lambda x, r, s, b: fused_residual_layernorm_plain(x, r, s, b, 1e-5)  # noqa: E731
+        wrapper = lambda x, r, s, b: kernels.fused_residual_layernorm(  # noqa: E731
+            x, r, s, b, 1e-5, staging=staging)
+        plain_fn = (fused_residual_layernorm_model_plain if model
+                    else fused_residual_layernorm_plain)
+        plain = lambda x, r, s, b: plain_fn(x, r, s, b, 1e-5)  # noqa: E731
     inputs = (x, res, scale, bias)
     got, got_grads = _grads(wrapper, inputs)
     want, want_grads = _grads(plain, inputs)

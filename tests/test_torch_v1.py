@@ -1,6 +1,7 @@
-"""The class-conditional slice, port vs JAX, on the CPU in fp32:
-MaskGitTransformer (v1), its MaskGIT decode under injected noise, the
-MaskGIT VQGAN decoder, and the class-conditional pipeline end to end.
+"""The class-conditional slice, port vs JAX, on the CPU in fp32 (and the
+forward in bf16): MaskGitTransformer (v1), its MaskGIT decode under injected
+noise, the MaskGIT VQGAN decoder, and the pipeline end to end with class ids
+and with text.
 
 Weights come from numpy seeds and carry across through
 ``jax_params_to_state_dict``.  Sampling matches JAX only in distribution, so
@@ -14,17 +15,21 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from open_muse_tpu.models.clip_text import CLIPTextEncoder as JaxCLIP
+from open_muse_tpu.models.clip_text import SimpleTokenizer as JaxTokenizer
 from open_muse_tpu.models.maskgit_vqgan import MaskGitVQGAN as JaxMaskGitVQGAN
 from open_muse_tpu.models.transformer_v1 import MaskGitTransformer as JaxV1
 from open_muse_tpu.pipelines.pipeline_muse import PipelineMuse as JaxPipeline
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.core.convert import jax_params_to_state_dict
+from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
 from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
 from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer, v1_schedules
 from open_muse_tpu_torch.ops.sampling import cosine_schedule
 from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
-from test_torch_models import assert_close, port_of, random_params
-from test_torch_pipeline import jax_noise
+from test_torch_models import (assert_bf16_paths_agree_and_match, assert_close, port_of,
+                               random_params)
+from test_torch_pipeline import CLIP_FOR_UVIT, jax_noise
 
 # 64 codes + 4 classes + the mask token; head_dim 16; 16 image tokens (4 x 4)
 # after the class token
@@ -94,6 +99,31 @@ def test_v1_forward_logits_and_loss_match_jax(case):
                                 **{k: torch.from_numpy(v) for k, v in kwargs.items()})
             assert_close(logits, want_logits, REL)
             np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(V1_CASES))
+def test_v1_bf16_forward_matches_jax_and_port_paths_agree(case):
+    """bf16 logits on both port paths, bit-equal to each other and within
+    BF16_REL of the JAX model's (``test_torch_models``)."""
+    cfg = V1_CASES[case]
+    jm = JaxV1(**cfg, dtype=jnp.bfloat16, _defer_init=True)
+    port, unused = port_of(jm, MaskGitTransformer, random_params(jm, len(case)))
+    assert not unused, unused
+    jm.astype(jnp.bfloat16)
+    rs = np.random.RandomState(1)
+    seq = cfg["num_vq_tokens"] + (0 if cfg.get("use_conv_in_out") else 1)
+    ids = rs.randint(0, cfg["vocab_size"], size=(2, seq)).astype(np.int32)
+    args, targs, kwargs, tkwargs = (jnp.asarray(ids),), (torch.from_numpy(ids).long(),), {}, {}
+    if cfg.get("add_cross_attention"):
+        ehs = rs.randn(2, 5, 48).astype(np.float32)
+        mask = np.ones((2, 5), np.int32)
+        mask[1, 3:] = 0
+        args += (jnp.asarray(ehs, jnp.bfloat16),)
+        targs += (torch.from_numpy(ehs).bfloat16(),)
+        kwargs = dict(encoder_attention_mask=jnp.asarray(mask))
+        tkwargs = dict(encoder_attention_mask=torch.from_numpy(mask))
+    assert_bf16_paths_agree_and_match(port.to(torch.bfloat16), jm(*args, **kwargs), *targs,
+                                      **tkwargs)
 
 
 @pytest.mark.parametrize("timesteps,temperature", [(8, (2, 0)), (5, 4.5), (1, (2, 0))])
@@ -198,3 +228,45 @@ def test_class_conditional_pipeline_matches_jax():
     assert len(pil) == 1 and pil[0].size == (8, 8)
     with pytest.raises(ValueError):
         pipe(text="a cat", class_ids=1)
+
+
+def _recording_decode(vae, seen):
+    """Wrap ``vae.decode_code`` so that the token ids it is given are kept."""
+    decode = vae.decode_code
+
+    def wrapped(tokens):
+        seen.append(np.asarray(tokens))
+        return decode(tokens)
+
+    vae.decode_code = wrapped
+
+
+def test_text_pipeline_serves_v1_as_jax():
+    """PipelineMuse(text=...) with a v1 MaskGitTransformer (cross-attention,
+    RMSNorm with biases): the text tower's last hidden states, CFG against
+    the empty prompt, ``generate2`` -- the reference's
+    ``use_maskgit_generate=True`` -- and the MaskGIT VQGAN decode.  Token ids
+    exactly equal to the JAX pipeline's under its own noise, images to REL of
+    their range (fp32 both sides)."""
+    jt = JaxV1(**V1_CASES["text_rms_bias"], _defer_init=True)
+    jc = JaxCLIP(**CLIP_FOR_UVIT, _defer_init=True)
+    jv = JaxMaskGitVQGAN(**MASKGIT_VQ_TINY, _defer_init=True)
+    transformer = port_of(jt, MaskGitTransformer, random_params(jt, 14))[0]
+    text_encoder = port_of(jc, CLIPTextEncoder, random_params(jc, 15))[0]
+    vae = port_of(jv, MaskGitVQGAN, random_params(jv, 16))[0]
+    jax_pipe = JaxPipeline(vae=jv, transformer=jt, text_encoder=jc,
+                           tokenizer=JaxTokenizer(100, 16))
+    pipe = PipelineMuse(vae=vae, transformer=transformer, text_encoder=text_encoder,
+                        tokenizer=SimpleTokenizer(100, 16))
+    want_ids, got_ids = [], []
+    _recording_decode(jv, want_ids)
+    _recording_decode(vae, got_ids)
+    text, key, timesteps = ["a red fox", "two cubes"], jax.random.PRNGKey(17), 4
+    want = np.asarray(jax_pipe(text=text, timesteps=timesteps, guidance_scale=2.0, key=key,
+                               return_pil=False))
+    noise = jax_noise(key, timesteps, 2, 16, V1_TINY["codebook_size"])
+    got = pipe(text=text, timesteps=timesteps, guidance_scale=2.0, noise=noise,
+               return_pil=False)
+    np.testing.assert_array_equal(got_ids[0], want_ids[0])
+    assert got.shape == want.shape == (2, 8, 8, 3)
+    assert_close(got, want, REL)
