@@ -173,10 +173,13 @@ def launch_split(fn, calls: int = 10):
         log(f"[split] {len(kernels)} kernel events for {calls} calls do not split into calls")
         return []
 
-    def short(name):  # "void muse::sm90::gemm_tn_kernel<64, ...>(...)" -> "gemm_tn_kernel<64>"
-        name = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+    def short(raw):  # "void muse::sm90::wgmma_gemm_kernel<64, ...>(...)" -> "wgmma_gemm_kernel<64>"
+        name = raw.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
         base, _, args = name.partition("<")
-        return base.split("::")[-1] + (f"<{args.split(',')[0].rstrip('>')}>" if args else "")
+        # the Hopper GEMM reading its weight MN-major (a @ w)
+        nn = "WLayout)1" in raw or "::kKN" in raw
+        return (base.split("::")[-1] + (f"<{args.split(',')[0].rstrip('>')}>" if args else "")
+                + (" a@w" if nn else ""))
 
     return [(short(groups[0][i].name),
              statistics.median(g[i].time_range.elapsed_us() for g in groups)) for i in range(per)]
@@ -189,15 +192,32 @@ def log_split(label, fn):
         f"sum {sum(us for _, us in split):.2f}")
 
 
-def log_product_alone(label, a, w):
-    """The bare product inside a kernel, ``a @ w.T`` on the same bf16
-    operands: the port's Hopper GEMM alone beside cuBLAS (graph replay)."""
-    from open_muse_tpu_torch.kernels.gemm import linear_tn
+def log_product_alone(label, a, w, kn=False):
+    """The bare product inside a kernel, ``a @ w.T`` (or ``a @ w`` with
+    ``kn``, the weight read MN-major) on the same bf16 operands: the port's
+    Hopper GEMM alone beside cuBLAS (graph replay).  Not a library_ms: no
+    single call computes a kernel's whole function."""
+    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn
 
-    ours, cublas = graph_ms(lambda: linear_tn(a, w)), graph_ms(lambda: a @ w.t())
-    log(f"[product] {label} {tuple(a.shape)} x {tuple(w.shape)}^T alone: Hopper GEMM "
-        f"{ours:.4f} ms, cuBLAS torch.matmul {cublas:.4f} ms (CUDA graph replay)")
+    if kn:
+        ours, cublas = graph_ms(lambda: linear_nn(a, w)), graph_ms(lambda: a @ w)
+    else:
+        ours, cublas = graph_ms(lambda: linear_tn(a, w)), graph_ms(lambda: a @ w.t())
+    log(f"[product] {label} {tuple(a.shape)} x {tuple(w.shape)}{'' if kn else '^T'}, the product "
+        f"alone: Hopper GEMM {ours:.4f} ms, cuBLAS torch.matmul {cublas:.4f} ms "
+        f"(CUDA graph replay)")
     return ours, cublas
+
+
+def log_floor(device):
+    """What one launch costs by itself: an empty kernel of 1 and of 132
+    blocks, by graph replay (20 launches a replay)."""
+    from open_muse_tpu_torch.kernels.gemm import null_launch
+
+    one = graph_ms(lambda: null_launch(device, 1))
+    full = graph_ms(lambda: null_launch(device, 132))
+    log(f"[floor] an empty kernel, device us a launch (CUDA graph replay): 1 block "
+        f"{one * 1e3:.3f}, 132 blocks {full * 1e3:.3f}")
 
 
 def check_glu(device, gen, m, timed=True, splits=None):
@@ -244,8 +264,8 @@ def _sublayer_inputs(device, gen, b=2, s=256, d=1024):
 def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
     """b batch rows of s tokens: 2 x 256 when serving (CFG at bs1), 16 x 256
     when training; other token counts check the ragged edge
-    (``timed=False``).  Appends the self sublayer's (label, call) to
-    ``splits`` for a launch split."""
+    (``timed=False``).  Appends both sublayers' (label, call) to ``splits``
+    for a launch split."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     d, heads, bf = 1024, 16, torch.bfloat16
@@ -291,15 +311,17 @@ def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
-        if "self" in name:
-            if splits is not None:
-                splits.append((f"{name} x {tuple(inp['x'].shape)}",
-                               functools.partial(kern, inp["res"])))
-            acts = torch.randn(b, s, d, generator=gen).to(device, bf).reshape(b * s, d)
-            qkv_ms = log_product_alone(f"{name} qkv projection", acts, wqkv)
-            out_ms = log_product_alone(f"{name} out projection", acts, inp["wout"])
-            log(f"[product] {name} both projections alone: Hopper GEMM "
-                f"{qkv_ms[0] + out_ms[0]:.4f} ms, cuBLAS {qkv_ms[1] + out_ms[1]:.4f} ms")
+        if splits is not None:
+            splits.append((f"{name} x {tuple(inp['x'].shape)}"
+                           f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
+                           functools.partial(kern, inp["res"])))
+        acts = torch.randn(b, s, d, generator=gen).to(device, bf).reshape(b * s, d)
+        w_in = wqkv if "self" in name else wq
+        in_ms = log_product_alone(f"{name} {'qkv' if 'self' in name else 'q'} projection", acts,
+                                  w_in)
+        out_ms = log_product_alone(f"{name} out projection", acts, inp["wout"])
+        log(f"[product] {name} both projections, the products alone: Hopper GEMM "
+            f"{in_ms[0] + out_ms[0]:.4f} ms, cuBLAS {in_ms[1] + out_ms[1]:.4f} ms")
         # the q(kv) and output projections, and QK^T and PV over the keys
         keys, proj = (s, 4 * d * d) if "self" in name else (77, 2 * d * d)
         ops = 2 * b * s * proj + 4 * b * heads * s * keys * (d // heads)
@@ -607,6 +629,7 @@ def kernel_phase(device, splits):
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(0)
+    log_floor(device)
     report = {"glu_down_matmul": check_glu(device, gen, 2 * TRAIN_S, splits=splits)}
     report.update(check_sublayers(device, gen, 2, splits=splits))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
@@ -680,7 +703,9 @@ def check_glu_bwd(device, gen):
     return ok, worst, timing
 
 
-def check_sublayer_bwd(device, gen):
+def check_sublayer_bwd(device, gen, splits=None):
+    """Both sublayer backwards at the training shapes; appends their (label,
+    call) to ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     d, bf = HIDDEN, torch.bfloat16
@@ -717,6 +742,18 @@ def check_sublayer_bwd(device, gen):
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        if splits is not None:
+            splits.append((f"{name} x {tuple(inp['x'].shape)}"
+                           f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
+                           functools.partial(kern, inp["res"])))
+        if "self" in name:  # the three products of the kernel, alone
+            rows = TRAIN_B * TRAIN_S
+            acts = rand(rows, d)
+            ms = [log_product_alone(f"{name} qkv recompute", acts, wqkv),
+                  log_product_alone(f"{name} dattn = g_out @ Wout", acts, inp["wout"], kn=True),
+                  log_product_alone(f"{name} da = dqkv @ Wqkv", rand(rows, 3 * d), wqkv, kn=True)]
+            log(f"[product] {name} its three products, the products alone: Hopper GEMM "
+                f"{sum(m[0] for m in ms):.4f} ms, cuBLAS {sum(m[1] for m in ms):.4f} ms")
         # the products of this backward, forward recompute included: self
         # recomputes qkv and takes dattn, dWout, dWqkv, da (11 d x d
         # products per row), cross recomputes q and takes dattn, dWout, dWq,
@@ -730,12 +767,14 @@ def check_sublayer_bwd(device, gen):
     return results
 
 
-def backward_kernel_phase(device):
+def backward_kernel_phase(device, splits):
+    """Every backward kernel against its plain version; appends the
+    sublayer backwards to ``splits``."""
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(1)
     report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen)}
-    report.update(check_sublayer_bwd(device, gen))
+    report.update(check_sublayer_bwd(device, gen, splits))
     for name, (ok, err, (ms, plain_ms)) in report.items():
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
             f"CUDA graph replay)")
@@ -1455,12 +1494,15 @@ def training_phase(device, smi):
 
 # -- the Hopper GEMM's variants ---------------------------------------------
 
-# the products of kernels 7 and 9: the GLU down-projection, the qkv and the
-# out projections, at the serving and the training rows, and ragged rows;
-# last a trivial product, what a launch and a cluster cost by themselves
-SWEEP_SHAPES = ((512, 1024, 2816), (512, 3072, 1024), (512, 1024, 1024), (4096, 1024, 2816),
-                (4096, 3072, 1024), (4096, 1024, 1024), (300, 1024, 2816), (200, 3072, 1024),
-                (7, 24, 40))
+# (m, n, k, a @ w): the products of kernels 7, 9 and 10 (the GLU
+# down-projection, the qkv, q and out projections) at the serving and the
+# training rows, and ragged rows; kernel 11's dattn and da (the weight read
+# MN-major); last a trivial product, what a launch and a cluster cost by
+# themselves
+SWEEP_SHAPES = ((512, 1024, 2816, False), (512, 3072, 1024, False), (512, 1024, 1024, False),
+                (4096, 1024, 2816, False), (4096, 3072, 1024, False), (4096, 1024, 1024, False),
+                (4096, 1024, 1024, True), (4096, 1024, 3072, True), (300, 1024, 2816, False),
+                (200, 3072, 1024, False), (7, 24, 40, False))
 
 
 def gemm_sweep(device) -> bool:
@@ -1468,38 +1510,48 @@ def gemm_sweep(device) -> bool:
     beside cuBLAS and the variant the kernels' rule picks: device us a call
     (graph replay), each variant within 1e-2 rel of an fp32 product and two
     calls bit-equal.  The data behind the rule in csrc/gemm_sm90.cuh."""
-    from open_muse_tpu_torch.kernels.gemm import SPLITS, TILE_WIDTHS, linear_tn
+    from open_muse_tpu_torch.kernels.gemm import SPLITS, TILE_WIDTHS, linear_nn, linear_tn
 
     gen, ok = torch.Generator().manual_seed(2), True
-    for m, n, k in SWEEP_SHAPES:
+    for m, n, k, kn in SWEEP_SHAPES:
         a = torch.randn(m, k, generator=gen).to(device, torch.bfloat16)
-        w = (torch.randn(n, k, generator=gen) * k ** -0.5).to(device, torch.bfloat16)
-        exact = a.float() @ w.float().t()
-        cells = [f"cuBLAS {graph_ms(lambda: a @ w.t()) * 1e3:.2f}"]
+        w = (torch.randn(k, n, generator=gen) * k ** -0.5).to(device, torch.bfloat16)
+        if not kn:
+            w = w.t().contiguous()  # (n, k)
+        ours = linear_nn if kn else linear_tn
+        exact = a.float() @ (w.float() if kn else w.float().t())
+        cells = [f"cuBLAS {graph_ms(lambda: a @ (w if kn else w.t())) * 1e3:.2f}"]
         for tile in (*((t, s) for t in TILE_WIDTHS for s in SPLITS), (0, 0)):
-            out = linear_tn(a, w, *tile)
-            good = errors(out, exact)[1] <= 1e-2 and torch.equal(out, linear_tn(a, w, *tile))
+            out = ours(a, w, *tile)
+            good = errors(out, exact)[1] <= 1e-2 and torch.equal(out, ours(a, w, *tile))
             ok &= good
             label = "rule" if tile == (0, 0) else f"{tile[0]}/{tile[1]}"
-            cells.append(f"{label} {graph_ms(lambda: linear_tn(a, w, *tile)) * 1e3:.2f}"
+            cells.append(f"{label} {graph_ms(lambda: ours(a, w, *tile)) * 1e3:.2f}"
                          f"{'' if good else ' FAIL'}")
-        log(f"[sweep] ({m}, {n}, {k}) us, tile width / K split: " + ", ".join(cells))
+        log(f"[sweep] ({m}, {n}, {k}){' a @ w' if kn else ''} us, tile width / K split: "
+            + ", ".join(cells))
     return ok
 
 
 # -- main -------------------------------------------------------------------
 
-# the kernels of PR 6's designs, whose ptxas lines the run prints
-PTXAS_KERNELS = ("gemm_tn_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel")
+# the kernels whose ptxas lines the run prints: the Hopper GEMM, the GLU
+# product, the register row kernels and the self backward's attention kernels
+PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
+                 "self_bwd_q_kernel", "self_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel")
 
 
 def ptxas_report(build_log: str, names):
     """One line per compiled entry whose mangled name holds one of ``names``:
-    the entry, its stack / spills and its registers / shared memory."""
-    lines, out = build_log.splitlines(), []
+    the entry, its stack / spills and its registers / shared memory (once,
+    where several sources instantiate one template)."""
+    lines, out, seen = build_log.splitlines(), [], set()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(n in line for n in names):
             entry = line.split("'")[1] if "'" in line else line
+            if entry in seen:
+                continue
+            seen.add(entry)
             detail = [lines[j].replace("ptxas info    :", "").strip()
                       for j in range(i + 1, min(i + 4, len(lines)))
                       if "spill" in lines[j] or "Used" in lines[j]]
@@ -1555,9 +1607,9 @@ def main() -> int:
         return 0
 
     phase_t0 = time.perf_counter()
-    splits = []  # kernels 7 and 9 by launch, profiled after every graph timing
+    splits = []  # kernels 7, 9 - 12 by launch, profiled after every graph timing
     report = kernel_phase(device, splits)
-    report.update(backward_kernel_phase(device))
+    report.update(backward_kernel_phase(device, splits))
     for label, fn in splits:
         log_split(label, fn)
     del splits

@@ -28,41 +28,46 @@
 //
 // What the design does about it: chains of launches on one stream, each with
 // enough blocks to fill the card.
-// - Self forward (kernel 9): a row kernel with the row in registers (a warp a
-//   row at width 1024, every 16-byte load of x, res, ln and the AdaLN rows
-//   issued before any arithmetic; the block-a-row kernel below at other
-//   widths), the qkv projection on the Hopper GEMM of gemm_sm90.cuh (TMA,
-//   wgmma), flash_attention.cu's one-pass kernel through its launcher
-//   (`muse_flash_attention`: K and V of a (batch, head) pair staged once by
-//   cp.async, S in registers, P rounded to bf16 after the exact row sum, up
-//   to 288 keys; its two-pass kernel above) reading q / k / v as strided
-//   views of the (B, S, 3D) projection, and the out projection on the Hopper
-//   GEMM with K split over a cluster at 512 rows.
-// - Cross forward (kernel 10): the block-a-row kernel, the shared `wmma`
-//   GEMM of gemm_tile.cuh (64 x 64 tiles), an attention kernel with one block
-//   per (batch, head, 64-query tile), and the GEMM again.  The attention
-//   kernel streams keys in tiles of 64: a first pass takes each row's max and
-//   sum, a second writes normalised bf16 probabilities and accumulates PV, so
-//   any key length fits in shared memory; key columns >= kv_len are masked
-//   in the kernel instead of padding kv.
-// - Backward (FlashAttention-2 split): the row kernel again (recompute a,
-//   keeping 1/rms), the GEMM for the recomputed projection and for
-//   dattn = g_out @ Wout, the attention kernel as a pre-pass that also keeps
-//   each row's max and sum and D = rowsum(dattn * out), a dk/dv kernel with
-//   one block per (batch, head, 64-key tile) looping over query tiles, a dq
-//   kernel with one block per (batch, head, 64-query tile) looping over key
-//   tiles, the GEMM for da = dqkv @ Wqkv, and three row/column kernels for the
-//   rmsnorm / AdaLN backward.  d(adaln) and d(ln) are reduced in two stages
-//   (per 32-row chunk, then over chunks) without atomics, so two calls give
-//   bit-equal results.
+// - Forward, self (kernel 9) and cross (kernel 10) alike: a row kernel with
+//   the row in registers (a warp a row at width 1024, every 16-byte load of
+//   x, res, ln and the AdaLN rows issued before any arithmetic; the
+//   block-a-row kernel below at other widths), the in-projection (qkv or q)
+//   on the Hopper GEMM of gemm_sm90.cuh (TMA, wgmma), flash_attention.cu's
+//   attention through its launcher (`muse_flash_attention`: one pass with
+//   K and V of a (batch, head) pair staged once by cp.async, S in registers,
+//   P rounded to bf16 after the exact row sum, one warp a 16-row group to 80
+//   keys -- the 77 text keys --, two to 288; two passes above) reading q /
+//   k / v as strided views of the (B, S, 3D) projection or of q and the
+//   (B, L, 2D) [k|v] projection, and the out projection on the Hopper GEMM.
+// - Self backward (kernel 11): the register row kernel again (recompute a,
+//   keeping 1/rms), the Hopper GEMM for the recomputed qkv and, with the
+//   weight read MN-major, for dattn = g_out @ Wout and da = dqkv @ Wqkv; two
+//   attention kernels on mma.sync fragments that keep S, P, dP and dS in
+//   registers (a block per 64 query rows: the row statistics, the output, D
+//   and dQ in three passes over streamed key tiles; a block per 64 keys: dK
+//   and dV in one pass over streamed query tiles); the register row kernel
+//   of dx and a two-stage column reduction of d(adaln) and d(ln).
+// - Cross backward (kernel 12), the first design's chain: the block-a-row
+//   kernel, the shared `wmma` GEMM of gemm_tile.cuh (64 x 64 tiles), an attention
+//   kernel with one block per (batch, head, 64-query tile) streaming keys in
+//   tiles of 64 in two passes (row max and sum, then bf16 probabilities and
+//   PV) as a pre-pass that also keeps each row's max and sum and D =
+//   rowsum(dattn * out), a dk/dv kernel with one block per (batch, head,
+//   64-key tile) looping over query tiles, a dq kernel with one block per
+//   (batch, head, 64-query tile) looping over key tiles, the GEMM for da =
+//   dq @ Wq, and three row/column kernels for the rmsnorm / AdaLN backward.
+// d(adaln) and d(ln) are reduced in two stages (per 32-row chunk, then over
+// chunks) without atomics; no kernel uses atomics, so two calls give
+// bit-equal results.
 #include <cfloat>
 #include <cmath>
 
 #include "bf16x2.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
+#include "mma_frag.cuh"
 
-// flash_attention.cu's launcher: the self path's attention
+// flash_attention.cu's launcher: the forwards' attention
 extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int Tq, int Tk, int D, const int64_t* strides,
                                     float scale, void* stream_ptr);
@@ -120,12 +125,12 @@ rmsnorm_adaln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
-// The same h and a with the row in registers: a warp a row of width kVecs *
-// 256, kRegRows rows a block.  Each lane holds kVecs 16-byte vectors of x,
-// res, ln, scale and shift, all loaded before any arithmetic, so the row
-// costs one round trip; the roundings are the kernel's above, op for op, each
-// converting two values at once (bf16x2.cuh; a takes five of them an
-// element).
+// The same h and a (and rstd) with the row in registers: a warp a row of
+// width kVecs * 256, kRegRows rows a block.  Each lane holds kVecs 16-byte
+// vectors of x, res, ln, scale and shift, all loaded before any arithmetic,
+// so the row costs one round trip; the roundings are the kernel's above, op
+// for op, each converting two values at once (bf16x2.cuh; a takes five of
+// them an element).
 constexpr int kRegRows = 2;
 
 using bf2 = __nv_bfloat162;
@@ -136,8 +141,8 @@ template <int kVecs>
 __global__ void __launch_bounds__(32 * kRegRows)
 rmsnorm_adaln_rows_kernel(const uint4* __restrict__ x, const uint4* __restrict__ res,
                           const uint4* __restrict__ ln, const __nv_bfloat16* __restrict__ adaln,
-                          uint4* __restrict__ h_out, uint4* __restrict__ a_out, int rows, int S,
-                          float eps) {
+                          uint4* __restrict__ h_out, uint4* __restrict__ a_out,
+                          float* __restrict__ rstd_out, int rows, int S, float eps) {
   constexpr int D = kVecs * 256, kRowVecs = D / 8;
   const int lane = threadIdx.x % 32;
   const int64_t row = int64_t(blockIdx.x) * kRegRows + threadIdx.x / 32;
@@ -181,7 +186,9 @@ rmsnorm_adaln_rows_kernel(const uint4* __restrict__ x, const uint4* __restrict__
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sumsq += __shfl_xor_sync(0xffffffffu, sumsq, off);
-  const float inv_rms = __bfloat162float(__float2bfloat16_rn(rsqrtf(sumsq / float(D) + eps)));
+  const float r = rsqrtf(sumsq / float(D) + eps);
+  if (rstd_out != nullptr && lane == 0) rstd_out[row] = r;
+  const float inv_rms = __bfloat162float(__float2bfloat16_rn(r));
 
   // a = bf16(bf16(bf16(bf16(h * r) * ln) * bf16(1 + scale)) + shift)
 #pragma unroll
@@ -614,6 +621,361 @@ __global__ void __launch_bounds__(kAttnThreads) attention_dq_kernel(AttnBwdArgs 
 }
 
 // ---------------------------------------------------------------------------
+// Backward of the self sublayer's attention: S, P, dP and dS in registers
+// ---------------------------------------------------------------------------
+//
+// Two launches over grids of (64-row tile, batch x head), 4 warps of 16 rows
+// each, on mma.sync m16n8k16 fragments (mma_frag.cuh): every S, P, dP and dS
+// tile lives in a warp's accumulators and feeds the next product as an A
+// fragment, with no shared-memory staging; the streamed operand's 64-row
+// tiles come in by cp.async into two buffers, the next tile's copies in
+// flight while the current one is used.
+// - self_bwd_q_kernel, a block per 64 query rows: three passes over the key
+//   tiles.  1: the rows' max and sum of exp (online, in the log2 domain).  2:
+//   P = exp(S - max) / sum rounded to bf16, O = P V summed in fp32, stored as
+//   the attention output; D = rowsum(dO * O) from the fp32 O; the rows'
+//   statistics (max, 1 / sum, D) stored for the second kernel.  3: dP = dO
+//   V^T, dS = bf16(P (dP - D) / 8), dQ = dS K.
+// - self_bwd_kv_kernel, a block per 64 keys: one pass over the query tiles
+//   with their statistics: S^T = K Q^T, P^T from the first kernel's
+//   statistics, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
+// Both sum in a fixed order: two calls are bit-equal.  Any S: the key and
+// query tiles are streamed, not held.
+constexpr int kTile = 64;               // rows of a block, and of a streamed tile
+constexpr int kTileRow = kHeadDim + 8;  // bf16 a staged row: ldmatrix rows on distinct banks
+
+struct SelfBwdArgs {
+  const __nv_bfloat16* q;  // q, k, v: views of the (B, S, 3D) projection
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;  // (B, S, D)
+  __nv_bfloat16* out;         // (B, S, D)
+  __nv_bfloat16* dq;          // dq, dk, dv: views of the (B, S, 3D) gradient
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* stat_m;   // (B, H, Sp): each row's max of the scaled logits, log2 domain,
+  float* stat_il;  // 1 / its sum of exp, and D = rowsum(dO * O); Sp = S rounded
+  float* delta;    // up to kTile, rows past S (0, 0, 0)
+  int64_t sb, st;    // batch / token strides of q, k, v, dq, dk, dv (elements)
+  int64_t o_sb, o_st;  // of out and dout
+  int H, S, Sp;
+  float scale_log2;  // 1 / sqrt(64) * log2(e)
+  float scale;       // 1 / sqrt(64)
+};
+
+// tile rows [r0, r0 + 64) of a (S, 64) operand with token stride st into a
+// staged tile, rows past S zero-filled; 512 16-byte copies over 128 threads
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t st,
+                                           int r0, int S) {
+  using namespace muse::frag;
+#pragma unroll
+  for (int i = 0; i < kTile * (kHeadDim / 8) / kAttnThreads; ++i) {
+    const int c = threadIdx.x + i * kAttnThreads;
+    const int r = c / (kHeadDim / 8), col = (c % (kHeadDim / 8)) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * kTileRow + col, ok ? src + (r0 + r) * st + col : src, ok ? 16 : 0);
+  }
+}
+
+// s (16 rows x 64 columns, as 8 m16n8 C fragments) = A (16 x 64, fragments
+// af) times the staged tile's rows transposed; `lk` is this lane's ldmatrix
+// row of the tile (keys (lane & 7) + 8 (lane >> 4), d 8 ((lane >> 3) & 1))
+__device__ __forceinline__ void rows_by_tile_t(float s[8][4], const uint32_t af[4][4],
+                                               const __nv_bfloat16* lk) {
+  using namespace muse::frag;
+#pragma unroll
+  for (int j = 0; j < kTile / 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[2 * j][e] = s[2 * j + 1][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kHeadDim / 16; ++kc) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, lk + j * 16 * kTileRow + kc * 16);
+      mma16816(s[2 * j], af[kc], bf);
+      mma16816(s[2 * j + 1], af[kc], bf + 2);
+    }
+  }
+}
+
+// acc (16 x 64) += the 16 x 16 A fragment pa times rows [16 j, 16 j + 16) of
+// the staged tile; `lt` is this lane's ldmatrix.trans row (rows (lane & 7) +
+// 8 ((lane >> 3) & 1), d 8 (lane >> 4))
+__device__ __forceinline__ void accumulate_tile(float acc[8][4], const uint32_t pa[4],
+                                                const __nv_bfloat16* lt, int j) {
+  using namespace muse::frag;
+#pragma unroll
+  for (int n = 0; n < kHeadDim / 8; n += 2) {
+    uint32_t bf[4];
+    ldmatrix_x4_trans(bf, lt + j * 16 * kTileRow + n * 8);
+    mma16816(acc[n], pa, bf);
+    mma16816(acc[n + 1], pa, bf + 2);
+  }
+}
+
+// columns [16 j, 16 j + 16) of a 16 x 64 fp32 C-fragment tile as the bf16 A
+// fragment of the next product
+__device__ __forceinline__ void a_fragment(uint32_t pa[4], const float s[8][4], int j) {
+  using namespace muse::frag;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    pa[2 * hi] = pack2(s[2 * j + hi][0], s[2 * j + hi][1]);
+    pa[2 * hi + 1] = pack2(s[2 * j + hi][2], s[2 * j + hi][3]);
+  }
+}
+
+// rows r0 and r0 + 8 (< rows) of a 16 x 64 fp32 accumulator as bf16
+__device__ __forceinline__ void store_rows16(__nv_bfloat16* base, int64_t st, const float acc[8][4],
+                                             int r0, int rows, int t4) {
+  using namespace muse::frag;
+#pragma unroll
+  for (int n = 0; n < kHeadDim / 8; ++n) {
+    const int c = n * 8 + t4 * 2;
+    if (r0 < rows) *reinterpret_cast<uint32_t*>(base + r0 * st + c) = pack2(acc[n][0], acc[n][1]);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + c) = pack2(acc[n][2], acc[n][3]);
+  }
+}
+
+__global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p) {
+  using namespace muse::frag;
+  __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kTileRow];
+  __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kTileRow];
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int64_t head = int64_t(h) * kHeadDim;
+  const __nv_bfloat16* kb = p.k + b * p.sb + head;
+  const __nv_bfloat16* vb = p.v + b * p.sb + head;
+  const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's rows r0, r0 + 8
+  const int tiles = (p.S + kTile - 1) / kTile;
+
+  uint32_t qf[kHeadDim / 16][4], dof[kHeadDim / 16][4];
+  load_a<kHeadDim>(qf, p.q + b * p.sb + head, p.st, r0, p.S, t4);
+  load_a<kHeadDim>(dof, p.dout + b * p.o_sb + head, p.o_st, r0, p.S, t4);
+  // this lane's ldmatrix row (lk) and ldmatrix.trans row (lt) in a staged tile
+  const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
+  const int lt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kTileRow + ((lane >> 4) << 3);
+
+  // one pass over the key tiles, K (and V) of tile t + 1 in flight while
+  // tile t is used
+  auto stream = [&](bool with_v, auto&& body) {
+    stage_tile(Ks[0], kb, p.st, 0, p.S);
+    if (with_v) stage_tile(Vs[0], vb, p.st, 0, p.S);
+    cp_async_commit();
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t & 1;
+      if (t + 1 < tiles) {
+        stage_tile(Ks[buf ^ 1], kb, p.st, (t + 1) * kTile, p.S);
+        if (with_v) stage_tile(Vs[buf ^ 1], vb, p.st, (t + 1) * kTile, p.S);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      body(t, Ks[buf], Vs[buf]);
+      __syncthreads();  // every warp is done with buf before tile t + 2 overwrites it
+    }
+  };
+  // S of tile t in the log2 domain, keys past S at -inf
+  auto logits = [&](float s[8][4], int t, const __nv_bfloat16* K) {
+    rows_by_tile_t(s, qf, K + lk);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t * kTile + n * 8 + t4 * 2 + (e & 1);
+        s[n][e] = key < p.S ? s[n][e] * p.scale_log2 : -INFINITY;
+      }
+    }
+  };
+
+  // pass 1: the rows' max and sum of exp, online over the tiles
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  stream(false, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16*) {
+    float s[8][4];
+    logits(s, t, K);
+    float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
+      x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
+    }
+    // finite: key t * 64 < S
+    const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      a0 += ex2(s[n][0] - n0) + ex2(s[n][1] - n0);
+      a1 += ex2(s[n][2] - n1) + ex2(s[n][3] - n1);
+    }
+    l0 = l0 * ex2(m0 - n0) + quad_sum(a0);
+    l1 = l1 * ex2(m1 - n1) + quad_sum(a1);
+    m0 = n0;
+    m1 = n1;
+  });
+  const float il0 = __frcp_rn(l0), il1 = __frcp_rn(l1);
+
+  // pass 2: O = bf16(P) V in fp32, then D = rowsum(dO * O)
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  stream(true, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16* V) {
+    float s[8][4];
+    logits(s, t, K);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = ex2(s[n][0] - m0) * il0;
+      s[n][1] = ex2(s[n][1] - m0) * il0;
+      s[n][2] = ex2(s[n][2] - m1) * il1;
+      s[n][3] = ex2(s[n][3] - m1) * il1;
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t pa[4];
+      a_fragment(pa, s, j);
+      accumulate_tile(acc, pa, V + lt, j);
+    }
+  });
+  // dof[kc] holds dO at the columns of acc[2 kc] (registers 0, 1) and
+  // acc[2 kc + 1] (2, 3)
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < kHeadDim / 16; ++kc) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const float2 lo = __bfloat1622float2(reinterpret_cast<const bf2&>(dof[kc][2 * hi]));
+      const float2 up = __bfloat1622float2(reinterpret_cast<const bf2&>(dof[kc][2 * hi + 1]));
+      d0 += lo.x * acc[2 * kc + hi][0] + lo.y * acc[2 * kc + hi][1];
+      d1 += up.x * acc[2 * kc + hi][2] + up.y * acc[2 * kc + hi][3];
+    }
+  }
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  store_rows16(p.out + b * p.o_sb + head, p.o_st, acc, r0, p.S, t4);
+  if (t4 == 0) {  // every row of the tile, past S too (0, 0, 0: P = 0 in the second kernel)
+    const int64_t row = int64_t(blockIdx.y) * p.Sp + r0;
+    const bool ok0 = r0 < p.S, ok1 = r0 + 8 < p.S;
+    p.stat_m[row] = ok0 ? m0 : 0.f;
+    p.stat_il[row] = ok0 ? il0 : 0.f;
+    p.delta[row] = ok0 ? d0 : 0.f;
+    p.stat_m[row + 8] = ok1 ? m1 : 0.f;
+    p.stat_il[row + 8] = ok1 ? il1 : 0.f;
+    p.delta[row + 8] = ok1 ? d1 : 0.f;
+  }
+
+  // pass 3: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ = dS K
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  stream(true, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16* V) {
+    float s[8][4], dp[8][4];
+    logits(s, t, K);
+    rows_by_tile_t(dp, dof, V + lk);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = (ex2(s[n][0] - m0) * il0) * (dp[n][0] - d0) * p.scale;
+      s[n][1] = (ex2(s[n][1] - m0) * il0) * (dp[n][1] - d0) * p.scale;
+      s[n][2] = (ex2(s[n][2] - m1) * il1) * (dp[n][2] - d1) * p.scale;
+      s[n][3] = (ex2(s[n][3] - m1) * il1) * (dp[n][3] - d1) * p.scale;
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t pa[4];
+      a_fragment(pa, s, j);
+      accumulate_tile(acc, pa, K + lt, j);
+    }
+  });
+  store_rows16(p.dq + b * p.sb + head, p.st, acc, r0, p.S, t4);
+}
+
+__global__ void __launch_bounds__(kAttnThreads) self_bwd_kv_kernel(SelfBwdArgs p) {
+  using namespace muse::frag;
+  __shared__ __align__(16) __nv_bfloat16 Qs[2][kTile * kTileRow];
+  __shared__ __align__(16) __nv_bfloat16 dOs[2][kTile * kTileRow];
+  __shared__ __align__(16) float St[2][3][kTile];  // max | 1 / sum | D of the query tile
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int64_t head = int64_t(h) * kHeadDim;
+  const __nv_bfloat16* qb = p.q + b * p.sb + head;
+  const __nv_bfloat16* dob = p.dout + b * p.o_sb + head;
+  const int64_t stat0 = int64_t(blockIdx.y) * p.Sp;
+  const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's keys r0, r0 + 8
+  const int tiles = (p.S + kTile - 1) / kTile;
+
+  uint32_t kf[kHeadDim / 16][4], vf[kHeadDim / 16][4];
+  load_a<kHeadDim>(kf, p.k + b * p.sb + head, p.st, r0, p.S, t4);
+  load_a<kHeadDim>(vf, p.v + b * p.sb + head, p.st, r0, p.S, t4);
+  const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
+  const int lt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kTileRow + ((lane >> 4) << 3);
+
+  auto issue = [&](int t, int buf) {
+    stage_tile(Qs[buf], qb, p.st, t * kTile, p.S);
+    stage_tile(dOs[buf], dob, p.o_st, t * kTile, p.S);
+    if (threadIdx.x < 3 * kTile / 4) {  // the statistics: whole 64-row tiles of Sp
+      const int a = threadIdx.x / (kTile / 4), c = (threadIdx.x % (kTile / 4)) * 4;
+      const float* src = (a == 0 ? p.stat_m : a == 1 ? p.stat_il : p.delta) + stat0 + t * kTile + c;
+      cp_async16(&St[buf][a][c], src, 16);
+    }
+  };
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+  issue(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) issue(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* sm = St[buf][0];
+    const float* si = St[buf][1];
+    const float* sd = St[buf][2];
+    // S^T (this warp's 16 keys x the tile's 64 queries) -> P^T, fp32
+    float s[8][4];
+    rows_by_tile_t(s, kf, Qs[buf] + lk);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = n * 8 + t4 * 2 + (e & 1);
+        s[n][e] = ex2(s[n][e] * p.scale_log2 - sm[q]) * si[q];
+      }
+    }
+    // dV += bf16(P^T) dO
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t pa[4];
+      a_fragment(pa, s, j);
+      accumulate_tile(dv, pa, dOs[buf] + lt, j);
+    }
+    // dP^T = V dO^T; dS^T = bf16(P^T (dP^T - D) / 8); dK += dS^T Q
+    float dp[8][4];
+    rows_by_tile_t(dp, vf, dOs[buf] + lk);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = n * 8 + t4 * 2 + (e & 1);
+        s[n][e] = s[n][e] * (dp[n][e] - sd[q]) * p.scale;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t pa[4];
+      a_fragment(pa, s, j);
+      accumulate_tile(dk, pa, Qs[buf] + lt, j);
+    }
+    __syncthreads();
+  }
+  store_rows16(p.dk + b * p.sb + head, p.st, dk, r0, p.S, t4);
+  store_rows16(p.dv + b * p.sb + head, p.st, dv, r0, p.S, t4);
+}
+
+// ---------------------------------------------------------------------------
 // Backward: rmsnorm / AdaLN (attn_sublayer.py `_rms_adaln_bwd`)
 // ---------------------------------------------------------------------------
 
@@ -664,6 +1026,62 @@ rms_adaln_bwd_row_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat1
     dn_hhat(i, dn, hhat);
     const float dh = r * (dn - hhat * mean);
     dx[row * D + i] = __float2bfloat16_rn(bf16_round(dh) + __bfloat162float(g_res[row * D + i]));
+  }
+}
+
+// The same dx with the row in registers: a warp a row of width kVecs * 256,
+// kRegRows rows a block, every 16-byte load of h, da, g_res, ln and scale
+// issued before any arithmetic; the row's sum of dn * hhat over the warp by
+// shuffles, in a fixed order.
+template <int kVecs>
+__global__ void __launch_bounds__(32 * kRegRows)
+rms_adaln_bwd_rows_kernel(const uint4* __restrict__ h, const uint4* __restrict__ da,
+                          const uint4* __restrict__ ln, const __nv_bfloat16* __restrict__ adaln,
+                          const uint4* __restrict__ g_res, const float* __restrict__ rstd,
+                          uint4* __restrict__ dx, int rows, int S) {
+  constexpr int D = kVecs * 256, kRowVecs = D / 8;
+  const int lane = threadIdx.x % 32;
+  const int64_t row = int64_t(blockIdx.x) * kRegRows + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps: no block barrier below
+  const uint4* scale = reinterpret_cast<const uint4*>(adaln + (row / S) * 2 * D);
+  uint4 hv[kVecs], dv[kVecs], gv[kVecs], lv[kVecs], sv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    hv[i] = h[row * kRowVecs + i * 32 + lane];
+    dv[i] = da[row * kRowVecs + i * 32 + lane];
+    gv[i] = g_res[row * kRowVecs + i * 32 + lane];
+    lv[i] = ln[i * 32 + lane];
+    sv[i] = scale[i * 32 + lane];
+  }
+  const float r = rstd[row];
+  const float r_b = bf16_round(r);
+  float2 dn[kVecs][4], hhat[kVecs][4];
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 hh = pair(hv[i], p), d = pair(dv[i], p), l = pair(lv[i], p), sc = pair(sv[i], p);
+      hhat[i][p] = round2(make_float2(hh.x * r_b, hh.y * r_b));
+      dn[i][p] = make_float2((d.x * (1.0f + sc.x)) * l.x, (d.y * (1.0f + sc.y)) * l.y);
+      acc += dn[i][p].x * hhat[i][p].x;
+      acc += dn[i][p].y * hhat[i][p].y;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const float mean = acc / float(D);
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    uint4 out;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 g = pair(gv[i], p);
+      const float2 dh = round2(make_float2(r * (dn[i][p].x - hhat[i][p].x * mean),
+                                           r * (dn[i][p].y - hhat[i][p].y * mean)));
+      reinterpret_cast<bf2*>(&out)[p] = __floats2bfloat162_rn(dh.x + g.x, dh.y + g.y);
+    }
+    dx[row * kRowVecs + i * 32 + lane] = out;
   }
 }
 
@@ -777,12 +1195,34 @@ AttnArgs attn_args(const __nv_bfloat16* proj, const __nv_bfloat16* kv, int S, in
   return args;
 }
 
+// h = x + res, a = adaln(rmsnorm(h)) and, when rstd is given, each row's
+// 1/rms: the register row kernel at width 1024, the block-a-row one at others
+cudaError_t launch_norm_rows(const void* x, const void* res, const void* ln, const void* adaln,
+                             void* h, void* a, float* rstd, int rows, int S, int D, float eps,
+                             cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  if (D == 1024) {
+    rmsnorm_adaln_rows_kernel<4><<<(rows + kRegRows - 1) / kRegRows, 32 * kRegRows, 0, stream>>>(
+        static_cast<const uint4*>(x), static_cast<const uint4*>(res),
+        static_cast<const uint4*>(ln), static_cast<const bf*>(adaln), static_cast<uint4*>(h),
+        static_cast<uint4*>(a), rstd, rows, S, eps);
+  } else {
+    rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(res), static_cast<const bf*>(ln),
+        static_cast<const bf*>(adaln), static_cast<bf*>(h), static_cast<bf*>(a), rstd, S, D, eps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// One sublayer forward as four launches on `stream`.  `kv` == nullptr selects
-// the self sublayer: w_in is Wqkv (3D, D) and qkv_buf is (B, S, 3D).
-// Otherwise w_in is Wq (D, D), qkv_buf is (B, S, D) and kv is the (B, L, 2D)
-// [k|v] projection of the text context.  res may be nullptr (zeros).
+// One sublayer forward as four launches on `stream`: the row kernel, the
+// in-projection and the out projection on the Hopper GEMM, and
+// flash_attention.cu's attention over q / k / v as strided views.  `kv` ==
+// nullptr selects the self sublayer: w_in is Wqkv (3D, D) and qkv_buf is
+// (B, S, 3D).  Otherwise w_in is Wq (D, D), qkv_buf is (B, S, D) and kv is
+// the (B, L, 2D) [k|v] projection of the text context, of which the first
+// kv_len keys are attended.  res may be nullptr (zeros).
 extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln,
                                   const void* adaln, const void* w_in, const void* w_out,
                                   const void* kv, void* h_out, void* a_buf, void* qkv_buf,
@@ -791,62 +1231,38 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
   using bf = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
-  const bool self_attn = kv == nullptr;
-  if (self_attn && D == 1024) {
-    rmsnorm_adaln_rows_kernel<4><<<(rows + kRegRows - 1) / kRegRows, 32 * kRegRows, 0, stream>>>(
-        static_cast<const uint4*>(x), static_cast<const uint4*>(res),
-        static_cast<const uint4*>(ln), static_cast<const bf*>(adaln), static_cast<uint4*>(h_out),
-        static_cast<uint4*>(a_buf), rows, S, eps);
-  } else {
-    rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
-        static_cast<const bf*>(x), static_cast<const bf*>(res), static_cast<const bf*>(ln),
-        static_cast<const bf*>(adaln), static_cast<bf*>(h_out), static_cast<bf*>(a_buf),
-        nullptr, S, D, eps);
-  }
-  cudaError_t err = cudaGetLastError();
+  const int n_in = kv == nullptr ? 3 * D : D;
+  cudaError_t err =
+      launch_norm_rows(x, res, ln, adaln, h_out, a_buf, nullptr, rows, S, D, eps, stream);
   if (err != cudaSuccess) return int(err);
-
-  if (self_attn) {
-    const bf* a = static_cast<const bf*>(a_buf);
-    bf* qkv = static_cast<bf*>(qkv_buf);
-    err = muse::sm90::gemm_tn(a, static_cast<const bf*>(w_in), muse::StoreBf16{qkv, 3 * D}, rows,
-                              3 * D, D, stream);
-    if (err != cudaSuccess) return int(err);
-    // q, k, v: views of the projection, token stride 3D, heads of 64
-    const int64_t sb = int64_t(S) * 3 * D, st = 3 * D;
-    const int64_t strides[6] = {sb, st, sb, st, sb, st};
-    const int status = muse_flash_attention(qkv, qkv + D, qkv + 2 * D, attn_buf, B, H, S, S,
-                                            kHeadDim, strides, 1.0f / sqrtf(float(kHeadDim)),
-                                            stream);
-    if (status != 0) return status;
-    return int(muse::sm90::gemm_tn(static_cast<const bf*>(attn_buf),
-                                   static_cast<const bf*>(w_out),
-                                   muse::StoreBf16{static_cast<bf*>(out), D}, rows, D, D, stream));
-  }
-
-  err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{static_cast<const bf*>(a_buf), D},
-                                        static_cast<const bf*>(w_in), static_cast<bf*>(qkv_buf),
-                                        rows, D, D, stream);
+  bf* proj = static_cast<bf*>(qkv_buf);
+  err = muse::sm90::gemm_tn(static_cast<const bf*>(a_buf), static_cast<const bf*>(w_in),
+                            muse::StoreBf16{proj, n_in}, rows, n_in, D, stream);
   if (err != cudaSuccess) return int(err);
-
-  AttnArgs args = attn_args(static_cast<const bf*>(qkv_buf), static_cast<const bf*>(kv), S, D, L,
-                            kv_len);
-  args.out = static_cast<bf*>(attn_buf);
-  err = launch_attention(args, B, H, stream);
-  if (err != cudaSuccess) return int(err);
-
-  err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{static_cast<const bf*>(attn_buf), D},
-                                        static_cast<const bf*>(w_out), static_cast<bf*>(out), rows,
-                                        D, D, stream);
-  return int(err);
+  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, D, L, kv_len);
+  const int64_t strides[6] = {args.q_bs, args.q_rs, args.kv_bs, args.kv_rs, args.kv_bs, args.kv_rs};
+  const int status = muse_flash_attention(args.q, args.k, args.v, attn_buf, B, H, S, args.kv_len,
+                                          kHeadDim, strides, args.scale, stream);
+  if (status != 0) return status;
+  return int(muse::sm90::gemm_tn(static_cast<const bf*>(attn_buf), static_cast<const bf*>(w_out),
+                                 muse::StoreBf16{static_cast<bf*>(out), D}, rows, D, D, stream));
 }
 
-// One sublayer backward as ten launches on `stream`, inputs as the forward's
-// plus g_out and g_res (B, S, D).  Outputs: dx (B, S, D) -- also the
-// gradient of res --, dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv
-// (B, S, 3D) or dq (B, S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D).
-// Scratch: h (B, S, D), proj like dproj, dattn (B, S, D), stats (3, B, H, S)
+// One sublayer backward on `stream`, inputs as the forward's plus g_out and
+// g_res (B, S, D).  Outputs: dx (B, S, D) -- also the gradient of res --,
+// dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv (B, S, 3D) or dq (B,
+// S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D).  Scratch: h (B, S,
+// D), proj like dproj, dattn (B, S, D), stats (3, B, H, S rounded up to 64)
 // fp32, rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 * D) fp32.
+// - self (kernel 11), nine launches: the row kernel (keeping 1/rms), the
+//   qkv projection and dattn = g_out @ Wout on the Hopper GEMM (Wout read
+//   MN-major), the two register-fragment attention kernels, da = dqkv @ Wqkv
+//   on the Hopper GEMM, the register row kernel of dx, and the two-stage
+//   d(adaln) / d(ln) reduction;
+// - cross (kernel 12), ten launches: the block-a-row kernel, the `wmma`
+//   GEMM for q, dattn and da, the two-pass attention as a pre-pass keeping
+//   the row statistics and D, the FlashAttention-2-split dk/dv and dq
+//   kernels, the block-a-row dx kernel and the same reduction.
 extern "C" int muse_attn_sublayer_bwd(
     const void* x, const void* res, const void* ln, const void* adaln, const void* w_in,
     const void* w_out, const void* kv, const void* g_out, const void* g_res, void* dx,
@@ -857,94 +1273,148 @@ extern "C" int muse_attn_sublayer_bwd(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
   const bool self_attn = kv == nullptr;
+  const bool reg_rows = self_attn && D == 1024;  // the register row kernels
   const int n_in = self_attn ? 3 * D : D;
   const bf* ln_ = static_cast<const bf*>(ln);
   const bf* adaln_ = static_cast<const bf*>(adaln);
   bf* h = static_cast<bf*>(h_buf);
   bf* a = static_cast<bf*>(a_buf);
   bf* dattn = static_cast<bf*>(dattn_buf);
+  bf* dproj_ = static_cast<bf*>(dproj);
   float* rstd_ = static_cast<float*>(rstd);
+  float* stats_ = static_cast<float*>(stats);
+  cudaError_t err;
 
   // recompute a (and keep 1/rms), the projection, and dattn = g_out @ Wout
-  rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(
-      static_cast<const bf*>(x), static_cast<const bf*>(res), ln_, adaln_, h, a, rstd_, S, D, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{a, D}, static_cast<const bf*>(w_in),
-                                        static_cast<bf*>(proj_buf), rows, n_in, D, stream);
-  if (err != cudaSuccess) return int(err);
-  err = muse::launch_gemm_nn<kProjTile>(static_cast<const bf*>(g_out),
-                                        static_cast<const bf*>(w_out), dattn, rows, D, D, stream);
-  if (err != cudaSuccess) return int(err);
+  if (self_attn) {
+    err = launch_norm_rows(x, res, ln, adaln, h, a, rstd_, rows, S, D, eps, stream);
+    if (err != cudaSuccess) return int(err);
+    err = muse::sm90::gemm_tn(a, static_cast<const bf*>(w_in),
+                              muse::StoreBf16{static_cast<bf*>(proj_buf), n_in}, rows, n_in, D,
+                              stream);
+    if (err != cudaSuccess) return int(err);
+    err = muse::sm90::gemm_nn(static_cast<const bf*>(g_out), static_cast<const bf*>(w_out),
+                              muse::StoreBf16{dattn, D}, rows, D, D, stream);
+    if (err != cudaSuccess) return int(err);
+  } else {
+    rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(static_cast<const bf*>(x),
+                                                          static_cast<const bf*>(res), ln_, adaln_,
+                                                          h, a, rstd_, S, D, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{a, D}, static_cast<const bf*>(w_in),
+                                          static_cast<bf*>(proj_buf), rows, n_in, D, stream);
+    if (err != cudaSuccess) return int(err);
+    err = muse::launch_gemm_nn<kProjTile>(static_cast<const bf*>(g_out),
+                                          static_cast<const bf*>(w_out), dattn, rows, D, D, stream);
+    if (err != cudaSuccess) return int(err);
+  }
 
-  // attention: pre-pass (out, row stats, D), then dk/dv and dq
-  const int64_t n_stats = int64_t(B) * H * S;
-  float* stats_ = static_cast<float*>(stats);
   AttnArgs args = attn_args(static_cast<const bf*>(proj_buf), static_cast<const bf*>(kv), S, D, L,
                             kv_len);
   args.out = static_cast<bf*>(attn_buf);
-  args.stat_m = stats_;
-  args.stat_s = stats_ + n_stats;
-  args.dout = dattn;
-  args.delta = stats_ + 2 * n_stats;
-  err = launch_attention(args, B, H, stream);
-  if (err != cudaSuccess) return int(err);
-
-  AttnBwdArgs bargs{};
-  bargs.q = args.q;
-  bargs.k = args.k;
-  bargs.v = args.v;
-  bargs.dout = dattn;
-  bargs.stat_m = args.stat_m;
-  bargs.stat_s = args.stat_s;
-  bargs.delta = args.delta;
-  bargs.q_bs = args.q_bs;
-  bargs.q_rs = args.q_rs;
-  bargs.kv_bs = args.kv_bs;
-  bargs.kv_rs = args.kv_rs;
-  bargs.do_bs = int64_t(S) * D;
-  bargs.do_rs = D;
-  bargs.S = S;
-  bargs.L = args.L;
-  bargs.kv_len = args.kv_len;
-  bargs.scale = args.scale;
-  bf* dproj_ = static_cast<bf*>(dproj);
-  bargs.dq = dproj_;
-  bargs.dq_bs = int64_t(S) * n_in;
-  bargs.dq_rs = n_in;
   if (self_attn) {
-    bargs.dk = dproj_ + D;
-    bargs.dv = dproj_ + 2 * D;
-    bargs.dkv_bs = bargs.dq_bs;
-    bargs.dkv_rs = bargs.dq_rs;
+    // the attention backward with S / P / dP / dS in registers
+    const int Sp = (S + kTile - 1) / kTile * kTile;
+    const int64_t n_stats = int64_t(B) * H * Sp;
+    SelfBwdArgs sargs{};
+    sargs.q = args.q;
+    sargs.k = args.k;
+    sargs.v = args.v;
+    sargs.dout = dattn;
+    sargs.out = args.out;
+    sargs.dq = dproj_;
+    sargs.dk = dproj_ + D;
+    sargs.dv = dproj_ + 2 * D;
+    sargs.stat_m = stats_;
+    sargs.stat_il = stats_ + n_stats;
+    sargs.delta = stats_ + 2 * n_stats;
+    sargs.sb = args.q_bs;
+    sargs.st = args.q_rs;
+    sargs.o_sb = args.o_bs;
+    sargs.o_st = args.o_rs;
+    sargs.H = H;
+    sargs.S = S;
+    sargs.Sp = Sp;
+    sargs.scale = args.scale;
+    sargs.scale_log2 = args.scale * muse::frag::kLog2e;
+    const dim3 grid(Sp / kTile, B * H);
+    self_bwd_q_kernel<<<grid, kAttnThreads, 0, stream>>>(sargs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    self_bwd_kv_kernel<<<grid, kAttnThreads, 0, stream>>>(sargs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
   } else {
+    // attention: pre-pass (out, row stats, D), then dk/dv and dq
+    const int64_t n_stats = int64_t(B) * H * S;
+    args.stat_m = stats_;
+    args.stat_s = stats_ + n_stats;
+    args.dout = dattn;
+    args.delta = stats_ + 2 * n_stats;
+    err = launch_attention(args, B, H, stream);
+    if (err != cudaSuccess) return int(err);
+
+    AttnBwdArgs bargs{};
+    bargs.q = args.q;
+    bargs.k = args.k;
+    bargs.v = args.v;
+    bargs.dout = dattn;
+    bargs.stat_m = args.stat_m;
+    bargs.stat_s = args.stat_s;
+    bargs.delta = args.delta;
+    bargs.q_bs = args.q_bs;
+    bargs.q_rs = args.q_rs;
+    bargs.kv_bs = args.kv_bs;
+    bargs.kv_rs = args.kv_rs;
+    bargs.do_bs = int64_t(S) * D;
+    bargs.do_rs = D;
+    bargs.S = S;
+    bargs.L = args.L;
+    bargs.kv_len = args.kv_len;
+    bargs.scale = args.scale;
+    bargs.dq = dproj_;
+    bargs.dq_bs = int64_t(S) * n_in;
+    bargs.dq_rs = n_in;
     bargs.dk = static_cast<bf*>(dkv);
     bargs.dv = bargs.dk + D;
     bargs.dkv_bs = int64_t(L) * 2 * D;
     bargs.dkv_rs = 2 * D;
-  }
-  static bool dkdv_configured = false, dq_configured = false;
-  err = set_smem(attention_dkdv_kernel, kBwdSmem, dkdv_configured);
-  if (err != cudaSuccess) return int(err);
-  err = set_smem(attention_dq_kernel, kBwdSmem, dq_configured);
-  if (err != cudaSuccess) return int(err);
-  attention_dkdv_kernel<<<dim3((bargs.L + kKTile - 1) / kKTile, H, B), kAttnThreads, kBwdSmem,
+    static bool dkdv_configured = false, dq_configured = false;
+    err = set_smem(attention_dkdv_kernel, kBwdSmem, dkdv_configured);
+    if (err != cudaSuccess) return int(err);
+    err = set_smem(attention_dq_kernel, kBwdSmem, dq_configured);
+    if (err != cudaSuccess) return int(err);
+    attention_dkdv_kernel<<<dim3((bargs.L + kKTile - 1) / kKTile, H, B), kAttnThreads, kBwdSmem,
+                            stream>>>(bargs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    attention_dq_kernel<<<dim3((S + kQTile - 1) / kQTile, H, B), kAttnThreads, kBwdSmem,
                           stream>>>(bargs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  attention_dq_kernel<<<dim3((S + kQTile - 1) / kQTile, H, B), kAttnThreads, kBwdSmem, stream>>>(
-      bargs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
 
   // da = dproj @ W_in (into the dattn buffer, consumed above), then the
   // rmsnorm / AdaLN backward
   bf* da = dattn;
-  err = muse::launch_gemm_nn<kProjTile>(dproj_, static_cast<const bf*>(w_in), da, rows, D, n_in,
-                                        stream);
+  if (self_attn) {
+    err = muse::sm90::gemm_nn(static_cast<const bf*>(dproj_), static_cast<const bf*>(w_in),
+                              muse::StoreBf16{da, D}, rows, D, n_in, stream);
+  } else {
+    err = muse::launch_gemm_nn<kProjTile>(dproj_, static_cast<const bf*>(w_in), da, rows, D, n_in,
+                                          stream);
+  }
   if (err != cudaSuccess) return int(err);
-  rms_adaln_bwd_row_kernel<<<rows, kRowThreads, 0, stream>>>(
-      h, da, ln_, adaln_, static_cast<const bf*>(g_res), rstd_, static_cast<bf*>(dx), S, D);
+  if (reg_rows) {
+    rms_adaln_bwd_rows_kernel<4><<<(rows + kRegRows - 1) / kRegRows, 32 * kRegRows, 0, stream>>>(
+        reinterpret_cast<const uint4*>(h), reinterpret_cast<const uint4*>(da),
+        static_cast<const uint4*>(ln), adaln_, static_cast<const uint4*>(g_res), rstd_,
+        static_cast<uint4*>(dx), rows, S);
+  } else {
+    rms_adaln_bwd_row_kernel<<<rows, kRowThreads, 0, stream>>>(
+        h, da, ln_, adaln_, static_cast<const bf*>(g_res), rstd_, static_cast<bf*>(dx), S, D);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const int chunks = (S + kChunkRows - 1) / kChunkRows;

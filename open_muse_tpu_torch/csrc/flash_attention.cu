@@ -58,101 +58,16 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma_frag.cuh"
+
 namespace {
 
-using T = __nv_bfloat16;
-
-constexpr int kRowsPerWarp = 16;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one 32-bit register of two bf16 values, the first in the
-// low half (the lower column of an mma fragment)
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without staging in registers; bytes 0 copies
-// nothing and zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const T* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const T* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// the A fragments of Q K^T for query rows r0 and r0 + 8 (zeros past Tq)
-template <int D>
-__device__ __forceinline__ void load_q(uint32_t qf[D / 16][4], const T* qb, int64_t q_st, int r0,
-                                       int Tq, int t4) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + t4 * 2;
-    qf[kc][0] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c) : 0u;
-    qf[kc][1] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c) : 0u;
-    qf[kc][2] = r0 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_st + c + 8) : 0u;
-    qf[kc][3] = r1 < Tq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_st + c + 8) : 0u;
-  }
-}
+using namespace muse::frag;
 
 // ---------------------------------------------------------------------------
 // one pass: Tk <= kMaxKeys
 
 constexpr int kMaxKeys = 288;  // the one-pass capacity: two warps of 9 chunks of 16 keys
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>  // wait until at most kPending committed groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 template <int D>
 __host__ __device__ constexpr int one_pass_row() { return D + 8; }  // K / V row in shared memory
@@ -208,7 +123,7 @@ one_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   // meanwhile this thread's Q fragments, straight into registers
   const int r0 = blockIdx.x * (kGroups * kRowsPerWarp) + grp * kRowsPerWarp + g;
   uint32_t qf[D / 16][4];
-  load_q<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
+  load_a<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
   // this warp's chunks [c0, c1)
   const int per = (chunks + kSplit - 1) / kSplit;
   const int c0 = half * per, c1 = min(chunks, c0 + per);
@@ -392,7 +307,7 @@ two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int r0 = blockIdx.x * (kTwoWarps * kRowsPerWarp) + warp * kRowsPerWarp + g, r1 = r0 + 8;
   uint32_t qf[D / 16][4];
-  load_q<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
+  load_a<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
 
   auto load_k = [&](int j0) {
     for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kTwoThreads) {

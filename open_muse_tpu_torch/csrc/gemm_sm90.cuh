@@ -1,14 +1,25 @@
 // Hopper GEMM mainloop for the port's kernels: TMA, wgmma, mbarriers and
 // warp specialisation, for sm_90a.
 //
-//   C[m, n] = epilogue(sum_k A[m, k] * W[n, k])     bf16 x bf16 -> fp32
+//   C[m, n] = epilogue(sum_k A[m, k] * W[n, k])     (gemm_tn, W laid out kNK)
+//   C[m, n] = epilogue(sum_k A[m, k] * W[k, n])     (gemm_nn, W laid out kKN)
+//                                                   bf16 x bf16 -> fp32
 //
-// A is (M, K) rows and W a torch nn.Linear weight (N, K): both operands are
-// K-major, the layout wgmma reads without a transpose.  gemm_tile.cuh (the
-// `wmma` GEMM of the backward kernels) stays beside this header.
+// A is (M, K) rows, K-major.  W is a torch nn.Linear weight (N, K) read as
+// it lies: K-major for a @ W^T (the forward projections), MN-major for
+// g @ W (the backward's data gradients, where K runs along the weight's
+// rows).  The MN-major operand is no copy: its TMA boxes are taken along N
+// (64 columns, one 128-byte swizzle row, by 64 k rows; kBN / 64 boxes a
+// stage, 8 KB apart), and wgmma reads them with its transpose flag for B,
+// the descriptor's leading byte offset the 8 KB between boxes along N and
+// its stride byte offset the 1024 between 8-row groups along K.  One
+// design, fixed at compile time per layout; kernels 8 and 12 (the GLU and
+// cross backwards) can take the same stage for g^T-free data gradients.
+// gemm_tile.cuh (the `wmma` GEMM) stays beside this header for kernels 8
+// and 12.
 //
-// Design, for the port's forward products (512 - 4096 rows, N 1024 - 3072,
-// K 1024 - 2816; 0.5 - 24 GFLOP):
+// Design, for the port's products (512 - 4096 rows, N 1024 - 3072, K 1024 -
+// 3072; 0.5 - 26 GFLOP):
 // - A block owns a 128 x kBN output tile (kBN 64, 128 or 256) and walks K in
 //   steps of 64 (128 bytes of bf16, one 128-byte swizzle row).  Three
 //   warpgroups: the last is the producer, whose first thread keeps a ring of
@@ -66,6 +77,10 @@ constexpr int kConsumers = 2;      // warpgroups of 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 4;
 constexpr int kMaxSplit = 4;
+
+// the layout of W: nn.Linear's (N, K), read K-major (C = A W^T), or (K, N),
+// read MN-major (C = A W)
+enum WLayout { kNK = 0, kKN = 1 };
 
 // the shared memory of a tile width: kStages stages of A (BM x BK) and W
 // (kBN x BK), 1024-byte aligned; after the k loop the fp32 partial tile of a
@@ -137,6 +152,18 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// the same for an MN-major operand staged as boxes of 64 k rows x 128 bytes
+// (64 n) in the 128-byte swizzle: 64-column groups along N kBoxBytes apart
+// (the leading byte offset), 8-row groups along K 1024 bytes apart (the
+// stride byte offset).  A k step of 16 rows is a start address 2048 bytes
+// further on.
+constexpr int kBoxBytes = BK * 128;  // one 64 x 64 bf16 box
+
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(kBoxBytes >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -158,38 +185,37 @@ __device__ __forceinline__ void fence_accumulators(float* d) {
   for (int i = 0; i < kCount; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x kN, fp32, accumulated) += A (64 x 16) B (kN x 16)^T, both bf16
-// K-major in 128-byte-swizzled shared memory; d is this thread's kN / 2
-// accumulators (see the epilogue for their rows and columns)
-template <int kN>
-__device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t desc_a, uint64_t desc_b);
+// D (64 x kN, fp32, accumulated) += A (64 x 16) B (kN x 16)^T, both bf16 in
+// 128-byte-swizzled shared memory, A K-major, B K-major (kTransB 0) or
+// MN-major (1); d is this thread's kN / 2 accumulators (see the epilogue for
+// their rows and columns)
 
-template <>
-__device__ __forceinline__ void wgmma_m64k16<64>(float* d, uint64_t desc_a, uint64_t desc_b) {
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_m64k16<128>(float* d, uint64_t desc_a, uint64_t desc_b) {
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -199,18 +225,18 @@ __device__ __forceinline__ void wgmma_m64k16<128>(float* d, uint64_t desc_a, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_m64k16<256>(float* d, uint64_t desc_a, uint64_t desc_b) {
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -228,17 +254,25 @@ __device__ __forceinline__ void wgmma_m64k16<256>(float* d, uint64_t desc_a, uin
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+template <int kN, int kTransB>
+__device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (kN == 64) wgmma_m64n64k16<kTransB>(d, desc_a, desc_b);
+  else if constexpr (kN == 128) wgmma_m64n128k16<kTransB>(d, desc_a, desc_b);
+  else wgmma_m64n256k16<kTransB>(d, desc_a, desc_b);
 }
 
 // -- the kernel ---------------------------------------------------------------
 
 // Grid (ceil(N / kBN), ceil(M / BM), split), launched as clusters of (1, 1,
-// split).  map_a: A (M, K) in 64 x BM boxes, map_w: W (N, K) in 64 x kBN boxes.
-template <int kBN, class Epilogue>
+// split).  map_a: A (M, K) in 64 x BM boxes; map_w: W (N, K) in 64 x kBN
+// boxes (kNK) or W (K, N) in 64 x 64 boxes, kBN / 64 of them a stage (kKN).
+template <int kBN, WLayout kW, class Epilogue>
 __global__ void __launch_bounds__(kThreads, 1)
-gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-               Epilogue epi, int M, int N, int K) {
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_w, Epilogue epi, int M, int N, int K) {
   namespace cg = cooperative_groups;
   using L = Smem<kBN>;
   constexpr int kAcc = kBN / 2;  // accumulators a consumer thread
@@ -279,7 +313,13 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         mbar_expect_tx(&full[s], L::kStageBytes);
         const int k = (kb0 + i) * BK;
         tma_load_2d(stage_a + s * L::kTileA, &map_a, &full[s], k, m0);
-        tma_load_2d(stage_w + s * L::kTileW, &map_w, &full[s], k, n0);
+        if constexpr (kW == kNK) {
+          tma_load_2d(stage_w + s * L::kTileW, &map_w, &full[s], k, n0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j)
+            tma_load_2d(stage_w + s * L::kTileW + j * kBoxBytes, &map_w, &full[s], n0 + 64 * j, k);
+        }
       }
     }
   } else {
@@ -294,7 +334,8 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)  // 16 elements along K: 32 bytes further on
-        wgmma_m64k16<kBN>(acc, smem_desc(a + kk * 32), smem_desc(w + kk * 32));
+        wgmma_m64k16<kBN, kW>(acc, smem_desc(a + kk * 32),
+                              kW == kNK ? smem_desc(w + kk * 32) : smem_desc_mn(w + kk * 2048));
       wgmma_commit();
       wgmma_wait<1>();  // the previous step's products are done: release its stage
       if (i > 0) mbar_arrive(&empty[(i - 1) % kStages]);
@@ -430,15 +471,15 @@ inline void variant_for(int M, int N, int K, int* bn, int* split) {
   }
 }
 
-template <int kBN, class Epilogue>
-cudaError_t launch_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
-                      int N, int K, int split, cudaStream_t stream) {
+template <int kBN, WLayout kW, class Epilogue>
+cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
+                   int N, int K, int split, cudaStream_t stream) {
   CUtensorMap map_a, map_w;
   cudaError_t err = tensor_map(&map_a, a, M, K, BM);
   if (err != cudaSuccess) return err;
-  err = tensor_map(&map_w, w, N, K, kBN);
+  err = kW == kNK ? tensor_map(&map_w, w, N, K, kBN) : tensor_map(&map_w, w, K, N, BK);
   if (err != cudaSuccess) return err;
-  auto kernel = gemm_tn_kernel<kBN, Epilogue>;
+  auto kernel = wgmma_gemm_kernel<kBN, kW, Epilogue>;
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<kBN>::kBytes);
   if (configured != cudaSuccess) return configured;
@@ -458,6 +499,21 @@ cudaError_t launch_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epil
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <WLayout kW, class Epilogue>
+cudaError_t dispatch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
+                     int N, int K, cudaStream_t stream, int bn, int split) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % (kW == kNK ? 2 : 8) || split < 0 ||
+      split > kMaxSplit || (bn == 0) != (split == 0))
+    return cudaErrorInvalidValue;
+  if (bn == 0) variant_for(M, N, K, &bn, &split);
+  switch (bn) {
+    case 64: return launch<64, kW>(a, w, epi, M, N, K, split, stream);
+    case 128: return launch<128, kW>(a, w, epi, M, N, K, split, stream);
+    case 256: return launch<256, kW>(a, w, epi, M, N, K, split, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // C = epilogue(A (M, K) x W^T) with W an nn.Linear weight (N, K); K a
 // multiple of 8, N even, pointers 16-byte aligned.  bn, the tile width, is
 // 64, 128 or 256 and split 1, 2 or 4; 0 for both takes variant_for.
@@ -465,16 +521,16 @@ cudaError_t launch_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epil
 template <class Epilogue>
 cudaError_t gemm_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                     int N, int K, cudaStream_t stream, int bn = 0, int split = 0) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 2 || split < 0 || split > kMaxSplit ||
-      (bn == 0) != (split == 0))
-    return cudaErrorInvalidValue;
-  if (bn == 0) variant_for(M, N, K, &bn, &split);
-  switch (bn) {
-    case 64: return launch_tn<64>(a, w, epi, M, N, K, split, stream);
-    case 128: return launch_tn<128>(a, w, epi, M, N, K, split, stream);
-    case 256: return launch_tn<256>(a, w, epi, M, N, K, split, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<kNK>(a, w, epi, M, N, K, stream, bn, split);
+}
+
+// C = epilogue(A (M, K) x W) with W (K, N) rows, N contiguous (an nn.Linear
+// weight (out, in) with K = out: g @ W); K and N multiples of 8, pointers
+// 16-byte aligned; bn and split as gemm_tn's.
+template <class Epilogue>
+cudaError_t gemm_nn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
+                    int N, int K, cudaStream_t stream, int bn = 0, int split = 0) {
+  return dispatch<kKN>(a, w, epi, M, N, K, stream, bn, split);
 }
 
 }  // namespace sm90

@@ -7,9 +7,10 @@
 // or contiguous along its other dimension (A as (K, M) rows -- a transposed
 // operand such as g^T in a weight gradient; B as (K, N) rows -- a weight used
 // untransposed, as in g @ W).  The JAX kernels do these products inside their
-// own bodies (glu_matmul.py `_kernel` / `_bwd_kernel`, attn_sublayer.py
-// `_self_kernel` / `_cross_kernel` / `_self_bwd_kernel` / `_cross_bwd_kernel`),
-// so the port does them here and not in cuBLAS.
+// own bodies, so the port does them in its own GEMMs and not in cuBLAS: this
+// one now serves the GLU backward (glu_matmul.py `_bwd_kernel`) and the cross
+// sublayer's backward (attn_sublayer.py `_cross_bwd_kernel`); the other
+// kernels' products moved to the Hopper GEMM of gemm_sm90.cuh.
 //
 // Design: a BM x BN output tile per block, K in steps of BK (masked past K),
 // (BM / 32) x (BN / 32) warps each owning 32 x 32 outputs as 2 x 2 wmma

@@ -39,7 +39,8 @@ _SIGNATURES = {
     "muse_fused_norm": [_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _P],
     "muse_flash_attention": [_P] * 4 + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64),
                                                    ctypes.c_float, _P],
-    "muse_gemm_tn": [_P] * 3 + [_I] * 5 + [_P],
+    "muse_gemm": [_P] * 3 + [_I] * 6 + [_P],
+    "muse_null": [_I, _P],
 }
 
 _lock = threading.Lock()

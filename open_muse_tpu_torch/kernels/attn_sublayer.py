@@ -33,6 +33,7 @@ __all__ = ["attn_sublayer_self", "attn_sublayer_cross", "attn_sublayer_self_plai
 
 HEAD_DIM = 64
 CHUNK_ROWS = 32  # rows per partial sum of d(adaln) and d(ln) in the kernel
+STAT_ROWS = 64  # the backward's row statistics cover S rounded up to this
 
 
 def sublayer_shapes_supported(hidden: int, num_heads: int) -> bool:
@@ -203,7 +204,7 @@ def _launch_bwd(name, x, res, ln_scale, adaln, w_in, wout, kv, g_out, g_res, num
     dadaln, dln, dproj = new(b, 2 * d), new(d), new(b, s, n_in)
     dkv = None if kv is None else torch.empty_like(kv)
     h, proj, dattn = new(b, s, d), new(b, s, n_in), new(b, s, d)
-    stats = new(3, b, num_heads, s, dtype=torch.float32)
+    stats = new(3, b, num_heads, -(-s // STAT_ROWS) * STAT_ROWS, dtype=torch.float32)
     rstd = new(b * s, dtype=torch.float32)
     partial = new(b * -(-s // CHUNK_ROWS) * 3 * d, dtype=torch.float32)
     length = 0 if kv is None else kv.shape[1]

@@ -76,23 +76,37 @@ def test_sublayer_kernels_match_plain(device, b, s, kv_len):
 
 
 @pytest.mark.parametrize("m,n,k", [(512, 1024, 2816), (200, 3072, 1024), (300, 130, 96),
-                                   (7, 24, 40)])
+                                   (300, 136, 96), (7, 24, 40)])
 @pytest.mark.parametrize("tile_width,split", [(0, 0), (64, 1), (64, 2), (128, 1), (128, 4),
                                               (256, 1), (256, 2)])
-def test_hopper_gemm_matches_linear(device, m, n, k, tile_width, split):
-    """The mainloop of kernels 7 and 9 alone: every tile width, K splits
-    over clusters of 2 and 4 (with a share of no k step at (7, 24, 40)),
-    ragged M, N and K; within 1e-2 rel of an fp32 product of the same bf16
-    operands (bf16 output rounding, fp32 sums in another order); two calls
-    bit-equal."""
-    from open_muse_tpu_torch.kernels.gemm import linear_tn
+@pytest.mark.parametrize("layout", ["a @ w.T", "a @ w"])
+def test_hopper_gemm_matches_linear(device, m, n, k, tile_width, split, layout):
+    """The mainloop of kernels 7, 9, 10 and 11 alone, the weight read
+    K-major (``a @ w.T``, w (n, k)) and MN-major (``a @ w``, w (k, n): the
+    backward's data gradients): every tile width, K splits over clusters of
+    2 and 4 (with a share of no k step at (7, 24, 40)), ragged M, N and K
+    (N 136 and 24: part or all of a 64-column box past N); within 1e-2 rel
+    of an fp32 product of the same bf16 operands (bf16 output rounding, fp32
+    sums in another order); two calls bit-equal.  ``a @ w`` takes N a
+    multiple of 8 (the tensor map's row pitch) and refuses N 130."""
+    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn
 
     gen = torch.Generator().manual_seed(m + n + k)
-    a, w = _rand(gen, m, k), _rand(gen, n, k, scale=k ** -0.5)
-    out = linear_tn(a, w, tile_width, split)
+    a = _rand(gen, m, k)
+    if layout == "a @ w":
+        w = _rand(gen, k, n, scale=k ** -0.5)
+        if n % 8:
+            with pytest.raises(ValueError):
+                linear_nn(a, w, tile_width, split)
+            return
+        run, exact = (lambda: linear_nn(a, w, tile_width, split)), a.float() @ w.float()
+    else:
+        w = _rand(gen, n, k, scale=k ** -0.5)
+        run, exact = (lambda: linear_tn(a, w, tile_width, split)), a.float() @ w.float().t()
+    out = run()
     assert out.shape == (m, n)
-    assert _rel(out, a.float() @ w.float().t()) <= 1e-2
-    assert torch.equal(out, linear_tn(a, w, tile_width, split))
+    assert _rel(out, exact) <= 1e-2
+    assert torch.equal(out, run())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -169,10 +183,14 @@ def _sublayer_bwd_inputs(gen, b, s, d, kv_len):
 BWD_TOL = 5e-2
 
 
-@pytest.mark.parametrize("b,s,kv_len", [(4, 256, 77), (2, 100, 130)])
+@pytest.mark.parametrize("b,s,kv_len", [(4, 256, 77), (16, 256, 77), (1, 1024, 77),
+                                        (2, 100, 130)])
 def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
-    """Ragged query and key tiles (100 rows, 130 keys); every output against
-    the plain backward, and two calls bit-equal."""
+    """The training batch (16 x 256), the 512px config's 1024 tokens (over
+    the forward attention's one-pass capacity of 288 keys: the backward
+    streams its key and query tiles at any length), ragged query and key
+    tiles (100 rows, 130 keys); every output against the plain backward, and
+    two calls bit-equal."""
     gen = torch.Generator().manual_seed(s)
     d, h = 1024, 16
     p = _sublayer_bwd_inputs(gen, b, s, d, kv_len)

@@ -1,0 +1,179 @@
+"""Measurements beside chip_smoke.py, on one GPU, for the checkout given on
+the command line (this one, or a parent commit unpacked with ``git archive``
+into a git-ignored directory, so that both run in one chip call):
+
+    python3 tools/chip_measure.py split TREE    # kernels 10 - 12 by launch
+    python3 tools/chip_measure.py kernels TREE  # chip_smoke's kernel phases alone
+    python3 tools/chip_measure.py host TREE     # host enqueue cost a call
+    python3 tools/chip_measure.py serving TREE  # request latency around a profile
+
+``split`` times the sublayer kernels 10, 11 and 12 by CUDA graph replay and
+splits each by launch with ``chip_smoke.launch_split`` (the tree's own
+kernels, this script's shapes: kernel 10 at x (2, 256, 1024) and (16, 256,
+1024) over 77 text keys, kernels 11 and 12 at x (16, 256, 1024)), then
+times cuBLAS alone on kernels 10's and 11's products.  ``kernels`` runs the
+tree's ``chip_smoke.kernel_phase`` and ``backward_kernel_phase`` (every
+kernel row against its plain version) and their launch splits.  ``host``
+times 200 eager calls of kernels 5, 9, 10 and 11 enqueued without a
+synchronise (the host's cost a call, the device running behind), before
+and after a torch.profiler run in the same process.  ``serving`` builds
+chip_smoke's full-width serving pipeline and times 5 CFG requests (256px,
+bs1, 12 steps), then one more under torch.profiler, printing the host
+(self CPU) time of its top operations: where a host-bound request spends
+its time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import inspect
+import os
+import sys
+import time
+
+import torch
+
+
+def _load(tree):
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import chip_smoke
+    from open_muse_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_measure: no CUDA device")
+    print(f"== tree {tree}: {chip_smoke.device_line()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    return tree, chip_smoke
+
+
+def _sublayer_calls(C, dev, gen):
+    """(label, call) of kernels 9 and 10 at batch 2 and 16, 11 and 12 at 16."""
+    from open_muse_tpu_torch.kernels import attn_sublayer as A
+
+    bf, d, heads = torch.bfloat16, 1024, 16
+    calls = {}
+    for b in (2, 16):
+        inp = C._sublayer_inputs(dev, gen, b=b, s=256)
+        wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(dev, bf)
+        wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(dev, bf)
+        kv = torch.randn(b, 77, 2 * d, generator=gen).to(dev, bf)
+        common = (inp["x"], inp["res"], inp["ln_scale"], inp["adaln"])
+        calls[f"k9 self fwd x ({b}, 256, 1024)"] = functools.partial(
+            A.attn_sublayer_self, *common, wqkv, inp["wout"], heads)
+        calls[f"k10 cross fwd x ({b}, 256, 1024) kv ({b}, 77, 2048)"] = functools.partial(
+            A.attn_sublayer_cross, *common, wq, inp["wout"], kv, heads)
+    g_out = (torch.randn(16, 256, d, generator=gen) * 0.01).to(dev, bf)
+    g_res = (torch.randn(16, 256, d, generator=gen) * 0.01).to(dev, bf)
+    calls["k11 self bwd x (16, 256, 1024)"] = functools.partial(
+        A.attn_sublayer_self_bwd, *common, wqkv, inp["wout"], g_out, g_res, heads)
+    calls["k12 cross bwd x (16, 256, 1024) kv (16, 77, 2048)"] = functools.partial(
+        A.attn_sublayer_cross_bwd, *common, wq, inp["wout"], kv, g_out, g_res, heads)
+    return calls
+
+
+def split(tree):
+    _, C = _load(tree)
+    dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
+    calls = {k: v for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k9")}
+    for label, fn in calls.items():
+        print(f"[time] {label}: {C.graph_ms(fn):.4f} ms (graph replay)", flush=True)
+    for label, fn in calls.items():
+        C.log_split(label, fn)
+    m = torch.randn(4096, 3072, generator=gen).to(dev, bf)
+    w1 = (torch.randn(1024, 1024, generator=gen) * 1024 ** -0.5).to(dev, bf)
+    w3 = (torch.randn(3072, 1024, generator=gen) * 1024 ** -0.5).to(dev, bf)
+    for label, a, w, nn in (("k10 q / out (512, 1024, 1024) a @ w.T", m[:512, :1024], w1, False),
+                            ("k11 qkv (4096, 3072, 1024) a @ w.T", m[:, :1024], w3, False),
+                            ("k11 dattn (4096, 1024, 1024) a @ w", m[:, :1024], w1, True),
+                            ("k11 da (4096, 1024, 3072) a @ w", m, w3, True)):
+        a = a.contiguous()
+        f = (lambda: a @ w) if nn else (lambda: a @ w.t())  # noqa: B023
+        print(f"[product] {label}, the product alone: cuBLAS {C.graph_ms(f) * 1e3:.2f} us",
+              flush=True)
+
+
+def kernels(tree):
+    _, C = _load(tree)
+    device, splits = torch.device("cuda", 0), []
+    report = C.kernel_phase(device, splits)
+    if "splits" in inspect.signature(C.backward_kernel_phase).parameters:
+        report.update(C.backward_kernel_phase(device, splits))
+    else:  # a parent whose backward phase takes no splits
+        report.update(C.backward_kernel_phase(device))
+    for label, fn in splits:
+        C.log_split(label, fn)
+    for name, (ok, err, (ms, plain_ms)) in report.items():
+        print(f"[row] {name}: ok {ok} max_abs {err:.3e} kernel {ms * 1e3:.2f} us plain "
+              f"{plain_ms * 1e3:.2f} us bound {C.bound_ms(name)[0] * 1e3:.2f} us", flush=True)
+
+
+def host(tree):
+    tree, C = _load(tree)
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention
+
+    dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
+    calls = {k: v for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k12")}
+    q, k, v = C._attention_inputs(dev, gen, 2, 256, 77, 12, 64)
+    calls["k5 flash (2, 256, 12, 64) x 77"] = functools.partial(flash_attention, q, k, v)
+    x2 = torch.randn(2, 256, 1024, generator=gen).to(dev, bf)
+    calls["torch add (2, 256, 1024)"] = lambda: x2 + x2
+
+    def measure(tag, n=200):
+        for label, fn in calls.items():
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            print(f"[host] {os.path.basename(tree)} {tag} {label}: enqueue "
+                  f"{(t1 - t0) / n * 1e6:.1f} us a call, with the device "
+                  f"{(t2 - t0) / n * 1e6:.1f} us", flush=True)
+
+    measure("before any profile")
+    C.launch_split(next(v for k, v in calls.items() if k.startswith("k10")))
+    measure("after a profile")
+
+
+def serving(tree):
+    import statistics
+
+    tree, C = _load(tree)
+    pipe = C.build_pipeline(torch.device("cuda", 0))
+
+    def requests(tag):
+        C.one_request(pipe, C.PROMPTS[-1], 99)  # warm-up
+        ms = [C.one_request(pipe, C.PROMPTS[i % 4], i)[0] * 1e3 for i in range(5)]
+        print(f"[serving] {os.path.basename(tree)} {tag}: median {statistics.median(ms):.1f} ms "
+              f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
+
+    requests("before any profile")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        C.one_request(pipe, C.PROMPTS[3], 3)
+    events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in events[:20]:
+        print(f"[serving] {os.path.basename(tree)} host: {e.key[:70]}: self CPU "
+              f"{e.self_cpu_time_total / 1e3:.2f} ms over {e.count} calls", flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("what", choices=("split", "kernels", "host", "serving"))
+    parser.add_argument("tree", help="the checkout whose kernels to measure")
+    args = parser.parse_args()
+    {"split": split, "kernels": kernels, "host": host, "serving": serving}[args.what](args.tree)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
