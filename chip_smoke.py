@@ -176,10 +176,11 @@ def launch_split(fn, calls: int = 10):
     def short(raw):  # "void muse::sm90::wgmma_gemm_kernel<64, ...>(...)" -> "wgmma_gemm_kernel<64>"
         name = raw.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
         base, _, args = name.partition("<")
-        # the Hopper GEMM reading its weight MN-major (a @ w)
-        nn = "WLayout)1" in raw or "::kKN" in raw
+        # the Hopper GEMM reading its weight MN-major (a @ w), and A too (a.T @ w)
+        a_mn = "ALayout)1" in raw or "::kKM" in raw
+        w_mn = "WLayout)1" in raw or "::kKN" in raw
         return (base.split("::")[-1] + (f"<{args.split(',')[0].rstrip('>')}>" if args else "")
-                + (" a@w" if nn else ""))
+                + (" a.T@w" if a_mn else " a@w" if w_mn else ""))
 
     return [(short(groups[0][i].name),
              statistics.median(g[i].time_range.elapsed_us() for g in groups)) for i in range(per)]
@@ -192,18 +193,23 @@ def log_split(label, fn):
         f"sum {sum(us for _, us in split):.2f}")
 
 
-def log_product_alone(label, a, w, kn=False):
-    """The bare product inside a kernel, ``a @ w.T`` (or ``a @ w`` with
-    ``kn``, the weight read MN-major) on the same bf16 operands: the port's
-    Hopper GEMM alone beside cuBLAS (graph replay).  Not a library_ms: no
-    single call computes a kernel's whole function."""
-    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn
+def _gemm_pair(layout, a, w):
+    """(the Hopper GEMM's call, cuBLAS's call) of one layout on a and w."""
+    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn, linear_tnn
 
-    if kn:
-        ours, cublas = graph_ms(lambda: linear_nn(a, w)), graph_ms(lambda: a @ w)
-    else:
-        ours, cublas = graph_ms(lambda: linear_tn(a, w)), graph_ms(lambda: a @ w.t())
-    log(f"[product] {label} {tuple(a.shape)} x {tuple(w.shape)}{'' if kn else '^T'}, the product "
+    return {"a @ w.T": (lambda *v: linear_tn(a, w, *v), lambda: a @ w.t()),
+            "a @ w": (lambda *v: linear_nn(a, w, *v), lambda: a @ w),
+            "a.T @ w": (lambda *v: linear_tnn(a, w, *v), lambda: a.t() @ w)}[layout]
+
+
+def log_product_alone(label, a, w, layout="a @ w.T"):
+    """The bare product inside a kernel, ``a @ w.T``, ``a @ w`` (the weight
+    read MN-major) or ``a.T @ w`` (both read MN-major) on the same bf16
+    operands: the port's Hopper GEMM alone beside cuBLAS (graph replay).
+    Not a library_ms: no single call computes a kernel's whole function."""
+    ours, cublas = _gemm_pair(layout, a, w)
+    ours, cublas = graph_ms(ours), graph_ms(cublas)
+    log(f"[product] {label} {layout}, a {tuple(a.shape)} w {tuple(w.shape)}, the product "
         f"alone: Hopper GEMM {ours:.4f} ms, cuBLAS torch.matmul {cublas:.4f} ms "
         f"(CUDA graph replay)")
     return ours, cublas
@@ -683,7 +689,9 @@ def _check_outputs(name, names, got, ref, again, shapes):
     return ok, worst
 
 
-def check_glu_bwd(device, gen):
+def check_glu_bwd(device, gen, splits=None):
+    """The GLU backward at the training rows; appends its (label, call) to
+    ``splits`` and logs its two products alone."""
     from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd,
                                                         glu_down_matmul_bwd_plain)
 
@@ -698,6 +706,14 @@ def check_glu_bwd(device, gen):
                                f"a,b {tuple(a.shape)} g {tuple(g.shape)} bf16")
     timing = (graph_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
               graph_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
+    if splits is not None:
+        splits.append((f"glu_down_matmul_bwd a,b {tuple(a.shape)} g {tuple(g.shape)}",
+                       functools.partial(glu_down_matmul_bwd, a, b, wo, g)))
+    hidden = (torch.nn.functional.gelu(a.float()) * b.float()).to(bf)
+    ms = [log_product_alone("glu_down_matmul_bwd dh = g @ wo", g, wo, "a @ w"),
+          log_product_alone("glu_down_matmul_bwd dwo = g.T @ h", g, hidden, "a.T @ w")]
+    log(f"[product] glu_down_matmul_bwd its two products, the products alone: Hopper GEMM "
+        f"{sum(m[0] for m in ms):.4f} ms, cuBLAS {sum(m[1] for m in ms):.4f} ms")
     # dh = g wo and dwo = h^T g
     BOUNDS["glu_down_matmul_bwd"] = (nbytes(a, b, wo, g, *got), 4 * m * INTER * HIDDEN, "bf16")
     return ok, worst, timing
@@ -746,20 +762,20 @@ def check_sublayer_bwd(device, gen, splits=None):
             splits.append((f"{name} x {tuple(inp['x'].shape)}"
                            f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
                            functools.partial(kern, inp["res"])))
-        if "self" in name:  # the three products of the kernel, alone
-            rows = TRAIN_B * TRAIN_S
-            acts = rand(rows, d)
-            ms = [log_product_alone(f"{name} qkv recompute", acts, wqkv),
-                  log_product_alone(f"{name} dattn = g_out @ Wout", acts, inp["wout"], kn=True),
-                  log_product_alone(f"{name} da = dqkv @ Wqkv", rand(rows, 3 * d), wqkv, kn=True)]
-            log(f"[product] {name} its three products, the products alone: Hopper GEMM "
-                f"{sum(m[0] for m in ms):.4f} ms, cuBLAS {sum(m[1] for m in ms):.4f} ms")
+        # the three products of the kernel, alone
+        rows, acts = TRAIN_B * TRAIN_S, rand(TRAIN_B * TRAIN_S, d)
+        w_in, tag = (wqkv, "qkv") if "self" in name else (wq, "q")
+        ms = [log_product_alone(f"{name} {tag} recompute", acts, w_in),
+              log_product_alone(f"{name} dattn = g_out @ Wout", acts, inp["wout"], "a @ w"),
+              log_product_alone(f"{name} da = d{tag} @ W{tag}", rand(rows, w_in.shape[0]), w_in,
+                                "a @ w")]
+        log(f"[product] {name} its three products, the products alone: Hopper GEMM "
+            f"{sum(m[0] for m in ms):.4f} ms, cuBLAS {sum(m[1] for m in ms):.4f} ms")
         # the products of this backward, forward recompute included: self
         # recomputes qkv and takes dattn, dWout, dWqkv, da (11 d x d
         # products per row), cross recomputes q and takes dattn, dWout, dWq,
         # da (5); attention recomputes S and O and takes dP, dV, dQ, dK (6)
         keys, proj = (TRAIN_S, 11) if "self" in name else (KV_LEN, 5)
-        rows = TRAIN_B * TRAIN_S
         ops = 2 * rows * proj * d * d + 12 * TRAIN_B * HEADS * TRAIN_S * keys * (d // HEADS)
         moved = nbytes(inp["x"], inp["res"], *common, inp["wout"], g_out, g_res,
                        *((wqkv,) if "self" in name else (wq, kv)), *kern(inp["res"]))
@@ -768,12 +784,12 @@ def check_sublayer_bwd(device, gen, splits=None):
 
 
 def backward_kernel_phase(device, splits):
-    """Every backward kernel against its plain version; appends the
+    """Every backward kernel against its plain version; appends the GLU and
     sublayer backwards to ``splits``."""
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(1)
-    report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen)}
+    report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen, splits)}
     report.update(check_sublayer_bwd(device, gen, splits))
     for name, (ok, err, (ms, plain_ms)) in report.items():
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
@@ -1494,15 +1510,19 @@ def training_phase(device, smi):
 
 # -- the Hopper GEMM's variants ---------------------------------------------
 
-# (m, n, k, a @ w): the products of kernels 7, 9 and 10 (the GLU
+# (m, n, k, layout): the products of kernels 7, 9 and 10 (the GLU
 # down-projection, the qkv, q and out projections) at the serving and the
-# training rows, and ragged rows; kernel 11's dattn and da (the weight read
+# training rows, and ragged rows; kernels 11's and 12's dattn and da and
+# kernel 8's dh (the weight read MN-major); kernel 8's dwo (both operands
 # MN-major); last a trivial product, what a launch and a cluster cost by
 # themselves
-SWEEP_SHAPES = ((512, 1024, 2816, False), (512, 3072, 1024, False), (512, 1024, 1024, False),
-                (4096, 1024, 2816, False), (4096, 3072, 1024, False), (4096, 1024, 1024, False),
-                (4096, 1024, 1024, True), (4096, 1024, 3072, True), (300, 1024, 2816, False),
-                (200, 3072, 1024, False), (7, 24, 40, False))
+SWEEP_SHAPES = ((512, 1024, 2816, "a @ w.T"), (512, 3072, 1024, "a @ w.T"),
+                (512, 1024, 1024, "a @ w.T"), (4096, 1024, 2816, "a @ w.T"),
+                (4096, 3072, 1024, "a @ w.T"), (4096, 1024, 1024, "a @ w.T"),
+                (4096, 1024, 1024, "a @ w"), (4096, 1024, 3072, "a @ w"),
+                (4096, 2816, 1024, "a @ w"), (1024, 2816, 4096, "a.T @ w"),
+                (300, 1024, 2816, "a @ w.T"), (200, 3072, 1024, "a @ w.T"),
+                (7, 24, 40, "a @ w.T"))
 
 
 def gemm_sweep(device) -> bool:
@@ -1510,35 +1530,38 @@ def gemm_sweep(device) -> bool:
     beside cuBLAS and the variant the kernels' rule picks: device us a call
     (graph replay), each variant within 1e-2 rel of an fp32 product and two
     calls bit-equal.  The data behind the rule in csrc/gemm_sm90.cuh."""
-    from open_muse_tpu_torch.kernels.gemm import SPLITS, TILE_WIDTHS, linear_nn, linear_tn
+    from open_muse_tpu_torch.kernels.gemm import SPLITS, TILE_WIDTHS
 
     gen, ok = torch.Generator().manual_seed(2), True
-    for m, n, k, kn in SWEEP_SHAPES:
+    for m, n, k, layout in SWEEP_SHAPES:
         a = torch.randn(m, k, generator=gen).to(device, torch.bfloat16)
         w = (torch.randn(k, n, generator=gen) * k ** -0.5).to(device, torch.bfloat16)
-        if not kn:
+        if layout == "a @ w.T":
             w = w.t().contiguous()  # (n, k)
-        ours = linear_nn if kn else linear_tn
-        exact = a.float() @ (w.float() if kn else w.float().t())
-        cells = [f"cuBLAS {graph_ms(lambda: a @ (w if kn else w.t())) * 1e3:.2f}"]
+        elif layout == "a.T @ w":
+            a = a.t().contiguous()  # (k, m)
+        ours, cublas = _gemm_pair(layout, a, w)
+        af, wf = a.float(), w.float()
+        exact = (af @ wf.t() if layout == "a @ w.T" else af @ wf if layout == "a @ w"
+                 else af.t() @ wf)
+        cells = [f"cuBLAS {graph_ms(cublas) * 1e3:.2f}"]
         for tile in (*((t, s) for t in TILE_WIDTHS for s in SPLITS), (0, 0)):
-            out = ours(a, w, *tile)
-            good = errors(out, exact)[1] <= 1e-2 and torch.equal(out, ours(a, w, *tile))
+            out = ours(*tile)
+            good = errors(out, exact)[1] <= 1e-2 and torch.equal(out, ours(*tile))
             ok &= good
             label = "rule" if tile == (0, 0) else f"{tile[0]}/{tile[1]}"
-            cells.append(f"{label} {graph_ms(lambda: ours(a, w, *tile)) * 1e3:.2f}"
+            cells.append(f"{label} {graph_ms(lambda: ours(*tile)) * 1e3:.2f}"
                          f"{'' if good else ' FAIL'}")
-        log(f"[sweep] ({m}, {n}, {k}){' a @ w' if kn else ''} us, tile width / K split: "
-            + ", ".join(cells))
+        log(f"[sweep] ({m}, {n}, {k}) {layout} us, tile width / K split: " + ", ".join(cells))
     return ok
 
 
 # -- main -------------------------------------------------------------------
 
 # the kernels whose ptxas lines the run prints: the Hopper GEMM, the GLU
-# product, the register row kernels and the self backward's attention kernels
+# product, the register row kernels and the sublayers' backward attention
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
-                 "self_bwd_q_kernel", "self_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel")
+                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel")
 
 
 def ptxas_report(build_log: str, names):
@@ -1607,7 +1630,7 @@ def main() -> int:
         return 0
 
     phase_t0 = time.perf_counter()
-    splits = []  # kernels 7, 9 - 12 by launch, profiled after every graph timing
+    splits = []  # kernels 7 - 12 by launch, profiled after every graph timing
     report = kernel_phase(device, splits)
     report.update(backward_kernel_phase(device, splits))
     for label, fn in splits:

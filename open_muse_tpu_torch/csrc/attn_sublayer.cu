@@ -39,32 +39,25 @@
 //   keys -- the 77 text keys --, two to 288; two passes above) reading q /
 //   k / v as strided views of the (B, S, 3D) projection or of q and the
 //   (B, L, 2D) [k|v] projection, and the out projection on the Hopper GEMM.
-// - Self backward (kernel 11): the register row kernel again (recompute a,
-//   keeping 1/rms), the Hopper GEMM for the recomputed qkv and, with the
-//   weight read MN-major, for dattn = g_out @ Wout and da = dqkv @ Wqkv; two
-//   attention kernels on mma.sync fragments that keep S, P, dP and dS in
-//   registers (a block per 64 query rows: the row statistics, the output, D
-//   and dQ in three passes over streamed key tiles; a block per 64 keys: dK
-//   and dV in one pass over streamed query tiles); the register row kernel
-//   of dx and a two-stage column reduction of d(adaln) and d(ln).
-// - Cross backward (kernel 12), the first design's chain: the block-a-row
-//   kernel, the shared `wmma` GEMM of gemm_tile.cuh (64 x 64 tiles), an attention
-//   kernel with one block per (batch, head, 64-query tile) streaming keys in
-//   tiles of 64 in two passes (row max and sum, then bf16 probabilities and
-//   PV) as a pre-pass that also keeps each row's max and sum and D =
-//   rowsum(dattn * out), a dk/dv kernel with one block per (batch, head,
-//   64-key tile) looping over query tiles, a dq kernel with one block per
-//   (batch, head, 64-query tile) looping over key tiles, the GEMM for da =
-//   dq @ Wq, and three row/column kernels for the rmsnorm / AdaLN backward.
+// - Backward, self (kernel 11) and cross (kernel 12) alike, nine launches:
+//   the register row kernel again (recompute a, keeping 1/rms), the Hopper
+//   GEMM for the recomputed qkv or q and, with the weight read MN-major, for
+//   dattn = g_out @ Wout and da = dproj @ W_in; two attention kernels on
+//   mma.sync fragments that keep S, P, dP and dS in registers (a block per
+//   64 query rows: the row statistics, the output, D and dQ in three passes
+//   over streamed key tiles; a block per 64 keys: dK and dV in one pass over
+//   streamed query tiles), reading q / k / v and writing dq / dk / dv as
+//   strided views of the (B, S, 3D) projection or of q and the (B, L, 2D)
+//   [k|v] projection and their gradients; the register row kernel of dx and
+//   a two-stage column reduction of d(adaln) and d(ln).  The block-a-row
+//   kernels take the rows at widths other than 1024.
 // d(adaln) and d(ln) are reduced in two stages (per 32-row chunk, then over
 // chunks) without atomics; no kernel uses atomics, so two calls give
 // bit-equal results.
-#include <cfloat>
 #include <cmath>
 
 #include "bf16x2.cuh"
 #include "gemm_sm90.cuh"
-#include "gemm_tile.cuh"
 #include "mma_frag.cuh"
 
 // flash_attention.cu's launcher: the forwards' attention
@@ -75,7 +68,6 @@ extern "C" int muse_flash_attention(const void* q, const void* k, const void* v,
 namespace {
 
 constexpr int kRowThreads = 256;
-using kProjTile = muse::GemmTile<64, 64, 64>;  // BM 64, BN 64, BK 64
 
 // h = x + res; a = adaln(rmsnorm(h)), one block per row.  rstd_out, when
 // given, keeps the unrounded fp32 1/rms of each row for the backward.
@@ -208,420 +200,22 @@ rmsnorm_adaln_rows_kernel(const uint4* __restrict__ x, const uint4* __restrict__
 }
 
 constexpr int kHeadDim = 64;
-constexpr int kQTile = 64;   // query rows per block, 16 per warp
-constexpr int kKTile = 64;   // keys per streamed tile
-constexpr int kAttnThreads = 128;
-constexpr int kLdh = kHeadDim + 8;  // bf16 per shared row
-constexpr int kLdf = kKTile + 4;    // fp32 per shared logits row
-constexpr size_t kAttnSmem = sizeof(__nv_bfloat16) * (kQTile + 2 * kKTile) * kLdh +
-                             sizeof(float) * kQTile * kLdf +
-                             sizeof(__nv_bfloat16) * kQTile * kLdh;
+constexpr int kAttnThreads = 128;  // the attention backward's blocks: 4 warps of 16 rows
 
+// q / k / v of one sublayer as strided views of its projections: the first
+// kv_len of L keys are attended
 struct AttnArgs {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  __nv_bfloat16* out;
   int64_t q_bs, q_rs;    // batch / row strides of q (elements)
   int64_t kv_bs, kv_rs;  // batch / row strides of k and v
-  int64_t o_bs, o_rs;    // of out, and of dout
-  int S, L, kv_len;
-  float scale;
-  // backward pre-pass only (nullptr in the forward): each query row's max
-  // and sum of exp, (B, H, S) fp32, and D = rowsum(dout * out) from the fp32
-  // output before rounding, with dout laid out like out.
-  float* stat_m;
-  float* stat_s;
-  const __nv_bfloat16* dout;
-  float* delta;
-};
-
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int rows_valid) {
-  // 64 rows x 64 bf16 = 512 chunks of 16 B over 128 threads
-  for (int c = threadIdx.x; c < 64 * (kHeadDim / 8); c += kAttnThreads) {
-    const int r = c / (kHeadDim / 8);
-    const int col = (c % (kHeadDim / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + col) = val;
-  }
-}
-
-// One block per (query tile, head, batch); warp w owns query rows 16w..16w+15.
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kQTile * kLdh;
-  __nv_bfloat16* Vs = Ks + kKTile * kLdh;
-  float* Sf = reinterpret_cast<float*>(Vs + kKTile * kLdh);
-  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(Sf + kQTile * kLdf);
-
-  const int q0 = blockIdx.x * kQTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* qb = p.q + batch * p.q_bs + q0 * p.q_rs + head * kHeadDim;
-  const __nv_bfloat16* kb = p.k + batch * p.kv_bs + head * kHeadDim;
-  const __nv_bfloat16* vb = p.v + batch * p.kv_bs + head * kHeadDim;
-
-  load_tile(Qs, qb, p.q_rs, min(kQTile, p.S - q0));
-  __syncthreads();
-
-  float* Sw = Sf + warp * 16 * kLdf;            // this warp's 16 x 64 logits
-  __nv_bfloat16* Pw = Pb + warp * 16 * kLdh;    // and its bf16 probabilities
-  const int my_row = lane / 2;                  // two lanes per logits row
-  const int my_col0 = (lane % 2) * (kKTile / 2);
-
-  // logits of this warp's 16 rows against the current key tile -> Sw (unscaled)
-  auto tile_logits = [&]() {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[kHeadDim / 16];
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)
-      wmma::load_matrix_sync(fq[kk], Qs + warp * 16 * kLdh + kk * 16, kLdh);
-#pragma unroll
-    for (int j = 0; j < kKTile / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, Ks + j * 16 * kLdh + kk * 16, kLdh);
-        wmma::mma_sync(acc, fq[kk], fk, acc);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // pass 1: row max and sum of exp over all unmasked keys
-  float m = -INFINITY, s = 0.f;
-  for (int k0 = 0; k0 < p.L; k0 += kKTile) {
-    load_tile(Ks, kb + k0 * p.kv_rs, p.kv_rs, min(kKTile, p.L - k0));
-    __syncthreads();
-    tile_logits();
-    float tmax = -INFINITY;
-    for (int c = 0; c < kKTile / 2; ++c) {
-      const int key = k0 + my_col0 + c;
-      if (key < p.kv_len) tmax = fmaxf(tmax, Sw[my_row * kLdf + my_col0 + c] * p.scale);
-    }
-    if (tmax > -INFINITY) {
-      const float new_m = fmaxf(m, tmax);
-      float add = 0.f;
-      for (int c = 0; c < kKTile / 2; ++c) {
-        const int key = k0 + my_col0 + c;
-        if (key < p.kv_len) add += expf(Sw[my_row * kLdf + my_col0 + c] * p.scale - new_m);
-      }
-      s = (m > -INFINITY ? s * expf(m - new_m) : 0.f) + add;
-      m = new_m;
-    }
-    __syncthreads();
-  }
-  {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m, 1);
-    const float s_o = __shfl_xor_sync(0xffffffffu, s, 1);
-    const float mm = fmaxf(m, m_o);
-    s = (m > -INFINITY ? s * expf(m - mm) : 0.f) + (m_o > -INFINITY ? s_o * expf(m_o - mm) : 0.f);
-    m = mm;
-  }
-  const int64_t stat_row = (int64_t(batch) * gridDim.y + head) * p.S + q0 + warp * 16 + my_row;
-  if (p.stat_m && lane % 2 == 0 && q0 + warp * 16 + my_row < p.S) {
-    p.stat_m[stat_row] = m;
-    p.stat_s[stat_row] = s;
-  }
-
-  // pass 2: probabilities in bf16, PV accumulated in fp32
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_o[kHeadDim / 16];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j) wmma::fill_fragment(acc_o[j], 0.f);
-  for (int k0 = 0; k0 < p.L; k0 += kKTile) {
-    const int valid = min(kKTile, p.L - k0);
-    load_tile(Ks, kb + k0 * p.kv_rs, p.kv_rs, valid);
-    load_tile(Vs, vb + k0 * p.kv_rs, p.kv_rs, valid);
-    __syncthreads();
-    tile_logits();
-    for (int c = 0; c < kKTile / 2; ++c) {
-      const int col = my_col0 + c;
-      const int key = k0 + col;
-      float prob = 0.f;
-      if (key < p.kv_len) prob = expf(Sw[my_row * kLdf + col] * p.scale - m) / s;
-      Pw[my_row * kLdh + col] = __float2bfloat16_rn(prob);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kKTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, Pw + kk * 16, kLdh);
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, Vs + kk * 16 * kLdh + j * 16, kLdh);
-        wmma::mma_sync(acc_o[j], fp, fv, acc_o[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // fp32 -> bf16 through this warp's logits buffer
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, acc_o[j], kLdf, wmma::mem_row_major);
-  __syncwarp();
-  if (p.delta) {  // D = rowsum(dout * out), two lanes per row
-    const int q = q0 + warp * 16 + my_row;
-    float d = 0.f;
-    if (q < p.S) {
-      const __nv_bfloat16* dr = p.dout + batch * p.o_bs + q * p.o_rs + head * kHeadDim + my_col0;
-      for (int c = 0; c < kHeadDim / 2; ++c)
-        d += Sw[my_row * kLdf + my_col0 + c] * __bfloat162float(dr[c]);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (lane % 2 == 0 && q < p.S) p.delta[stat_row] = d;
-  }
-  __nv_bfloat16* ob = p.out + batch * p.o_bs + head * kHeadDim;
-  for (int idx = lane; idx < 16 * kHeadDim / 2; idx += 32) {
-    const int r = idx / (kHeadDim / 2);
-    const int col = (idx % (kHeadDim / 2)) * 2;
-    const int q = q0 + warp * 16 + r;
-    if (q < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + q * p.o_rs + col) =
-          __floats2bfloat162_rn(Sw[r * kLdf + col], Sw[r * kLdf + col + 1]);
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Backward: attention (FlashAttention-2 split at 64-wide tiles)
-// ---------------------------------------------------------------------------
-
-struct AttnBwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* stat_m;  // (B, H, S) row max of the scaled logits
-  const float* stat_s;  // (B, H, S) row sum of exp
-  const float* delta;   // (B, H, S) rowsum(dout * out)
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  int64_t q_bs, q_rs, kv_bs, kv_rs, do_bs, do_rs, dq_bs, dq_rs, dkv_bs, dkv_rs;
-  int S, L, kv_len;
+  int L, kv_len;
   float scale;
 };
 
-constexpr size_t kBwdSmem = sizeof(__nv_bfloat16) * 5 * 64 * kLdh +
-                            sizeof(float) * 2 * 64 * kLdf + sizeof(float) * 3 * 64;
-
-using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                     nvcuda::wmma::row_major>;
-using FragBRow = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                        nvcuda::wmma::row_major>;
-using FragBCol = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                        nvcuda::wmma::col_major>;
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-// out (16 x 64 fp32, ld kLdf) = A (16 x 64 rows, ld kLdh) x B^T, with B
-// given as 64 rows of 64 (ld kLdh): the product of two row sets.
-__device__ __forceinline__ void rows_by_rows_t(float* out, const __nv_bfloat16* a,
-                                               const __nv_bfloat16* b) {
-  using namespace nvcuda;
-  FragA fa[kHeadDim / 16];
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) wmma::load_matrix_sync(fa[kk], a + kk * 16, kLdh);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * kLdh + kk * 16, kLdh);
-      wmma::mma_sync(acc, fa[kk], fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, kLdf, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x 64) += A (16 x 64, ld kLdh) x B (64 x 64 rows, ld kLdh)
-__device__ __forceinline__ void accumulate_rows(FragC* acc, const __nv_bfloat16* a,
-                                                const __nv_bfloat16* b) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, kLdh);
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 16; ++j) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * kLdh + j * 16, kLdh);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Write a warp's 16 x 64 fp32 accumulator as bf16 rows row0.. (< rows) of dst.
-__device__ __forceinline__ void store_rows(float* scratch, const FragC* acc, __nv_bfloat16* dst,
-                                           int64_t row_stride, int row0, int rows) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j)
-    wmma::store_matrix_sync(scratch + j * 16, acc[j], kLdf, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x % 32;
-  for (int idx = lane; idx < 16 * kHeadDim / 2; idx += 32) {
-    const int r = idx / (kHeadDim / 2);
-    const int col = (idx % (kHeadDim / 2)) * 2;
-    if (row0 + r < rows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + r) * row_stride + col) =
-          __floats2bfloat162_rn(scratch[r * kLdf + col], scratch[r * kLdf + col + 1]);
-  }
-  __syncwarp();
-}
-
-// dK, dV for one (key tile, head, batch); warp w owns keys 16w..16w+15 and
-// loops over all query tiles.  Keys >= kv_len get zero rows.
-__global__ void __launch_bounds__(kAttnThreads) attention_dkdv_kernel(AttnBwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + 64 * kLdh;
-  __nv_bfloat16* Qs = Vs + 64 * kLdh;
-  __nv_bfloat16* dOs = Qs + 64 * kLdh;
-  __nv_bfloat16* Pb = dOs + 64 * kLdh;
-  float* Sf = reinterpret_cast<float*>(Pb + 64 * kLdh);
-  float* dPf = Sf + 64 * kLdf;
-  float* st = dPf + 64 * kLdf;  // m | s | D of the current query tile
-
-  const int k0 = blockIdx.x * kKTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int64_t stat_base = (int64_t(batch) * gridDim.y + head) * p.S;
-  load_tile(Ks, p.k + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, min(kKTile, p.L - k0));
-  load_tile(Vs, p.v + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, min(kKTile, p.L - k0));
-
-  float* Sw = Sf + warp * 16 * kLdf;
-  float* dPw = dPf + warp * 16 * kLdf;
-  __nv_bfloat16* Pw = Pb + warp * 16 * kLdh;
-  const int my_row = lane / 2;
-  const int my_col0 = (lane % 2) * (kQTile / 2);
-  const bool key_ok = k0 + warp * 16 + my_row < p.kv_len;
-
-  FragC acc_dk[kHeadDim / 16], acc_dv[kHeadDim / 16];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j) {
-    nvcuda::wmma::fill_fragment(acc_dk[j], 0.f);
-    nvcuda::wmma::fill_fragment(acc_dv[j], 0.f);
-  }
-
-  for (int q0 = 0; q0 < p.S; q0 += kQTile) {
-    const int q_valid = min(kQTile, p.S - q0);
-    load_tile(Qs, p.q + batch * p.q_bs + q0 * p.q_rs + head * kHeadDim, p.q_rs, q_valid);
-    load_tile(dOs, p.dout + batch * p.do_bs + q0 * p.do_rs + head * kHeadDim, p.do_rs, q_valid);
-    if (threadIdx.x < kQTile) {
-      const int i = threadIdx.x;
-      const bool ok = i < q_valid;
-      st[i] = ok ? p.stat_m[stat_base + q0 + i] : 0.f;
-      st[64 + i] = ok ? p.stat_s[stat_base + q0 + i] : 1.f;
-      st[128 + i] = ok ? p.delta[stat_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    rows_by_rows_t(Sw, Ks + warp * 16 * kLdh, Qs);  // S^T: this warp's keys x 64 queries
-    __syncwarp();
-    for (int c = 0; c < kQTile / 2; ++c) {  // P^T, fp32 in Sw and bf16 in Pw
-      const int col = my_col0 + c;
-      float prob = 0.f;
-      if (key_ok && col < q_valid)
-        prob = expf(Sw[my_row * kLdf + col] * p.scale - st[col]) / st[64 + col];
-      Sw[my_row * kLdf + col] = prob;
-      Pw[my_row * kLdh + col] = __float2bfloat16_rn(prob);
-    }
-    __syncwarp();
-    accumulate_rows(acc_dv, Pw, dOs);                // dV += P^T dO
-    rows_by_rows_t(dPw, Vs + warp * 16 * kLdh, dOs);  // dP^T = V dO^T
-    __syncwarp();
-    for (int c = 0; c < kQTile / 2; ++c) {  // dS^T = P^T (dP^T - D) * scale, bf16
-      const int col = my_col0 + c;
-      const float ds = (Sw[my_row * kLdf + col] * (dPw[my_row * kLdf + col] - st[128 + col])) * p.scale;
-      Pw[my_row * kLdh + col] = __float2bfloat16_rn(ds);
-    }
-    __syncwarp();
-    accumulate_rows(acc_dk, Pw, Qs);  // dK += dS^T Q
-    __syncthreads();
-  }
-
-  const int key0 = k0 + warp * 16;
-  store_rows(Sw, acc_dk, p.dk + batch * p.dkv_bs + head * kHeadDim, p.dkv_rs, key0, p.L);
-  store_rows(Sw, acc_dv, p.dv + batch * p.dkv_bs + head * kHeadDim, p.dkv_rs, key0, p.L);
-}
-
-// dQ for one (query tile, head, batch); warp w owns queries 16w..16w+15 and
-// loops over all key tiles.
-__global__ void __launch_bounds__(kAttnThreads) attention_dq_kernel(AttnBwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + 64 * kLdh;
-  __nv_bfloat16* Ks = dOs + 64 * kLdh;
-  __nv_bfloat16* Vs = Ks + 64 * kLdh;
-  __nv_bfloat16* Pb = Vs + 64 * kLdh;
-  float* Sf = reinterpret_cast<float*>(Pb + 64 * kLdh);
-  float* dPf = Sf + 64 * kLdf;
-
-  const int q0 = blockIdx.x * kQTile;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q_valid = min(kQTile, p.S - q0);
-  load_tile(Qs, p.q + batch * p.q_bs + q0 * p.q_rs + head * kHeadDim, p.q_rs, q_valid);
-  load_tile(dOs, p.dout + batch * p.do_bs + q0 * p.do_rs + head * kHeadDim, p.do_rs, q_valid);
-
-  float* Sw = Sf + warp * 16 * kLdf;
-  float* dPw = dPf + warp * 16 * kLdf;
-  __nv_bfloat16* Pw = Pb + warp * 16 * kLdh;
-  const int my_row = lane / 2;
-  const int my_col0 = (lane % 2) * (kKTile / 2);
-  const int q = q0 + warp * 16 + my_row;
-  const bool q_ok = q < p.S;
-  const int64_t stat = (int64_t(batch) * gridDim.y + head) * p.S + q;
-  const float m = q_ok ? p.stat_m[stat] : 0.f;
-  const float s = q_ok ? p.stat_s[stat] : 1.f;
-  const float dlt = q_ok ? p.delta[stat] : 0.f;
-
-  FragC acc_dq[kHeadDim / 16];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j) nvcuda::wmma::fill_fragment(acc_dq[j], 0.f);
-
-  for (int k0 = 0; k0 < p.L; k0 += kKTile) {
-    const int k_valid = min(kKTile, p.L - k0);
-    load_tile(Ks, p.k + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, k_valid);
-    load_tile(Vs, p.v + batch * p.kv_bs + k0 * p.kv_rs + head * kHeadDim, p.kv_rs, k_valid);
-    __syncthreads();
-    rows_by_rows_t(Sw, Qs + warp * 16 * kLdh, Ks);    // S = Q K^T
-    rows_by_rows_t(dPw, dOs + warp * 16 * kLdh, Vs);  // dP = dO V^T
-    __syncwarp();
-    for (int c = 0; c < kKTile / 2; ++c) {  // dS = P (dP - D) * scale, bf16
-      const int col = my_col0 + c;
-      float ds = 0.f;
-      if (q_ok && k0 + col < p.kv_len) {
-        const float prob = expf(Sw[my_row * kLdf + col] * p.scale - m) / s;
-        ds = (prob * (dPw[my_row * kLdf + col] - dlt)) * p.scale;
-      }
-      Pw[my_row * kLdh + col] = __float2bfloat16_rn(ds);
-    }
-    __syncwarp();
-    accumulate_rows(acc_dq, Pw, Ks);  // dQ += dS K
-    __syncthreads();
-  }
-  store_rows(Sw, acc_dq, p.dq + batch * p.dq_bs + head * kHeadDim, p.dq_rs, q0 + warp * 16, p.S);
-}
-
 // ---------------------------------------------------------------------------
-// Backward of the self sublayer's attention: S, P, dP and dS in registers
+// Backward of the sublayers' attention: S, P, dP and dS in registers
 // ---------------------------------------------------------------------------
 //
 // Two launches over grids of (64-row tile, batch x head), 4 warps of 16 rows
@@ -629,36 +223,41 @@ __global__ void __launch_bounds__(kAttnThreads) attention_dq_kernel(AttnBwdArgs 
 // tile lives in a warp's accumulators and feeds the next product as an A
 // fragment, with no shared-memory staging; the streamed operand's 64-row
 // tiles come in by cp.async into two buffers, the next tile's copies in
-// flight while the current one is used.
-// - self_bwd_q_kernel, a block per 64 query rows: three passes over the key
-//   tiles.  1: the rows' max and sum of exp (online, in the log2 domain).  2:
-//   P = exp(S - max) / sum rounded to bf16, O = P V summed in fp32, stored as
-//   the attention output; D = rowsum(dO * O) from the fp32 O; the rows'
-//   statistics (max, 1 / sum, D) stored for the second kernel.  3: dP = dO
-//   V^T, dS = bf16(P (dP - D) / 8), dQ = dS K.
-// - self_bwd_kv_kernel, a block per 64 keys: one pass over the query tiles
-//   with their statistics: S^T = K Q^T, P^T from the first kernel's
-//   statistics, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T, dK += dS^T Q.
-// Both sum in a fixed order: two calls are bit-equal.  Any S: the key and
-// query tiles are streamed, not held.
+// flight while the current one is used.  Self attention (kernel 11) and
+// cross attention (kernel 12) alike: S queries against the first kv_len of
+// L keys, q / dq and k, v / dk, dv strided views of their projections.
+// - attn_bwd_q_kernel, a block per 64 query rows: three passes over the
+//   ceil(kv_len / 64) key tiles, keys past kv_len at a logit of -inf (P
+//   exactly 0).  1: the rows' max and sum of exp (online, in the log2
+//   domain).  2: P = exp(S - max) / sum rounded to bf16, O = P V summed in
+//   fp32, stored as the attention output; D = rowsum(dO * O) from the fp32
+//   O; the rows' statistics (max, 1 / sum, D) stored for the second kernel.
+//   3: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ = dS K.
+// - attn_bwd_kv_kernel, a block per 64 keys of the L: one pass over the
+//   query tiles with their statistics: S^T = K Q^T, P^T from the first
+//   kernel's statistics, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T, dK += dS^T
+//   Q; the rows of keys past kv_len are stored as zeros.
+// Both sum in a fixed order: two calls are bit-equal.  Any S and L: the key
+// and query tiles are streamed, not held.
 constexpr int kTile = 64;               // rows of a block, and of a streamed tile
 constexpr int kTileRow = kHeadDim + 8;  // bf16 a staged row: ldmatrix rows on distinct banks
 
-struct SelfBwdArgs {
-  const __nv_bfloat16* q;  // q, k, v: views of the (B, S, 3D) projection
-  const __nv_bfloat16* k;
+struct AttnBwdArgs {
+  const __nv_bfloat16* q;  // (B, S) rows of q, strides q_sb, q_st; dq alike
+  const __nv_bfloat16* k;  // (B, L) rows of k and v, strides kv_sb, kv_st; dk, dv alike
   const __nv_bfloat16* v;
   const __nv_bfloat16* dout;  // (B, S, D)
   __nv_bfloat16* out;         // (B, S, D)
-  __nv_bfloat16* dq;          // dq, dk, dv: views of the (B, S, 3D) gradient
+  __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   float* stat_m;   // (B, H, Sp): each row's max of the scaled logits, log2 domain,
   float* stat_il;  // 1 / its sum of exp, and D = rowsum(dO * O); Sp = S rounded
   float* delta;    // up to kTile, rows past S (0, 0, 0)
-  int64_t sb, st;    // batch / token strides of q, k, v, dq, dk, dv (elements)
-  int64_t o_sb, o_st;  // of out and dout
-  int H, S, Sp;
+  int64_t q_sb, q_st;    // batch / token strides of q and dq (elements)
+  int64_t kv_sb, kv_st;  // of k, v, dk and dv
+  int64_t o_sb, o_st;    // of out and dout
+  int H, S, Sp, L, kv_len;
   float scale_log2;  // 1 / sqrt(64) * log2(e)
   float scale;       // 1 / sqrt(64)
 };
@@ -723,20 +322,24 @@ __device__ __forceinline__ void a_fragment(uint32_t pa[4], const float s[8][4], 
   }
 }
 
-// rows r0 and r0 + 8 (< rows) of a 16 x 64 fp32 accumulator as bf16
+// rows r0 and r0 + 8 (< rows) of a 16 x 64 fp32 accumulator as bf16, rows
+// from `valid` on as zeros
 __device__ __forceinline__ void store_rows16(__nv_bfloat16* base, int64_t st, const float acc[8][4],
-                                             int r0, int rows, int t4) {
+                                             int r0, int rows, int valid, int t4) {
   using namespace muse::frag;
+  const bool ok0 = r0 < valid, ok1 = r0 + 8 < valid;
 #pragma unroll
   for (int n = 0; n < kHeadDim / 8; ++n) {
     const int c = n * 8 + t4 * 2;
-    if (r0 < rows) *reinterpret_cast<uint32_t*>(base + r0 * st + c) = pack2(acc[n][0], acc[n][1]);
+    if (r0 < rows)
+      *reinterpret_cast<uint32_t*>(base + r0 * st + c) = ok0 ? pack2(acc[n][0], acc[n][1]) : 0u;
     if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + c) = pack2(acc[n][2], acc[n][3]);
+      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + c) =
+          ok1 ? pack2(acc[n][2], acc[n][3]) : 0u;
   }
 }
 
-__global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p) {
+__global__ void __launch_bounds__(kAttnThreads) attn_bwd_q_kernel(AttnBwdArgs p) {
   using namespace muse::frag;
   __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kTileRow];
   __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kTileRow];
@@ -744,13 +347,13 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int64_t head = int64_t(h) * kHeadDim;
-  const __nv_bfloat16* kb = p.k + b * p.sb + head;
-  const __nv_bfloat16* vb = p.v + b * p.sb + head;
+  const __nv_bfloat16* kb = p.k + b * p.kv_sb + head;
+  const __nv_bfloat16* vb = p.v + b * p.kv_sb + head;
   const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's rows r0, r0 + 8
-  const int tiles = (p.S + kTile - 1) / kTile;
+  const int tiles = (p.kv_len + kTile - 1) / kTile;   // the key tiles with an attended key
 
   uint32_t qf[kHeadDim / 16][4], dof[kHeadDim / 16][4];
-  load_a<kHeadDim>(qf, p.q + b * p.sb + head, p.st, r0, p.S, t4);
+  load_a<kHeadDim>(qf, p.q + b * p.q_sb + head, p.q_st, r0, p.S, t4);
   load_a<kHeadDim>(dof, p.dout + b * p.o_sb + head, p.o_st, r0, p.S, t4);
   // this lane's ldmatrix row (lk) and ldmatrix.trans row (lt) in a staged tile
   const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
@@ -759,14 +362,14 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
   // one pass over the key tiles, K (and V) of tile t + 1 in flight while
   // tile t is used
   auto stream = [&](bool with_v, auto&& body) {
-    stage_tile(Ks[0], kb, p.st, 0, p.S);
-    if (with_v) stage_tile(Vs[0], vb, p.st, 0, p.S);
+    stage_tile(Ks[0], kb, p.kv_st, 0, p.kv_len);
+    if (with_v) stage_tile(Vs[0], vb, p.kv_st, 0, p.kv_len);
     cp_async_commit();
     for (int t = 0; t < tiles; ++t) {
       const int buf = t & 1;
       if (t + 1 < tiles) {
-        stage_tile(Ks[buf ^ 1], kb, p.st, (t + 1) * kTile, p.S);
-        if (with_v) stage_tile(Vs[buf ^ 1], vb, p.st, (t + 1) * kTile, p.S);
+        stage_tile(Ks[buf ^ 1], kb, p.kv_st, (t + 1) * kTile, p.kv_len);
+        if (with_v) stage_tile(Vs[buf ^ 1], vb, p.kv_st, (t + 1) * kTile, p.kv_len);
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -775,7 +378,7 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
       __syncthreads();  // every warp is done with buf before tile t + 2 overwrites it
     }
   };
-  // S of tile t in the log2 domain, keys past S at -inf
+  // S of tile t in the log2 domain, keys past kv_len at -inf
   auto logits = [&](float s[8][4], int t, const __nv_bfloat16* K) {
     rows_by_tile_t(s, qf, K + lk);
 #pragma unroll
@@ -783,7 +386,7 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = t * kTile + n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = key < p.S ? s[n][e] * p.scale_log2 : -INFINITY;
+        s[n][e] = key < p.kv_len ? s[n][e] * p.scale_log2 : -INFINITY;
       }
     }
   };
@@ -799,7 +402,7 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
       x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
       x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
     }
-    // finite: key t * 64 < S
+    // finite from the first tile on: key 0 < kv_len
     const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
     float a0 = 0.f, a1 = 0.f;
 #pragma unroll
@@ -850,7 +453,7 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
   }
   d0 = quad_sum(d0);
   d1 = quad_sum(d1);
-  store_rows16(p.out + b * p.o_sb + head, p.o_st, acc, r0, p.S, t4);
+  store_rows16(p.out + b * p.o_sb + head, p.o_st, acc, r0, p.S, p.S, t4);
   if (t4 == 0) {  // every row of the tile, past S too (0, 0, 0: P = 0 in the second kernel)
     const int64_t row = int64_t(blockIdx.y) * p.Sp + r0;
     const bool ok0 = r0 < p.S, ok1 = r0 + 8 < p.S;
@@ -883,10 +486,10 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_q_kernel(SelfBwdArgs p)
       accumulate_tile(acc, pa, K + lt, j);
     }
   });
-  store_rows16(p.dq + b * p.sb + head, p.st, acc, r0, p.S, t4);
+  store_rows16(p.dq + b * p.q_sb + head, p.q_st, acc, r0, p.S, p.S, t4);
 }
 
-__global__ void __launch_bounds__(kAttnThreads) self_bwd_kv_kernel(SelfBwdArgs p) {
+__global__ void __launch_bounds__(kAttnThreads) attn_bwd_kv_kernel(AttnBwdArgs p) {
   using namespace muse::frag;
   __shared__ __align__(16) __nv_bfloat16 Qs[2][kTile * kTileRow];
   __shared__ __align__(16) __nv_bfloat16 dOs[2][kTile * kTileRow];
@@ -895,20 +498,20 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_kv_kernel(SelfBwdArgs p
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int64_t head = int64_t(h) * kHeadDim;
-  const __nv_bfloat16* qb = p.q + b * p.sb + head;
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + head;
   const __nv_bfloat16* dob = p.dout + b * p.o_sb + head;
   const int64_t stat0 = int64_t(blockIdx.y) * p.Sp;
   const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's keys r0, r0 + 8
-  const int tiles = (p.S + kTile - 1) / kTile;
+  const int tiles = p.Sp / kTile;
 
   uint32_t kf[kHeadDim / 16][4], vf[kHeadDim / 16][4];
-  load_a<kHeadDim>(kf, p.k + b * p.sb + head, p.st, r0, p.S, t4);
-  load_a<kHeadDim>(vf, p.v + b * p.sb + head, p.st, r0, p.S, t4);
+  load_a<kHeadDim>(kf, p.k + b * p.kv_sb + head, p.kv_st, r0, p.kv_len, t4);
+  load_a<kHeadDim>(vf, p.v + b * p.kv_sb + head, p.kv_st, r0, p.kv_len, t4);
   const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
   const int lt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kTileRow + ((lane >> 4) << 3);
 
   auto issue = [&](int t, int buf) {
-    stage_tile(Qs[buf], qb, p.st, t * kTile, p.S);
+    stage_tile(Qs[buf], qb, p.q_st, t * kTile, p.S);
     stage_tile(dOs[buf], dob, p.o_st, t * kTile, p.S);
     if (threadIdx.x < 3 * kTile / 4) {  // the statistics: whole 64-row tiles of Sp
       const int a = threadIdx.x / (kTile / 4), c = (threadIdx.x % (kTile / 4)) * 4;
@@ -971,8 +574,9 @@ __global__ void __launch_bounds__(kAttnThreads) self_bwd_kv_kernel(SelfBwdArgs p
     }
     __syncthreads();
   }
-  store_rows16(p.dk + b * p.sb + head, p.st, dk, r0, p.S, t4);
-  store_rows16(p.dv + b * p.sb + head, p.st, dv, r0, p.S, t4);
+  // keys past kv_len: zero rows (their P^T, from zero K rows, is not 0)
+  store_rows16(p.dk + b * p.kv_sb + head, p.kv_st, dk, r0, p.L, p.kv_len, t4);
+  store_rows16(p.dv + b * p.kv_sb + head, p.kv_st, dv, r0, p.L, p.kv_len, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -1144,24 +748,6 @@ rms_adaln_bwd_reduce_kernel(const float* __restrict__ partial, __nv_bfloat16* __
 // Launch helpers
 // ---------------------------------------------------------------------------
 
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  configured = err == cudaSuccess;
-  return err;
-}
-
-cudaError_t launch_attention(const AttnArgs& args, int B, int H, cudaStream_t stream) {
-  static bool configured = false;
-  const cudaError_t err = set_smem(attention_kernel, kAttnSmem, configured);
-  if (err != cudaSuccess) return err;
-  dim3 grid((args.S + kQTile - 1) / kQTile, H, B);
-  attention_kernel<<<grid, kAttnThreads, kAttnSmem, stream>>>(args);
-  return cudaGetLastError();
-}
-
 // q/k/v pointers and strides of one sublayer: `kv` == nullptr selects self
 // attention over proj = qkv (B, S, 3D); otherwise proj = q (B, S, D) and kv
 // the (B, L, 2D) [k|v] projection of the text context.
@@ -1188,9 +774,6 @@ AttnArgs attn_args(const __nv_bfloat16* proj, const __nv_bfloat16* kv, int S, in
     args.L = L;
     args.kv_len = kv_len;
   }
-  args.o_bs = int64_t(S) * D;
-  args.o_rs = D;
-  args.S = S;
   args.scale = 1.0f / sqrtf(float(kHeadDim));
   return args;
 }
@@ -1251,18 +834,16 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
 // One sublayer backward on `stream`, inputs as the forward's plus g_out and
 // g_res (B, S, D).  Outputs: dx (B, S, D) -- also the gradient of res --,
 // dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv (B, S, 3D) or dq (B,
-// S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D).  Scratch: h (B, S,
-// D), proj like dproj, dattn (B, S, D), stats (3, B, H, S rounded up to 64)
-// fp32, rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 * D) fp32.
-// - self (kernel 11), nine launches: the row kernel (keeping 1/rms), the
-//   qkv projection and dattn = g_out @ Wout on the Hopper GEMM (Wout read
-//   MN-major), the two register-fragment attention kernels, da = dqkv @ Wqkv
-//   on the Hopper GEMM, the register row kernel of dx, and the two-stage
-//   d(adaln) / d(ln) reduction;
-// - cross (kernel 12), ten launches: the block-a-row kernel, the `wmma`
-//   GEMM for q, dattn and da, the two-pass attention as a pre-pass keeping
-//   the row statistics and D, the FlashAttention-2-split dk/dv and dq
-//   kernels, the block-a-row dx kernel and the same reduction.
+// S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D), zero past kv_len.
+// Scratch: h (B, S, D), proj like dproj, dattn (B, S, D), stats (3, B, H, S
+// rounded up to 64) fp32, rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 *
+// D) fp32.  Self (kernel 11) and cross (kernel 12) run one chain of nine
+// launches: the row kernel (keeping 1/rms; the register one at width 1024),
+// the in-projection (qkv or q) and dattn = g_out @ Wout on the Hopper GEMM
+// (Wout read MN-major), the two register-fragment attention kernels, da =
+// dproj @ W_in on the Hopper GEMM (W_in read MN-major), the row kernel of dx
+// (the register one at width 1024), and the two-stage d(adaln) / d(ln)
+// reduction.
 extern "C" int muse_attn_sublayer_bwd(
     const void* x, const void* res, const void* ln, const void* adaln, const void* w_in,
     const void* w_out, const void* kv, const void* g_out, const void* g_res, void* dx,
@@ -1273,140 +854,71 @@ extern "C" int muse_attn_sublayer_bwd(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
   const bool self_attn = kv == nullptr;
-  const bool reg_rows = self_attn && D == 1024;  // the register row kernels
   const int n_in = self_attn ? 3 * D : D;
   const bf* ln_ = static_cast<const bf*>(ln);
   const bf* adaln_ = static_cast<const bf*>(adaln);
+  const bf* w_in_ = static_cast<const bf*>(w_in);
   bf* h = static_cast<bf*>(h_buf);
   bf* a = static_cast<bf*>(a_buf);
+  bf* proj = static_cast<bf*>(proj_buf);
   bf* dattn = static_cast<bf*>(dattn_buf);
   bf* dproj_ = static_cast<bf*>(dproj);
   float* rstd_ = static_cast<float*>(rstd);
   float* stats_ = static_cast<float*>(stats);
-  cudaError_t err;
 
   // recompute a (and keep 1/rms), the projection, and dattn = g_out @ Wout
-  if (self_attn) {
-    err = launch_norm_rows(x, res, ln, adaln, h, a, rstd_, rows, S, D, eps, stream);
-    if (err != cudaSuccess) return int(err);
-    err = muse::sm90::gemm_tn(a, static_cast<const bf*>(w_in),
-                              muse::StoreBf16{static_cast<bf*>(proj_buf), n_in}, rows, n_in, D,
-                              stream);
-    if (err != cudaSuccess) return int(err);
-    err = muse::sm90::gemm_nn(static_cast<const bf*>(g_out), static_cast<const bf*>(w_out),
-                              muse::StoreBf16{dattn, D}, rows, D, D, stream);
-    if (err != cudaSuccess) return int(err);
-  } else {
-    rmsnorm_adaln_kernel<<<rows, kRowThreads, 0, stream>>>(static_cast<const bf*>(x),
-                                                          static_cast<const bf*>(res), ln_, adaln_,
-                                                          h, a, rstd_, S, D, eps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    err = muse::launch_gemm_tn<kProjTile>(muse::RowLoader{a, D}, static_cast<const bf*>(w_in),
-                                          static_cast<bf*>(proj_buf), rows, n_in, D, stream);
-    if (err != cudaSuccess) return int(err);
-    err = muse::launch_gemm_nn<kProjTile>(static_cast<const bf*>(g_out),
-                                          static_cast<const bf*>(w_out), dattn, rows, D, D, stream);
-    if (err != cudaSuccess) return int(err);
-  }
+  cudaError_t err = launch_norm_rows(x, res, ln, adaln, h, a, rstd_, rows, S, D, eps, stream);
+  if (err != cudaSuccess) return int(err);
+  err = muse::sm90::gemm_tn(a, w_in_, muse::StoreBf16{proj, n_in}, rows, n_in, D, stream);
+  if (err != cudaSuccess) return int(err);
+  err = muse::sm90::gemm_nn(static_cast<const bf*>(g_out), static_cast<const bf*>(w_out),
+                            muse::StoreBf16{dattn, D}, rows, D, D, stream);
+  if (err != cudaSuccess) return int(err);
 
-  AttnArgs args = attn_args(static_cast<const bf*>(proj_buf), static_cast<const bf*>(kv), S, D, L,
-                            kv_len);
-  args.out = static_cast<bf*>(attn_buf);
-  if (self_attn) {
-    // the attention backward with S / P / dP / dS in registers
-    const int Sp = (S + kTile - 1) / kTile * kTile;
-    const int64_t n_stats = int64_t(B) * H * Sp;
-    SelfBwdArgs sargs{};
-    sargs.q = args.q;
-    sargs.k = args.k;
-    sargs.v = args.v;
-    sargs.dout = dattn;
-    sargs.out = args.out;
-    sargs.dq = dproj_;
-    sargs.dk = dproj_ + D;
-    sargs.dv = dproj_ + 2 * D;
-    sargs.stat_m = stats_;
-    sargs.stat_il = stats_ + n_stats;
-    sargs.delta = stats_ + 2 * n_stats;
-    sargs.sb = args.q_bs;
-    sargs.st = args.q_rs;
-    sargs.o_sb = args.o_bs;
-    sargs.o_st = args.o_rs;
-    sargs.H = H;
-    sargs.S = S;
-    sargs.Sp = Sp;
-    sargs.scale = args.scale;
-    sargs.scale_log2 = args.scale * muse::frag::kLog2e;
-    const dim3 grid(Sp / kTile, B * H);
-    self_bwd_q_kernel<<<grid, kAttnThreads, 0, stream>>>(sargs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    self_bwd_kv_kernel<<<grid, kAttnThreads, 0, stream>>>(sargs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-  } else {
-    // attention: pre-pass (out, row stats, D), then dk/dv and dq
-    const int64_t n_stats = int64_t(B) * H * S;
-    args.stat_m = stats_;
-    args.stat_s = stats_ + n_stats;
-    args.dout = dattn;
-    args.delta = stats_ + 2 * n_stats;
-    err = launch_attention(args, B, H, stream);
-    if (err != cudaSuccess) return int(err);
-
-    AttnBwdArgs bargs{};
-    bargs.q = args.q;
-    bargs.k = args.k;
-    bargs.v = args.v;
-    bargs.dout = dattn;
-    bargs.stat_m = args.stat_m;
-    bargs.stat_s = args.stat_s;
-    bargs.delta = args.delta;
-    bargs.q_bs = args.q_bs;
-    bargs.q_rs = args.q_rs;
-    bargs.kv_bs = args.kv_bs;
-    bargs.kv_rs = args.kv_rs;
-    bargs.do_bs = int64_t(S) * D;
-    bargs.do_rs = D;
-    bargs.S = S;
-    bargs.L = args.L;
-    bargs.kv_len = args.kv_len;
-    bargs.scale = args.scale;
-    bargs.dq = dproj_;
-    bargs.dq_bs = int64_t(S) * n_in;
-    bargs.dq_rs = n_in;
-    bargs.dk = static_cast<bf*>(dkv);
-    bargs.dv = bargs.dk + D;
-    bargs.dkv_bs = int64_t(L) * 2 * D;
-    bargs.dkv_rs = 2 * D;
-    static bool dkdv_configured = false, dq_configured = false;
-    err = set_smem(attention_dkdv_kernel, kBwdSmem, dkdv_configured);
-    if (err != cudaSuccess) return int(err);
-    err = set_smem(attention_dq_kernel, kBwdSmem, dq_configured);
-    if (err != cudaSuccess) return int(err);
-    attention_dkdv_kernel<<<dim3((bargs.L + kKTile - 1) / kKTile, H, B), kAttnThreads, kBwdSmem,
-                            stream>>>(bargs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    attention_dq_kernel<<<dim3((S + kQTile - 1) / kQTile, H, B), kAttnThreads, kBwdSmem,
-                          stream>>>(bargs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-  }
+  // the attention backward with S / P / dP / dS in registers
+  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, D, L, kv_len);
+  const int Sp = (S + kTile - 1) / kTile * kTile;
+  const int64_t n_stats = int64_t(B) * H * Sp;
+  AttnBwdArgs bargs{};
+  bargs.q = args.q;
+  bargs.k = args.k;
+  bargs.v = args.v;
+  bargs.dout = dattn;
+  bargs.out = static_cast<bf*>(attn_buf);
+  bargs.dq = dproj_;
+  bargs.dk = self_attn ? dproj_ + D : static_cast<bf*>(dkv);
+  bargs.dv = bargs.dk + D;
+  bargs.stat_m = stats_;
+  bargs.stat_il = stats_ + n_stats;
+  bargs.delta = stats_ + 2 * n_stats;
+  bargs.q_sb = args.q_bs;
+  bargs.q_st = args.q_rs;
+  bargs.kv_sb = args.kv_bs;  // dq / dk / dv lie as q / k / v do
+  bargs.kv_st = args.kv_rs;
+  bargs.o_sb = int64_t(S) * D;
+  bargs.o_st = D;
+  bargs.H = H;
+  bargs.S = S;
+  bargs.Sp = Sp;
+  bargs.L = args.L;
+  bargs.kv_len = args.kv_len;
+  bargs.scale = args.scale;
+  bargs.scale_log2 = args.scale * muse::frag::kLog2e;
+  attn_bwd_q_kernel<<<dim3(Sp / kTile, B * H), kAttnThreads, 0, stream>>>(bargs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  attn_bwd_kv_kernel<<<dim3((args.L + kTile - 1) / kTile, B * H), kAttnThreads, 0, stream>>>(
+      bargs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
 
   // da = dproj @ W_in (into the dattn buffer, consumed above), then the
   // rmsnorm / AdaLN backward
   bf* da = dattn;
-  if (self_attn) {
-    err = muse::sm90::gemm_nn(static_cast<const bf*>(dproj_), static_cast<const bf*>(w_in),
-                              muse::StoreBf16{da, D}, rows, D, n_in, stream);
-  } else {
-    err = muse::launch_gemm_nn<kProjTile>(dproj_, static_cast<const bf*>(w_in), da, rows, D, n_in,
-                                          stream);
-  }
+  err = muse::sm90::gemm_nn(static_cast<const bf*>(dproj_), w_in_, muse::StoreBf16{da, D}, rows, D,
+                            n_in, stream);
   if (err != cudaSuccess) return int(err);
-  if (reg_rows) {
+  if (D == 1024) {
     rms_adaln_bwd_rows_kernel<4><<<(rows + kRegRows - 1) / kRegRows, 32 * kRegRows, 0, stream>>>(
         reinterpret_cast<const uint4*>(h), reinterpret_cast<const uint4*>(da),
         static_cast<const uint4*>(ln), adaln_, static_cast<const uint4*>(g_res), rstd_,

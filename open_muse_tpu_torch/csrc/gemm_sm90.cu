@@ -1,21 +1,26 @@
 // The Hopper GEMM of gemm_sm90.cuh alone, C (M, N) bf16 = A (M, K) W^T with W
-// an nn.Linear weight (N, K), or A W with W read as (K, N) rows (the
-// MN-major stage): the mainloop that kernels 7, 9, 10 and 11 run, exposed to
-// the tests and to chip_smoke.py's measurements.  No path calls it.
+// an nn.Linear weight (N, K), A W with W read as (K, N) rows (the MN-major
+// stage for W), or A^T W with A given as (K, M) rows (the MN-major stage for
+// A too): the mainloop that kernels 7 - 12 run, exposed to the tests and to
+// chip_smoke.py's measurements.  No path calls it.
 #include "gemm_sm90.cuh"
 
 // bn: the tile width (64, 128, 256), split: the K split over a cluster (1,
-// 2, 4); both 0 take the kernels' rule (variant_for).  kn != 0: w is (K, N)
-// and C = A W.
+// 2, 4); both 0 take the kernels' rule (variant_for).  layout 0: C = A W^T;
+// 1: w is (K, N) and C = A W; 2: a is (K, M), w (K, N) and C = A^T W.
 extern "C" int muse_gemm(const void* a, const void* w, void* c, int M, int N, int K, int bn,
-                         int split, int kn, void* stream) {
+                         int split, int layout, void* stream) {
   using bf = __nv_bfloat16;
   const bf* a_ = static_cast<const bf*>(a);
   const bf* w_ = static_cast<const bf*>(w);
   const muse::StoreBf16 epi{static_cast<bf*>(c), N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(kn ? muse::sm90::gemm_nn(a_, w_, epi, M, N, K, s, bn, split)
-                : muse::sm90::gemm_tn(a_, w_, epi, M, N, K, s, bn, split));
+  switch (layout) {
+    case 0: return int(muse::sm90::gemm_tn(a_, w_, epi, M, N, K, s, bn, split));
+    case 1: return int(muse::sm90::gemm_nn(a_, w_, epi, M, N, K, s, bn, split));
+    case 2: return int(muse::sm90::gemm_tnn(a_, w_, epi, M, N, K, s, bn, split));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // An empty kernel: what one launch costs by itself (chip_smoke.py's floor

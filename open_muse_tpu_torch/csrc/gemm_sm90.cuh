@@ -1,40 +1,41 @@
 // Hopper GEMM mainloop for the port's kernels: TMA, wgmma, mbarriers and
 // warp specialisation, for sm_90a.
 //
-//   C[m, n] = epilogue(sum_k A[m, k] * W[n, k])     (gemm_tn, W laid out kNK)
-//   C[m, n] = epilogue(sum_k A[m, k] * W[k, n])     (gemm_nn, W laid out kKN)
+//   C[m, n] = epilogue(sum_k A[m, k] * W[n, k])     (gemm_tn:  A kMK, W kNK)
+//   C[m, n] = epilogue(sum_k A[m, k] * W[k, n])     (gemm_nn:  A kMK, W kKN)
+//   C[m, n] = epilogue(sum_k A[k, m] * W[k, n])     (gemm_tnn: A kKM, W kKN)
 //                                                   bf16 x bf16 -> fp32
 //
-// A is (M, K) rows, K-major.  W is a torch nn.Linear weight (N, K) read as
-// it lies: K-major for a @ W^T (the forward projections), MN-major for
-// g @ W (the backward's data gradients, where K runs along the weight's
-// rows).  The MN-major operand is no copy: its TMA boxes are taken along N
-// (64 columns, one 128-byte swizzle row, by 64 k rows; kBN / 64 boxes a
-// stage, 8 KB apart), and wgmma reads them with its transpose flag for B,
-// the descriptor's leading byte offset the 8 KB between boxes along N and
-// its stride byte offset the 1024 between 8-row groups along K.  One
-// design, fixed at compile time per layout; kernels 8 and 12 (the GLU and
-// cross backwards) can take the same stage for g^T-free data gradients.
-// gemm_tile.cuh (the `wmma` GEMM) stays beside this header for kernels 8
-// and 12.
+// A is (M, K) rows, K-major, or (K, M) rows, MN-major (the g of a weight
+// gradient g^T h, summed over its rows).  W is a torch nn.Linear weight (N,
+// K) read as it lies: K-major for a @ W^T (the forward projections),
+// MN-major for g @ W (the backward's data gradients, where K runs along the
+// weight's rows) and for the h of g^T h.  An MN-major operand is no copy:
+// its TMA boxes are taken along M or N (64 columns, one 128-byte swizzle
+// row, by 64 k rows; 8 KB a box), and wgmma reads them with its transpose
+// flag for that operand, the descriptor's leading byte offset the 8 KB
+// between boxes along M or N and its stride byte offset the 1024 between
+// 8-row groups along K.  One design, fixed at compile time per layout pair.
 //
 // Design, for the port's products (512 - 4096 rows, N 1024 - 3072, K 1024 -
-// 3072; 0.5 - 26 GFLOP):
+// 4096; 0.5 - 26 GFLOP):
 // - A block owns a 128 x kBN output tile (kBN 64, 128 or 256) and walks K in
 //   steps of 64 (128 bytes of bf16, one 128-byte swizzle row).  Three
 //   warpgroups: the last is the producer, whose first thread keeps a ring of
-//   kStages shared-memory stages filled by TMA (one 64 x 128 box of A and
-//   one 64 x kBN box of W a stage, the hardware's 128-byte swizzle,
-//   completion counted in bytes on the stage's `full` mbarrier); the first
-//   two are consumers, each issuing wgmma.mma_async m64nNk16 (N = kBN) for
-//   its 64 rows of the tile with kBN / 2 fp32 accumulators a thread in
-//   registers, one k step's group kept in flight while the next is issued,
-//   and releasing a stage on its `empty` mbarrier once the products that
-//   read it are done.  No setmaxnreg: at most 128 accumulators a thread fit
-//   the register file at one block an SM.
+//   kStages shared-memory stages filled by TMA (A's 128 x 64 tile as one box
+//   of 64 k x 128 rows, K-major, or two boxes of 64 m x 64 k rows, one a
+//   consumer, MN-major; W's kBN x 64 tile as one box or kBN / 64 boxes; the
+//   hardware's 128-byte swizzle, completion counted in bytes on the stage's
+//   `full` mbarrier); the first two are consumers, each issuing
+//   wgmma.mma_async m64nNk16 (N = kBN) for its 64 rows of the tile with kBN /
+//   2 fp32 accumulators a thread in registers, one k step's group kept in
+//   flight while the next is issued, and releasing a stage on its `empty`
+//   mbarrier once the products that read it are done.  No setmaxnreg: at
+//   most 128 accumulators a thread fit the register file at one block an SM.
 // - Ragged shapes: TMA fills the boxes past M, N and K with zeros, and the
-//   epilogue masks the rows past M and the columns past N.  K a multiple of 8
-//   (16-byte rows), N even, 16-byte aligned pointers.
+//   epilogue masks the rows past M and the columns past N.  Each operand's
+//   row pitch a multiple of 16 bytes (K a multiple of 8 for a K-major
+//   operand, M or N for an MN-major one), N even, 16-byte aligned pointers.
 // - Filling the card (variant_for): wide tiles when there are rows enough
 //   (the training shapes: 256, fewer L2 re-reads of A), narrow ones at 512
 //   rows, where a 1024-wide product is 32 tiles of 128 x 128 for 132 SMs;
@@ -44,10 +45,15 @@
 //   split) of the tile over the blocks' partials, read through distributed
 //   shared memory in rank order, and stores them.  No atomics: two calls are
 //   bit-equal.
-// - The epilogue is a functor with the interface of gemm_tile.cuh's
-//   (`store2(row, col, v0, v1)` for two neighbouring fp32 outputs of a row,
-//   `store1` for a last odd one), so kernels that now use that header can
-//   move onto this mainloop.
+// - The epilogue is a functor: `store2(row, col, v0, v1)` for two
+//   neighbouring fp32 outputs of a row (col even), `store1` for a last odd
+//   one (StoreBf16 below rounds to bf16).  One that declares kStaged true
+//   gets instead the whole fp32 tile in shared memory, over the drained
+//   stages, and every thread of the block: `tile<BM, kBN, ld,
+//   threads>(tile, m0, n0, M, N)`, for an epilogue that reads operands of
+//   its own (glu_matmul.cu's, which turns dh into da, db and h with 16-byte
+//   row loads, several in flight a thread).  Such an epilogue takes no K
+//   split.
 // - The host builds both tensor maps (cuTensorMapEncodeTiled, reached
 //   through cudaGetDriverEntryPoint, so nothing links against libcuda) on
 //   every call from the pointers it is given, and passes them by value as
@@ -67,9 +73,21 @@
 
 #include <cstdint>
 
-#include "gemm_tile.cuh"  // StoreBf16, the epilogue interface
-
 namespace muse {
+
+// Epilogue: C rounded to bf16, row-major with leading dimension `ldc`.
+struct StoreBf16 {
+  static constexpr bool kStaged = false;
+  __nv_bfloat16* c;
+  int64_t ldc;
+  __device__ __forceinline__ void store2(int r, int col, float v0, float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(c + r * ldc + col) = __floats2bfloat162_rn(v0, v1);
+  }
+  __device__ __forceinline__ void store1(int r, int col, float v) const {
+    c[r * ldc + col] = __float2bfloat16_rn(v);
+  }
+};
+
 namespace sm90 {
 
 constexpr int BM = 128, BK = 64;  // tile rows, k step (128 bytes of bf16)
@@ -78,6 +96,8 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 4;
 constexpr int kMaxSplit = 4;
 
+// the layout of A: (M, K), read K-major, or (K, M), read MN-major (C = A^T W)
+enum ALayout { kMK = 0, kKM = 1 };
 // the layout of W: nn.Linear's (N, K), read K-major (C = A W^T), or (K, N),
 // read MN-major (C = A W)
 enum WLayout { kNK = 0, kKN = 1 };
@@ -153,10 +173,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 }
 
 // the same for an MN-major operand staged as boxes of 64 k rows x 128 bytes
-// (64 n) in the 128-byte swizzle: 64-column groups along N kBoxBytes apart
-// (the leading byte offset), 8-row groups along K 1024 bytes apart (the
-// stride byte offset).  A k step of 16 rows is a start address 2048 bytes
-// further on.
+// (64 m or n) in the 128-byte swizzle: 64-column groups along M or N
+// kBoxBytes apart (the leading byte offset), 8-row groups along K 1024 bytes
+// apart (the stride byte offset).  A k step of 16 rows is a start address
+// 2048 bytes further on.
 constexpr int kBoxBytes = BK * 128;  // one 64 x 64 bf16 box
 
 __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr) {
@@ -186,11 +206,11 @@ __device__ __forceinline__ void fence_accumulators(float* d) {
 }
 
 // D (64 x kN, fp32, accumulated) += A (64 x 16) B (kN x 16)^T, both bf16 in
-// 128-byte-swizzled shared memory, A K-major, B K-major (kTransB 0) or
-// MN-major (1); d is this thread's kN / 2 accumulators (see the epilogue for
-// their rows and columns)
+// 128-byte-swizzled shared memory, each K-major (kTrans 0) or MN-major (1);
+// d is this thread's kN / 2 accumulators (see the epilogue for their rows
+// and columns)
 
-template <int kTransB>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -198,16 +218,16 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint6
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-template <int kTransB>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -215,7 +235,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -225,10 +245,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-template <int kTransB>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -236,7 +256,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
       "setp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -254,22 +274,23 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-template <int kN, int kTransB>
+template <int kN, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
-  if constexpr (kN == 64) wgmma_m64n64k16<kTransB>(d, desc_a, desc_b);
-  else if constexpr (kN == 128) wgmma_m64n128k16<kTransB>(d, desc_a, desc_b);
-  else wgmma_m64n256k16<kTransB>(d, desc_a, desc_b);
+  if constexpr (kN == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b);
+  else if constexpr (kN == 128) wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b);
+  else wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b);
 }
 
 // -- the kernel ---------------------------------------------------------------
 
 // Grid (ceil(N / kBN), ceil(M / BM), split), launched as clusters of (1, 1,
-// split).  map_a: A (M, K) in 64 x BM boxes; map_w: W (N, K) in 64 x kBN
-// boxes (kNK) or W (K, N) in 64 x 64 boxes, kBN / 64 of them a stage (kKN).
-template <int kBN, WLayout kW, class Epilogue>
+// split).  map_a: A (M, K) in 64 x BM boxes (kMK) or A (K, M) in 64 x 64
+// boxes, two a stage (kKM); map_w: W (N, K) in 64 x kBN boxes (kNK) or W (K,
+// N) in 64 x 64 boxes, kBN / 64 of them a stage (kKN).
+template <int kBN, ALayout kA, WLayout kW, class Epilogue>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_w, Epilogue epi, int M, int N, int K) {
@@ -312,7 +333,13 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
         mbar_expect_tx(&full[s], L::kStageBytes);
         const int k = (kb0 + i) * BK;
-        tma_load_2d(stage_a + s * L::kTileA, &map_a, &full[s], k, m0);
+        if constexpr (kA == kMK) {
+          tma_load_2d(stage_a + s * L::kTileA, &map_a, &full[s], k, m0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BM / 64; ++j)
+            tma_load_2d(stage_a + s * L::kTileA + j * kBoxBytes, &map_a, &full[s], m0 + 64 * j, k);
+        }
         if constexpr (kW == kNK) {
           tma_load_2d(stage_w + s * L::kTileW, &map_w, &full[s], k, n0);
         } else {
@@ -323,7 +350,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {
-    // consumers: warpgroup wg owns rows wg * 64 .. + 63 of the tile
+    // consumers: warpgroup wg owns rows wg * 64 .. + 63 of the tile (the
+    // same 8 KB into the stage in either layout of A)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
     for (int i = 0; i < steps; ++i) {
@@ -333,9 +361,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint32_t w = smem_u32(stage_w + s * L::kTileW);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)  // 16 elements along K: 32 bytes further on
-        wgmma_m64k16<kBN, kW>(acc, smem_desc(a + kk * 32),
-                              kW == kNK ? smem_desc(w + kk * 32) : smem_desc_mn(w + kk * 2048));
+      for (int kk = 0; kk < BK / 16; ++kk)  // 16 along K: 32 bytes on K-major, 2048 MN-major
+        wgmma_m64k16<kBN, kA, kW>(acc,
+                                  kA == kMK ? smem_desc(a + kk * 32) : smem_desc_mn(a + kk * 2048),
+                                  kW == kNK ? smem_desc(w + kk * 32) : smem_desc_mn(w + kk * 2048));
       wgmma_commit();
       wgmma_wait<1>();  // the previous step's products are done: release its stage
       if (i > 0) mbar_arrive(&empty[(i - 1) % kStages]);
@@ -348,24 +377,25 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   // (+ 8 for i % 4 >= 2), column 8 (i / 4) + 2 (t % 4) + i % 2
   const int row0 = wg * 64 + (t / 32) * 16 + (t % 32) / 4;
   const int col0 = 2 * (t % 4);
-  if (split == 1) {
-    if (wg == kConsumers) return;
+  if constexpr (!Epilogue::kStaged) {
+    if (split == 1) {
+      if (wg == kConsumers) return;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + row0 + 8 * h, c = n0 + 8 * j + col0;
-        if (r >= M) continue;
-        if (c + 1 < N) epi.store2(r, c, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-        else if (c < N) epi.store1(r, c, acc[4 * j + 2 * h]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + row0 + 8 * h, c = n0 + 8 * j + col0;
+          if (r >= M) continue;
+          if (c + 1 < N) epi.store2(r, c, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          else if (c < N) epi.store1(r, c, acc[4 * j + 2 * h]);
+        }
       }
+      return;
     }
-    return;
   }
 
-  // split K: partial tiles through distributed shared memory, summed in
-  // rank order.  Every stage has been read by now: the partial tile takes
-  // their place.
+  // the fp32 tile through shared memory: every stage has been read by now,
+  // and the tile takes their place
   __syncthreads();
   if (wg < kConsumers) {
 #pragma unroll
@@ -376,24 +406,31 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int rows = BM / split;
-  for (int idx = threadIdx.x; idx < rows * (kBN / 2); idx += kThreads) {
-    const int r = rank * rows + idx / (kBN / 2), c = 2 * (idx % (kBN / 2));
-    float2 sum = make_float2(0.f, 0.f);
-    for (int q = 0; q < split; ++q) {
-      const float* part = cluster.map_shared_rank(red, q);
-      const float2 v = *reinterpret_cast<const float2*>(part + r * L::kRedLd + c);
-      sum.x += v.x;
-      sum.y += v.y;
+  if constexpr (Epilogue::kStaged) {  // the whole tile to the epilogue (split 1)
+    __syncthreads();
+    epi.template tile<BM, kBN, L::kRedLd, kThreads>(red, m0, n0, M, N);
+  } else {
+    // split K: partial tiles through distributed shared memory, summed in
+    // rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rows = BM / split;
+    for (int idx = threadIdx.x; idx < rows * (kBN / 2); idx += kThreads) {
+      const int r = rank * rows + idx / (kBN / 2), c = 2 * (idx % (kBN / 2));
+      float2 sum = make_float2(0.f, 0.f);
+      for (int q = 0; q < split; ++q) {
+        const float* part = cluster.map_shared_rank(red, q);
+        const float2 v = *reinterpret_cast<const float2*>(part + r * L::kRedLd + c);
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      const int gr = m0 + r, gc = n0 + c;
+      if (gr >= M) continue;
+      if (gc + 1 < N) epi.store2(gr, gc, sum.x, sum.y);
+      else if (gc < N) epi.store1(gr, gc, sum.x);
     }
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr >= M) continue;
-    if (gc + 1 < N) epi.store2(gr, gc, sum.x, sum.y);
-    else if (gc < N) epi.store1(gr, gc, sum.x);
+    cluster.sync();  // no block leaves while another still reads its partial tile
   }
-  cluster.sync();  // no block leaves while another still reads its partial tile
 }
 
 // -- host ----------------------------------------------------------------------
@@ -457,7 +494,9 @@ inline int tiles(int M, int N, int bn) { return ((M + BM - 1) / BM) * ((N + bn -
 // that still gives the card enough blocks, and a K split of 2 only for the
 // narrow tile when that still fits one wave with four k steps a block or
 // more (a cluster's split costs a few microseconds of its own, so 4 never
-// paid).  Writes (bn, split).
+// paid).  One rule for every layout: at the GLU's dwo (1024, 2816, 4096),
+// A and W MN-major, its 88 blocks of 128 x 256 beat both 128-wide tiles and
+// a K split of 2 (PERF.md).  Writes (bn, split).
 inline void variant_for(int M, int N, int K, int* bn, int* split) {
   const int sms = sm_count(), k_steps = (K + BK - 1) / BK;
   *split = 1;
@@ -471,15 +510,15 @@ inline void variant_for(int M, int N, int K, int* bn, int* split) {
   }
 }
 
-template <int kBN, WLayout kW, class Epilogue>
+template <int kBN, ALayout kA, WLayout kW, class Epilogue>
 cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                    int N, int K, int split, cudaStream_t stream) {
   CUtensorMap map_a, map_w;
-  cudaError_t err = tensor_map(&map_a, a, M, K, BM);
+  cudaError_t err = kA == kMK ? tensor_map(&map_a, a, M, K, BM) : tensor_map(&map_a, a, K, M, BK);
   if (err != cudaSuccess) return err;
   err = kW == kNK ? tensor_map(&map_w, w, N, K, kBN) : tensor_map(&map_w, w, K, N, BK);
   if (err != cudaSuccess) return err;
-  auto kernel = wgmma_gemm_kernel<kBN, kW, Epilogue>;
+  auto kernel = wgmma_gemm_kernel<kBN, kA, kW, Epilogue>;
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<kBN>::kBytes);
   if (configured != cudaSuccess) return configured;
@@ -499,17 +538,25 @@ cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogu
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <WLayout kW, class Epilogue>
+template <ALayout kA, WLayout kW, class Epilogue>
 cudaError_t dispatch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                      int N, int K, cudaStream_t stream, int bn, int split) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % (kW == kNK ? 2 : 8) || split < 0 ||
-      split > kMaxSplit || (bn == 0) != (split == 0))
+  // each operand's row pitch a multiple of 16 bytes (the tensor maps), N even
+  const bool pitch_a = kA == kMK ? K % 8 == 0 : M % 8 == 0;
+  const bool pitch_w = kW == kNK ? K % 8 == 0 && N % 2 == 0 : N % 8 == 0;
+  if (M <= 0 || N <= 0 || K <= 0 || !pitch_a || !pitch_w || split < 0 || split > kMaxSplit ||
+      (bn == 0) != (split == 0))
     return cudaErrorInvalidValue;
-  if (bn == 0) variant_for(M, N, K, &bn, &split);
+  const bool by_rule = bn == 0;
+  if (by_rule) variant_for(M, N, K, &bn, &split);
+  if (Epilogue::kStaged && split > 1) {  // the tile goes to the epilogue whole: no K split
+    if (!by_rule) return cudaErrorInvalidValue;
+    split = 1;
+  }
   switch (bn) {
-    case 64: return launch<64, kW>(a, w, epi, M, N, K, split, stream);
-    case 128: return launch<128, kW>(a, w, epi, M, N, K, split, stream);
-    case 256: return launch<256, kW>(a, w, epi, M, N, K, split, stream);
+    case 64: return launch<64, kA, kW>(a, w, epi, M, N, K, split, stream);
+    case 128: return launch<128, kA, kW>(a, w, epi, M, N, K, split, stream);
+    case 256: return launch<256, kA, kW>(a, w, epi, M, N, K, split, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -521,7 +568,7 @@ cudaError_t dispatch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilo
 template <class Epilogue>
 cudaError_t gemm_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                     int N, int K, cudaStream_t stream, int bn = 0, int split = 0) {
-  return dispatch<kNK>(a, w, epi, M, N, K, stream, bn, split);
+  return dispatch<kMK, kNK>(a, w, epi, M, N, K, stream, bn, split);
 }
 
 // C = epilogue(A (M, K) x W) with W (K, N) rows, N contiguous (an nn.Linear
@@ -530,7 +577,17 @@ cudaError_t gemm_tn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilog
 template <class Epilogue>
 cudaError_t gemm_nn(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                     int N, int K, cudaStream_t stream, int bn = 0, int split = 0) {
-  return dispatch<kKN>(a, w, epi, M, N, K, stream, bn, split);
+  return dispatch<kMK, kKN>(a, w, epi, M, N, K, stream, bn, split);
+}
+
+// C = epilogue(A^T W) with A given as a_t (K, M) rows and W (K, N) rows,
+// both MN-major: a weight gradient g^T h summed over the K rows of g (K, M)
+// and h (K, N); M and N multiples of 8, K any, pointers 16-byte aligned; bn
+// and split as gemm_tn's.
+template <class Epilogue>
+cudaError_t gemm_tnn(const __nv_bfloat16* a_t, const __nv_bfloat16* w, const Epilogue& epi, int M,
+                     int N, int K, cudaStream_t stream, int bn = 0, int split = 0) {
+  return dispatch<kKM, kKN>(a_t, w, epi, M, N, K, stream, bn, split);
 }
 
 }  // namespace sm90

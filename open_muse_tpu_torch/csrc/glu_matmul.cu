@@ -14,35 +14,34 @@
 // wo: 1024 x 2816 bf16) the forward reads 5.8 MB of activations and 5.8 MB
 // of weight for 3 GFLOP, about 260 FLOP per byte, near the card's bf16 ridge.
 // At the training shape (4096 rows) the backward is two 23.6 GFLOP products
-// plus an erf per element of a (M, K) panel in each: compute-bound, with the
-// GELU work on the CUDA cores competing with the tensor cores.
+// plus an erf per element of a (M, K) panel: compute-bound, with the GELU
+// work on the CUDA cores and 5 x 23 MB of a, b, da, db and h beside them.
 //
-// What the design does about it:
+// What the design does about it, all on the Hopper GEMM of gemm_sm90.cuh
+// (TMA, wgmma):
 // - Forward, two launches: an elementwise kernel computes h = bf16(gelu(a)
 //   * b) once per element, with 16-byte loads and stores, into a (M, K) bf16
 //   scratch the wrapper allocates (2.9 MB at the serving shape, which stays
-//   in L2); then the Hopper GEMM of gemm_sm90.cuh (TMA, wgmma; at 512 rows
-//   64-wide tiles with K split over clusters of two) reads h and wo.  The PR 1 design computed the
-//   product in the `wmma` GEMM's A-tile prologue, once for each of the 8
-//   column tiles: 11.5 M erff for 1.44 M elements.
-// - Backward, dh: one GEMM g (M, N) x wo (N, K) whose epilogue reads a and b,
-//   evaluates gelu and gelu' with erff in fp32 and writes da and db, so the
-//   fp32 dh never reaches device memory (the TPU kernel keeps it in VMEM).
-// - Backward, dwo: one GEMM g^T (N, M) x h (M, K) whose B-operand prologue
-//   recomputes h = bf16(gelu(a) * b).  Every block with the same K columns
-//   recomputes its slice of h, so the tile is tall along N: 128 rows of the
-//   1024 give each h element 1024 / 128 = 8 evaluations, the same ratio as the
-//   forward (1024 / 128 column tiles).  A 256-row tile (4 evaluations) was
-//   slower (0.392 vs 0.329 ms on an H100 at M 4096), as were 64-row tiles
-//   (16 evaluations, 0.44 - 0.63 ms): the K step of 32 keeps the prefetch
-//   registers low enough for two blocks per SM.  The sum over the M rows runs
-//   inside one block in fp32: no atomics, so two calls give bit-equal results.
+//   in L2); then the GEMM (at 512 rows 64-wide tiles with K split over
+//   clusters of two) reads h and wo.
+// - Backward, two launches.  dh = g (M, N) @ wo (N, K), wo read MN-major
+//   (gemm_nn), with an epilogue that reads a and b once, evaluates gelu and
+//   gelu' with erff in fp32 and writes da, db and h = bf16(gelu(a) * b): the
+//   fp32 dh never reaches device memory (the TPU kernel keeps it in VMEM),
+//   and h is computed once an element.  The epilogue takes the dh tile
+//   staged in shared memory and works on 16-byte row chunks, several loads
+//   in flight a thread: the epilogue moves 5 x 23 MB at 4096 rows, and from
+//   the accumulators, two columns at a time, each thread waited on its loads
+//   pair by pair (321 against 75 us a launch on an H100).  Then dwo = g^T (N,
+//   M) @ h (M, K) with both read MN-major (gemm_tnn): the sum over the M
+//   rows runs in fp32 inside a block, no atomics, so two calls give
+//   bit-equal results.
 // erf is CUDA's `erff`, not the Abramowitz-Stegun polynomial the TPU kernel
 // needs because Mosaic has no erf.
 #include <algorithm>
 
+#include "bf16x2.cuh"
 #include "gemm_sm90.cuh"
-#include "gemm_tile.cuh"
 
 namespace {
 
@@ -53,67 +52,100 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * kSqrtHalf));
 }
 
-// Eight consecutive gelu(a) * b values of one row, computed on the way to
-// shared memory.
-struct GluLoader {
-  const __nv_bfloat16* a;
-  const __nv_bfloat16* b;
-  int64_t ld;
-  struct Frag {
-    uint4 va, vb;
-  };
-  __device__ __forceinline__ Frag fetch(int outer, int inner) const {
-    const int64_t off = outer * ld + inner;
-    return Frag{*reinterpret_cast<const uint4*>(a + off), *reinterpret_cast<const uint4*>(b + off)};
-  }
-  __device__ __forceinline__ Frag zero() const {
-    return Frag{make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-  }
-  __device__ __forceinline__ uint4 transform(const Frag& f) const {
-    muse::Pack8 pa, pb, out;
-    pa.u = f.va;
-    pb.u = f.vb;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      out.h[i] = __float2bfloat16_rn(gelu_erf(__bfloat162float(pa.h[i])) * __bfloat162float(pb.h[i]));
-    return out.u;
-  }
-};
-
-// dh epilogue: da = dh * b * gelu'(a), db = dh * gelu(a), both bf16.
+// dh epilogue: da = dh * b * gelu'(a), db = dh * gelu(a), h = gelu(a) * b,
+// all bf16, (M, K) with leading dimension ld, K a multiple of 8.  Staged:
+// the block's fp32 dh tile comes in shared memory, and every thread of the
+// block takes 8-column chunks of it, its 16-byte loads of a and b issued
+// kBatch chunks at a time before any arithmetic (one memory round trip for
+// kBatch chunks, where a chunk at a time would wait on every load).
 struct GluGradEpilogue {
+  static constexpr bool kStaged = true;
+  static constexpr int kBatch = 4;
   const __nv_bfloat16* a;
   const __nv_bfloat16* b;
   __nv_bfloat16* da;
   __nv_bfloat16* db;
+  __nv_bfloat16* h;
   int64_t ld;
-  __device__ __forceinline__ void one(int64_t off, float dh) const {
-    const float x = __bfloat162float(a[off]);
-    const float y = __bfloat162float(b[off]);
+
+  // dh (kBM x kBN fp32, rows kLd floats apart) at (m0, n0) of the output
+  template <int kBM, int kBN, int kLd, int kThreads>
+  __device__ __forceinline__ void tile(const float* dh, int m0, int n0, int M, int N) const {
+    constexpr int kRowChunks = kBN / 8, kPer = (kBM * kRowChunks + kThreads - 1) / kThreads;
+    for (int i0 = 0; i0 < kPer; i0 += kBatch) {
+      uint4 va[kBatch], vb[kBatch];
+      int64_t off[kBatch];
+      int at[kBatch];  // the chunk's first float in the tile, -1 past M or N
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int r = c / kRowChunks, col = (c % kRowChunks) * 8;
+        const bool ok = i0 + i < kPer && r < kBM && m0 + r < M && n0 + col < N;
+        at[i] = ok ? r * kLd + col : -1;
+        off[i] = (m0 + r) * ld + n0 + col;
+        if (ok) {
+          va[i] = *reinterpret_cast<const uint4*>(a + off[i]);
+          vb[i] = *reinterpret_cast<const uint4*>(b + off[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (at[i] < 0) continue;
+        const float4 d0 = *reinterpret_cast<const float4*>(dh + at[i]);
+        const float4 d1 = *reinterpret_cast<const float4*>(dh + at[i] + 4);
+        const float g[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+        uint4 o_da, o_db, o_h;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float2 x = muse::pair(va[i], p), y = muse::pair(vb[i], p);
+          float2 r_da, r_db, r_h;
+          grads(x.x, y.x, g[2 * p], r_da.x, r_db.x, r_h.x);
+          grads(x.y, y.y, g[2 * p + 1], r_da.y, r_db.y, r_h.y);
+          reinterpret_cast<__nv_bfloat162*>(&o_da)[p] = __float22bfloat162_rn(r_da);
+          reinterpret_cast<__nv_bfloat162*>(&o_db)[p] = __float22bfloat162_rn(r_db);
+          reinterpret_cast<__nv_bfloat162*>(&o_h)[p] = __float22bfloat162_rn(r_h);
+        }
+        *reinterpret_cast<uint4*>(da + off[i]) = o_da;
+        *reinterpret_cast<uint4*>(db + off[i]) = o_db;
+        *reinterpret_cast<uint4*>(h + off[i]) = o_h;
+      }
+    }
+  }
+
+  // gelu(x) = x cdf(x), gelu'(x) = cdf(x) + x pdf(x)
+  __device__ __forceinline__ static void grads(float x, float y, float dh, float& da_,
+                                               float& db_, float& h_) {
     const float cdf = 0.5f * (1.0f + erff(x * kSqrtHalf));
     const float pdf = expf(-0.5f * x * x) * kInvSqrt2Pi;
-    da[off] = __float2bfloat16_rn(dh * y * (cdf + x * pdf));
-    db[off] = __float2bfloat16_rn(dh * (x * cdf));
+    const float gelu = x * cdf;
+    da_ = dh * y * (cdf + x * pdf);
+    db_ = dh * gelu;
+    h_ = gelu * y;
   }
-  __device__ __forceinline__ void store2(int r, int col, float v0, float v1) const {
-    one(r * ld + col, v0);
-    one(r * ld + col + 1, v1);
-  }
-  __device__ __forceinline__ void store1(int r, int col, float v) const { one(r * ld + col, v); }
 };
 
-// h = bf16(gelu(a) * b), eight elements a thread step, as GluLoader does
+// Eight bf16 values packed in 16 bytes.
+union Pack8 {
+  uint4 u;
+  __nv_bfloat16 h[8];
+};
+
+// h = bf16(gelu(a) * b), eight elements a thread step, one conversion an
+// element (32 registers: eight 256-thread blocks an SM, as the grid assumes)
 __global__ void __launch_bounds__(256)
 glu_product_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, uint4* __restrict__ h,
                    int64_t vectors) {
-  GluLoader glu{};
   for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < vectors;
-       i += int64_t(gridDim.x) * blockDim.x)
-    h[i] = glu.transform(GluLoader::Frag{a[i], b[i]});
+       i += int64_t(gridDim.x) * blockDim.x) {
+    Pack8 pa, pb, out;
+    pa.u = a[i];
+    pb.u = b[i];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      out.h[e] = __float2bfloat16_rn(gelu_erf(__bfloat162float(pa.h[e])) * __bfloat162float(pb.h[e]));
+    h[i] = out.u;
+  }
 }
-
-using kGluDhTile = muse::GemmTile<64, 128, 32>;   // dh with the da/db epilogue
-using kGluDwoTile = muse::GemmTile<128, 64, 32>;  // dwo: tall along N (see above)
 
 }  // namespace
 
@@ -134,22 +166,21 @@ extern "C" int muse_glu_down(const void* a, const void* b, const void* wo, void*
                                  muse::StoreBf16{static_cast<bf*>(out), N}, M, N, K, s));
 }
 
-// a, b, da, db (M, K); wo, dwo (N, K); g (M, N).  K and N multiples of 8.
+// a, b, da, db, h (M, K); wo, dwo (N, K); g (M, N).  K and N multiples of 8;
+// h is the scratch for the GLU product, written by the first launch and read
+// by the second.
 extern "C" int muse_glu_down_bwd(const void* a, const void* b, const void* wo, const void* g,
-                                 void* da, void* db, void* dwo, int M, int N, int K, void* stream) {
+                                 void* da, void* db, void* dwo, void* h, int M, int N, int K,
+                                 void* stream) {
   using bf = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf* a_ = static_cast<const bf*>(a);
-  const bf* b_ = static_cast<const bf*>(b);
   const bf* g_ = static_cast<const bf*>(g);
-  // dh (M, K) = g (M, N) x wo (N, K) rows, consumed by the epilogue
-  cudaError_t err = muse::launch_gemm<kGluDhTile, true, false>(
-      muse::RowLoader{g_, N}, muse::RowLoader{static_cast<const bf*>(wo), K},
-      GluGradEpilogue{a_, b_, static_cast<bf*>(da), static_cast<bf*>(db), K}, M, K, N, s);
+  bf* h_ = static_cast<bf*>(h);
+  // dh (M, K) = g (M, N) x wo (N, K), consumed by the epilogue
+  const GluGradEpilogue epi{static_cast<const bf*>(a), static_cast<const bf*>(b),
+                            static_cast<bf*>(da), static_cast<bf*>(db), h_, K};
+  cudaError_t err = muse::sm90::gemm_nn(g_, static_cast<const bf*>(wo), epi, M, K, N, s);
   if (err != cudaSuccess) return int(err);
-  // dwo (N, K) = g^T (N, M) x h (M, K): g read as (M, N) rows, h recomputed
-  err = muse::launch_gemm<kGluDwoTile, false, false>(
-      muse::RowLoader{g_, N}, GluLoader{a_, b_, K}, muse::StoreBf16{static_cast<bf*>(dwo), K}, N, K,
-      M, s);
-  return int(err);
+  // dwo (N, K) = g^T (N, M) x h (M, K), the sum over the M rows
+  return int(muse::sm90::gemm_tnn(g_, h_, muse::StoreBf16{static_cast<bf*>(dwo), K}, N, K, M, s));
 }

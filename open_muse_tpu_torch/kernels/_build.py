@@ -29,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "muse_glu_down": [_P] * 5 + [_I] * 3 + [_P],
-    "muse_glu_down_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    "muse_glu_down_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "muse_attn_sublayer": [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_attn_sublayer_bwd": [_P] * 22 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_cfg_sample": [_P, _I, _I, _I, _I, ctypes.c_float, _P, ctypes.c_int64,

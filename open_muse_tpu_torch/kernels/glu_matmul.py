@@ -61,9 +61,11 @@ def glu_down_matmul_bwd(a, b, wo, g):
     if k % 8 or n % 8:
         raise ValueError(f"glu_down_matmul_bwd: K={k} and N={n} must be multiples of 8")
     da, db, dwo = torch.empty_like(a), torch.empty_like(b), torch.empty_like(wo)
+    hidden = torch.empty_like(a)  # bf16(gelu(a) * b): the dh launch writes it, dwo's reads it
     check(library().muse_glu_down_bwd(a.data_ptr(), b.data_ptr(), wo.data_ptr(), g.data_ptr(),
-                                      da.data_ptr(), db.data_ptr(), dwo.data_ptr(), m, n, k,
-                                      stream_handle(a)), "glu_down_matmul_bwd")
+                                      da.data_ptr(), db.data_ptr(), dwo.data_ptr(),
+                                      hidden.data_ptr(), m, n, k, stream_handle(a)),
+          "glu_down_matmul_bwd")
     glu_down_matmul_bwd.launches += 1
     return da, db, dwo
 

@@ -76,24 +76,35 @@ def test_sublayer_kernels_match_plain(device, b, s, kv_len):
 
 
 @pytest.mark.parametrize("m,n,k", [(512, 1024, 2816), (200, 3072, 1024), (300, 130, 96),
-                                   (300, 136, 96), (7, 24, 40)])
+                                   (300, 136, 96), (7, 24, 40), (1024, 2816, 4096),
+                                   (304, 136, 96)])
 @pytest.mark.parametrize("tile_width,split", [(0, 0), (64, 1), (64, 2), (128, 1), (128, 4),
                                               (256, 1), (256, 2)])
-@pytest.mark.parametrize("layout", ["a @ w.T", "a @ w"])
+@pytest.mark.parametrize("layout", ["a @ w.T", "a @ w", "a.T @ w"])
 def test_hopper_gemm_matches_linear(device, m, n, k, tile_width, split, layout):
-    """The mainloop of kernels 7, 9, 10 and 11 alone, the weight read
-    K-major (``a @ w.T``, w (n, k)) and MN-major (``a @ w``, w (k, n): the
-    backward's data gradients): every tile width, K splits over clusters of
-    2 and 4 (with a share of no k step at (7, 24, 40)), ragged M, N and K
-    (N 136 and 24: part or all of a 64-column box past N); within 1e-2 rel
-    of an fp32 product of the same bf16 operands (bf16 output rounding, fp32
-    sums in another order); two calls bit-equal.  ``a @ w`` takes N a
-    multiple of 8 (the tensor map's row pitch) and refuses N 130."""
-    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn
+    """The mainloop of kernels 7 - 12 alone, the weight read K-major (``a @
+    w.T``, w (n, k)) and MN-major (``a @ w``, w (k, n): the backward's data
+    gradients), and both operands MN-major (``a.T @ w``, a (k, m), w (k, n):
+    the GLU's weight gradient, at its (1024, 2816, 4096)): every tile width,
+    K splits over clusters of 2 and 4 (with a share of no k step at (7, 24,
+    40)), ragged M, N and K (N 136 and 24: part or all of a 64-column box
+    past N; M 200, 300 and 304 past the 128-row tile); within 1e-2 rel of an
+    fp32 product of the same bf16 operands (bf16 output rounding, fp32 sums
+    in another order); two calls bit-equal.  An MN-major operand takes its
+    row (N for w, M for a) a multiple of 8 (the tensor map's row pitch):
+    ``a @ w`` refuses N 130, ``a.T @ w`` M 300 and 7."""
+    from open_muse_tpu_torch.kernels.gemm import linear_nn, linear_tn, linear_tnn
 
     gen = torch.Generator().manual_seed(m + n + k)
     a = _rand(gen, m, k)
-    if layout == "a @ w":
+    if layout == "a.T @ w":
+        a_t, w = a.t().contiguous(), _rand(gen, k, n, scale=k ** -0.5)
+        if m % 8 or n % 8:
+            with pytest.raises(ValueError):
+                linear_tnn(a_t, w, tile_width, split)
+            return
+        run, exact = (lambda: linear_tnn(a_t, w, tile_width, split)), a.float() @ w.float()
+    elif layout == "a @ w":
         w = _rand(gen, k, n, scale=k ** -0.5)
         if n % 8:
             with pytest.raises(ValueError):
@@ -217,8 +228,13 @@ def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
             assert torch.equal(mine, twice), name
 
 
-@pytest.mark.parametrize("m,k,n", [(4096, 2816, 1024), (100, 96, 136)])
+@pytest.mark.parametrize("m,k,n", [(4096, 2816, 1024), (512, 2816, 1024), (300, 2816, 1024),
+                                   (100, 96, 136)])
 def test_glu_backward_kernel_matches_plain(device, m, k, n):
+    """The training and serving rows, a ragged M (300: not a multiple of the
+    GEMMs' 128-row tiles, nor of 8, the sum of the dwo product running over
+    a ragged K) and ragged N and K tiles; every output against the plain
+    backward, and two calls bit-equal."""
     gen = torch.Generator().manual_seed(m)
     a, b = _rand(gen, m, k), _rand(gen, m, k)
     wo, g = _rand(gen, n, k, scale=k ** -0.5), _rand(gen, m, n, scale=0.1)

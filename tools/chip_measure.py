@@ -2,18 +2,20 @@
 the command line (this one, or a parent commit unpacked with ``git archive``
 into a git-ignored directory, so that both run in one chip call):
 
-    python3 tools/chip_measure.py split TREE    # kernels 10 - 12 by launch
+    python3 tools/chip_measure.py split TREE    # kernels 8, 10 - 12 by launch
     python3 tools/chip_measure.py kernels TREE  # chip_smoke's kernel phases alone
     python3 tools/chip_measure.py host TREE     # host enqueue cost a call
     python3 tools/chip_measure.py serving TREE  # request latency around a profile
 
-``split`` times the sublayer kernels 10, 11 and 12 by CUDA graph replay and
-splits each by launch with ``chip_smoke.launch_split`` (the tree's own
-kernels, this script's shapes: kernel 10 at x (2, 256, 1024) and (16, 256,
-1024) over 77 text keys, kernels 11 and 12 at x (16, 256, 1024)), then
-times cuBLAS alone on kernels 10's and 11's products.  ``kernels`` runs the
-tree's ``chip_smoke.kernel_phase`` and ``backward_kernel_phase`` (every
-kernel row against its plain version) and their launch splits.  ``host``
+``split`` times the GLU backward (kernel 8) and the sublayer kernels 10, 11
+and 12 by CUDA graph replay and splits each by launch with
+``chip_smoke.launch_split`` (the tree's own kernels, this script's shapes:
+kernel 8 at a, b (4096, 2816) and g (4096, 1024), kernel 10 at x (2, 256,
+1024) and (16, 256, 1024) over 77 text keys, kernels 11 and 12 at x (16,
+256, 1024)), then times cuBLAS alone on kernels 8, 10, 11 and 12's
+products.  ``kernels`` runs the tree's ``chip_smoke.kernel_phase`` and
+``backward_kernel_phase`` (every kernel row against its plain version) and
+their launch splits.  ``host``
 times 200 eager calls of kernels 5, 9, 10 and 11 enqueued without a
 synchronise (the host's cost a call, the device running behind), before
 and after a torch.profiler run in the same process.  ``serving`` builds
@@ -76,10 +78,23 @@ def _sublayer_calls(C, dev, gen):
     return calls
 
 
+def _glu_bwd_call(dev, gen):
+    """(label, call) of kernel 8 at the training rows."""
+    from open_muse_tpu_torch.kernels.glu_matmul import glu_down_matmul_bwd
+
+    bf, m, k, n = torch.bfloat16, 4096, 2816, 1024
+    a, b = (torch.randn(m, k, generator=gen).to(dev, bf) for _ in range(2))
+    wo = (torch.randn(n, k, generator=gen) * k ** -0.5).to(dev, bf)
+    g = (torch.randn(m, n, generator=gen) * m ** -0.5).to(dev, bf)
+    return (f"k8 glu bwd a,b ({m}, {k}) g ({m}, {n})",
+            functools.partial(glu_down_matmul_bwd, a, b, wo, g))
+
+
 def split(tree):
     _, C = _load(tree)
     dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
-    calls = {k: v for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k9")}
+    calls = dict([_glu_bwd_call(dev, gen)])
+    calls.update((k, v) for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k9"))
     for label, fn in calls.items():
         print(f"[time] {label}: {C.graph_ms(fn):.4f} ms (graph replay)", flush=True)
     for label, fn in calls.items():
@@ -87,12 +102,18 @@ def split(tree):
     m = torch.randn(4096, 3072, generator=gen).to(dev, bf)
     w1 = (torch.randn(1024, 1024, generator=gen) * 1024 ** -0.5).to(dev, bf)
     w3 = (torch.randn(3072, 1024, generator=gen) * 1024 ** -0.5).to(dev, bf)
+    h = torch.randn(4096, 2816, generator=gen).to(dev, bf)
+    wo = (torch.randn(1024, 2816, generator=gen) * 2816 ** -0.5).to(dev, bf)
     for label, a, w, nn in (("k10 q / out (512, 1024, 1024) a @ w.T", m[:512, :1024], w1, False),
                             ("k11 qkv (4096, 3072, 1024) a @ w.T", m[:, :1024], w3, False),
                             ("k11 dattn (4096, 1024, 1024) a @ w", m[:, :1024], w1, True),
-                            ("k11 da (4096, 1024, 3072) a @ w", m, w3, True)):
+                            ("k11 da (4096, 1024, 3072) a @ w", m, w3, True),
+                            ("k12 q (4096, 1024, 1024) a @ w.T", m[:, :1024], w1, False),
+                            ("k8 dh (4096, 2816, 1024) a @ w", m[:, :1024], wo, True),
+                            ("k8 dwo (1024, 2816, 4096) a.T @ w", m[:, :1024], h, None)):
         a = a.contiguous()
-        f = (lambda: a @ w) if nn else (lambda: a @ w.t())  # noqa: B023
+        f = ((lambda: a.t() @ w) if nn is None  # noqa: B023
+             else (lambda: a @ w) if nn else (lambda: a @ w.t()))  # noqa: B023
         print(f"[product] {label}, the product alone: cuBLAS {C.graph_ms(f) * 1e3:.2f} us",
               flush=True)
 
