@@ -26,7 +26,7 @@ just after; the run fails unless every kernel of the path launched exactly
 as often as the path needs.  Exits non-zero on any failure or without a GPU.
 
     python3 chip_smoke.py                 # one GPU; a few minutes on an H100
-    python3 chip_smoke.py --gemm-sweep    # only the Hopper GEMM's variants
+    python3 chip_smoke.py --gemm-sweep    # only the Hopper GEMM's variants, vq_argmin's widths
 
 The second-to-last line is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +38,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,7 +81,12 @@ SOURCES = {
 # rates at 700 W): bytes moved over the memory rate, operations over the peak
 # rate of their type; the larger of the two
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+# int32: not on the data sheet; one integer pipe's lanes, 132 SMs x 64 an SM
+# (the Hopper architecture white paper: 16 INT32 lanes a sub-partition; the
+# CUDA C++ Programming Guide's throughput table: 64 results a clock an SM on
+# compute capability 9.0 for 32-bit integer multiply-add and for bitwise
+# operations) x the 1.98 GHz boost clock
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int32": 132 * 64 * 1.98e9}
 BOUNDS = {}  # kernel -> (bytes, operations, type), from the timed inputs
 # kernel -> ms of one PyTorch call computing the same function on the timed
 # inputs (a yardstick only: the port never calls it)
@@ -167,8 +173,8 @@ def launch_split(fn, calls: int = 10):
                      key=lambda e: e.time_range.start)
     # the trace may miss the window's first event: whole calls from the end
     per = round(len(kernels) / calls)
-    kernels = kernels[len(kernels) % per:] if per else []
-    groups = [kernels[i:i + per] for i in range(0, len(kernels), per)]
+    groups = ([kernels[i:i + per] for i in range(len(kernels) % per, len(kernels), per)]
+              if per else [])
     if not groups or any([e.name for e in g] != [e.name for e in groups[0]] for g in groups):
         log(f"[split] {len(kernels)} kernel events for {calls} calls do not split into calls")
         return []
@@ -337,7 +343,138 @@ def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
     return results
 
 
+# Philox calls in the body of the sampler's bf16 Philox instantiation: four
+# chunks of eight columns a thread, two calls a chunk (csrc/fused_sample.cu)
+PHILOX_CALLS_IN_BODY = 8
+_PHILOX_MULTIPLIERS = re.compile(r"0xd2511f53|0xcd9e8d57|-0x2daee0ad|-0x326172a9")
+_SASS_REGISTER = re.compile(r"U?R(\d+|Z)$")
+
+
+@functools.lru_cache(maxsize=None)
+def _library_sass() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from open_muse_tpu_torch.kernels import _build
+
+    lib = _build.library()._name
+    out = subprocess.run([os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"),
+                          "-sass", lib], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"chip_smoke: cuobjdump -sass {lib} failed: {out.stderr.strip()[:300]}")
+    return out.stdout
+
+
+@functools.lru_cache(maxsize=None)
+def philox_call_instructions(cfg: bool):
+    """Per-lane SASS instructions of one Philox4x32-10 call in the timed
+    kernel itself, ``sample_kernel<bf16, cfg, true>`` (``cuobjdump -sass``),
+    by the pipe they issue on: the FMA pipe's IMAD that multiply by the
+    Philox constants, and the ALU pipe's three- and two-input xors (LOP3 0x96
+    / 0x3c on registers) and the adds that stand for a product where the
+    counter is one more (IADD3, VIADD with a constant).  Uniform-datapath
+    instructions (the key schedule, the row's half of the first rounds; once
+    a warp), indexing, moves and the Gumbel arithmetic are left out.  The
+    explicit-noise instantiations count none of these."""
+    mangled = f"sample_kernelI13__nv_bfloat16Lb{int(cfg)}ELb1EE"
+    bodies = [part for part in re.split(r"\n\s*Function : ", _library_sass())
+              if part.split("\n", 1)[0].find(mangled) >= 0]
+    if len(bodies) != 1:
+        raise SystemExit(f"chip_smoke: {len(bodies)} SASS functions match {mangled}")
+    ops = [m.group(1).strip() for m in
+           re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][^;]*);", bodies[0])]
+    fma = alu = 0
+    for ins in ops:
+        op, _, rest = ins.partition(" ")
+        args = [a.strip() for a in rest.split(",")]
+        if op.startswith("U"):
+            continue
+        if _PHILOX_MULTIPLIERS.search(rest):
+            fma += op.startswith("IMAD")
+            alu += not op.startswith("IMAD")
+        elif (op == "LOP3.LUT" and len(args) >= 6 and args[4] in ("0x96", "0x3c")
+              and all(_SASS_REGISTER.match(a) for a in args[1:4])):
+            alu += 1
+    per_call = fma / PHILOX_CALLS_IN_BODY, alu / PHILOX_CALLS_IN_BODY
+    log(f"[sass] sample_kernel<bf16, {'cfg' if cfg else 'no cfg'}, Philox>: {len(ops)} "
+        f"instructions; one Philox4x32-10 call {per_call[0]:.3f} FMA-pipe (IMAD) + "
+        f"{per_call[1]:.3f} ALU-pipe (LOP3 xors, IADD3 / VIADD) lane instructions "
+        f"({fma} + {alu} over the body's {PHILOX_CALLS_IN_BODY} calls; uniform-datapath work "
+        f"left out)")
+    if not 15 <= sum(per_call) <= 45:  # 10 rounds of two products and two xors: ~40
+        raise SystemExit(f"chip_smoke: {sum(per_call)} Philox instructions a call in {mangled}")
+    return per_call
+
+
+def check_philox_route(name, kern, plain, logits, x, v, device):
+    """The route every decode runs: the kernel's ids with a seeded CPU
+    generator against the plain version fed ``philox_gumbel_plain`` for the
+    seed the wrapper draws from the same generator state: equal wherever the
+    top-2 gap of x + noise exceeds 1e-3 (the two sides' logs may differ by an
+    ulp), sel to rel 1e-4.  Then the route's time (the kernel, and the plain
+    version with its noise drawn on the card) and its bound: the logits read
+    once, and the integer work of one Philox call per four columns."""
+    from open_muse_tpu_torch.kernels.fused_sample import draw_seed, philox_gumbel_plain
+
+    rows = x.shape[0] * x.shape[1]
+    seed = draw_seed(torch.Generator().manual_seed(77))
+    ids, sel = kern(generator=torch.Generator().manual_seed(77))
+    noise = philox_gumbel_plain(seed, rows, v, device=device).reshape(x.shape)
+    ref_ids, ref_sel = plain(noise)
+    top2 = torch.topk(x + noise, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3
+    ids_ok = bool(((ids == ref_ids) | ~clear).all())
+    max_abs, rel = errors(sel, ref_sel)
+    ok = ids_ok and rel <= 1e-4
+    log(f"[kernel] {name} Philox route logits {tuple(logits.shape)} bf16 against the plain "
+        f"version on philox_gumbel_plain: ids equal where the top-2 gap > 1e-3: {ids_ok} "
+        f"({int(clear.sum())}/{clear.numel()} rows clear, {int((ids == ref_ids).sum())} equal); "
+        f"sel max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 1e-4) {'ok' if ok else 'FAIL'}")
+    ph_gen = torch.Generator().manual_seed(78)
+    timing = (graph_ms(lambda: kern(generator=ph_gen)),
+              graph_ms(lambda: plain(philox_gumbel_plain(seed, rows, v, device=device)
+                                     .reshape(x.shape))))
+    # the two pipes run side by side: the busier one bounds the integer work
+    calls = rows * -(-v // 4)
+    busier = max(philox_call_instructions(name.endswith("_cfg")))
+    BOUNDS[name] = (nbytes(logits[..., :v], ids, sel), calls * busier, "int32")
+    bound, by = bound_ms(name)
+    log(f"[time] {name} Philox route (the row): kernel {timing[0]:.4f} ms, plain (noise drawn "
+        f"on the card) {timing[1]:.4f} ms (CUDA graph replay); bound {bound:.4f} ms ({by}: "
+        f"{BOUNDS[name][0] / 1e6:.2f} MB of logits; {calls} Philox calls x {busier:.3f} "
+        f"instructions on the busier pipe, {calls * busier / PEAK_OPS_PER_S['int32'] * 1e3:.4f} "
+        f"ms)")
+    return ok, max_abs, timing
+
+
+def chi_square(name, kern, v_raw, v_lim, cfg, device):
+    """The Philox route's empirical distribution over 2^16 rows of one
+    small-vocab row (cropped from v_raw to v_lim columns; 40-byte bf16 rows,
+    not 16-byte aligned) against softmax, by chi-square."""
+    from scipy.stats import chi2
+
+    rows = 1 << 16
+    row = torch.linspace(-2.0, 1.0, v_raw)
+    small = row.expand(2 if cfg else 1, rows, v_raw).contiguous().to(device, torch.bfloat16)
+    ids_p, sel_p = kern(small, v_lim, torch.Generator().manual_seed(1234 if cfg else 4321))
+    probs = torch.softmax(small[0, 0, :v_lim].float(), -1).cpu()
+    counts = torch.bincount(ids_p.flatten().long().cpu(), minlength=v_lim).double()
+    expected = probs.double() * rows
+    stat = float(((counts - expected) ** 2 / expected).sum())
+    p_value = float(chi2.sf(stat, v_lim - 1))
+    sel_match = torch.allclose(sel_p.flatten().cpu(), probs[ids_p.flatten().long().cpu()],
+                               rtol=1e-5, atol=0)
+    in_range = bool((ids_p < v_lim).all())
+    ok = p_value > 1e-6 and sel_match and in_range
+    log(f"[kernel] {name} Philox: {rows} draws over {v_lim} of {v_raw} columns: "
+        f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
+        f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def check_sampler(device, gen):
+    """The CFG sampler at the serving shape, bf16 logits (2, 256, 8192):
+    explicit noise (ids equal where the top-2 gap > 1e-3, sel rel 1e-4; its
+    own time and bound), the Philox route (the row), the chi-square check."""
     from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical_cfg,
                                                           fused_categorical_cfg_plain)
 
@@ -358,45 +495,30 @@ def check_sampler(device, gen):
         f"ids equal where the top-2 gap > 1e-3: {ids_ok} ({int(clear.sum())}/{clear.numel()} "
         f"rows clear, {int((ids == ref_ids).sum())} equal); sel max_abs {max_abs:.3e} "
         f"rel {rel:.3e} (tol rel 1e-4) {'ok' if ids_ok and sel_ok else 'FAIL'}")
-
-    # in-kernel Philox stream: empirical distribution of one small-vocab row
-    # (cropped from 20 to 16 columns) against softmax, by chi-square
-    from scipy.stats import chi2
-
-    rows, v_raw, v_lim = 1 << 16, 20, 16
-    row = torch.linspace(-2.0, 1.0, v_raw)
-    small = row.expand(2, rows, v_raw).contiguous().to(device, torch.bfloat16)
-    ph_gen = torch.Generator().manual_seed(1234)
-    ids_p, sel_p = fused_categorical_cfg(small, guidance, v_lim, generator=ph_gen)
-    probs = torch.softmax(small[0, 0, :v_lim].float(), -1).cpu()
-    counts = torch.bincount(ids_p.flatten().long().cpu(), minlength=v_lim).double()
-    expected = probs.double() * rows
-    stat = float(((counts - expected) ** 2 / expected).sum())
-    p_value = float(chi2.sf(stat, v_lim - 1))
-    sel_match = torch.allclose(sel_p.flatten().cpu(), probs[ids_p.flatten().long().cpu()],
-                               rtol=1e-5, atol=0)
-    in_range = bool((ids_p < v_lim).all())
-    philox_ok = p_value > 1e-6 and sel_match and in_range
-    log(f"[kernel] fused_categorical_cfg Philox: {rows} draws over {v_lim} of {v_raw} columns: "
-        f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
-        f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if philox_ok else 'FAIL'}")
-
-    timing = (graph_ms(lambda: fused_categorical_cfg(logits, guidance, v, gumbel=gumbel)),
-              graph_ms(lambda: fused_categorical_cfg_plain(logits, guidance, v, gumbel)))
-    # fp32: the combine (3), x + g (1), the running max and sum with one exp (3)
-    BOUNDS["fused_categorical_cfg"] = (nbytes(logits, gumbel, ids, sel), 7 * b * s * v, "fp32")
-    philox_ms = graph_ms(lambda: fused_categorical_cfg(logits, guidance, v, generator=ph_gen))
-    log(f"[kernel] fused_categorical_cfg Philox route: {philox_ms:.4f} ms")
-    return ids_ok and sel_ok and philox_ok, max_abs, timing
+    explicit = (graph_ms(lambda: fused_categorical_cfg(logits, guidance, v, gumbel=gumbel)),
+                graph_ms(lambda: fused_categorical_cfg_plain(logits, guidance, v, gumbel)))
+    # fp32: the combine (3), x + g (1), the max, the exp and the sum (3)
+    moved, ops = nbytes(logits, gumbel, ids, sel), 7 * b * s * v
+    log(f"[time] fused_categorical_cfg explicit gumbel: kernel {explicit[0]:.4f} ms, plain "
+        f"{explicit[1]:.4f} ms (CUDA graph replay); bound "
+        f"{max(moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S['fp32']) * 1e3:.4f} ms (the "
+        f"logits and the noise read once, {ops} fp32 operations)")
+    philox_ok, philox_err, timing = check_philox_route(
+        "fused_categorical_cfg",
+        lambda generator: fused_categorical_cfg(logits, guidance, v, generator=generator),
+        lambda noise: fused_categorical_cfg_plain(logits, guidance, v, noise), logits, x, v,
+        device)
+    chi_ok = chi_square("fused_categorical_cfg",
+                        lambda lg, lim, g: fused_categorical_cfg(lg, guidance, lim, generator=g),
+                        20, 16, True, device)
+    return ids_ok and sel_ok and philox_ok and chi_ok, max(max_abs, philox_err), timing
 
 
 def check_categorical(device, gen):
     """The CFG-free sampler at the serving shape, raw bf16 logits (1, 256,
     8256) cropped to the 8192 codes: explicit noise (ids exactly equal, sel
-    rel 1e-5) and the Philox route (chi-square against softmax, as for the
-    CFG sampler)."""
-    from scipy.stats import chi2
-
+    rel 1e-5; its own time and bound), the Philox route (the row), the
+    chi-square check."""
     from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical,
                                                           fused_categorical_plain)
 
@@ -413,36 +535,22 @@ def check_categorical(device, gen):
         f"gumbel: ids exactly equal {ids_ok} ({int((ids == ref_ids).sum())}/{ids.numel()}); sel "
         f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 1e-5: logsumexp order) "
         f"{'ok' if ids_ok and sel_ok else 'FAIL'}")
-
-    rows, small_v, v_lim = 1 << 16, 20, 16
-    row = torch.linspace(-2.0, 1.0, small_v)
-    small = row.expand(1, rows, small_v).contiguous().to(device, torch.bfloat16)
-    ph_gen = torch.Generator().manual_seed(4321)
-    ids_p, sel_p = fused_categorical(small, v_lim, generator=ph_gen)
-    probs = torch.softmax(small[0, 0, :v_lim].float(), -1).cpu()
-    counts = torch.bincount(ids_p.flatten().long().cpu(), minlength=v_lim).double()
-    expected = probs.double() * rows
-    stat = float(((counts - expected) ** 2 / expected).sum())
-    p_value = float(chi2.sf(stat, v_lim - 1))
-    sel_match = torch.allclose(sel_p.flatten().cpu(), probs[ids_p.flatten().long().cpu()],
-                               rtol=1e-5, atol=0)
-    in_range = bool((ids_p < v_lim).all())
-    philox_ok = p_value > 1e-6 and sel_match and in_range
-    log(f"[kernel] fused_categorical Philox: {rows} draws over {v_lim} of {small_v} columns: "
-        f"chi2 {stat:.2f} df {v_lim - 1} p {p_value:.3g} (bound p > 1e-6), ids < vocab_limit "
-        f"{in_range}, sel == softmax[id] (rtol 1e-5) {sel_match} {'ok' if philox_ok else 'FAIL'}")
-
-    timing = (graph_ms(lambda: fused_categorical(logits, v, gumbel=gumbel)),
-              graph_ms(lambda: fused_categorical_plain(logits, v, gumbel)))
-    philox_ms = graph_ms(lambda: fused_categorical(logits, v, generator=ph_gen))
-    philox_bound = nbytes(logits[..., :v], ids, sel) / HBM_BYTES_PER_S * 1e3
-    log(f"[kernel] fused_categorical Philox route: {philox_ms:.4f} ms (bound {philox_bound:.4f} "
-        f"ms: the cropped logits read once)")
-    # fp32: x + g (1), the running max and sum with one exp (3); the cropped
-    # columns only
-    BOUNDS["fused_categorical"] = (nbytes(logits[..., :v], gumbel, ids, sel), 4 * b * s * v,
-                                   "fp32")
-    return ids_ok and sel_ok and philox_ok, max_abs, timing
+    explicit = (graph_ms(lambda: fused_categorical(logits, v, gumbel=gumbel)),
+                graph_ms(lambda: fused_categorical_plain(logits, v, gumbel)))
+    # fp32: x + g (1), the max, the exp and the sum (3); the cropped columns
+    moved, ops = nbytes(logits[..., :v], gumbel, ids, sel), 4 * b * s * v
+    log(f"[time] fused_categorical explicit gumbel: kernel {explicit[0]:.4f} ms, plain "
+        f"{explicit[1]:.4f} ms (CUDA graph replay); bound "
+        f"{max(moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S['fp32']) * 1e3:.4f} ms (the "
+        f"cropped logits and the noise read once, {ops} fp32 operations)")
+    philox_ok, philox_err, timing = check_philox_route(
+        "fused_categorical", lambda generator: fused_categorical(logits, v, generator=generator),
+        lambda noise: fused_categorical_plain(logits, v, noise), logits,
+        logits[..., :v].float(), v, device)
+    chi_ok = chi_square("fused_categorical",
+                        lambda lg, lim, g: fused_categorical(lg, lim, generator=g), 20, 16, False,
+                        device)
+    return ids_ok and sel_ok and philox_ok and chi_ok, max(max_abs, philox_err), timing
 
 
 # the VQ search shapes: a pre-encode batch of 64 images (64 x 256 latent
@@ -451,12 +559,15 @@ VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192)
 VQ_RTOL = 1e-5
 
 
-def check_vq(device, gen):
+def check_vq(device, gen, splits=None):
     """vq_argmin against vq_argmin_plain in fp32, TF32 off, at both path
     shapes: ids equal except at rows whose two best plain scores lie within
     VQ_RTOL of the squared distances' scale, where the kernel's pick is
-    within that of the minimum; two calls bit-equal."""
-    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin, vq_argmin_plain, vq_near_ties
+    within that of the minimum; two calls bit-equal.  Appends both calls to
+    ``splits`` (the split pass, the GEMM, the unpack by launch); at the
+    pre-encode shape, the products alone beside cuBLAS."""
+    from open_muse_tpu_torch.kernels.vq_argmin import (SPLIT_PRODUCTS, vq_argmin, vq_argmin_plain,
+                                                       vq_near_ties, vq_split)
 
     ok, timing, worst = True, None, 0.0
     for path, (n, c, k) in VQ_SHAPES.items():
@@ -483,12 +594,28 @@ def check_vq(device, gen):
             f"{torch.equal(ids, again)} {'ok' if case_ok else 'FAIL'}")
         ms = (graph_ms(lambda: vq_argmin(z, cb), reps=10, trials=5),
               graph_ms(lambda: vq_argmin_plain(z, cb), reps=10, trials=5))
+        split_ops = 12 * n * k * c  # the six bf16 products
         log(f"[time] vq_argmin ({path}, N {n}): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms "
-            f"(median, CUDA graph replay); bound {2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms "
-            f"(2NKC fp32 operations)")
+            f"(median, CUDA graph replay); bound {split_ops / PEAK_OPS_PER_S['bf16'] * 1e3:.4f} "
+            f"ms (the split route: 12NKC bf16 operations), "
+            f"{2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms for fp32 FMA (2NKC)")
+        if splits is not None:
+            splits.append((f"vq_argmin z ({n}, {c}) codebook ({k}, {c}) ({path})",
+                           functools.partial(vq_argmin, z, cb)))
         if timing is None:  # the pre-encode shape is the kernel's row in the report
             timing = ms
-            BOUNDS["vq_argmin"] = (nbytes(z, cb, ids), 2 * n * k * c, "fp32")
+            BOUNDS["vq_argmin"] = (nbytes(z, cb, ids), split_ops, "bf16")
+            fp32_ms = graph_ms(lambda: z @ cb.t(), reps=10, trials=5)
+            log(f"[product] vq_argmin z @ cb.T fp32 (TF32 off), z {tuple(z.shape)} cb "
+                f"{tuple(cb.shape)}, the product alone: cuBLAS torch.matmul {fp32_ms:.4f} ms "
+                f"(CUDA graph replay)")
+            # the six part products as one K-major product (K = 6 x 256)
+            zp, cbp = vq_split(z, cb)
+            za, cba = (t.reshape(t.shape[0], 3, -1) for t in (zp, cbp))
+            za = torch.cat([za[:, a] for a, _ in SPLIT_PRODUCTS], dim=1)
+            cba = torch.cat([cba[:, b] for _, b in SPLIT_PRODUCTS], dim=1)
+            log_product_alone("vq_argmin the six split products", za, cba)
+            del zp, cbp, za, cba
         del z, cb, ref
     # the report's error column: the worst pick's score gap in units of the scale
     return ok, worst, timing
@@ -640,7 +767,7 @@ def kernel_phase(device, splits):
     report.update(check_sublayers(device, gen, 2, splits=splits))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
     report["fused_categorical"] = check_categorical(device, gen)
-    report["vq_argmin"] = check_vq(device, gen)
+    report["vq_argmin"] = check_vq(device, gen, splits)
     report.update(check_norms(device, gen))
     report["flash_attention"] = check_flash(device, gen)
     for name, (ok, err, (ms, plain_ms)) in report.items():
@@ -1514,14 +1641,17 @@ def training_phase(device, smi):
 # down-projection, the qkv, q and out projections) at the serving and the
 # training rows, and ragged rows; kernels 11's and 12's dattn and da and
 # kernel 8's dh (the weight read MN-major); kernel 8's dwo (both operands
-# MN-major); last a trivial product, what a launch and a cluster cost by
-# themselves
+# MN-major); kernel 6's six part products at the pre-encode and the
+# inpainting rows (its split operands are 3 Cp wide and read twice, the
+# product's K is 6 Cp); last a trivial product, what a launch and a cluster
+# cost by themselves
 SWEEP_SHAPES = ((512, 1024, 2816, "a @ w.T"), (512, 3072, 1024, "a @ w.T"),
                 (512, 1024, 1024, "a @ w.T"), (4096, 1024, 2816, "a @ w.T"),
                 (4096, 3072, 1024, "a @ w.T"), (4096, 1024, 1024, "a @ w.T"),
                 (4096, 1024, 1024, "a @ w"), (4096, 1024, 3072, "a @ w"),
                 (4096, 2816, 1024, "a @ w"), (1024, 2816, 4096, "a.T @ w"),
                 (300, 1024, 2816, "a @ w.T"), (200, 3072, 1024, "a @ w.T"),
+                (16384, 8192, 1536, "a @ w.T"), (256, 8192, 1536, "a @ w.T"),
                 (7, 24, 40, "a @ w.T"))
 
 
@@ -1559,9 +1689,11 @@ def gemm_sweep(device) -> bool:
 # -- main -------------------------------------------------------------------
 
 # the kernels whose ptxas lines the run prints: the Hopper GEMM, the GLU
-# product, the register row kernels and the sublayers' backward attention
+# product, the register row kernels, the sublayers' backward attention, the
+# sampler and the VQ split pass
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
-                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel")
+                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel",
+                 "sample_kernel", "vq_split_kernel")
 
 
 def ptxas_report(build_log: str, names):

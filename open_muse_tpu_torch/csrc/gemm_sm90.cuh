@@ -53,7 +53,10 @@
 //   threads>(tile, m0, n0, M, N)`, for an epilogue that reads operands of
 //   its own (glu_matmul.cu's, which turns dh into da, db and h with 16-byte
 //   row loads, several in flight a thread).  Such an epilogue takes no K
-//   split.
+//   split.  One that declares kRemapK true also chooses, for each k step of
+//   the product, which columns of A and of W it reads (`k_a(k)`, `k_w(k)`,
+//   the operands `k_extent` columns wide): vq_argmin.cu's six part products
+//   read three bf16 parts of each K-major operand.
 // - The host builds both tensor maps (cuTensorMapEncodeTiled, reached
 //   through cudaGetDriverEntryPoint, so nothing links against libcuda) on
 //   every call from the pointers it is given, and passes them by value as
@@ -72,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace muse {
 
@@ -95,6 +99,12 @@ constexpr int kConsumers = 2;      // warpgroups of 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 4;
 constexpr int kMaxSplit = 4;
+
+// whether an epilogue remaps the k coordinate of the operands' tiles
+template <class E, class = void>
+struct RemapsK : std::false_type {};
+template <class E>
+struct RemapsK<E, std::void_t<decltype(E::kRemapK)>> : std::bool_constant<E::kRemapK> {};
 
 // the layout of A: (M, K), read K-major, or (K, M), read MN-major (C = A^T W)
 enum ALayout { kMK = 0, kKM = 1 };
@@ -333,19 +343,24 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
         mbar_expect_tx(&full[s], L::kStageBytes);
         const int k = (kb0 + i) * BK;
+        int ka = k, kw = k;
+        if constexpr (RemapsK<Epilogue>::value) {
+          ka = epi.k_a(k);
+          kw = epi.k_w(k);
+        }
         if constexpr (kA == kMK) {
-          tma_load_2d(stage_a + s * L::kTileA, &map_a, &full[s], k, m0);
+          tma_load_2d(stage_a + s * L::kTileA, &map_a, &full[s], ka, m0);
         } else {
 #pragma unroll
           for (int j = 0; j < BM / 64; ++j)
-            tma_load_2d(stage_a + s * L::kTileA + j * kBoxBytes, &map_a, &full[s], m0 + 64 * j, k);
+            tma_load_2d(stage_a + s * L::kTileA + j * kBoxBytes, &map_a, &full[s], m0 + 64 * j, ka);
         }
         if constexpr (kW == kNK) {
-          tma_load_2d(stage_w + s * L::kTileW, &map_w, &full[s], k, n0);
+          tma_load_2d(stage_w + s * L::kTileW, &map_w, &full[s], kw, n0);
         } else {
 #pragma unroll
           for (int j = 0; j < kBN / 64; ++j)
-            tma_load_2d(stage_w + s * L::kTileW + j * kBoxBytes, &map_w, &full[s], n0 + 64 * j, k);
+            tma_load_2d(stage_w + s * L::kTileW + j * kBoxBytes, &map_w, &full[s], n0 + 64 * j, kw);
         }
       }
     }
@@ -510,13 +525,21 @@ inline void variant_for(int M, int N, int K, int* bn, int* split) {
   }
 }
 
+// the operands' extent along K: K, or the remapping epilogue's
+template <class Epilogue>
+int k_extent(const Epilogue& epi, int K) {
+  if constexpr (RemapsK<Epilogue>::value) return epi.k_extent;
+  return K;
+}
+
 template <int kBN, ALayout kA, WLayout kW, class Epilogue>
 cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                    int N, int K, int split, cudaStream_t stream) {
   CUtensorMap map_a, map_w;
-  cudaError_t err = kA == kMK ? tensor_map(&map_a, a, M, K, BM) : tensor_map(&map_a, a, K, M, BK);
+  const int kx = k_extent(epi, K);
+  cudaError_t err = kA == kMK ? tensor_map(&map_a, a, M, kx, BM) : tensor_map(&map_a, a, kx, M, BK);
   if (err != cudaSuccess) return err;
-  err = kW == kNK ? tensor_map(&map_w, w, N, K, kBN) : tensor_map(&map_w, w, K, N, BK);
+  err = kW == kNK ? tensor_map(&map_w, w, N, kx, kBN) : tensor_map(&map_w, w, kx, N, BK);
   if (err != cudaSuccess) return err;
   auto kernel = wgmma_gemm_kernel<kBN, kA, kW, Epilogue>;
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -542,8 +565,9 @@ template <ALayout kA, WLayout kW, class Epilogue>
 cudaError_t dispatch(const __nv_bfloat16* a, const __nv_bfloat16* w, const Epilogue& epi, int M,
                      int N, int K, cudaStream_t stream, int bn, int split) {
   // each operand's row pitch a multiple of 16 bytes (the tensor maps), N even
-  const bool pitch_a = kA == kMK ? K % 8 == 0 : M % 8 == 0;
-  const bool pitch_w = kW == kNK ? K % 8 == 0 && N % 2 == 0 : N % 8 == 0;
+  const int kx = k_extent(epi, K);
+  const bool pitch_a = kA == kMK ? kx % 8 == 0 : M % 8 == 0;
+  const bool pitch_w = kW == kNK ? kx % 8 == 0 && N % 2 == 0 : N % 8 == 0;
   if (M <= 0 || N <= 0 || K <= 0 || !pitch_a || !pitch_w || split < 0 || split > kMaxSplit ||
       (bn == 0) != (split == 0))
     return cudaErrorInvalidValue;

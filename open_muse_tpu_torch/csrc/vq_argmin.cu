@@ -7,37 +7,53 @@
 // `vq_argmin` (body `_kernel`), which streams codebook tiles past a VMEM
 // block of rows and keeps a running (min, argmin) per row.
 //
-// What bounds it on the H100: the products, 2*N*K*C fp32 operations (68.7
-// GFLOP for the pre-encode batch N = 16384, K = 8192, C = 256, 1.03 ms at
-// the 67 TFLOP/s fp32 rate); the bytes (z, cb, ids: ~25 MB) are 7.5 us.  The
-// scores are summed in fp32 FMA on purpose: TF32 or bf16 tensor cores would
-// move near-tied scores and with them the chosen ids.
+// What bounds it on the H100: the products.  The scores need fp32's
+// accuracy (a single TF32 or bf16 product moves near-tied scores and with
+// them the ids), and fp32 FMA runs at 67 TFLOP/s: 2 N K C = 68.7 GFLOP for
+// the pre-encode batch (N = 16384, K = 8192, C = 256) is 1.03 ms there.  On
+// the bf16 tensor cores the same accuracy costs six products: each fp32
+// value x is split into three bf16 parts, hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid) (each subtraction exact in fp32, so the parts
+// carry x to about 2^-24 of itself), and z . e is summed over hi.hi, hi.mid,
+// mid.hi, hi.lo, mid.mid and lo.hi in fp32 (bf16 x bf16 products are exact
+// in fp32; the dropped mid.lo, lo.mid and lo.lo stay within about 2^-23 of
+// each |z_c e_c|, the size of fp32's own rounding of a product).  That
+// is 12 N K C = 412 GFLOP, 417 us at 989 TFLOP/s; the bytes (z, cb, ids: ~25
+// MB; the split operands the kernel writes and reads: 38 MB) are 7.5 - 20 us.
 //
-// What the design does about it: an SGEMM-style tile of 128 rows x 128 codes
-// per block, 256 threads each holding an 8 x 8 register tile of scores, fed
-// from shared memory in 16-wide steps along C (double-buffered, the next
-// step's global loads in flight while the current step computes).  The (N, K)
-// score matrix never reaches device memory: after each code tile every
-// thread folds its scores into a running (min, argmin) for its 8 rows.  A
-// block walks a contiguous range of code tiles; where the rows alone give
-// too few blocks to fill the card (one inpainting request has 256 rows) the
-// codebook is split over more blocks, and the splits merge through a 64-bit
-// atomicMin on (order-preserving score bits << 32 | id), which keeps the
-// lowest score and, on equal scores, the lowest id: the result does not
-// depend on the order the blocks run in.  Rows, codes and C are masked at
-// their tails, so any N, K and C work without padding copies.
-#include <cuda_runtime.h>
-
+// What the design does about it, three launches after a memset:
+// - A split pass: one elementwise kernel over z and the codebook writes z'
+//   (N, 3 Cp) = -2 [z_hi | z_mid | z_lo] and cb' (K', 3 Cp) = [e_hi | e_mid |
+//   e_lo] in bf16.  Cp is C rounded up to a multiple of 64 (one GEMM k step
+//   then reads one part) and K' is K rounded up to an even count (the GEMM's
+//   even N), both padded with zeros; the -2 is exact.
+// - The Hopper GEMM (gemm_sm90.cuh, TMA + wgmma) on z' x cb'^T over a K of 6
+//   Cp: its epilogue remaps the k steps so that the six Cp-wide spans read
+//   the part pairs (hi, hi), (hi, mid), (mid, hi), (hi, lo), (mid, mid), (lo,
+//   hi), the six products in one reduction, each part stored once.  The
+//   epilogue is staged: the block's 128 x kBN fp32 tile of -2 z . e
+//   arrives in shared memory, one warp a row adds e_sq, masks the columns
+//   past K and reduces to (lowest score, lowest column on equal scores) with
+//   shuffles, and one lane merges it into best[row] with a 64-bit atomicMin
+//   on (order-preserving score bits << 32 | id).  The (N, K) scores never
+//   reach device memory, and the atomics keep the lowest score and, on equal
+//   scores, the lowest id whatever order the blocks run in: two calls give
+//   the same ids.
+// - unpack_ids: the ids from the packed minima.
+#include <algorithm>
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "gemm_sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 128;  // rows of z per block
-constexpr int kBN = 128;  // codes per tile
-constexpr int kBK = 16;   // step along C
-constexpr int kThreads = 256;
-constexpr int kPad = 4;   // shared rows of kBM + kPad floats: fewer bank conflicts on the stores
+constexpr int kParts = 3;  // hi, mid, lo
+// the parts of z' and of cb' that the six Cp-wide spans of the product's K
+// read, two bits a span: z' (hi, hi, mid, hi, mid, lo), cb' (hi, mid, hi, lo,
+// mid, hi)
+constexpr unsigned kZSpans = 0x910, kCbSpans = 0x184;
 
 // monotone map of a float to an unsigned key: a < b  <=>  key(a) < key(b)
 __device__ __forceinline__ uint32_t order_key(float f) {
@@ -45,124 +61,111 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kThreads)
-vq_argmin_kernel(const float* __restrict__ z, const float* __restrict__ cb,
-                 const float* __restrict__ e_sq, int N, int C, int K, int tiles_per_split,
-                 unsigned long long* __restrict__ best) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];  // z chunk, transposed: [c][row]
-  __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];  // codebook chunk: [c][code]
+// Eight bf16 values packed in 16 bytes.
+union Pack8 {
+  uint4 u;
+  __nv_bfloat16 h[8];
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * kBM;
-  const int k_tiles = (K + kBN - 1) / kBN;
-  const int tile_begin = blockIdx.y * tiles_per_split;
-  const int tile_end = min(k_tiles, tile_begin + tiles_per_split);
-  if (tile_begin >= tile_end) return;
-  const int c_steps = (C + kBK - 1) / kBK;
-  const int total = (tile_end - tile_begin) * c_steps;
-
-  // global -> register staging: each thread moves 8 floats of z and 8 of the
-  // codebook per step; consecutive threads read consecutive c of one row
-  float ra[8], rb[8];
-  auto load = [&](int step) {
-    const int n0 = (tile_begin + step / c_steps) * kBN;
-    const int c0 = (step % c_steps) * kBK;
+// One thread an 8-column chunk of a row of z (rows [0, N)) or of the
+// codebook (rows [N, N + Kp)): the three bf16 parts of (z: -2 x, cb: x).
+// Columns past C and codebook rows past K are zeros.
+__global__ void __launch_bounds__(256)
+vq_split_kernel(const float* __restrict__ z, const float* __restrict__ cb, int N, int C, int K,
+                int Kp, int Cp, __nv_bfloat16* __restrict__ zp, __nv_bfloat16* __restrict__ cbp) {
+  const int chunks = Cp / 8;
+  const int64_t total = int64_t(N + Kp) * chunks;
+  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < total;
+       i += int64_t(gridDim.x) * blockDim.x) {
+    const int row = int(i / chunks), c0 = int(i % chunks) * 8;
+    const bool is_z = row < N;
+    const int r = is_z ? row : row - N;
+    const float* src = is_z ? z + int64_t(r) * C : cb + int64_t(r) * C;
+    const bool live = is_z || r < K;
+    float x[8];
+    if (live && C % 4 == 0 && c0 + 8 <= C) {
+      const float4 a = *reinterpret_cast<const float4*>(src + c0);
+      const float4 b = *reinterpret_cast<const float4*>(src + c0 + 4);
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+      x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+    } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kBK, c = c0 + idx % kBK;
-      const bool c_ok = c < C;
-      ra[i] = (c_ok && m0 + r < N) ? z[int64_t(m0 + r) * C + c] : 0.f;
-      rb[i] = (c_ok && n0 + r < K) ? cb[int64_t(n0 + r) * C + c] : 0.f;
+      for (int e = 0; e < 8; ++e) x[e] = live && c0 + e < C ? src[c0 + e] : 0.f;
     }
-  };
-  auto store = [&](int buf) {
+    Pack8 part[3];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads;
-      As[buf][idx % kBK][idx / kBK] = ra[i];
-      Bs[buf][idx % kBK][idx / kBK] = rb[i];
+    for (int e = 0; e < 8; ++e) {
+      const float v = is_z ? -2.f * x[e] : x[e];
+      part[0].h[e] = __float2bfloat16_rn(v);
+      const float r1 = __fsub_rn(v, __bfloat162float(part[0].h[e]));
+      part[1].h[e] = __float2bfloat16_rn(r1);
+      part[2].h[e] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(part[1].h[e])));
     }
-  };
-
-  // this thread's rows: ty*4 + {0..3} and 64 + ty*4 + {0..3}; codes likewise with tx
-  float acc[8][8];
-  float best_s[8];
-  int best_i[8];
+    __nv_bfloat16* dst = (is_z ? zp : cbp) + int64_t(r) * kParts * Cp + c0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best_s[i] = INFINITY;
-    best_i[i] = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int step = 0; step < total; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < total) load(step + 1);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (step % c_steps == c_steps - 1) {
-      // end of a code tile: fold the scores into the running best, codes in
-      // increasing order with a strict < so the earliest code wins ties
-      const int n0 = (tile_begin + step / c_steps) * kBN;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int code = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-        if (code < K) {
-          const float e = e_sq[code];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float s = __fsub_rn(e, 2.f * acc[i][j]);
-            if (s < best_s[i]) {
-              best_s[i] = s;
-              best_i[i] = code;
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i][j] = 0.f;
-      }
-    }
-    if (step + 1 < total) store(buf ^ 1);
-    __syncthreads();
-  }
-
-  // merge the 16 threads (tx) that share each row; lower code on equal scores
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float s = best_s[i];
-    int id = best_i[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(0xffffffffu, s, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-      if (os < s || (os == s && oi < id)) {
-        s = os;
-        id = oi;
-      }
-    }
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (tx == 0 && row < N && id != 0x7fffffff)
-      atomicMin(best + row, (static_cast<unsigned long long>(order_key(s)) << 32) |
-                                static_cast<uint32_t>(id));
+    for (int p = 0; p < kParts; ++p) *reinterpret_cast<uint4*>(dst + p * Cp) = part[p].u;
   }
 }
+
+// The epilogue of z' x cb'^T.  It maps k step k of the 6 Cp-long product to
+// the columns of z' and of cb' holding its span's parts; it is staged: the
+// block's fp32 tile of -2 z . e in
+// shared memory, every thread of the block.  One warp a row at a time: each
+// lane takes columns lane, lane + 32, ... (increasing, strict <: the first
+// column wins within a lane), the warp reduces to the lowest score and on
+// equal scores the lowest column, and lane 0 merges it into best[row].
+struct VqArgminEpilogue {
+  static constexpr bool kStaged = true;
+  static constexpr bool kRemapK = true;
+  const float* e_sq;
+  int codes;  // K: columns at or past it are cb's zero padding
+  unsigned long long* best;
+  int cp;        // the width of a part, a multiple of the k step
+  int k_extent;  // the operands' width, 3 cp
+
+  __device__ __forceinline__ int k_a(int k) const { return remap(kZSpans, k); }
+  __device__ __forceinline__ int k_w(int k) const { return remap(kCbSpans, k); }
+  __device__ __forceinline__ int remap(unsigned spans, int k) const {
+    const int span = k / cp;
+    return int((spans >> (2 * span)) & 3) * cp + k - span * cp;
+  }
+
+  template <int kBM, int kBN, int kLd, int kThreads>
+  __device__ __forceinline__ void tile(const float* s, int m0, int n0, int M, int) const {
+    constexpr int kWarps = kThreads / 32, kPer = kBN / 32;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    float e[kPer];  // +inf past K: such a column never wins
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int col = n0 + lane + 32 * j;
+      e[j] = col < codes ? e_sq[col] : INFINITY;
+    }
+    for (int r = warp; r < kBM && m0 + r < M; r += kWarps) {
+      float best_s = INFINITY;
+      int best_i = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float v = __fadd_rn(e[j], s[r * kLd + lane + 32 * j]);
+        if (v < best_s) {
+          best_s = v;
+          best_i = n0 + lane + 32 * j;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float os = __shfl_xor_sync(0xffffffffu, best_s, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+        if (os < best_s || (os == best_s && oi < best_i)) {
+          best_s = os;
+          best_i = oi;
+        }
+      }
+      if (lane == 0 && best_i < codes)
+        atomicMin(best + m0 + r, (static_cast<unsigned long long>(order_key(best_s)) << 32) |
+                                     static_cast<uint32_t>(best_i));
+    }
+  }
+};
 
 __global__ void unpack_ids(const unsigned long long* __restrict__ best, int N,
                            int* __restrict__ ids) {
@@ -170,27 +173,41 @@ __global__ void unpack_ids(const unsigned long long* __restrict__ best, int N,
   if (i < N) ids[i] = static_cast<int>(best[i] & 0xffffffffull);
 }
 
+int split_blocks(int N, int Kp, int Cp) {
+  const int64_t chunks = int64_t(N + Kp) * (Cp / 8);
+  return int(std::min<int64_t>((chunks + 255) / 256, 8 * muse::sm90::sm_count()));
+}
+
 }  // namespace
 
-// z (N, C), cb (K, C), e_sq (K,) fp32 contiguous; best: (N,) 64-bit scratch;
-// ids: (N,) int32 out.  `sms` (the card's SM count) sizes the codebook split.
+// The split pass alone: z (N, C), cb (K, C) fp32 -> zp (N, 3 Cp), cbp (Kp, 3
+// Cp) bf16, Cp = C rounded up to a multiple of 64, Kp = K rounded up to even.
+extern "C" int muse_vq_split(const float* z, const float* cb, int N, int C, int K, void* zp,
+                             void* cbp, void* stream_ptr) {
+  if (N <= 0 || K <= 0 || C <= 0) return int(cudaErrorInvalidValue);
+  const int Cp = (C + 63) / 64 * 64, Kp = (K + 1) / 2 * 2;
+  vq_split_kernel<<<split_blocks(N, Kp, Cp), 256, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      z, cb, N, C, K, Kp, Cp, static_cast<__nv_bfloat16*>(zp), static_cast<__nv_bfloat16*>(cbp));
+  return int(cudaGetLastError());
+}
+
+// z (N, C), cb (K, C), e_sq (K,) fp32 contiguous; zp (N, 3 Cp) and cbp (Kp,
+// 3 Cp) bf16 scratch for the split operands (as muse_vq_split); best: (N,)
+// 64-bit scratch; ids: (N,) int32 out.
 extern "C" int muse_vq_argmin(const float* z, const float* cb, const float* e_sq, int N, int C,
-                              int K, int sms, unsigned long long* best, int* ids,
+                              int K, void* zp, void* cbp, unsigned long long* best, int* ids,
                               void* stream_ptr) {
+  using bf = __nv_bfloat16;
   if (N <= 0 || K <= 0 || C <= 0) return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int row_tiles = (N + kBM - 1) / kBM;
-  const int k_tiles = (K + kBN - 1) / kBN;
-  // at least two blocks per SM where the codebook allows it
-  int splits = (2 * sms + row_tiles - 1) / row_tiles;
-  splits = splits < 1 ? 1 : (splits > k_tiles ? k_tiles : splits);
-  const int tiles_per_split = (k_tiles + splits - 1) / splits;
-  splits = (k_tiles + tiles_per_split - 1) / tiles_per_split;
+  const int Cp = (C + 63) / 64 * 64, Kp = (K + 1) / 2 * 2;
   cudaError_t err = cudaMemsetAsync(best, 0xff, sizeof(unsigned long long) * size_t(N), stream);
   if (err != cudaSuccess) return int(err);
-  vq_argmin_kernel<<<dim3(row_tiles, splits), kThreads, 0, stream>>>(z, cb, e_sq, N, C, K,
-                                                                      tiles_per_split, best);
-  err = cudaGetLastError();
+  int status = muse_vq_split(z, cb, N, C, K, zp, cbp, stream_ptr);
+  if (status != 0) return status;
+  const VqArgminEpilogue epi{e_sq, K, best, Cp, kParts * Cp};
+  err = muse::sm90::gemm_tn(static_cast<const bf*>(zp), static_cast<const bf*>(cbp), epi, N, Kp,
+                            6 * Cp, stream);
   if (err != cudaSuccess) return int(err);
   unpack_ids<<<(N + 255) / 256, 256, 0, stream>>>(best, N, ids);
   return int(cudaGetLastError());

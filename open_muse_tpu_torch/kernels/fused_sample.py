@@ -5,6 +5,11 @@ Counterparts of ``open_muse_tpu/ops/pallas/fused_sample.py``
 ``fused_categorical_cfg`` and ``fused_categorical``.  Sampling matches JAX
 only in distribution; with the same explicit ``gumbel`` noise the token ids
 match exactly.
+
+On the card, a ``generator`` seeds the kernel's Philox4x32-10 stream: one
+call per four columns, counter (col // 4, row, 0, 0), key the 64-bit seed,
+word col % 4 the bits of column col.  ``philox_gumbel_plain`` draws the same
+noise in torch, for the tests.
 """
 
 from __future__ import annotations
@@ -15,7 +20,12 @@ from . import on_cpu, require_cuda, stream_handle
 from ._build import check, library
 
 __all__ = ["fused_categorical", "fused_categorical_plain", "fused_categorical_cfg",
-           "fused_categorical_cfg_plain", "sample_gumbel", "draw_seed"]
+           "fused_categorical_cfg_plain", "sample_gumbel", "draw_seed", "philox4x32_plain",
+           "philox_gumbel_plain"]
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
@@ -28,6 +38,44 @@ def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
 def draw_seed(generator: torch.Generator) -> int:
     """A 63-bit seed for the in-kernel Philox stream, from a CPU generator."""
     return int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator))
+
+
+def _mulhilo(a: int, c):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant ``a`` and
+    the uint32 values ``c`` (int64), without overflowing int64: ``a`` in two
+    16-bit halves."""
+    lo_part, hi_part = c * (a & 0xFFFF), c * (a >> 16)  # each < 2^48
+    lo = (((hi_part & 0xFFFF) << 16) + lo_part) & _MASK32
+    return (hi_part + (lo_part >> 16)) >> 16, lo
+
+
+def philox4x32_plain(counters, key: int):
+    """Philox4x32-10 (Salmon et al., SC 2011; Random123's philox4x32 with 10
+    rounds): counters (..., 4) of uint32 values carried in int64 and a 64-bit
+    key -> (..., 4) output words, uint32 in int64."""
+    c = [counters[..., i].to(torch.int64) & _MASK32 for i in range(4)]
+    k0, k1 = key & _MASK32, (key >> 32) & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return torch.stack(c, dim=-1)
+
+
+def philox_gumbel_plain(seed: int, rows: int, cols: int, device=None):
+    """The Gumbel noise (rows, cols) fp32 of the kernel's Philox route for a
+    seed from ``draw_seed``: column col of row r takes word col % 4 of the
+    call on counter (col // 4, r, 0, 0); its top 24 bits give u in (0, 1) as
+    the TPU kernel does, then -log(-log(u)).  For the tests only."""
+    calls = -(-cols // 4)
+    col, row = torch.meshgrid(torch.arange(calls, device=device),
+                              torch.arange(rows, device=device), indexing="xy")
+    zero = torch.zeros_like(col)
+    bits = philox4x32_plain(torch.stack([col, row, zero, zero], dim=-1), seed)
+    bits = bits.reshape(rows, 4 * calls)[:, :cols]
+    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
 
 
 def fused_categorical_plain(logits, vocab_limit: int, gumbel):

@@ -11,9 +11,10 @@ import torch
 
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.kernels import attn_sublayer as A
-from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical_cfg_plain,
-                                                      fused_categorical_plain)
-from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin_plain, vq_near_ties
+from open_muse_tpu_torch.kernels.fused_sample import (draw_seed, fused_categorical_cfg_plain,
+                                                      fused_categorical_plain, philox_gumbel_plain)
+from open_muse_tpu_torch.kernels.vq_argmin import (vq_argmin_plain, vq_near_ties, vq_split,
+                                                   vq_split_plain)
 from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd_plain,
                                                     glu_down_matmul_plain)
 
@@ -159,12 +160,89 @@ def test_sampler_kernel_matches_plain(device, dtype):
     assert torch.equal(seeded[0], again[0]) and bool((seeded[0] < 8192).all())
 
 
-@pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130)])
+def _sampler_logits(gen, cfg, rows, v_raw, dtype):
+    return (torch.randn(2 * rows if cfg else rows, v_raw, generator=gen) * 2)[None].to(
+        "cuda", dtype)
+
+
+def _check_sampler(logits, cfg, vocab, noise, ids, sel, sel_tol):
+    """ids equal to the plain version's on ``noise`` wherever the top-2
+    scores are more than 1e-3 apart, sel to rel ``sel_tol``."""
+    x = logits[..., :vocab].float()
+    if cfg:
+        half = x.shape[1] // 2
+        ref_ids, ref_sel = fused_categorical_cfg_plain(logits.reshape(2, half, -1), 7.5, vocab,
+                                                       noise[None])
+        x = x[:, half:] + 7.5 * (x[:, :half] - x[:, half:])
+    else:
+        ref_ids, ref_sel = fused_categorical_plain(logits, vocab, noise[None])
+    top2 = torch.topk(x + noise[None, :, :vocab], 2, -1).values
+    clear = top2[..., 0] - top2[..., 1] > 1e-3
+    assert bool(((ids.reshape(ref_ids.shape) == ref_ids) | ~clear).all())
+    assert _rel(sel.reshape(ref_sel.shape), ref_sel) <= sel_tol
+    assert bool((ids < vocab).all())
+
+
+@pytest.mark.parametrize("cfg", [True, False])
+def test_sampler_philox_route_matches_plain_philox(device, cfg):
+    """The route the decode runs, at the serving shape ((2 x) 256 rows of
+    8256 bf16 logits cropped to 8192): the kernel's ids with a seeded
+    generator against the plain version fed ``philox_gumbel_plain`` for the
+    seed the wrapper draws from the same generator state -- equal wherever
+    the top-2 gap exceeds 1e-3 (the two sides' logs may differ by an ulp);
+    sel to rel 1e-4."""
+    logits = _sampler_logits(torch.Generator().manual_seed(5), cfg, 256, 8256, torch.bfloat16)
+    noise = philox_gumbel_plain(draw_seed(torch.Generator().manual_seed(9)), 256, 8192,
+                                device=device)
+    gen = torch.Generator().manual_seed(9)
+    if cfg:
+        ids, sel = kernels.fused_categorical_cfg(logits.reshape(2, 256, -1), 7.5, 8192,
+                                                 generator=gen)
+    else:
+        ids, sel = kernels.fused_categorical(logits, 8192, generator=gen)
+    _check_sampler(logits, cfg, 8192, noise, ids, sel, 1e-4)
+
+
+@pytest.mark.parametrize("cfg,v_raw,vocab,dtype", [(True, 20, 16, torch.bfloat16),
+                                                   (False, 20, 16, torch.bfloat16),
+                                                   (False, 21, 19, torch.float32)])
+def test_sampler_unaligned_rows(device, cfg, v_raw, vocab, dtype):
+    """Rows whose pitch is not 16 bytes (the chi-square checks' 20 bf16
+    columns, 21 fp32), explicit noise of the same ragged width: ids as the
+    plain version's (exactly, CFG-free: the same fp32 score), sel to rel
+    1e-5."""
+    gen = torch.Generator().manual_seed(v_raw)
+    logits = _sampler_logits(gen, cfg, 512, v_raw, dtype)
+    noise = -torch.log(-torch.log(torch.rand(512, v_raw, generator=gen).clamp_min(1e-30)))
+    noise = noise.to(device)
+    if cfg:
+        ids, sel = kernels.fused_categorical_cfg(logits.reshape(2, 512, -1), 7.5, vocab,
+                                                 gumbel=noise[None])
+    else:
+        ids, sel = kernels.fused_categorical(logits, vocab, gumbel=noise[None])
+        assert torch.equal(ids, fused_categorical_plain(logits, vocab, noise[None])[0])
+    _check_sampler(logits, cfg, vocab, noise, ids, sel, 1e-5)
+
+
+@pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (300, 37, 1001), (5, 7, 131)])
+def test_vq_split_kernel_matches_plain(device, n, c, k):
+    """The split pass bit-equal to ``vq_split_plain``: round-to-nearest casts
+    and exact fp32 subtractions, zeros past C and past K."""
+    gen = torch.Generator().manual_seed(n)
+    z = torch.randn(n, c, generator=gen).to(device)
+    cb = torch.randn(k, c, generator=gen).to(device)
+    for got, want in zip(vq_split(z, cb), vq_split_plain(z, cb)):
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130),
+                                   (512, 256, 8191), (300, 37, 1000)])
 def test_vq_argmin_kernel_matches_plain(device, n, c, k):
     """fp32, TF32 off: ids equal except at rows whose two best plain scores
-    lie within 1e-5 of the squared distances' scale (summation order), where
-    the kernel's pick is within that of the minimum; two calls bit-equal;
-    ragged rows, codes and C."""
+    lie within 1e-5 of the squared distances' scale (the split product's
+    roundings and summation order), where the kernel's pick is within that
+    of the minimum; two calls bit-equal; ragged rows, an odd codebook and C
+    not a multiple of 8."""
     gen = torch.Generator().manual_seed(n)
     z = torch.randn(n, c, generator=gen).to(device)
     cb = torch.randn(k, c, generator=gen).to(device)

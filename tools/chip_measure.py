@@ -2,13 +2,15 @@
 the command line (this one, or a parent commit unpacked with ``git archive``
 into a git-ignored directory, so that both run in one chip call):
 
-    python3 tools/chip_measure.py split TREE    # kernels 8, 10 - 12 by launch
+    python3 tools/chip_measure.py split TREE    # kernels 3, 4, 6, 8, 10 - 12 by launch
     python3 tools/chip_measure.py kernels TREE  # chip_smoke's kernel phases alone
     python3 tools/chip_measure.py host TREE     # host enqueue cost a call
     python3 tools/chip_measure.py serving TREE  # request latency around a profile
 
-``split`` times the GLU backward (kernel 8) and the sublayer kernels 10, 11
-and 12 by CUDA graph replay and splits each by launch with
+``split`` times the samplers (kernels 3 and 4, the Philox route at the
+serving shape), ``vq_argmin`` (kernel 6, at the pre-encode and inpainting
+shapes), the GLU backward (kernel 8) and the sublayer kernels 10, 11 and 12
+by CUDA graph replay and splits each by launch with
 ``chip_smoke.launch_split`` (the tree's own kernels, this script's shapes:
 kernel 8 at a, b (4096, 2816) and g (4096, 1024), kernel 10 at x (2, 256,
 1024) and (16, 256, 1024) over 77 text keys, kernels 11 and 12 at x (16,
@@ -90,10 +92,34 @@ def _glu_bwd_call(dev, gen):
             functools.partial(glu_down_matmul_bwd, a, b, wo, g))
 
 
+def _sample_vq_calls(C, dev, gen):
+    """(label, call) of kernels 3 and 4 on the Philox route (logits (1, 256,
+    8256) cropped to 8192, and (2, 256, 8192) at guidance 8) and of kernel 6
+    at chip_smoke's VQ shapes."""
+    from open_muse_tpu_torch.kernels.fused_sample import fused_categorical, fused_categorical_cfg
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin
+
+    bf = torch.bfloat16
+    one = (torch.randn(1, 256, 8256, generator=gen) * 2).to(dev, bf)
+    two = (torch.randn(2, 256, 8192, generator=gen) * 2).to(dev, bf)
+    ph = torch.Generator().manual_seed(7)
+    calls = {"k3 fused_categorical Philox (1, 256, 8256 -> 8192)":
+             lambda: fused_categorical(one, 8192, generator=ph),
+             "k4 fused_categorical_cfg Philox (2, 256, 8192)":
+             lambda: fused_categorical_cfg(two, 8.0, 8192, generator=ph)}
+    for path, (n, c, k) in C.VQ_SHAPES.items():
+        z = torch.randn(n, c, generator=gen).to(dev)
+        cb = torch.randn(k, c, generator=gen).to(dev)
+        calls[f"k6 vq_argmin ({path}) z ({n}, {c}) cb ({k}, {c})"] = functools.partial(
+            vq_argmin, z, cb)
+    return calls
+
+
 def split(tree):
     _, C = _load(tree)
     dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
-    calls = dict([_glu_bwd_call(dev, gen)])
+    calls = _sample_vq_calls(C, dev, gen)
+    calls.update([_glu_bwd_call(dev, gen)])
     calls.update((k, v) for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k9"))
     for label, fn in calls.items():
         print(f"[time] {label}: {C.graph_ms(fn):.4f} ms (graph replay)", flush=True)
