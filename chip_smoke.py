@@ -4,18 +4,26 @@ Builds the port's CUDA kernels from ``open_muse_tpu_torch/csrc``, holds each
 forward and backward kernel against its plain PyTorch version at the shapes
 of its path (each timed, with its plain version, by replaying calls from a
 CUDA graph: device time without the host's enqueue), then drives the port's
-paths at full width with seeded random weights:
+paths at full width with seeded random weights.  Every request path answers
+through its captured entry point (one replayed CUDA graph a request,
+``core.captured``) and, on the same three seeds, with its decode loop called
+directly (eager); the token ids of the two must be equal:
 
 - serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
-  ``PipelineMuse.text2image``;
-- class_conditional: three 256px / batch-1 / 8-step ImageNet class-id
-  requests through ``PipelineMuse(is_class_conditioned=True)`` with the v1
-  ``MaskGitTransformer`` of ``configs/imagenet.yaml`` and the MaskGIT VQGAN;
+  ``PipelineMuse.text2image`` (one graph: text tower, decode, VQGAN decode);
 - serving_nocfg: three such requests at guidance 0 (the CFG-free sampler);
 - inpainting: three 256px / batch-1 / 12-step CFG requests through
-  ``PipelineMuseInpainting.inpaint`` (the VQGAN encoder and ``vq_argmin``);
+  ``PipelineMuseInpainting.inpaint`` (one graph: the VQGAN encoder and
+  ``vq_argmin``, the decode, the VQGAN decode);
 - pre_encode: ``scripts.pre_encode.main`` over a synthetic shard of 1024
   seeded 256px images with captions, models loaded by ``from_pretrained``;
+- class_conditional: three 256px / batch-1 / 8-step ImageNet class-id
+  requests through ``PipelineMuse(is_class_conditioned=True)`` with the v1
+  ``MaskGitTransformer`` of ``configs/imagenet.yaml`` and the MaskGIT VQGAN
+  (the decode one graph);
+- class_inpainting: three such requests through
+  ``PipelineMuseInpainting(image, mask, class_ids=...)``, the MaskGIT VQGAN
+  encoder's ``vq_argmin`` at K 1024;
 - training: ``training.train_muse.main`` on ``configs/laiona6plus_uvit_clip.yaml``
   at batch 16 on a seeded synthetic pre-encoded shard (one repeated batch),
   then a resume from its checkpoint; before it, one forward and backward
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import re
@@ -406,18 +415,19 @@ def philox_call_instructions(cfg: bool):
 
 
 def check_philox_route(name, kern, plain, logits, x, v, device):
-    """The route every decode runs: the kernel's ids with a seeded CPU
-    generator against the plain version fed ``philox_gumbel_plain`` for the
-    seed the wrapper draws from the same generator state: equal wherever the
-    top-2 gap of x + noise exceeds 1e-3 (the two sides' logs may differ by an
-    ulp), sel to rel 1e-4.  Then the route's time (the kernel, and the plain
-    version with its noise drawn on the card) and its bound: the logits read
-    once, and the integer work of one Philox call per four columns."""
+    """The route every decode runs: the kernel's ids with its seed read from
+    an int64 device tensor against the plain version fed
+    ``philox_gumbel_plain`` for that seed: equal wherever the top-2 gap of x
+    + noise exceeds 1e-3 (the two sides' logs may differ by an ulp), sel to
+    rel 1e-4.  Then the route's time (the kernel, and the plain version with
+    its noise drawn on the card) and its bound: the logits read once, and
+    the integer work of one Philox call per four columns."""
     from open_muse_tpu_torch.kernels.fused_sample import draw_seed, philox_gumbel_plain
 
     rows = x.shape[0] * x.shape[1]
     seed = draw_seed(torch.Generator().manual_seed(77))
-    ids, sel = kern(generator=torch.Generator().manual_seed(77))
+    seed_buffer = torch.tensor([seed], device=device)
+    ids, sel = kern(seed=seed_buffer)
     noise = philox_gumbel_plain(seed, rows, v, device=device).reshape(x.shape)
     ref_ids, ref_sel = plain(noise)
     top2 = torch.topk(x + noise, 2, dim=-1).values
@@ -429,8 +439,7 @@ def check_philox_route(name, kern, plain, logits, x, v, device):
         f"version on philox_gumbel_plain: ids equal where the top-2 gap > 1e-3: {ids_ok} "
         f"({int(clear.sum())}/{clear.numel()} rows clear, {int((ids == ref_ids).sum())} equal); "
         f"sel max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 1e-4) {'ok' if ok else 'FAIL'}")
-    ph_gen = torch.Generator().manual_seed(78)
-    timing = (graph_ms(lambda: kern(generator=ph_gen)),
+    timing = (graph_ms(lambda: kern(seed=seed_buffer)),
               graph_ms(lambda: plain(philox_gumbel_plain(seed, rows, v, device=device)
                                      .reshape(x.shape))))
     # the two pipes run side by side: the busier one bounds the integer work
@@ -505,7 +514,7 @@ def check_sampler(device, gen):
         f"logits and the noise read once, {ops} fp32 operations)")
     philox_ok, philox_err, timing = check_philox_route(
         "fused_categorical_cfg",
-        lambda generator: fused_categorical_cfg(logits, guidance, v, generator=generator),
+        lambda seed: fused_categorical_cfg(logits, guidance, v, seed=seed),
         lambda noise: fused_categorical_cfg_plain(logits, guidance, v, noise), logits, x, v,
         device)
     chi_ok = chi_square("fused_categorical_cfg",
@@ -544,7 +553,7 @@ def check_categorical(device, gen):
         f"{max(moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S['fp32']) * 1e3:.4f} ms (the "
         f"cropped logits and the noise read once, {ops} fp32 operations)")
     philox_ok, philox_err, timing = check_philox_route(
-        "fused_categorical", lambda generator: fused_categorical(logits, v, generator=generator),
+        "fused_categorical", lambda seed: fused_categorical(logits, v, seed=seed),
         lambda noise: fused_categorical_plain(logits, v, noise), logits,
         logits[..., :v].float(), v, device)
     chi_ok = chi_square("fused_categorical",
@@ -554,8 +563,11 @@ def check_categorical(device, gen):
 
 
 # the VQ search shapes: a pre-encode batch of 64 images (64 x 256 latent
-# rows) and one 256px inpainting request, against the 8192-code codebook
-VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192)}
+# rows) and one 256px inpainting request, against the taming VQGAN's
+# 8192-code codebook; one 256px class-id inpainting request against the
+# MaskGIT VQGAN's 1024 codes
+VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
+             "class_inpainting": (256, 256, 1024)}
 VQ_RTOL = 1e-5
 
 
@@ -996,34 +1008,53 @@ def check_logits(pipe, device):
     return ok
 
 
-def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None):
-    """One 256px / bs1 / 12-step request through PipelineMuse.text2image, or
-    through PipelineMuseInpainting.inpaint with ``inpaint=(pixels, mask)``;
-    returns (seconds, images, tokens, launch deltas)."""
-    from open_muse_tpu_torch import kernels
-
-    captured = []
-    vae = pipe.vae
-    vae.decode_code = lambda tokens: (captured.append(tokens), type(vae).decode_code(vae, tokens))[1]
+def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None, eager=False):
+    """One 256px / bs1 / 12-step request through ``PipelineMuse.text2image``,
+    or through ``PipelineMuseInpainting.inpaint`` with ``inpaint=(pixels,
+    mask)``: one replayed CUDA graph holding the text tower, the decode and
+    the VQGAN (the graph's second output is the token ids).  ``eager=True``
+    runs the same request with the decode loop called directly
+    (``compile_*(...).eager``).  Returns (seconds, images, tokens, launch
+    deltas)."""
     ids = torch.as_tensor(pipe.tokenizer([prompt])["input_ids"], dtype=torch.long)
     micro = torch.tensor([[512, 512, 0, 0, 6.0]])
-    gen = torch.Generator().manual_seed(seed)
+    args = dict(timesteps=TIMESTEPS, guidance_scale=guidance, temperature=TEMPERATURE)
+    if inpaint is None:
+        fn = (eager_request(pipe, "text2image", **args, seq_len=256) if eager else
+              functools.partial(pipe.text2image, **args, seq_len=256))
+        inputs = (ids, micro)
+    else:
+        fn = (eager_request(pipe, "inpaint", **args) if eager else
+              functools.partial(pipe.inpaint, **args))
+        inputs = (*inpaint, ids, micro)
+    return timed_call(lambda: fn(*inputs, torch.Generator().manual_seed(seed),
+                                 return_tokens=True))
+
+
+_EAGER = {}
+
+
+def eager_request(pipe, name, **args):
+    """``compile_<name>(**args).eager``, built once a pipeline and arguments."""
+    key = (id(pipe), name, tuple(sorted(args.items())))
+    if key not in _EAGER:
+        _EAGER[key] = getattr(pipe, f"compile_{name}")(**args).eager
+    return _EAGER[key]
+
+
+def timed_call(fn):
+    """(host-clock seconds of a synchronised ``fn()``, its images, its
+    tokens, the kernel launches it counted)."""
+    from open_muse_tpu_torch import kernels
+
     before = kernels.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        if inpaint is None:
-            images = pipe.text2image(ids, micro, gen, timesteps=TIMESTEPS, guidance_scale=guidance,
-                                     temperature=TEMPERATURE, seq_len=256)
-        else:
-            images = pipe.inpaint(*inpaint, ids, micro, gen, timesteps=TIMESTEPS,
-                                  guidance_scale=guidance, temperature=TEMPERATURE)
-        torch.cuda.synchronize()
-    finally:
-        del vae.decode_code  # back to the class's method
+    images, tokens = fn()
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     after = kernels.launch_counts()
-    return seconds, images, captured[0], {k: after[k] - before[k] for k in after}
+    return seconds, images, tokens, {k: after[k] - before[k] for k in after}
 
 
 def expected_request_launches(cfg, sampler, vq=0):
@@ -1049,53 +1080,86 @@ def expected_request_launches(cfg, sampler, vq=0):
     return expected
 
 
-def run_requests(pipe, smi, path, expected, guidance=GUIDANCE, inpaint=None, check=None,
-                 request=None, codebook=8192, steps=TIMESTEPS):
-    """Three requests with the launch counters set to 0 before them; each
-    must give a finite (1, 256, 256, 3) image, tokens in [0, codebook), the
-    expected launches and pass ``check(tokens)``.  ``request(i)`` replaces
-    the text request (``one_request`` with the i-th prompt).  Returns
-    (median seconds, the path's launch counts)."""
-    from open_muse_tpu_torch import kernels
+IMAGE_SHAPE = (1, 256, 256, 3)  # every request: one 256px image
 
-    if request is None:
-        request = lambda i: (repr(PROMPTS[i]), *one_request(pipe, PROMPTS[i], i, guidance,  # noqa: E731
-                                                             inpaint))
-    kernels.reset_launch_counts()
-    latencies = []
-    for i in range(3):
-        label, seconds, images, tokens, delta = request(i)
-        finite = bool(torch.isfinite(images).all())
-        tokens_ok = bool(((tokens >= 0) & (tokens < codebook)).all())
-        extra = "" if check is None else check(tokens)
-        ok = (tuple(images.shape) == (1, 256, 256, 3) and finite and tokens_ok
-              and delta == expected and not extra.endswith("FAIL"))
-        log(f"[{path}] {i}: {label} seed {i}: {seconds * 1e3:.1f} ms, image "
-            f"{tuple(images.shape)} finite {finite} range [{images.min().item():.3f}, "
-            f"{images.max().item():.3f}], tokens in [0, {codebook}) {tokens_ok} "
-            f"({tokens.unique().numel()} distinct){extra}, launches {delta} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"chip_smoke: {path} request {i} failed (expected launches "
-                             f"{expected})")
-        latencies.append(seconds)
-    launches = kernels.launch_counts()
-    median = statistics.median(latencies)
-    log(f"[latency] {path}: median request {median * 1e3:.1f} ms over 3 (256px, bs1, "
-        f"{steps} steps, guidance {guidance}; host clock, synchronised) on {smi}")
-    return median, launches
+
+def run_requests(smi, path, expected, request, label=None, check=None, codebook=8192,
+                  steps=TIMESTEPS, guidance=GUIDANCE):
+    """A path's three requests, eager then captured, each set with the
+    launch counters at 0 just before it and read just after.
+    ``request(i, eager)`` -> (seconds, images, tokens, launch deltas).
+    Before them one captured request (the capture: a warm-up on a side
+    stream, the capture, a replay) and one eager one, uncounted.  Each
+    request must give a finite IMAGE_SHAPE image, tokens in [0,
+    codebook), the expected launches and pass ``check(tokens)``; the
+    captured tokens must equal the eager ones of the same seed, all of them.
+    Returns (captured median seconds, the captured run's launch counts)."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.core import captured as cap
+
+    label = label or (lambda i: repr(PROMPTS[i]))
+    cap.last_capture.clear()
+    seconds = request(99, False)[0]
+    capture = dict(cap.last_capture)
+    if capture:
+        log(f"[capture] {path}: first captured request {seconds * 1e3:.1f} ms, of which the "
+            f"warm-up and capture {capture['seconds'] * 1e3:.1f} ms; a replay adds "
+            f"{sum(capture['launches'].values())} wrapper launches {capture['launches']}; {smi}")
+    else:
+        log(f"[capture] {path}: first request {seconds * 1e3:.1f} ms, no capture: it replays "
+            f"a graph captured earlier under the same key; {smi}")
+    log(f"[request] {path} eager warm-up {request(98, True)[0] * 1e3:.1f} ms; {smi}")
+    medians, tokens_by_route, counts = {}, {}, {}
+    for route in ("eager", "captured"):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        latencies, tokens_by_route[route] = [], []
+        for i in range(3):
+            seconds, images, tokens, delta = request(i, route == "eager")
+            finite = bool(torch.isfinite(images).all())
+            tokens_ok = bool(((tokens >= 0) & (tokens < codebook)).all())
+            extra = "" if check is None else check(tokens)
+            ok = (tuple(images.shape) == IMAGE_SHAPE and finite and tokens_ok
+                  and delta == expected and not extra.endswith("FAIL"))
+            log(f"[{path}] {route} {i} on {smi}: {label(i)} seed {i}: {seconds * 1e3:.1f} ms, "
+                f"image "
+                f"{tuple(images.shape)} finite {finite} range [{images.min().item():.3f}, "
+                f"{images.max().item():.3f}], tokens in [0, {codebook}) {tokens_ok} "
+                f"({tokens.unique().numel()} distinct){extra}, launches "
+                f"{ {k: v for k, v in delta.items() if v} } "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {path} {route} request {i} failed (expected "
+                                 f"launches {expected})")
+            latencies.append(seconds)
+            tokens_by_route[route].append(tokens)
+        counts[route] = kernels.launch_counts()
+        medians[route] = statistics.median(latencies)
+        log(f"[memory] {path} {route}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+            f"GiB allocated over its 3 requests (captured graphs' pools included), "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB held after; {smi}")
+    equal = [torch.equal(a, b) for a, b in zip(tokens_by_route["eager"],
+                                               tokens_by_route["captured"])]
+    log(f"[tokens] {path}: captured token ids equal the eager ones of the same seed, all "
+        f"{tokens_by_route['eager'][0].numel()} of each request: {equal} "
+        f"{'ok' if all(equal) else 'FAIL'} ({smi})")
+    if not all(equal):
+        raise SystemExit(f"chip_smoke: {path} captured tokens differ from the eager loop's")
+    log(f"[latency] {path}: median request eager {medians['eager'] * 1e3:.1f} ms, captured "
+        f"{medians['captured'] * 1e3:.1f} ms over the same 3 requests (256px, bs1, {steps} "
+        f"steps, guidance {guidance}; host clock, synchronised) on {smi}")
+    return medians["captured"], counts["captured"]
 
 
 def request_phase(pipe, device, smi):
     cfg = pipe.transformer.config
-    warm, *_ = one_request(pipe, PROMPTS[-1], 99)
-    log(f"[request] warm-up {warm * 1e3:.1f} ms")
     if not check_logits(pipe, device):
         raise SystemExit("chip_smoke: kernel forward disagrees with the plain forward")
-    median, launches = run_requests(pipe, smi, "serving",
-                                    expected_request_launches(cfg, "fused_categorical_cfg"))
+    median, launches = run_requests(
+        smi, "serving", expected_request_launches(cfg, "fused_categorical_cfg"),
+        lambda i, eager: one_request(pipe, PROMPTS[i % 4], i, eager=eager))
     profiled("request", lambda: one_request(pipe, PROMPTS[3], 3), median,
-             "profile_request.txt", rows=18)
+             "profile_request.txt", rows=18, smi=smi, span=True)
     return launches
 
 
@@ -1103,46 +1167,54 @@ def nocfg_phase(pipe, smi):
     """Guidance 0, as a guidance-distilled student serves: batch 1 through
     the trunk and the CFG-free sampler."""
     cfg = pipe.transformer.config
-    warm, *_ = one_request(pipe, PROMPTS[-1], 98, guidance=0.0)
-    log(f"[serving_nocfg] warm-up {warm * 1e3:.1f} ms")
-    median, launches = run_requests(pipe, smi, "serving_nocfg",
-                                    expected_request_launches(cfg, "fused_categorical"),
-                                    guidance=0.0)
+    median, launches = run_requests(
+        smi, "serving_nocfg", expected_request_launches(cfg, "fused_categorical"),
+        lambda i, eager: one_request(pipe, PROMPTS[i % 4], i, guidance=0.0, eager=eager),
+        guidance=0.0)
     profiled("CFG-free request", lambda: one_request(pipe, PROMPTS[3], 3, guidance=0.0), median,
-             "profile_request_nocfg.txt")
+             "profile_request_nocfg.txt", smi=smi, span=True)
     return launches
 
 
-def inpainting_phase(pipe, device, smi):
-    """A seeded 256 x 256 image with the centre 8 x 8 of its 16 x 16 tokens
-    repainted under CFG 8.0."""
-    cfg = pipe.transformer.config
-    gen = torch.Generator().manual_seed(21)
-    pixels = torch.rand(1, 256, 256, 3, generator=gen).to(device)
+def centre_mask():
+    """The centre 8 x 8 of 16 x 16 tokens."""
     mask = torch.zeros(16, 16, dtype=torch.bool)
     mask[4:12, 4:12] = True
-    mask = mask.reshape(-1)
+    return mask.reshape(-1)
+
+
+def kept_tokens(vae, pixels, mask):
+    """A check that the tokens outside ``mask`` equal the image's own."""
     with torch.no_grad():
-        codes = pipe.vae.get_code(pixels)[0].cpu()
+        codes = vae.get_code(pixels)[0].cpu()
 
     def kept(tokens):
         same = torch.equal(tokens[0].cpu()[~mask], codes[~mask])
         return f", {int((~mask).sum())} tokens outside the mask equal the encoded ones {same}" + (
             "" if same else " FAIL")
 
-    warm, *_ = one_request(pipe, PROMPTS[-1], 97, inpaint=(pixels, mask))
-    log(f"[inpainting] warm-up {warm * 1e3:.1f} ms; mask {int(mask.sum())} of {mask.numel()} "
-        f"tokens")
-    median, launches = run_requests(pipe, smi, "inpainting",
-                                    expected_request_launches(cfg, "fused_categorical_cfg", vq=1),
-                                    inpaint=(pixels, mask), check=kept)
+    return kept
+
+
+def inpainting_phase(pipe, device, smi):
+    """A seeded 256 x 256 image with the centre 8 x 8 of its 16 x 16 tokens
+    repainted under CFG 8.0."""
+    cfg = pipe.transformer.config
+    pixels = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(21)).to(device)
+    mask = centre_mask()
+    log(f"[inpainting] mask {int(mask.sum())} of {mask.numel()} tokens")
+    median, launches = run_requests(
+        smi, "inpainting", expected_request_launches(cfg, "fused_categorical_cfg", vq=1),
+        lambda i, eager: one_request(pipe, PROMPTS[i % 4], i, inpaint=(pixels, mask),
+                                     eager=eager),
+        check=kept_tokens(pipe.vae, pixels, mask))
     profiled("inpainting request", lambda: one_request(pipe, PROMPTS[3], 3,
                                                        inpaint=(pixels, mask)),
-             median, "profile_inpainting.txt")
+             median, "profile_inpainting.txt", smi=smi, span=True)
     return launches
 
 
-# -- the class-conditional path at full width -----------------------------------
+# -- the class-conditional paths at full width -----------------------------------
 
 # configs/imagenet.yaml: training.generation_timesteps; the pipeline's default
 # (2, 0) temperature anneal
@@ -1153,10 +1225,11 @@ CLASS_IDS = (207, 360, 970, 88)
 def build_class_pipeline(device):
     """MaskGitTransformer at configs/imagenet.yaml's model.transformer (24
     layers, hidden 768) in bf16 and the MaskGIT VQGAN at its defaults (f16,
-    1024 codes) in fp32, seeded random weights."""
+    1024 codes; encoder and decoder) in fp32, seeded random weights: a
+    class-id pipeline and an inpainting one over the same models."""
     from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN, MaskGitVQGANConfig
     from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
-    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse, PipelineMuseInpainting
     from open_muse_tpu_torch.utils.config import load_config
 
     config = load_config(["config=" + os.path.join(HERE, "configs", "imagenet.yaml")])
@@ -1171,33 +1244,63 @@ def build_class_pipeline(device):
     transformer.to(torch.bfloat16).eval()
     vae.eval()
     counts = {name: sum(p.numel() for p in m.parameters())
-              for name, m in (("maskgit_v1", transformer), ("maskgit_vqgan", vae))}
+              for name, m in (("maskgit_v1", transformer), ("maskgit_vqgan", vae),
+                              ("of which encoder", vae.encoder))}
     log(f"[class_conditional] params {counts}; v1 bf16, vqgan fp32; transformer config {tcfg}")
-    return PipelineMuse(vae=vae, transformer=transformer, is_class_conditioned=True)
+    return (PipelineMuse(vae=vae, transformer=transformer, is_class_conditioned=True),
+            PipelineMuseInpainting(vae=vae, transformer=transformer, is_class_conditioned=True))
 
 
-def one_class_request(pipe, class_id, seed):
-    """One 256px / bs1 / 8-step request through PipelineMuse(class_ids=...);
-    returns (label, seconds, images, tokens, launch deltas)."""
-    from open_muse_tpu_torch import kernels
+def one_class_request(pipe, class_id, seed, eager=False, inpaint=None):
+    """One 256px / bs1 / 8-step class-id request: ``PipelineMuse(class_ids=
+    ...)``, or with ``inpaint=(inpainting pipeline, pixels, mask)``
+    ``PipelineMuseInpainting(image, mask, class_ids=...)`` (an (R, R, 3)
+    array in [0, 1]): the decode one
+    replayed CUDA graph (v1 ``generate2``), the MaskGIT VQGAN's encode and
+    decode eager around it.  ``eager=True`` calls the decode loop directly
+    (``v1_decode_loop``) on noise drawn the same way.  Returns (label,
+    seconds, images, tokens, launch deltas)."""
+    from open_muse_tpu_torch.models.transformer_v1 import v1_decode_loop, v1_schedules
+    from open_muse_tpu_torch.models.transformer_v2 import decode_noise
 
-    captured = []
-    vae = pipe.vae
-    vae.decode_code = lambda tokens: (captured.append(tokens), type(vae).decode_code(vae, tokens))[1]
+    t, vae = pipe.transformer, pipe.vae
+    cfg = t.config
+
+    def captured():
+        tokens = []
+        vae.decode_code = lambda ids: (tokens.append(ids), type(vae).decode_code(vae, ids))[1]
+        try:
+            if inpaint is None:
+                images = pipe(class_ids=[class_id], timesteps=CLASS_TIMESTEPS, generator=gen,
+                              return_pil=False)
+            else:
+                images = inpaint[0](inpaint[1], inpaint[2], class_ids=[class_id],
+                                    timesteps=CLASS_TIMESTEPS, temperature=(2, 0),
+                                    generator=gen, return_pil=False)
+        finally:
+            del vae.decode_code  # back to the class's method
+        return images, tokens[0]
+
+    @torch.no_grad()
+    def eager_call():
+        if inpaint is None:
+            start = torch.full((1, cfg.num_vq_tokens), cfg.mask_token_id, device=device)
+        else:
+            pixels = inpaint[0]._preprocess_image(inpaint[1], 256)
+            start = inpaint[0]._start_ids(pixels, inpaint[2], 1)
+        temps, ratios = v1_schedules(CLASS_TIMESTEPS, (2, 0))
+        kind, sample, mask = decode_noise(gen, timesteps=CLASS_TIMESTEPS, batch=1,
+                                          seq_len=start.shape[1], vocab=cfg.codebook_size,
+                                          device=start.device)
+        classes = torch.tensor([class_id], device=start.device) + cfg.codebook_size
+        tokens = v1_decode_loop(t, start, classes, None, temps.to(start.device),
+                                ratios.to(start.device), guidance_scale=None,
+                                timesteps=CLASS_TIMESTEPS, mask_gumbel=mask, **{kind: sample})
+        return vae.decode_code(tokens), tokens
+
+    device = next(t.parameters()).device
     gen = torch.Generator().manual_seed(seed)
-    before = kernels.launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        images = pipe(class_ids=[class_id], timesteps=CLASS_TIMESTEPS, generator=gen,
-                      return_pil=False)
-        torch.cuda.synchronize()
-    finally:
-        del vae.decode_code
-    seconds = time.perf_counter() - t0
-    after = kernels.launch_counts()
-    return (f"class {class_id}", seconds, images, captured[0],
-            {k: after[k] - before[k] for k in after})
+    return (f"class {class_id}", *timed_call(eager_call if eager else captured))
 
 
 def check_class_logits(pipe, device):
@@ -1223,54 +1326,81 @@ def check_class_logits(pipe, device):
 
 
 def class_conditional_phase(device, smi):
-    """Three ImageNet class-id requests.  Per request, at each of the 8
-    steps: each layer's self-attention (flash_attention) and its four
-    LayerNorms (attention, post-attention, pre- and mid-MLP), the final and
-    MLM-head LayerNorms, the sampler once."""
+    """Three ImageNet class-id requests, then three class-id inpainting
+    requests (a seeded image, the centre 8 x 8 of its 16 x 16 MaskGIT VQGAN
+    tokens repainted).  Per request, at each of the 8 steps: each layer's
+    self-attention (flash_attention) and its four LayerNorms (attention,
+    post-attention, pre- and mid-MLP), the final and MLM-head LayerNorms,
+    the sampler once; inpainting adds the encoder's vq_argmin (K 1024)."""
     from open_muse_tpu_torch import kernels
 
-    pipe = build_class_pipeline(device)
+    pipe, inpainting = build_class_pipeline(device)
     cfg = pipe.transformer.config
     expected = {name: 0 for name in kernels.launch_counts()}
     expected.update({"flash_attention": cfg.num_hidden_layers * CLASS_TIMESTEPS,
                      "fused_residual_layernorm": (4 * cfg.num_hidden_layers + 2) * CLASS_TIMESTEPS,
                      "fused_categorical": CLASS_TIMESTEPS})
-    warm = one_class_request(pipe, CLASS_IDS[-1], 96)[1]
-    log(f"[class_conditional] warm-up {warm * 1e3:.1f} ms")
     if not check_class_logits(pipe, device):
         raise SystemExit("chip_smoke: v1 kernel forward disagrees with the plain forward")
+    class_label = lambda i: f"class {CLASS_IDS[i % 4]}"  # noqa: E731
     median, launches = run_requests(
-        pipe, smi, "class_conditional", expected, guidance=0.0, codebook=cfg.codebook_size,
-        steps=CLASS_TIMESTEPS, request=lambda i: one_class_request(pipe, CLASS_IDS[i], i))
+        smi, "class_conditional", expected,
+        lambda i, eager: one_class_request(pipe, CLASS_IDS[i % 4], i, eager)[1:],
+        label=class_label, guidance=0.0, codebook=cfg.codebook_size, steps=CLASS_TIMESTEPS)
     profiled("class-conditional request", lambda: one_class_request(pipe, CLASS_IDS[3], 3),
-             median, "profile_class_conditional.txt")
-    del pipe
+             median, "profile_class_conditional.txt", smi=smi, span=True)
+    image = torch.rand(256, 256, 3, generator=torch.Generator().manual_seed(22))
+    pixels = image[None].to(device)
+    mask = centre_mask()
+    job = (inpainting, image.numpy(), mask)
+    median, inpaint_launches = run_requests(
+        smi, "class_inpainting", {**expected, "vq_argmin": 1},
+        lambda i, eager: one_class_request(pipe, CLASS_IDS[i % 4], i, eager, job)[1:],
+        label=class_label, check=kept_tokens(pipe.vae, pixels, mask), guidance=0.0,
+        codebook=cfg.codebook_size, steps=CLASS_TIMESTEPS)
+    profiled("class-id inpainting request",
+             lambda: one_class_request(pipe, CLASS_IDS[3], 3, inpaint=job), median,
+             "profile_class_inpainting.txt", smi=smi, span=True)
+    del pipe, inpainting
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, inpaint_launches
 
 
-def profiled(label, fn, unprofiled_s, filename, rows=16):
+def profiled(label, fn, unprofiled_s, filename, rows=16, smi="", span=False):
     """Run ``fn`` once more under the profiler (outside any counted run);
     the table of device time by kernel goes to ``chiprun_out/filename``.
     The busy share is device kernel time over ``unprofiled_s``, the same
-    work's host-clock time without the profiler."""
+    work's host-clock time without the profiler.  The device operations
+    counted (kernels, copies, sets: a captured request's graph nodes as they
+    ran); with ``span``, first the device span of one more call by CUDA
+    events (before the profiler, which slows later graph replays)."""
     from torch.profiler import ProfilerActivity, profile
 
+    if span:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        span_ms = f"; device span of one call (CUDA events) {start.elapsed_time(end):.1f} ms"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device)
+    ops = sum(e.count for e in device)
     table = events.table(sort_by="self_device_time_total", row_limit=50)
     with open(os.path.join(HERE, "chiprun_out", filename), "w") as f:
         f.write(table)
     busy = device_us / 1e6 / unprofiled_s
     log(f"[profile] {label} {seconds * 1e3:.1f} ms under the profiler, device kernel time "
-        f"{device_us / 1e3:.1f} ms; against the {unprofiled_s * 1e3:.1f} ms without it: busy "
-        f"share {busy:.3f}, idle share {1 - busy:.3f}")
+        f"{device_us / 1e3:.1f} ms in {ops} device operations; against the "
+        f"{unprofiled_s * 1e3:.1f} ms without it: busy share {busy:.3f}, idle share "
+        f"{1 - busy:.3f}{span_ms if span else ''}{'; ' + smi if smi else ''}")
     for line in table.splitlines()[:rows]:
         log(f"[profile] {line}")
 
@@ -1781,12 +1911,14 @@ def main() -> int:
     if not pre_ok:
         failed.append("pre_encode phase")
     del pipe
+    _EAGER.clear()
+    gc.collect()  # the pipeline and its request functions hold each other: free its graphs
     torch.cuda.empty_cache()
     log(f"[phase] serving, serving_nocfg, inpainting, pre_encode {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
-    paths["class_conditional"] = class_conditional_phase(device, smi)
-    log(f"[phase] class_conditional {time.perf_counter() - phase_t0:.1f} s")
+    paths["class_conditional"], paths["class_inpainting"] = class_conditional_phase(device, smi)
+    log(f"[phase] class_conditional, class_inpainting {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
     if not gradient_check(device):

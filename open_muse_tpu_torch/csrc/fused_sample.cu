@@ -13,9 +13,11 @@
 //
 // Noise: either an explicit fp32 gumbel tensor (tests and comparisons, as the
 // TPU kernel's `gumbel=`), or a counter-based Philox4x32-10 stream in place of
-// the TPU's PRNG, keyed by a 64-bit seed the wrapper draws from the caller's
-// torch.Generator: one Philox call per four columns, counter (col / 4, row,
-// 0, 0), its output word col % 4 the bits of column col
+// the TPU's PRNG, keyed by a 64-bit seed that each block loads from device
+// memory (the TPU kernel takes its seed as an SMEM operand, so one compiled
+// program serves every request; here one captured CUDA graph does, the seed
+// buffer refilled before each replay): one Philox call per four columns,
+// counter (col / 4, row, 0, 0), its output word col % 4 the bits of column col
 // (kernels/fused_sample.py `philox_gumbel_plain` is the same stream in torch).
 //
 // What bounds it on the H100: reading the logits -- 2 x 256 x 8192 bf16 = 8 MB
@@ -158,8 +160,9 @@ __device__ __forceinline__ Best shuffle_merge(Best best, int width) {
 template <typename T, bool kCfg, bool kPhilox>
 __global__ void __launch_bounds__(kThreads, 2)
 sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, float guidance,
-              const float* __restrict__ gumbel, int64_t g_stride, uint64_t seed,
-              int* __restrict__ ids, float* __restrict__ sel) {
+              const float* __restrict__ gumbel, int64_t g_stride,
+              const uint64_t* __restrict__ seed, int* __restrict__ ids,
+              float* __restrict__ sel) {
   // 8-column chunks a thread per segment: 8192 bf16 or 4096 fp32 columns
   constexpr int kChunks = sizeof(T) == 2 ? 4 : 2;
   constexpr int kSegment = kThreads * 8 * kChunks;
@@ -169,7 +172,8 @@ sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, f
   const float* g_row = kPhilox ? nullptr : gumbel + row * g_stride;
   const bool vec_x = aligned16(cond) && aligned16(uncond);
   const bool vec_g = !kPhilox && aligned16(g_row);
-  const uint32_t k0 = uint32_t(seed), k1 = uint32_t(seed >> 32);
+  const uint64_t key = kPhilox ? *seed : 0ull;  // one load a block
+  const uint32_t k0 = uint32_t(key), k1 = uint32_t(key >> 32);
 
   Best best{-INFINITY, -INFINITY, -INFINITY, 0.f, INT_MAX};
   for (int seg = 0; seg < vocab_limit; seg += kSegment) {
@@ -275,8 +279,8 @@ sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, f
 
 template <typename T, bool kCfg>
 void launch_route(const T* logits, int N, int v_raw, int vocab_limit, float guidance,
-                  const float* gumbel, int64_t g_stride, uint64_t seed, int* ids, float* sel,
-                  cudaStream_t stream) {
+                  const float* gumbel, int64_t g_stride, const uint64_t* seed, int* ids,
+                  float* sel, cudaStream_t stream) {
   if (gumbel)
     sample_kernel<T, kCfg, false><<<N, kThreads, 0, stream>>>(
         logits, N, v_raw, vocab_limit, guidance, gumbel, g_stride, seed, ids, sel);
@@ -287,7 +291,7 @@ void launch_route(const T* logits, int N, int v_raw, int vocab_limit, float guid
 
 template <bool kCfg>
 int launch(const void* logits, int logits_bf16, int N, int v_raw, int vocab_limit, float guidance,
-           const float* gumbel, int64_t g_stride, uint64_t seed, int* ids, float* sel,
+           const float* gumbel, int64_t g_stride, const uint64_t* seed, int* ids, float* sel,
            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (logits_bf16)
@@ -303,10 +307,11 @@ int launch(const void* logits, int logits_bf16, int N, int v_raw, int vocab_limi
 }  // namespace
 
 // logits: (2N, v_raw), cond rows first; bf16 when logits_bf16 != 0, else fp32.
-// gumbel: (N, g_stride) fp32, or nullptr for the in-kernel Philox stream.
+// gumbel: (N, g_stride) fp32, or nullptr for the in-kernel Philox stream,
+// keyed by the 64-bit value at `seed` (device memory; unread with gumbel).
 extern "C" int muse_cfg_sample(const void* logits, int logits_bf16, int N, int v_raw,
                                int vocab_limit, float guidance, const float* gumbel,
-                               int64_t g_stride, uint64_t seed, int* ids, float* sel,
+                               int64_t g_stride, const uint64_t* seed, int* ids, float* sel,
                                void* stream_ptr) {
   return launch<true>(logits, logits_bf16, N, v_raw, vocab_limit, guidance, gumbel, g_stride,
                       seed, ids, sel, stream_ptr);
@@ -314,8 +319,8 @@ extern "C" int muse_cfg_sample(const void* logits, int logits_bf16, int N, int v
 
 // logits: (N, v_raw); no guidance.  Otherwise as muse_cfg_sample.
 extern "C" int muse_sample(const void* logits, int logits_bf16, int N, int v_raw,
-                           int vocab_limit, const float* gumbel, int64_t g_stride, uint64_t seed,
-                           int* ids, float* sel, void* stream_ptr) {
+                           int vocab_limit, const float* gumbel, int64_t g_stride,
+                           const uint64_t* seed, int* ids, float* sel, void* stream_ptr) {
   return launch<false>(logits, logits_bf16, N, v_raw, vocab_limit, 0.f, gumbel, g_stride, seed,
                        ids, sel, stream_ptr);
 }

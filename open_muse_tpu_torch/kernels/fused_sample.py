@@ -6,10 +6,13 @@ Counterparts of ``open_muse_tpu/ops/pallas/fused_sample.py``
 only in distribution; with the same explicit ``gumbel`` noise the token ids
 match exactly.
 
-On the card, a ``generator`` seeds the kernel's Philox4x32-10 stream: one
+On the card the kernel draws its noise from a Philox4x32-10 stream: one
 call per four columns, counter (col // 4, row, 0, 0), key the 64-bit seed,
-word col % 4 the bits of column col.  ``philox_gumbel_plain`` draws the same
-noise in torch, for the tests.
+word col % 4 the bits of column col.  The kernel loads the seed from device
+memory, an int64 ``seed=`` tensor, so that a captured CUDA graph replays
+with each request's seed; a CPU ``generator=`` has one drawn on the host
+(``draw_seed``) and copied over.  ``philox_gumbel_plain`` draws the same
+noise in torch: the plain version's noise for ``seed=`` on the CPU.
 """
 
 from __future__ import annotations
@@ -94,7 +97,8 @@ def fused_categorical_cfg_plain(logits, guidance, vocab_limit: int, gumbel):
     return fused_categorical_plain(x[b:] + guidance * (x[:b] - x[b:]), vocab_limit, gumbel)
 
 
-def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generator, *guidance):
+def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generator, seed,
+            *guidance):
     """Shared by both wrappers: check the noise, then the plain version for
     CPU tensors or, for CUDA tensors, the kernel behind the C function
     ``entry`` (``guidance`` passed after ``vocab_limit``), counted in
@@ -103,54 +107,62 @@ def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generato
     s, v_raw = logits.shape[1:]
     if not 0 < vocab_limit <= v_raw:
         raise ValueError(f"bad logits {tuple(logits.shape)} / vocab_limit {vocab_limit}")
-    if (gumbel is None) == (generator is None):
-        raise ValueError("pass exactly one of gumbel= and generator=")
+    if sum(x is not None for x in (gumbel, generator, seed)) != 1:
+        raise ValueError("pass exactly one of gumbel=, seed= and generator=")
     if gumbel is not None and (gumbel.shape[:2] != (b, s) or gumbel.shape[2] < vocab_limit):
         raise ValueError(f"gumbel {tuple(gumbel.shape)} does not cover ({b}, {s}, "
                          f"{vocab_limit})")
-    if on_cpu(logits, gumbel):
-        if gumbel is None:
+    if seed is not None and (seed.dtype != torch.int64 or seed.numel() != 1):
+        raise ValueError(f"seed must hold one int64, got {seed.dtype} {tuple(seed.shape)}")
+    if on_cpu(logits, gumbel, seed):
+        if generator is not None:
             gumbel = sample_gumbel((b, s, vocab_limit), generator)
+        elif seed is not None:
+            gumbel = philox_gumbel_plain(int(seed.reshape(())), b * s, vocab_limit)
+            gumbel = gumbel.reshape(b, s, vocab_limit)
         return plain(logits, *guidance, vocab_limit, gumbel)
     require_cuda(name, (torch.bfloat16, torch.float32), logits)
+    for noise in (gumbel, seed):
+        if noise is not None and noise.device != logits.device:
+            raise ValueError(f"{name}: noise on {noise.device}, logits on {logits.device}")
     if gumbel is not None:
         require_cuda(name, (torch.float32,), gumbel)
-        if gumbel.device != logits.device:
-            raise ValueError(f"{name}: gumbel on {gumbel.device}, logits on {logits.device}")
-    seed = 0 if generator is None else draw_seed(generator)
+    if generator is not None:
+        seed = torch.tensor([draw_seed(generator)], dtype=torch.int64).to(logits.device)
     ids = torch.empty((b, s), dtype=torch.int32, device=logits.device)
     sel = torch.empty((b, s), dtype=torch.float32, device=logits.device)
     check(getattr(library(), entry)(
         logits.data_ptr(), int(logits.dtype == torch.bfloat16), b * s, v_raw, vocab_limit,
         *guidance, None if gumbel is None else gumbel.data_ptr(),
-        0 if gumbel is None else gumbel.shape[2], seed, ids.data_ptr(), sel.data_ptr(),
-        stream_handle(logits)), name)
+        0 if gumbel is None else gumbel.shape[2], None if seed is None else seed.data_ptr(),
+        ids.data_ptr(), sel.data_ptr(), stream_handle(logits)), name)
     wrapper.launches += 1
     return ids, sel
 
 
 def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None,
-                          generator: torch.Generator | None = None):
+                          generator: torch.Generator | None = None, seed=None):
     """logits (2B, S, V_raw), cond rows first -> (ids (B, S) int32,
-    sel (B, S) fp32).  Noise is either ``gumbel`` (B, S, >= vocab_limit)
-    fp32, or drawn from the CPU ``generator`` (the card's kernel seeds its
-    Philox stream from it)."""
+    sel (B, S) fp32).  Noise is one of ``gumbel`` (B, S, >= vocab_limit)
+    fp32, the Philox stream of ``seed`` (an int64 tensor of one element on
+    the logits' device), or the stream of a seed drawn from the CPU
+    ``generator`` (on the CPU: ``sample_gumbel`` from it, as before)."""
     if logits.shape[0] % 2:
         raise ValueError(f"CFG logits {tuple(logits.shape)} need cond and uncond halves")
     return _sample(fused_categorical_cfg, "muse_cfg_sample", fused_categorical_cfg_plain, logits,
-                   logits.shape[0] // 2, vocab_limit, gumbel, generator, float(guidance))
+                   logits.shape[0] // 2, vocab_limit, gumbel, generator, seed, float(guidance))
 
 
 fused_categorical_cfg.launches = 0
 
 
 def fused_categorical(logits, vocab_limit: int, gumbel=None,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None, seed=None):
     """The CFG-free sampler: logits (B, S, V_raw) -> (ids (B, S) int32,
     sel (B, S) fp32) over the first ``vocab_limit`` columns.  Noise as for
     ``fused_categorical_cfg``."""
     return _sample(fused_categorical, "muse_sample", fused_categorical_plain, logits,
-                   logits.shape[0], vocab_limit, gumbel, generator)
+                   logits.shape[0], vocab_limit, gumbel, generator, seed)
 
 
 fused_categorical.launches = 0

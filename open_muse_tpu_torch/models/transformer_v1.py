@@ -2,13 +2,15 @@
 
 Counterpart of ``open_muse_tpu/models/transformer_v1.py``: the same blocks,
 the same open-muse parameter names, and the original-MaskGIT decode
-(``generate2``), class-conditional (the class id shifted past the codebook
-and prepended) or text-conditional.  Every norm goes to the fused-norm
-kernel and every unmasked attention to ``flash_attention`` (the wrappers in
-``ops.layers``); the sampling tail is ``fused_categorical``.
+(``generate2``) and the lucidrains-style one (``generate``: top-k filter,
+Gumbel sample, score re-masking), class-conditional (the class id shifted
+past the codebook and prepended) or text-conditional.  Every norm goes to
+the fused-norm kernel and every unmasked attention to ``flash_attention``
+(the wrappers in ``ops.layers``); ``generate2``'s sampling tail is
+``fused_categorical``.  On the card each decode is one captured CUDA graph
+(``core.captured``), as each is one jitted program in JAX.
 ``forward(..., use_kernels=False)`` runs the plain PyTorch path on the same
-weights.  The lucidrains-style ``generate`` (top-k filter, Gumbel sample,
-score re-masking) is not ported yet.
+weights.
 """
 
 from __future__ import annotations
@@ -17,18 +19,22 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.captured import captured
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
+from ..kernels.fused_sample import sample_gumbel
 from ..ops import sampling
 from ..ops.layers import Attention, LayerNorm, Norm
 from ..ops.losses import cross_entropy_loss
-from .transformer_v2 import _conv1x1, decode_step
+from .transformer_v2 import _conv1x1, decode_noise, decode_step
 
-__all__ = ["MaskGitTransformer", "MaskGitTransformerConfig", "v1_schedules"]
+__all__ = ["MaskGitTransformer", "MaskGitTransformerConfig", "v1_schedules", "v1_decode_loop",
+           "v1_generate_loop", "masked_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,19 +305,10 @@ class MaskGitTransformer(ModelMixin, nn.Module):
             return logits
         return logits, cross_entropy_loss(logits, labels, label_smoothing)
 
-    @torch.no_grad()
-    def generate2(self, input_ids=None, class_ids=None, encoder_hidden_states=None,
-                  negative_embeds=None, temperature=1.0, timesteps: int = 18,
-                  guidance_scale: float = 0.0, noise_schedule=sampling.cosine_schedule,
-                  generator=None, noise=None, **unused_kwargs):
-        """Original-MaskGIT parallel decode -> the token ids (B, S) committed
-        at the last step.  ``class_ids`` (B,) are shifted past the codebook
-        and prepended at every step; text states take CFG when
-        ``guidance_scale > 0`` (none for class ids).  Noise comes from the
-        CPU ``generator`` or is ``noise=(sample_gumbel (T, B, S, >= codebook),
-        mask_gumbel (T, B, S))``, as the JAX loop draws them from its key
-        chain.  The v2-only inputs a text pipeline passes (``cond_embeds``,
-        ``empty_embeds``, ...) are ignored, as in the JAX model."""
+    def _decode_inputs(self, input_ids, class_ids, encoder_hidden_states, negative_embeds,
+                       guidance_scale):
+        """(start ids, shifted class ids or None, the cross-attention
+        condition or None, use_cfg), as both JAX decodes prepare them."""
         cfg = self.config
         device = self.transformer_layers[0].attention.query.weight.device
         if class_ids is not None:
@@ -333,24 +330,170 @@ class MaskGitTransformer(ModelMixin, nn.Module):
             uncond = (torch.zeros_like(encoder_hidden_states) if negative_embeds is None
                       else negative_embeds.to(encoder_hidden_states))
             condition = torch.cat([encoder_hidden_states, uncond], dim=0)
+        return input_ids.long().to(device), class_ids, condition, use_cfg
+
+    def _captured(self, key, fn, input_ids, class_ids, condition, *tensors):
+        """``fn(input_ids, class_ids, condition, *tensors)`` through
+        ``core.captured``, the optional inputs left out of the graph's."""
+        flags = (class_ids is not None, condition is not None)
+        optional = [t for t in (class_ids, condition) if t is not None]
+
+        def body(input_ids, *rest):
+            rest = list(rest)
+            cls = rest.pop(0) if flags[0] else None
+            cond = rest.pop(0) if flags[1] else None
+            return fn(input_ids, cls, cond, *rest)
+
+        return captured(self, key + flags, body, input_ids, *optional, *tensors, modules=(self,))
+
+    @torch.no_grad()
+    def generate2(self, input_ids=None, class_ids=None, encoder_hidden_states=None,
+                  negative_embeds=None, temperature=1.0, timesteps: int = 18,
+                  guidance_scale: float = 0.0, noise_schedule=sampling.cosine_schedule,
+                  generator=None, noise=None, **unused_kwargs):
+        """Original-MaskGIT parallel decode -> the token ids (B, S) committed
+        at the last step.  ``class_ids`` (B,) are shifted past the codebook
+        and prepended at every step; text states take CFG when
+        ``guidance_scale > 0`` (none for class ids).  Noise comes from the
+        CPU ``generator`` or is ``noise=(sample_gumbel (T, B, S, >=
+        codebook), mask_gumbel (T, B, S))``, as the JAX loop draws them from
+        its key chain; either way it is drawn before the loop
+        (``decode_noise``).  On the card the loop is one captured CUDA graph.
+        The v2-only inputs a text pipeline passes (``cond_embeds``,
+        ``empty_embeds``, ...) are ignored, as in the JAX model."""
+        cfg = self.config
+        input_ids, class_ids, condition, use_cfg = self._decode_inputs(
+            input_ids, class_ids, encoder_hidden_states, negative_embeds, guidance_scale)
         temperatures, mask_ratios = v1_schedules(timesteps, temperature, noise_schedule)
-        sample_gumbel, mask_gumbel = (None, None) if noise is None else noise
-        step_ctx = self.step_context(condition)
-        ids = input_ids.long()
-        sampled = ids
-        for step in range(timesteps):
-            model_ids = ids if class_ids is None else torch.cat([class_ids[:, None], ids], dim=1)
-            if use_cfg:
-                model_ids = torch.cat([model_ids, model_ids], dim=0)
-            raw = self(model_ids, step_ctx=step_ctx)
-            if class_ids is not None:
-                raw = raw[:, 1:].contiguous()
-            ids, sampled = decode_step(
-                raw, ids, step, mask_token_id=cfg.mask_token_id, codebook_size=cfg.codebook_size,
-                guidance_scale=guidance_scale if use_cfg else None,
-                mask_ratio=mask_ratios[step], temperature=float(temperatures[step]),
-                generator=generator, sample_gumbel=sample_gumbel, mask_gumbel=mask_gumbel)
-        return sampled
+        kind, sample_noise, mask_gumbel = decode_noise(
+            generator, noise, timesteps=timesteps, batch=input_ids.shape[0],
+            seq_len=input_ids.shape[1], vocab=cfg.codebook_size, device=input_ids.device)
+        guidance = float(guidance_scale) if use_cfg else None
+
+        def loop(input_ids, class_ids, condition, schedules, sample_noise, mask_gumbel):
+            return v1_decode_loop(self, input_ids, class_ids, condition, schedules[0],
+                                  schedules[1], guidance_scale=guidance, timesteps=timesteps,
+                                  mask_gumbel=mask_gumbel, **{kind: sample_noise})
+
+        schedules = torch.stack([temperatures, mask_ratios]).to(input_ids.device)
+        return self._captured(("generate2", timesteps, guidance, kind), loop, input_ids,
+                              class_ids, condition, schedules, sample_noise, mask_gumbel)
+
+    @torch.no_grad()
+    def generate(self, input_ids=None, class_ids=None, encoder_hidden_states=None,
+                 temperature: float = 1.0, topk_filter_thres: float = 0.9,
+                 timesteps: int = 18, guidance_scale: float = 3.0,
+                 noise_schedule=sampling.cosine_schedule, generator=None, noise=None,
+                 **unused_kwargs):
+        """The lucidrains-style decode (``open_muse_tpu`` ``generate``): at
+        each step re-mask the highest-scoring positions (a count fixed by
+        the schedule), keep the top ``1 - topk_filter_thres`` of the
+        codebook logits, Gumbel-sample at an annealed temperature, fill the
+        masked positions and score every one by 1 - p(sample).  Noise is
+        ``noise`` (T, B, S, codebook) Gumbel, as the JAX loop draws it from
+        its key chain, or one (B, S, codebook) draw a step from the CPU
+        ``generator``.  On the card the decode is one captured CUDA graph,
+        keyed on what it bakes in: the guidance, threshold, temperature and
+        the per-step masked counts."""
+        cfg = self.config
+        input_ids, class_ids, condition, use_cfg = self._decode_inputs(
+            input_ids, class_ids, encoder_hidden_states, None, guidance_scale)
+        batch, seq_len = input_ids.shape
+        if (generator is None) == (noise is None):
+            raise ValueError("pass exactly one of generator= and noise=")
+        if noise is None:
+            noise = torch.stack([sample_gumbel((batch, seq_len, cfg.codebook_size), generator)
+                                 for _ in range(timesteps)])
+        noise = torch.as_tensor(noise, dtype=torch.float32).to(input_ids.device)
+        counts = masked_counts(timesteps, seq_len, noise_schedule)
+        guidance = float(guidance_scale) if use_cfg else None
+
+        def loop(input_ids, class_ids, condition, gumbel):
+            return v1_generate_loop(self, input_ids, class_ids, condition, gumbel,
+                                    guidance_scale=guidance, topk_filter_thres=topk_filter_thres,
+                                    temperature=float(temperature), counts=counts)
+
+        return self._captured(("generate", guidance, float(topk_filter_thres),
+                               float(temperature), counts), loop, input_ids, class_ids,
+                              condition, noise)
+
+
+@torch.no_grad()
+def v1_decode_loop(model, input_ids, class_ids, condition, temperatures, mask_ratios, *,
+                   guidance_scale, timesteps: int, mask_gumbel, seeds=None,
+                   sample_gumbel=None):
+    """``generate2``'s loop with no host work inside (the v2
+    ``parallel_decode_loop``'s contract): ``class_ids`` (B,) already shifted
+    or None, ``condition`` the (CFG-doubled) text states or None,
+    ``temperatures`` / ``mask_ratios`` (T,) and the noise on the device,
+    ``guidance_scale`` a float with CFG, else None."""
+    if (seeds is None) == (sample_gumbel is None):
+        raise ValueError("pass exactly one of seeds= and sample_gumbel=")
+    cfg = model.config
+    step_ctx = model.step_context(condition)
+    ids = input_ids.long()
+    sampled = ids
+    for step in range(timesteps):
+        model_ids = ids if class_ids is None else torch.cat([class_ids[:, None], ids], dim=1)
+        if guidance_scale is not None:
+            model_ids = torch.cat([model_ids, model_ids], dim=0)
+        raw = model(model_ids, step_ctx=step_ctx)
+        if class_ids is not None:
+            raw = raw[:, 1:].contiguous()
+        ids, sampled, _ = decode_step(
+            raw, ids, mask_token_id=cfg.mask_token_id, codebook_size=cfg.codebook_size,
+            guidance_scale=guidance_scale, mask_ratio=mask_ratios[step],
+            temperature=temperatures[step], mask_gumbel=mask_gumbel[step],
+            seed=None if seeds is None else seeds[step:step + 1],
+            sample_gumbel=None if sample_gumbel is None else sample_gumbel[step])
+    return sampled
+
+
+def masked_counts(timesteps: int, seq_len: int, noise_schedule=sampling.cosine_schedule):
+    """The positions ``generate`` re-masks at each step, as the JAX loop
+    fixes them at trace time: max(int(schedule(t) * S), 1) at t =
+    linspace(0, 1, T), the cosine in float64, other schedules in fp32."""
+    counts = []
+    for timestep in np.linspace(0.0, 1.0, timesteps):
+        if noise_schedule is sampling.cosine_schedule:
+            prob = float(np.cos(timestep * np.pi * 0.5))
+        else:
+            prob = float(noise_schedule(torch.tensor(timestep, dtype=torch.float32)))
+        counts.append(max(int(prob * seq_len), 1))
+    return tuple(counts)
+
+
+@torch.no_grad()
+def v1_generate_loop(model, input_ids, class_ids, condition, gumbel, *, guidance_scale,
+                     topk_filter_thres: float, temperature: float, counts):
+    """``generate``'s loop, ``counts[t]`` positions re-masked at step t,
+    ``gumbel`` (T, B, S, codebook) on the device."""
+    cfg = model.config
+    cb, timesteps = cfg.codebook_size, len(counts)
+    step_ctx = model.step_context(condition)
+    ids = input_ids.long()
+    scores = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+    for step, count in enumerate(counts):
+        # the highest scores, ties to the lower index (as lax.top_k)
+        top = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :count]
+        ids = ids.scatter(1, top, cfg.mask_token_id)
+        model_ids = ids if class_ids is None else torch.cat([class_ids[:, None], ids], dim=1)
+        if guidance_scale is not None:
+            cond, uncond = model(torch.cat([model_ids, model_ids], dim=0),
+                                 step_ctx=step_ctx)[..., :cb].chunk(2)
+            logits = uncond + guidance_scale * (cond - uncond)
+        else:
+            logits = model(model_ids, step_ctx=step_ctx)[..., :cb]
+        if class_ids is not None:
+            logits = logits[:, 1:]
+        filtered = sampling.top_k(logits, topk_filter_thres)
+        step_temp = temperature * ((timesteps - 1 - step) / timesteps)
+        pred_ids = sampling.gumbel_sample(filtered, step_temp, gumbel[step])
+        ids = torch.where(ids == cfg.mask_token_id, pred_ids, ids)
+        logits32 = logits.float()
+        sel_logit = torch.gather(logits32, -1, pred_ids[..., None])[..., 0]
+        scores = 1.0 - torch.exp(sel_logit - torch.logsumexp(logits32, dim=-1))
+    return ids
 
 
 def v1_schedules(timesteps: int, temperature=1.0, noise_schedule=sampling.cosine_schedule):

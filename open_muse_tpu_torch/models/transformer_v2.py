@@ -23,11 +23,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.captured import captured
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
 from ..kernels.attn_sublayer import (attn_sublayer_cross, attn_sublayer_self,
                                      sublayer_shapes_supported)
-from ..kernels.fused_sample import fused_categorical, fused_categorical_cfg
+from ..kernels.fused_sample import draw_seed, fused_categorical, fused_categorical_cfg
 from ..kernels.fused_sample import sample_gumbel as gumbel_noise
 from ..kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 from ..ops import sampling
@@ -35,8 +36,8 @@ from ..ops.losses import cross_entropy_loss, weighted_cross_entropy_loss
 from ..ops.layers import (AdaLNModulation, Attention, GlobalResponseNorm, LayerNorm, Norm,
                           sinusoidal_encode)
 
-__all__ = ["MaskGiTUViT_v2", "MaskGiTUViT_v2Config", "decode_schedules",
-           "parallel_decode_loop", "decode_step"]
+__all__ = ["MaskGiTUViT_v2", "MaskGiTUViT_v2Config", "decode_schedules", "decode_noise",
+           "captured_decode", "parallel_decode_loop", "decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -440,10 +441,14 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
                   negative_cond_embeds=None, temperature=1.0, timesteps: int = 18,
                   guidance_scale: float = 0.0, guidance_schedule: Optional[str] = None,
                   noise_schedule=sampling.cosine_schedule, generator=None, noise=None,
-                  seq_len: Optional[int] = None):
-        """MaskGIT parallel decode with CFG.  Noise comes from the CPU
+                  seq_len: Optional[int] = None, return_intermediate: bool = False):
+        """MaskGIT parallel decode with CFG -> token ids (B, S), and with
+        ``return_intermediate`` also each step's raw samples (T, B, S), as
+        the JAX ``generate2`` returns them.  Noise comes from the CPU
         ``generator`` or is passed as ``noise=(sample_gumbel (T, B, S, V),
-        mask_gumbel (T, B, S))``."""
+        mask_gumbel (T, B, S))``; either way it is drawn before the loop
+        (``decode_noise``).  On the card the loop is one captured CUDA graph,
+        cached under the JAX jit's key plus the baked-in guidance scales."""
         cfg = self.config
         batch = encoder_hidden_states.shape[0]
         seq_len = 256 if seq_len is None else seq_len
@@ -468,11 +473,67 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
             micros = torch.cat([micro_conds, micro_conds], dim=0)
         else:
             ehs, conds, micros = encoder_hidden_states, cond_embeds, micro_conds
-        sample_noise, mask_noise = (None, None) if noise is None else noise
+        drawn = decode_noise(generator, noise, timesteps=timesteps, batch=batch, seq_len=seq_len,
+                             vocab=cfg.codebook_size, device=device)
+        return captured_decode(
+            self, input_ids.long(), ehs, conds, micros.to(device, torch.float32),
+            torch.stack([temperatures, mask_ratios]).to(device), drawn,
+            guidance_scales=tuple(guidance_scales.tolist()) if use_cfg else None,
+            seq_len=seq_len, timesteps=timesteps, return_intermediate=return_intermediate)
+
+
+def decode_noise(generator=None, noise=None, *, timesteps: int, batch: int, seq_len: int,
+                 vocab: int, device):
+    """All of a decode's noise on ``device``, drawn before the loop, for
+    the v1 and v2 decodes: (kind, the sampler's noise, mask_gumbel (T, B, S)
+    fp32), the sampler's noise being ``"seeds"`` (T,) int64, its Philox
+    seeds (on the card, from a generator), or ``"sample_gumbel"`` (T, B, S,
+    V') fp32 (on the CPU from a generator, or the given
+    ``noise=(sample_gumbel, mask_gumbel)``; padded on the card to V' % 4 ==
+    0, so that every step's slice stays 16-byte aligned).  A CPU
+    ``generator`` is drawn from in the order the step-by-step loop drew:
+    step t's sampler noise (its seed on the card, a (B, S, vocab) Gumbel
+    draw on the CPU), then step t's mask noise."""
+    if (generator is None) == (noise is None):
+        raise ValueError("pass exactly one of generator= and noise=")
+    device = torch.device(device)
+    if noise is not None:
+        sample, mask = (torch.as_tensor(n, dtype=torch.float32).to(device) for n in noise)
+        if device.type == "cuda" and sample.shape[-1] % 4:
+            sample = F.pad(sample, (0, -sample.shape[-1] % 4))
+        return "sample_gumbel", sample, mask
+    samples, masks = [], []
+    for _ in range(timesteps):
+        if device.type == "cuda":
+            samples.append(torch.tensor(draw_seed(generator), dtype=torch.int64))
+        else:
+            samples.append(gumbel_noise((batch, seq_len, vocab), generator))
+        masks.append(gumbel_noise((batch, seq_len), generator))
+    return ("seeds" if device.type == "cuda" else "sample_gumbel",
+            torch.stack(samples).to(device), torch.stack(masks).to(device))
+
+
+def captured_decode(model, input_ids, ehs, conds, micros, schedules, noise, *,
+                    guidance_scales, seq_len: int, timesteps: int,
+                    return_intermediate: bool = False):
+    """``parallel_decode_loop`` through ``core.captured``: eagerly on the
+    CPU, one replayed CUDA graph on the card (the step context inside it).
+    ``schedules`` (2, T) fp32 holds the temperatures and mask ratios on the
+    device, ``noise`` is ``decode_noise``'s; ``guidance_scales`` (T floats,
+    None without CFG) is baked into the graph and so into its key, as are
+    the shapes and the noise's kind."""
+    kind, sample_noise, mask_gumbel = noise
+
+    def loop(input_ids, ehs, conds, micros, schedules, sample_noise, mask_gumbel):
         return parallel_decode_loop(
-            self, input_ids, ehs, conds, micros, temperatures, guidance_scales, mask_ratios,
-            use_cfg=use_cfg, seq_len=seq_len, timesteps=timesteps, generator=generator,
-            sample_gumbel=sample_noise, mask_gumbel=mask_noise)
+            model, input_ids, ehs, conds, micros, schedules[0], guidance_scales, schedules[1],
+            use_cfg=guidance_scales is not None, seq_len=seq_len, timesteps=timesteps,
+            mask_gumbel=mask_gumbel, return_intermediate=return_intermediate,
+            **{kind: sample_noise})
+
+    key = ("generate2", timesteps, return_intermediate, seq_len, guidance_scales, kind)
+    return captured(model, key, loop, input_ids, ehs, conds, micros, schedules, sample_noise,
+                    mask_gumbel, modules=(model,))
 
 
 def decode_schedules(timesteps: int, temperature=1.0, guidance_scale: float = 0.0,
@@ -501,63 +562,66 @@ def decode_schedules(timesteps: int, temperature=1.0, guidance_scale: float = 0.
 @torch.no_grad()
 def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
                          guidance_scales, mask_ratios, *, use_cfg: bool, seq_len: int,
-                         timesteps: int, generator=None, sample_gumbel=None, mask_gumbel=None):
+                         timesteps: int, mask_gumbel, seeds=None, sample_gumbel=None,
+                         return_intermediate: bool = False):
     """The MaskGIT decode: ``timesteps`` forwards of ``model`` with the
     text-derived tensors computed once (``model.step_context``), each
     followed by sampling and confidence re-masking.  Returns the token ids
-    committed at the last step (B, S) int64.
+    committed at the last step (B, S) int64, and with
+    ``return_intermediate`` also each step's raw samples (T, B, S).
 
-    Noise: a CPU ``generator`` (the sampling kernel seeds its Philox stream
-    from it), or pre-drawn ``sample_gumbel`` (T, B, S, >= codebook) and
-    ``mask_gumbel`` (T, B, S), as the JAX loop draws them from its key
-    chain."""
-    if (generator is None) == (sample_gumbel is None or mask_gumbel is None):
-        raise ValueError("pass either generator= or both sample_gumbel= and mask_gumbel=")
+    No host work inside, so that one CUDA graph can hold it: the
+    ``temperatures`` and ``mask_ratios`` (T,) and all noise lie on the
+    device -- ``mask_gumbel`` (T, B, S) and either ``seeds`` (T,) int64,
+    the sampling kernel's Philox seeds, or ``sample_gumbel`` (T, B, S, >=
+    codebook) (``decode_noise`` draws them) -- and ``guidance_scales`` (T
+    host floats, read without CFG never) is what a graph bakes in."""
+    if (seeds is None) == (sample_gumbel is None):
+        raise ValueError("pass exactly one of seeds= and sample_gumbel=")
     cfg = model.config
     if input_ids.shape[1] != seq_len:
         raise ValueError(f"input_ids {tuple(input_ids.shape)} vs seq_len {seq_len}")
     step_ctx = model.step_context(ehs, conds, micros)
     ids = input_ids.long()
-    sampled = ids
+    sampled, raws = ids, []
     for step in range(timesteps):
         model_input = torch.cat([ids, ids], dim=0) if use_cfg else ids
         raw = model(model_input, step_ctx=step_ctx)
-        ids, sampled = decode_step(
-            raw, ids, step, mask_token_id=cfg.mask_token_id, codebook_size=cfg.codebook_size,
+        ids, sampled, raw_ids = decode_step(
+            raw, ids, mask_token_id=cfg.mask_token_id, codebook_size=cfg.codebook_size,
             guidance_scale=float(guidance_scales[step]) if use_cfg else None,
-            mask_ratio=mask_ratios[step], temperature=float(temperatures[step]),
-            generator=generator, sample_gumbel=sample_gumbel, mask_gumbel=mask_gumbel)
-    return sampled
+            mask_ratio=mask_ratios[step], temperature=temperatures[step],
+            mask_gumbel=mask_gumbel[step], seed=None if seeds is None else seeds[step:step + 1],
+            sample_gumbel=None if sample_gumbel is None else sample_gumbel[step])
+        raws.append(raw_ids)
+    return (sampled, torch.stack(raws)) if return_intermediate else sampled
 
 
-def decode_step(raw, ids, step: int, *, mask_token_id: int, codebook_size: int,
-                guidance_scale, mask_ratio, temperature: float, generator=None,
-                sample_gumbel=None, mask_gumbel=None):
+def decode_step(raw, ids, *, mask_token_id: int, codebook_size: int, guidance_scale,
+                mask_ratio, temperature, mask_gumbel, seed=None, sample_gumbel=None):
     """One MaskGIT step after the forward, shared by the v1 and v2 decodes:
     sample every position from the raw logits (B, S, >= codebook) (CFG
     halves, cond first, when ``guidance_scale`` is not None), keep the
     known tokens, and re-mask the ``floor(S * mask_ratio)`` least confident
     of the unknown ones (at least 1, at most all but one).  Returns (ids for
-    the next step, the committed samples).  Noise: step ``step`` of
-    ``sample_gumbel`` / ``mask_gumbel``, else drawn from ``generator``."""
+    the next step, the committed samples, the raw samples).  Noise: the
+    sampler's ``seed`` (one int64 on the device) or ``sample_gumbel`` (B, S,
+    >= codebook), and ``mask_gumbel`` (B, S); ``mask_ratio`` and
+    ``temperature`` are 0-d device tensors (or floats)."""
     batch, seq_len = ids.shape
-    device = ids.device
-    g = None if sample_gumbel is None else sample_gumbel[step].to(device)
-    draw = None if g is not None else generator
     if guidance_scale is not None:
-        sampled, sel = fused_categorical_cfg(raw, guidance_scale, codebook_size, gumbel=g,
-                                             generator=draw)
+        raw_ids, sel = fused_categorical_cfg(raw, guidance_scale, codebook_size,
+                                             gumbel=sample_gumbel, seed=seed)
     else:
-        sampled, sel = fused_categorical(raw, codebook_size, gumbel=g, generator=draw)
-    mg = (gumbel_noise((batch, seq_len), generator).to(device) if mask_gumbel is None
-          else mask_gumbel[step].to(device))
+        raw_ids, sel = fused_categorical(raw, codebook_size, gumbel=sample_gumbel, seed=seed)
+    raw_ids = raw_ids.long()
     unknown = ids == mask_token_id
-    sampled = torch.where(unknown, sampled.long(), ids)
-    mask_len = torch.floor(seq_len * mask_ratio).to(device)
+    sampled = torch.where(unknown, raw_ids, ids)
+    mask_len = torch.floor(seq_len * mask_ratio)
     mask_len = torch.clamp(torch.minimum(unknown.sum(-1, keepdim=True).float() - 1.0, mask_len),
                            min=1.0)
     # the sampler's confidence is taken at the raw samples; known positions
     # are pinned to fp32 max so they are never re-masked
     selected = torch.where(unknown, sel, torch.finfo(torch.float32).max)
-    masking = sampling.mask_by_random_topk(mask_len, selected, temperature, mg)
-    return torch.where(masking, mask_token_id, sampled), sampled
+    masking = sampling.mask_by_random_topk(mask_len, selected, temperature, mask_gumbel)
+    return torch.where(masking, mask_token_id, sampled), sampled, raw_ids

@@ -8,12 +8,26 @@ from functools import partial
 
 import torch
 
-__all__ = ["log", "mask_by_random_topk", "cosine_schedule", "linear_schedule",
-           "pow_schedule", "sigmoid_schedule", "get_mask_schedule"]
+__all__ = ["log", "gumbel_sample", "top_k", "mask_by_random_topk", "cosine_schedule",
+           "linear_schedule", "pow_schedule", "sigmoid_schedule", "get_mask_schedule"]
 
 
 def log(t, eps: float = 1e-20):
     return torch.log(t.clamp_min(eps))
+
+
+def gumbel_sample(t, temperature: float, gumbel, dim: int = -1):
+    """argmax(t / max(temperature, 1e-10) + gumbel), the noise taken in
+    ``t``'s type as JAX draws it (first index on ties)."""
+    return torch.argmax(t / max(temperature, 1e-10) + gumbel.to(t.dtype), dim=dim)
+
+
+def top_k(logits, thres: float = 0.9):
+    """Keep the top ceil((1 - thres) V) logits, -inf elsewhere (every logit
+    equal to the k-th largest stays, as the JAX threshold keeps it)."""
+    k = math.ceil((1 - thres) * logits.shape[-1])
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, float("-inf"), logits)
 
 
 def mask_by_random_topk(mask_len, probs, temperature, gumbel):

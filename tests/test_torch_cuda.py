@@ -6,6 +6,10 @@ so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -517,3 +521,214 @@ def test_v2_forward_under_autocast_runs_every_forward_kernel(device):
     assert counts["flash_attention"] == 4 and counts["fused_residual_rmsnorm"] == 11, counts
     assert counts["fused_residual_layernorm"] == 2 and counts["glu_down_matmul"] == 2, counts
     assert bool(torch.isfinite(fused).all()) and _rel(fused, plain) <= 5e-2
+
+
+# -- captured CUDA graphs: the decodes and requests, one graph each ----------
+
+def _bf16_v2(device, seed=0):
+    torch.manual_seed(seed)
+    return _small_v2(device).to(torch.bfloat16).eval()
+
+
+def _bf16_v1(device, seed=0):
+    """Two layers, two heads of 64, 64 codes, 16 image tokens after the
+    class token, 4 classes."""
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+
+    torch.manual_seed(seed)
+    return MaskGitTransformer(vocab_size=69, hidden_size=128, num_hidden_layers=2,
+                              num_attention_heads=2, intermediate_size=256, codebook_size=64,
+                              num_vq_tokens=16, max_position_embeddings=17, num_classes=4,
+                              hidden_dropout=0.0, attention_dropout=0.0).to(
+                                  device, torch.bfloat16).eval()
+
+
+def _v2_inputs(device, batch=1):
+    gen = torch.Generator().manual_seed(3)
+    return (torch.randn(batch, 7, 48, generator=gen).to(device, torch.bfloat16),
+            torch.randn(batch, 32, generator=gen).to(device, torch.bfloat16),
+            torch.tensor([[512, 512, 0, 0, 6.0]] * batch, device=device))
+
+
+def _counted(fn):
+    """(fn()'s result, the wrappers' launch counts it added)."""
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("guidance", [3.0, 0.0])
+def test_captured_v2_decode_equals_eager_loop(device, guidance):
+    """generate2 through its graph (captured on the first call, replayed
+    after) against the decode loop called directly, noise drawn from the
+    same generator seed: token ids equal, all of them, for two seeds; each
+    replay adds exactly the eager loop's launches."""
+    from open_muse_tpu_torch.models.transformer_v2 import (decode_noise, decode_schedules,
+                                                            parallel_decode_loop)
+
+    model = _bf16_v2(device)
+    ehs, cond, micro = _v2_inputs(device)
+    steps, seq = 4, 16
+    args = dict(temperature=(2, 0), timesteps=steps, guidance_scale=guidance, seq_len=seq)
+    empty = dict(empty_embeds=torch.zeros_like(ehs), empty_cond_embeds=torch.zeros_like(cond))
+
+    def eager(seed):
+        temps, scales, ratios = decode_schedules(steps, (2, 0), guidance)
+        kind, sample, mask = decode_noise(torch.Generator().manual_seed(seed), timesteps=steps,
+                                          batch=1, seq_len=seq, vocab=64, device=device)
+        start = torch.full((1, seq), model.config.mask_token_id, device=device)
+        if guidance:
+            inputs = (torch.cat([ehs, empty["empty_embeds"]]),
+                      torch.cat([cond, empty["empty_cond_embeds"]]), torch.cat([micro, micro]))
+        else:
+            inputs = (ehs, cond, micro)
+        return parallel_decode_loop(model, start, *inputs, temps.to(device), scales.tolist(),
+                                    ratios.to(device), use_cfg=guidance > 0, seq_len=seq,
+                                    timesteps=steps, mask_gumbel=mask, **{kind: sample})
+
+    model.generate2(ehs, cond, micro, generator=torch.Generator().manual_seed(0), **empty,
+                    **args)  # the capture
+    for seed in (1, 2):
+        want, eager_launches = _counted(lambda: eager(seed))
+        got, graph_launches = _counted(lambda: model.generate2(
+            ehs, cond, micro, generator=torch.Generator().manual_seed(seed), **empty, **args))
+        assert torch.equal(got, want), seed
+        assert graph_launches == eager_launches and eager_launches, (graph_launches,
+                                                                     eager_launches)
+
+
+def test_captured_v1_decodes_equal_eager_loops(device):
+    """v1 generate2 (class ids, the CFG-free sampler) and generate (top-k)
+    through their graphs against their loops called directly: token ids
+    equal, launches exact after replays."""
+    from open_muse_tpu_torch.models.transformer_v1 import (masked_counts, v1_decode_loop,
+                                                            v1_generate_loop, v1_schedules)
+    from open_muse_tpu_torch.models.transformer_v2 import decode_noise
+    from open_muse_tpu_torch.kernels.fused_sample import sample_gumbel
+
+    model = _bf16_v1(device)
+    classes = torch.tensor([1, 3], device=device)
+    start = torch.full((2, 16), model.config.mask_token_id, device=device)
+    temps, ratios = v1_schedules(5, (2, 0))
+    for seed in (0, 1, 2):
+        kind, sample, mask = decode_noise(torch.Generator().manual_seed(seed), timesteps=5,
+                                          batch=2, seq_len=16, vocab=64, device=device)
+        want, eager_launches = _counted(lambda: v1_decode_loop(
+            model, start, classes + 64, None, temps.to(device), ratios.to(device),
+            guidance_scale=None, timesteps=5, mask_gumbel=mask, **{kind: sample}))
+        got, graph_launches = _counted(lambda: model.generate2(
+            class_ids=classes, temperature=(2, 0), timesteps=5,
+            generator=torch.Generator().manual_seed(seed)))
+        assert torch.equal(got, want), seed
+        if seed:
+            assert graph_launches == eager_launches, (graph_launches, eager_launches)
+        gen = torch.Generator().manual_seed(seed)
+        gumbel = torch.stack([sample_gumbel((2, 16, 64), gen) for _ in range(4)]).to(device)
+        want = v1_generate_loop(model, start, classes + 64, None, gumbel, guidance_scale=None,
+                                topk_filter_thres=0.9, temperature=4.5,
+                                counts=masked_counts(4, 16))
+        got = model.generate(class_ids=classes, temperature=4.5, timesteps=4, noise=gumbel)
+        assert torch.equal(got, want), seed
+
+
+@pytest.mark.parametrize("cfg", [True, False])
+def test_sampler_seed_from_device_memory(device, cfg):
+    """The seed read from an int64 device tensor (the route every decode
+    takes): ids as the plain version fed ``philox_gumbel_plain`` for that
+    seed where the top-2 gap exceeds 1e-3, sel to rel 1e-4; inside a
+    captured graph, a seed buffer refilled before the replay gives the
+    second seed's draw, not the first's."""
+    logits = _sampler_logits(torch.Generator().manual_seed(5), cfg, 256, 8256, torch.bfloat16)
+    x = logits.reshape(2, 256, -1) if cfg else logits
+    sample = ((lambda seed: kernels.fused_categorical_cfg(x, 7.5, 8192, seed=seed)) if cfg else
+              (lambda seed: kernels.fused_categorical(x, 8192, seed=seed)))
+    seeds = [draw_seed(torch.Generator().manual_seed(s)) for s in (9, 10)]
+    buffer = torch.tensor([seeds[0]], device=device)
+    for s in seeds:
+        noise = philox_gumbel_plain(s, 256, 8192, device=device)
+        ids, sel = sample(torch.tensor([s], device=device))
+        _check_sampler(logits, cfg, 8192, noise, ids, sel, 1e-4)
+    sample(buffer)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ids, sel = sample(buffer)
+    buffer.fill_(seeds[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    want = sample(torch.tensor([seeds[1]], device=device))
+    assert torch.equal(ids, want[0]) and torch.equal(sel, want[1])
+
+
+def test_captured_helper_replays_raises_and_recaptures(device):
+    """``core.captured``: outputs are clones (a later replay leaves them
+    alone), a moved model captures afresh, and a body that cannot be
+    captured (a host read of a device value) raises instead of running
+    eagerly in its place."""
+    from open_muse_tpu_torch.core.captured import captured, graph_count
+
+    owner = torch.nn.Linear(8, 8).to(device).requires_grad_(False)
+    double = lambda x: owner(x) * 2  # noqa: E731
+    a = captured(owner, ("double",), double, torch.ones(2, 8, device=device), modules=(owner,))
+    b = captured(owner, ("double",), double, torch.zeros(2, 8, device=device), modules=(owner,))
+    assert torch.equal(a, owner(torch.ones(2, 8, device=device)) * 2)
+    assert torch.equal(b, owner(torch.zeros(2, 8, device=device)) * 2)
+    assert graph_count(owner) == 1
+    owner.weight = torch.nn.Parameter(owner.weight.clone(), requires_grad=False)  # new pointer
+    c = captured(owner, ("double",), double, torch.ones(2, 8, device=device), modules=(owner,))
+    assert torch.equal(c, a) and graph_count(owner) == 1
+    # a capture that fails leaves torch's CUDA generator in its capture
+    # state, so this part runs in a process of its own
+    script = ("import torch\n"
+              "from open_muse_tpu_torch.core.captured import captured\n"
+              "owner = torch.nn.Linear(1, 1)\n"
+              "try:\n"
+              "    captured(owner, ('host read',), lambda x: x * float(x.sum()),\n"
+              "             torch.ones(2, 8, device='cuda'))\n"
+              "except RuntimeError as exc:\n"
+              "    print('raised', 'capture' in str(exc))\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.stdout.strip() == "raised True", (out.stdout, out.stderr[-2000:])
+
+
+def test_compiled_text2image_replays_equal_fresh_eager_calls(device):
+    """One ``compile_text2image`` function called with two prompts in turn
+    (a bf16 tiny U-ViT and text tower, an fp32 tiny VQGAN): each reply's
+    images and tokens equal the same request run eagerly (``fn.eager``), so
+    nothing aliases a static buffer; launch counts exact."""
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+
+    torch.manual_seed(4)
+    with torch.device(device):
+        text = CLIPTextEncoder(vocab_size=100, hidden_size=48, intermediate_size=96,
+                               num_hidden_layers=2, num_attention_heads=4,
+                               max_position_embeddings=16, projection_dim=32, eos_token_id=99)
+        vae = VQGANModel(resolution=32, hidden_channels=32, channel_mult=(1, 2),
+                         num_res_blocks=2, attn_resolutions=(16,), z_channels=16,
+                         num_embeddings=64, quantized_embed_dim=16)
+    pipe = PipelineMuse(vae=vae.eval(), transformer=_bf16_v2(device),
+                        text_encoder=text.to(torch.bfloat16).eval(),
+                        tokenizer=SimpleTokenizer(100, 16))
+    fn = pipe.compile_text2image(batch_size=1, timesteps=3, guidance_scale=2.0, seq_len=16)
+    micro = torch.tensor([[512, 512, 0, 0, 6.0]])
+    replies = []
+    for i, prompt in enumerate(("a red fox", "two cubes", "a red fox")):
+        ids = torch.as_tensor(pipe.tokenizer([prompt])["input_ids"]).long()
+        got, launches = _counted(lambda: fn(ids, micro, torch.Generator().manual_seed(i),
+                                            return_tokens=True))
+        replies.append(got)
+        want, eager_launches = _counted(lambda: fn.eager(
+            ids, micro, torch.Generator().manual_seed(i), return_tokens=True))
+        # tokens equal; images to 1e-5 of their range (the same fp32 VQGAN decode,
+        # cuDNN free to pick its algorithm in the capture)
+        assert torch.equal(got[1], want[1]), i
+        assert _rel(got[0], want[0]) <= 1e-5, i
+        if i:
+            assert launches == eager_launches, (launches, eager_launches)
+    assert not torch.equal(replies[0][1], replies[1][1])
+    assert replies[0][0].shape == (1, 8, 8, 3)

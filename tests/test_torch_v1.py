@@ -65,8 +65,8 @@ def v1_pair(case, seed=0):
 def vq_pair(seed=0):
     jm = JaxMaskGitVQGAN(**MASKGIT_VQ_TINY, _defer_init=True)
     port, unused = port_of(jm, MaskGitVQGAN, random_params(jm, seed))
-    # the encoder is not ported: exactly its leaves stay unused
-    assert unused and all(k.startswith("encoder.") for k in unused), unused
+    # the encoder is ported too: every leaf maps
+    assert not unused, unused
     return jm, port
 
 

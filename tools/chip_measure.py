@@ -22,7 +22,8 @@ times 200 eager calls of kernels 5, 9, 10 and 11 enqueued without a
 synchronise (the host's cost a call, the device running behind), before
 and after a torch.profiler run in the same process.  ``serving`` builds
 chip_smoke's full-width serving pipeline and times 5 CFG requests (256px,
-bs1, 12 steps), then one more under torch.profiler, printing the host
+bs1, 12 steps; eager and captured where the tree's requests replay a CUDA
+graph), then one more under torch.profiler, printing the host
 (self CPU) time of its top operations: where a host-bound request spends
 its time.
 """
@@ -196,11 +197,19 @@ def serving(tree):
     tree, C = _load(tree)
     pipe = C.build_pipeline(torch.device("cuda", 0))
 
+    # a tree whose requests replay a captured graph also runs them eagerly
+    routes = ((True, False) if "eager" in inspect.signature(C.one_request).parameters
+              else (None,))
+
     def requests(tag):
-        C.one_request(pipe, C.PROMPTS[-1], 99)  # warm-up
-        ms = [C.one_request(pipe, C.PROMPTS[i % 4], i)[0] * 1e3 for i in range(5)]
-        print(f"[serving] {os.path.basename(tree)} {tag}: median {statistics.median(ms):.1f} ms "
-              f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
+        for eager in routes:
+            kwargs = {} if eager is None else {"eager": eager}
+            route = {None: "", True: " eager", False: " captured"}[eager]
+            C.one_request(pipe, C.PROMPTS[-1], 99, **kwargs)  # warm-up (and capture)
+            ms = [C.one_request(pipe, C.PROMPTS[i % 4], i, **kwargs)[0] * 1e3 for i in range(5)]
+            print(f"[serving] {os.path.basename(tree)}{route} {tag}: median "
+                  f"{statistics.median(ms):.1f} ms ({', '.join(f'{m:.1f}' for m in ms)})",
+                  flush=True)
 
     requests("before any profile")
     from torch.profiler import ProfilerActivity, profile
