@@ -26,8 +26,16 @@ directly (eager); the token ids of the two must be equal:
   encoder's ``vq_argmin`` at K 1024;
 - training: ``training.train_muse.main`` on ``configs/laiona6plus_uvit_clip.yaml``
   at batch 16 on a seeded synthetic pre-encoded shard (one repeated batch),
-  then a resume from its checkpoint; before it, one forward and backward
-  with the kernels against one with the plain versions.
+  one replayed CUDA graph a step, then a resume from its checkpoint; before
+  it, one forward and backward with the kernels against one with the plain
+  versions;
+- train_eq: the captured train step against its eager body on one seeded
+  full-width state, 4 steps, without and with gradient accumulation 2;
+  dots: one step each of no, full and 'dots' checkpointing;
+- train_raw: ``train_muse.main`` on the same config's raw-image branch (the
+  CLIP-L tower and f16 VQGAN encode every batch, ``vq_argmin`` once a batch,
+  CFG cond dropout) with eval, the sample panel, the grad-norm lines, the
+  bucket diagnostics and a profiler window, then a resume.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
@@ -567,7 +575,7 @@ def check_categorical(device, gen):
 # 8192-code codebook; one 256px class-id inpainting request against the
 # MaskGIT VQGAN's 1024 codes
 VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
-             "class_inpainting": (256, 256, 1024)}
+             "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192)}
 VQ_RTOL = 1e-5
 
 
@@ -1562,14 +1570,31 @@ TRAIN_STEPS, CODES_PER_IMAGE = 8, 16
 # The norms and attention have no backward kernel (the plain versions'
 # gradients).
 LAYERS, BLOCKS = 22, 2 * 3
-EXPECTED_TRAIN_LAUNCHES = {
-    "attn_sublayer_self": 2 * LAYERS * TRAIN_STEPS, "attn_sublayer_cross": 2 * LAYERS * TRAIN_STEPS,
-    "glu_down_matmul": 2 * LAYERS * TRAIN_STEPS, "fused_categorical_cfg": 0,
-    "attn_sublayer_self_bwd": LAYERS * TRAIN_STEPS, "attn_sublayer_cross_bwd": LAYERS * TRAIN_STEPS,
-    "glu_down_matmul_bwd": LAYERS * TRAIN_STEPS, "fused_categorical": 0, "vq_argmin": 0,
-    "fused_residual_rmsnorm": (3 * BLOCKS + 5) * TRAIN_STEPS,
-    "fused_residual_layernorm": 2 * LAYERS * TRAIN_STEPS,
-    "flash_attention": 2 * BLOCKS * TRAIN_STEPS}
+
+
+def forward_launches(calls=1):
+    """One forward of the research model with labels and no recompute (an
+    eval step): each trunk layer's sublayers, GLU and GLU pre-norm once, the
+    blocks' attentions and RMSNorms, and the five RMSNorms outside them."""
+    return {"attn_sublayer_self": LAYERS * calls, "attn_sublayer_cross": LAYERS * calls,
+            "glu_down_matmul": LAYERS * calls, "fused_residual_layernorm": LAYERS * calls,
+            "flash_attention": 2 * BLOCKS * calls, "fused_residual_rmsnorm": (3 * BLOCKS + 5) * calls}
+
+
+def train_launches(steps):
+    """``steps`` train steps: the forward, the trunk's recompute, the
+    backward kernels once a layer."""
+    expected = {name: 0 for name in SOURCES}
+    expected.update(forward_launches(steps))
+    for name in ("attn_sublayer_self", "attn_sublayer_cross", "glu_down_matmul",
+                 "fused_residual_layernorm"):
+        expected[name] += LAYERS * steps
+    for name in ("attn_sublayer_self_bwd", "attn_sublayer_cross_bwd", "glu_down_matmul_bwd"):
+        expected[name] = LAYERS * steps
+    return expected
+
+
+EXPECTED_TRAIN_LAUNCHES = train_launches(TRAIN_STEPS)
 # bounds of the full-width gradient check, kernels vs plain versions, both in
 # bf16 autocast through 22 layers: per trunk tensor
 GRAD_REL_TOL, GRAD_COS_MIN = 0.1, 0.99
@@ -1672,26 +1697,85 @@ def write_shard(path, samples=32, seed=0):
                 tf.addfile(info, io.BytesIO(data))
 
 
-def profile_train_step(state, device, median_s):
-    """Device time by kernel for one more train step (outside the counted
-    run), against the unprofiled median step time."""
+def _research_step(**kwargs):
+    """The flagship config's train step (bf16 autocast) at the research
+    model's mask id and codebook."""
     from open_muse_tpu_torch.ops.sampling import get_mask_schedule
     from open_muse_tpu_torch.training import trainer as T
+
+    return T.make_uvit_train_step(get_mask_schedule("cosine"), 8255, codebook_size=8192,
+                                  autocast_dtype=torch.bfloat16, **kwargs)
+
+
+def profile_train_step(state, device, median_s, label="train step (one replayed graph)",
+                       filename="profile_train_step.txt", prepare=None, **kwargs):
+    """Device time by kernel for one more captured train step (outside the
+    counted run; its graph warmed up, captured and replayed once first),
+    against the unprofiled median step time.  With ``prepare`` (the raw
+    branch), each profiled step first encodes its batch, as the trainer
+    does."""
     from open_muse_tpu_torch.training.masking import draw_masking_noise
 
-    step = T.make_uvit_train_step(get_mask_schedule("cosine"), 8255, codebook_size=8192,
-                                  autocast_dtype=torch.bfloat16)
-    batch = train_batch(device)
-    noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(4),
-                               8192)
-    float(step(state, batch, noise)["loss"])  # warm-up outside the profile
-    profiled("train step", lambda: float(step(state, batch, noise)["loss"]), median_s,
-             "profile_train_step.txt")
+    step = _research_step(**kwargs)
+    gen = torch.Generator(device=device).manual_seed(4)
+    batch = train_batch(device) if prepare is None else None
+
+    def one():
+        b = batch if prepare is None else prepare()
+        noise = draw_masking_noise(TRAIN_B, TRAIN_S, gen, 8192,
+                                   cond_dropout="empty_embeds" in b)
+        return float(step(state, b, noise)["loss"])
+
+    one()  # the warm-up step and the capture
+    one()  # a first replay
+    profiled(label, one, median_s, filename)
+
+
+def _logged(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _step_lines(tag, logged):
+    """Per-step lines and (median of steps 2 on, first step's capture s)."""
+    steps = [m for m in logged if "loss" in m]
+    for m in steps:
+        log(f"[{tag}] step {m['step']}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
+            f"masking {m['avg_masking_rate']:.3f} lr {m['lr']:.2e} "
+            f"step_time {m['step_time'] * 1e3:.1f} ms"
+            + (f" (eager warm-up step + capture; the capture alone {m['capture_s']:.2f} s)"
+               if "capture_s" in m else ""))
+    return statistics.median(m["step_time"] for m in steps[1:]), steps
+
+
+def _resume_check(tag, train_muse, argv, state, out, steps):
+    """main again with resume_from_checkpoint=latest: step and every tensor
+    as saved."""
+    resumed = train_muse.main(argv + ["experiment.resume_from_checkpoint=latest"])
+    mine = dict(state.model.named_parameters())
+    params_equal = all(torch.equal(p, mine[n]) for n, p in resumed.model.named_parameters())
+    ema_equal = all(torch.equal(v, state.ema.shadow[n]) for n, v in resumed.ema.shadow.items())
+    opt_equal = resumed.optimizer.count == state.optimizer.count == steps
+    moments_equal = all(
+        torch.equal(v, state.optimizer.torch_optimizer.state[mine[n]][k])
+        for n, p in resumed.model.named_parameters()
+        for k, v in resumed.optimizer.torch_optimizer.state[p].items())
+    ok = (resumed.step == state.step == steps and params_equal and ema_equal and opt_equal
+          and moments_equal)
+    log(f"[{tag}] resumed from {sorted(d for d in os.listdir(out) if d.startswith('checkpoint'))}: "
+        f"step {resumed.step}, params equal {params_equal}, EMA equal {ema_equal}, AdamW "
+        f"moments equal {moments_equal}, optimizer count {resumed.optimizer.count} "
+        f"{'ok' if ok else 'FAIL'}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
 
 
 def training_phase(device, smi):
-    """train_muse.main on the research config at batch 16, then main again
-    resuming from its checkpoint; returns the launch counts of the first."""
+    """train_muse.main on the research config at batch 16 on pre-encoded
+    shards (the captured step), then main again resuming from its
+    checkpoint; returns the launch counts of the first."""
     import shutil
     import tempfile
 
@@ -1723,43 +1807,330 @@ def training_phase(device, smi):
         launches = kernels.launch_counts()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+        median, logged = _step_lines("train", _logged(out))
         losses = [m["loss"] for m in logged]
         finite = all(v == v and abs(v) != float("inf") for v in losses)
         falling = losses[-1] < losses[0]
         steps_ok = [m["step"] for m in logged] == list(range(1, TRAIN_STEPS + 1))
         counts_ok = launches == EXPECTED_TRAIN_LAUNCHES
-        for m in logged:
-            log(f"[train] step {m['step']}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f} "
-                f"masking {m['avg_masking_rate']:.3f} lr {m['lr']:.2e} "
-                f"step_time {m['step_time'] * 1e3:.1f} ms")
-        step_times = [m["step_time"] for m in logged[1:]]  # the first step warms up
-        median = statistics.median(step_times)
-        log(f"[train] {TRAIN_STEPS} steps in {wall:.1f} s (model build and checkpoint "
+        log(f"[train] {TRAIN_STEPS} captured steps in {wall:.1f} s (model build and checkpoint "
             f"included): losses finite {finite}, last {losses[-1]:.4f} < first {losses[0]:.4f} "
-            f"{falling}, launches {launches} (expected {EXPECTED_TRAIN_LAUNCHES}) "
+            f"{falling}, launches {launches} (expected {EXPECTED_TRAIN_LAUNCHES}: step 1 eager, "
+            f"steps 2 - {TRAIN_STEPS} replays adding the capture's counts) "
             f"{'ok' if counts_ok else 'FAIL'}")
         log(f"[train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host clock, "
             f"synchronised), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
             f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
             f"(max_memory_allocated) on {smi}")
-
-        # resume "latest": step and every tensor as saved
-        resumed = train_muse.main(argv + ["experiment.resume_from_checkpoint=latest"])
-        mine = dict(state.model.named_parameters())
-        params_equal = all(torch.equal(p, mine[n]) for n, p in resumed.model.named_parameters())
-        ema_equal = all(torch.equal(v, state.ema.shadow[n]) for n, v in resumed.ema.shadow.items())
-        opt_equal = resumed.optimizer.count == state.optimizer.count == TRAIN_STEPS
-        resume_ok = resumed.step == state.step == TRAIN_STEPS and params_equal and ema_equal \
-            and opt_equal
-        log(f"[train] resumed from {sorted(d for d in os.listdir(out) if d.startswith('checkpoint'))}: "
-            f"step {resumed.step}, params equal {params_equal}, EMA equal {ema_equal}, "
-            f"optimizer count {resumed.optimizer.count} {'ok' if resume_ok else 'FAIL'}")
-        del resumed
-        torch.cuda.empty_cache()
+        resume_ok = _resume_check("train", train_muse, argv, state, out, TRAIN_STEPS)
         profile_train_step(state, device, median)
         ok = finite and falling and steps_ok and counts_ok and resume_ok
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+TRAIN_EQ_STEPS = 4
+
+
+def _seeded_train_state(device, accumulation_steps=1):
+    """The research-default model (per-layer checkpointing, fp32 weights),
+    AdamW at the flagship config's lr and decay, and an EMA, from one seed."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
+    from open_muse_tpu_torch.training.ema import EMA
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
+    model.set_gradient_checkpointing(True)
+    optimizer = get_optimizer("adamw", model, lambda count: 1e-4, weight_decay=0.01,
+                              accumulation_steps=accumulation_steps)
+    return TrainState(model=model, optimizer=optimizer, ema=EMA(model))
+
+
+def _state_tensors(state):
+    """(kind, tensor) of every parameter, AdamW moment, EMA shadow and
+    accumulator of ``state``."""
+    out = []
+    for name, p in state.model.named_parameters():
+        out.append(("params", p))
+        out.append(("EMA", state.ema.shadow[name]))
+        for key, value in state.optimizer.torch_optimizer.state[p].items():
+            out.append((f"AdamW {key}", value))
+    out += [("accumulators", a) for a in state.optimizer.acc]
+    return out
+
+
+def _worst_diffs(a, b):
+    worst = {}
+    for (kind, x), (_, y) in zip(_state_tensors(a), _state_tensors(b)):
+        worst[kind] = max(worst.get(kind, 0.0), (x.float() - y.float()).abs().max().item())
+    return worst
+
+
+def train_eq_phase(device):
+    """The captured step against the eager body on one seeded full-width
+    state (batch 16, cond dropout 0.1 with empty-prompt embeddings, the
+    bucket diagnostics and per-parameter norms on, cuDNN deterministic):
+    TRAIN_EQ_STEPS steps each, the noise from generators of one seed; the
+    losses, grad norms and the worst absolute difference of every
+    parameter, AdamW moment and EMA shadow (and accumulator); without and
+    with gradient accumulation 2.  Gate: bit-equal.  Where not, a second
+    eager state tells whether eager is itself nondeterministic."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator(device=device).manual_seed(12)
+    batch = {**train_batch(device),
+             "empty_embeds": torch.randn(1, KV_LEN, 768, generator=gen, device=device),
+             "empty_cond_embeds": torch.randn(1, 768, generator=gen, device=device)}
+    ok = True
+    for accumulation in (1, 2):
+        step = _research_step(cond_dropout_prob=0.1, with_diagnostics=True,
+                              with_param_grad_norms=True)
+        states = [_seeded_train_state(device, accumulation) for _ in range(2)]
+        gens = [torch.Generator(device=device).manual_seed(21) for _ in range(2)]
+        rows, metrics_equal = [], True
+        for i in range(TRAIN_EQ_STEPS):
+            noise = [draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192, cond_dropout=True)
+                     for g in gens]
+            got = step(states[0], batch, noise[0])
+            want = step.eager(states[1], batch, noise[1])
+            metrics_equal &= all(torch.equal(got[k].nan_to_num(), want[k].nan_to_num())
+                                 for k in want)
+            rows.append(f"{float(got['loss']):.6f}/{float(want['loss']):.6f} "
+                        f"{float(got['grad_norm']):.6f}/{float(want['grad_norm']):.6f}")
+        worst = _worst_diffs(*states)
+        equal = metrics_equal and all(v == 0.0 for v in worst.values())
+        log(f"[train_eq] accumulation {accumulation}, {TRAIN_EQ_STEPS} steps captured / eager: "
+            f"loss and grad_norm per step {'; '.join(rows)}; every metric bit-equal "
+            f"{metrics_equal}; worst |captured - eager| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f"; update count {states[0].optimizer.count} {'ok' if equal else 'FAIL'}")
+        if not equal:  # eager twice: is the eager step itself nondeterministic?
+            third = _seeded_train_state(device, accumulation)
+            g = torch.Generator(device=device).manual_seed(21)
+            for i in range(TRAIN_EQ_STEPS):
+                step.eager(third, batch, draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192,
+                                                            cond_dropout=True))
+            again = _worst_diffs(states[1], third)
+            log("[train_eq] eager against eager: worst "
+                + ", ".join(f"{k} {v:.3e}" for k, v in again.items()))
+            del third
+        ok &= equal
+        del states, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return ok
+
+
+# 'dots' against full checkpointing: the saved matmul outputs are the values
+# the recompute would give, so the gradients are expected bit-equal; bound
+# on the worst relative error of a parameter's gradient
+DOTS_REL_TOL = 1e-3
+
+
+def dots_phase(device):
+    """One forward and backward of the full-width research model at batch
+    16 (bf16 autocast) with no checkpointing, full per-layer checkpointing
+    and 'dots', on the same weights, batch and masking noise: losses and
+    gradients of 'dots' against full, and the peak memory of each above the
+    weights (full <= 'dots' <= none)."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training.masking import (draw_masking_noise,
+                                                       mask_or_random_replace_tokens)
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
+    batch = train_batch(device)
+    noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(3),
+                               8192)
+    input_ids, labels, _, _ = mask_or_random_replace_tokens(
+        batch["image_tokens"], model.config.mask_token_id, get_mask_schedule("cosine"), noise)
+    peaks, losses, grads = {}, {}, {}
+    for mode in (False, True, "dots"):
+        model.set_gradient_checkpointing(mode)
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.autocast("cuda", torch.bfloat16, cache_enabled=False):
+            _, loss = model(input_ids, batch["encoder_hidden_states"], batch["cond_embeds"],
+                            batch["micro_conds"], labels=labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[mode] = torch.cuda.max_memory_allocated() - base
+        losses[mode] = loss.detach()
+        if mode:
+            grads[mode] = [p.grad.clone() for p in model.parameters()]
+    worst = max(((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+                for a, b in zip(grads["dots"], grads[True]))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads["dots"], grads[True]))
+    ordered = peaks[True] <= peaks["dots"] <= peaks[False]
+    ok = (torch.equal(losses["dots"], losses[True]) and worst <= DOTS_REL_TOL and ordered)
+    log(f"[dots] loss none {float(losses[False]):.6f} full {float(losses[True]):.6f} 'dots' "
+        f"{float(losses['dots']):.6f}; 'dots' grads against full: bit-equal {bit_equal}, worst "
+        f"relative error {worst:.3e} (bound {DOTS_REL_TOL}); peak memory above the weights "
+        f"(max_memory_allocated): none {peaks[False] / 2 ** 30:.2f} GiB, 'dots' "
+        f"{peaks['dots'] / 2 ** 30:.2f} GiB, full {peaks[True] / 2 ** 30:.2f} GiB, "
+        f"full <= 'dots' <= none {ordered} {'ok' if ok else 'FAIL'}")
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+RAW_IMAGES, RAW_EVAL_IMAGES = 32, 16
+
+
+def raw_launches(steps, eval_batches):
+    """The raw run: ``steps`` train steps; each get_code one vq_argmin
+    (every step's batch and each eval batch, the first call two: its graph's
+    warm-up, then the replay); each eval batch one forward, the first two;
+    one sample panel: a 12-step CFG decode of 4 images, twice (its graph's
+    warm-up and the replay)."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2Config
+
+    expected = train_launches(steps)
+    for name, n in forward_launches(eval_batches + 1).items():
+        expected[name] += n
+    for name, n in expected_request_launches(MaskGiTUViT_v2Config(),
+                                             "fused_categorical_cfg").items():
+        expected[name] += 2 * n
+    expected["vq_argmin"] = steps + eval_batches + 1
+    return expected
+
+
+def train_raw_phase(device, smi):
+    """train_muse.main on configs/laiona6plus_uvit_clip.yaml without
+    pre-encoding: seeded raw shards (train and eval), seeded full-width CLIP-L
+    and f16 taming VQGAN directories; eval, the sample panel, the grad-norm
+    lines, the bucket diagnostics and a profiler window each once; then a
+    resume and a profiled raw step.  Returns (ok, launch counts)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+    from open_muse_tpu_torch.training import train_muse
+    from open_muse_tpu_torch.training.data import (Text2ImageDataset, WebdatasetSelect,
+                                                   decode_sample, tar_samples)
+    from open_muse_tpu_torch.training.trainer import grad_norm_param_names
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_raw_", dir=runs)
+    try:
+        shard, eval_shard = (os.path.join(work, f"{n}-000.tar") for n in ("raw", "eval"))
+        write_image_shard(shard, RAW_IMAGES, seed=3)
+        write_image_shard(eval_shard, RAW_EVAL_IMAGES, seed=4)
+        clip_dir, vq_dir = os.path.join(work, "clip"), os.path.join(work, "vqgan")
+        with torch.device(device):
+            text_encoder = CLIPTextEncoder(
+                vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                num_attention_heads=12, max_position_embeddings=77, projection_dim=768)
+            vae = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
+                             quantized_embed_dim=256)
+        randomize_(text_encoder, 1)
+        randomize_(vae, 2)
+        text_encoder.save_pretrained(clip_dir)
+        vae.save_pretrained(vq_dir)
+        del text_encoder, vae
+        out = os.path.join(work, "out")
+        config_path = os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml")
+        overrides = [f"dataset.params.train_shards_path_or_url={shard}",
+                     f"dataset.params.eval_shards_path_or_url={eval_shard}",
+                     "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                     "experiment.log_every=1", f"experiment.save_every={TRAIN_STEPS}",
+                     f"experiment.eval_every={TRAIN_STEPS}", "experiment.max_eval_batches=1",
+                     f"experiment.generate_every={TRAIN_STEPS}",
+                     f"experiment.log_grad_norm_every={TRAIN_STEPS}",
+                     "experiment.log_entropy_buckets=true", "experiment.profile_steps=[4,5]",
+                     f"model.text_encoder.pretrained={clip_dir}",
+                     f"model.vq_model.pretrained={vq_dir}", f"training.batch_size={TRAIN_B}",
+                     "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                     f"training.max_train_steps={TRAIN_STEPS}"]
+        argv = ["config=" + config_path] + overrides
+        for arg in argv:
+            log(f"[train_raw] argument {arg}")
+        config = load_config(argv)
+        log(f"[train_raw] cuts of the flagship config: batch {512} -> {TRAIN_B}, warmup 5000 -> "
+            f"0, {TRAIN_STEPS} steps; raw branch (no training.pre_encode), cond_dropout_prob "
+            f"{config.training.cond_dropout_prob}, gradient_checkpointing "
+            f"{config.model.gradient_checkpointing}, use_ema {config.training.use_ema}, "
+            f"{config.training.mixed_precision}")
+        select = WebdatasetSelect(**config.dataset.quality_filter.to_dict())
+        kept = [select(decode_sample(raw)) for path in (shard, eval_shard)
+                for raw in tar_samples(path)]
+        filter_ok = len(kept) == RAW_IMAGES + RAW_EVAL_IMAGES and all(kept)
+        log(f"[train_raw] samples passing the config's quality filter "
+            f"{config.dataset.quality_filter.to_dict()}: {sum(kept)} of {len(kept)} "
+            f"{'ok' if filter_ok else 'FAIL'}")
+
+        expected = raw_launches(TRAIN_STEPS, 1)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_muse.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        logged = _logged(out)
+        median, steps = _step_lines("train_raw", logged)
+        losses = [m["loss"] for m in steps]
+        falling = losses[-1] < losses[0] and all(v == v for v in losses)
+        evals = [m["eval_loss"] for m in logged if "eval_loss" in m]
+        eval_ok = len(evals) == 1 and evals[0] == evals[0]
+        panel = os.path.join(out, f"samples-{TRAIN_STEPS}.png")
+        panel_ok = os.path.isfile(panel)
+        norms = [m for m in logged if any(k.startswith("grad_norm/") for k in m)]
+        names = [f"grad_norm/{n}" for n in grad_norm_param_names(state.model)]
+        norms_ok = (len(norms) == 1 and [k for k in norms[0] if k != "step"] == names
+                    and all(v == v and v >= 0 for k, v in norms[0].items() if k != "step"))
+        buckets_ok = all(len(m["pixel_entropy_by_bucket"]) == 10 for m in steps)
+        trace = os.path.join(out, "profile", "trace.json")
+        trace_ok = os.path.isfile(trace)
+        counts_ok = launches == expected
+        log(f"[train_raw] {TRAIN_STEPS} steps in {wall:.1f} s (encoder and model build, eval, "
+            f"panel and checkpoint included): last loss {losses[-1]:.4f} < first "
+            f"{losses[0]:.4f} {falling}; eval_loss {evals} {eval_ok}; {os.path.basename(panel)} "
+            f"{panel_ok}; grad-norm lines under the {len(names)} flax names {norms_ok}; bucket "
+            f"diagnostics every step {buckets_ok}; trace {trace_ok} "
+            f"({os.path.getsize(trace) if trace_ok else 0} bytes)")
+        log(f"[train_raw] launches {launches} (expected {expected}) "
+            f"{'ok' if counts_ok else 'FAIL'}")
+        log(f"[train_raw] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host "
+            f"clock, synchronised; encode and step), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
+            f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated) on {smi}")
+        resume_ok = _resume_check("train_raw", train_muse, argv, state, out, TRAIN_STEPS)
+        encoders = train_muse.FrozenEncoders.from_config(config, device)
+        empty = encoders.empty_embeds()
+        raw = next(iter(Text2ImageDataset(shard, TRAIN_B, resolution=256, shuffle_buffer_size=16,
+                                          seed=5)))
+        profile_train_step(state, device, median, label="raw train step (encode + step)",
+                           filename="profile_train_raw_step.txt",
+                           prepare=lambda: {**encoders.prepare_batch(raw), **empty},
+                           cond_dropout_prob=0.1, with_diagnostics=True,
+                           with_param_grad_norms=True)
+        ok = (filter_ok and falling and eval_ok and panel_ok and norms_ok and buckets_ok
+              and trace_ok and counts_ok and resume_ok)
+        del state, encoders
+        gc.collect()
+        torch.cuda.empty_cache()
         return ok, launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1927,6 +2298,19 @@ def main() -> int:
     if not train_ok:
         failed.append("training phase")
     log(f"[phase] gradient check and training {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    if not train_eq_phase(device):
+        failed.append("captured against eager train steps")
+    if not dots_phase(device):
+        failed.append("'dots' checkpointing")
+    log(f"[phase] train_eq and dots {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    raw_ok, paths["train_raw"] = train_raw_phase(device, smi)
+    if not raw_ok:
+        failed.append("raw-branch training phase")
+    log(f"[phase] train_raw {time.perf_counter() - phase_t0:.1f} s")
 
     rows = []
     for name, (ok, err, t) in report.items():

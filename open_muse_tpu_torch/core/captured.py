@@ -36,7 +36,7 @@ import torch
 
 from .. import kernels
 
-__all__ = ["captured", "graph_count", "last_capture"]
+__all__ = ["captured", "capture_on", "replay", "pointer_key", "graph_count", "last_capture"]
 
 # owner -> {(weights, key): _Graph}
 _CACHES: "weakref.WeakKeyDictionary[Any, Dict[tuple, _Graph]]" = weakref.WeakKeyDictionary()
@@ -66,15 +66,49 @@ def _map(fn, obj):
     raise TypeError(f"captured functions return tensors, got {type(obj).__name__}")
 
 
+def pointer_key(tensors) -> tuple:
+    """(device, dtype, data_ptr) of every tensor: what a graph reads by
+    pointer."""
+    return tuple((t.device, t.dtype, t.data_ptr()) for t in tensors)
+
+
 def weights_key(modules) -> tuple:
-    """(device, dtype, data_ptr) of every parameter and buffer of ``modules``."""
-    return tuple((t.device, t.dtype, t.data_ptr()) for m in modules
-                 for t in (*m.parameters(), *m.buffers()))
+    """``pointer_key`` of every parameter and buffer of ``modules``."""
+    return pointer_key(t for m in modules for t in (*m.parameters(), *m.buffers()))
 
 
 def graph_count(owner) -> int:
     """The graphs cached for ``owner``."""
     return len(_CACHES.get(owner, ()))
+
+
+def capture_on(stream, fn: Callable, what):
+    """Capture ``fn()`` on ``stream`` (after its warm-up there) into a new
+    graph: (graph, outputs, the wrappers' launch counts the capture
+    recorded).  The counts are restored, since a capture launches nothing; a
+    capture that fails raises, naming ``what``."""
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            outputs = fn()
+    except Exception as exc:
+        raise RuntimeError(f"CUDA graph capture of {what!r} failed; nothing runs eagerly in "
+                           f"its place") from exc
+    finally:
+        launched = kernels.launch_counts()
+        for wrapper in kernels.WRAPPERS:
+            wrapper.launches = before[wrapper.__name__]
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph, outputs, {name: launched[name] - before[name] for name in before
+                            if launched[name] != before[name]}
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: Dict[str, int]) -> None:
+    """Replay ``graph`` and add the launch counts its capture recorded."""
+    graph.replay()
+    for wrapper in kernels.WRAPPERS:
+        wrapper.launches += launches.get(wrapper.__name__, 0)
 
 
 def _capture(fn, tensors, key) -> _Graph:
@@ -84,21 +118,7 @@ def _capture(fn, tensors, key) -> _Graph:
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):  # the warm-up launches for real, and counts
         fn(*inputs)
-    before = kernels.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, stream=stream):
-            outputs = fn(*inputs)
-    except Exception as exc:
-        raise RuntimeError(f"CUDA graph capture of {key!r} failed; nothing runs eagerly in "
-                           f"its place") from exc
-    finally:
-        launched = kernels.launch_counts()
-        for wrapper in kernels.WRAPPERS:  # a capture launches nothing
-            wrapper.launches = before[wrapper.__name__]
-    torch.cuda.current_stream().wait_stream(stream)
-    delta = {name: launched[name] - before[name] for name in before
-             if launched[name] != before[name]}
+    graph, outputs, delta = capture_on(stream, lambda: fn(*inputs), key)
     last_capture.clear()
     last_capture.update(key=key, seconds=time.perf_counter() - t0, launches=dict(delta))
     return _Graph(graph, inputs, outputs, delta)
@@ -125,7 +145,5 @@ def captured(owner, key, fn: Callable, *tensors: torch.Tensor, modules=()):
     else:
         for static, t in zip(entry.inputs, tensors):
             static.copy_(t)
-    entry.graph.replay()
-    for wrapper in kernels.WRAPPERS:
-        wrapper.launches += entry.launches.get(wrapper.__name__, 0)
+    replay(entry.graph, entry.launches)
     return _map(torch.clone, entry.outputs)

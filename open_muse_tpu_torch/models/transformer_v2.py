@@ -8,12 +8,14 @@ FFN down-projection through ``kernels.glu_matmul`` and the CFG sampling tail
 through ``kernels.fused_sample``; ``forward(..., use_kernels=False)`` runs
 the plain PyTorch path on the same weights.  With ``labels`` the forward also
 returns the masked-token loss, and ``set_gradient_checkpointing(True)``
-recomputes each trunk layer in the backward, as JAX's ``remat`` does.
+recomputes each trunk layer in the backward, as JAX's ``remat`` does
+(``'dots'``: only what is not a matmul, as ``remat='dots'``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from ..core.captured import captured
 from ..core.configuration import BaseConfig
@@ -364,13 +367,12 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
 
     def set_gradient_checkpointing(self, mode) -> None:
         """``True`` recomputes each trunk layer in the backward (JAX's full
-        ``remat``, ``torch.utils.checkpoint``); ``False`` keeps every
-        activation.  JAX's ``'dots'`` policy is not ported."""
-        if isinstance(mode, str):
-            raise NotImplementedError(
-                f"gradient_checkpointing={mode!r}: the port takes true or false; the 'dots' "
-                "policy (keep matmul outputs, recompute the rest) is not ported yet")
-        self.gradient_checkpointing = bool(mode)
+        ``remat``, ``torch.utils.checkpoint``), ``'dots'`` keeps the layer's
+        matmul outputs and recomputes the rest, ``False`` keeps every
+        activation."""
+        if isinstance(mode, str) and mode != "dots":
+            raise ValueError(f"gradient_checkpointing={mode!r}: true, false or 'dots'")
+        self.gradient_checkpointing = mode if isinstance(mode, str) else bool(mode)
 
     def conditioning(self, encoder_hidden_states, cond_embeds, micro_conds,
                      use_kernels: bool = True):
@@ -416,10 +418,15 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
         x = self.project_to_hidden(self.project_to_hidden_norm(x, use_kernels=use_kernels))
         residual = None
         remat = self.gradient_checkpointing and step_ctx is None and torch.is_grad_enabled()
+        context_fn = _save_dots if self.gradient_checkpointing == "dots" else noop_context_fn
         for layer, ctx in zip(self.transformer_layers, ctx_layers):
             if remat:
+                # v2 has no dropout (hidden_dropout 0): the recompute draws
+                # nothing, so the RNG state is neither saved nor restored,
+                # which a CUDA graph capture could not do
                 x, residual = checkpoint(layer, x, ehs, cond, residual, None, use_kernels,
-                                         use_reentrant=False)
+                                         use_reentrant=False, preserve_rng_state=False,
+                                         context_fn=context_fn)
             else:
                 x, residual = layer(x, ehs, cond, residual, ctx, use_kernels)
         x = x + residual
@@ -480,6 +487,20 @@ class MaskGiTUViT_v2(ModelMixin, nn.Module):
             torch.stack([temperatures, mask_ratios]).to(device), drawn,
             guidance_scales=tuple(guidance_scales.tolist()) if use_cfg else None,
             seq_len=seq_len, timesteps=timesteps, return_intermediate=return_intermediate)
+
+
+# JAX's jax.checkpoint_policies.dots_with_no_batch_dims_saveable: the outputs of
+# 2-D matmuls are kept, everything else (a batched matmul too) is recomputed.
+# The CUDA kernels are ctypes launches, not aten ops, so they are recomputed,
+# as JAX recomputes its pallas_calls under the same policy (they are not dots).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 def decode_noise(generator=None, noise=None, *, timesteps: int, batch: int, seq_len: int,

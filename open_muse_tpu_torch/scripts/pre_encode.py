@@ -1,8 +1,9 @@
 """Pre-encode webdataset shards for training: VQ tokens and CLIP embeddings.
 
 Counterpart of ``scripts/pre_encode.py``: reads raw image + caption tar
-shards, runs the taming f16 VQGAN's ``get_code`` (the ``vq_argmin`` kernel
-on the card) and the CLIP text tower, and writes per sample the members
+shards, runs the f16 tokenizer's ``get_code`` (a taming ``VQGANModel`` or a
+``MaskGitVQGAN``; the ``vq_argmin`` kernel on the card) and the CLIP text
+tower, and writes per sample the members
 ``vq_f16.npy`` int32 (H*W,), ``clip_penultimate.npy`` fp16 (T, D),
 ``clip_pooled.npy`` fp16 (P,), plus the sample's ``.txt`` and ``.json``,
 into tar shards of the same names, which ``training.data.PreEncodedDataset``
@@ -35,12 +36,14 @@ import torch
 from ..core.configuration import load_config_dict
 from ..core.modeling import resolve_device
 from ..models.clip_text import CLIPTextEncoder, SimpleTokenizer
+from ..models.maskgit_vqgan import MaskGitVQGAN
 from ..models.taming_vqgan import VQGANModel
 from ..training.data import decode_sample, expand_urls, image_transform, tar_samples
 
-__all__ = ["distribute_shards", "ShardWriterPool", "main"]
+__all__ = ["distribute_shards", "ShardWriterPool", "load_tokenizer", "to_device", "main"]
 
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 12)"
+NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 8)"
+_VAE_CLASSES = {"VQGANModel": VQGANModel, "MaskGitVQGAN": MaskGitVQGAN}
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json")
 
 
@@ -128,12 +131,13 @@ def _npy_bytes(arr) -> bytes:
 
 
 def load_vae(path: str, device):
-    """The f16 tokenizer of a checkpoint directory; only the taming
-    ``VQGANModel`` is ported."""
+    """The f16 tokenizer of a checkpoint directory, by the ``_class_name`` of
+    its config: a taming ``VQGANModel`` or a ``MaskGitVQGAN`` (MOVQ and
+    Paella are not ported)."""
     class_name = load_config_dict(path).get("_class_name", "VQGANModel")
-    if class_name != "VQGANModel":
+    if class_name not in _VAE_CLASSES:
         raise NotImplementedError(f"{class_name} checkpoints are {NOT_PORTED}")
-    return VQGANModel.from_pretrained(path, device=device).eval()
+    return _VAE_CLASSES[class_name].from_pretrained(path, device=device).eval()
 
 
 def load_tokenizer(path: str, text_encoder: CLIPTextEncoder):
@@ -163,7 +167,7 @@ def _batches(shards, batch_size: int):
             yield shard_name, batch
 
 
-def _to_device(array, device) -> torch.Tensor:
+def to_device(array, device) -> torch.Tensor:
     """A host array on ``device``.  To the card it goes from pinned memory
     and without waiting, so the copy queues behind the batch before it
     instead of holding the host until that batch is done."""
@@ -196,13 +200,13 @@ def _encode_batch(batch, resolution: int, vae, text_encoder, tokenizer, device):
     outs = {}
     if vae is not None:
         # uint8 to the device, 4x fewer bytes than fp32; normalised there
-        images = _to_device(pixels, device).float() / 255.0
+        images = to_device(pixels, device).float() / 255.0
         outs["vq_f16.npy"] = vae.get_code(images).to(torch.int32)
     if text_encoder is not None:
         texts = [sample.get("text", "") for sample in batch]
         ids = tokenizer(texts, padding="max_length", truncation=True,
                         max_length=tokenizer.model_max_length, return_tensors="np")["input_ids"]
-        hidden_states, _, pooled = text_encoder(_to_device(np.asarray(ids, np.int64), device))
+        hidden_states, _, pooled = text_encoder(to_device(np.asarray(ids, np.int64), device))
         outs["clip_penultimate.npy"] = hidden_states[-2].to(torch.float16)
         outs["clip_pooled.npy"] = pooled.to(torch.float16)
     return _to_host(outs, device)
@@ -228,7 +232,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--shards", required=True)
     parser.add_argument("--output-dir", required=True)
-    parser.add_argument("--vae-f16", help="dir of a taming VQGANModel checkpoint")
+    parser.add_argument("--vae-f16", help="dir of a VQGANModel or MaskGitVQGAN checkpoint")
     parser.add_argument("--vae-f8", help="dir of a Paella f8 checkpoint (not ported)")
     parser.add_argument("--text-encoder", help="dir of a CLIP text encoder")
     parser.add_argument("--batch-size", type=int, default=64)

@@ -7,7 +7,8 @@ streaming with key grouping that skips corrupt members, the per-process shard
 split (the rank and the process count are given, never looked up), sample
 decoding, the resize-and-crop image transform, the metadata quality filter
 and a background prefetch thread.  ``PreEncodedDataset`` is the counterpart
-of the ``pre_encode`` branch of ``Text2ImageDataset``.
+of the ``pre_encode`` branch of ``Text2ImageDataset``, and
+``Text2ImageDataset`` of its raw-image branch.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 __all__ = ["braceexpand", "expand_urls", "tar_samples", "ShardSource", "decode_sample",
-           "image_transform", "WebdatasetSelect", "PreEncodedDataset"]
+           "get_aesthetic_score", "person_token_replace", "image_transform", "WebdatasetSelect",
+           "PreEncodedDataset", "Text2ImageDataset"]
 
 logger = logging.getLogger(__name__)
 
@@ -185,6 +187,30 @@ def decode_sample(sample: Dict[str, bytes], pre_encoded: bool = False) -> Dict[s
     return out
 
 
+def get_aesthetic_score(meta: Dict[str, Any]) -> float:
+    """The aesthetic score across the LAION / COYO / stability metadata
+    dialects; 0.0 when there is none."""
+    if "aesthetic" in meta:
+        a = meta["aesthetic"]
+    elif "AESTHETIC_SCORE" in meta:
+        a = meta["AESTHETIC_SCORE"]
+    elif "aesthetic_score_laion_v2" in meta:
+        a = meta["aesthetic_score_laion_v2"]
+    elif "stability_metadata" in meta and "aes_scorelv2" in meta["stability_metadata"]:
+        a = meta["stability_metadata"]["aes_scorelv2"]
+    else:
+        a = 0.0
+    return float(a)
+
+
+def person_token_replace(text: str, rng: random.Random) -> str:
+    """CC12M's '<person>' tokens -> a person word drawn from ``rng``."""
+    person_words = ["a person", "someone", "somebody"]
+    while "<person>" in text:
+        text = text.replace("<person>", rng.choice(person_words), 1)
+    return text
+
+
 def image_transform(image, resolution: int = 256, rng: Optional[random.Random] = None,
                     center_crop: bool = False, normalize: bool = True):
     """Resize the shorter side to ``resolution`` (bilinear), crop a square
@@ -273,17 +299,31 @@ def _prefetch(iterator: Iterable, depth: int = 4) -> Iterator:
         yield item
 
 
+def _shuffled(samples, buffer_size: int, rng: random.Random) -> Iterator:
+    """``samples`` through a shuffle buffer of ``buffer_size``."""
+    buf: List[Any] = []
+    for sample in samples:
+        if len(buf) < buffer_size:
+            buf.append(sample)
+            continue
+        idx = rng.randrange(len(buf))
+        yield buf[idx]
+        buf[idx] = sample
+    rng.shuffle(buf)
+    yield from buf
+
+
 class PreEncodedDataset:
     """Yields dicts of stacked numpy arrays, one entry per ``.npy`` / ``.pth``
     member (``vq_f16.npy``, ``clip_penultimate.npy``, ``clip_pooled.npy``, ...)
-    plus ``__keys__``, from shards resampled with replacement;
-    ``select`` filters on the decoded sample (its ``metadata``).  One
-    process: rank 0 of 1."""
+    plus ``__keys__``, from shards resampled with replacement (or walked
+    once with ``resample=False``); ``select`` filters on the decoded sample
+    (its ``metadata``).  One process: rank 0 of 1."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
-                 seed: int = 0):
-        self.shards = ShardSource(train_shards_path_or_url, resample=True, seed=seed,
+                 resample: bool = True, seed: int = 0):
+        self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
                                   process_index=0, process_count=1)
         self.batch_size = batch_size
         self.shuffle_buffer_size = shuffle_buffer_size
@@ -300,21 +340,9 @@ class PreEncodedDataset:
             except (tarfile.TarError, EOFError, OSError) as exc:
                 logger.warning("skipping corrupt shard %s: %s", url, exc)
 
-    def _shuffled(self) -> Iterator[Dict[str, Any]]:
-        buf: List[Dict[str, Any]] = []
-        for sample in self._samples():
-            if len(buf) < self.shuffle_buffer_size:
-                buf.append(sample)
-                continue
-            idx = self.rng.randrange(len(buf))
-            yield buf[idx]
-            buf[idx] = sample
-        self.rng.shuffle(buf)
-        yield from buf
-
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         batch: List[Dict[str, Any]] = []
-        for sample in _prefetch(self._shuffled()):
+        for sample in _prefetch(_shuffled(self._samples(), self.shuffle_buffer_size, self.rng)):
             batch.append(sample)
             if len(batch) == self.batch_size:
                 yield self._collate(batch)
@@ -327,3 +355,67 @@ class PreEncodedDataset:
             if k.endswith("npy") or k.endswith("pth"):
                 out[k] = np.stack([np.asarray(s[k]) for s in batch])
         return out
+
+
+class Text2ImageDataset:
+    """Raw text-to-image batches: dicts of ``pixel_values`` (B, R, R, 3)
+    float in [0, 1] (the shorter side resized to R, a square cropped at
+    random, or centred with ``center_crop``), ``input_text`` (a list),
+    ``orig_sizes`` (B, 2) (width, height; the metadata's original size where
+    it has one), ``crop_coords`` (B, 2) (top, left) and ``aesthetic_scores``
+    (B,), from shards resampled with replacement (or walked once with
+    ``resample=False``), filtered by ``select`` on the decoded sample.  The
+    crops, shuffles and person words come from one ``random.Random(seed +
+    1)``, as in the JAX dataset.  One process: rank 0 of 1."""
+
+    def __init__(self, train_shards_path_or_url, batch_size: int, *, resolution: int = 256,
+                 shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
+                 resample: bool = True, seed: int = 0, center_crop: bool = False,
+                 prefetch_depth: int = 4):
+        self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
+                                  process_index=0, process_count=1)
+        self.batch_size = batch_size
+        self.resolution = resolution
+        self.shuffle_buffer_size = shuffle_buffer_size
+        self.select = select
+        self.center_crop = center_crop
+        self.prefetch_depth = prefetch_depth
+        self.rng = random.Random(seed + 1)
+
+    def _samples(self) -> Iterator[Dict[str, Any]]:
+        for url in self.shards:
+            for raw in tar_samples(url):
+                sample = decode_sample(raw)
+                if "text" not in sample or "image" not in sample:
+                    continue
+                if self.select is None or self.select(sample):
+                    yield sample
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        it = _shuffled(self._samples(), self.shuffle_buffer_size, self.rng)
+        if self.prefetch_depth:
+            it = _prefetch(it, self.prefetch_depth)
+        batch: List[Dict[str, Any]] = []
+        for sample in it:
+            batch.append(sample)
+            if len(batch) == self.batch_size:
+                yield self._collate(batch)
+                batch = []
+
+    def _collate(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+        pixels, texts, orig_sizes, crops, aes = [], [], [], [], []
+        for s in batch:
+            arr, orig, crop = image_transform(s["image"], self.resolution, self.rng,
+                                              self.center_crop)
+            pixels.append(arr)
+            texts.append(person_token_replace(s.get("text", ""), self.rng))
+            meta = s.get("metadata") or {}
+            if "original_width" in meta and "original_height" in meta:
+                orig = (int(meta["original_width"]), int(meta["original_height"]))
+            orig_sizes.append(orig)
+            crops.append(crop)
+            aes.append(get_aesthetic_score(meta))
+        return {"pixel_values": np.stack(pixels), "input_text": texts,
+                "orig_sizes": np.asarray(orig_sizes, dtype=np.float32),
+                "crop_coords": np.asarray(crops, dtype=np.float32),
+                "aesthetic_scores": np.asarray(aes, dtype=np.float32)}

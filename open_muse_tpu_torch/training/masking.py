@@ -27,21 +27,26 @@ class MaskingNoise:
     holds the uniforms for the rectangle's height, first row and first
     column, and use_rect () the one that picks the rectangle over random
     positions; random_tokens (B, S) are the ``random_replace`` tokens;
-    eval_index (B,) picks an entry of ``eval_mask_ratios``."""
+    eval_index (B,) picks an entry of ``eval_mask_ratios`` (an eval step
+    reads it and the permutation alone); cond_dropout (B,) uniform in [0, 1)
+    is the train step's CFG cond-dropout draw."""
 
-    timesteps: torch.Tensor
+    timesteps: Optional[torch.Tensor]
     permutation: torch.Tensor
-    rect: torch.Tensor
-    use_rect: torch.Tensor
-    random_tokens: torch.Tensor
+    rect: Optional[torch.Tensor]
+    use_rect: Optional[torch.Tensor]
+    random_tokens: Optional[torch.Tensor]
     eval_index: Optional[torch.Tensor] = None
+    cond_dropout: Optional[torch.Tensor] = None
 
 
 def draw_masking_noise(batch_size: int, seq_len: int, generator: torch.Generator,
-                       codebook_size: int, num_eval_ratios: Optional[int] = None) -> MaskingNoise:
-    """Every draw of one masking call from ``generator``, on its device."""
+                       codebook_size: int, num_eval_ratios: Optional[int] = None,
+                       cond_dropout: bool = False) -> MaskingNoise:
+    """Every draw of one masking call from ``generator``, on its device,
+    and after them, with ``cond_dropout``, the cond-dropout uniforms."""
     kw = dict(generator=generator, device=generator.device)
-    return MaskingNoise(
+    noise = MaskingNoise(
         timesteps=torch.rand(batch_size, **kw),
         permutation=torch.rand(batch_size, seq_len, **kw),
         rect=torch.rand(3, batch_size, **kw),
@@ -49,6 +54,9 @@ def draw_masking_noise(batch_size: int, seq_len: int, generator: torch.Generator
         random_tokens=torch.randint(0, codebook_size, (batch_size, seq_len), **kw),
         eval_index=None if num_eval_ratios is None
         else torch.randint(0, num_eval_ratios, (batch_size,), **kw))
+    if cond_dropout:
+        noise.cond_dropout = torch.rand(batch_size, **kw)
+    return noise
 
 
 def get_loss_weight(t, mask, min_val: float = 0.3):
@@ -78,7 +86,7 @@ def mask_or_random_replace_tokens(
     batch_size, seq_len = image_tokens.shape
     device = image_tokens.device
     if not is_train and eval_mask_ratios is not None:
-        ratios = torch.tensor(list(eval_mask_ratios), dtype=torch.float32, device=device)
+        ratios = torch.as_tensor(eval_mask_ratios, dtype=torch.float32, device=device)
         mask_prob = ratios[noise.eval_index]
     else:
         mask_prob = mask_schedule(noise.timesteps.float()).clamp(min=min_masking_rate)

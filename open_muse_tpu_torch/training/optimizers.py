@@ -63,13 +63,28 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class Optimizer:
-    """AdamW driven like an optax chain: ``step(grad_norm)`` clips (when
-    ``max_grad_norm`` is set), sets the lr from the schedule at the current
-    update count, updates, and counts."""
+    """AdamW driven like an optax chain, and like ``optax.MultiSteps`` around
+    it when ``accumulation_steps`` k > 1.
+
+    A step is ``emit = begin_step()`` (host work: the schedule's value at
+    the update count into the lr, the accumulation divisor), then
+    ``update(grad_norm, emit)`` on the device alone, then
+    ``end_step(emit)`` (the counters).  With k = 1 ``update`` clips the
+    parameters' ``.grad`` by ``grad_norm`` (when ``max_grad_norm`` is set)
+    and updates.  With k > 1 every call folds the grads into a running mean
+    (``acc + (g - acc) / (n + 1)``, n the calls since the last update), and
+    every k-th call emits: it clips the mean by the mean's own global norm,
+    updates from it at the schedule's next value and zeroes it.
+
+    On the card the AdamW is ``capturable`` and the lr and divisor are 0-d
+    device tensors that ``begin_step`` fills, so that a CUDA graph holding
+    ``update`` reads each step's values; on the CPU it is the plain AdamW
+    with a float lr."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float], *,
                  beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 0.01,
-                 epsilon: float = 1e-8, max_grad_norm: Optional[float] = None):
+                 epsilon: float = 1e-8, max_grad_norm: Optional[float] = None,
+                 accumulation_steps: int = 1):
         mask = decay_mask(model)
         params = dict(model.named_parameters())
         groups = [{"params": [p for n, p in params.items() if mask[n]],
@@ -77,44 +92,113 @@ class Optimizer:
                   {"params": [p for n, p in params.items() if not mask[n]],
                    "weight_decay": 0.0}]
         self.params = list(params.values())
+        device = self.params[0].device
+        self.capturable = device.type == "cuda"
+        self.lr = (torch.zeros((), dtype=torch.float32, device=device) if self.capturable
+                   else 0.0)
         self.torch_optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(beta1, beta2),
-                                                 eps=epsilon)
+                                                 eps=epsilon, capturable=self.capturable)
+        self._share_lr()
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.count = 0
+        self.accumulation_steps = accumulation_steps
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+                    if accumulation_steps > 1 else [])
+        self.acc_divisor = torch.ones((), dtype=torch.float32, device=device)
+
+    def _share_lr(self) -> None:
+        for group in self.torch_optimizer.param_groups:
+            group["lr"] = self.lr
 
     def zero_grad(self) -> None:
         self.torch_optimizer.zero_grad(set_to_none=True)
 
-    def step(self, grad_norm: torch.Tensor) -> float:
-        """One update from the parameters' ``.grad``; returns the lr used."""
+    def begin_step(self) -> bool:
+        """Host work before a step: the lr and divisor; True when this step
+        updates the parameters."""
+        lr = float(self.schedule(self.count))
+        if self.capturable:
+            self.lr.fill_(lr)
+        else:
+            self.lr = lr
+            self._share_lr()
+        if self.acc:
+            self.acc_divisor.fill_(self.mini_step + 1)
+        return self.mini_step == self.accumulation_steps - 1
+
+    def end_step(self, emit: bool) -> None:
+        self.mini_step = (self.mini_step + 1) % self.accumulation_steps
+        self.count += int(emit)
+
+    def update(self, grad_norm: torch.Tensor, emit: bool = True) -> None:
+        """The step's device work from the parameters' ``.grad``."""
+        grads = [p.grad for p in self.params]
+        if self.acc:
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, self.acc_divisor)
+            torch._foreach_add_(self.acc, diff)
+            if not emit:
+                return
+            for p, a in zip(self.params, self.acc):
+                p.grad = a
+            grads, grad_norm = self.acc, global_norm(self.acc)
         if self.max_grad_norm is not None:
-            grads = [p.grad for p in self.params if p.grad is not None]
             scale = torch.where(grad_norm < self.max_grad_norm, torch.ones_like(grad_norm),
                                 self.max_grad_norm / grad_norm)
             torch._foreach_mul_(grads, scale)
-        lr = float(self.schedule(self.count))
-        for group in self.torch_optimizer.param_groups:
-            group["lr"] = lr
         self.torch_optimizer.step()
-        self.count += 1
-        return lr
+        if self.acc:
+            torch._foreach_zero_(self.acc)
+
+    def accumulators(self):
+        """The accumulation buffers and divisor (empty with k = 1)."""
+        return [*self.acc, self.acc_divisor] if self.acc else []
+
+    def state_tensors(self):
+        """AdamW's state tensors (moments, step counts) and the lr tensor: what
+        a graph holding an update reads by pointer."""
+        out = [self.lr] if self.capturable else []
+        for state in self.torch_optimizer.state.values():
+            out.extend(v for v in state.values() if isinstance(v, torch.Tensor))
+        return out
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.torch_optimizer.state_dict()}
+        adamw = self.torch_optimizer.state_dict()
+        adamw["param_groups"] = [{**g, "lr": float(g["lr"])} for g in adamw["param_groups"]]
+        out = {"count": self.count, "adamw": adamw}
+        if self.acc:
+            out.update(mini_step=self.mini_step, acc=self.acc)
+        return out
 
     def load_state_dict(self, state: dict) -> None:
+        """Also across devices: the groups keep this optimizer's
+        ``capturable`` (AdamW's step counts move onto the card for it) and
+        its lr tensor.  AdamW's state tensors are new ones, so a graph keyed
+        on ``state_tensors`` captures afresh; the accumulation buffers are
+        copied into."""
         self.count = int(state["count"])
-        self.torch_optimizer.load_state_dict(state["adamw"])
+        adamw = dict(state["adamw"])
+        adamw["param_groups"] = [{**g, "capturable": self.capturable}
+                                 for g in adamw["param_groups"]]
+        self.torch_optimizer.load_state_dict(adamw)
+        self._share_lr()
+        if self.acc:
+            self.mini_step = int(state.get("mini_step", 0))
+            if "acc" in state:
+                torch._foreach_copy_(self.acc, [a.to(self.acc[0].device) for a in state["acc"]])
 
 
 def get_optimizer(name: str, model: nn.Module,
                   learning_rate: Union[float, Callable[[int], float]],
                   beta1: float = 0.9, beta2: float = 0.999, weight_decay: float = 0.01,
-                  epsilon: float = 1e-8, max_grad_norm: Optional[float] = None) -> Optimizer:
+                  epsilon: float = 1e-8, max_grad_norm: Optional[float] = None,
+                  accumulation_steps: int = 1) -> Optimizer:
     name = name.lower()
     if name not in ("adamw", "fused_adamw"):
         raise ValueError(f"optimizer {name} not supported by the port (adamw, fused_adamw)")
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
     return Optimizer(model, schedule, beta1=beta1, beta2=beta2, weight_decay=weight_decay,
-                     epsilon=epsilon, max_grad_norm=max_grad_norm)
+                     epsilon=epsilon, max_grad_norm=max_grad_norm,
+                     accumulation_steps=accumulation_steps)

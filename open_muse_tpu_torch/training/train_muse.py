@@ -1,17 +1,23 @@
-"""Text-to-image trainer CLI for MaskGiTUViT_v2 on pre-encoded shards.
+"""Text-to-image trainer CLI for MaskGiTUViT_v2.
 
 Run:  python -m open_muse_tpu_torch.training.train_muse config=configs/xxx.yaml a.b=1
 
-Counterpart of ``open_muse_tpu/training/train_muse.py`` ``main`` for its
-``training.pre_encode: true`` branch: image tokens and CLIP embeddings come
-from pre-encoded shards, so neither the text tower nor the VQ model is
-built.  Flow: config (``utils/config.py``, yaml only) -> model on the card
-(the override ``device=cpu`` runs it on the CPU; CUDA asked for and absent
-raises) -> optimizer, schedule, EMA -> resume -> loop
-{ batch, masking noise, train step, metrics.jsonl, checkpoint }.
+Counterpart of ``open_muse_tpu/training/train_muse.py`` ``main`` for the U-ViT
+(``model.architecture: uvit``), in the order it runs: config
+(``utils/config.py``, yaml only) -> the frozen encoders, unless
+``training.pre_encode`` (the CLIP text tower and the VQ model, fp32,
+``eval()``, TF32 off) -> model on the card (the override ``device=cpu`` runs
+it on the CPU; CUDA asked for and absent raises) -> optimizer (wrapped as
+``optax.MultiSteps`` is under ``gradient_accumulation_steps``), schedule,
+EMA -> resume -> the empty prompt's embeddings (for CFG cond dropout) ->
+loop { batch, encode (raw images: ``get_code`` and the text tower, each one
+replayed CUDA graph on the card), masking and cond-dropout noise, the train
+step (one replayed CUDA graph on the card), metrics.jsonl, per-parameter
+grad norms, eval, the sample panel, checkpoint, a ``torch.profiler`` window }.
 ``mixed_precision: bf16`` keeps fp32 weights and runs the step under bf16
-autocast.  Evaluation, generation, inpainting panels, wandb and multi-host
-runs are not ported.
+autocast.  The v1 trainer, soft targets, the inpainting panels, the T5 text
+tower, the MOVQ / Paella tokenizers, ``dataset_map`` dialects, wandb and
+multi-host runs are not ported.
 """
 
 from __future__ import annotations
@@ -25,21 +31,28 @@ import time
 import numpy as np
 import torch
 
+from ..core.captured import captured
 from ..core.modeling import resolve_device
+from ..models.clip_text import CLIPTextEncoder
+from ..models.maskgit_vqgan import MaskGitVQGAN
+from ..models.taming_vqgan import VQGANModel
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
+from ..scripts.pre_encode import load_tokenizer, to_device
 from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
 from . import trainer as T
-from .data import PreEncodedDataset, WebdatasetSelect
+from .data import PreEncodedDataset, Text2ImageDataset, WebdatasetSelect
 from .ema import EMA
 from .lr_schedules import get_scheduler
 from .masking import draw_masking_noise
 from .optimizers import get_optimizer
 
-__all__ = ["MetricsTracker", "main"]
+__all__ = ["MetricsTracker", "FrozenEncoders", "save_image_grid", "prepare_batch", "main"]
 
 logger = logging.getLogger(__name__)
+
+VQ_CLASSES = {"vqgan": VQGANModel, "maskgit_vqgan": MaskGitVQGAN}
 
 
 class MetricsTracker:
@@ -54,8 +67,34 @@ class MetricsTracker:
             f.write(json.dumps({"step": step, **values}) + "\n")
 
 
+def save_image_grid(images, path: str) -> None:
+    """NHWC float images -> one PNG grid."""
+    from PIL import Image
+
+    images = np.clip(np.asarray(images, dtype=np.float32), 0, 1)
+    n, h, w, c = images.shape
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    grid = np.zeros((rows * h, cols * w, c), dtype=np.float32)
+    for i, img in enumerate(images):
+        r, col = divmod(i, cols)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img
+    Image.fromarray((grid * 255).astype(np.uint8)).save(path)
+
+
 def _first_of(batch, *names):
     return next((batch[n] for n in names if n in batch), None)
+
+
+def micro_conds(batch, n: int) -> np.ndarray:
+    """(n, 5): original size, crop (top, left) and aesthetic score from the
+    batch, the JAX defaults (512, 512, 0, 0, 6.0) where a member is missing."""
+    aes = batch.get("aesthetic_scores")
+    return np.concatenate([
+        batch.get("orig_sizes", np.full((n, 2), 512.0)),
+        batch.get("crop_coords", np.zeros((n, 2))),
+        np.full((n, 1), 6.0) if aes is None else np.asarray(aes, np.float32).reshape(n, 1),
+    ], axis=1).astype(np.float32)
 
 
 def prepare_batch(batch, config, cond_embed_dim: int, device) -> dict:
@@ -75,16 +114,90 @@ def prepare_batch(batch, config, cond_embed_dim: int, device) -> dict:
     pooled = _first_of(batch, "cond_embeds", "clip_pooled.npy")
     if pooled is None:
         pooled = np.zeros((n, cond_embed_dim), dtype=np.float32)
-    micro = np.tile(np.asarray([[512.0, 512.0, 0.0, 0.0, 6.0]], dtype=np.float32), (n, 1))
-    as_tensor = lambda a, dtype: torch.as_tensor(np.asarray(a), dtype=dtype).to(device)  # noqa: E731
-    return {"image_tokens": as_tensor(tokens, torch.long),
-            "encoder_hidden_states": as_tensor(ehs, torch.float32),
-            "cond_embeds": as_tensor(pooled, torch.float32),
-            "micro_conds": as_tensor(micro, torch.float32)}
+    return {"image_tokens": to_device(np.asarray(tokens, np.int64), device),
+            "encoder_hidden_states": to_device(np.asarray(ehs, np.float32), device),
+            "cond_embeds": to_device(np.asarray(pooled, np.float32), device),
+            "micro_conds": to_device(micro_conds({}, n), device)}
+
+
+class FrozenEncoders:
+    """The raw-image branch's frozen models: the CLIP text tower (penultimate
+    hidden state and pooled output) and the VQ model's ``get_code``, each run
+    through ``core.captured`` (the JAX package's separately jitted
+    encoders), fp32 and ``eval()``."""
+
+    def __init__(self, text_encoder, tokenizer, vq_model, device):
+        self.text_encoder = text_encoder.eval().requires_grad_(False)
+        self.tokenizer = tokenizer
+        self.vq_model = vq_model.eval().requires_grad_(False)
+        self.device = device
+
+    @classmethod
+    def from_config(cls, config, device) -> "FrozenEncoders":
+        te_cfg = config.model.get("text_encoder")
+        if te_cfg is not None and te_cfg.get("type", "clip") != "clip":
+            raise NotImplementedError(f"text_encoder.type {te_cfg.get('type')!r} is not ported "
+                                      f"yet (ROADMAP queue 1, item 9)")
+        te_path = te_cfg.get("pretrained") if te_cfg is not None else None
+        if te_path and os.path.isdir(te_path):
+            text_encoder = CLIPTextEncoder.from_pretrained(te_path, device=device)
+        elif te_cfg is not None and te_cfg.get("params") is not None:
+            with torch.device(device):
+                text_encoder = CLIPTextEncoder(**te_cfg.params.to_dict())
+        else:
+            raise ValueError("the raw-image branch needs model.text_encoder.pretrained (a "
+                             "directory) or model.text_encoder.params")
+        vq_type = config.model.get("vq_model_type", "maskgit_vqgan")
+        if vq_type not in VQ_CLASSES:
+            raise NotImplementedError(f"vq_model_type {vq_type!r} is not ported yet "
+                                      f"(ROADMAP queue 1, item 8)")
+        vq_cls = VQ_CLASSES[vq_type]
+        vq_cfg = config.model.get("vq_model")
+        vq_path = vq_cfg.get("pretrained") if vq_cfg is not None else None
+        if vq_path and os.path.isdir(vq_path):
+            vq_model = vq_cls.from_pretrained(vq_path, device=device)
+        else:
+            params = vq_cfg.get("params") if vq_cfg is not None else None
+            with torch.device(device):
+                vq_model = vq_cls(**(params.to_dict() if params is not None else {}))
+        return cls(text_encoder, load_tokenizer(te_path or "", text_encoder), vq_model, device)
+
+    @torch.no_grad()
+    def _text(self, ids):
+        hidden_states, _, pooled = self.text_encoder(ids)
+        return hidden_states[-2], pooled
+
+    def encode_text(self, texts):
+        """(penultimate hidden states (B, T, D), pooled (B, P)) fp32."""
+        ids = self.tokenizer(texts, padding="max_length", truncation=True,
+                             max_length=self.tokenizer.model_max_length,
+                             return_tensors="np")["input_ids"]
+        return captured(self.text_encoder, ("encode",), self._text,
+                        to_device(np.asarray(ids, np.int64), self.device),
+                        modules=(self.text_encoder,))
+
+    def get_code(self, pixels):
+        return captured(self.vq_model, ("get_code",), torch.no_grad()(self.vq_model.get_code),
+                        pixels, modules=(self.vq_model,))
+
+    def empty_embeds(self) -> dict:
+        """The empty prompt's embeddings, the CFG cond-dropout replacement."""
+        ehs, pooled = self.encode_text([""])
+        return {"empty_embeds": ehs, "empty_cond_embeds": pooled}
+
+    def prepare_batch(self, batch) -> dict:
+        """A collated raw batch (``Text2ImageDataset``) -> the train step's
+        tensors: the image tokens, the text states and the micro-conds."""
+        tokens = self.get_code(to_device(batch["pixel_values"], self.device))
+        ehs, pooled = self.encode_text(batch["input_text"])
+        return {"image_tokens": tokens.long(), "encoder_hidden_states": ehs,
+                "cond_embeds": pooled,
+                "micro_conds": to_device(micro_conds(batch, len(tokens)), self.device)}
 
 
 def build_state(config, device) -> T.TrainState:
-    """Model, optimizer (with the lr schedule) and EMA from ``config``."""
+    """Model, optimizer (with the lr schedule and gradient accumulation) and
+    EMA from ``config``."""
     tcfg = config.model.transformer.to_dict()
     if config.model.get("architecture", "uvit") != "uvit":
         raise NotImplementedError("the port trains MaskGiTUViT_v2 (model.architecture: uvit)")
@@ -103,9 +216,45 @@ def build_state(config, device) -> T.TrainState:
         config.optimizer.get("name", "adamw"), model, schedule,
         beta1=opt_cfg.get("beta1", 0.9), beta2=opt_cfg.get("beta2", 0.999),
         weight_decay=opt_cfg.get("weight_decay", 0.01), epsilon=opt_cfg.get("epsilon", 1e-8),
-        max_grad_norm=config.training.get("max_grad_norm"))
+        max_grad_norm=config.training.get("max_grad_norm"),
+        accumulation_steps=config.training.get("gradient_accumulation_steps", 1))
     ema = EMA(model) if config.training.get("use_ema", False) else None
     return T.TrainState(model=model, optimizer=optimizer, ema=ema)
+
+
+def _loggable(value):
+    value = value.float().cpu()
+    return value.tolist() if value.dim() else float(value)
+
+
+class SamplePanel:
+    """``generate_every``: 4 samples of the current batch's prompts by
+    ``generate2`` (12 steps, CFG 8 against the empty prompt; the captured
+    decode) from the EMA weights (else the model's), copied into one sample
+    model in the trunk's compute type (so its decode graph replays), then
+    ``decode_code`` -> ``samples-{step}.png``."""
+
+    def __init__(self, state, vq_model, empty, dtype, seed: int):
+        self.state, self.vq_model, self.empty = state, vq_model, empty
+        self.dtype, self.seed = dtype, seed
+        self.model = None
+
+    @torch.no_grad()
+    def __call__(self, batch, step: int, path: str) -> None:
+        source = self.state.model
+        if self.model is None:
+            with torch.device(next(source.parameters()).device):
+                self.model = MaskGiTUViT_v2(source.config).to(self.dtype).eval()
+        weights = self.state.ema.shadow if self.state.ema is not None else source.state_dict()
+        self.model.load_state_dict(weights)
+        n = min(4, len(batch["image_tokens"]))
+        tokens = self.model.generate2(
+            batch["encoder_hidden_states"][:n], batch["cond_embeds"][:n],
+            batch["micro_conds"][:n], empty_embeds=self.empty["empty_embeds"],
+            empty_cond_embeds=self.empty["empty_cond_embeds"], timesteps=12,
+            guidance_scale=8.0, generator=torch.Generator().manual_seed(self.seed + step),
+            seq_len=batch["image_tokens"].shape[1])
+        save_image_grid(self.vq_model.decode_code(tokens).float().cpu().numpy(), path)
 
 
 def main(argv=None) -> T.TrainState:
@@ -115,11 +264,13 @@ def main(argv=None) -> T.TrainState:
     device = resolve_device(config.get("device", "cuda"))
     seed = config.training.get("seed", 42)
     set_seed(seed)
-    if not config.training.get("pre_encode", False):
-        raise NotImplementedError("the port trains from pre-encoded shards only "
-                                  "(training.pre_encode=true)")
-    if config.training.get("gradient_accumulation_steps", 1) != 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not ported")
+    if device.type == "cuda":
+        # the frozen fp32 encoders as serving runs them; the trunk is bf16
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if config.training.get("use_soft_code_target", False):
+        raise NotImplementedError("use_soft_code_target needs the VQ get_soft_code, not ported "
+                                  "yet (ROADMAP queue 1, item 10)")
 
     output_dir = config.experiment.output_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -129,20 +280,32 @@ def main(argv=None) -> T.TrainState:
         yaml.safe_dump(config.to_dict(), f)
     tracker = MetricsTracker(output_dir)
 
+    pre_encode = config.training.get("pre_encode", False)
+    encoders = None if pre_encode else FrozenEncoders.from_config(config, device)
     state = build_state(config, device)
     model = state.model
     logger.info("transformer params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
     autocast_dtype = torch.bfloat16 if config.training.get("mixed_precision") == "bf16" else None
     mask_id, codebook_size = model.config.mask_token_id, model.config.codebook_size
+    mask_schedule = get_mask_schedule(config.training.get("mask_schedule", "cosine"))
+    label_smoothing = config.training.get("label_smoothing", 0.0)
+    cond_dropout_prob = config.training.get("cond_dropout_prob", 0.0)
+    log_grad_norm_every = config.experiment.get("log_grad_norm_every")
     train_step = T.make_uvit_train_step(
-        get_mask_schedule(config.training.get("mask_schedule", "cosine")), mask_id,
-        codebook_size=codebook_size,
+        mask_schedule, mask_id, codebook_size=codebook_size,
         min_masking_rate=config.training.get("min_masking_rate", 0.0),
         noise_type=config.training.get("noise_type", "mask"),
         predict_all_tokens=config.training.get("predict_all_tokens", False),
         mask_contiguous_region_prob=config.training.get("mask_contiguous_region_prob"),
-        label_smoothing=config.training.get("label_smoothing", 0.0),
-        autocast_dtype=autocast_dtype)
+        label_smoothing=label_smoothing, cond_dropout_prob=cond_dropout_prob,
+        autocast_dtype=autocast_dtype,
+        with_diagnostics=bool(config.experiment.get("log_entropy_buckets", False)),
+        with_param_grad_norms=bool(log_grad_norm_every))
+    eval_ratios = tuple(config.training.get("eval_mask_ratios", (0.1, 0.3, 0.5, 0.7, 0.9)))
+    eval_step = T.make_uvit_eval_step(mask_schedule, mask_id, eval_mask_ratios=eval_ratios,
+                                      label_smoothing=label_smoothing,
+                                      autocast_dtype=autocast_dtype)
+    grad_norm_names = T.grad_norm_param_names(model)
 
     resume = config.experiment.get("resume_from_checkpoint")
     if resume:
@@ -151,45 +314,111 @@ def main(argv=None) -> T.TrainState:
             T.load_checkpoint(path, state)
             logger.info("resumed from %s at step %d", path, state.step)
 
+    # the pre-encode branch has no text tower, hence no empty-prompt
+    # embeddings: CFG cond dropout does not run there, as in the JAX trainer
+    empty = encoders.empty_embeds() if encoders is not None else None
+    cond_dropout = cond_dropout_prob > 0.0 and empty is not None
+
+    def prepare(raw):
+        if encoders is None:
+            return prepare_batch(raw, config, model.config.cond_embed_dim, device)
+        return {**encoders.prepare_batch(raw), **empty}
+
     ds_params = config.dataset.params
     select = None
     if config.dataset.get("quality_filter"):
         select = WebdatasetSelect(**config.dataset.quality_filter.to_dict())
     batch_size = config.training.batch_size
-    dataset = PreEncodedDataset(ds_params.train_shards_path_or_url, batch_size,
-                                shuffle_buffer_size=ds_params.get("shuffle_buffer_size", 1000),
-                                select=select, seed=seed)
-    # the pre-encode branch has no text tower, hence no empty-prompt
-    # embeddings: CFG cond dropout does not run, as in the JAX trainer
+    resolution = ds_params.get("resolution", 256)
+    preprocessing = config.dataset.get("preprocessing") or {}
+
+    def dataset(urls, center_crop: bool, **kw):
+        if pre_encode:
+            return PreEncodedDataset(urls, batch_size, **kw)
+        return Text2ImageDataset(urls, batch_size, resolution=resolution,
+                                 center_crop=center_crop, **kw)
+
+    train_data = dataset(ds_params.train_shards_path_or_url,
+                         bool(preprocessing.get("center_crop", False)),
+                         shuffle_buffer_size=ds_params.get("shuffle_buffer_size", 1000),
+                         select=select, seed=seed)
+    eval_shards = ds_params.get("eval_shards_path_or_url")
+    eval_data = None
+    if eval_shards:
+        eval_data = dataset(eval_shards, True, shuffle_buffer_size=64, resample=False,
+                            seed=seed + 7)
     generator = torch.Generator(device).manual_seed(seed)
+    panel = None if encoders is None else SamplePanel(
+        state, encoders.vq_model, empty, autocast_dtype or torch.float32, seed)
 
     max_steps = config.training.max_train_steps
     log_every = config.experiment.get("log_every", 50)
     save_every = config.experiment.get("save_every", 1000)
+    eval_every = config.experiment.get("eval_every")
+    generate_every = config.experiment.get("generate_every", 1000)
+    profile_steps = config.experiment.get("profile_steps")
     overfit = config.training.get("overfit_one_batch", False)
     batch_time, data_time = AverageMeter(), AverageMeter()
-    data_iter = iter(dataset)
+    data_iter = iter(train_data)
     cached = None
+    profiler = None
     end = time.time()
     while state.step < max_steps:
         if not (overfit and cached is not None):
-            cached = prepare_batch(next(data_iter), config, model.config.cond_embed_dim, device)
-        batch = cached
-        seq_len = batch["image_tokens"].shape[1]
+            cached = next(data_iter)
         data_time.update(time.time() - end)
-        noise = draw_masking_noise(batch_size, seq_len, generator, codebook_size)
+        if profile_steps and state.step + 1 == int(profile_steps[0]):
+            from torch.profiler import ProfilerActivity, profile
+
+            profiler = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+            profiler.start()
+        batch = prepare(cached)
+        noise = draw_masking_noise(batch_size, batch["image_tokens"].shape[1], generator,
+                                   codebook_size, cond_dropout=cond_dropout)
+        capture = train_step.last_capture
         metrics = train_step(state, batch, noise)
-        if state.step % log_every == 0:
-            values = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        step = state.step
+        if profiler is not None and step == int(profile_steps[1]):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            profiler.stop()
+            os.makedirs(os.path.join(output_dir, "profile"), exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(output_dir, "profile", "trace.json"))
+            profiler = None
+            logger.info("wrote the profiler trace to %s/profile", output_dir)
+        if step % log_every == 0:
+            values = {k: _loggable(v) for k, v in metrics.items()
+                      if k != "param_grad_norms"}  # waits for the step
             batch_time.update(time.time() - end)
-            values.update({"lr": state.optimizer.schedule(state.step),
+            values.update({"lr": state.optimizer.schedule(step),
                            "samples/sec": batch_size / max(batch_time.avg, 1e-9),
                            "step_time": batch_time.val, "data_time": data_time.avg,
                            "batch_time": batch_time.avg})
-            tracker.log(values, state.step)
-            logger.info("step %d: loss=%.4f (%.1f samples/s)", state.step, values["loss"],
+            if train_step.last_capture is not capture:  # this step warmed up a graph
+                values["capture_s"] = train_step.last_capture["seconds"]
+            tracker.log(values, step)
+            logger.info("step %d: loss=%.4f (%.1f samples/s)", step, values["loss"],
                         values["samples/sec"])
-        if state.step % save_every == 0:
+        if log_grad_norm_every and step % log_grad_norm_every == 0:
+            norms = metrics["param_grad_norms"].float().cpu().tolist()
+            tracker.log({f"grad_norm/{n}": v for n, v in zip(grad_norm_names, norms)}, step)
+        if eval_every and eval_data is not None and step % eval_every == 0:
+            eval_gen = torch.Generator(device).manual_seed(seed + 999 + step)
+            losses = []
+            for i, raw in enumerate(eval_data):
+                if i >= config.experiment.get("max_eval_batches", 8):
+                    break
+                eb = prepare(raw)
+                eval_noise = draw_masking_noise(batch_size, eb["image_tokens"].shape[1],
+                                                eval_gen, codebook_size, len(eval_ratios))
+                losses.append(float(eval_step(model, eb, eval_noise)))
+            if losses:
+                tracker.log({"eval_loss": float(np.mean(losses))}, step)
+                logger.info("step %d: eval_loss=%.4f", step, np.mean(losses))
+        if panel is not None and generate_every and step % generate_every == 0:
+            panel(batch, step, os.path.join(output_dir, f"samples-{step}.png"))
+        if step % save_every == 0:
             T.save_checkpoint(output_dir, state,
                               checkpoints_total_limit=config.experiment.get(
                                   "checkpoints_total_limit"))

@@ -1,12 +1,13 @@
 """The MaskGiTUViT_v2 train and eval steps, and checkpoints.
 
 Counterpart of ``open_muse_tpu/training/trainer.py`` (``make_uvit_train_step``,
-``make_uvit_eval_step``, ``save_checkpoint``, ``find_latest_checkpoint``,
-``load_checkpoint``).  The JAX step is one jitted program over an immutable
-state; here the step updates the model, optimizer and EMA of a ``TrainState``
-in place and returns its metrics as device tensors, so nothing waits for the
-device until a caller reads them.  Masking noise comes in as an argument
-(``masking.MaskingNoise``) because JAX's PRNG bits cannot be reproduced.
+``make_uvit_eval_step``, ``grad_norm_param_names``, ``save_checkpoint``,
+``find_latest_checkpoint``, ``load_checkpoint``).  The JAX step is one
+jitted, donated program a step; here a step updates the model, optimizer and
+EMA of a ``TrainState`` in place and returns its metrics as device tensors,
+and on the card it is one replayed CUDA graph (``UViTTrainStep``).  Masking
+and cond-dropout noise come in as an argument (``masking.MaskingNoise``)
+because JAX's PRNG bits cannot be reproduced.
 
 A checkpoint is ``checkpoint-{step}/`` with ``metadata.json``,
 ``unwrapped_model/`` and ``ema_model/`` (``config.json`` + ``pytorch_model.bin``)
@@ -20,17 +21,21 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
+from ..core.captured import capture_on, captured, pointer_key, replay
 from ..core.modeling import WEIGHTS_NAMES
+from ..utils import training_utils as tu
 from .ema import EMA
 from .masking import MaskingNoise, mask_or_random_replace_tokens
-from .optimizers import Optimizer, global_norm
+from .optimizers import Optimizer, flax_param_name, global_norm
 
-__all__ = ["TrainState", "make_uvit_train_step", "make_uvit_eval_step", "save_checkpoint",
+__all__ = ["TrainState", "StepSpec", "UViTTrainStep", "uvit_train_body", "make_uvit_train_step",
+           "make_uvit_eval_step", "grad_norm_param_names", "save_checkpoint",
            "find_latest_checkpoint", "load_checkpoint"]
 
 
@@ -40,6 +45,204 @@ class TrainState:
     optimizer: Optimizer
     ema: Optional[EMA] = None
     step: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """What a train step closes over (a captured step's graph bakes it in)."""
+
+    mask_schedule: Callable
+    mask_id: int
+    codebook_size: int
+    min_masking_rate: float = 0.0
+    noise_type: str = "mask"
+    predict_all_tokens: bool = False
+    mask_contiguous_region_prob: Optional[float] = None
+    label_smoothing: float = 0.0
+    cond_dropout_prob: float = 0.0
+    autocast_dtype: Optional[torch.dtype] = None
+    with_diagnostics: bool = False
+    with_param_grad_norms: bool = False
+
+
+def _flax_leaves(model: nn.Module):
+    """(index in ``model.parameters()``, the JAX package's name) of every
+    parameter, in the JAX ``tree_leaves`` order."""
+    names = [flax_param_name(model, n) for n, _ in model.named_parameters()]
+    return sorted(enumerate(names), key=lambda item: item[1].split("."))
+
+
+def grad_norm_param_names(model: nn.Module) -> List[str]:
+    """The JAX package's names of the model's parameters in its
+    ``tree_leaves`` order, the order of ``metrics['param_grad_norms']``."""
+    return [name for _, name in _flax_leaves(model)]
+
+
+def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Tensor],
+                    noise: MaskingNoise, emit: bool = True) -> Dict[str, torch.Tensor]:
+    """One step's device work, with no host reads (what a graph holds):
+    masking, CFG cond dropout (where the batch carries ``empty_embeds``),
+    the forward with the loss under autocast, the backward, the global grad
+    norm, the optimizer's update (only accumulation when not ``emit``) and
+    the EMA update.  Metrics: loss, grad_norm (the micro-batch's, before
+    clipping), avg_masking_rate and, when asked, the four bucket diagnostics
+    and ``param_grad_norms`` (``grad_norm_param_names`` order)."""
+    model = state.model
+    input_ids, labels, loss_weight, mask_prob = mask_or_random_replace_tokens(
+        batch["image_tokens"], spec.mask_id, spec.mask_schedule, noise,
+        min_masking_rate=spec.min_masking_rate, noise_type=spec.noise_type,
+        codebook_size=spec.codebook_size, predict_all_tokens=spec.predict_all_tokens,
+        mask_contiguous_region_prob=spec.mask_contiguous_region_prob)
+    ehs, cond = batch["encoder_hidden_states"], batch["cond_embeds"]
+    if spec.cond_dropout_prob > 0.0 and "empty_embeds" in batch:
+        keep = noise.cond_dropout >= spec.cond_dropout_prob
+        ehs = torch.where(keep[:, None, None], ehs, batch["empty_embeds"].to(ehs.dtype))
+        cond = torch.where(keep[:, None], cond, batch["empty_cond_embeds"].to(cond.dtype))
+    # no autocast cache: a capture must not keep casts of the weights made
+    # before the optimizer's update
+    with torch.autocast(ehs.device.type, dtype=spec.autocast_dtype or torch.bfloat16,
+                        enabled=spec.autocast_dtype is not None, cache_enabled=False):
+        logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
+                             loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
+    state.optimizer.zero_grad()
+    loss.backward()
+    for p in model.parameters():
+        if p.grad is None:  # a parameter the loss does not reach: JAX's grad is 0
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in model.parameters()]
+    grad_norm = global_norm(grads)
+    metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+               "avg_masking_rate": mask_prob.mean()}
+    if spec.with_diagnostics:
+        logits = logits.detach()
+        metrics["pixel_entropy_by_bucket"] = tu.pixel_entropy_per_percent_masked_bucket(
+            logits, input_ids, spec.mask_id)
+        metrics["image_entropy_by_bucket"] = tu.image_entropy_per_percent_masked_bucket(
+            logits, input_ids, spec.mask_id)
+        metrics["cross_entropy_by_bucket"] = tu.cross_entropy_per_percent_masked_bucket(
+            logits, labels, input_ids, spec.mask_id, spec.label_smoothing)
+        metrics["token_prob_deciles_by_bucket"] = \
+            tu.token_prob_deciles_per_percent_masked_bucket(logits, input_ids, spec.mask_id)
+    if spec.with_param_grad_norms:
+        metrics["param_grad_norms"] = torch.stack(
+            torch._foreach_norm([grads[i].float() for i, _ in _flax_leaves(model)]))
+    state.optimizer.update(grad_norm, emit)
+    if state.ema is not None:
+        state.ema.update(model)
+    return metrics
+
+
+def _flat_inputs(batch, noise):
+    """(names, tensors) of a batch and its noise, in a fixed order."""
+    names, tensors = [], []
+    for k in sorted(batch):
+        names.append(("batch", k))
+        tensors.append(batch[k])
+    for f in dataclasses.fields(noise):
+        value = getattr(noise, f.name)
+        if value is not None:
+            names.append(("noise", f.name))
+            tensors.append(value)
+    return tuple(names), tensors
+
+
+def _unflat_inputs(names, tensors):
+    batch, noise = {}, {}
+    for (kind, k), t in zip(names, tensors):
+        (batch if kind == "batch" else noise)[k] = t
+    return batch, MaskingNoise(**noise)
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    graph: torch.cuda.CUDAGraph
+    inputs: List[torch.Tensor]
+    outputs: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+
+
+class UViTTrainStep:
+    """``step(state, batch, noise) -> metrics``: the host's part of a step
+    (the lr at the update count, the EMA decay at ``state.step``, whether
+    this call emits an update under gradient accumulation, the counters)
+    around ``uvit_train_body``.
+
+    On CPU tensors the body runs eagerly.  On the card it is one replayed
+    CUDA graph a step (two under gradient accumulation: accumulate, and
+    accumulate and update, chosen on the host), the counterpart of the JAX
+    package's one jitted, donated step.  A graph's first call is a real
+    step run eagerly on a side stream (it builds the kernels and allocates
+    the optimizer state), after which the graph is captured, launching
+    nothing; every later call copies the batch and noise into the graph's
+    static buffers and replays it, and returns clones of its metrics.  The
+    graphs are keyed on the pointers of the parameters, the EMA shadow, the
+    accumulation buffers and (for the update) the optimizer state: a resumed
+    or rebuilt state captures afresh.  A capture that fails raises; the
+    eager body never runs in its place.  ``step.eager`` runs the same host
+    part and body without a graph.  The kernels' launch counts stay exact:
+    a replay adds the wrappers' counts its capture recorded."""
+
+    def __init__(self, spec: StepSpec):
+        self.spec = spec
+        self._graphs: Dict[bool, tuple] = {}  # emit -> (key, _StepGraph)
+        self.last_capture: Dict[str, Any] = {}
+
+    def __call__(self, state: TrainState, batch, noise: MaskingNoise):
+        return self._run(state, batch, noise, graph=True)
+
+    def eager(self, state: TrainState, batch, noise: MaskingNoise):
+        return self._run(state, batch, noise, graph=False)
+
+    def _run(self, state, batch, noise, graph: bool):
+        emit = state.optimizer.begin_step()
+        if state.ema is not None:
+            state.ema.set_step(state.step)
+        names, tensors = _flat_inputs(batch, noise)
+        if not graph or all(t.device.type == "cpu" for t in tensors):
+            metrics = uvit_train_body(state, self.spec, batch, noise, emit)
+        else:
+            metrics = self._replay(state, names, tensors, emit)
+        state.optimizer.end_step(emit)
+        state.step += 1
+        return metrics
+
+    def _key(self, state, names, tensors, emit):
+        held = [*state.model.parameters(), *state.optimizer.accumulators()]
+        if state.ema is not None:
+            held += [*state.ema.shadow.values(), state.ema.step_decay]
+        if emit:
+            held += state.optimizer.state_tensors()
+        return (names, tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
+                pointer_key(held))
+
+    def _replay(self, state, names, tensors, emit):
+        key = self._key(state, names, tensors, emit)
+        cached = self._graphs.get(emit)
+        if cached is not None and cached[0] == key:
+            entry = cached[1]
+            for static, t in zip(entry.inputs, tensors):
+                static.copy_(t)
+            replay(entry.graph, entry.launches)
+            return {k: v.clone() for k, v in entry.outputs.items()}
+        self._graphs.pop(emit, None)  # stale pointers: drop the old graph first
+        metrics, entry = self._warm_up_and_capture(state, names, tensors, emit)
+        self._graphs[emit] = (self._key(state, names, tensors, emit), entry)
+        return metrics
+
+    def _warm_up_and_capture(self, state, names, tensors, emit):
+        t0 = time.perf_counter()
+        inputs = [t.clone(memory_format=torch.contiguous_format) for t in tensors]
+        body = lambda: uvit_train_body(state, self.spec, *_unflat_inputs(names, inputs),  # noqa: E731
+                                       emit)
+        stream = torch.cuda.Stream(device=inputs[0].device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # the real step: it launches, and counts
+            metrics = {k: v.clone() for k, v in body().items()}
+        warm = time.perf_counter() - t0
+        graph, outputs, delta = capture_on(stream, body, "the train step")
+        self.last_capture = {"emit": emit, "warm_up_s": warm,
+                             "seconds": time.perf_counter() - t0, "launches": delta}
+        return metrics, _StepGraph(graph, inputs, outputs, delta)
 
 
 def make_uvit_train_step(
@@ -52,60 +255,55 @@ def make_uvit_train_step(
     predict_all_tokens: bool = False,
     mask_contiguous_region_prob: Optional[float] = None,
     label_smoothing: float = 0.0,
+    cond_dropout_prob: float = 0.0,
     autocast_dtype: Optional[torch.dtype] = None,
-) -> Callable:
-    """``train_step(state, batch, noise) -> metrics``.
+    with_diagnostics: bool = False,
+    with_param_grad_norms: bool = False,
+) -> UViTTrainStep:
+    """``train_step(state, batch, noise) -> metrics`` (``UViTTrainStep``).
 
     batch: image_tokens (B, S) int, encoder_hidden_states (B, L, E),
-    cond_embeds (B, C), micro_conds (B, 5).  One call masks, runs the
-    forward with the loss (under autocast to ``autocast_dtype`` when given)
-    and the backward, takes the global grad norm, updates the optimizer
-    (which clips by that norm when it has ``max_grad_norm``) and then the
-    EMA, and increments ``state.step``.  Metrics: loss, grad_norm (before
-    clipping), avg_masking_rate.  CFG cond dropout, which needs the empty
-    prompt's embeddings from a text tower, is not ported."""
-
-    def train_step(state: TrainState, batch: Dict[str, Any],
-                   noise: MaskingNoise) -> Dict[str, torch.Tensor]:
-        model = state.model
-        input_ids, labels, loss_weight, mask_prob = mask_or_random_replace_tokens(
-            batch["image_tokens"], mask_id, mask_schedule, noise,
-            min_masking_rate=min_masking_rate, noise_type=noise_type,
-            codebook_size=codebook_size, predict_all_tokens=predict_all_tokens,
-            mask_contiguous_region_prob=mask_contiguous_region_prob)
-        device_type = batch["image_tokens"].device.type
-        with torch.autocast(device_type, dtype=autocast_dtype or torch.bfloat16,
-                            enabled=autocast_dtype is not None):
-            _, loss = model(input_ids, batch["encoder_hidden_states"], batch["cond_embeds"],
-                            batch["micro_conds"], labels=labels, loss_weight=loss_weight,
-                            label_smoothing=label_smoothing)
-        state.optimizer.zero_grad()
-        loss.backward()
-        grad_norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
-        state.optimizer.step(grad_norm)
-        if state.ema is not None:
-            state.ema.update(model, state.step)
-        state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "avg_masking_rate": mask_prob.mean()}
-
-    return train_step
+    cond_embeds (B, C), micro_conds (B, 5) and, for CFG cond dropout,
+    empty_embeds (1, L, E) and empty_cond_embeds (1, C): an image keeps its
+    text where ``noise.cond_dropout >= cond_dropout_prob``.  One call masks,
+    runs the forward with the loss (under autocast to ``autocast_dtype``
+    when given) and the backward, takes the global grad norm, has the
+    optimizer clip and update (or accumulate, under gradient accumulation)
+    and then updates the EMA, and increments ``state.step``."""
+    return UViTTrainStep(StepSpec(
+        mask_schedule, mask_id, codebook_size, min_masking_rate, noise_type, predict_all_tokens,
+        mask_contiguous_region_prob, label_smoothing, cond_dropout_prob, autocast_dtype,
+        with_diagnostics, with_param_grad_norms))
 
 
 def make_uvit_eval_step(mask_schedule, mask_id: int, *,
                         eval_mask_ratios=(0.1, 0.3, 0.5, 0.7, 0.9),
-                        label_smoothing: float = 0.0) -> Callable:
+                        label_smoothing: float = 0.0,
+                        autocast_dtype: Optional[torch.dtype] = None) -> Callable:
     """``eval_step(model, batch, noise) -> loss`` at fixed mask ratios
-    (``noise.eval_index`` picks one per image)."""
+    (``noise.eval_index`` picks one per image); on the card one replayed
+    CUDA graph (``core.captured``), as the JAX eval step is jitted."""
+    ratios = tuple(eval_mask_ratios)
 
     @torch.no_grad()
-    def eval_step(model, batch, noise: MaskingNoise):
+    def body(model, image_tokens, ehs, cond, micro, permutation, eval_index, ratio_values):
+        noise = MaskingNoise(None, permutation, None, None, None, eval_index)
         input_ids, labels, _, _ = mask_or_random_replace_tokens(
-            batch["image_tokens"], mask_id, mask_schedule, noise,
-            eval_mask_ratios=list(eval_mask_ratios), is_train=False)
-        _, loss = model(input_ids, batch["encoder_hidden_states"], batch["cond_embeds"],
-                        batch["micro_conds"], labels=labels, label_smoothing=label_smoothing)
+            image_tokens, mask_id, mask_schedule, noise, eval_mask_ratios=ratio_values,
+            is_train=False)
+        with torch.autocast(ehs.device.type, dtype=autocast_dtype or torch.bfloat16,
+                            enabled=autocast_dtype is not None, cache_enabled=False):
+            _, loss = model(input_ids, ehs, cond, micro, labels=labels,
+                            label_smoothing=label_smoothing)
         return loss
+
+    def eval_step(model, batch, noise: MaskingNoise):
+        return captured(model, ("eval_step", ratios, label_smoothing, autocast_dtype),
+                        lambda *t: body(model, *t), batch["image_tokens"],
+                        batch["encoder_hidden_states"], batch["cond_embeds"],
+                        batch["micro_conds"], noise.permutation, noise.eval_index,
+                        torch.tensor(ratios, device=noise.eval_index.device),
+                        modules=(model,))
 
     return eval_step
 

@@ -732,3 +732,162 @@ def test_compiled_text2image_replays_equal_fresh_eager_calls(device):
             assert launches == eager_launches, (launches, eager_launches)
     assert not torch.equal(replies[0][1], replies[1][1])
     assert replies[0][0].shape == (1, 8, 8, 3)
+
+
+# -- the captured train step -----------------------------------------------------
+
+def _train_state(device, accumulation_steps=1):
+    """The small U-ViT (per-layer checkpointing) with AdamW (clip 1.0, a
+    constant lr) and an EMA, from one seed."""
+    from open_muse_tpu_torch.training.ema import EMA
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState
+
+    torch.manual_seed(0)
+    model = _small_v2(device)
+    model.set_gradient_checkpointing(True)
+    optimizer = get_optimizer("adamw", model, lambda count: 1e-3, max_grad_norm=1.0,
+                              accumulation_steps=accumulation_steps)
+    return TrainState(model=model, optimizer=optimizer, ema=EMA(model))
+
+
+def _train_batch(device, b=4):
+    gen = torch.Generator(device=device).manual_seed(1)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    return {"image_tokens": torch.randint(0, 64, (b, 16), generator=gen, device=device),
+            "encoder_hidden_states": randn(b, 7, 48), "cond_embeds": randn(b, 32),
+            "micro_conds": torch.tensor([[512, 512, 0, 0, 6.0]] * b, device=device),
+            "empty_embeds": randn(1, 7, 48), "empty_cond_embeds": randn(1, 32)}
+
+
+def _train_step(autocast_dtype=torch.bfloat16):
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training.trainer import make_uvit_train_step
+
+    return make_uvit_train_step(get_mask_schedule("cosine"), 67, codebook_size=64,
+                                cond_dropout_prob=0.5, autocast_dtype=autocast_dtype,
+                                with_diagnostics=True, with_param_grad_norms=True)
+
+
+def _assert_same_state(a, b):
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(a.ema.shadow[name], b.ema.shadow[name]), name
+        for key, value in a.optimizer.torch_optimizer.state[p].items():
+            assert torch.equal(value, b.optimizer.torch_optimizer.state[q][key]), (name, key)
+    for x, y in zip(a.optimizer.acc, b.optimizer.acc):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("accumulation_steps", [1, 2])
+def test_captured_train_step_equals_eager(device, accumulation_steps):
+    """Two copies of one seeded state, one trained through the step's
+    graphs (step 1 the eager warm-up, then a capture; under accumulation
+    steps 1 and 2 each warm up one graph) and one through ``step.eager``,
+    with noise from generators of one seed (masking and cond dropout): every
+    metric (diagnostics and per-parameter norms too), parameter, EMA shadow,
+    AdamW moment and accumulator bit-equal after each of 4 steps; each
+    replay adds exactly the eager step's launches."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    step = _train_step()
+    a, b = _train_state(device, accumulation_steps), _train_state(device, accumulation_steps)
+    gens = [torch.Generator(device=device).manual_seed(5) for _ in range(2)]
+    batch = _train_batch(device)
+    for i in range(4):
+        noise_a, noise_b = (draw_masking_noise(4, 16, g, 64, cond_dropout=True) for g in gens)
+        got, launches = _counted(lambda: step(a, batch, noise_a))
+        want, eager_launches = _counted(lambda: step.eager(b, batch, noise_b))
+        assert sorted(got) == sorted(want)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, equal_nan=True,
+                                       msg=f"step {i}: {key}")
+        assert launches == eager_launches, (i, launches, eager_launches)
+        _assert_same_state(a, b)
+    assert a.step == b.step == 4 and a.optimizer.count == 4 // accumulation_steps
+    assert step.last_capture["launches"] == eager_launches
+
+
+def test_captured_train_step_recaptures_after_resume(device, tmp_path):
+    """A state trained 2 captured steps, saved, then loaded in place:
+    AdamW's state tensors are new ones, so step 3 warms up and captures
+    afresh instead of replaying the old pointers, and equals step 3 of a
+    fresh state loaded from the same checkpoint and run eagerly."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+    from open_muse_tpu_torch.training.trainer import load_checkpoint, save_checkpoint
+
+    step = _train_step()
+    a = _train_state(device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    batch = _train_batch(device)
+    for _ in range(2):
+        step(a, batch, draw_masking_noise(4, 16, gen, 64, cond_dropout=True))
+    first = step.last_capture
+    path = save_checkpoint(str(tmp_path), a)
+    load_checkpoint(path, a)
+    b = load_checkpoint(path, _train_state(device))
+    noise = draw_masking_noise(4, 16, gen, 64, cond_dropout=True)
+    got = step(a, batch, noise)
+    assert step.last_capture is not first and step.last_capture["emit"]
+    want = step.eager(b, batch, noise)
+    for key in ("loss", "grad_norm"):
+        assert torch.equal(got[key], want[key]), key
+    _assert_same_state(a, b)
+    again = draw_masking_noise(4, 16, gen, 64, cond_dropout=True)
+    got, want = step(a, batch, again), step.eager(b, batch, again)  # now a replay
+    assert torch.equal(got["loss"], want["loss"])
+    _assert_same_state(a, b)
+
+
+def test_cpu_checkpoint_resumes_on_the_card(device, tmp_path):
+    """A checkpoint of a CPU run (the plain AdamW: a float lr, step counts
+    on the CPU) loads into a state on the card: its AdamW stays capturable
+    with its lr tensor, the step counts move onto the card, and the next two
+    steps through the graph equal two eager ones from the same checkpoint."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+    from open_muse_tpu_torch.training.trainer import load_checkpoint, save_checkpoint
+
+    cpu = torch.device("cpu")
+    trained = _train_state(cpu)  # the CPU trains in fp32
+    _train_step(None)(trained, _train_batch(cpu), draw_masking_noise(
+        4, 16, torch.Generator().manual_seed(2), 64, cond_dropout=True))
+    step = _train_step()
+    path = save_checkpoint(str(tmp_path), trained)
+    a, b = (load_checkpoint(path, _train_state(device)) for _ in range(2))
+    adamw = a.optimizer.torch_optimizer
+    assert all(g["capturable"] and g["lr"] is a.optimizer.lr for g in adamw.param_groups)
+    assert all(st["step"].device.type == "cuda" for st in adamw.state.values())
+    gens = [torch.Generator(device=device).manual_seed(3) for _ in range(2)]
+    batch = _train_batch(device)
+    for _ in range(2):
+        noise_a, noise_b = (draw_masking_noise(4, 16, g, 64, cond_dropout=True) for g in gens)
+        got, want = step(a, batch, noise_a), step.eager(b, batch, noise_b)
+        assert torch.equal(got["loss"], want["loss"])
+        _assert_same_state(a, b)
+    assert a.step == 3 and a.optimizer.count == 3
+
+
+def test_train_step_capture_failure_raises(device):
+    """A train step whose body reads a device value on the host cannot be
+    captured: its first call (the eager warm-up) runs, then the capture
+    raises, and the eager body does not run in its place.  A failed capture
+    leaves torch's CUDA generator in its capture state, so this runs in a
+    process of its own."""
+    script = ("import torch, sys\n"
+              "sys.path.insert(0, 'tests')\n"
+              "from test_torch_cuda import _train_state, _train_batch, _train_step\n"
+              "from open_muse_tpu_torch.training import trainer as T\n"
+              "from open_muse_tpu_torch.training.masking import draw_masking_noise\n"
+              "body = T.uvit_train_body\n"
+              "T.uvit_train_body = lambda *a: {k: v * float(v.sum()) for k, v in "
+              "body(*a).items()}\n"
+              "device = torch.device('cuda')\n"
+              "state, step = _train_state(device), _train_step()\n"
+              "gen = torch.Generator(device=device).manual_seed(0)\n"
+              "try:\n"
+              "    step(state, _train_batch(device), draw_masking_noise(4, 16, gen, 64, cond_dropout=True))\n"
+              "except RuntimeError as exc:\n"
+              "    print('raised', 'capture' in str(exc), state.step)\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.stdout.strip() == "raised True 0", (out.stdout, out.stderr[-2000:])

@@ -253,18 +253,63 @@ def test_pre_encode_matches_jax_script(tmp_path, checkpoints, monkeypatch):
     assert tensors["cond_embeds"].shape == (2, 32)
 
 
+def test_pre_encode_maskgit_vqgan_matches_jax_script(tmp_path, monkeypatch):
+    """A tiny seeded MaskGIT VQGAN checkpoint: ``vq_f16.npy`` of the port's
+    pre-encode equal to the JAX script's, except where JAX's own fp32
+    distances from the latent to the two picks are equal (near-ties, as
+    ``test_torch_captured`` compares the encoder); members named, shaped and
+    typed alike.  1024 codes send JAX to its Pallas kernel (interpret mode)."""
+    from scripts.pre_encode import main as jax_main
+    from open_muse_tpu.models.maskgit_vqgan import MaskGitVQGAN as JaxMaskGitVQGAN
+    from open_muse_tpu.ops import vq as jax_vq
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+    from open_muse_tpu_torch.training.data import decode_sample, image_transform, tar_samples
+    from test_torch_v1 import MASKGIT_VQ_TINY
+
+    monkeypatch.setenv("MUSE_TPU_PALLAS_INTERPRET", "1")
+    jm = JaxMaskGitVQGAN(**{**MASKGIT_VQ_TINY, "num_embeddings": 1024}, _defer_init=True)
+    port, _ = port_of(jm, MaskGitVQGAN, random_params(jm, 33))
+    vq_dir = str(tmp_path / "maskgit")
+    port.save_pretrained(vq_dir)
+    shard = _caption_shard(tmp_path)
+    common = ["--shards", shard, "--vae-f16", vq_dir, "--batch-size", "3", "--resolution", "32"]
+    jax_main(common + ["--output-dir", str(tmp_path / "jax"), "--task-id", "0",
+                       "--num-tasks", "1"])
+    stats = pre_encode.main(common + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["n_samples"] == 4
+    want = _members(str(tmp_path / "jax" / os.path.basename(shard)))
+    got = _members(str(tmp_path / "port" / os.path.basename(shard)))
+    assert sorted(got) == sorted(want) and len(got) == 4 * 3  # vq_f16.npy, .txt, .json each
+    jm = JaxMaskGitVQGAN.from_pretrained(vq_dir)
+    codebook = jm.params["quantize"]["embedding"]["embedding"]
+    images = {s["__key__"]: s["image"] for s in map(decode_sample, tar_samples(shard))}
+    assert len(images) == 4
+    for key, image in images.items():
+        name = f"{key}.vq_f16.npy"
+        mine, ref = got[name], want[name]
+        assert (mine.shape, mine.dtype) == (ref.shape, ref.dtype) == ((256,), np.int32), name
+        pixels = image_transform(image, 32, center_crop=True)[0][None]
+        latents = jm.module.apply({"params": jm.params}, jnp.asarray(pixels),
+                                  method=lambda m, p: m.encoder(p))
+        d = np.asarray(jax_vq.compute_distances(latents.reshape(-1, latents.shape[-1]),
+                                                codebook))
+        rows = np.nonzero(mine != ref)[0]
+        np.testing.assert_array_equal(d[rows, mine[rows]], d[rows, ref[rows]], err_msg=name)
+        assert len(rows) <= 2, (name, rows)
+
+
 def test_pre_encode_rejects_what_is_not_ported(tmp_path, checkpoints):
-    """MaskGIT VQGAN, MOVQ and Paella checkpoints (told apart by the
-    ``_class_name`` of their config.json) and --vae-f8 raise."""
+    """MOVQ and Paella checkpoints (told apart by the ``_class_name`` of
+    their config.json) and --vae-f8 raise, naming the tokenizers' queue
+    item."""
     vq_dir, _ = checkpoints
-    maskgit_dir = tmp_path / "maskgit"
-    maskgit_dir.mkdir()
-    (maskgit_dir / "config.json").write_text('{"_class_name": "MaskGitVQGAN"}')
-    maskgit_dir = str(maskgit_dir)
+    movq_dir = tmp_path / "movq"
+    movq_dir.mkdir()
+    (movq_dir / "config.json").write_text('{"_class_name": "MOVQ"}')
     base = ["--shards", "none.tar", "--output-dir", str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pre_encode.main(base + ["--vae-f16", maskgit_dir])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pre_encode.main(base + ["--vae-f16", str(movq_dir)])
+    with pytest.raises(NotImplementedError, match="item 8"):
         pre_encode.main(base + ["--vae-f16", vq_dir, "--vae-f8", vq_dir])
 
 
