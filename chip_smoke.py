@@ -35,7 +35,18 @@ directly (eager); the token ids of the two must be equal:
 - train_raw: ``train_muse.main`` on the same config's raw-image branch (the
   CLIP-L tower and f16 VQGAN encode every batch, ``vq_argmin`` once a batch,
   CFG cond dropout) with eval, the sample panel, the grad-norm lines, the
-  bucket diagnostics and a profiler window, then a resume.
+  bucket diagnostics and a profiler window, then a resume;
+- train_class: ``training.train_maskgit_imagenet.main`` on
+  ``configs/imagenet.yaml`` (the v1 model, 24 x 768) at batch 64 over seeded
+  256px PNGs with class ids, the MaskGIT VQGAN encoding every batch
+  (``vq_argmin`` at K 1024), the class-id sample panel twice, then a resume;
+  the encode and the step timed apart; ``[train_eq]`` for the class step and
+  ``[v1_dropout]`` (one captured class step at dropout 0.1: the masks drawn
+  in the graph, fresh at every replay);
+- train_v1_text: ``train_muse.main`` on ``configs/cc12m.yaml`` (the v1 model
+  with cross-attention, 24 x 1024, ``architecture: transformer``) on a seeded
+  pre-encoded shard at batch 64 with CFG cond dropout, then a resume and
+  ``[train_eq]`` for the v1 text step.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
@@ -54,6 +65,7 @@ import argparse
 import functools
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -573,9 +585,10 @@ def check_categorical(device, gen):
 # the VQ search shapes: a pre-encode batch of 64 images (64 x 256 latent
 # rows) and one 256px inpainting request, against the taming VQGAN's
 # 8192-code codebook; one 256px class-id inpainting request against the
-# MaskGIT VQGAN's 1024 codes
+# MaskGIT VQGAN's 1024 codes, and the class trainer's batch of 64 against them
 VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
-             "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192)}
+             "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192),
+             "train_class": (64 * 256, 256, 1024)}
 VQ_RTOL = 1e-5
 
 
@@ -643,10 +656,12 @@ def check_vq(device, gen, splits=None):
 
 # the norms' path shapes: v1's 257 tokens (class + 256) and v2's CFG batch of
 # 2 x 256 at width 768 with a residual, v2's trunk pre-MLP LayerNorm at 1024
-# with one, v1's 3072-wide mid-MLP norm without; the report's row is the
-# residual-free shape, where one PyTorch call (F.rms_norm / F.layer_norm)
-# computes the same function
+# with one, the v1 trainers' norms at batch 64 (the class model's 768 and
+# 3072, the text model's 1024: no residual), v1's 3072-wide mid-MLP norm
+# without; the report's row is the last, residual-free shape, where one
+# PyTorch call (F.rms_norm / F.layer_norm) computes the same function
 NORM_SHAPES = (((1, 257, 768), True), ((2, 256, 768), True), ((2, 256, 1024), True),
+               ((64, 257, 768), False), ((64, 257, 3072), False), ((64, 256, 1024), False),
                ((1, 257, 3072), False))
 NORM_EPS, NORM_TOL = 1e-6, 1e-2
 
@@ -722,11 +737,14 @@ def check_norms(device, gen):
 # projection: both attentions of an AttentionBlock2D) when serving and at the
 # training batch of 16; 256 keys at head_dim 64, the split one-pass variant
 # that v1 takes at 48, and 1025, above the one-pass capacity of 288 keys
-# (the two-pass variant), which no path launches; last v1's self-attention
-# (257 tokens, 16 heads of 48, q / k / v views into the fused projection),
-# the report's row
+# (the two-pass variant), which no path launches; the v1 trainers' batch of
+# 64: the class model's self-attention, the text model's self-attention and
+# its cross-attention over 32 text keys; last v1's self-attention (257
+# tokens, 16 heads of 48, q / k / v views into the fused projection), the
+# report's row
 FLASH_SHAPES = ((2, 256, 256, 12, 64), (2, 256, 77, 12, 64), (16, 256, 77, 12, 64),
-                (1, 1025, 1025, 16, 64), (1, 257, 257, 16, 48))
+                (1, 1025, 1025, 16, 64), (64, 257, 257, 16, 48), (64, 256, 256, 16, 64),
+                (64, 256, 32, 16, 64), (1, 257, 257, 16, 48))
 ATTN_TOL = 2e-2
 
 
@@ -1241,9 +1259,7 @@ def build_class_pipeline(device):
     from open_muse_tpu_torch.utils.config import load_config
 
     config = load_config(["config=" + os.path.join(HERE, "configs", "imagenet.yaml")])
-    # YAML 1.1 reads "1e-6" as a string
-    tcfg = {k: float(v) if k == "layer_norm_eps" else v
-            for k, v in config.model.transformer.to_dict().items()}
+    tcfg = config.model.transformer.to_dict()
     with torch.device(device):
         transformer = MaskGitTransformer(MaskGitTransformer.config_from_dict(tcfg))
         vae = MaskGitVQGAN(MaskGitVQGANConfig())
@@ -1419,9 +1435,10 @@ def profiled(label, fn, unprofiled_s, filename, rows=16, smi="", span=False):
 PRE_ENCODE_IMAGES, PRE_ENCODE_BATCH = 1024, 64
 
 
-def write_image_shard(path, samples, seed=0):
+def write_image_shard(path, samples, seed=0, classes=None):
     """A raw webdataset shard: ``samples`` seeded 256 x 256 PNG images (smooth
-    colour fields with noise) with captions and LAION-style metadata;
+    colour fields with noise) with captions and LAION-style metadata, and
+    with ``classes`` a ``.cls`` member each (sample i: ``classes[i]``);
     returns the images as uint8 (samples, 256, 256, 3)."""
     import io
     import tarfile
@@ -1441,8 +1458,11 @@ def write_image_shard(path, samples, seed=0):
             png = io.BytesIO()
             Image.fromarray(img).save(png, format="PNG")
             meta = json.dumps({"width": 256, "height": 256, "aesthetic": 6.0})
-            for ext, data in (("png", png.getvalue()), ("txt", PROMPTS[i % 4].encode()),
-                              ("json", meta.encode())):
+            members = [("png", png.getvalue()), ("txt", PROMPTS[i % 4].encode()),
+                       ("json", meta.encode())]
+            if classes is not None:
+                members.append(("cls", str(int(classes[i])).encode()))
+            for ext, data in members:
                 info = tarfile.TarInfo(f"{i:05d}.{ext}")
                 info.size = len(data)
                 tf.addfile(info, io.BytesIO(data))
@@ -1666,12 +1686,13 @@ def gradient_check(device):
     return ok
 
 
-def write_shard(path, samples=32, seed=0):
+def write_shard(path, samples=32, seed=0, text=(KV_LEN, 768), pooled=True):
     """A seeded pre-encoded shard in the dialect of scripts/pre_encode.py at
     the config's shapes: tokens (256,) in [0, 8192) (each image uses 16
-    codes, so a repeated batch is learnable), CLIP penultimate states
-    (77, 768) fp16, pooled (768,) fp16, and LAION metadata that passes the
-    config's quality filter."""
+    codes, so a repeated batch is learnable), the text states ``text``
+    (CLIP penultimate (77, 768) by default) fp16 in the member the script
+    writes them to, pooled (768,) fp16 where ``pooled``, and LAION metadata
+    that passes the flagship config's quality filter."""
     import io
     import tarfile
 
@@ -1687,11 +1708,12 @@ def write_shard(path, samples=32, seed=0):
     with tarfile.open(path, "w") as tf:
         for i in range(samples):
             codes = rs.choice(8192, CODES_PER_IMAGE, replace=False)
-            for ext, data in (
-                    ("vq_f16.npy", npy(rs.choice(codes, TRAIN_S).astype(np.int32))),
-                    ("clip_penultimate.npy", npy(rs.randn(KV_LEN, 768).astype(np.float16))),
-                    ("clip_pooled.npy", npy(rs.randn(768).astype(np.float16))),
-                    ("json", meta.encode())):
+            members = [("vq_f16.npy", npy(rs.choice(codes, TRAIN_S).astype(np.int32))),
+                       ("clip_penultimate.npy", npy(rs.randn(*text).astype(np.float16))),
+                       ("json", meta.encode())]
+            if pooled:
+                members.append(("clip_pooled.npy", npy(rs.randn(768).astype(np.float16))))
+            for ext, data in members:
                 info = tarfile.TarInfo(f"{i:05d}.{ext}")
                 info.size = len(data)
                 tf.addfile(info, io.BytesIO(data))
@@ -1748,13 +1770,14 @@ def _step_lines(tag, logged):
     return statistics.median(m["step_time"] for m in steps[1:]), steps
 
 
-def _resume_check(tag, train_muse, argv, state, out, steps):
-    """main again with resume_from_checkpoint=latest: step and every tensor
-    as saved."""
-    resumed = train_muse.main(argv + ["experiment.resume_from_checkpoint=latest"])
+def _resume_check(tag, entry, argv, state, out, steps):
+    """``entry.main`` again with resume_from_checkpoint=latest: step and
+    every tensor as saved (the EMA where the run has one)."""
+    resumed = entry.main(argv + ["experiment.resume_from_checkpoint=latest"])
     mine = dict(state.model.named_parameters())
     params_equal = all(torch.equal(p, mine[n]) for n, p in resumed.model.named_parameters())
-    ema_equal = all(torch.equal(v, state.ema.shadow[n]) for n, v in resumed.ema.shadow.items())
+    ema_equal = ((resumed.ema is None) == (state.ema is None)) and (state.ema is None or all(
+        torch.equal(v, state.ema.shadow[n]) for n, v in resumed.ema.shadow.items()))
     opt_equal = resumed.optimizer.count == state.optimizer.count == steps
     moments_equal = all(
         torch.equal(v, state.optimizer.torch_optimizer.state[mine[n]][k])
@@ -1854,12 +1877,13 @@ def _seeded_train_state(device, accumulation_steps=1):
 
 
 def _state_tensors(state):
-    """(kind, tensor) of every parameter, AdamW moment, EMA shadow and
-    accumulator of ``state``."""
+    """(kind, tensor) of every parameter, AdamW moment, EMA shadow (where
+    the state has an EMA) and accumulator of ``state``."""
     out = []
     for name, p in state.model.named_parameters():
         out.append(("params", p))
-        out.append(("EMA", state.ema.shadow[name]))
+        if state.ema is not None:
+            out.append(("EMA", state.ema.shadow[name]))
         for key, value in state.optimizer.torch_optimizer.state[p].items():
             out.append((f"AdamW {key}", value))
     out += [("accumulators", a) for a in state.optimizer.acc]
@@ -2136,6 +2160,406 @@ def train_raw_phase(device, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the v1 trainers at full width --------------------------------------------
+
+V1_STEPS = 8
+# train_class: configs/imagenet.yaml's batch 256 cut to 64: 24 layers without
+# checkpointing hold ~1.5 GB of activations a layer at 128 x 257 tokens, and
+# at batch 128 the step's eager warm-up and its capture ran out of an 80 GB
+# H100; 128 seeded images, resampled; the panel every 4 steps (twice);
+# train_v1_text: configs/cc12m.yaml at its own batch, the text states of the
+# CC12M shards' max_seq_length (configs/cc12m_uvit.yaml: 32)
+CLASS_B, CLASS_IMAGES, CLASS_PANEL_EVERY = 64, 128, 4
+TEXT_B, TEXT_LEN = 64, 32
+V1_DROPOUT_TOL = 0.005
+
+
+def v1_config(name, **changes):
+    """model.transformer of ``configs/<name>.yaml`` as a dict."""
+    from open_muse_tpu_torch.utils.config import load_config
+
+    config = load_config(["config=" + os.path.join(HERE, "configs", f"{name}.yaml")])
+    return {**config.model.transformer.to_dict(), **changes}
+
+
+def v1_forward_launches(tcfg, calls=1):
+    """Kernel launches of ``calls`` forwards of the v1 model at ``tcfg``
+    (no backward kernel: the norms' and attention's gradients are their
+    plain versions'): each layer's attention norm, its Normformer post-norm,
+    the same two for cross-attention, the pre-MLP norm (a LayerNorm
+    whatever ``norm_type`` says) and the mid-MLP Normformer norm; the
+    encoder and MLM norms; the projected text's norm; one attention a
+    self- and a cross-attention (unmasked)."""
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformerConfig
+
+    cfg = MaskGitTransformerConfig.from_dict(tcfg)[0]
+    cross, post = cfg.add_cross_attention, cfg.use_normformer
+    per_layer = (1 + post) * (1 + cross) + post
+    once = (cfg.use_encoder_layernorm + (cfg.use_mlm_layer and cfg.use_mlm_layernorm)
+            + (cross and cfg.project_encoder_hidden_states))
+    norm = "fused_residual_rmsnorm" if cfg.norm_type == "rmsnorm" else "fused_residual_layernorm"
+    expected = {name: 0 for name in SOURCES}
+    expected[norm] += calls * (cfg.num_hidden_layers * per_layer + once)
+    expected["fused_residual_layernorm"] += calls * cfg.num_hidden_layers
+    expected["flash_attention"] = calls * cfg.num_hidden_layers * (1 + cross)
+    return expected
+
+
+def class_launches(tcfg, steps, panels, panel_steps=8):
+    """train_class: ``steps`` train steps; ``get_code`` once a batch (its
+    graph's warm-up one more); ``panels`` sample panels, each an 8-step
+    class decode (the first twice: its graph's warm-up and the replay),
+    ``fused_categorical`` once a decode step."""
+    decodes = (panels + 1) * panel_steps
+    expected = v1_forward_launches(tcfg, steps + decodes)
+    expected["fused_categorical"] = decodes
+    expected["vq_argmin"] = steps + 1
+    return expected
+
+
+def _seeded_v1_state(device, tcfg):
+    """The v1 model at ``tcfg`` (fp32 weights) and AdamW at the configs'
+    lr and decay, no EMA (both configs: use_ema false), from one seed."""
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = MaskGitTransformer(MaskGitTransformer.config_from_dict(tcfg))
+    return TrainState(model=model, optimizer=get_optimizer("adamw", model, lambda count: 1e-4,
+                                                           weight_decay=0.01))
+
+
+def _v1_step(kind, tcfg, **kwargs):
+    """The class or v1 text step of ``tcfg`` under bf16 autocast."""
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training import trainer as T
+
+    make = T.make_maskgit_train_step if kind == "class" else T.make_v1_text2image_train_step
+    return make(get_mask_schedule("cosine"), tcfg["vocab_size"] - 1,
+                codebook_size=tcfg["codebook_size"], autocast_dtype=torch.bfloat16, **kwargs)
+
+
+def _v1_batch(kind, device, b, seed=31):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    codebook = 1024 if kind == "class" else 8192
+    batch = {"image_tokens": torch.randint(0, codebook, (b, 256), generator=gen, device=device)}
+    if kind == "class":
+        batch["class_ids"] = torch.randint(0, 1000, (b,), generator=gen, device=device)
+    else:
+        batch["encoder_hidden_states"] = torch.randn(b, TEXT_LEN, 1024, generator=gen,
+                                                     device=device)
+    return batch
+
+
+def host_median(fn, calls=3):
+    """Median host-clock seconds of ``calls`` synchronised ``fn()``."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def v1_train_eq(kind, tcfg, device, b, **step_kwargs):
+    """The captured v1 step against its eager body on two copies of one
+    seeded full-width state (bf16 autocast, cuDNN deterministic), noise from
+    generators of one seed, the model's dropout as configured (0: nothing
+    is drawn): TRAIN_EQ_STEPS steps; every metric, parameter and AdamW
+    moment bit-equal."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    torch.backends.cudnn.deterministic = True
+    step = _v1_step(kind, tcfg, **step_kwargs)
+    states = [_seeded_v1_state(device, tcfg) for _ in range(2)]
+    gens = [torch.Generator(device=device).manual_seed(23) for _ in range(2)]
+    batch = _v1_batch(kind, device, b)
+    cond = kind == "text"
+    rows, metrics_equal = [], True
+    for _ in range(TRAIN_EQ_STEPS):
+        noise = [draw_masking_noise(b, 256, g, tcfg["codebook_size"], cond_dropout=cond)
+                 for g in gens]
+        got = step(states[0], batch, noise[0])
+        want = step.eager(states[1], batch, noise[1])
+        metrics_equal &= all(torch.equal(got[k], want[k]) for k in want)
+        rows.append(f"{float(got['loss']):.6f}/{float(want['loss']):.6f} "
+                    f"{float(got['grad_norm']):.6f}/{float(want['grad_norm']):.6f}")
+    worst = _worst_diffs(*states)
+    equal = metrics_equal and all(v == 0.0 for v in worst.values())
+    log(f"[train_eq] {kind} step, batch {b}, {TRAIN_EQ_STEPS} steps captured / eager: loss and "
+        f"grad_norm per step {'; '.join(rows)}; every metric bit-equal {metrics_equal}; worst "
+        f"|captured - eager| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" {'ok' if equal else 'FAIL'}")
+    torch.backends.cudnn.deterministic = False
+    del states, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return equal
+
+
+def v1_dropout_check(device):
+    """One captured class step at ``hidden_dropout`` 0.1 (configs/imagenet.yaml
+    otherwise, batch CLASS_B): the keep masks come from ``KeepMasks`` on its
+    own CUDA generator, registered with the step's graph; a recording
+    subclass copies each site's kept share and first 4096 mask values into
+    buffers outside the graph.  Call 1 is the eager warm-up (and the
+    capture), calls 2 and 3 replays.  Gates: every site's share of each
+    replay within 0.9 +- V1_DROPOUT_TOL, every site's masks differing
+    between the two replays and from the warm-up's, the losses finite."""
+    from open_muse_tpu_torch.models.transformer_v1 import KeepMasks
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    tcfg = v1_config("imagenet", hidden_dropout=0.1)
+    sites = 1 + tcfg["num_hidden_layers"]
+
+    class Recording(KeepMasks):
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.calls = 0
+            self.shares = torch.zeros(sites, device=device)
+            self.heads = torch.zeros(sites, 4096, dtype=torch.bool, device=device)
+
+        def __call__(self, shape, keep_prob, device):
+            keep = super().__call__(shape, keep_prob, device)
+            i = self.calls % sites
+            self.calls += 1
+            self.shares[i].copy_(keep.float().mean())
+            self.heads[i].copy_(keep.reshape(-1)[:4096])
+            return keep
+
+    masks = Recording(torch.Generator(device=device).manual_seed(17))
+    step = _v1_step("class", tcfg, dropout=masks)
+    state = _seeded_v1_state(device, tcfg)
+    batch = _v1_batch("class", device, CLASS_B)
+    gen = torch.Generator(device=device).manual_seed(29)
+    shares, heads, losses = [], [], []
+    for _ in range(3):
+        metrics = step(state, batch, draw_masking_noise(CLASS_B, 256, gen, 1024))
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        shares.append(masks.shares.clone())
+        heads.append(masks.heads.clone())
+    worst = max((s - 0.9).abs().max().item() for s in shares[1:])
+    fresh = all(bool((heads[a][i] != heads[b][i]).any())
+                for a, b in ((1, 2), (0, 1)) for i in range(sites))
+    finite = all(math.isfinite(v) for v in losses)
+    ok = worst <= V1_DROPOUT_TOL and fresh and finite and masks.calls == 2 * sites
+    log(f"[v1_dropout] class step at hidden_dropout 0.1, batch {CLASS_B}, {sites} sites "
+        f"(embeddings, 24 FFNs), masks from a CUDA generator registered with the graph: kept "
+        f"share by site, replay 1 {[round(v, 4) for v in shares[1].tolist()]}, replay 2 "
+        f"{[round(v, 4) for v in shares[2].tolist()]}; worst |share - 0.9| {worst:.5f} (bound "
+        f"{V1_DROPOUT_TOL}); masks differ replay 1 / replay 2 and warm-up / replay 1 at every "
+        f"site {fresh}; source calls {masks.calls} (warm-up + capture; a replay calls nothing); "
+        f"losses {losses} {'ok' if ok else 'FAIL'}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _v1_run(tag, entry, argv, out, expected, steps):
+    """``entry.main(argv)`` with the counters at 0 just before it: (state,
+    launches, median step s, peak bytes, step 1's capture s, ok), and the
+    per-step lines."""
+    from open_muse_tpu_torch import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = entry.main(argv)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    median, logged = _step_lines(tag, _logged(out))
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logged)
+    steps_ok = [m["step"] for m in logged] == list(range(1, steps + 1))
+    counts_ok = launches == expected
+    log(f"[{tag}] {steps} steps in {wall:.1f} s (model build and checkpoint included): losses "
+        f"finite {finite}, first {logged[0]['loss']:.4f} last {logged[-1]['loss']:.4f}; "
+        f"launches {launches} (expected {expected}) {'ok' if counts_ok else 'FAIL'}")
+    capture = [m["capture_s"] for m in logged if "capture_s" in m]
+    return state, launches, median, peak, capture, finite and steps_ok and counts_ok
+
+
+def train_class_phase(device, smi):
+    """train_maskgit_imagenet.main on configs/imagenet.yaml at batch CLASS_B
+    over a shard of CLASS_IMAGES seeded 256px PNGs with class ids, a seeded
+    MaskGIT VQGAN directory; the panel once; then a resume, the encode and
+    the step timed apart, one profiled encode + step, ``[train_eq]`` and
+    ``[v1_dropout]``.  Returns (ok, launch counts)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN, MaskGitVQGANConfig
+    from open_muse_tpu_torch.training import train_maskgit_imagenet
+    from open_muse_tpu_torch.training.data import ClassificationDataset
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+    from open_muse_tpu_torch.training.train_muse import get_code, load_vq_model
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_class_", dir=runs)
+    try:
+        shard = os.path.join(work, "imagenet-000.tar")
+        classes = np.random.RandomState(8).randint(0, 1000, CLASS_IMAGES)
+        write_image_shard(shard, CLASS_IMAGES, seed=8, classes=classes)
+        vq_dir = os.path.join(work, "maskgit_vqgan")
+        with torch.device(device):
+            vq = MaskGitVQGAN(MaskGitVQGANConfig())
+        randomize_(vq, 12)
+        vq.save_pretrained(vq_dir)
+        del vq
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "imagenet.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=64", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={V1_STEPS}",
+                f"experiment.generate_every={CLASS_PANEL_EVERY}",
+                f"model.vq_model.pretrained={vq_dir}", f"training.batch_size={CLASS_B}",
+                "lr_scheduler.params.warmup_steps=0", f"training.max_train_steps={V1_STEPS}"]
+        for arg in argv:
+            log(f"[train_class] argument {arg}")
+        config = load_config(argv)
+        tcfg = config.model.transformer.to_dict()
+        log(f"[train_class] cuts of configs/imagenet.yaml: batch 256 -> {CLASS_B}, warmup 1000 "
+            f"-> 0, {V1_STEPS} steps, generate_every 1000 -> {CLASS_PANEL_EVERY}; a seeded MaskGIT "
+            f"VQGAN; {CLASS_IMAGES} seeded 256px PNGs, class ids in [0, 1000); as written: "
+            f"{tcfg['num_hidden_layers']} layers, hidden {tcfg['hidden_size']}, "
+            f"{tcfg['num_attention_heads']} heads, hidden_dropout {tcfg['hidden_dropout']}, "
+            f"use_ema {config.training.use_ema}, {config.training.mixed_precision}")
+        expected = class_launches(tcfg, V1_STEPS, V1_STEPS // CLASS_PANEL_EVERY)
+        state, launches, median, peak, capture, ok = _v1_run(
+            "train_class", train_maskgit_imagenet, argv, out, expected, V1_STEPS)
+        panels = [f"samples-{s}.png" for s in range(CLASS_PANEL_EVERY, V1_STEPS + 1,
+                                                       CLASS_PANEL_EVERY)]
+        panel_ok = all(os.path.isfile(os.path.join(out, name)) for name in panels)
+        params = sum(p.numel() for p in state.model.parameters())
+        log(f"[train_class] {params / 1e6:.1f} M params; {panels} {panel_ok}; "
+            f"median step {median * 1e3:.1f} ms over steps 2-{V1_STEPS} (host clock, "
+            f"synchronised; encode and step), {CLASS_B * 256 / median:.0f} image tokens/s, "
+            f"{CLASS_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated), step 1's capture {capture} s; on {smi}")
+        resume_ok = _resume_check("train_class", train_maskgit_imagenet, argv, state, out,
+                                  V1_STEPS)
+
+        vq_model = load_vq_model(config, device)
+        raw = next(iter(ClassificationDataset(shard, CLASS_B, resolution=256,
+                                              shuffle_buffer_size=64, seed=5)))
+        pixels = torch.from_numpy(raw["pixel_values"]).to(device)
+        class_ids = torch.from_numpy(raw["class_ids"]).to(device).long()
+        step = _v1_step("class", tcfg)
+        gen = torch.Generator(device=device).manual_seed(4)
+
+        def encode():
+            return get_code(vq_model, pixels).long()
+
+        def train(tokens):
+            noise = draw_masking_noise(CLASS_B, 256, gen, tcfg["codebook_size"])
+            return float(step(state, {"image_tokens": tokens, "class_ids": class_ids},
+                              noise)["loss"])
+
+        tokens = encode()
+        train(tokens)  # the warm-up step and the capture
+        encode_s = host_median(encode)
+        step_s = host_median(lambda: train(tokens))
+        both_s = host_median(lambda: train(encode()))
+        log(f"[train_class] apart (host clock, synchronised, median of 3): the fp32 MaskGIT "
+            f"VQGAN encode of {CLASS_B} images {encode_s * 1e3:.1f} ms, the captured step "
+            f"{step_s * 1e3:.1f} ms ({CLASS_B * 256 / step_s:.0f} image tokens/s), both "
+            f"{both_s * 1e3:.1f} ms; on {smi}")
+        profiled("class train step (encode + one replayed graph)", lambda: train(encode()),
+                 both_s, "profile_train_class_step.txt", smi=smi)
+        del state, step, vq_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        eq_ok = v1_train_eq("class", tcfg, device, CLASS_B)
+        dropout_ok = v1_dropout_check(device)
+        return ok and panel_ok and resume_ok and eq_ok and dropout_ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_v1_text_phase(device, smi):
+    """train_muse.main on configs/cc12m.yaml (architecture transformer) with
+    training.pre_encode at batch TEXT_B over a seeded pre-encoded shard
+    (T5-sized text states), one batch repeated; then a resume, the step
+    timed and profiled apart, and ``[train_eq]``.  Returns (ok, launch
+    counts)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch.training import train_muse
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_v1_text_", dir=runs)
+    try:
+        shard = os.path.join(work, "cc12m-000.tar")
+        write_shard(shard, samples=TEXT_B, seed=9, text=(TEXT_LEN, 1024), pooled=False)
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "cc12m.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={V1_STEPS}",
+                f"training.batch_size={TEXT_B}", "training.pre_encode=true",
+                "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                f"training.max_train_steps={V1_STEPS}"]
+        for arg in argv:
+            log(f"[train_v1_text] argument {arg}")
+        config = load_config(argv)
+        tcfg = config.model.transformer.to_dict()
+        log(f"[train_v1_text] cuts of configs/cc12m.yaml: warmup 2000 -> 0, {V1_STEPS} steps, "
+            f"one synthetic pre-encoded batch repeated (tokens (256,) in [0, 8192), text states "
+            f"({TEXT_LEN}, 1024) for the T5 tower's, which pre-encoding leaves out); as written: "
+            f"batch {config.training.batch_size}, {tcfg['num_hidden_layers']} layers, hidden "
+            f"{tcfg['hidden_size']}, {tcfg['norm_type']}, cond_dropout_prob "
+            f"{config.training.cond_dropout_prob}, hidden_dropout {tcfg['hidden_dropout']}, "
+            f"use_ema {config.training.use_ema}, {config.training.mixed_precision}")
+        expected = v1_forward_launches(tcfg, V1_STEPS)
+        state, launches, median, peak, capture, ok = _v1_run(
+            "train_v1_text", train_muse, argv, out, expected, V1_STEPS)
+        params = sum(p.numel() for p in state.model.parameters())
+        log(f"[train_v1_text] {params / 1e6:.1f} M params; median step {median * 1e3:.1f} ms "
+            f"over steps 2-{V1_STEPS} (host clock, synchronised), "
+            f"{TEXT_B * 256 / median:.0f} image tokens/s, {TEXT_B / median:.2f} images/s, peak "
+            f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated), step 1's capture "
+            f"{capture} s; on {smi}")
+        resume_ok = _resume_check("train_v1_text", train_muse, argv, state, out, V1_STEPS)
+        step = _v1_step("text", tcfg, cond_dropout_prob=config.training.cond_dropout_prob)
+        batch = _v1_batch("text", device, TEXT_B)
+        gen = torch.Generator(device=device).manual_seed(4)
+
+        def train():
+            noise = draw_masking_noise(TEXT_B, 256, gen, tcfg["codebook_size"],
+                                       cond_dropout=True)
+            return float(step(state, batch, noise)["loss"])
+
+        train()  # the warm-up step and the capture
+        step_s = host_median(train)
+        log(f"[train_v1_text] the captured step alone (host clock, synchronised, median of 3) "
+            f"{step_s * 1e3:.1f} ms; on {smi}")
+        profiled("v1 text train step (one replayed graph)", train, step_s,
+                 "profile_train_v1_text_step.txt", smi=smi)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        eq_ok = v1_train_eq("text", tcfg, device, TEXT_B,
+                            cond_dropout_prob=config.training.cond_dropout_prob)
+        return ok and resume_ok and eq_ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- the Hopper GEMM's variants ---------------------------------------------
 
 # (m, n, k, layout): the products of kernels 7, 9 and 10 (the GLU
@@ -2311,6 +2735,18 @@ def main() -> int:
     if not raw_ok:
         failed.append("raw-branch training phase")
     log(f"[phase] train_raw {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    class_ok, paths["train_class"] = train_class_phase(device, smi)
+    if not class_ok:
+        failed.append("class-conditional training phase")
+    log(f"[phase] train_class {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    text_ok, paths["train_v1_text"] = train_v1_text_phase(device, smi)
+    if not text_ok:
+        failed.append("v1 text training phase")
+    log(f"[phase] train_v1_text {time.perf_counter() - phase_t0:.1f} s")
 
     rows = []
     for name, (ok, err, t) in report.items():

@@ -82,14 +82,18 @@ def graph_count(owner) -> int:
     return len(_CACHES.get(owner, ()))
 
 
-def capture_on(stream, fn: Callable, what):
+def capture_on(stream, fn: Callable, what, generators=()):
     """Capture ``fn()`` on ``stream`` (after its warm-up there) into a new
     graph: (graph, outputs, the wrappers' launch counts the capture
     recorded).  The counts are restored, since a capture launches nothing; a
-    capture that fails raises, naming ``what``."""
+    capture that fails raises, naming ``what``.  ``generators``: CUDA
+    generators ``fn`` draws from besides the default one, registered with
+    the graph so that every replay draws anew and advances them."""
     before = kernels.launch_counts()
     graph = torch.cuda.CUDAGraph()
     try:
+        for generator in generators:
+            graph.register_generator_state(generator)
         with torch.cuda.graph(graph, stream=stream):
             outputs = fn()
     except Exception as exc:

@@ -16,6 +16,10 @@ __all__ = ["BaseConfig", "load_config_dict", "CONFIG_NAME"]
 CONFIG_NAME = "config.json"
 
 
+# a field's type as ``from __future__ import annotations`` leaves it: a string
+_FLOAT_TYPES = ("float", "Optional[float]")
+
+
 def _freeze(value):
     """JSON lists become tuples so configs stay hashable."""
     if isinstance(value, list):
@@ -28,9 +32,12 @@ class BaseConfig:
     @classmethod
     def from_dict(cls, config_dict: Dict[str, Any]) -> Tuple["BaseConfig", Dict[str, Any]]:
         """(config, unused keys): unknown keys such as ``_class_name`` are
-        returned, not fatal."""
-        names = {f.name for f in dataclasses.fields(cls)}
-        used = {k: _freeze(v) for k, v in config_dict.items() if k in names}
+        returned, not fatal.  A string given for a float field is read as a
+        number (YAML 1.1 reads ``1e-6`` as a string)."""
+        types = {f.name: f.type for f in dataclasses.fields(cls)}
+        names = set(types)
+        used = {k: float(v) if isinstance(v, str) and types[k] in _FLOAT_TYPES else _freeze(v)
+                for k, v in config_dict.items() if k in names}
         unused = {k: v for k, v in config_dict.items() if k not in names}
         return cls(**used), unused
 

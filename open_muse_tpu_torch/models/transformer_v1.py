@@ -10,7 +10,9 @@ the fused-norm kernel and every unmasked attention to ``flash_attention``
 ``fused_categorical``.  On the card each decode is one captured CUDA graph
 (``core.captured``), as each is one jitted program in JAX.
 ``forward(..., use_kernels=False)`` runs the plain PyTorch path on the same
-weights.
+weights.  For training, ``forward`` takes the JAX module's
+``cond_dropout_mask`` and, as its ``deterministic=False``, a ``dropout``
+source of keep masks (``KeepMasks``) for the two ``hidden_dropout`` sites.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from ..ops.layers import Attention, LayerNorm, Norm
 from ..ops.losses import cross_entropy_loss
 from .transformer_v2 import _conv1x1, decode_noise, decode_step
 
-__all__ = ["MaskGitTransformer", "MaskGitTransformerConfig", "v1_schedules", "v1_decode_loop",
-           "v1_generate_loop", "masked_counts"]
+__all__ = ["MaskGitTransformer", "MaskGitTransformerConfig", "KeepMasks", "v1_schedules",
+           "v1_decode_loop", "v1_generate_loop", "masked_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +81,32 @@ def _norm(cfg, dim):
     return Norm(dim, cfg.norm_type, cfg.layer_norm_eps, cfg.use_bias)
 
 
+class KeepMasks:
+    """The v1 forward's dropout draws: ``masks(shape, keep_prob, device)`` ->
+    a bool keep mask, uniforms from ``generator`` below ``keep_prob``, as
+    flax's ``nn.Dropout`` draws its Bernoulli mask.  Inside a captured train
+    step the generator is registered with the graph, so every replay draws
+    fresh masks on the device.  Any callable of this signature can stand in
+    for it (the tests hand over the JAX module's masks)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, shape, keep_prob: float, device) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator, device=device) < keep_prob
+
+
+def _dropout(x, rate: float, masks):
+    """flax ``nn.Dropout(rate)`` at ``deterministic=False`` with keep masks
+    from ``masks``: kept values scaled by 1 / (1 - rate), the rest zero.
+    ``x`` itself when ``masks`` is None (``deterministic=True``) or the rate
+    is 0, so nothing is drawn or launched."""
+    if masks is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    return torch.where(masks(x.shape, keep_prob, x.device), x / keep_prob, 0.0)
+
+
 class Embed(nn.Module):
     """word + learned position embeddings."""
 
@@ -87,10 +115,12 @@ class Embed(nn.Module):
         emb = cfg.embedding_size or cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, emb)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, emb)
+        self.hidden_dropout = cfg.hidden_dropout
 
-    def forward(self, input_ids, use_kernels: bool = True):
+    def forward(self, input_ids, use_kernels: bool = True, masks=None):
         positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        return self.word_embeddings(input_ids) + self.position_embeddings(positions)[None]
+        x = self.word_embeddings(input_ids) + self.position_embeddings(positions)[None]
+        return _dropout(x, self.hidden_dropout, masks)
 
 
 class ConvEmbed(nn.Module):
@@ -107,7 +137,8 @@ class ConvEmbed(nn.Module):
         self.conv = nn.Conv2d(emb * p * p, cfg.hidden_size, 1, bias=cfg.use_bias)
         self.position_embeddings = nn.Embedding(256, cfg.hidden_size)
 
-    def forward(self, input_ids, use_kernels: bool = True):
+    def forward(self, input_ids, use_kernels: bool = True, masks=None):
+        """No dropout here (``masks`` is ignored), as in the JAX module."""
         batch, seq_len = input_ids.shape
         side, p = math.isqrt(seq_len), self.patch_size
         x = self.layer_norm(self.embeddings(input_ids.reshape(batch, side, side)),
@@ -172,8 +203,8 @@ class ConvMlmLayer(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Normformer GLU FFN.  The pre-MLP norm is a LayerNorm whatever
-    ``norm_type`` says, as in the reference."""
+    """Normformer GLU FFN, dropout before ``wo``.  The pre-MLP norm is a
+    LayerNorm whatever ``norm_type`` says, as in the reference."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -183,13 +214,14 @@ class FeedForward(nn.Module):
         self.wi_1 = nn.Linear(d, inner, bias=cfg.use_bias)
         self.mid_mlp_layer_norm = _norm(cfg, inner) if cfg.use_normformer else None
         self.wo = nn.Linear(inner, d, bias=cfg.use_bias)
+        self.hidden_dropout = cfg.hidden_dropout
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, masks=None):
         x = self.pre_mlp_layer_norm(x, use_kernels=use_kernels)
         x = F.gelu(self.wi_0(x)) * self.wi_1(x)
         if self.mid_mlp_layer_norm is not None:
             x = self.mid_mlp_layer_norm(x, use_kernels=use_kernels)
-        return self.wo(x)
+        return self.wo(_dropout(x, self.hidden_dropout, masks))
 
 
 class TransformerLayer(nn.Module):
@@ -223,7 +255,7 @@ class TransformerLayer(nn.Module):
         return h if norm is None else norm(h, use_kernels=use_kernels)
 
     def forward(self, x, encoder_hidden_states=None, encoder_attention_mask=None, ctx=None,
-                use_kernels: bool = True):
+                use_kernels: bool = True, masks=None):
         ctx = ctx if ctx is not None else self.precompute(encoder_hidden_states)
         h = self.attn_layer_norm(x, use_kernels=use_kernels)
         h = self.attention(h, qkv_weight=ctx["wqkv"], use_kernels=use_kernels)
@@ -236,14 +268,19 @@ class TransformerLayer(nn.Module):
             h = self.crossattention(h, cached_kv=ctx["cross_kv"], attention_mask=mask,
                                     use_kernels=use_kernels)
             x = x + self._post(self.post_crossattn_layer_norm, h, use_kernels)
-        return x + self.ffn(x, use_kernels)
+        return x + self.ffn(x, use_kernels, masks)
 
 
 class MaskGitTransformer(ModelMixin, nn.Module):
     """``forward(input_ids (B, S))`` -> logits (B, S, output_size), with
     ``encoder_hidden_states`` (B, L, E) when the config adds
     cross-attention, or (logits, loss) when ``labels`` are given.  A
-    class-conditional model takes the shifted class id as token 0."""
+    class-conditional model takes the shifted class id as token 0.
+    Training passes ``cond_dropout_mask`` (B, 1, 1), multiplied into the
+    text states after their projection and norm (CFG cond dropout), and
+    ``dropout`` keep masks (``KeepMasks``) for ``hidden_dropout`` after the
+    embeddings and before each FFN's ``wo``; there is no attention
+    dropout, as in the JAX module."""
 
     config_class = MaskGitTransformerConfig
     _class_name = "MaskGitTransformer"
@@ -288,16 +325,18 @@ class MaskGitTransformer(ModelMixin, nn.Module):
 
     def forward(self, input_ids, encoder_hidden_states=None, encoder_attention_mask=None,
                 labels=None, label_smoothing: float = 0.0, step_ctx=None,
-                use_kernels: bool = True):
+                use_kernels: bool = True, cond_dropout_mask=None, dropout=None):
         cfg = self.config
         if step_ctx is None:
             ehs = self.project_context(encoder_hidden_states, use_kernels)
+            if ehs is not None and cond_dropout_mask is not None:
+                ehs = ehs * cond_dropout_mask.to(ehs.dtype)
             layer_ctx = [None] * cfg.num_hidden_layers
         else:
             ehs, layer_ctx = step_ctx["ehs"], step_ctx["layers"]
-        x = self.embed(input_ids, use_kernels)
+        x = self.embed(input_ids, use_kernels, dropout)
         for layer, ctx in zip(self.transformer_layers, layer_ctx):
-            x = layer(x, ehs, encoder_attention_mask, ctx, use_kernels)
+            x = layer(x, ehs, encoder_attention_mask, ctx, use_kernels, dropout)
         if self.encoder_layer_norm is not None:
             x = self.encoder_layer_norm(x, use_kernels=use_kernels)
         logits = (self.mlm_layer(x, use_kernels) if cfg.use_mlm_layer else self.to_logits(x))

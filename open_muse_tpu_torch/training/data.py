@@ -7,8 +7,9 @@ streaming with key grouping that skips corrupt members, the per-process shard
 split (the rank and the process count are given, never looked up), sample
 decoding, the resize-and-crop image transform, the metadata quality filter
 and a background prefetch thread.  ``PreEncodedDataset`` is the counterpart
-of the ``pre_encode`` branch of ``Text2ImageDataset``, and
-``Text2ImageDataset`` of its raw-image branch.
+of the ``pre_encode`` branch of ``Text2ImageDataset``, ``Text2ImageDataset``
+of its raw-image branch, and ``ClassificationDataset`` of the class-id
+shards of ``train_maskgit_imagenet``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 
 __all__ = ["braceexpand", "expand_urls", "tar_samples", "ShardSource", "decode_sample",
            "get_aesthetic_score", "person_token_replace", "image_transform", "WebdatasetSelect",
-           "PreEncodedDataset", "Text2ImageDataset"]
+           "PreEncodedDataset", "Text2ImageDataset", "ClassificationDataset"]
 
 logger = logging.getLogger(__name__)
 
@@ -366,12 +367,14 @@ class Text2ImageDataset:
     (B,), from shards resampled with replacement (or walked once with
     ``resample=False``), filtered by ``select`` on the decoded sample.  The
     crops, shuffles and person words come from one ``random.Random(seed +
-    1)``, as in the JAX dataset.  One process: rank 0 of 1."""
+    1)``, as in the JAX dataset.  A sample without an image is skipped, and
+    one without a caption too unless ``require_text`` is False.  One
+    process: rank 0 of 1."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *, resolution: int = 256,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
                  resample: bool = True, seed: int = 0, center_crop: bool = False,
-                 prefetch_depth: int = 4):
+                 prefetch_depth: int = 4, require_text: bool = True):
         self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
                                   process_index=0, process_count=1)
         self.batch_size = batch_size
@@ -380,13 +383,14 @@ class Text2ImageDataset:
         self.select = select
         self.center_crop = center_crop
         self.prefetch_depth = prefetch_depth
+        self.require_text = require_text
         self.rng = random.Random(seed + 1)
 
     def _samples(self) -> Iterator[Dict[str, Any]]:
         for url in self.shards:
             for raw in tar_samples(url):
                 sample = decode_sample(raw)
-                if "text" not in sample or "image" not in sample:
+                if "image" not in sample or (self.require_text and "text" not in sample):
                     continue
                 if self.select is None or self.select(sample):
                     yield sample
@@ -419,3 +423,33 @@ class Text2ImageDataset:
                 "orig_sizes": np.asarray(orig_sizes, dtype=np.float32),
                 "crop_coords": np.asarray(crops, dtype=np.float32),
                 "aesthetic_scores": np.asarray(aes, dtype=np.float32)}
+
+
+class ClassificationDataset(Text2ImageDataset):
+    """ImageNet-style class-id shards: batches of ``pixel_values`` (B, R, R,
+    3) float in [0, 1] and ``class_ids`` (B,) int32 (a sample's ``.cls``
+    member, 0 without one), and with ``imagenet_class_mapping_path`` (a
+    json of class id -> text) ``input_text`` too.  Captions are not
+    required; crops and shuffles as ``Text2ImageDataset``'s."""
+
+    def __init__(self, *args, imagenet_class_mapping_path: Optional[str] = None, **kwargs):
+        kwargs.setdefault("require_text", False)
+        super().__init__(*args, **kwargs)
+        self.class_mapping = None
+        if imagenet_class_mapping_path:
+            with open(imagenet_class_mapping_path) as f:
+                self.class_mapping = json.load(f)
+
+    def _collate(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+        pixels, class_ids, texts = [], [], []
+        for s in batch:
+            arr, _, _ = image_transform(s["image"], self.resolution, self.rng, self.center_crop)
+            pixels.append(arr)
+            cid = int(s.get("class_id", 0))
+            class_ids.append(cid)
+            if self.class_mapping is not None:
+                texts.append(self.class_mapping.get(str(cid), str(cid)))
+        out = {"pixel_values": np.stack(pixels), "class_ids": np.asarray(class_ids, dtype=np.int32)}
+        if texts:
+            out["input_text"] = texts
+        return out

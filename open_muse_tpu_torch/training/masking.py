@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 __all__ = ["MaskingNoise", "draw_masking_noise", "get_loss_weight",
-           "mask_or_random_replace_tokens"]
+           "mask_or_random_replace_tokens", "cond_keep_mask", "prepend_class_token"]
 
 
 @dataclasses.dataclass
@@ -29,7 +29,14 @@ class MaskingNoise:
     positions; random_tokens (B, S) are the ``random_replace`` tokens;
     eval_index (B,) picks an entry of ``eval_mask_ratios`` (an eval step
     reads it and the permutation alone); cond_dropout (B,) uniform in [0, 1)
-    is the train step's CFG cond-dropout draw."""
+    is the train step's CFG cond-dropout draw.
+
+    The JAX steps split their key as: v2 ``mask, drop = split(key)``; the v1
+    text step ``mask, drop, dropout = split(key, 3)``; the class step
+    ``mask, dropout = split(key)``.  ``mask`` feeds these draws, ``drop``
+    the cond-dropout uniform, and ``dropout`` the v1 model's ``nn.Dropout``
+    masks, which the port draws inside the step
+    (``models.transformer_v1.KeepMasks``)."""
 
     timesteps: Optional[torch.Tensor]
     permutation: torch.Tensor
@@ -132,3 +139,18 @@ def mask_or_random_replace_tokens(
         labels = torch.where(mask, image_tokens, -100)
         loss_weight = None
     return input_ids, labels, loss_weight, mask_prob
+
+
+def cond_keep_mask(uniforms, cond_dropout_prob: float, dtype):
+    """The v1 text step's CFG cond-dropout mask (B, 1, 1): 1 where an image
+    keeps its text (``uniforms >= cond_dropout_prob``), else 0, in
+    ``dtype``; the model multiplies it into the text states."""
+    return (uniforms >= cond_dropout_prob).to(dtype)[:, None, None]
+
+
+def prepend_class_token(input_ids, labels, class_ids, codebook_size: int):
+    """The class step's class token: ``class_ids + codebook_size`` at
+    position 0 of the (masked) ids, label -100 there."""
+    class_tok = (class_ids.to(input_ids.dtype) + codebook_size)[:, None]
+    return (torch.cat([class_tok, input_ids], dim=1),
+            torch.cat([torch.full_like(class_tok, -100), labels], dim=1))

@@ -1,9 +1,12 @@
-"""Text-to-image trainer CLI for MaskGiTUViT_v2.
+"""Text-to-image trainer CLI for MaskGiTUViT_v2 and the v1 MaskGitTransformer.
 
 Run:  python -m open_muse_tpu_torch.training.train_muse config=configs/xxx.yaml a.b=1
 
 Counterpart of ``open_muse_tpu/training/train_muse.py`` ``main`` for the U-ViT
-(``model.architecture: uvit``), in the order it runs: config
+(``model.architecture: uvit``) and the v1 transformer (``transformer``: the
+text through cross-attention alone, no pooled or micro-conds, CFG cond
+dropout as a mask on the text states with or without a text tower, the
+model's dropout, no eval), in the order it runs: config
 (``utils/config.py``, yaml only) -> the frozen encoders, unless
 ``training.pre_encode`` (the CLIP text tower and the VQ model, fp32,
 ``eval()``, TF32 off) -> model on the card (the override ``device=cpu`` runs
@@ -15,9 +18,9 @@ replayed CUDA graph on the card), masking and cond-dropout noise, the train
 step (one replayed CUDA graph on the card), metrics.jsonl, per-parameter
 grad norms, eval, the sample panel, checkpoint, a ``torch.profiler`` window }.
 ``mixed_precision: bf16`` keeps fp32 weights and runs the step under bf16
-autocast.  The v1 trainer, soft targets, the inpainting panels, the T5 text
-tower, the MOVQ / Paella tokenizers, ``dataset_map`` dialects, wandb and
-multi-host runs are not ported.
+autocast.  Soft targets, the inpainting panels, the T5 text tower, the
+MOVQ / Paella tokenizers, ``dataset_map`` dialects, wandb and multi-host
+runs are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import logging
 import os
 import sys
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,6 +40,7 @@ from ..core.modeling import resolve_device
 from ..models.clip_text import CLIPTextEncoder
 from ..models.maskgit_vqgan import MaskGitVQGAN
 from ..models.taming_vqgan import VQGANModel
+from ..models.transformer_v1 import KeepMasks, MaskGitTransformer
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
 from ..scripts.pre_encode import load_tokenizer, to_device
@@ -48,7 +53,8 @@ from .lr_schedules import get_scheduler
 from .masking import draw_masking_noise
 from .optimizers import get_optimizer
 
-__all__ = ["MetricsTracker", "FrozenEncoders", "save_image_grid", "prepare_batch", "main"]
+__all__ = ["MetricsTracker", "FrozenEncoders", "load_vq_model", "get_code", "save_image_grid",
+           "prepare_batch", "SamplePanel", "log_step", "main"]
 
 logger = logging.getLogger(__name__)
 
@@ -97,12 +103,14 @@ def micro_conds(batch, n: int) -> np.ndarray:
     ], axis=1).astype(np.float32)
 
 
-def prepare_batch(batch, config, cond_embed_dim: int, device) -> dict:
+def prepare_batch(batch, config, cond_embed_dim: Optional[int], device) -> dict:
     """A collated pre-encoded batch -> the train step's tensors on
     ``device`` (the shard dialects of the JAX ``prepare_batch``: members
     named ``vq_f16.npy`` / ``clip_penultimate.npy`` / ``clip_pooled.npy``).
     Pre-encoded shards carry no image sizes, crops or aesthetic scores, so
-    the micro-conditioning is the JAX defaults (512, 512, 0, 0, 6.0)."""
+    the micro-conditioning is the JAX defaults (512, 512, 0, 0, 6.0).
+    ``cond_embed_dim`` None (the v1 model): the image tokens and text states
+    alone."""
     vq_key = config.training.get("pre_encode_vq", "f16")
     tokens = _first_of(batch, "image_tokens", "image_input_ids", f"vq_{vq_key}.npy",
                        "vq_f16.npy", "vq_f8.npy")
@@ -110,14 +118,43 @@ def prepare_batch(batch, config, cond_embed_dim: int, device) -> dict:
     if tokens is None or ehs is None:
         raise KeyError(f"pre-encoded batch lacks image tokens / text embeds; members present: "
                        f"{sorted(batch)}")
+    out = {"image_tokens": to_device(np.asarray(tokens, np.int64), device),
+           "encoder_hidden_states": to_device(np.asarray(ehs, np.float32), device)}
+    if cond_embed_dim is None:
+        return out
     n = len(tokens)
     pooled = _first_of(batch, "cond_embeds", "clip_pooled.npy")
     if pooled is None:
         pooled = np.zeros((n, cond_embed_dim), dtype=np.float32)
-    return {"image_tokens": to_device(np.asarray(tokens, np.int64), device),
-            "encoder_hidden_states": to_device(np.asarray(ehs, np.float32), device),
-            "cond_embeds": to_device(np.asarray(pooled, np.float32), device),
+    return {**out, "cond_embeds": to_device(np.asarray(pooled, np.float32), device),
             "micro_conds": to_device(micro_conds({}, n), device)}
+
+
+def load_vq_model(config, device):
+    """``model.vq_model_type``'s model from the ``model.vq_model.pretrained``
+    directory, else built from ``model.vq_model.params``: fp32, ``eval()``,
+    frozen."""
+    vq_type = config.model.get("vq_model_type", "maskgit_vqgan")
+    if vq_type not in VQ_CLASSES:
+        raise NotImplementedError(f"vq_model_type {vq_type!r} is not ported yet "
+                                  f"(ROADMAP queue 1, item 8)")
+    vq_cls = VQ_CLASSES[vq_type]
+    vq_cfg = config.model.get("vq_model")
+    vq_path = vq_cfg.get("pretrained") if vq_cfg is not None else None
+    if vq_path and os.path.isdir(vq_path):
+        vq_model = vq_cls.from_pretrained(vq_path, device=device)
+    else:
+        params = vq_cfg.get("params") if vq_cfg is not None else None
+        with torch.device(device):
+            vq_model = vq_cls(**(params.to_dict() if params is not None else {}))
+    return vq_model.eval().requires_grad_(False)
+
+
+def get_code(vq_model, pixels):
+    """``vq_model.get_code(pixels)`` through ``core.captured`` (one replayed
+    CUDA graph on the card, as the JAX package jits it)."""
+    return captured(vq_model, ("get_code",), torch.no_grad()(vq_model.get_code), pixels,
+                    modules=(vq_model,))
 
 
 class FrozenEncoders:
@@ -147,20 +184,8 @@ class FrozenEncoders:
         else:
             raise ValueError("the raw-image branch needs model.text_encoder.pretrained (a "
                              "directory) or model.text_encoder.params")
-        vq_type = config.model.get("vq_model_type", "maskgit_vqgan")
-        if vq_type not in VQ_CLASSES:
-            raise NotImplementedError(f"vq_model_type {vq_type!r} is not ported yet "
-                                      f"(ROADMAP queue 1, item 8)")
-        vq_cls = VQ_CLASSES[vq_type]
-        vq_cfg = config.model.get("vq_model")
-        vq_path = vq_cfg.get("pretrained") if vq_cfg is not None else None
-        if vq_path and os.path.isdir(vq_path):
-            vq_model = vq_cls.from_pretrained(vq_path, device=device)
-        else:
-            params = vq_cfg.get("params") if vq_cfg is not None else None
-            with torch.device(device):
-                vq_model = vq_cls(**(params.to_dict() if params is not None else {}))
-        return cls(text_encoder, load_tokenizer(te_path or "", text_encoder), vq_model, device)
+        return cls(text_encoder, load_tokenizer(te_path or "", text_encoder),
+                   load_vq_model(config, device), device)
 
     @torch.no_grad()
     def _text(self, ids):
@@ -177,8 +202,7 @@ class FrozenEncoders:
                         modules=(self.text_encoder,))
 
     def get_code(self, pixels):
-        return captured(self.vq_model, ("get_code",), torch.no_grad()(self.vq_model.get_code),
-                        pixels, modules=(self.vq_model,))
+        return get_code(self.vq_model, pixels)
 
     def empty_embeds(self) -> dict:
         """The empty prompt's embeddings, the CFG cond-dropout replacement."""
@@ -195,15 +219,22 @@ class FrozenEncoders:
                 "micro_conds": to_device(micro_conds(batch, len(tokens)), self.device)}
 
 
+ARCHITECTURES = {"uvit": MaskGiTUViT_v2, "transformer": MaskGitTransformer}
+
+
 def build_state(config, device) -> T.TrainState:
-    """Model, optimizer (with the lr schedule and gradient accumulation) and
-    EMA from ``config``."""
+    """Model (``model.architecture``), optimizer (with the lr schedule and
+    gradient accumulation) and EMA from ``config``.  The v1 model takes no
+    ``gradient_checkpointing``: the JAX package builds it without remat."""
     tcfg = config.model.transformer.to_dict()
-    if config.model.get("architecture", "uvit") != "uvit":
-        raise NotImplementedError("the port trains MaskGiTUViT_v2 (model.architecture: uvit)")
+    architecture = config.model.get("architecture", "uvit")
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"model.architecture {architecture!r}: one of {sorted(ARCHITECTURES)}")
+    model_cls = ARCHITECTURES[architecture]
     with torch.device(device):
-        model = MaskGiTUViT_v2(MaskGiTUViT_v2.config_from_dict(tcfg))
-    model.set_gradient_checkpointing(config.model.get("gradient_checkpointing", False))
+        model = model_cls(model_cls.config_from_dict(tcfg))
+    if model_cls is MaskGiTUViT_v2:
+        model.set_gradient_checkpointing(config.model.get("gradient_checkpointing", False))
     opt_cfg = config.optimizer.params
     lr = float(opt_cfg.learning_rate)  # yaml reads 1e-4 as a string
     if opt_cfg.get("scale_lr", False):
@@ -228,14 +259,14 @@ def _loggable(value):
 
 
 class SamplePanel:
-    """``generate_every``: 4 samples of the current batch's prompts by
-    ``generate2`` (12 steps, CFG 8 against the empty prompt; the captured
-    decode) from the EMA weights (else the model's), copied into one sample
-    model in the trunk's compute type (so its decode graph replays), then
-    ``decode_code`` -> ``samples-{step}.png``."""
+    """``generate_every``: ``generate(model, batch, generator)`` -> token ids
+    from the EMA weights (else the model's), copied into one sample model in
+    the trunk's compute type (so its captured decode replays), then
+    ``decode_code`` -> ``samples-{step}.png``; the generator is the CPU one
+    of ``seed + step``."""
 
-    def __init__(self, state, vq_model, empty, dtype, seed: int):
-        self.state, self.vq_model, self.empty = state, vq_model, empty
+    def __init__(self, state, vq_model, dtype, seed: int, generate: Callable):
+        self.state, self.vq_model, self.generate = state, vq_model, generate
         self.dtype, self.seed = dtype, seed
         self.model = None
 
@@ -244,17 +275,64 @@ class SamplePanel:
         source = self.state.model
         if self.model is None:
             with torch.device(next(source.parameters()).device):
-                self.model = MaskGiTUViT_v2(source.config).to(self.dtype).eval()
+                self.model = type(source)(source.config).to(self.dtype).eval()
         weights = self.state.ema.shadow if self.state.ema is not None else source.state_dict()
         self.model.load_state_dict(weights)
-        n = min(4, len(batch["image_tokens"]))
-        tokens = self.model.generate2(
-            batch["encoder_hidden_states"][:n], batch["cond_embeds"][:n],
-            batch["micro_conds"][:n], empty_embeds=self.empty["empty_embeds"],
-            empty_cond_embeds=self.empty["empty_cond_embeds"], timesteps=12,
-            guidance_scale=8.0, generator=torch.Generator().manual_seed(self.seed + step),
-            seq_len=batch["image_tokens"].shape[1])
+        tokens = self.generate(self.model, batch, torch.Generator().manual_seed(self.seed + step))
         save_image_grid(self.vq_model.decode_code(tokens).float().cpu().numpy(), path)
+
+
+def uvit_panel(empty) -> Callable:
+    """4 samples of the batch's prompts: v2 ``generate2``, 12 steps, CFG 8
+    against the empty prompt."""
+    def generate(model, batch, generator):
+        n = min(4, len(batch["image_tokens"]))
+        return model.generate2(
+            batch["encoder_hidden_states"][:n], batch["cond_embeds"][:n],
+            batch["micro_conds"][:n], empty_embeds=empty["empty_embeds"],
+            empty_cond_embeds=empty["empty_cond_embeds"], timesteps=12, guidance_scale=8.0,
+            generator=generator, seq_len=batch["image_tokens"].shape[1])
+    return generate
+
+
+def v1_text_panel(model, batch, generator):
+    """4 samples of the batch's prompts: v1 ``generate2``, 12 steps, CFG 8
+    against zero text states (the JAX trainer passes no negative embeds)."""
+    n = min(4, len(batch["image_tokens"]))
+    return model.generate2(encoder_hidden_states=batch["encoder_hidden_states"][:n],
+                           timesteps=12, guidance_scale=8.0, generator=generator)
+
+
+def log_step(tracker, train_step, capture, metrics, state, batch_size: int, end: float,
+             batch_time: AverageMeter, data_time: AverageMeter) -> dict:
+    """One metrics line: the step's metrics (a device read, so it waits for
+    the step; ``param_grad_norms`` have lines of their own), the lr, the
+    samples/s and step / data / batch times, and ``capture_s`` when this
+    step warmed up and captured a graph (``train_step.last_capture`` is not
+    ``capture``, the one before it)."""
+    values = {k: _loggable(v) for k, v in metrics.items() if k != "param_grad_norms"}
+    batch_time.update(time.time() - end)
+    values.update({"lr": state.optimizer.schedule(state.step),
+                   "samples/sec": batch_size / max(batch_time.avg, 1e-9),
+                   "step_time": batch_time.val, "data_time": data_time.avg,
+                   "batch_time": batch_time.avg})
+    if train_step.last_capture is not capture:
+        values["capture_s"] = train_step.last_capture["seconds"]
+    tracker.log(values, state.step)
+    logger.info("step %d: loss=%.4f (%.1f samples/s)", state.step, values["loss"],
+                values["samples/sec"])
+    return values
+
+
+def resume(config, state, output_dir: str) -> None:
+    """``experiment.resume_from_checkpoint``: a path, or ``latest`` in
+    ``output_dir``; nothing when there is no checkpoint yet."""
+    wanted = config.experiment.get("resume_from_checkpoint")
+    if wanted:
+        path = T.find_latest_checkpoint(output_dir) if wanted == "latest" else wanted
+        if path:
+            T.load_checkpoint(path, state)
+            logger.info("resumed from %s at step %d", path, state.step)
 
 
 def main(argv=None) -> T.TrainState:
@@ -284,45 +362,56 @@ def main(argv=None) -> T.TrainState:
     encoders = None if pre_encode else FrozenEncoders.from_config(config, device)
     state = build_state(config, device)
     model = state.model
+    is_v1 = isinstance(model, MaskGitTransformer)
     logger.info("transformer params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
     autocast_dtype = torch.bfloat16 if config.training.get("mixed_precision") == "bf16" else None
     mask_id, codebook_size = model.config.mask_token_id, model.config.codebook_size
     mask_schedule = get_mask_schedule(config.training.get("mask_schedule", "cosine"))
     label_smoothing = config.training.get("label_smoothing", 0.0)
+    min_masking_rate = config.training.get("min_masking_rate", 0.0)
     cond_dropout_prob = config.training.get("cond_dropout_prob", 0.0)
     log_grad_norm_every = config.experiment.get("log_grad_norm_every")
-    train_step = T.make_uvit_train_step(
-        mask_schedule, mask_id, codebook_size=codebook_size,
-        min_masking_rate=config.training.get("min_masking_rate", 0.0),
-        noise_type=config.training.get("noise_type", "mask"),
-        predict_all_tokens=config.training.get("predict_all_tokens", False),
-        mask_contiguous_region_prob=config.training.get("mask_contiguous_region_prob"),
-        label_smoothing=label_smoothing, cond_dropout_prob=cond_dropout_prob,
-        autocast_dtype=autocast_dtype,
-        with_diagnostics=bool(config.experiment.get("log_entropy_buckets", False)),
-        with_param_grad_norms=bool(log_grad_norm_every))
     eval_ratios = tuple(config.training.get("eval_mask_ratios", (0.1, 0.3, 0.5, 0.7, 0.9)))
-    eval_step = T.make_uvit_eval_step(mask_schedule, mask_id, eval_mask_ratios=eval_ratios,
-                                      label_smoothing=label_smoothing,
-                                      autocast_dtype=autocast_dtype)
+    if is_v1:
+        dropout = None
+        if model.config.hidden_dropout > 0.0:
+            dropout = KeepMasks(torch.Generator(device).manual_seed(seed + 1))
+        train_step = T.make_v1_text2image_train_step(
+            mask_schedule, mask_id, codebook_size=codebook_size,
+            min_masking_rate=min_masking_rate, label_smoothing=label_smoothing,
+            cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout)
+        eval_step = None  # the JAX trainer has no v1 eval step
+    else:
+        train_step = T.make_uvit_train_step(
+            mask_schedule, mask_id, codebook_size=codebook_size,
+            min_masking_rate=min_masking_rate,
+            noise_type=config.training.get("noise_type", "mask"),
+            predict_all_tokens=config.training.get("predict_all_tokens", False),
+            mask_contiguous_region_prob=config.training.get("mask_contiguous_region_prob"),
+            label_smoothing=label_smoothing, cond_dropout_prob=cond_dropout_prob,
+            autocast_dtype=autocast_dtype,
+            with_diagnostics=bool(config.experiment.get("log_entropy_buckets", False)),
+            with_param_grad_norms=bool(log_grad_norm_every))
+        eval_step = T.make_uvit_eval_step(mask_schedule, mask_id, eval_mask_ratios=eval_ratios,
+                                          label_smoothing=label_smoothing,
+                                          autocast_dtype=autocast_dtype)
     grad_norm_names = T.grad_norm_param_names(model)
+    resume(config, state, output_dir)
 
-    resume = config.experiment.get("resume_from_checkpoint")
-    if resume:
-        path = T.find_latest_checkpoint(output_dir) if resume == "latest" else resume
-        if path:
-            T.load_checkpoint(path, state)
-            logger.info("resumed from %s at step %d", path, state.step)
-
-    # the pre-encode branch has no text tower, hence no empty-prompt
-    # embeddings: CFG cond dropout does not run there, as in the JAX trainer
-    empty = encoders.empty_embeds() if encoders is not None else None
-    cond_dropout = cond_dropout_prob > 0.0 and empty is not None
+    # v2: the pre-encode branch has no text tower, hence no empty-prompt
+    # embeddings, so CFG cond dropout does not run there, as in the JAX
+    # trainer; v1 drops the text by a mask and runs it in both branches
+    empty = None if encoders is None or is_v1 else encoders.empty_embeds()
+    cond_dropout = cond_dropout_prob > 0.0 and (is_v1 or empty is not None)
 
     def prepare(raw):
         if encoders is None:
-            return prepare_batch(raw, config, model.config.cond_embed_dim, device)
-        return {**encoders.prepare_batch(raw), **empty}
+            return prepare_batch(raw, config, None if is_v1 else model.config.cond_embed_dim,
+                                 device)
+        batch = encoders.prepare_batch(raw)
+        if is_v1:  # v1 conditions through cross-attention alone
+            return {k: batch[k] for k in ("image_tokens", "encoder_hidden_states")}
+        return {**batch, **empty}
 
     ds_params = config.dataset.params
     select = None
@@ -349,7 +438,8 @@ def main(argv=None) -> T.TrainState:
                             seed=seed + 7)
     generator = torch.Generator(device).manual_seed(seed)
     panel = None if encoders is None else SamplePanel(
-        state, encoders.vq_model, empty, autocast_dtype or torch.float32, seed)
+        state, encoders.vq_model, autocast_dtype or torch.float32, seed,
+        v1_text_panel if is_v1 else uvit_panel(empty))
 
     max_steps = config.training.max_train_steps
     log_every = config.experiment.get("log_every", 50)
@@ -388,22 +478,14 @@ def main(argv=None) -> T.TrainState:
             profiler = None
             logger.info("wrote the profiler trace to %s/profile", output_dir)
         if step % log_every == 0:
-            values = {k: _loggable(v) for k, v in metrics.items()
-                      if k != "param_grad_norms"}  # waits for the step
-            batch_time.update(time.time() - end)
-            values.update({"lr": state.optimizer.schedule(step),
-                           "samples/sec": batch_size / max(batch_time.avg, 1e-9),
-                           "step_time": batch_time.val, "data_time": data_time.avg,
-                           "batch_time": batch_time.avg})
-            if train_step.last_capture is not capture:  # this step warmed up a graph
-                values["capture_s"] = train_step.last_capture["seconds"]
-            tracker.log(values, step)
-            logger.info("step %d: loss=%.4f (%.1f samples/s)", step, values["loss"],
-                        values["samples/sec"])
-        if log_grad_norm_every and step % log_grad_norm_every == 0:
+            log_step(tracker, train_step, capture, metrics, state, batch_size, end, batch_time,
+                     data_time)
+        if log_grad_norm_every and step % log_grad_norm_every == 0 and \
+                "param_grad_norms" in metrics:
             norms = metrics["param_grad_norms"].float().cpu().tolist()
             tracker.log({f"grad_norm/{n}": v for n, v in zip(grad_norm_names, norms)}, step)
-        if eval_every and eval_data is not None and step % eval_every == 0:
+        if eval_every and eval_step is not None and eval_data is not None and \
+                step % eval_every == 0:
             eval_gen = torch.Generator(device).manual_seed(seed + 999 + step)
             losses = []
             for i, raw in enumerate(eval_data):

@@ -1,13 +1,17 @@
-"""The MaskGiTUViT_v2 train and eval steps, and checkpoints.
+"""The train steps (MaskGiTUViT_v2, v1 text -> image, class-conditional
+MaskGIT), the v2 eval step, and checkpoints.
 
 Counterpart of ``open_muse_tpu/training/trainer.py`` (``make_uvit_train_step``,
+``make_v1_text2image_train_step``, ``make_maskgit_train_step``,
 ``make_uvit_eval_step``, ``grad_norm_param_names``, ``save_checkpoint``,
 ``find_latest_checkpoint``, ``load_checkpoint``).  The JAX step is one
 jitted, donated program a step; here a step updates the model, optimizer and
 EMA of a ``TrainState`` in place and returns its metrics as device tensors,
-and on the card it is one replayed CUDA graph (``UViTTrainStep``).  Masking
-and cond-dropout noise come in as an argument (``masking.MaskingNoise``)
-because JAX's PRNG bits cannot be reproduced.
+and on the card it is one replayed CUDA graph (``TrainStep`` around each
+step's body).  Masking and cond-dropout noise come in as an argument
+(``masking.MaskingNoise``) because JAX's PRNG bits cannot be reproduced; the
+v1 model's dropout masks are drawn inside the step from the spec's
+``dropout`` source.
 
 A checkpoint is ``checkpoint-{step}/`` with ``metadata.json``,
 ``unwrapped_model/`` and ``ema_model/`` (``config.json`` + ``pytorch_model.bin``)
@@ -31,12 +35,14 @@ from ..core.captured import capture_on, captured, pointer_key, replay
 from ..core.modeling import WEIGHTS_NAMES
 from ..utils import training_utils as tu
 from .ema import EMA
-from .masking import MaskingNoise, mask_or_random_replace_tokens
+from .masking import (MaskingNoise, cond_keep_mask, mask_or_random_replace_tokens,
+                      prepend_class_token)
 from .optimizers import Optimizer, flax_param_name, global_norm
 
-__all__ = ["TrainState", "StepSpec", "UViTTrainStep", "uvit_train_body", "make_uvit_train_step",
-           "make_uvit_eval_step", "grad_norm_param_names", "save_checkpoint",
-           "find_latest_checkpoint", "load_checkpoint"]
+__all__ = ["TrainState", "StepSpec", "TrainStep", "uvit_train_body", "v1_text2image_train_body",
+           "maskgit_train_body", "make_uvit_train_step", "make_v1_text2image_train_step",
+           "make_maskgit_train_step", "make_uvit_eval_step", "grad_norm_param_names",
+           "save_checkpoint", "find_latest_checkpoint", "load_checkpoint"]
 
 
 @dataclasses.dataclass
@@ -63,6 +69,8 @@ class StepSpec:
     autocast_dtype: Optional[torch.dtype] = None
     with_diagnostics: bool = False
     with_param_grad_norms: bool = False
+    # the v1 forward's dropout keep-mask source (``KeepMasks``); None: no dropout
+    dropout: Optional[Callable] = None
 
 
 def _flax_leaves(model: nn.Module):
@@ -76,6 +84,33 @@ def grad_norm_param_names(model: nn.Module) -> List[str]:
     """The JAX package's names of the model's parameters in its
     ``tree_leaves`` order, the order of ``metrics['param_grad_norms']``."""
     return [name for _, name in _flax_leaves(model)]
+
+
+def _autocast(spec: StepSpec, device: torch.device):
+    # no autocast cache: a capture must not keep casts of the weights made
+    # before the optimizer's update
+    return torch.autocast(device.type, dtype=spec.autocast_dtype or torch.bfloat16,
+                          enabled=spec.autocast_dtype is not None, cache_enabled=False)
+
+
+def _backward(state: TrainState, loss):
+    """The backward of ``loss`` into fresh ``.grad``s -> (grads in
+    ``model.parameters()`` order, their global norm)."""
+    state.optimizer.zero_grad()
+    loss.backward()
+    for p in state.model.parameters():
+        if p.grad is None:  # a parameter the loss does not reach: JAX's grad is 0
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in state.model.parameters()]
+    return grads, global_norm(grads)
+
+
+def _masked(batch, spec: StepSpec, noise: MaskingNoise):
+    """The v1 steps' masking: the JAX defaults but for the schedule, the
+    minimum rate and the codebook."""
+    return mask_or_random_replace_tokens(
+        batch["image_tokens"], spec.mask_id, spec.mask_schedule, noise,
+        min_masking_rate=spec.min_masking_rate, codebook_size=spec.codebook_size)
 
 
 def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Tensor],
@@ -98,19 +133,10 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         keep = noise.cond_dropout >= spec.cond_dropout_prob
         ehs = torch.where(keep[:, None, None], ehs, batch["empty_embeds"].to(ehs.dtype))
         cond = torch.where(keep[:, None], cond, batch["empty_cond_embeds"].to(cond.dtype))
-    # no autocast cache: a capture must not keep casts of the weights made
-    # before the optimizer's update
-    with torch.autocast(ehs.device.type, dtype=spec.autocast_dtype or torch.bfloat16,
-                        enabled=spec.autocast_dtype is not None, cache_enabled=False):
+    with _autocast(spec, ehs.device):
         logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
                              loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
-    state.optimizer.zero_grad()
-    loss.backward()
-    for p in model.parameters():
-        if p.grad is None:  # a parameter the loss does not reach: JAX's grad is 0
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in model.parameters()]
-    grad_norm = global_norm(grads)
+    grads, grad_norm = _backward(state, loss)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                "avg_masking_rate": mask_prob.mean()}
     if spec.with_diagnostics:
@@ -130,6 +156,53 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
     if state.ema is not None:
         state.ema.update(model)
     return metrics
+
+
+def v1_text2image_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Tensor],
+                             noise: MaskingNoise, emit: bool = True) -> Dict[str, torch.Tensor]:
+    """The v1 ``MaskGitTransformer`` text -> image step's device work
+    (``make_v1_text2image_train_step``): masking, the CFG cond-dropout mask
+    (``noise.cond_dropout >= cond_dropout_prob``) multiplied into the
+    projected text states, the forward with dropout from ``spec.dropout``
+    and the loss under autocast, the backward, the global grad norm, the
+    optimizer's update and the EMA update (where the state has an EMA).
+    batch: image_tokens (B, S), encoder_hidden_states (B, L, E); the text
+    conditions through cross-attention alone.  Metrics: loss, grad_norm,
+    avg_masking_rate."""
+    input_ids, labels, _, mask_prob = _masked(batch, spec, noise)
+    ehs = batch["encoder_hidden_states"]
+    cond_mask = None
+    if spec.cond_dropout_prob > 0.0:
+        cond_mask = cond_keep_mask(noise.cond_dropout, spec.cond_dropout_prob, ehs.dtype)
+    with _autocast(spec, ehs.device):
+        _, loss = state.model(input_ids, ehs, labels=labels, label_smoothing=spec.label_smoothing,
+                              cond_dropout_mask=cond_mask, dropout=spec.dropout)
+    _, grad_norm = _backward(state, loss)
+    state.optimizer.update(grad_norm, emit)
+    if state.ema is not None:
+        state.ema.update(state.model)
+    return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
+
+
+def maskgit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Tensor],
+                       noise: MaskingNoise, emit: bool = True) -> Dict[str, torch.Tensor]:
+    """The class-conditional MaskGIT step's device work
+    (``make_maskgit_train_step``): masking, the class token prepended
+    (``class_ids + codebook_size``, label -100), the forward with dropout
+    from ``spec.dropout`` and the loss under autocast, the backward, the
+    global grad norm and the optimizer's update.  No EMA update, even when
+    the state has an EMA: the JAX trainer builds this step without an
+    ``ema_decay`` (ROADMAP fault 3.10).  batch: image_tokens (B, S),
+    class_ids (B,).  Metrics: loss, grad_norm, avg_masking_rate."""
+    input_ids, labels, _, mask_prob = _masked(batch, spec, noise)
+    input_ids, labels = prepend_class_token(input_ids, labels, batch["class_ids"],
+                                            spec.codebook_size)
+    with _autocast(spec, input_ids.device):
+        _, loss = state.model(input_ids, labels=labels, label_smoothing=spec.label_smoothing,
+                              dropout=spec.dropout)
+    _, grad_norm = _backward(state, loss)
+    state.optimizer.update(grad_norm, emit)
+    return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
 
 
 def _flat_inputs(batch, noise):
@@ -161,11 +234,12 @@ class _StepGraph:
     launches: Dict[str, int]
 
 
-class UViTTrainStep:
+class TrainStep:
     """``step(state, batch, noise) -> metrics``: the host's part of a step
     (the lr at the update count, the EMA decay at ``state.step``, whether
     this call emits an update under gradient accumulation, the counters)
-    around ``uvit_train_body``.
+    around ``body(state, spec, batch, noise, emit)`` (``uvit_train_body``,
+    ``v1_text2image_train_body``, ``maskgit_train_body``).
 
     On CPU tensors the body runs eagerly.  On the card it is one replayed
     CUDA graph a step (two under gradient accumulation: accumulate, and
@@ -180,9 +254,12 @@ class UViTTrainStep:
     or rebuilt state captures afresh.  A capture that fails raises; the
     eager body never runs in its place.  ``step.eager`` runs the same host
     part and body without a graph.  The kernels' launch counts stay exact:
-    a replay adds the wrappers' counts its capture recorded."""
+    a replay adds the wrappers' counts its capture recorded.  The generator
+    of ``spec.dropout`` (if any) is registered with each graph, so a replay
+    draws new dropout masks and advances it."""
 
-    def __init__(self, spec: StepSpec):
+    def __init__(self, body: Callable, spec: StepSpec):
+        self.body = body
         self.spec = spec
         self._graphs: Dict[bool, tuple] = {}  # emit -> (key, _StepGraph)
         self.last_capture: Dict[str, Any] = {}
@@ -199,7 +276,7 @@ class UViTTrainStep:
             state.ema.set_step(state.step)
         names, tensors = _flat_inputs(batch, noise)
         if not graph or all(t.device.type == "cpu" for t in tensors):
-            metrics = uvit_train_body(state, self.spec, batch, noise, emit)
+            metrics = self.body(state, self.spec, batch, noise, emit)
         else:
             metrics = self._replay(state, names, tensors, emit)
         state.optimizer.end_step(emit)
@@ -232,14 +309,16 @@ class UViTTrainStep:
     def _warm_up_and_capture(self, state, names, tensors, emit):
         t0 = time.perf_counter()
         inputs = [t.clone(memory_format=torch.contiguous_format) for t in tensors]
-        body = lambda: uvit_train_body(state, self.spec, *_unflat_inputs(names, inputs),  # noqa: E731
-                                       emit)
+        body = lambda: self.body(state, self.spec, *_unflat_inputs(names, inputs),  # noqa: E731
+                                 emit)
         stream = torch.cuda.Stream(device=inputs[0].device)
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):  # the real step: it launches, and counts
             metrics = {k: v.clone() for k, v in body().items()}
         warm = time.perf_counter() - t0
-        graph, outputs, delta = capture_on(stream, body, "the train step")
+        generator = getattr(self.spec.dropout, "generator", None)
+        graph, outputs, delta = capture_on(stream, body, "the train step",
+                                           generators=() if generator is None else (generator,))
         self.last_capture = {"emit": emit, "warm_up_s": warm,
                              "seconds": time.perf_counter() - t0, "launches": delta}
         return metrics, _StepGraph(graph, inputs, outputs, delta)
@@ -259,8 +338,9 @@ def make_uvit_train_step(
     autocast_dtype: Optional[torch.dtype] = None,
     with_diagnostics: bool = False,
     with_param_grad_norms: bool = False,
-) -> UViTTrainStep:
-    """``train_step(state, batch, noise) -> metrics`` (``UViTTrainStep``).
+) -> TrainStep:
+    """``train_step(state, batch, noise) -> metrics`` (``TrainStep`` around
+    ``uvit_train_body``).
 
     batch: image_tokens (B, S) int, encoder_hidden_states (B, L, E),
     cond_embeds (B, C), micro_conds (B, 5) and, for CFG cond dropout,
@@ -270,10 +350,39 @@ def make_uvit_train_step(
     when given) and the backward, takes the global grad norm, has the
     optimizer clip and update (or accumulate, under gradient accumulation)
     and then updates the EMA, and increments ``state.step``."""
-    return UViTTrainStep(StepSpec(
+    return TrainStep(uvit_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, noise_type, predict_all_tokens,
         mask_contiguous_region_prob, label_smoothing, cond_dropout_prob, autocast_dtype,
         with_diagnostics, with_param_grad_norms))
+
+
+def make_v1_text2image_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
+                                  min_masking_rate: float = 0.0, label_smoothing: float = 0.0,
+                                  cond_dropout_prob: float = 0.0,
+                                  autocast_dtype: Optional[torch.dtype] = None,
+                                  dropout: Optional[Callable] = None) -> TrainStep:
+    """The v1 ``MaskGitTransformer`` text -> image step (``model.architecture:
+    transformer``), ``TrainStep`` around ``v1_text2image_train_body``.  An
+    image keeps its text where ``noise.cond_dropout >= cond_dropout_prob``;
+    ``dropout`` (``KeepMasks``) draws the model's ``hidden_dropout`` masks,
+    None runs the forward deterministic.  The EMA moves where the state has
+    one (the JAX trainer's ``ema_decay`` 0.9999 under ``use_ema``);
+    clipping is the optimizer's (``max_grad_norm``)."""
+    return TrainStep(v1_text2image_train_body, StepSpec(
+        mask_schedule, mask_id, codebook_size, min_masking_rate, label_smoothing=label_smoothing,
+        cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout))
+
+
+def make_maskgit_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
+                            min_masking_rate: float = 0.0, label_smoothing: float = 0.0,
+                            autocast_dtype: Optional[torch.dtype] = None,
+                            dropout: Optional[Callable] = None) -> TrainStep:
+    """The class-conditional MaskGIT step (``train_maskgit_imagenet``),
+    ``TrainStep`` around ``maskgit_train_body``; batch: image_tokens (B, S),
+    class_ids (B,); ``dropout`` as in ``make_v1_text2image_train_step``."""
+    return TrainStep(maskgit_train_body, StepSpec(
+        mask_schedule, mask_id, codebook_size, min_masking_rate, label_smoothing=label_smoothing,
+        autocast_dtype=autocast_dtype, dropout=dropout))
 
 
 def make_uvit_eval_step(mask_schedule, mask_id: int, *,

@@ -111,12 +111,16 @@ def test_port_imports_no_jax():
         from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
         from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
         from open_muse_tpu_torch.kernels import flash_attention, fused_residual_layernorm
-        from open_muse_tpu_torch.training import train_muse
+        from open_muse_tpu_torch.training import train_maskgit_imagenet, train_muse
+        from open_muse_tpu_torch.training.trainer import (make_maskgit_train_step,
+                                                          make_v1_text2image_train_step)
+        from open_muse_tpu_torch.training.data import ClassificationDataset
         from open_muse_tpu_torch.training.data import PreEncodedDataset, ShardSource
         from open_muse_tpu_torch.scripts import pre_encode
         from open_muse_tpu_torch.utils import config
         import chip_smoke
         PreEncodedDataset("shard-000.tar", 2)
+        ClassificationDataset("shard-000.tar", 2)
         ShardSource("shard-{{000..003}}.tar", process_index=1, process_count=2)
         m = MaskGiTUViT_v2(**{json.dumps(UVIT_TINY)!s}).eval()
         with torch.no_grad():
@@ -134,6 +138,18 @@ def test_port_imports_no_jax():
                                   quantized_embed_dim=16).decode_code(tokens)
         assert out.shape == (1, 16, 64) and codes.shape == (1, 256)
         assert tokens.shape == (1, 16) and images.shape == (1, 8, 8, 3)
+        from open_muse_tpu_torch.models.transformer_v1 import KeepMasks
+        from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+        from open_muse_tpu_torch.training.masking import draw_masking_noise
+        from open_muse_tpu_torch.training.optimizers import get_optimizer
+        from open_muse_tpu_torch.training.trainer import TrainState
+        state = TrainState(model=v1.train(), optimizer=get_optimizer("adamw", v1, 1e-3))
+        step = make_maskgit_train_step(get_mask_schedule("cosine"), 68, codebook_size=64,
+                                       dropout=KeepMasks(torch.Generator().manual_seed(0)))
+        metrics = step(state, {{"image_tokens": torch.zeros(2, 16, dtype=torch.long),
+                               "class_ids": torch.tensor([0, 3])}},
+                       draw_masking_noise(2, 16, torch.Generator().manual_seed(1), 64))
+        assert state.step == 1 and metrics["loss"].isfinite()
         bad = [name for name in sys.modules
                if name.split(".")[0] in ("jax", "flax", "jaxlib", "open_muse_tpu")]
         assert not bad, bad

@@ -6,6 +6,7 @@ so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -383,12 +384,13 @@ NORM_TOL, ATTN_TOL = 1e-2, 2e-2
 @pytest.mark.parametrize("staging", ["pallas", "model"])
 @pytest.mark.parametrize("shape,with_residual", [((1, 257, 768), True), ((2, 256, 768), True),
                                                  ((2, 256, 1024), True), ((1, 257, 3072), False),
-                                                 ((3, 37, 100), True)])
+                                                 ((64 * 257, 3072), False), ((3, 37, 100), True)])
 def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
     """Both kernels in both stagings (the Pallas kernels': fp32 affine, one
     cast; the JAX model's: rounded op for op) at the paths' shapes (widths
     768, 1024, 3072: the row in registers) and at a width of the generic
     variant (100, not a multiple of 8), LayerNorm with and without a bias;
+    the class trainer's mid-MLP norm at batch 64 (64 x 257 rows of 3072);
     the prenorm sum bit-equal (x itself without a residual), two calls
     bit-equal, one launch each."""
     from open_muse_tpu_torch.kernels import fused_norm as N
@@ -423,13 +425,16 @@ def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
 
 @pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77),
                                             ((2, 256, 12, 64), 256), ((16, 256, 12, 64), 77),
-                                            ((1, 1025, 16, 64), 1025)])
+                                            ((1, 1025, 16, 64), 1025), ((64, 257, 16, 48), 257),
+                                            ((64, 256, 16, 64), 256), ((64, 256, 16, 64), 32)])
 def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     """v1's self-attention (ragged 257 x 257, head_dim 48: the one-pass
     variant with two warps a row group), v2's block attention over the 77
     text keys (head_dim 64: one warp a row group) when serving and at the
     training batch, 256 keys at head_dim 64 (two warps a row group), and
-    1025 keys, above the one-pass capacity of 288: the two-pass variant.
+    1025 keys, above the one-pass capacity of 288: the two-pass variant;
+    the v1 trainers' batch 64: the class model's self-attention, the text
+    model's self-attention and its cross-attention over 32 text keys.
     The inputs as views into fused [q | k | v] / [k | v] projections; two
     calls bit-equal."""
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
@@ -891,3 +896,65 @@ def test_train_step_capture_failure_raises(device):
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          timeout=300, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.stdout.strip() == "raised True 0", (out.stdout, out.stderr[-2000:])
+
+
+def _small_v1(device, **changes):
+    """A two-layer class-conditional v1 model (heads of 48, as the ImageNet
+    config's), fp32 weights, with AdamW (a constant lr), no EMA."""
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState
+
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = MaskGitTransformer(**{**dict(vocab_size=69, hidden_size=96, num_hidden_layers=2,
+                                             num_attention_heads=2, intermediate_size=192,
+                                             codebook_size=64, num_vq_tokens=16,
+                                             max_position_embeddings=17, num_classes=4,
+                                             hidden_dropout=0.0), **changes})
+    return TrainState(model=model, optimizer=get_optimizer("adamw", model, lambda count: 1e-3))
+
+
+def test_captured_class_step_equals_eager_and_redraws_dropout(device):
+    """The class step at dropout 0: 3 captured steps bit-equal to 3 eager
+    ones (metrics, parameters, AdamW moments), each replay adding the eager
+    step's launches.  At ``hidden_dropout`` 0.5 with ``KeepMasks`` on a CUDA
+    generator registered with the graph: the eager warm-up and each replay
+    advance the generator (a replay draws new masks); the losses finite."""
+    from open_muse_tpu_torch.models.transformer_v1 import KeepMasks
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+    from open_muse_tpu_torch.training.trainer import make_maskgit_train_step
+
+    def step_of(dropout=None):
+        return make_maskgit_train_step(get_mask_schedule("cosine"), 68, codebook_size=64,
+                                       autocast_dtype=torch.bfloat16, dropout=dropout)
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {"image_tokens": torch.randint(0, 64, (4, 16), generator=gen, device=device),
+             "class_ids": torch.randint(0, 4, (4,), generator=gen, device=device)}
+    step = step_of()
+    a, b = _small_v1(device), _small_v1(device)
+    gens = [torch.Generator(device=device).manual_seed(5) for _ in range(2)]
+    for i in range(3):
+        noise_a, noise_b = (draw_masking_noise(4, 16, g, 64) for g in gens)
+        got, launches = _counted(lambda: step(a, batch, noise_a))
+        want, eager_launches = _counted(lambda: step.eager(b, batch, noise_b))
+        for key in want:
+            assert torch.equal(got[key], want[key]), (i, key)
+        assert launches == eager_launches and launches["flash_attention"] == 2, launches
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            assert torch.equal(p, q)
+            for key, value in a.optimizer.torch_optimizer.state[p].items():
+                assert torch.equal(value, b.optimizer.torch_optimizer.state[q][key])
+
+    masks = KeepMasks(torch.Generator(device=device).manual_seed(9))
+    step = step_of(masks)
+    state = _small_v1(device, hidden_dropout=0.5)
+    noise = draw_masking_noise(4, 16, torch.Generator(device=device).manual_seed(1), 64)
+    states, losses = [masks.generator.get_state()], []
+    for _ in range(3):  # the eager warm-up (and the capture), then two replays
+        losses.append(float(step(state, batch, noise)["loss"]))
+        states.append(masks.generator.get_state())
+    assert all(not torch.equal(x, y) for x, y in zip(states, states[1:]))
+    assert all(math.isfinite(v) for v in losses), losses
