@@ -24,6 +24,16 @@ directly (eager); the token ids of the two must be equal:
 - class_inpainting: three such requests through
   ``PipelineMuseInpainting(image, mask, class_ids=...)``, the MaskGIT VQGAN
   encoder's ``vq_argmin`` at K 1024;
+- movq_class: three 256px / batch-1 / 8-step class-id requests with the v1
+  transformer of ``configs/imagenet_movq.yaml`` (1025 tokens: kernel 5's
+  two-pass variant) and a MOVQ at its published widths, then a MOVQ
+  ``get_code`` round trip (``vq_argmin`` at C 4, K 16384);
+- movq_text: three 256px / batch-1 / 12-step CFG text requests with the v1
+  transformer of ``configs/cc12m_movq.yaml``, a T5 tower at
+  google/t5-v1_1-large's widths (bf16 against fp32 first) and the MOVQ;
+- paella: ``scripts.pre_encode.main`` over the pre-encode phase's 1024
+  images with the taming f16 VQGAN and ``--vae-f8`` a full-width Paella
+  VQ, then Paella ``decode_code`` of one batch of the written ids;
 - training: ``training.train_muse.main`` on ``configs/laiona6plus_uvit_clip.yaml``
   at batch 16 on a seeded synthetic pre-encoded shard (one repeated batch),
   one replayed CUDA graph a step, then a resume from its checkpoint; before
@@ -126,10 +136,22 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound_ms(name):
-    moved, ops, kind = BOUNDS[name]
+def bound_of(moved, ops, kind):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_ms(name):
+    return bound_of(*BOUNDS[name])
+
+
+def zero_counts() -> dict:
+    """Every launch counter at 0: the 12 kernels' wrappers and kernel 5's
+    two-pass variant, counted apart."""
+    from open_muse_tpu_torch import kernels
+
+    return {name: 0 for name in kernels.launch_counts()}
 
 
 def log(msg: str) -> None:
@@ -434,14 +456,15 @@ def philox_call_instructions(cfg: bool):
     return per_call
 
 
-def check_philox_route(name, kern, plain, logits, x, v, device):
+def check_philox_route(name, kern, plain, logits, x, v, device, row=True):
     """The route every decode runs: the kernel's ids with its seed read from
     an int64 device tensor against the plain version fed
     ``philox_gumbel_plain`` for that seed: equal wherever the top-2 gap of x
     + noise exceeds 1e-3 (the two sides' logs may differ by an ulp), sel to
     rel 1e-4.  Then the route's time (the kernel, and the plain version with
     its noise drawn on the card) and its bound: the logits read once, and
-    the integer work of one Philox call per four columns."""
+    the integer work of one Philox call per four columns.  ``row``: these
+    inputs give the kernel's row of the report (its BOUNDS entry)."""
     from open_muse_tpu_torch.kernels.fused_sample import draw_seed, philox_gumbel_plain
 
     rows = x.shape[0] * x.shape[1]
@@ -465,11 +488,14 @@ def check_philox_route(name, kern, plain, logits, x, v, device):
     # the two pipes run side by side: the busier one bounds the integer work
     calls = rows * -(-v // 4)
     busier = max(philox_call_instructions(name.endswith("_cfg")))
-    BOUNDS[name] = (nbytes(logits[..., :v], ids, sel), calls * busier, "int32")
-    bound, by = bound_ms(name)
-    log(f"[time] {name} Philox route (the row): kernel {timing[0]:.4f} ms, plain (noise drawn "
+    work = (nbytes(logits[..., :v], ids, sel), calls * busier, "int32")
+    if row:
+        BOUNDS[name] = work
+    bound, by = bound_of(*work)
+    log(f"[time] {name} Philox route{' (the row)' if row else ''} logits "
+        f"{tuple(logits.shape)} cropped to {v}: kernel {timing[0]:.4f} ms, plain (noise drawn "
         f"on the card) {timing[1]:.4f} ms (CUDA graph replay); bound {bound:.4f} ms ({by}: "
-        f"{BOUNDS[name][0] / 1e6:.2f} MB of logits; {calls} Philox calls x {busier:.3f} "
+        f"{work[0] / 1e6:.2f} MB of logits; {calls} Philox calls x {busier:.3f} "
         f"instructions on the busier pipe, {calls * busier / PEAK_OPS_PER_S['int32'] * 1e3:.4f} "
         f"ms)")
     return ok, max_abs, timing
@@ -582,13 +608,46 @@ def check_categorical(device, gen):
     return ids_ok and sel_ok and philox_ok and chi_ok, max(max_abs, philox_err), timing
 
 
+def check_samplers_movq(device, gen):
+    """Kernels 3 and 4's Philox route at the MOVQ paths' shapes: 1024 rows
+    an image over 16384 codes (two 8192-column segments a row), the class
+    model's (1, 1024, 17408) logits and the text model's CFG pair (2, 1024,
+    16448), each cropped to the codebook.  {name: (ok, max_abs)}."""
+    from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical,
+                                                          fused_categorical_cfg,
+                                                          fused_categorical_cfg_plain,
+                                                          fused_categorical_plain)
+
+    v, out = 16384, {}
+    logits = (torch.randn(1, 1024, 17408, generator=gen) * 2).to(device, torch.bfloat16)
+    ok, err, _ = check_philox_route(
+        "fused_categorical", lambda seed: fused_categorical(logits, v, seed=seed),
+        lambda noise: fused_categorical_plain(logits, v, noise), logits,
+        logits[..., :v].float(), v, device, row=False)
+    out["fused_categorical"] = (ok, err)
+    logits = (torch.randn(2, 1024, 16448, generator=gen) * 2).to(device, torch.bfloat16)
+    cond, uncond = logits[:1, :, :v].float(), logits[1:, :, :v].float()
+    x = uncond + GUIDANCE * (cond - uncond)
+    ok, err, _ = check_philox_route(
+        "fused_categorical_cfg",
+        lambda seed: fused_categorical_cfg(logits, GUIDANCE, v, seed=seed),
+        lambda noise: fused_categorical_cfg_plain(logits, GUIDANCE, v, noise), logits, x, v,
+        device, row=False)
+    out["fused_categorical_cfg"] = (ok, err)
+    return out
+
+
 # the VQ search shapes: a pre-encode batch of 64 images (64 x 256 latent
 # rows) and one 256px inpainting request, against the taming VQGAN's
 # 8192-code codebook; one 256px class-id inpainting request against the
-# MaskGIT VQGAN's 1024 codes, and the class trainer's batch of 64 against them
+# MaskGIT VQGAN's 1024 codes, and the class trainer's batch of 64 against
+# them; at C 4 (padded to 64 in the split): the MOVQ round trip of 4 images
+# (32 x 32 latents) against its 16384 codes, and the Paella's (64 x 64
+# latents) of a pre-encode batch of 64 against its 8192
 VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
              "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192),
-             "train_class": (64 * 256, 256, 1024)}
+             "train_class": (64 * 256, 256, 1024), "movq_class": (4 * 1024, 4, 16384),
+             "paella": (64 * 4096, 4, 8192)}
 VQ_RTOL = 1e-5
 
 
@@ -736,15 +795,18 @@ def check_norms(device, gen):
 # queries, 12 heads of 64, the 77 text keys as views into the [k | v]
 # projection: both attentions of an AttentionBlock2D) when serving and at the
 # training batch of 16; 256 keys at head_dim 64, the split one-pass variant
-# that v1 takes at 48, and 1025, above the one-pass capacity of 288 keys
-# (the two-pass variant), which no path launches; the v1 trainers' batch of
-# 64: the class model's self-attention, the text model's self-attention and
-# its cross-attention over 32 text keys; last v1's self-attention (257
-# tokens, 16 heads of 48, q / k / v views into the fused projection), the
-# report's row
+# that v1 takes at 48; above the one-pass capacity of 288 keys (the two-pass
+# variant) the MOVQ configs' 1024-token trunks: the class model's 1025
+# tokens at batch 1, the text model's 1024 under CFG (batch 2) and its
+# cross-attention over 77 T5 keys; the v1 trainers' batch of 64: the class
+# model's self-attention, the text model's self-attention and its
+# cross-attention over 32 text keys; last v1's self-attention (257 tokens,
+# 16 heads of 48, q / k / v views into the fused projection), the report's
+# row
 FLASH_SHAPES = ((2, 256, 256, 12, 64), (2, 256, 77, 12, 64), (16, 256, 77, 12, 64),
-                (1, 1025, 1025, 16, 64), (64, 257, 257, 16, 48), (64, 256, 256, 16, 64),
-                (64, 256, 32, 16, 64), (1, 257, 257, 16, 48))
+                (1, 1025, 1025, 16, 64), (2, 1024, 1024, 16, 64), (2, 1024, 77, 16, 64),
+                (64, 257, 257, 16, 48), (64, 256, 256, 16, 64), (64, 256, 32, 16, 64),
+                (1, 257, 257, 16, 48))
 ATTN_TOL = 2e-2
 
 
@@ -805,6 +867,9 @@ def kernel_phase(device, splits):
     report.update(check_sublayers(device, gen, 2, splits=splits))
     report["fused_categorical_cfg"] = check_sampler(device, gen)
     report["fused_categorical"] = check_categorical(device, gen)
+    for name, (ok, err) in check_samplers_movq(device, gen).items():
+        row_ok, row_err, timing = report[name]
+        report[name] = (row_ok and ok, max(row_err, err), timing)
     report["vq_argmin"] = check_vq(device, gen, splits)
     report.update(check_norms(device, gen))
     report["flash_attention"] = check_flash(device, gen)
@@ -1327,18 +1392,21 @@ def one_class_request(pipe, class_id, seed, eager=False, inpaint=None):
     return (f"class {class_id}", *timed_call(eager_call if eager else captured))
 
 
-def check_class_logits(pipe, device):
-    """One full-width v1 forward (class token + 256 tokens, half masked)
-    with the kernels against the all-plain forward."""
+def check_class_logits(pipe, device, ehs=None):
+    """One full-width v1 forward (class token + the image tokens, half
+    masked; with text states ``ehs`` (B, T, D) no class token, B rows) with
+    the kernels against the all-plain forward."""
     t = pipe.transformer
     cfg = t.config
     gen = torch.Generator(device=device).manual_seed(6)
-    tokens = torch.randint(0, cfg.codebook_size, (1, cfg.num_vq_tokens), generator=gen,
+    rows = 1 if ehs is None else ehs.shape[0]
+    tokens = torch.randint(0, cfg.codebook_size, (rows, cfg.num_vq_tokens), generator=gen,
                            device=device)
     tokens[torch.rand(tokens.shape, generator=gen, device=device) < 0.5] = cfg.mask_token_id
-    ids = torch.cat([torch.full((1, 1), cfg.codebook_size + CLASS_IDS[0], device=device), tokens], 1)
+    ids = tokens if ehs is not None else torch.cat(
+        [torch.full((1, 1), cfg.codebook_size + CLASS_IDS[0], device=device), tokens], 1)
     with torch.no_grad():
-        ctx = t.step_context()
+        ctx = t.step_context(ehs)
         fused = t(ids, step_ctx=ctx, use_kernels=True)
         plain = t(ids, step_ctx=ctx, use_kernels=False)
     max_abs, rel = errors(fused, plain)
@@ -1389,6 +1457,211 @@ def class_conditional_phase(device, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, inpaint_launches
+
+
+# -- the MOVQ paths at full width ------------------------------------------------
+
+# google/t5-v1_1-large's encoder (configs/cc12m_movq.yaml: t5-v1_1-large-enc)
+T5_LARGE = dict(vocab_size=32128, d_model=1024, d_kv=64, d_ff=2816, num_layers=24,
+                num_heads=16, feed_forward_proj="gated-gelu")
+# the T5 tower serves in bf16 unless its output there lies further than this
+# from the fp32 tower's (max |error| over max |fp32|), or is not finite
+T5_BF16_TOL = 5e-2
+
+
+def build_movq(device, seed):
+    """A MOVQ at Kandinsky 2.1's published widths (the MOVQConfig defaults:
+    hidden 128, mult (1, 2, 2, 4), 2 res blocks, attention at 32, z 4, 16384
+    x 4 codebook), seeded, fp32 as the reference keeps its VQ models."""
+    from open_muse_tpu_torch.models.movq import MOVQ, MOVQConfig
+
+    with torch.device(device):
+        vae = MOVQ(MOVQConfig())
+    randomize_(vae, seed)
+    return vae.eval()
+
+
+def param_counts(**modules):
+    return {name: sum(p.numel() for p in m.parameters()) for name, m in modules.items()}
+
+
+def build_v1(device, name, seed):
+    """The v1 MaskGitTransformer of ``configs/<name>.yaml`` as written,
+    seeded, in bf16."""
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+
+    tcfg = v1_config(name)
+    with torch.device(device):
+        transformer = MaskGitTransformer(MaskGitTransformer.config_from_dict(tcfg))
+    randomize_(transformer, seed)
+    return transformer.to(torch.bfloat16).eval(), tcfg
+
+
+@torch.no_grad()
+def movq_round_trip(vae, device, smi, n=4):
+    """``get_code`` of ``n`` seeded 256px images (one vq_argmin: (n x 1024,
+    4) latents against the 16384 x 4 codebook), the ids against the
+    all-plain search (equal except at near-ties, where the kernel's pick is
+    within VQ_RTOL of the minimum), then ``decode_code``: finite (n, 256,
+    256, 3) images.  Returns (ok, its launch counts)."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin_plain, vq_near_ties
+
+    pixels = torch.rand(n, 256, 256, 3, generator=torch.Generator().manual_seed(23)).to(device)
+    kernels.reset_launch_counts()
+    ids = vae.get_code(pixels)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    latents = vae._latents(pixels).reshape(-1, vae.config.quantized_embed_dim)
+    flat = ids.reshape(-1)
+    near, _, over = vq_near_ties(flat, latents, vae.quantize.weight, VQ_RTOL)
+    differ = flat != vq_argmin_plain(latents, vae.quantize.weight)
+    ids_ok = bool((~differ | near).all()) and bool((over[differ] <= 0).all())
+    images = vae.decode_code(ids)
+    finite = bool(torch.isfinite(images).all())
+    ok = (ids_ok and finite and tuple(images.shape) == (n, 256, 256, 3)
+          and launches == {**zero_counts(), "vq_argmin": 1})
+    log(f"[movq_class] get_code round trip of {n} seeded 256px images: ids {tuple(ids.shape)}, "
+        f"{int(differ.sum())} of {flat.numel()} differ from the all-plain search, all at "
+        f"near-ties {ids_ok}; decode_code {tuple(images.shape)} finite {finite}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } {'ok' if ok else 'FAIL'} ({smi})")
+    return ok, launches
+
+
+def movq_class_phase(device, smi):
+    """configs/imagenet_movq.yaml's transformer (v1, 24 layers of 1024, 16
+    heads of 64, RMSNorm, 1025 positions, vocab 17408 over 16384 codes) in
+    bf16 and a MOVQ at its published widths (fp32), seeded: the full-width
+    kernels-vs-plain logits, three 256px / bs1 / 8-step class-id requests
+    (the decode one graph: each step's self-attention over 1025 keys, kernel
+    5's two-pass variant, the sampler over 16384 of 17408 logits; the MOVQ
+    decode eager), a profiled request, and a MOVQ get_code round trip
+    (kernel 6 at C 4).  Returns (ok, launch counts)."""
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+
+    transformer, tcfg = build_v1(device, "imagenet_movq", 40)
+    vae = build_movq(device, 41)
+    log(f"[movq_class] params {param_counts(maskgit_v1=transformer, movq=vae)}; v1 bf16, movq "
+        f"fp32; transformer config {tcfg}")
+    pipe = PipelineMuse(vae=vae, transformer=transformer, is_class_conditioned=True)
+    cfg = transformer.config
+    if not check_class_logits(pipe, device):
+        raise SystemExit("chip_smoke: the MOVQ class model's kernel forward disagrees")
+    expected = v1_forward_launches(tcfg, CLASS_TIMESTEPS)
+    expected["fused_categorical"] = CLASS_TIMESTEPS
+    median, launches = run_requests(
+        smi, "movq_class", expected,
+        lambda i, eager: one_class_request(pipe, CLASS_IDS[i % 4], i, eager)[1:],
+        label=lambda i: f"class {CLASS_IDS[i % 4]}", guidance=0.0, codebook=cfg.codebook_size,
+        steps=CLASS_TIMESTEPS)
+    profiled("MOVQ class-conditional request", lambda: one_class_request(pipe, CLASS_IDS[3], 3),
+             median, "profile_movq_class.txt", smi=smi, span=True)
+    ok, round_trip = movq_round_trip(vae, device, smi)
+    del pipe, transformer, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, {k: launches[k] + round_trip[k] for k in launches}
+
+
+def one_v1_text_request(pipe, prompt, seed, eager=False):
+    """One 256px / bs1 / 12-step CFG text request through
+    ``PipelineMuse(text=...)`` with a v1 transformer: the text tower and
+    the empty prompt's states eager, the decode one replayed CUDA graph (v1
+    ``generate2``, CFG against the empty prompt), ``decode_code`` eager.
+    ``eager=True`` calls ``v1_decode_loop`` directly on noise drawn the same
+    way.  Returns (seconds, images, tokens, launch deltas)."""
+    from open_muse_tpu_torch.models.transformer_v1 import v1_decode_loop, v1_schedules
+    from open_muse_tpu_torch.models.transformer_v2 import decode_noise
+
+    t, vae = pipe.transformer, pipe.vae
+    cfg = t.config
+    gen = torch.Generator().manual_seed(seed)
+
+    def captured():
+        tokens = []
+        vae.decode_code = lambda ids: (tokens.append(ids), type(vae).decode_code(vae, ids))[1]
+        try:
+            images = pipe(text=[prompt], timesteps=TIMESTEPS, guidance_scale=GUIDANCE,
+                          temperature=TEMPERATURE, generator=gen, return_pil=False)
+        finally:
+            del vae.decode_code  # back to the class's method
+        return images, tokens[0]
+
+    @torch.no_grad()
+    def eager_call():
+        ehs, _ = pipe._encode_text(pipe._tokenize([prompt]))
+        neg, _ = pipe._encode_text(pipe._tokenize([""]))
+        device = ehs.device
+        start = torch.full((1, cfg.num_vq_tokens), cfg.mask_token_id, device=device)
+        temps, ratios = v1_schedules(TIMESTEPS, TEMPERATURE)
+        kind, sample, mask = decode_noise(gen, timesteps=TIMESTEPS, batch=1,
+                                          seq_len=cfg.num_vq_tokens, vocab=cfg.codebook_size,
+                                          device=device)
+        tokens = v1_decode_loop(t, start, None, torch.cat([ehs, neg.to(ehs)]), temps.to(device),
+                                ratios.to(device), guidance_scale=GUIDANCE, timesteps=TIMESTEPS,
+                                mask_gumbel=mask, **{kind: sample})
+        return vae.decode_code(tokens), tokens
+
+    return timed_call(eager_call if eager else captured)
+
+
+def movq_text_phase(device, smi):
+    """configs/cc12m_movq.yaml's transformer (v1, 24 layers of 1024, 1024
+    tokens, cross-attention to 1024-wide text states, vocab 16448 over 16384
+    codes) in bf16, a T5 tower at google/t5-v1_1-large's widths, the
+    SimpleTokenizer at 77 tokens and a MOVQ (fp32), seeded: the T5 tower in
+    bf16 against fp32 (it serves in bf16 within T5_BF16_TOL, else fp32),
+    the full-width kernels-vs-plain logits, three 256px / bs1 / 12-step CFG
+    8.0 requests (each step's self-attention over 1024 keys, kernel 5's
+    two-pass variant, and its cross-attention over the 77 text keys, the
+    one-pass one; the CFG sampler over 16384 of 16448 logits) and a
+    profiled request.  Returns (ok, launch counts)."""
+    import copy
+
+    from open_muse_tpu_torch.models.clip_text import SimpleTokenizer
+    from open_muse_tpu_torch.models.t5_text import T5TextEncoder
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+
+    transformer, tcfg = build_v1(device, "cc12m_movq", 42)
+    with torch.device(device):
+        t5 = T5TextEncoder(**T5_LARGE)
+    randomize_(t5, 43)
+    t5.eval()
+    vae = build_movq(device, 44)
+    log(f"[movq_text] params {param_counts(maskgit_v1=transformer, t5=t5, movq=vae)}; v1 bf16, "
+        f"movq fp32; transformer config {tcfg}; T5 {T5_LARGE}")
+    tokenizer = SimpleTokenizer(T5_LARGE["vocab_size"], 77)
+    ids = torch.as_tensor(tokenizer(PROMPTS + [""])["input_ids"], dtype=torch.long,
+                          device=device)
+    with torch.no_grad():
+        t5_bf16 = copy.deepcopy(t5).to(torch.bfloat16)
+        fp32, bf16 = t5(ids)[1], t5_bf16(ids)[1]
+    max_abs, rel = errors(bf16, fp32)
+    serve_bf16 = bool(torch.isfinite(bf16).all()) and rel <= T5_BF16_TOL
+    log(f"[movq_text] T5 tower on {tuple(ids.shape)} ids, bf16 against fp32: max_abs "
+        f"{max_abs:.3e} rel {rel:.3e} (max |fp32| {fp32.abs().max().item():.3e}); serves in "
+        f"{'bf16' if serve_bf16 else 'fp32'} (bf16 within rel {T5_BF16_TOL} and finite: "
+        f"{serve_bf16}) on {smi}")
+    text_encoder = t5_bf16 if serve_bf16 else t5
+    del t5, t5_bf16
+    pipe = PipelineMuse(vae=vae, transformer=transformer, text_encoder=text_encoder,
+                        tokenizer=tokenizer)
+    cfg = transformer.config
+    ehs, _ = pipe._encode_text(pipe._tokenize(PROMPTS[:1] + [""]))
+    if not check_class_logits(pipe, device, ehs):
+        raise SystemExit("chip_smoke: the MOVQ text model's kernel forward disagrees")
+    expected = v1_forward_launches(tcfg, TIMESTEPS)
+    expected["fused_categorical_cfg"] = TIMESTEPS
+    median, launches = run_requests(
+        smi, "movq_text", expected,
+        lambda i, eager: one_v1_text_request(pipe, PROMPTS[i % 4], i, eager),
+        codebook=cfg.codebook_size)
+    profiled("MOVQ text request (T5, CFG)", lambda: one_v1_text_request(pipe, PROMPTS[3], 3),
+             median, "profile_movq_text.txt", smi=smi, span=True)
+    del pipe, transformer, text_encoder, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return True, launches
 
 
 def profiled(label, fn, unprofiled_s, filename, rows=16, smi="", span=False):
@@ -1578,6 +1851,111 @@ def pre_encode_phase(pipe, device, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def paella_phase(device, smi):
+    """scripts.pre_encode.main over the pre-encode phase's 1024 seeded PNGs
+    at batch 64 with ``--vae-f16`` the serving phase's taming f16 VQGAN
+    (the same seed) and ``--vae-f8`` a Paella VQ at its published widths
+    (the PaellaVQConfig defaults: 2 levels, c_hidden 384, c_latent 4, 8192
+    codes, 12 bottleneck blocks), both fp32, written by save_pretrained and
+    loaded by from_pretrained(device="cuda"); vq_argmin twice a batch (f16:
+    (64 x 256, 256) against 8192 codes; f8: (64 x 4096, 4) against 8192);
+    ``vq_f8.npy`` against the all-plain Paella get_code; then Paella
+    decode_code of one batch of the written ids, and a profiled run.
+    Returns (ok, launch counts)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin_plain
+    from open_muse_tpu_torch.models.paella_vq import PaellaVQConfig, PaellaVQModel
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+    from open_muse_tpu_torch.scripts import pre_encode
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_paella_", dir=runs)
+    try:
+        shard = os.path.join(work, "raw-000.tar")
+        pixels = write_image_shard(shard, PRE_ENCODE_IMAGES)
+        with torch.device(device):
+            f16 = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
+                             quantized_embed_dim=256)
+            paella = PaellaVQModel(PaellaVQConfig())
+        randomize_(f16, 2)  # build_pipeline's VQGAN
+        randomize_(paella, 45)
+        log(f"[paella] params {param_counts(taming_f16=f16, paella=paella)}; both fp32; "
+            f"Paella config {PaellaVQConfig()}")
+        f16_dir, f8_dir = os.path.join(work, "vqgan"), os.path.join(work, "paella")
+        f16.save_pretrained(f16_dir)
+        paella.save_pretrained(f8_dir)
+        del f16
+        out = os.path.join(work, "encoded")
+        argv = ["--shards", shard, "--output-dir", out, "--vae-f16", f16_dir, "--vae-f8", f8_dir,
+                "--batch-size", str(PRE_ENCODE_BATCH), "--resolution", "256", "--device", "cuda"]
+        log(f"[paella] arguments {' '.join(argv)}")
+        expected = {**zero_counts(), "vq_argmin": 2 * PRE_ENCODE_IMAGES // PRE_ENCODE_BATCH}
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = pre_encode.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+
+        members = read_members(os.path.join(out, os.path.basename(shard)))
+        want = {"vq_f16.npy": (256,), "vq_f8.npy": (4096,)}
+        layout_ok = sorted(members) == [f"{i:05d}" for i in range(PRE_ENCODE_IMAGES)] and all(
+            sorted(m) == sorted(list(want) + ["json", "txt"])
+            and all((m[k].shape, m[k].dtype) == (shape, np.dtype(np.int32))
+                    for k, shape in want.items())
+            for m in members.values())
+        f8 = torch.from_numpy(np.stack([members[f"{i:05d}"]["vq_f8.npy"]
+                                        for i in range(PRE_ENCODE_IMAGES)]))
+        range_ok = bool(((f8 >= 0) & (f8 < 8192)).all())
+        plain = []
+        with torch.no_grad():
+            for i in range(0, PRE_ENCODE_IMAGES, 16):
+                images = torch.from_numpy(pixels[i:i + 16]).to(device).float() / 255.0
+                latents = paella._latents(images)
+                plain.append(vq_argmin_plain(latents.reshape(-1, latents.shape[-1]),
+                                             paella.vquantizer.weight)
+                             .reshape(latents.shape[0], -1).cpu())
+        agree = (f8 == torch.cat(plain).to(f8.dtype)).double().mean().item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            decoded = paella.decode_code(f8[:PRE_ENCODE_BATCH].to(device).long())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_ok = (tuple(decoded.shape) == (PRE_ENCODE_BATCH, 256, 256, 3)
+                     and bool(torch.isfinite(decoded).all()))
+        ok = (launches == expected and layout_ok and range_ok and agree >= 0.999 and decode_ok
+              and stats["n_samples"] == PRE_ENCODE_IMAGES)
+        log(f"[paella] {stats['n_samples']} images in {stats['n_batches']} batches of "
+            f"{PRE_ENCODE_BATCH}: members vq_f16.npy (256,) and vq_f8.npy (4096,) int32, .txt, "
+            f".json {layout_ok}; vq_f8 in [0, 8192) {range_ok}; equal to the all-plain Paella "
+            f"get_code {agree:.6f} (bound >= 0.999); Paella decode_code of {PRE_ENCODE_BATCH} "
+            f"images' ids {tuple(decoded.shape)} finite {decode_ok} in {decode_s * 1e3:.1f} ms "
+            f"(host clock, synchronised); launches {launches} (expected {expected}) "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[paella] {stats['imgs_per_sec']:.1f} images/s over the run "
+            f"({stats['total_s']:.2f} s, model loading excluded, first batch included), "
+            f"{stats.get('steady_imgs_per_sec', float('nan')):.1f} images/s after the first "
+            f"batch; {wall:.2f} s with loading (host clock) on {smi}")
+        del decoded, paella
+        again = argv[:argv.index("--output-dir") + 1] + [out + "_profiled"] + \
+            argv[argv.index("--output-dir") + 2:]
+        profiled("pre-encode run, taming f16 and Paella f8", lambda: pre_encode.main(again), wall,
+                 "profile_paella.txt")
+        return ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- the training path at full width ------------------------------------------
 
 TRAIN_STEPS, CODES_PER_IMAGE = 8, 16
@@ -1604,7 +1982,7 @@ def forward_launches(calls=1):
 def train_launches(steps):
     """``steps`` train steps: the forward, the trunk's recompute, the
     backward kernels once a layer."""
-    expected = {name: 0 for name in SOURCES}
+    expected = zero_counts()
     expected.update(forward_launches(steps))
     for name in ("attn_sublayer_self", "attn_sublayer_cross", "glu_down_matmul",
                  "fused_residual_layernorm"):
@@ -2189,7 +2567,10 @@ def v1_forward_launches(tcfg, calls=1):
     the same two for cross-attention, the pre-MLP norm (a LayerNorm
     whatever ``norm_type`` says) and the mid-MLP Normformer norm; the
     encoder and MLM norms; the projected text's norm; one attention a
-    self- and a cross-attention (unmasked)."""
+    self- and a cross-attention (unmasked), the self-attention over its
+    max_position_embeddings keys (the two-pass variant above 288; text keys
+    stay below)."""
+    from open_muse_tpu_torch.kernels.flash_attention import ONE_PASS_MAX_KEYS
     from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformerConfig
 
     cfg = MaskGitTransformerConfig.from_dict(tcfg)[0]
@@ -2198,10 +2579,12 @@ def v1_forward_launches(tcfg, calls=1):
     once = (cfg.use_encoder_layernorm + (cfg.use_mlm_layer and cfg.use_mlm_layernorm)
             + (cross and cfg.project_encoder_hidden_states))
     norm = "fused_residual_rmsnorm" if cfg.norm_type == "rmsnorm" else "fused_residual_layernorm"
-    expected = {name: 0 for name in SOURCES}
+    expected = zero_counts()
     expected[norm] += calls * (cfg.num_hidden_layers * per_layer + once)
     expected["fused_residual_layernorm"] += calls * cfg.num_hidden_layers
     expected["flash_attention"] = calls * cfg.num_hidden_layers * (1 + cross)
+    if cfg.max_position_embeddings > ONE_PASS_MAX_KEYS:  # the self-attention's keys
+        expected["flash_attention_two_pass"] = calls * cfg.num_hidden_layers
     return expected
 
 
@@ -2715,6 +3098,14 @@ def main() -> int:
     paths["class_conditional"], paths["class_inpainting"] = class_conditional_phase(device, smi)
     log(f"[phase] class_conditional, class_inpainting {time.perf_counter() - phase_t0:.1f} s")
 
+    for name, phase in (("movq_class", movq_class_phase), ("movq_text", movq_text_phase),
+                        ("paella", paella_phase)):
+        phase_t0 = time.perf_counter()
+        phase_ok, paths[name] = phase(device, smi)
+        if not phase_ok:
+            failed.append(f"{name} phase")
+        log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
+
     phase_t0 = time.perf_counter()
     if not gradient_check(device):
         failed.append("full-width gradient check")
@@ -2757,7 +3148,15 @@ def main() -> int:
                      "launches_by_path": {path: p[name] for path, p in paths.items()},
                      "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": LIBRARY_MS.get(name)})
+        if name == "flash_attention":  # its variants counted apart
+            two_pass = {path: p["flash_attention_two_pass"] for path, p in paths.items()}
+            rows[-1]["launches_by_variant"] = {"one_pass": rows[-1]["launches"]
+                                               - sum(two_pass.values()),
+                                               "two_pass": sum(two_pass.values())}
+            rows[-1]["two_pass_launches_by_path"] = two_pass
     missing = [r["name"] for r in rows if r["launches"] == 0]
+    missing += [f"{r['name']} ({variant})" for r in rows
+                for variant, n in r.get("launches_by_variant", {}).items() if n == 0]
     if missing:
         failed.append(f"kernels never launched on a path: {missing}")
     print(smi)

@@ -10,7 +10,12 @@ module that owns the key says how the array turns:
   nn.Conv2d           kernel (kh, kw, I, O) -> weight (O, I, kh, kw)
   nn.ConvTranspose2d  kernel (kh, kw, I, O) -> weight (I, O, kh, kw), spatially
                       flipped: flax's ConvTranspose correlates where torch's
-                      convolves, so the flip keeps the two forwards equal
+                      convolves, so the flip keeps the two forwards equal;
+                      one built in flax with ``transpose_kernel=True``
+                      (marked ``flax_transpose_kernel`` in the port) holds
+                      (kh, kw, O, I), the transposed convolution's forward
+                      kernel, which flax flips itself: -> (I, O, kh, kw),
+                      not flipped
   norms / embeddings  scale / embedding     -> weight (unchanged)
 """
 
@@ -44,6 +49,8 @@ def flax_key_candidates(torch_key: str) -> List[str]:
 
 def _to_torch_layout(value: np.ndarray, module: nn.Module, leaf: str) -> np.ndarray:
     if leaf == "weight" and isinstance(module, nn.ConvTranspose2d):
+        if getattr(module, "flax_transpose_kernel", False):
+            return value.transpose(3, 2, 0, 1)
         return value[::-1, ::-1].transpose(2, 3, 0, 1)
     if leaf == "weight" and isinstance(module, nn.Conv2d):
         return value.transpose(3, 2, 0, 1)

@@ -3,9 +3,11 @@
 ``from_config`` builds a model from a config object or dict;
 ``from_pretrained`` reads a checkpoint directory's ``config.json`` and its
 torch weights (``model.safetensors`` or ``pytorch_model.bin``) with the
-open-muse key names onto a device (the card unless the caller asks for the
-CPU); ``save_pretrained`` writes that format, which the JAX package's
-``from_pretrained`` reads too.
+open-muse key names, or the JAX package's own ``save_pretrained`` weights
+(``flax_model.safetensors``, the flax tree mapped by
+``convert.jax_params_to_state_dict``), onto a device (the card unless the
+caller asks for the CPU); ``save_pretrained`` writes the torch format, which
+the JAX package's ``from_pretrained`` reads too.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .configuration import CONFIG_NAME, BaseConfig, load_config_dict
 __all__ = ["ModelMixin", "load_state_file", "resolve_device", "WEIGHTS_NAMES"]
 
 WEIGHTS_NAMES = ("model.safetensors", "pytorch_model.bin")
+FLAX_WEIGHTS_NAME = "flax_model.safetensors"  # the JAX package's save_pretrained
 
 
 def load_state_file(path: str) -> Dict[str, torch.Tensor]:
@@ -43,6 +46,19 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def _flax_state_dict(path: str, model) -> Dict[str, torch.Tensor]:
+    """The port state_dict of a ``flax_model.safetensors`` file (the flat
+    flax tree, '.'-joined paths); raises on a leaf no port key takes."""
+    from safetensors.numpy import load_file
+
+    from .convert import jax_params_to_state_dict
+
+    state, unused = jax_params_to_state_dict(load_file(path), model)
+    if unused:
+        raise KeyError(f"{path}: no port key for {unused[:8]}")
+    return state
+
+
 class ModelMixin:
     """Classmethods shared by the port's ``nn.Module`` models.  Subclasses
     set ``config_class``, ``_class_name`` (the class name written to and
@@ -51,6 +67,7 @@ class ModelMixin:
 
     config_class = BaseConfig
     _class_name = None
+    _extra_config: Dict[str, Any] = {}  # written to config.json beside the fields
 
     @classmethod
     def config_from_dict(cls, config_dict: Dict[str, Any]) -> BaseConfig:
@@ -66,19 +83,24 @@ class ModelMixin:
     def from_pretrained(cls, path: str, device="cuda"):
         """Build on ``device`` from ``path/config.json`` and load the torch
         weights beside it (unknown checkpoint keys such as buffers are
-        ignored; a missing key raises).  Raises when ``device`` is CUDA and
-        there is none."""
+        ignored; a missing key raises), else the JAX package's flax weights
+        (every leaf must map to one port key).  Raises when ``device`` is
+        CUDA and there is none."""
         device = resolve_device(device)
-        for name in WEIGHTS_NAMES:
+        for name in (*WEIGHTS_NAMES, FLAX_WEIGHTS_NAME):
             weights = os.path.join(path, name)
             if os.path.isfile(weights):
                 with torch.device(device):
                     model = cls.from_config(load_config_dict(path))
+                if name == FLAX_WEIGHTS_NAME:
+                    model.load_state_dict(_flax_state_dict(weights, model))
+                    return model
                 missing, _ = model.load_state_dict(load_state_file(weights), strict=False)
                 if missing:
                     raise KeyError(f"{weights} lacks {missing[:8]}")
                 return model
-        raise EnvironmentError(f"no model weights ({' / '.join(WEIGHTS_NAMES)}) in {path}")
+        raise EnvironmentError(f"no model weights ({' / '.join(WEIGHTS_NAMES)} / "
+                               f"{FLAX_WEIGHTS_NAME}) in {path}")
 
     def save_pretrained(self, save_directory: str) -> None:
         """Write ``config.json`` (the config's fields and ``_class_name``) and
@@ -87,6 +109,7 @@ class ModelMixin:
 
         os.makedirs(save_directory, exist_ok=True)
         config_dict = dataclasses.asdict(self.config)
+        config_dict.update(self._extra_config)
         config_dict["_class_name"] = self._class_name or type(self).__name__
         with open(os.path.join(save_directory, CONFIG_NAME), "w", encoding="utf-8") as f:
             json.dump(config_dict, f, indent=2, sort_keys=True)

@@ -42,13 +42,15 @@
 //    half of the 16-key chunks (at most 9), 256 threads; the halves' row
 //    maxima and sums meet in shared memory (sums added in warp order) and
 //    the second warp's partial P V is added to the first's before the store.
-//  * Tk > 288: no path launches it; two passes over 64-key tiles, four
+//  * Tk > 288 (the 1024-token v1 trunks of the MOVQ configs: 1025 keys
+//    with the class token, 1024 without): two passes over 64-key tiles, four
 //    warps, 64 query rows a block: the first pass takes each row's max and
 //    sum of exponentials online, the second recomputes S, forms P in bf16
 //    and accumulates P V, with K and V loaded synchronously and V transposed
 //    into padded shared memory.
 //
-// All count as one launch of the wrapper.  Query rows, keys and the batch /
+// All count as one launch of the wrapper; the wrapper counts the two-pass
+// variant apart too.  Query rows, keys and the batch /
 // token strides are free: q, k and v may be views into a fused projection
 // (token stride 3 H D for a packed [q | k | v]), with no padding and no copy.
 // No atomics: two calls are bit-equal.

@@ -2,10 +2,13 @@
 
 Every wrapper takes the plain version for tensors on the CPU, and for CUDA
 tensors launches its kernel or raises: there is no fallback.  Each wrapper
-counts its launches in a plain integer attribute, ``wrapper.launches``.  The
-forward wrappers are ``torch.autograd.Function``s whose backward is the
-matching backward wrapper, so one Function runs the plain versions on the CPU
-and the kernels on the card in both directions.  The fused norms and
+counts its launches in a plain integer attribute, ``wrapper.launches``;
+``flash_attention_two_pass`` counts apart the launches of
+``flash_attention`` that take its two-pass variant (more keys than the
+one-pass kernel holds).  The forward wrappers are
+``torch.autograd.Function``s whose backward is the matching backward
+wrapper, so one Function runs the plain versions on the CPU and the kernels
+on the card in both directions.  The fused norms and
 ``flash_attention`` have no backward kernel, as their TPU kernels have none:
 their Functions launch the kernel forward and take the gradient of the plain
 version, recomputed from the saved inputs (``plain_vjp``).  Under CUDA
@@ -55,6 +58,15 @@ def plain_vjp(plain, inputs, grads, needs):
     return tuple(next(got, None) if n else None for n in needs)
 
 
+class LaunchCounter:
+    """A launch count kept beside the wrappers' own, for a kernel variant
+    counted apart: it has a wrapper's ``__name__`` and ``launches``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -67,7 +79,7 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
 
 from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
                             attn_sublayer_self, attn_sublayer_self_bwd)
-from .flash_attention import flash_attention  # noqa: E402
+from .flash_attention import flash_attention, flash_attention_two_pass  # noqa: E402
 from .fused_norm import fused_residual_layernorm, fused_residual_rmsnorm  # noqa: E402
 from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
 from .glu_matmul import glu_down_matmul, glu_down_matmul_bwd  # noqa: E402
@@ -77,12 +89,12 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul"
            "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
            "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
-           "flash_attention"]
+           "flash_attention", "flash_attention_two_pass", "LaunchCounter"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
             glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
-            fused_residual_layernorm, flash_attention)
+            fused_residual_layernorm, flash_attention, flash_attention_two_pass)
 
 
 def launch_counts() -> dict:

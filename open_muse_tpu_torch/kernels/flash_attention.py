@@ -16,9 +16,10 @@ weights cast to the input type before the PV product, and PV summed in fp32
     addresses.  Up to 288 keys (every path: v1's 257, v2's 77) a
     block stages all of K and V in shared memory and computes S once, one
     warp over every key of 16 query rows up to 80 keys and two warps each
-    over half of them above; more keys take the source's two-pass variant.
-    The choice is made on Tk before the launch, and every variant counts as
-    one launch of this wrapper.
+    over half of them above; more keys (the 1024-token v1 trunks' 1025 and
+    1024) take the source's two-pass variant.  The choice is made on Tk
+    before the launch; every variant counts as one launch of this wrapper,
+    and the two-pass one also in ``flash_attention_two_pass``.
 The TPU kernel has no VJP (JAX enables it for inference only), so there is
 no backward kernel: the backward recomputes the plain version from the saved
 inputs and takes its gradient.
@@ -31,12 +32,15 @@ import math
 
 import torch
 
-from . import on_cpu, plain_vjp, stream_handle
+from . import LaunchCounter, on_cpu, plain_vjp, stream_handle
 from ._build import check, library
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_two_pass",
+           "HEAD_DIMS", "ONE_PASS_MAX_KEYS"]
 
 HEAD_DIMS = (48, 64)  # the kernel's instantiations
+ONE_PASS_MAX_KEYS = 288  # csrc kMaxKeys: more keys take the two-pass variant
+flash_attention_two_pass = LaunchCounter("flash_attention_two_pass")
 
 
 def flash_attention_plain(q, k, v):
@@ -79,6 +83,8 @@ def _forward(q, k, v):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, d, strides,
         1.0 / math.sqrt(d), stream_handle(q)), "flash_attention")
     flash_attention.launches += 1
+    if tk > ONE_PASS_MAX_KEYS:
+        flash_attention_two_pass.launches += 1
     return out
 
 

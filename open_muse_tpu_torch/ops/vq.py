@@ -49,26 +49,35 @@ def get_codebook_entry(codebook: torch.Tensor, indices: torch.Tensor) -> torch.T
 
 
 class VectorQuantizer(nn.Module):
-    """Holds the codebook as ``embedding.weight`` (K, C), as the reference
-    does."""
+    """Holds the codebook as ``<embedding_name>.weight`` (K, C), as the
+    reference does: ``embedding`` (MaskGIT, taming, MOVQ) or ``codebook``
+    (Paella)."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int):
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 embedding_name: str = "embedding"):
         super().__init__()
-        self.embedding = nn.Embedding(num_embeddings, embedding_dim)
-        nn.init.uniform_(self.embedding.weight, -1.0 / num_embeddings, 1.0 / num_embeddings)
+        self.embedding_name = embedding_name
+        table = nn.Embedding(num_embeddings, embedding_dim)
+        nn.init.uniform_(table.weight, -1.0 / num_embeddings, 1.0 / num_embeddings)
+        self.add_module(embedding_name, table)
+
+    @property
+    def weight(self) -> torch.Tensor:
+        """The (K, C) codebook."""
+        return getattr(self, self.embedding_name).weight
 
     def get_code(self, hidden_states):
         """NHWC latents (B, H, W, C) -> (B, H*W) int64 code ids."""
         b, h, w, c = hidden_states.shape
         flat = hidden_states.reshape(-1, c)
-        return vq_argmin(flat, self.embedding.weight).long().reshape(b, h * w)
+        return vq_argmin(flat, self.weight).long().reshape(b, h * w)
 
     def forward(self, hidden_states):
         """NHWC latents -> (z_q NHWC in their dtype, ids (B, H*W))."""
         b, h, w, _ = hidden_states.shape
         indices = self.get_code(hidden_states)
-        z_q = self.embedding.weight[indices].reshape(b, h, w, -1).to(hidden_states.dtype)
+        z_q = self.weight[indices].reshape(b, h, w, -1).to(hidden_states.dtype)
         return z_q, indices
 
     def get_codebook_entry(self, indices):
-        return get_codebook_entry(self.embedding.weight, indices)
+        return get_codebook_entry(self.weight, indices)

@@ -4,10 +4,11 @@ prompts or their embeddings, or ImageNet class ids with
 ``is_class_conditioned=True``) and ``PipelineMuseInpainting``.
 
 Flow: tokenize -> CLIP encode (penultimate hidden state + projected pooled
-embedding) -> empty-prompt embeddings for CFG -> micro-conds ->
-``MaskGiTUViT_v2.generate2`` (or a v1 ``MaskGitTransformer``'s
-``generate2`` / ``generate``) -> VQGAN ``decode_code`` -> NHWC float
-images.  Inpainting first encodes the image to VQGAN tokens (``get_code``,
+embedding; a T5 tower gives its last hidden state and no pooled one) ->
+empty-prompt embeddings for CFG -> micro-conds -> ``MaskGiTUViT_v2.generate2``
+(or a v1 ``MaskGitTransformer``'s ``generate2`` / ``generate``) -> the VQ
+model's ``decode_code`` (a taming or MaskGIT VQGAN, MOVQ or Paella) -> NHWC
+float images.  Inpainting first encodes the image to VQGAN tokens (``get_code``,
 the ``vq_argmin`` kernel) and starts the decode from them with the masked
 tokens set to the mask token.  The class-conditional flow has no text
 tower.  The transformer may run in bf16 while the VQGAN stays fp32.
@@ -35,6 +36,9 @@ from ..core.configuration import load_config_dict
 from ..core.modeling import resolve_device
 from ..models.clip_text import CLIPTextEncoder, SimpleTokenizer
 from ..models.maskgit_vqgan import MaskGitVQGAN
+from ..models.movq import MOVQ
+from ..models.paella_vq import PaellaVQModel
+from ..models.t5_text import T5TextEncoder
 from ..models.taming_vqgan import VQGANModel, to_nhwc
 from ..models.transformer_v1 import MaskGitTransformer
 from ..models.transformer_v2 import (MaskGiTUViT_v2, decode_noise, decode_schedules,
@@ -45,21 +49,26 @@ __all__ = ["PipelineMuse", "PipelineMuseInpainting"]
 
 logger = logging.getLogger(__name__)
 
-_VAE_CLASSES = {"VQGANModel": VQGANModel, "MaskGitVQGAN": MaskGitVQGAN}
+_VAE_CLASSES = {"VQGANModel": VQGANModel, "MaskGitVQGAN": MaskGitVQGAN, "MOVQ": MOVQ,
+                "PaellaVQModel": PaellaVQModel}
 _TRANSFORMER_CLASSES = {"MaskGitTransformer": MaskGitTransformer,
                         "MaskGiTUViT": MaskGiTUViT_v2, "MaskGiTUViT_v2": MaskGiTUViT_v2}
-# in the JAX package, not ported yet (ROADMAP queue 1)
-_NOT_PORTED = {"MOVQ": "item 8", "PaellaVQModel": "item 8", "T5": "item 9"}
 
 
 def _class_of(path: str, classes: dict, kind: str):
     name = load_config_dict(path).get("_class_name")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{kind} {name!r} at {path} is not ported yet (ROADMAP "
-                                  f"queue 1, {_NOT_PORTED[name]})")
     if name not in classes:
         raise ValueError(f"Unknown {kind} class: {name}")
     return classes[name]
+
+
+def _text_encoder_class(path: str):
+    """CLIP or T5 by the directory's config.json: its HF ``architectures``
+    and ``model_type``, or the JAX package's ``_class_name``."""
+    config = load_config_dict(path)
+    names = " ".join(config.get("architectures", [])) + config.get("model_type", "") + \
+        config.get("_class_name", "")
+    return T5TextEncoder if "t5" in names.lower() else CLIPTextEncoder
 
 
 def _repeat(x, times: int):
@@ -324,8 +333,10 @@ class PipelineMuse:
         ``transformer/``, each a ``save_pretrained`` directory) or from
         explicit component paths or models, on ``device`` (the card unless
         the caller asks for the CPU).  No hub ids: there is no network.
+        The text tower is CLIP or T5 by its config (``_text_encoder_class``).
         Tokenizer files that ``transformers`` cannot load give the port's
-        ``SimpleTokenizer``, with a warning."""
+        ``SimpleTokenizer``, with a warning: the CLIP tower's
+        ``max_position_embeddings`` tokens, 77 for T5."""
         if model_name_or_path is None:
             if (transformer is None and transformer_path is None) or (
                     vae is None and vae_path is None):
@@ -343,12 +354,8 @@ class PipelineMuse:
         tokenizer = None
         if not is_class_conditioned:
             if text_encoder is None:
-                config = load_config_dict(text_encoder_path)
-                names = " ".join(config.get("architectures", [])) + config.get("model_type", "")
-                if "t5" in names.lower():
-                    raise NotImplementedError(f"the T5 text encoder at {text_encoder_path} is "
-                                              f"not ported yet (ROADMAP queue 1, item 9)")
-                text_encoder = CLIPTextEncoder.from_pretrained(text_encoder_path, device=device)
+                text_encoder = _text_encoder_class(text_encoder_path).from_pretrained(
+                    text_encoder_path, device=device)
             tokenizer = cls._load_tokenizer(text_encoder_path, text_encoder)
         if transformer is None:
             tcls = _class_of(transformer_path, _TRANSFORMER_CLASSES, "Transformer")

@@ -1,11 +1,12 @@
 """Pre-encode webdataset shards for training: VQ tokens and CLIP embeddings.
 
 Counterpart of ``scripts/pre_encode.py``: reads raw image + caption tar
-shards, runs the f16 tokenizer's ``get_code`` (a taming ``VQGANModel`` or a
-``MaskGitVQGAN``; the ``vq_argmin`` kernel on the card) and the CLIP text
-tower, and writes per sample the members
-``vq_f16.npy`` int32 (H*W,), ``clip_penultimate.npy`` fp16 (T, D),
-``clip_pooled.npy`` fp16 (P,), plus the sample's ``.txt`` and ``.json``,
+shards, runs the tokenizers' ``get_code`` (``--vae-f16`` and ``--vae-f8``,
+each a taming ``VQGANModel``, ``MaskGitVQGAN``, ``MOVQ`` or
+``PaellaVQModel`` by its config's ``_class_name``; the ``vq_argmin`` kernel
+on the card) and the CLIP text tower, and writes per sample the members
+``vq_f16.npy`` / ``vq_f8.npy`` int32 (H*W,), ``clip_penultimate.npy`` fp16
+(T, D), ``clip_pooled.npy`` fp16 (P,), plus the sample's ``.txt`` and ``.json``,
 into tar shards of the same names, which ``training.data.PreEncodedDataset``
 reads.  Models load in fp32 on ``--device`` (``cuda`` unless asked for
 ``cpu``).  Without ``--task-id`` / ``--num-tasks`` the process takes every
@@ -13,7 +14,7 @@ shard (rank 0 of 1).
 
     python -m open_muse_tpu_torch.scripts.pre_encode \\
         --shards 'data/{00000..00099}.tar' --output-dir encoded/ \\
-        --vae-f16 path/to/vqgan --text-encoder path/to/clip \\
+        --vae-f16 path/to/vqgan [--vae-f8 path/to/paella] --text-encoder path/to/clip \\
         [--batch-size 64] [--resolution 256] [--task-id 0 --num-tasks 8] \\
         [--device cpu]
 """
@@ -36,14 +37,12 @@ import torch
 from ..core.configuration import load_config_dict
 from ..core.modeling import resolve_device
 from ..models.clip_text import CLIPTextEncoder, SimpleTokenizer
-from ..models.maskgit_vqgan import MaskGitVQGAN
-from ..models.taming_vqgan import VQGANModel
+from ..pipelines.pipeline_muse import _VAE_CLASSES
 from ..training.data import decode_sample, expand_urls, image_transform, tar_samples
 
-__all__ = ["distribute_shards", "ShardWriterPool", "load_tokenizer", "to_device", "main"]
+__all__ = ["distribute_shards", "ShardWriterPool", "has_tokenizer_files", "load_tokenizer",
+           "to_device", "main"]
 
-NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 8)"
-_VAE_CLASSES = {"VQGANModel": VQGANModel, "MaskGitVQGAN": MaskGitVQGAN}
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json")
 
 
@@ -131,19 +130,23 @@ def _npy_bytes(arr) -> bytes:
 
 
 def load_vae(path: str, device):
-    """The f16 tokenizer of a checkpoint directory, by the ``_class_name`` of
-    its config: a taming ``VQGANModel`` or a ``MaskGitVQGAN`` (MOVQ and
-    Paella are not ported)."""
+    """The tokenizer of a checkpoint directory, by the ``_class_name`` of its
+    config: a taming ``VQGANModel``, a ``MaskGitVQGAN``, a ``MOVQ`` or a
+    ``PaellaVQModel``."""
     class_name = load_config_dict(path).get("_class_name", "VQGANModel")
     if class_name not in _VAE_CLASSES:
-        raise NotImplementedError(f"{class_name} checkpoints are {NOT_PORTED}")
+        raise ValueError(f"unknown VQ model class {class_name!r} at {path}")
     return _VAE_CLASSES[class_name].from_pretrained(path, device=device).eval()
+
+
+def has_tokenizer_files(path: str) -> bool:
+    return any(os.path.isfile(os.path.join(path, name)) for name in _TOKENIZER_FILES)
 
 
 def load_tokenizer(path: str, text_encoder: CLIPTextEncoder):
     """``transformers.AutoTokenizer`` where the directory holds tokenizer
     files, else the port's hash ``SimpleTokenizer`` at the tower's sizes."""
-    if any(os.path.isfile(os.path.join(path, name)) for name in _TOKENIZER_FILES):
+    if has_tokenizer_files(path):
         from transformers import AutoTokenizer
 
         return AutoTokenizer.from_pretrained(path, local_files_only=True)
@@ -190,7 +193,7 @@ def _to_host(outs, device):
 
 
 @torch.no_grad()
-def _encode_batch(batch, resolution: int, vae, text_encoder, tokenizer, device):
+def _encode_batch(batch, resolution: int, vaes, text_encoder, tokenizer, device):
     """Host transform, then the encoders on ``device`` and the copies of
     their outputs to the host, all queued: returns ``_to_host``'s host
     tensors and event, which ``_write_batch`` waits on."""
@@ -198,10 +201,11 @@ def _encode_batch(batch, resolution: int, vae, text_encoder, tokenizer, device):
     pixels = np.stack([image_transform(sample["image"], resolution, rng, center_crop=True,
                                        normalize=False)[0] for sample in batch])
     outs = {}
-    if vae is not None:
+    if vaes:
         # uint8 to the device, 4x fewer bytes than fp32; normalised there
         images = to_device(pixels, device).float() / 255.0
-        outs["vq_f16.npy"] = vae.get_code(images).to(torch.int32)
+        for name, vae in vaes.items():
+            outs[name] = vae.get_code(images).to(torch.int32)
     if text_encoder is not None:
         texts = [sample.get("text", "") for sample in batch]
         ids = tokenizer(texts, padding="max_length", truncation=True,
@@ -232,8 +236,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--shards", required=True)
     parser.add_argument("--output-dir", required=True)
-    parser.add_argument("--vae-f16", help="dir of a VQGANModel or MaskGitVQGAN checkpoint")
-    parser.add_argument("--vae-f8", help="dir of a Paella f8 checkpoint (not ported)")
+    parser.add_argument("--vae-f16", help="dir of a VQ model checkpoint (vq_f16.npy)")
+    parser.add_argument("--vae-f8", help="dir of a Paella f8 checkpoint (vq_f8.npy)")
     parser.add_argument("--text-encoder", help="dir of a CLIP text encoder")
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--resolution", type=int, default=256)
@@ -243,10 +247,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.vae_f8:
-        raise NotImplementedError(f"--vae-f8 (the Paella f8 tokenizer) is {NOT_PORTED}")
     device = resolve_device(args.device)
-    vae = load_vae(args.vae_f16, device) if args.vae_f16 else None
+    vaes = {f"vq_{kind}.npy": load_vae(path, device)
+            for kind, path in (("f16", args.vae_f16), ("f8", args.vae_f8)) if path}
     text_encoder = tokenizer = None
     if args.text_encoder:
         text_encoder = CLIPTextEncoder.from_pretrained(args.text_encoder, device=device).eval()
@@ -266,7 +269,7 @@ def main(argv=None):
     # decodes batch N + 1 while the device encodes batch N
     pending = None
     for shard_name, batch in _batches(shards, args.batch_size):
-        host, done = _encode_batch(batch, args.resolution, vae, text_encoder, tokenizer, device)
+        host, done = _encode_batch(batch, args.resolution, vaes, text_encoder, tokenizer, device)
         if pending is not None:
             _write_batch(*pending, writer)
         pending = (batch, shard_name, host, done)

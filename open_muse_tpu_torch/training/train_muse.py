@@ -8,7 +8,7 @@ text through cross-attention alone, no pooled or micro-conds, CFG cond
 dropout as a mask on the text states with or without a text tower, the
 model's dropout, no eval), in the order it runs: config
 (``utils/config.py``, yaml only) -> the frozen encoders, unless
-``training.pre_encode`` (the CLIP text tower and the VQ model, fp32,
+``training.pre_encode`` (the CLIP or T5 text tower and the VQ model, fp32,
 ``eval()``, TF32 off) -> model on the card (the override ``device=cpu`` runs
 it on the CPU; CUDA asked for and absent raises) -> optimizer (wrapped as
 ``optax.MultiSteps`` is under ``gradient_accumulation_steps``), schedule,
@@ -18,9 +18,8 @@ replayed CUDA graph on the card), masking and cond-dropout noise, the train
 step (one replayed CUDA graph on the card), metrics.jsonl, per-parameter
 grad norms, eval, the sample panel, checkpoint, a ``torch.profiler`` window }.
 ``mixed_precision: bf16`` keeps fp32 weights and runs the step under bf16
-autocast.  Soft targets, the inpainting panels, the T5 text tower, the
-MOVQ / Paella tokenizers, ``dataset_map`` dialects, wandb and multi-host
-runs are not ported.
+autocast.  Soft targets, the inpainting panels, ``dataset_map`` dialects,
+wandb and multi-host runs are not ported.
 """
 
 from __future__ import annotations
@@ -39,11 +38,14 @@ from ..core.captured import captured
 from ..core.modeling import resolve_device
 from ..models.clip_text import CLIPTextEncoder
 from ..models.maskgit_vqgan import MaskGitVQGAN
+from ..models.movq import MOVQ
+from ..models.paella_vq import PaellaVQModel
+from ..models.t5_text import T5TextEncoder
 from ..models.taming_vqgan import VQGANModel
 from ..models.transformer_v1 import KeepMasks, MaskGitTransformer
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
-from ..scripts.pre_encode import load_tokenizer, to_device
+from ..scripts.pre_encode import has_tokenizer_files, load_tokenizer, to_device
 from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
 from . import trainer as T
@@ -58,7 +60,9 @@ __all__ = ["MetricsTracker", "FrozenEncoders", "load_vq_model", "get_code", "sav
 
 logger = logging.getLogger(__name__)
 
-VQ_CLASSES = {"vqgan": VQGANModel, "maskgit_vqgan": MaskGitVQGAN}
+VQ_CLASSES = {"vqgan": VQGANModel, "maskgit_vqgan": MaskGitVQGAN, "movq": MOVQ,
+              "paella_vq": PaellaVQModel}
+TEXT_ENCODERS = {"clip": CLIPTextEncoder, "t5": T5TextEncoder}
 
 
 class MetricsTracker:
@@ -136,8 +140,7 @@ def load_vq_model(config, device):
     frozen."""
     vq_type = config.model.get("vq_model_type", "maskgit_vqgan")
     if vq_type not in VQ_CLASSES:
-        raise NotImplementedError(f"vq_model_type {vq_type!r} is not ported yet "
-                                  f"(ROADMAP queue 1, item 8)")
+        raise ValueError(f"model.vq_model_type {vq_type!r}: one of {sorted(VQ_CLASSES)}")
     vq_cls = VQ_CLASSES[vq_type]
     vq_cfg = config.model.get("vq_model")
     vq_path = vq_cfg.get("pretrained") if vq_cfg is not None else None
@@ -158,42 +161,60 @@ def get_code(vq_model, pixels):
 
 
 class FrozenEncoders:
-    """The raw-image branch's frozen models: the CLIP text tower (penultimate
-    hidden state and pooled output) and the VQ model's ``get_code``, each run
-    through ``core.captured`` (the JAX package's separately jitted
-    encoders), fp32 and ``eval()``."""
+    """The raw-image branch's frozen models: the text tower (CLIP: the
+    penultimate hidden state and the pooled output; T5: the last hidden
+    state and no pooled output, for which a v2 model gets zeros of
+    ``cond_embed_dim``) and the VQ model's ``get_code``, each run through
+    ``core.captured`` (the JAX package's separately jitted encoders), fp32
+    and ``eval()``."""
 
-    def __init__(self, text_encoder, tokenizer, vq_model, device):
+    def __init__(self, text_encoder, tokenizer, vq_model, device, cond_embed_dim=None):
         self.text_encoder = text_encoder.eval().requires_grad_(False)
         self.tokenizer = tokenizer
         self.vq_model = vq_model.eval().requires_grad_(False)
         self.device = device
+        self.cond_embed_dim = cond_embed_dim
 
     @classmethod
     def from_config(cls, config, device) -> "FrozenEncoders":
         te_cfg = config.model.get("text_encoder")
-        if te_cfg is not None and te_cfg.get("type", "clip") != "clip":
-            raise NotImplementedError(f"text_encoder.type {te_cfg.get('type')!r} is not ported "
-                                      f"yet (ROADMAP queue 1, item 9)")
+        te_type = te_cfg.get("type", "clip") if te_cfg is not None else "clip"
+        if te_type not in TEXT_ENCODERS:
+            raise ValueError(f"model.text_encoder.type {te_type!r}: one of "
+                             f"{sorted(TEXT_ENCODERS)}")
+        te_cls = TEXT_ENCODERS[te_type]
         te_path = te_cfg.get("pretrained") if te_cfg is not None else None
         if te_path and os.path.isdir(te_path):
-            text_encoder = CLIPTextEncoder.from_pretrained(te_path, device=device)
+            text_encoder = te_cls.from_pretrained(te_path, device=device)
         elif te_cfg is not None and te_cfg.get("params") is not None:
             with torch.device(device):
-                text_encoder = CLIPTextEncoder(**te_cfg.params.to_dict())
+                text_encoder = te_cls(**te_cfg.params.to_dict())
         else:
             raise ValueError("the raw-image branch needs model.text_encoder.pretrained (a "
                              "directory) or model.text_encoder.params")
+        if te_cls is T5TextEncoder and not has_tokenizer_files(te_path or ""):
+            # the JAX trainer's fallback reads max_position_embeddings, which
+            # T5Config lacks: it raises AttributeError (ROADMAP fault 3.11)
+            raise ValueError(f"a T5 text tower needs tokenizer files beside it (at "
+                             f"{te_path!r}): the JAX trainer has no length for its hash "
+                             f"tokenizer fallback (ROADMAP fault 3.11)")
+        cond_embed_dim = None
+        if config.model.get("architecture", "uvit") == "uvit":
+            cond_embed_dim = MaskGiTUViT_v2.config_from_dict(
+                config.model.transformer.to_dict()).cond_embed_dim
         return cls(text_encoder, load_tokenizer(te_path or "", text_encoder),
-                   load_vq_model(config, device), device)
+                   load_vq_model(config, device), device, cond_embed_dim)
 
     @torch.no_grad()
     def _text(self, ids):
         hidden_states, _, pooled = self.text_encoder(ids)
-        return hidden_states[-2], pooled
+        if pooled is None and self.cond_embed_dim is not None:
+            pooled = hidden_states[-1].new_zeros(ids.shape[0], self.cond_embed_dim)
+        return hidden_states[-2] if len(hidden_states) >= 2 else hidden_states[-1], pooled
 
     def encode_text(self, texts):
-        """(penultimate hidden states (B, T, D), pooled (B, P)) fp32."""
+        """(text states (B, T, D), pooled (B, P) or None) fp32: CLIP's
+        penultimate hidden state, T5's last."""
         ids = self.tokenizer(texts, padding="max_length", truncation=True,
                              max_length=self.tokenizer.model_max_length,
                              return_tensors="np")["input_ids"]

@@ -33,6 +33,7 @@ from open_muse_tpu_torch.kernels.fused_sample import (draw_seed, fused_categoric
 from open_muse_tpu_torch.models import transformer_v1, transformer_v2
 from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
 from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+from open_muse_tpu_torch.models.t5_text import T5TextEncoder
 from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
 from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer, v1_schedules
 from open_muse_tpu_torch.models.transformer_v2 import (MaskGiTUViT_v2, decode_schedules,
@@ -387,8 +388,8 @@ def test_save_pretrained_round_trip_loads_in_both_packages(tmp_path, text_pipeli
     the CPU) gives the same weights; the JAX pipeline's ``from_pretrained``
     reads the directory too, and both serve the same images (equal tokens,
     images within 1e-4 of the range).  Without tokenizer files both fall
-    back to their hash tokenizers.  A T5 text encoder raises, naming its
-    queue item; a hub id raises."""
+    back to their hash tokenizers.  A T5 text encoder directory gives the
+    T5 tower and the hash tokenizer at 77 tokens; a hub id raises."""
     _, port_pipe = text_pipelines
     port_pipe.save_pretrained(str(tmp_path))
     back = PipelineMuse.from_pretrained(str(tmp_path), device="cpu")
@@ -405,11 +406,12 @@ def test_save_pretrained_round_trip_loads_in_both_packages(tmp_path, text_pipeli
     got = back.text2image(t(ids), t(micro), jax_noise(key, 2, 1, 256, 64), timesteps=2,
                           guidance_scale=2.0)
     assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
-    t5 = tmp_path / "t5"
-    t5.mkdir()
-    (t5 / "config.json").write_text('{"architectures": ["T5EncoderModel"], "model_type": "t5"}')
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PipelineMuse.from_pretrained(str(tmp_path), text_encoder_path=str(t5), device="cpu")
+    t5 = str(tmp_path / "t5")
+    T5TextEncoder(vocab_size=100, d_model=48, d_kv=12, d_ff=64, num_layers=1,
+                  num_heads=4).save_pretrained(t5)
+    with_t5 = PipelineMuse.from_pretrained(str(tmp_path), text_encoder_path=t5, device="cpu")
+    assert isinstance(with_t5.text_encoder, T5TextEncoder)
+    assert with_t5.tokenizer.model_max_length == 77
     with pytest.raises(ValueError, match="local"):
         PipelineMuse.from_pretrained("openMUSE/muse-laiona6-uvit-clip-220k", device="cpu")
 

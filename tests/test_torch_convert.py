@@ -15,15 +15,23 @@ import torch
 
 from open_muse_tpu.core.convert import flatten_dict
 from open_muse_tpu.models.clip_text import CLIPTextEncoder as JaxCLIP
+from open_muse_tpu.models.movq import MOVQ as JaxMOVQ
+from open_muse_tpu.models.paella_vq import PaellaVQModel as JaxPaella
+from open_muse_tpu.models.t5_text import T5TextEncoder as JaxT5
 from open_muse_tpu.models.taming_vqgan import VQGANModel as JaxVQGAN
 from open_muse_tpu.models.transformer_v2 import MaskGiTUViT_v2 as JaxUViT
 from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.core.convert import flax_key_candidates, jax_params_to_state_dict
 from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+from open_muse_tpu_torch.models.movq import MOVQ
+from open_muse_tpu_torch.models.paella_vq import PaellaVQModel
+from open_muse_tpu_torch.models.t5_text import T5TextEncoder
 from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
 from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
 from test_torch_models import (CLIP_TINY, UVIT_TINY, VQGAN_TINY, port_of, random_params,
                                uvit_inputs)
+from test_torch_t5 import T5_TINY
+from test_torch_tokenizers import MOVQ_TINY, PAELLA_TINY
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,6 +40,10 @@ CASES = {
     "uvit_down_up": (JaxUViT, MaskGiTUViT_v2, {**UVIT_TINY, "force_down_up_sample": True}),
     "clip": (JaxCLIP, CLIPTextEncoder, CLIP_TINY),
     "vqgan": (JaxVQGAN, VQGANModel, VQGAN_TINY),
+    "movq": (JaxMOVQ, MOVQ, MOVQ_TINY),
+    "movq_one_res_block": (JaxMOVQ, MOVQ, {**MOVQ_TINY, "num_res_blocks": 1}),
+    "paella": (JaxPaella, PaellaVQModel, PAELLA_TINY),
+    "t5": (JaxT5, T5TextEncoder, {**T5_TINY, "feed_forward_proj": "gated-gelu"}),
 }
 
 
@@ -49,7 +61,7 @@ def test_every_leaf_maps_to_one_port_key(case):
     assert not unused, unused  # the VQGAN's encoder and quant_conv included
 
 
-@pytest.mark.parametrize("case", ["uvit", "clip", "vqgan"])
+@pytest.mark.parametrize("case", ["uvit", "clip", "vqgan", "movq", "paella", "t5"])
 def test_jax_loader_reads_port_state_dict_bit_for_bit(case):
     """The port's keys are the ones the JAX loader maps: loading the port's
     state_dict into the JAX model reproduces its params exactly."""
@@ -65,6 +77,20 @@ def test_jax_loader_reads_port_state_dict_bit_for_bit(case):
     got = flatten_dict(back.params)
     for key, value in got.items():
         np.testing.assert_array_equal(np.asarray(value), flat[key], err_msg=key)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_from_pretrained_reads_the_jax_save_pretrained_directory(case, tmp_path):
+    """The JAX package's own ``save_pretrained`` directory (its config.json
+    and ``flax_model.safetensors``) loads into the port: the same
+    state_dict as ``jax_params_to_state_dict`` of the JAX params."""
+    jax_cls, port_cls, cfg = CASES[case]
+    jm = jax_cls(**cfg, _defer_init=True)
+    port, _ = port_of(jm, port_cls, random_params(jm, 5))
+    jm.save_pretrained(str(tmp_path))
+    loaded = port_cls.from_pretrained(str(tmp_path), device="cpu")
+    want, got = port.state_dict(), loaded.state_dict()
+    assert want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want)
 
 
 def test_flax_key_candidates():
@@ -110,6 +136,9 @@ def test_port_imports_no_jax():
         from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
         from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
         from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+        from open_muse_tpu_torch.models.movq import MOVQ
+        from open_muse_tpu_torch.models.paella_vq import PaellaVQModel
+        from open_muse_tpu_torch.models.t5_text import T5TextEncoder
         from open_muse_tpu_torch.kernels import flash_attention, fused_residual_layernorm
         from open_muse_tpu_torch.training import train_maskgit_imagenet, train_muse
         from open_muse_tpu_torch.training.trainer import (make_maskgit_train_step,
@@ -136,6 +165,12 @@ def test_port_imports_no_jax():
             images = MaskGitVQGAN(resolution=32, hidden_channels=32, channel_mult=(1, 2),
                                   num_res_blocks=1, z_channels=16, num_embeddings=64,
                                   quantized_embed_dim=16).decode_code(tokens)
+            movq = MOVQ(**{json.dumps(MOVQ_TINY)!s}).decode_code(codes % 64)
+            paella = PaellaVQModel(**{json.dumps(PAELLA_TINY)!s}).get_code(
+                torch.zeros(1, 32, 32, 3))
+            t5 = T5TextEncoder(**{json.dumps(T5_TINY)!s})(torch.zeros(1, 5, dtype=torch.long))[1]
+        assert movq.shape == (1, 32, 32, 3) and paella.shape == (1, 64)
+        assert t5.shape == (1, 5, 32)
         assert out.shape == (1, 16, 64) and codes.shape == (1, 256)
         assert tokens.shape == (1, 16) and images.shape == (1, 8, 8, 3)
         from open_muse_tpu_torch.models.transformer_v1 import KeepMasks

@@ -241,13 +241,14 @@ def test_vq_split_kernel_matches_plain(device, n, c, k):
 
 
 @pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130),
-                                   (512, 256, 8191), (300, 37, 1000)])
+                                   (512, 256, 8191), (300, 37, 1000), (4096, 4, 16384),
+                                   (2000, 4, 8192)])
 def test_vq_argmin_kernel_matches_plain(device, n, c, k):
     """fp32, TF32 off: ids equal except at rows whose two best plain scores
     lie within 1e-5 of the squared distances' scale (the split product's
     roundings and summation order), where the kernel's pick is within that
-    of the minimum; two calls bit-equal; ragged rows, an odd codebook and C
-    not a multiple of 8."""
+    of the minimum; two calls bit-equal; ragged rows, an odd codebook, C
+    not a multiple of 8, and the MOVQ / Paella latents' C 4."""
     gen = torch.Generator().manual_seed(n)
     z = torch.randn(n, c, generator=gen).to(device)
     cb = torch.randn(k, c, generator=gen).to(device)
@@ -425,18 +426,21 @@ def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
 
 @pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77),
                                             ((2, 256, 12, 64), 256), ((16, 256, 12, 64), 77),
-                                            ((1, 1025, 16, 64), 1025), ((64, 257, 16, 48), 257),
+                                            ((1, 1025, 16, 64), 1025), ((2, 1024, 16, 64), 1024),
+                                            ((2, 1024, 16, 64), 77), ((64, 257, 16, 48), 257),
                                             ((64, 256, 16, 64), 256), ((64, 256, 16, 64), 32)])
 def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     """v1's self-attention (ragged 257 x 257, head_dim 48: the one-pass
     variant with two warps a row group), v2's block attention over the 77
     text keys (head_dim 64: one warp a row group) when serving and at the
     training batch, 256 keys at head_dim 64 (two warps a row group), and
-    1025 keys, above the one-pass capacity of 288: the two-pass variant;
-    the v1 trainers' batch 64: the class model's self-attention, the text
-    model's self-attention and its cross-attention over 32 text keys.
-    The inputs as views into fused [q | k | v] / [k | v] projections; two
-    calls bit-equal."""
+    1025 and 1024 keys, above the one-pass capacity of 288: the two-pass
+    variant (the MOVQ configs' class and CFG text trunks), counted apart;
+    the text trunk's cross-attention over 77 T5 keys; the v1 trainers'
+    batch 64: the class model's self-attention, the text model's
+    self-attention and its cross-attention over 32 text keys.  The inputs
+    as views into fused [q | k | v] / [k | v] projections; two calls
+    bit-equal."""
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
 
     gen = torch.Generator().manual_seed(kv_len)
@@ -446,9 +450,12 @@ def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     else:
         q = _rand(gen, b, tq, h, d)
         k, v = _rand(gen, b, kv_len, 2 * h * d).reshape(b, kv_len, 2 * h, d).chunk(2, dim=2)
-    before = kernels.flash_attention.launches
+    before = kernels.launch_counts()
     out = kernels.flash_attention(q, k, v)
-    assert kernels.flash_attention.launches == before + 1
+    after = kernels.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_two_pass"] - before["flash_attention_two_pass"]
+            == int(kv_len > 288))
     ref = flash_attention_plain(q, k, v)
     assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
     assert torch.equal(out, kernels.flash_attention(q, k, v))

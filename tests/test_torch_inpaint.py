@@ -299,18 +299,65 @@ def test_pre_encode_maskgit_vqgan_matches_jax_script(tmp_path, monkeypatch):
 
 
 def test_pre_encode_rejects_what_is_not_ported(tmp_path, checkpoints):
-    """MOVQ and Paella checkpoints (told apart by the ``_class_name`` of
-    their config.json) and --vae-f8 raise, naming the tokenizers' queue
-    item."""
-    vq_dir, _ = checkpoints
-    movq_dir = tmp_path / "movq"
-    movq_dir.mkdir()
-    (movq_dir / "config.json").write_text('{"_class_name": "MOVQ"}')
+    """A checkpoint whose config names no tokenizer the port has (told
+    apart by its ``_class_name``) raises, naming the class; MOVQ and Paella
+    directories are taken (here without weights, so their loading raises)."""
     base = ["--shards", "none.tar", "--output-dir", str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pre_encode.main(base + ["--vae-f16", str(movq_dir)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pre_encode.main(base + ["--vae-f16", vq_dir, "--vae-f8", vq_dir])
+    for name in ("VQVAE2", "MOVQ", "PaellaVQModel"):
+        directory = tmp_path / name
+        directory.mkdir()
+        (directory / "config.json").write_text(f'{{"_class_name": "{name}"}}')
+    with pytest.raises(ValueError, match="VQVAE2"):
+        pre_encode.main(base + ["--vae-f16", str(tmp_path / "VQVAE2")])
+    with pytest.raises(OSError, match="no model weights"):
+        pre_encode.main(base + ["--vae-f16", str(tmp_path / "MOVQ")])
+    with pytest.raises(OSError, match="no model weights"):
+        pre_encode.main(base + ["--vae-f16", checkpoints[0], "--vae-f8",
+                                str(tmp_path / "PaellaVQModel")])
+
+
+def test_pre_encode_vae_f8_matches_jax_script(tmp_path, monkeypatch):
+    """A tiny seeded MOVQ as ``--vae-f16`` and a Paella as ``--vae-f8``, both
+    written by the port's ``save_pretrained``: ``vq_f16.npy`` and
+    ``vq_f8.npy`` of the port's pre-encode equal to the JAX script's except
+    where JAX's own fp32 distances from the latent to the two picks are
+    equal (near-ties, as ``tests/test_torch_tokenizers.py`` compares); the
+    same members, shapes and dtypes."""
+    from scripts.pre_encode import main as jax_main
+    from open_muse_tpu.models.movq import MOVQ as JaxMOVQ
+    from open_muse_tpu.models.paella_vq import PaellaVQModel as JaxPaella
+    from open_muse_tpu_torch.training.data import decode_sample, image_transform, tar_samples
+    from test_torch_tokenizers import assert_ids_match, movq_pair, paella_pair
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    dirs = {"f16": str(tmp_path / "movq"), "f8": str(tmp_path / "paella")}
+    movq_pair(34)[1].save_pretrained(dirs["f16"])
+    paella_pair(35)[1].save_pretrained(dirs["f8"])
+    shard = _caption_shard(tmp_path)
+    common = ["--shards", shard, "--vae-f16", dirs["f16"], "--vae-f8", dirs["f8"],
+              "--batch-size", "3", "--resolution", "32"]
+    jax_main(common + ["--output-dir", str(tmp_path / "jax"), "--task-id", "0",
+                       "--num-tasks", "1"])
+    stats = pre_encode.main(common + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert stats["n_samples"] == 4
+    want = _members(str(tmp_path / "jax" / os.path.basename(shard)))
+    got = _members(str(tmp_path / "port" / os.path.basename(shard)))
+    assert sorted(got) == sorted(want) and len(got) == 4 * 4  # vq_f16, vq_f8, .txt, .json
+    models = {"f16": JaxMOVQ.from_pretrained(dirs["f16"]),
+              "f8": JaxPaella.from_pretrained(dirs["f8"])}
+    latents_of = {"f16": lambda m, p: m.quant_conv(m.encoder(p)),
+                  "f8": lambda m, p: m._encode_latent(p)}
+    codebooks = {"f16": models["f16"].params["quantize"]["embedding"]["embedding"],
+                 "f8": models["f8"].params["vquantizer"]["codebook"]["embedding"]}
+    for sample in map(decode_sample, tar_samples(shard)):
+        pixels = jnp.asarray(image_transform(sample["image"], 32, center_crop=True)[0][None])
+        for kind, tokens in (("f16", 256), ("f8", 64)):
+            name = f"{sample['__key__']}.vq_{kind}.npy"
+            mine, ref = got[name], want[name]
+            assert (mine.shape, mine.dtype) == (ref.shape, ref.dtype) == ((tokens,), np.int32)
+            jm = models[kind]
+            latents = jm.module.apply({"params": jm.params}, pixels, method=latents_of[kind])
+            assert_ids_match(mine, ref, latents.reshape(-1, 4), codebooks[kind])
 
 
 def test_entry_points_default_to_cuda(checkpoints):

@@ -45,11 +45,12 @@ from open_muse_tpu_torch.training.data import ClassificationDataset
 from open_muse_tpu_torch.training.ema import EMA
 from open_muse_tpu_torch.training.masking import cond_keep_mask, prepend_class_token
 from open_muse_tpu_torch.training.optimizers import get_optimizer
+from open_muse_tpu_torch.utils.config import load_config
 from test_torch_models import VQGAN_TINY, assert_close, port_of, random_params
 from test_torch_pipeline import CLIP_FOR_UVIT
 from test_torch_train_cli import REPO_ROOT, make_preencoded_shard
 from test_torch_training import _port_params, _t, jax_masking_noise
-from test_torch_v1 import MASKGIT_VQ_TINY, REL, V1_CASES
+from test_torch_v1 import MASKGIT_VQ_TINY, REL, T5_FOR_V1, V1_CASES
 
 RATE = 0.1  # hidden_dropout, the JAX class default
 
@@ -453,10 +454,11 @@ def test_train_muse_v1_on_pre_encoded_shards(tmp_path):
 
 def test_train_muse_v1_on_raw_shards(tmp_path):
     """The same config on raw image + caption shards with a CLIP tower and
-    a taming VQGAN (``text_encoder.type: clip`` overridden; as written, T5
-    raises naming ROADMAP item 9): 4 steps, the v1 panel (12 steps, CFG 8
-    against zero text states) at step 4, ``use_ema`` on (the EMA moves),
-    checkpoints, then an exact resume."""
+    a taming VQGAN (``text_encoder.type: clip`` overridden; as written, the
+    T5 tower's directory is missing, which raises, and a T5 tower without
+    tokenizer files raises naming ROADMAP fault 3.11): 4 steps, the v1
+    panel (12 steps, CFG 8 against zero text states) at step 4, ``use_ema``
+    on (the EMA moves), checkpoints, then an exact resume."""
     from test_torch_train_raw import write_raw_shard
 
     shard, out = str(tmp_path / "raw-000.tar"), str(tmp_path / "out")
@@ -466,8 +468,11 @@ def test_train_muse_v1_on_raw_shards(tmp_path):
     clip, _ = port_of(jc, CLIPTextEncoder, random_params(jc, 60))
     clip.save_pretrained(clip_dir)
     VQGANModel(**VQGAN_TINY).save_pretrained(vq_dir)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="needs model.text_encoder"):
         train_muse.main(_v1_text_argv(shard, out, 1))
+    t5_params = [f"model.text_encoder.params.{k}={v}" for k, v in T5_FOR_V1.items()]
+    with pytest.raises(ValueError, match="fault 3.11"):
+        train_muse.main(_v1_text_argv(shard, out, 1, extra=t5_params))
     extra = ["model.text_encoder.type=clip", f"model.text_encoder.pretrained={clip_dir}",
              f"model.vq_model.pretrained={vq_dir}", "training.use_ema=true"]
     state = train_muse.main(_v1_text_argv(shard, out, 4, extra=extra))
@@ -489,3 +494,91 @@ def test_keep_masks_draw_from_their_generator():
     m = a((64, 256), 0.9, torch.device("cpu"))
     assert m.dtype == torch.bool and torch.equal(m, b((64, 256), 0.9, torch.device("cpu")))
     assert abs(m.float().mean().item() - 0.9) < 0.01
+
+
+def test_train_muse_movq_raw_against_jax(tmp_path):
+    """``configs/cc12m_movq.yaml`` (``vq_model_type: movq``) on raw shards
+    with a CLIP tower (``text_encoder.type: clip`` overridden: the config's
+    T5 needs tokenizer files, fault 3.11) and a seeded MOVQ: the frozen
+    encoders' image tokens equal to the JAX MOVQ's ``get_code`` on the same
+    pixels, tie-aware; then the port's ``train_muse.main`` and the JAX
+    package's on the same shard and checkpoints, 2 steps each (8 images a
+    batch, one per JAX CPU device), both logging finite losses."""
+    from open_muse_tpu.training.train_muse import main as jax_main
+    from open_muse_tpu_torch.training.data import Text2ImageDataset
+    from test_torch_tokenizers import assert_ids_match, movq_pair
+    from test_torch_train_raw import write_raw_shard
+
+    shard = str(tmp_path / "raw-000.tar")
+    write_raw_shard(shard, 16)
+    clip_dir, movq_dir = str(tmp_path / "clip"), str(tmp_path / "movq")
+    jc = JaxCLIP(**CLIP_FOR_UVIT, _defer_init=True)
+    port_of(jc, CLIPTextEncoder, random_params(jc, 110))[0].save_pretrained(clip_dir)
+    jv, movq = movq_pair(111)
+    movq.save_pretrained(movq_dir)
+
+    def argv(out, steps):
+        return ([f"config={os.path.join(REPO_ROOT, 'configs', 'cc12m_movq.yaml')}",
+                 f"dataset.params.train_shards_path_or_url={shard}",
+                 "dataset.params.shuffle_buffer_size=8", "dataset.params.resolution=32",
+                 f"experiment.output_dir={out}", "experiment.log_every=1",
+                 "experiment.save_every=100", "experiment.generate_every=100",
+                 "experiment.resume_from_checkpoint=null", "model.text_encoder.type=clip",
+                 f"model.text_encoder.pretrained={clip_dir}",
+                 f"model.vq_model.pretrained={movq_dir}", "training.batch_size=8",
+                 "training.mixed_precision=no", f"training.max_train_steps={steps}",
+                 # a number: the JAX trainer takes yaml's string "1e-4" as it is
+                 "optimizer.params.learning_rate=0.0001",
+                 "lr_scheduler.params.warmup_steps=1", "device=cpu"]
+                + [f"model.transformer.{k}={v}" for k, v in V1_TEXT_TINY.items()])
+
+    config = load_config(argv(str(tmp_path / "unused"), 1))
+    frozen = train_muse.FrozenEncoders.from_config(config, torch.device("cpu"))
+    assert isinstance(frozen.vq_model, type(movq))
+    batch = next(iter(Text2ImageDataset(shard, 4, resolution=32, shuffle_buffer_size=4, seed=1,
+                                        prefetch_depth=0)))
+    tokens = frozen.prepare_batch(batch)["image_tokens"]
+    pixels = jnp.asarray(batch["pixel_values"])
+    latents = jv.module.apply({"params": jv.params}, pixels,
+                              method=lambda m, p: m.quant_conv(m.encoder(p)))
+    assert tokens.shape == (4, 256)
+    assert_ids_match(tokens, np.asarray(jv.get_code(pixels)), latents.reshape(-1, 4),
+                     jv.params["quantize"]["embedding"]["embedding"])
+
+    state = train_muse.main(argv(str(tmp_path / "port"), 2))
+    assert state.step == 2 and isinstance(state.model, MaskGitTransformer)
+    jax_main(argv(str(tmp_path / "jax"), 2))
+    for side in ("port", "jax"):
+        logged = [m for m in _metrics(str(tmp_path / side)) if "loss" in m]
+        assert [m["step"] for m in logged] == [1, 2], side
+        assert all(np.isfinite(m["loss"]) for m in logged), side
+
+
+def test_frozen_encoders_take_a_t5_tower():
+    """``FrozenEncoders`` with a T5 tower: the text states are its last
+    hidden state (the JAX ``encode``'s ``hs[-1]``), to atol 1e-5; no pooled
+    output for v1, zeros of ``cond_embed_dim`` for v2, as the JAX trainer
+    feeds; the empty prompt's embeddings likewise."""
+    from open_muse_tpu.models.t5_text import T5TextEncoder as JaxT5
+    from open_muse_tpu_torch.models.clip_text import SimpleTokenizer
+    from open_muse_tpu_torch.models.t5_text import T5TextEncoder
+    from test_torch_tokenizers import movq_pair
+
+    jc = JaxT5(**T5_FOR_V1, _defer_init=True)
+    t5 = port_of(jc, T5TextEncoder, random_params(jc, 112))[0]
+    tokenizer = SimpleTokenizer(120, 16)
+    texts = ["a photo of a cat", ""]
+    ids = tokenizer(texts, padding="max_length", max_length=16)["input_ids"]
+    want = np.asarray(jc.encode(jnp.asarray(ids))[0][-1])
+    for cond_embed_dim in (None, 32):
+        frozen = train_muse.FrozenEncoders(t5, tokenizer, movq_pair(113)[1], torch.device("cpu"),
+                                           cond_embed_dim)
+        states, pooled = frozen.encode_text(texts)
+        np.testing.assert_allclose(states.numpy(), want, rtol=0, atol=1e-5)
+        empty = frozen.empty_embeds()
+        np.testing.assert_allclose(empty["empty_embeds"].numpy(), want[1:], rtol=0, atol=1e-5)
+        if cond_embed_dim is None:
+            assert pooled is None and empty["empty_cond_embeds"] is None
+        else:
+            assert torch.equal(pooled, torch.zeros(2, 32))
+            assert torch.equal(empty["empty_cond_embeds"], torch.zeros(1, 32))

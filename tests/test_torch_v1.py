@@ -270,3 +270,115 @@ def test_text_pipeline_serves_v1_as_jax():
     np.testing.assert_array_equal(got_ids[0], want_ids[0])
     assert got.shape == want.shape == (2, 8, 8, 3)
     assert_close(got, want, REL)
+
+
+# -- the MOVQ pipelines: configs/imagenet_movq.yaml and configs/cc12m_movq.yaml ----
+
+def _movq_pair(seed):
+    from open_muse_tpu.models.movq import MOVQ as JaxMOVQ
+    from open_muse_tpu_torch.models.movq import MOVQ
+    from test_torch_tokenizers import MOVQ_TINY
+
+    jv = JaxMOVQ(**MOVQ_TINY, _defer_init=True)
+    return jv, port_of(jv, MOVQ, random_params(jv, seed))[0]
+
+
+# T5 at the width of the v1 text case's text states (encoder_hidden_size 48)
+T5_FOR_V1 = dict(vocab_size=120, d_model=48, d_kv=12, d_ff=96, num_layers=2, num_heads=4,
+                 feed_forward_proj="gated-gelu")
+
+
+def movq_text_pipelines(seed, max_length=16):
+    """The v1 text case (cross-attention, RMSNorm), a T5 tower and a MOVQ,
+    in both packages, with the hash tokenizer at ``max_length``."""
+    from open_muse_tpu.models.t5_text import T5TextEncoder as JaxT5
+    from open_muse_tpu_torch.models.t5_text import T5TextEncoder
+
+    jt = JaxV1(**V1_CASES["text_rms_bias"], _defer_init=True)
+    jc = JaxT5(**T5_FOR_V1, _defer_init=True)
+    transformer = port_of(jt, MaskGitTransformer, random_params(jt, seed))[0]
+    text_encoder = port_of(jc, T5TextEncoder, random_params(jc, seed + 1))[0]
+    jv, vae = _movq_pair(seed + 2)
+    return (JaxPipeline(vae=jv, transformer=jt, text_encoder=jc,
+                        tokenizer=JaxTokenizer(120, max_length)),
+            PipelineMuse(vae=vae, transformer=transformer, text_encoder=text_encoder,
+                         tokenizer=SimpleTokenizer(120, max_length)))
+
+
+def test_movq_class_pipeline_matches_jax():
+    """A class-id request with the MOVQ decoding the v1 tokens
+    (``configs/imagenet_movq.yaml``'s pairing): token ids exactly equal to
+    the JAX pipeline's under its noise, images to REL of their range."""
+    jt = JaxV1(**V1_TINY, _defer_init=True)
+    transformer = port_of(jt, MaskGitTransformer, random_params(jt, 100))[0]
+    jv, vae = _movq_pair(101)
+    jax_pipe = JaxPipeline(vae=jv, transformer=jt, is_class_conditioned=True)
+    pipe = PipelineMuse(vae=vae, transformer=transformer, is_class_conditioned=True)
+    want_ids, got_ids = [], []
+    _recording_decode(jv, want_ids)
+    _recording_decode(vae, got_ids)
+    key, timesteps = jax.random.PRNGKey(102), 4
+    want = np.asarray(jax_pipe(class_ids=[3, 1], timesteps=timesteps, key=key,
+                               return_pil=False))
+    got = pipe(class_ids=[3, 1], timesteps=timesteps, return_pil=False,
+               noise=jax_noise(key, timesteps, 2, 16, V1_TINY["codebook_size"]))
+    np.testing.assert_array_equal(got_ids[0], want_ids[0])
+    assert got.shape == want.shape == (2, 8, 8, 3)  # 4 x 4 tokens, the MOVQ at f2
+    assert_close(got, want, REL)
+
+
+def test_t5_movq_text_pipeline_matches_jax():
+    """A text request with a T5 tower (its last hidden state, no pooled
+    output), CFG against the empty prompt and the MOVQ decode
+    (``configs/cc12m_movq.yaml``'s pairing): token ids exactly equal to the
+    JAX pipeline's under its noise, images to REL of their range."""
+    jax_pipe, pipe = movq_text_pipelines(103)
+    want_ids, got_ids = [], []
+    _recording_decode(jax_pipe.vae, want_ids)
+    _recording_decode(pipe.vae, got_ids)
+    text, key, timesteps = ["a red fox", "two cubes"], jax.random.PRNGKey(104), 4
+    want = np.asarray(jax_pipe(text=text, timesteps=timesteps, guidance_scale=2.0, key=key,
+                               return_pil=False))
+    got = pipe(text=text, timesteps=timesteps, guidance_scale=2.0, return_pil=False,
+               noise=jax_noise(key, timesteps, 2, 16, V1_TINY["codebook_size"]))
+    np.testing.assert_array_equal(got_ids[0], want_ids[0])
+    assert got.shape == want.shape == (2, 8, 8, 3)
+    assert_close(got, want, REL)
+
+
+def test_jax_saved_t5_movq_pipeline_loads_in_the_port(tmp_path, monkeypatch):
+    """The JAX pipeline's ``save_pretrained`` directory (flax weights, the
+    JAX configs) read by the port's ``from_pretrained``: the T5 tower told
+    apart by its ``_class_name``, the MOVQ by its own, no tokenizer files so
+    the hash tokenizer at 77 tokens, as the JAX pipeline falls back to; the
+    same tokens and images as the JAX pipeline.  The port's own directory
+    then round-trips: the port reads it back, and so does the JAX
+    pipeline (T5 by the HF ``architectures``)."""
+    from open_muse_tpu_torch.models.movq import MOVQ
+    from open_muse_tpu_torch.models.t5_text import T5TextEncoder
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    jax_pipe, _ = movq_text_pipelines(105, max_length=77)
+    jax_pipe.save_pretrained(str(tmp_path / "jax"))
+    back = PipelineMuse.from_pretrained(str(tmp_path / "jax"), device="cpu")
+    assert isinstance(back.text_encoder, T5TextEncoder) and isinstance(back.vae, MOVQ)
+    assert isinstance(back.tokenizer, SimpleTokenizer)
+    assert (back.tokenizer.vocab_size, back.tokenizer.model_max_length) == (120, 77)
+    key, timesteps = jax.random.PRNGKey(106), 3
+    noise = jax_noise(key, timesteps, 1, 16, V1_TINY["codebook_size"])
+    want = np.asarray(jax_pipe(text="a lighthouse", timesteps=timesteps, guidance_scale=2.0,
+                               key=key, return_pil=False))
+    got = back(text="a lighthouse", timesteps=timesteps, guidance_scale=2.0, noise=noise,
+               return_pil=False)
+    assert_close(got, want, REL)
+    back.save_pretrained(str(tmp_path / "port"))
+    again = PipelineMuse.from_pretrained(str(tmp_path / "port"), device="cpu")
+    for name in ("transformer", "text_encoder", "vae"):
+        a, b = getattr(back, name).state_dict(), getattr(again, name).state_dict()
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), name
+    jax_again = JaxPipeline.from_pretrained(str(tmp_path / "port"))
+    assert type(jax_again.text_encoder).__name__ == "T5TextEncoder"
+    assert type(jax_again.vae).__name__ == "MOVQ"
+    assert_close(np.asarray(jax_again(text="a lighthouse", timesteps=timesteps,
+                                      guidance_scale=2.0, key=key, return_pil=False)), want, REL)
