@@ -56,7 +56,15 @@ directly (eager); the token ids of the two must be equal:
 - train_v1_text: ``train_muse.main`` on ``configs/cc12m.yaml`` (the v1 model
   with cross-attention, 24 x 1024, ``architecture: transformer``) on a seeded
   pre-encoded shard at batch 64 with CFG cond dropout, then a resume and
-  ``[train_eq]`` for the v1 text step.
+  ``[train_eq]`` for the v1 text step;
+- train_vqgan: ``training.train_vqgan.main`` on ``configs/vqgan_gan.yaml``
+  (the MaskGIT VQGAN, the perceptual term, the hinge PatchGAN) at batch 8
+  over 1024 seeded PNGs, 8 steps, disc_start 4: one replayed CUDA graph a
+  step holding both players and ``vq_argmin``; the recon panel and both
+  checkpoints, the saved VQ reloaded; ``[train_eq]`` for the VQGAN step;
+- train_soft: ``train_muse.main`` on the flagship config's raw branch with
+  ``use_soft_code_target`` (soft targets (16, 256, 8192) from the f16 VQGAN's
+  ``get_soft_code``), 8 steps; ``[train_eq]`` for the soft-target step.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
@@ -643,11 +651,12 @@ def check_samplers_movq(device, gen):
 # MaskGIT VQGAN's 1024 codes, and the class trainer's batch of 64 against
 # them; at C 4 (padded to 64 in the split): the MOVQ round trip of 4 images
 # (32 x 32 latents) against its 16384 codes, and the Paella's (64 x 64
-# latents) of a pre-encode batch of 64 against its 8192
+# latents) of a pre-encode batch of 64 against its 8192; the VQGAN trainer's
+# batch of 8 (16 x 16 latents) against configs/vqgan_gan.yaml's 1024 codes
 VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
              "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192),
              "train_class": (64 * 256, 256, 1024), "movq_class": (4 * 1024, 4, 16384),
-             "paella": (64 * 4096, 4, 8192)}
+             "paella": (64 * 4096, 4, 8192), "vqgan_train": (8 * 256, 256, 1024)}
 VQ_RTOL = 1e-5
 
 
@@ -2275,15 +2284,17 @@ def _worst_diffs(a, b):
     return worst
 
 
-def train_eq_phase(device):
+def train_eq_phase(device, soft_targets=False):
     """The captured step against the eager body on one seeded full-width
     state (batch 16, cond dropout 0.1 with empty-prompt embeddings, the
     bucket diagnostics and per-parameter norms on, cuDNN deterministic):
     TRAIN_EQ_STEPS steps each, the noise from generators of one seed; the
     losses, grad norms and the worst absolute difference of every
     parameter, AdamW moment and EMA shadow (and accumulator); without and
-    with gradient accumulation 2.  Gate: bit-equal.  Where not, a second
-    eager state tells whether eager is itself nondeterministic."""
+    with gradient accumulation 2; with ``soft_targets``, the soft-target
+    step (seeded soft targets (16, 256, 8192)) without accumulation.  Gate:
+    bit-equal.  Where not, a second eager state tells whether eager is
+    itself nondeterministic."""
     from open_muse_tpu_torch.training.masking import draw_masking_noise
 
     torch.backends.cudnn.deterministic = True
@@ -2291,10 +2302,13 @@ def train_eq_phase(device):
     batch = {**train_batch(device),
              "empty_embeds": torch.randn(1, KV_LEN, 768, generator=gen, device=device),
              "empty_cond_embeds": torch.randn(1, 768, generator=gen, device=device)}
+    if soft_targets:
+        batch["soft_targets"] = torch.softmax(
+            4 * torch.randn(TRAIN_B, TRAIN_S, 8192, generator=gen, device=device), -1)
     ok = True
-    for accumulation in (1, 2):
+    for accumulation in (1,) if soft_targets else (1, 2):
         step = _research_step(cond_dropout_prob=0.1, with_diagnostics=True,
-                              with_param_grad_norms=True)
+                              with_param_grad_norms=True, use_soft_targets=soft_targets)
         states = [_seeded_train_state(device, accumulation) for _ in range(2)]
         gens = [torch.Generator(device=device).manual_seed(21) for _ in range(2)]
         rows, metrics_equal = [], True
@@ -2309,7 +2323,8 @@ def train_eq_phase(device):
                         f"{float(got['grad_norm']):.6f}/{float(want['grad_norm']):.6f}")
         worst = _worst_diffs(*states)
         equal = metrics_equal and all(v == 0.0 for v in worst.values())
-        log(f"[train_eq] accumulation {accumulation}, {TRAIN_EQ_STEPS} steps captured / eager: "
+        log(f"[train_eq] {'soft targets, ' if soft_targets else ''}accumulation {accumulation}, "
+            f"{TRAIN_EQ_STEPS} steps captured / eager: "
             f"loss and grad_norm per step {'; '.join(rows)}; every metric bit-equal "
             f"{metrics_equal}; worst |captured - eager| "
             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -2393,6 +2408,7 @@ def dots_phase(device):
 
 
 RAW_IMAGES, RAW_EVAL_IMAGES = 32, 16
+STEP_MS = {}  # path -> median step ms (host clock), for the phases that compare
 
 
 def raw_launches(steps, eval_batches):
@@ -2413,6 +2429,26 @@ def raw_launches(steps, eval_batches):
     return expected
 
 
+def raw_encoder_dirs(work, device):
+    """Seeded full-width CLIP-L text tower and f16 taming VQGAN (8192 codes)
+    written by save_pretrained under ``work``: (clip dir, vqgan dir)."""
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+
+    clip_dir, vq_dir = os.path.join(work, "clip"), os.path.join(work, "vqgan")
+    with torch.device(device):
+        text_encoder = CLIPTextEncoder(
+            vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+            num_attention_heads=12, max_position_embeddings=77, projection_dim=768)
+        vae = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
+                         quantized_embed_dim=256)
+    randomize_(text_encoder, 1)
+    randomize_(vae, 2)
+    text_encoder.save_pretrained(clip_dir)
+    vae.save_pretrained(vq_dir)
+    return clip_dir, vq_dir
+
+
 def train_raw_phase(device, smi):
     """train_muse.main on configs/laiona6plus_uvit_clip.yaml without
     pre-encoding: seeded raw shards (train and eval), seeded full-width CLIP-L
@@ -2423,8 +2459,6 @@ def train_raw_phase(device, smi):
     import tempfile
 
     from open_muse_tpu_torch import kernels
-    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
-    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
     from open_muse_tpu_torch.training import train_muse
     from open_muse_tpu_torch.training.data import (Text2ImageDataset, WebdatasetSelect,
                                                    decode_sample, tar_samples)
@@ -2438,18 +2472,7 @@ def train_raw_phase(device, smi):
         shard, eval_shard = (os.path.join(work, f"{n}-000.tar") for n in ("raw", "eval"))
         write_image_shard(shard, RAW_IMAGES, seed=3)
         write_image_shard(eval_shard, RAW_EVAL_IMAGES, seed=4)
-        clip_dir, vq_dir = os.path.join(work, "clip"), os.path.join(work, "vqgan")
-        with torch.device(device):
-            text_encoder = CLIPTextEncoder(
-                vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
-                num_attention_heads=12, max_position_embeddings=77, projection_dim=768)
-            vae = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
-                             quantized_embed_dim=256)
-        randomize_(text_encoder, 1)
-        randomize_(vae, 2)
-        text_encoder.save_pretrained(clip_dir)
-        vae.save_pretrained(vq_dir)
-        del text_encoder, vae
+        clip_dir, vq_dir = raw_encoder_dirs(work, device)
         out = os.path.join(work, "out")
         config_path = os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml")
         overrides = [f"dataset.params.train_shards_path_or_url={shard}",
@@ -2514,6 +2537,7 @@ def train_raw_phase(device, smi):
             f"({os.path.getsize(trace) if trace_ok else 0} bytes)")
         log(f"[train_raw] launches {launches} (expected {expected}) "
             f"{'ok' if counts_ok else 'FAIL'}")
+        STEP_MS["train_raw"] = median * 1e3
         log(f"[train_raw] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host "
             f"clock, synchronised; encode and step), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
             f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
@@ -2943,6 +2967,323 @@ def train_v1_text_phase(device, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the tokenizer's trainer and soft targets at full width -------------------
+
+# configs/vqgan_gan.yaml at its batch of 8; 8 steps with disc_start 10000 cut
+# to 4, so that steps 1 - 4 run gated and 5 - 8 adversarial; 1024 seeded PNGs
+VQGAN_STEPS, VQGAN_B, VQGAN_IMAGES, VQGAN_DISC_START = 8, 8, 1024, 4
+# [train_eq] for the VQGAN: two full-width states and the graph's pool at
+# batch 4, not 8: near the card's memory, a convolution whose cuDNN plan
+# cannot get its workspace falls back to another plan, so a graph captured
+# while memory was free and an eager step run under pressure differ in the
+# last bits (a fragmented allocator showed it; a fresh one is bit-equal)
+VQGAN_EQ_STEPS, VQGAN_EQ_B = 3, 4
+# kernel 6's ids on a step's latents against the plain search, and the soft
+# codes' argmin against kernel 6's: the least share of equal ids
+VQ_AGREE_MIN = 0.999
+
+
+def _vqgan_players(device, config, seed=0):
+    """configs/vqgan_gan.yaml's generator and discriminator from one seed,
+    each with AdamW at a constant lr of the config (its weight decay and
+    clipping), and the step (the seeded perceptual pyramid, the hinge
+    PatchGAN) at disc_start 1."""
+    from open_muse_tpu_torch.models.discriminator import PatchDiscriminator
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+    from open_muse_tpu_torch.ops.perceptual import make_perceptual_loss_fn
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState, make_vqgan_train_step
+
+    t, opt = config.training, config.optimizer.params
+    torch.manual_seed(seed)
+    with torch.device(device):
+        models = (MaskGitVQGAN(**config.model.vq_model.params.to_dict()),
+                  PatchDiscriminator(base_channels=t.disc_channels, n_layers=t.disc_layers))
+        perceptual = make_perceptual_loss_fn(seed)
+    players = tuple(TrainState(model=m, optimizer=get_optimizer(
+        "adamw", m, lambda count: float(opt.learning_rate), weight_decay=opt.weight_decay,
+        max_grad_norm=t.max_grad_norm)) for m in models)
+    step = make_vqgan_train_step(perceptual_weight=t.perceptual_weight, perceptual=perceptual,
+                                 disc_weight=t.disc_weight, disc_start=1, disc_loss=t.disc_loss)
+    return players, step
+
+
+def _vqgan_state_diffs(a, b):
+    """The worst |a - b| of both players' parameters and AdamW moments."""
+    worst = {}
+    for kind, x, y in zip(("generator", "discriminator"), a, b):
+        for p, q in zip(x.model.parameters(), y.model.parameters()):
+            pairs = [("params", p, q)] + [
+                (f"AdamW {k}", v, y.optimizer.torch_optimizer.state[q][k])
+                for k, v in x.optimizer.torch_optimizer.state[p].items()]
+            for what, u, v in pairs:
+                key = f"{kind} {what}"
+                worst[key] = max(worst.get(key, 0.0), (u.float() - v.float()).abs().max().item())
+    return worst
+
+
+def vqgan_train_eq(device, config, pixels):
+    """The captured VQGAN step against its eager body on two copies of one
+    seeded full-width state at batch VQGAN_EQ_B, cuDNN deterministic:
+    VQGAN_EQ_STEPS steps at disc_start 1 (step 1 gated: the warm-up and the
+    capture; then adversarial replays of the same graph); every metric and
+    both players' parameters and AdamW moments bit-equal, the graph
+    launching vq_argmin once.  Where not, a third state run eagerly tells
+    whether the eager step is itself nondeterministic."""
+    torch.backends.cudnn.deterministic = True
+    log(f"[train_eq] vqgan at batch {VQGAN_EQ_B}; the allocator before it: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+    try:
+        a, step = _vqgan_players(device, config)
+        b, _ = _vqgan_players(device, config)
+        batch = {"pixel_values": pixels}
+        rows, metrics_equal = [], True
+        for _ in range(VQGAN_EQ_STEPS):
+            got, want = step(a, batch), step.eager(b, batch)
+            metrics_equal &= sorted(got) == sorted(want) and all(
+                torch.equal(got[k], want[k]) for k in want)
+            rows.append(f"{float(got['loss']):.6f}/{float(want['loss']):.6f} d_weight "
+                        f"{float(got['d_weight']):.4f}/{float(want['d_weight']):.4f}")
+        worst = _vqgan_state_diffs(a, b)
+        launches = step.last_capture.get("launches")
+        equal = (metrics_equal and all(v == 0.0 for v in worst.values())
+                 and launches == {"vq_argmin": 1})
+        log(f"[train_eq] vqgan, {VQGAN_EQ_STEPS} steps captured / eager (cuDNN deterministic): "
+            f"loss and d_weight per step {'; '.join(rows)}; every metric bit-equal "
+            f"{metrics_equal}; worst |captured - eager| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f"; a replay's launches {launches} {'ok' if equal else 'FAIL'}")
+        if not equal:
+            c, _ = _vqgan_players(device, config)
+            for _ in range(VQGAN_EQ_STEPS):
+                step.eager(c, batch)
+            log("[train_eq] vqgan eager against eager: worst " + ", ".join(
+                f"{k} {v:.3e}" for k, v in _vqgan_state_diffs(b, c).items()))
+            del c
+        del a, b, step
+        return equal
+    finally:
+        torch.backends.cudnn.deterministic = False
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_vqgan_phase(device, smi):
+    """train_vqgan.main on configs/vqgan_gan.yaml as written but for the cuts
+    (its own seeded shard, 8 steps, warmup 0, disc_start 4, a checkpoint and
+    the recon panel at step 8, log every step, shuffle buffer 64): losses
+    finite, d_weight and d_loss exactly 0 through step 4 and finite and
+    non-zero after; vq_argmin once a step and once for the panel; the panel
+    and both checkpoints written, the VQ directory reloaded by
+    from_pretrained with the trained model's ids; kernel 6's ids on a step's
+    latents against the plain search; the step time, images/s, peak memory,
+    capture time and a profiled step; then [train_eq].  Returns (ok,
+    launch counts)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin, vq_argmin_plain
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+    from open_muse_tpu_torch.training import train_vqgan
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_vqgan_", dir=runs)
+    try:
+        shard = os.path.join(work, "raw-000.tar")
+        images = write_image_shard(shard, VQGAN_IMAGES, seed=7)
+        out = os.path.join(work, "out")
+        config_path = os.path.join(HERE, "configs", "vqgan_gan.yaml")
+        argv = ["config=" + config_path, f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=64", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={VQGAN_STEPS}",
+                f"experiment.generate_every={VQGAN_STEPS}",
+                f"training.max_train_steps={VQGAN_STEPS}", "lr_scheduler.params.warmup_steps=0",
+                f"training.disc_start={VQGAN_DISC_START}"]
+        for arg in argv:
+            log(f"[train_vqgan] argument {arg}")
+        config = load_config(argv)
+        t = config.training
+        log(f"[train_vqgan] cuts of configs/vqgan_gan.yaml: the s3 shards -> {VQGAN_IMAGES} "
+            f"seeded 256px PNGs, max_train_steps 500000 -> {VQGAN_STEPS}, warmup 500 -> 0, "
+            f"disc_start 10000 -> {VQGAN_DISC_START}, save_every / generate_every -> "
+            f"{VQGAN_STEPS}, shuffle buffer 1000 -> 64; as written: batch {t.batch_size}, "
+            f"{config.model.vq_model.params.to_dict()}, perceptual_weight "
+            f"{t.perceptual_weight}, disc_weight {t.disc_weight} ({t.disc_loss}, "
+            f"{t.disc_channels} channels, {t.disc_layers} layers), fp32, TF32 off")
+        expected = zero_counts()
+        expected["vq_argmin"] = VQGAN_STEPS + 1  # a step each, and the recon panel
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        players = train_vqgan.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps = [m for m in _logged(out) if "loss" in m]
+        keys = ("loss", "grad_norm", "l2", "l1", "perceptual", "vq_loss", "g_loss", "d_loss",
+                "d_weight", "logits_real", "logits_fake")
+        for m in steps:
+            log(f"[train_vqgan] step {m['step']}: " + " ".join(f"{k} {m[k]:.4g}" for k in keys)
+                + f" step_time {m['step_time'] * 1e3:.1f} ms"
+                + (f" (eager warm-up step + capture; the capture alone {m['capture_s']:.2f} s)"
+                   if "capture_s" in m else ""))
+        finite = all(math.isfinite(m[k]) for m in steps for k in keys)
+        gated = all(m["d_weight"] == 0.0 and m["d_loss"] == 0.0
+                    for m in steps if m["step"] <= VQGAN_DISC_START)
+        adversarial = all(m["d_weight"] != 0.0 and m["d_loss"] != 0.0
+                          for m in steps if m["step"] > VQGAN_DISC_START)
+        steps_ok = [m["step"] for m in steps] == list(range(1, VQGAN_STEPS + 1))
+        median = statistics.median(m["step_time"] for m in steps[1:])
+        STEP_MS["train_vqgan"] = median * 1e3
+        counts_ok = launches == expected
+        panel = os.path.join(out, f"recon-{VQGAN_STEPS}.png")
+        saved = os.path.join(out, f"checkpoint-{VQGAN_STEPS}", "unwrapped_model")
+        disc_saved = os.path.join(out, "discriminator", f"checkpoint-{VQGAN_STEPS}")
+        files_ok = all(os.path.exists(f) for f in (panel, saved, disc_saved))
+        pixels = torch.from_numpy(images[:VQGAN_B].astype("float32") / 255.0).to(device)
+        model = players[0].model
+        with torch.no_grad():
+            latents = model._latents(pixels).reshape(-1, model.config.quantized_embed_dim)
+            ids = vq_argmin(latents, model.quantize.weight)
+            agree = (ids == vq_argmin_plain(latents, model.quantize.weight)).float().mean()
+            reloaded = MaskGitVQGAN.from_pretrained(saved, device=device)
+            reload_ok = torch.equal(reloaded.get_code(pixels), model.get_code(pixels))
+        agree_ok = float(agree) >= VQ_AGREE_MIN
+        log(f"[train_vqgan] {VQGAN_STEPS} steps in {wall:.1f} s (model build, data and "
+            f"checkpoints included): losses finite {finite}; d_weight and d_loss 0 through step "
+            f"{VQGAN_DISC_START} {gated}, non-zero after {adversarial}; "
+            f"{os.path.basename(panel)}, checkpoint-{VQGAN_STEPS}/unwrapped_model and "
+            f"discriminator/checkpoint-{VQGAN_STEPS} written {files_ok}; the saved VQ reloaded "
+            f"by from_pretrained gives the trained model's ids {reload_ok}")
+        log(f"[train_vqgan] launches {launches} (expected {expected}: vq_argmin once a step in "
+            f"the graph, once for the panel) {'ok' if counts_ok else 'FAIL'}")
+        log(f"[train_vqgan] vq_argmin ids on a step's latents ({tuple(latents.shape)} x "
+            f"{tuple(model.quantize.weight.shape)}) equal to vq_argmin_plain: {float(agree):.5f} "
+            f"(>= {VQ_AGREE_MIN}) {'ok' if agree_ok else 'FAIL'}")
+        log(f"[train_vqgan] median step {median * 1e3:.1f} ms over steps 2-{VQGAN_STEPS} (host "
+            f"clock, synchronised; data loading included), {VQGAN_B / median:.2f} images/s, peak "
+            f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated) on {smi}")
+        del players, model, reloaded, latents
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a step on fresh players of the same shapes: its graph, then one profiled replay
+        prof_players, prof_step = _vqgan_players(device, config)
+        batch = {"pixel_values": pixels}
+        prof_step(prof_players, batch)
+        prof_step(prof_players, batch)
+        profiled("vqgan train step (one replayed graph, both players)",
+                 lambda: float(prof_step(prof_players, batch)["loss"]), median,
+                 "profile_train_vqgan_step.txt", smi=smi, span=True)
+        del prof_players, prof_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        eq_ok = vqgan_train_eq(device, config, pixels[:VQGAN_EQ_B])
+        ok = (finite and gated and adversarial and steps_ok and counts_ok and files_ok
+              and reload_ok and agree_ok and eq_ok)
+        return ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_soft_phase(device, smi):
+    """train_muse.main on the flagship config's raw branch with
+    use_soft_code_target (temp 1, deterministic codes) at batch 16 over the
+    seeded f16 VQGAN's 8192 codes, 8 steps on one repeated batch, the step
+    as train_raw's (bucket diagnostics and per-parameter norms in it) but
+    for its loss and encode, with no eval or panel: losses
+    finite and falling, launches exact (the soft code is plain torch: no
+    vq_argmin), the soft codes' argmin against kernel 6's ids on the same
+    latents, the step time beside train_raw's and a profiled step; then
+    [train_eq] for the soft-target step.  Returns (ok, launch counts)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin
+    from open_muse_tpu_torch.training import train_muse
+    from open_muse_tpu_torch.training.data import Text2ImageDataset
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_soft_", dir=runs)
+    try:
+        shard = os.path.join(work, "raw-000.tar")
+        write_image_shard(shard, RAW_IMAGES, seed=3)
+        clip_dir, vq_dir = raw_encoder_dirs(work, device)
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={TRAIN_STEPS}",
+                "experiment.generate_every=1000", "experiment.eval_every=1000",
+                f"experiment.log_grad_norm_every={TRAIN_STEPS}",
+                "experiment.log_entropy_buckets=true",
+                f"model.text_encoder.pretrained={clip_dir}", f"model.vq_model.pretrained={vq_dir}",
+                f"training.batch_size={TRAIN_B}", "training.overfit_one_batch=true",
+                "lr_scheduler.params.warmup_steps=0", f"training.max_train_steps={TRAIN_STEPS}",
+                "training.use_soft_code_target=true"]
+        for arg in argv:
+            log(f"[train_soft] argument {arg}")
+        config = load_config(argv)
+        expected = train_launches(TRAIN_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_muse.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        median, steps = _step_lines("train_soft", _logged(out))
+        STEP_MS["train_soft"] = median * 1e3
+        losses = [m["loss"] for m in steps]
+        finite = all(math.isfinite(v) for v in losses)
+        falling = losses[-1] < losses[0]
+        counts_ok = launches == expected
+        log(f"[train_soft] {TRAIN_STEPS} steps in {wall:.1f} s (encoder and model build and "
+            f"checkpoint included): losses finite {finite}, last {losses[-1]:.4f} < first "
+            f"{losses[0]:.4f} {falling}")
+        log(f"[train_soft] launches {launches} (expected {expected}: the train steps' alone) "
+            f"{'ok' if counts_ok else 'FAIL'}")
+        log(f"[train_soft] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host "
+            f"clock, synchronised; soft-code encode and step) beside train_raw's "
+            f"{STEP_MS.get('train_raw', float('nan')):.1f} ms, {TRAIN_B * TRAIN_S / median:.0f} "
+            f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated) on {smi}")
+        encoders = train_muse.FrozenEncoders.from_config(config, device)
+        raw = next(iter(Text2ImageDataset(shard, TRAIN_B, resolution=256, shuffle_buffer_size=16,
+                                          seed=5)))
+        vq = encoders.vq_model
+        with torch.no_grad():
+            latents = vq._latents(torch.from_numpy(raw["pixel_values"]).to(device))
+            _, codes = vq.quantize.get_soft_code(latents, config.training.get("soft_code_temp",
+                                                                                 1.0))
+            ids = vq_argmin(latents.reshape(-1, latents.shape[-1]), vq.quantize.weight)
+        agree = float((codes.reshape(-1) == ids.long()).float().mean())
+        agree_ok = agree >= VQ_AGREE_MIN
+        log(f"[train_soft] the soft codes' argmin (torch.argmin over the sq_l2 distances) equal to "
+            f"vq_argmin's ids on the same latents ({tuple(latents.shape)}): {agree:.5f} (>= "
+            f"{VQ_AGREE_MIN}) {'ok' if agree_ok else 'FAIL'}")
+        empty = encoders.empty_embeds()
+        profile_train_step(state, device, median, label="soft-target raw step (encode + step)",
+                           filename="profile_train_soft_step.txt",
+                           prepare=lambda: {**encoders.prepare_batch(raw), **empty},
+                           cond_dropout_prob=0.1, with_diagnostics=True,
+                           with_param_grad_norms=True, use_soft_targets=True)
+        del state, encoders
+        gc.collect()
+        torch.cuda.empty_cache()
+        eq_ok = train_eq_phase(device, soft_targets=True)
+        return finite and falling and counts_ok and agree_ok and eq_ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- the Hopper GEMM's variants ---------------------------------------------
 
 # (m, n, k, layout): the products of kernels 7, 9 and 10 (the GLU
@@ -3138,6 +3479,13 @@ def main() -> int:
     if not text_ok:
         failed.append("v1 text training phase")
     log(f"[phase] train_v1_text {time.perf_counter() - phase_t0:.1f} s")
+
+    for name, phase in (("train_vqgan", train_vqgan_phase), ("train_soft", train_soft_phase)):
+        phase_t0 = time.perf_counter()
+        phase_ok, paths[name] = phase(device, smi)
+        if not phase_ok:
+            failed.append(f"{name} phase")
+        log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
 
     rows = []
     for name, (ok, err, t) in report.items():

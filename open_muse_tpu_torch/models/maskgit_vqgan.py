@@ -24,7 +24,7 @@ from torch import nn
 
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
-from ..ops.vq import VectorQuantizer
+from ..ops.vq import VectorQuantizer, VQModelMixin
 from .taming_vqgan import to_nhwc
 
 __all__ = ["MaskGitVQGAN", "MaskGitVQGANConfig"]
@@ -153,7 +153,7 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
-class MaskGitVQGAN(ModelMixin, nn.Module):
+class MaskGitVQGAN(VQModelMixin, ModelMixin, nn.Module):
     """``get_code(images)`` -> ids (B, N); ``encode(images)`` -> (z_q NHWC,
     ids); ``decode_code(ids (B, N))`` -> NHWC images (B, R, R, 3);
     ``decode(z_q NHWC)`` -> NHWC images."""
@@ -167,15 +167,17 @@ class MaskGitVQGAN(ModelMixin, nn.Module):
         self.config = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim)
+        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim,
+                                        commitment_cost=cfg.commitment_cost, metric="sq_l2")
 
     def _latents(self, pixel_values):
         """NHWC or NCHW images -> NHWC latents before quantization."""
         return self.encoder(to_nhwc(pixel_values).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
-    def encode(self, pixel_values):
-        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64)."""
-        return self.quantize(self._latents(pixel_values))
+    def encode(self, pixel_values, return_loss: bool = False):
+        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64), and the
+        VQ loss with ``return_loss``."""
+        return self.quantize(self._latents(pixel_values), return_loss)
 
     def get_code(self, pixel_values):
         """Images in [0, 1] -> code ids (B, H*W) int64."""

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
-from ..ops.vq import VectorQuantizer
+from ..ops.vq import VectorQuantizer, VQModelMixin
 from .taming_vqgan import Downsample, Upsample, to_nhwc
 
 __all__ = ["MOVQ", "MOVQConfig"]
@@ -224,7 +224,7 @@ class MoVQDecoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h, zq)))
 
 
-class MOVQ(ModelMixin, nn.Module):
+class MOVQ(VQModelMixin, ModelMixin, nn.Module):
     """``get_code(images)`` -> ids (B, N); ``encode(images)`` -> (z_q NHWC,
     ids); ``decode_code(ids (B, N))`` -> NHWC images (B, R, R, 3);
     ``decode(z_q NHWC)`` -> NHWC images."""
@@ -238,7 +238,8 @@ class MOVQ(ModelMixin, nn.Module):
         self.config = cfg
         self.encoder = Encoder(cfg)
         self.decoder = MoVQDecoder(cfg)
-        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim)
+        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim,
+                                        commitment_cost=cfg.commitment_cost, metric="l2")
         self.quant_conv = nn.Conv2d(cfg.z_channels, cfg.quantized_embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.quantized_embed_dim, cfg.z_channels, 1)
 
@@ -247,9 +248,10 @@ class MOVQ(ModelMixin, nn.Module):
         h = to_nhwc(pixel_values).permute(0, 3, 1, 2)
         return self.quant_conv(self.encoder(h)).permute(0, 2, 3, 1)
 
-    def encode(self, pixel_values):
-        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64)."""
-        return self.quantize(self._latents(pixel_values))
+    def encode(self, pixel_values, return_loss: bool = False):
+        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64), and the
+        VQ loss with ``return_loss``."""
+        return self.quantize(self._latents(pixel_values), return_loss)
 
     def get_code(self, pixel_values):
         """Images in [0, 1] -> code ids (B, H*W) int64."""

@@ -14,7 +14,9 @@ module names are the reference's (``in_block.1``, ``down_blocks.N``,
 
 Reproduced reference behaviour:
   * the model is inference-only: the BatchNorm applies its running
-    statistics, which are buffers here and parameters in the JAX tree;
+    statistics, which are buffers here and parameters in the JAX tree (so
+    VQGAN training leaves them fixed here, where the JAX trainer moves them
+    by their gradients);
   * ``encode`` divides ``z_q`` by ``scale_factor`` and ``decode`` multiplies
     by it, but ``decode_code`` does not rescale.
 """
@@ -29,7 +31,7 @@ from torch import nn
 
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
-from ..ops.vq import VectorQuantizer
+from ..ops.vq import VectorQuantizer, VQModelMixin
 from .taming_vqgan import to_nhwc
 
 __all__ = ["PaellaVQModel", "PaellaVQConfig"]
@@ -81,13 +83,14 @@ class BatchNorm2dInference(nn.BatchNorm2d):
                             training=False, eps=self.eps)
 
 
-class PaellaVQModel(ModelMixin, nn.Module):
+class PaellaVQModel(VQModelMixin, ModelMixin, nn.Module):
     """``get_code(images)`` -> ids (B, N); ``encode(images)`` -> (z_q / scale
     NHWC, ids); ``decode_code(ids (B, N))`` -> NHWC images; ``decode(x
     NHWC)`` -> NHWC images of ``x * scale``."""
 
     config_class = PaellaVQConfig
     _class_name = "PaellaVQModel"
+    _quantizer_name = "vquantizer"
 
     def __init__(self, config: PaellaVQConfig | None = None, **kwargs):
         super().__init__()
@@ -115,7 +118,8 @@ class PaellaVQModel(ModelMixin, nn.Module):
                 up[-1].flax_transpose_kernel = True
         self.up_blocks = nn.Sequential(*up)
         self.out_block = nn.Sequential(nn.Conv2d(c_levels[0], 3 * 4, 1), nn.PixelShuffle(2))
-        self.vquantizer = VectorQuantizer(cfg.codebook_size, cfg.c_latent, "codebook")
+        self.vquantizer = VectorQuantizer(cfg.codebook_size, cfg.c_latent, "codebook",
+                                          metric="l2")
 
     @staticmethod
     def _flax_key(key: str):
@@ -131,10 +135,11 @@ class PaellaVQModel(ModelMixin, nn.Module):
         """NHWC latents -> NHWC images."""
         return self.out_block(self.up_blocks(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
 
-    def encode(self, pixel_values):
-        """Images in [0, 1] -> (z_q / scale_factor NHWC, code ids (B, H*W))."""
-        z_q, indices = self.vquantizer(self._latents(pixel_values))
-        return z_q / self.config.scale_factor, indices
+    def encode(self, pixel_values, return_loss: bool = False):
+        """Images in [0, 1] -> (z_q / scale_factor NHWC, code ids (B, H*W)),
+        and the VQ loss (of the unscaled z_q) with ``return_loss``."""
+        z_q, *rest = self.vquantizer(self._latents(pixel_values), return_loss)
+        return (z_q / self.config.scale_factor, *rest)
 
     def get_code(self, pixel_values):
         """Images in [0, 1] -> code ids (B, H*W) int64."""

@@ -26,7 +26,7 @@ from torch import nn
 from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
 from ..ops.layers import dot_product_attention
-from ..ops.vq import VectorQuantizer
+from ..ops.vq import VectorQuantizer, VQModelMixin
 
 __all__ = ["VQGANConfig", "VQGANModel", "to_nhwc"]
 
@@ -223,7 +223,7 @@ def to_nhwc(pixel_values):
     return pixel_values
 
 
-class VQGANModel(ModelMixin, nn.Module):
+class VQGANModel(VQModelMixin, ModelMixin, nn.Module):
     """The taming VQGAN: ``get_code(images)`` -> ids (B, N), ``encode`` ->
     (z_q NHWC, ids), ``decode_code(ids (B, N))`` -> NHWC images
     (B, R, R, 3)."""
@@ -237,7 +237,8 @@ class VQGANModel(ModelMixin, nn.Module):
         self.config = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim)
+        self.quantize = VectorQuantizer(cfg.num_embeddings, cfg.quantized_embed_dim,
+                                        commitment_cost=cfg.commitment_cost, metric="sq_l2")
         self.quant_conv = nn.Conv2d(cfg.z_channels, cfg.quantized_embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(cfg.quantized_embed_dim, cfg.z_channels, 1)
 
@@ -246,9 +247,10 @@ class VQGANModel(ModelMixin, nn.Module):
         h = to_nhwc(pixel_values).permute(0, 3, 1, 2)
         return self.quant_conv(self.encoder(h)).permute(0, 2, 3, 1)
 
-    def encode(self, pixel_values):
-        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64)."""
-        return self.quantize(self._latents(pixel_values))
+    def encode(self, pixel_values, return_loss: bool = False):
+        """Images in [0, 1] -> (z_q NHWC, code ids (B, H*W) int64), and the
+        VQ loss with ``return_loss``."""
+        return self.quantize(self._latents(pixel_values), return_loss)
 
     def get_code(self, pixel_values):
         """Images in [0, 1] -> code ids (B, H*W) int64."""

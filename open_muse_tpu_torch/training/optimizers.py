@@ -41,7 +41,7 @@ def flax_param_name(model: nn.Module, name: str) -> str:
             leaf = "kernel"
         elif isinstance(module, nn.Embedding):
             leaf = "embedding"
-        else:
+        elif not isinstance(module, nn.BatchNorm2d):  # Paella's BatchNorm names it weight
             leaf = "scale"
     rename = getattr(model, "_flax_key", lambda key: key)
     return next(c for c in flax_key_candidates(rename(name)) if c.rsplit(".", 1)[-1] == leaf)

@@ -18,8 +18,11 @@ replayed CUDA graph on the card), masking and cond-dropout noise, the train
 step (one replayed CUDA graph on the card), metrics.jsonl, per-parameter
 grad norms, eval, the sample panel, checkpoint, a ``torch.profiler`` window }.
 ``mixed_precision: bf16`` keeps fp32 weights and runs the step under bf16
-autocast.  Soft targets, the inpainting panels, ``dataset_map`` dialects,
-wandb and multi-host runs are not ported.
+autocast.  ``training.use_soft_code_target`` (the raw branch only) takes the
+image tokens and the v2 step's soft targets from the VQ model's
+``get_soft_code`` (``soft_code_temp``; ``use_stochastic_code`` samples the
+codes with Gumbel noise from the trainer's generator).  The inpainting
+panels, ``dataset_map`` dialects, wandb and multi-host runs are not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..models.taming_vqgan import VQGANModel
 from ..models.transformer_v1 import KeepMasks, MaskGitTransformer
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
+from ..ops.vq import gumbel_noise
 from ..scripts.pre_encode import has_tokenizer_files, load_tokenizer, to_device
 from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
@@ -164,16 +168,19 @@ class FrozenEncoders:
     """The raw-image branch's frozen models: the text tower (CLIP: the
     penultimate hidden state and the pooled output; T5: the last hidden
     state and no pooled output, for which a v2 model gets zeros of
-    ``cond_embed_dim``) and the VQ model's ``get_code``, each run through
+    ``cond_embed_dim``) and the VQ model's ``get_code``, or with
+    ``soft_code`` (temp, stochastic) its ``get_soft_code``, each run through
     ``core.captured`` (the JAX package's separately jitted encoders), fp32
     and ``eval()``."""
 
-    def __init__(self, text_encoder, tokenizer, vq_model, device, cond_embed_dim=None):
+    def __init__(self, text_encoder, tokenizer, vq_model, device, cond_embed_dim=None,
+                 soft_code=None):
         self.text_encoder = text_encoder.eval().requires_grad_(False)
         self.tokenizer = tokenizer
         self.vq_model = vq_model.eval().requires_grad_(False)
         self.device = device
         self.cond_embed_dim = cond_embed_dim
+        self.soft_code = soft_code
 
     @classmethod
     def from_config(cls, config, device) -> "FrozenEncoders":
@@ -202,8 +209,12 @@ class FrozenEncoders:
         if config.model.get("architecture", "uvit") == "uvit":
             cond_embed_dim = MaskGiTUViT_v2.config_from_dict(
                 config.model.transformer.to_dict()).cond_embed_dim
+        soft_code = None
+        if config.training.get("use_soft_code_target", False):
+            soft_code = (float(config.training.get("soft_code_temp", 1.0)),
+                         bool(config.training.get("use_stochastic_code", False)))
         return cls(text_encoder, load_tokenizer(te_path or "", text_encoder),
-                   load_vq_model(config, device), device, cond_embed_dim)
+                   load_vq_model(config, device), device, cond_embed_dim, soft_code)
 
     @torch.no_grad()
     def _text(self, ids):
@@ -225,17 +236,43 @@ class FrozenEncoders:
     def get_code(self, pixels):
         return get_code(self.vq_model, pixels)
 
+    def get_soft_code(self, pixels, generator=None):
+        """(soft codes (B, N, K) fp32, codes (B, N)) at ``self.soft_code``'s
+        temperature: the latents, then the soft code, each one replayed
+        CUDA graph on the card; stochastic codes take Gumbel noise drawn
+        from ``generator`` between the two, an input of the second."""
+        temp, stochastic = self.soft_code
+        vq = self.vq_model
+        latents = captured(vq, ("latents",), torch.no_grad()(vq._latents), pixels,
+                           modules=(vq,))
+        quantizer = getattr(vq, vq._quantizer_name)
+        noise = ()
+        if stochastic:
+            noise = (gumbel_noise((latents[..., 0].numel(), quantizer.weight.shape[0]),
+                                  generator),)
+        return captured(vq, ("soft_code", temp, stochastic),
+                        torch.no_grad()(lambda z, *g: quantizer.get_soft_code(z, temp, stochastic,
+                                                                              *g)),
+                        latents, *noise, modules=(vq,))
+
     def empty_embeds(self) -> dict:
         """The empty prompt's embeddings, the CFG cond-dropout replacement."""
         ehs, pooled = self.encode_text([""])
         return {"empty_embeds": ehs, "empty_cond_embeds": pooled}
 
-    def prepare_batch(self, batch) -> dict:
+    def prepare_batch(self, batch, generator=None) -> dict:
         """A collated raw batch (``Text2ImageDataset``) -> the train step's
-        tensors: the image tokens, the text states and the micro-conds."""
-        tokens = self.get_code(to_device(batch["pixel_values"], self.device))
+        tensors: the image tokens, the text states and the micro-conds, and
+        with ``soft_code`` the soft targets (the tokens then the soft code's
+        codes, as in JAX; stochastic ones drawn from ``generator``)."""
+        pixels = to_device(batch["pixel_values"], self.device)
+        out = {}
+        if self.soft_code is None:
+            tokens = self.get_code(pixels)
+        else:
+            out["soft_targets"], tokens = self.get_soft_code(pixels, generator)
         ehs, pooled = self.encode_text(batch["input_text"])
-        return {"image_tokens": tokens.long(), "encoder_hidden_states": ehs,
+        return {**out, "image_tokens": tokens.long(), "encoder_hidden_states": ehs,
                 "cond_embeds": pooled,
                 "micro_conds": to_device(micro_conds(batch, len(tokens)), self.device)}
 
@@ -367,9 +404,6 @@ def main(argv=None) -> T.TrainState:
         # the frozen fp32 encoders as serving runs them; the trunk is bf16
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    if config.training.get("use_soft_code_target", False):
-        raise NotImplementedError("use_soft_code_target needs the VQ get_soft_code, not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
 
     output_dir = config.experiment.output_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -380,6 +414,12 @@ def main(argv=None) -> T.TrainState:
     tracker = MetricsTracker(output_dir)
 
     pre_encode = config.training.get("pre_encode", False)
+    use_soft_targets = bool(config.training.get("use_soft_code_target", False))
+    if use_soft_targets and pre_encode:
+        # the JAX trainer's pre-encoded batches carry no soft_targets: its
+        # step fails on the missing key
+        raise ValueError("training.use_soft_code_target needs the raw-image branch (the VQ "
+                         "model's get_soft_code); pre-encoded shards carry no soft targets")
     encoders = None if pre_encode else FrozenEncoders.from_config(config, device)
     state = build_state(config, device)
     model = state.model
@@ -412,7 +452,7 @@ def main(argv=None) -> T.TrainState:
             label_smoothing=label_smoothing, cond_dropout_prob=cond_dropout_prob,
             autocast_dtype=autocast_dtype,
             with_diagnostics=bool(config.experiment.get("log_entropy_buckets", False)),
-            with_param_grad_norms=bool(log_grad_norm_every))
+            with_param_grad_norms=bool(log_grad_norm_every), use_soft_targets=use_soft_targets)
         eval_step = T.make_uvit_eval_step(mask_schedule, mask_id, eval_mask_ratios=eval_ratios,
                                           label_smoothing=label_smoothing,
                                           autocast_dtype=autocast_dtype)
@@ -425,12 +465,12 @@ def main(argv=None) -> T.TrainState:
     empty = None if encoders is None or is_v1 else encoders.empty_embeds()
     cond_dropout = cond_dropout_prob > 0.0 and (is_v1 or empty is not None)
 
-    def prepare(raw):
+    def prepare(raw, generator):
         if encoders is None:
             return prepare_batch(raw, config, None if is_v1 else model.config.cond_embed_dim,
                                  device)
-        batch = encoders.prepare_batch(raw)
-        if is_v1:  # v1 conditions through cross-attention alone
+        batch = encoders.prepare_batch(raw, generator)
+        if is_v1:  # v1 conditions through cross-attention alone (no soft targets either)
             return {k: batch[k] for k in ("image_tokens", "encoder_hidden_states")}
         return {**batch, **empty}
 
@@ -484,7 +524,7 @@ def main(argv=None) -> T.TrainState:
             profiler = profile(activities=[ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device.type == "cuda" else []))
             profiler.start()
-        batch = prepare(cached)
+        batch = prepare(cached, generator)
         noise = draw_masking_noise(batch_size, batch["image_tokens"].shape[1], generator,
                                    codebook_size, cond_dropout=cond_dropout)
         capture = train_step.last_capture
@@ -512,7 +552,7 @@ def main(argv=None) -> T.TrainState:
             for i, raw in enumerate(eval_data):
                 if i >= config.experiment.get("max_eval_batches", 8):
                     break
-                eb = prepare(raw)
+                eb = prepare(raw, eval_gen)
                 eval_noise = draw_masking_noise(batch_size, eb["image_tokens"].shape[1],
                                                 eval_gen, codebook_size, len(eval_ratios))
                 losses.append(float(eval_step(model, eb, eval_noise)))

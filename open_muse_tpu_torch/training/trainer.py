@@ -1,14 +1,16 @@
 """The train steps (MaskGiTUViT_v2, v1 text -> image, class-conditional
-MaskGIT), the v2 eval step, and checkpoints.
+MaskGIT, the two-player VQGAN step), the v2 eval step, and checkpoints.
 
 Counterpart of ``open_muse_tpu/training/trainer.py`` (``make_uvit_train_step``,
 ``make_v1_text2image_train_step``, ``make_maskgit_train_step``,
 ``make_uvit_eval_step``, ``grad_norm_param_names``, ``save_checkpoint``,
-``find_latest_checkpoint``, ``load_checkpoint``).  The JAX step is one
-jitted, donated program a step; here a step updates the model, optimizer and
-EMA of a ``TrainState`` in place and returns its metrics as device tensors,
-and on the card it is one replayed CUDA graph (``TrainStep`` around each
-step's body).  Masking and cond-dropout noise come in as an argument
+``find_latest_checkpoint``, ``load_checkpoint``) and of the VQGAN trainer's
+``train_step`` / ``gan_train_step`` (``open_muse_tpu/training/train_vqgan.py``).
+The JAX step is one jitted, donated program a step; here a step updates the
+models, optimizers and EMA of its ``TrainState``s in place and returns its
+metrics as device tensors, and on the card it is one replayed CUDA graph
+(``TrainStep`` around each step's body).  Masking and cond-dropout noise
+come in as an argument
 (``masking.MaskingNoise``) because JAX's PRNG bits cannot be reproduced; the
 v1 model's dropout masks are drawn inside the step from the spec's
 ``dropout`` source.
@@ -32,16 +34,21 @@ import torch
 from torch import nn
 
 from ..core.captured import capture_on, captured, pointer_key, replay
-from ..core.modeling import WEIGHTS_NAMES
+from ..core.modeling import WEIGHTS_NAMES, load_state_file
+from ..models.discriminator import (adaptive_disc_weight, generator_loss, hinge_d_loss,
+                                    last_decoder_conv, vanilla_d_loss)
+from ..models.taming_vqgan import to_nhwc
+from ..ops.losses import soft_target_cross_entropy
 from ..utils import training_utils as tu
 from .ema import EMA
 from .masking import (MaskingNoise, cond_keep_mask, mask_or_random_replace_tokens,
                       prepend_class_token)
 from .optimizers import Optimizer, flax_param_name, global_norm
 
-__all__ = ["TrainState", "StepSpec", "TrainStep", "uvit_train_body", "v1_text2image_train_body",
-           "maskgit_train_body", "make_uvit_train_step", "make_v1_text2image_train_step",
-           "make_maskgit_train_step", "make_uvit_eval_step", "grad_norm_param_names",
+__all__ = ["TrainState", "StepSpec", "VQGANSpec", "TrainStep", "uvit_train_body",
+           "v1_text2image_train_body", "maskgit_train_body", "vqgan_train_body",
+           "make_uvit_train_step", "make_v1_text2image_train_step", "make_maskgit_train_step",
+           "make_vqgan_train_step", "make_uvit_eval_step", "grad_norm_param_names",
            "save_checkpoint", "find_latest_checkpoint", "load_checkpoint"]
 
 
@@ -71,6 +78,36 @@ class StepSpec:
     with_param_grad_norms: bool = False
     # the v1 forward's dropout keep-mask source (``KeepMasks``); None: no dropout
     dropout: Optional[Callable] = None
+    # v2: the loss is the soft-target cross entropy against batch["soft_targets"]
+    use_soft_targets: bool = False
+
+    def step_inputs(self, step: int, device) -> Dict[str, torch.Tensor]:
+        """Device inputs the host derives from the step count: none."""
+        return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class VQGANSpec:
+    """What the VQGAN step closes over: the loss weights, the perceptual
+    loss (``ops.perceptual``; None: no perceptual term) and the adversarial
+    term (``disc_weight`` 0: no discriminator)."""
+
+    l1_weight: float = 1.0
+    l2_weight: float = 1.0
+    codebook_weight: float = 1.0
+    perceptual_weight: float = 0.0
+    perceptual: Optional[Callable] = None
+    disc_weight: float = 0.0
+    disc_start: int = 0
+    disc_loss: str = "hinge"
+
+    def step_inputs(self, step: int, device) -> Dict[str, torch.Tensor]:
+        """``disc_factor``: 1 from the generator's update ``disc_start`` on,
+        else 0 (taming's ``adopt_weight``), a 0-d device input, since a graph
+        freezes host values."""
+        if self.disc_weight <= 0.0:
+            return {}
+        return {"disc_factor": torch.full((), float(step >= self.disc_start), device=device)}
 
 
 def _flax_leaves(model: nn.Module):
@@ -105,6 +142,18 @@ def _backward(state: TrainState, loss):
     return grads, global_norm(grads)
 
 
+def _grads(state: TrainState, loss):
+    """``torch.autograd.grad`` of ``loss`` over the state's model alone, set
+    as its parameters' ``.grad`` -> (grads, their global norm); a parameter
+    the loss does not reach gets 0, as JAX's grad."""
+    params = list(state.model.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    for p, g in zip(params, grads):
+        p.grad = g
+    return grads, global_norm(grads)
+
+
 def _masked(batch, spec: StepSpec, noise: MaskingNoise):
     """The v1 steps' masking: the JAX defaults but for the schedule, the
     minimum rate and the codebook."""
@@ -117,7 +166,9 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
                     noise: MaskingNoise, emit: bool = True) -> Dict[str, torch.Tensor]:
     """One step's device work, with no host reads (what a graph holds):
     masking, CFG cond dropout (where the batch carries ``empty_embeds``),
-    the forward with the loss under autocast, the backward, the global grad
+    the forward with the loss under autocast (with ``spec.use_soft_targets``
+    the soft-target cross entropy against ``batch["soft_targets"]`` (B, S,
+    K) over the masked positions), the backward, the global grad
     norm, the optimizer's update (only accumulation when not ``emit``) and
     the EMA update.  Metrics: loss, grad_norm (the micro-batch's, before
     clipping), avg_masking_rate and, when asked, the four bucket diagnostics
@@ -134,8 +185,13 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         ehs = torch.where(keep[:, None, None], ehs, batch["empty_embeds"].to(ehs.dtype))
         cond = torch.where(keep[:, None], cond, batch["empty_cond_embeds"].to(cond.dtype))
     with _autocast(spec, ehs.device):
-        logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
-                             loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
+        if spec.use_soft_targets:  # neither loss_weight nor label_smoothing, as in JAX
+            logits = model(input_ids, ehs, cond, batch["micro_conds"])
+            loss = soft_target_cross_entropy(logits, labels, batch["soft_targets"],
+                                             drop_first=False)
+        else:
+            logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
+                                 loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
     grads, grad_norm = _backward(state, loss)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                "avg_masking_rate": mask_prob.mean()}
@@ -205,13 +261,70 @@ def maskgit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch
     return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
 
 
+def vqgan_train_body(states, spec: VQGANSpec, batch: Dict[str, torch.Tensor], noise=None,
+                     emit: bool = True) -> Dict[str, torch.Tensor]:
+    """The VQGAN step's device work (``train_step`` / ``gan_train_step`` of
+    the JAX trainer).  states: (generator,) or, with the adversarial term,
+    (generator, discriminator); batch: pixel_values (B, R, R, 3) in [0, 1]
+    and, with the term, disc_factor (0-d).
+
+    The generator: the model's forward with the VQ loss, ``nll = l2_weight
+    l2 + l1_weight l1 [+ perceptual_weight perceptual]``; with the term,
+    ``d_weight = adaptive_disc_weight(d nll / dW, d g_loss / dW) *
+    disc_factor`` at the decoder's last convolution W, then ``loss = nll +
+    codebook_weight vq_loss + d_weight g_loss`` (without it, no g_loss);
+    its gradients over the generator's parameters alone, the global norm,
+    clip and update.  Then the discriminator on the same batch with the
+    reconstruction detached: ``disc_factor * d_loss(D(x), D(recon))``, its
+    gradients, clip and update (both updates run before ``disc_start``
+    too: zero gradients, and the weight decay still moves the weights).
+    Metrics as JAX names them: loss, grad_norm (before clipping), l2, l1,
+    perceptual, vq_loss and with the term g_loss, d_loss, d_weight,
+    logits_real, logits_fake."""
+    gen = states[0]
+    target = to_nhwc(batch["pixel_values"])
+    recon, _, _, vq_loss = gen.model(target, return_loss=True)
+    l2 = (recon - target).square().mean()
+    l1 = (recon - target).abs().mean()
+    metrics = {"l2": l2.detach(), "l1": l1.detach(), "vq_loss": vq_loss.detach()}
+    nll = spec.l2_weight * l2 + spec.l1_weight * l1
+    if spec.perceptual is not None:
+        perceptual = spec.perceptual(recon, target)
+        metrics["perceptual"] = perceptual.detach()
+        nll = nll + spec.perceptual_weight * perceptual
+    loss = nll + spec.codebook_weight * vq_loss
+    if len(states) > 1:
+        disc, disc_factor = states[1].model, batch["disc_factor"]
+        g_loss = generator_loss(disc(recon), spec.disc_loss)
+        # both heads' gradients at W from this one forward (taming's way);
+        # JAX takes the same two numbers from one more forward and two VJP pulls
+        weight = last_decoder_conv(gen.model).weight
+        rec_grad, = torch.autograd.grad(nll, weight, retain_graph=True)
+        gan_grad, = torch.autograd.grad(g_loss, weight, retain_graph=True)
+        d_weight = adaptive_disc_weight(rec_grad, gan_grad, spec.disc_weight) * disc_factor
+        loss = loss + d_weight * g_loss
+        metrics.update(g_loss=g_loss.detach(), d_weight=d_weight)
+    _, grad_norm = _grads(gen, loss)
+    gen.optimizer.update(grad_norm, emit)
+    metrics.update(loss=loss.detach(), grad_norm=grad_norm)
+    if len(states) > 1:
+        d_loss_fn = hinge_d_loss if spec.disc_loss == "hinge" else vanilla_d_loss
+        logits_real, logits_fake = disc(target), disc(recon.detach())
+        d_loss = disc_factor * d_loss_fn(logits_real, logits_fake)
+        _, d_grad_norm = _grads(states[1], d_loss)
+        states[1].optimizer.update(d_grad_norm, emit)
+        metrics.update(d_loss=d_loss.detach(), logits_real=logits_real.detach().mean(),
+                       logits_fake=logits_fake.detach().mean())
+    return metrics
+
+
 def _flat_inputs(batch, noise):
-    """(names, tensors) of a batch and its noise, in a fixed order."""
+    """(names, tensors) of a batch and its noise (if any), in a fixed order."""
     names, tensors = [], []
     for k in sorted(batch):
         names.append(("batch", k))
         tensors.append(batch[k])
-    for f in dataclasses.fields(noise):
+    for f in dataclasses.fields(noise) if noise is not None else ():
         value = getattr(noise, f.name)
         if value is not None:
             names.append(("noise", f.name))
@@ -223,7 +336,7 @@ def _unflat_inputs(names, tensors):
     batch, noise = {}, {}
     for (kind, k), t in zip(names, tensors):
         (batch if kind == "batch" else noise)[k] = t
-    return batch, MaskingNoise(**noise)
+    return batch, MaskingNoise(**noise) if noise else None
 
 
 @dataclasses.dataclass
@@ -237,9 +350,13 @@ class _StepGraph:
 class TrainStep:
     """``step(state, batch, noise) -> metrics``: the host's part of a step
     (the lr at the update count, the EMA decay at ``state.step``, whether
-    this call emits an update under gradient accumulation, the counters)
+    this call emits an update under gradient accumulation, the spec's
+    ``step_inputs`` at ``state.step`` added to the batch, the counters)
     around ``body(state, spec, batch, noise, emit)`` (``uvit_train_body``,
-    ``v1_text2image_train_body``, ``maskgit_train_body``).
+    ``v1_text2image_train_body``, ``maskgit_train_body``,
+    ``vqgan_train_body``).  ``state`` is one ``TrainState`` or a tuple of
+    them, the players of one step (the VQGAN's generator and
+    discriminator): each has its host part, and the graph holds them all.
 
     On CPU tensors the body runs eagerly.  On the card it is one replayed
     CUDA graph a step (two under gradient accumulation: accumulate, and
@@ -264,36 +381,46 @@ class TrainStep:
         self._graphs: Dict[bool, tuple] = {}  # emit -> (key, _StepGraph)
         self.last_capture: Dict[str, Any] = {}
 
-    def __call__(self, state: TrainState, batch, noise: MaskingNoise):
+    def __call__(self, state, batch, noise: Optional[MaskingNoise] = None):
         return self._run(state, batch, noise, graph=True)
 
-    def eager(self, state: TrainState, batch, noise: MaskingNoise):
+    def eager(self, state, batch, noise: Optional[MaskingNoise] = None):
         return self._run(state, batch, noise, graph=False)
 
     def _run(self, state, batch, noise, graph: bool):
-        emit = state.optimizer.begin_step()
-        if state.ema is not None:
-            state.ema.set_step(state.step)
+        players = state if isinstance(state, tuple) else (state,)
+        emits = {p.optimizer.begin_step() for p in players}
+        if len(emits) != 1:
+            raise ValueError("the players of one step must share gradient_accumulation_steps")
+        emit = emits.pop()
+        for p in players:
+            if p.ema is not None:
+                p.ema.set_step(p.step)
+        device = next(iter(batch.values())).device
+        batch = {**batch, **self.spec.step_inputs(players[0].step, device)}
         names, tensors = _flat_inputs(batch, noise)
         if not graph or all(t.device.type == "cpu" for t in tensors):
             metrics = self.body(state, self.spec, batch, noise, emit)
         else:
-            metrics = self._replay(state, names, tensors, emit)
-        state.optimizer.end_step(emit)
-        state.step += 1
+            metrics = self._replay(state, players, names, tensors, emit)
+        for p in players:
+            p.optimizer.end_step(emit)
+            p.step += 1
         return metrics
 
-    def _key(self, state, names, tensors, emit):
-        held = [*state.model.parameters(), *state.optimizer.accumulators()]
-        if state.ema is not None:
-            held += [*state.ema.shadow.values(), state.ema.step_decay]
-        if emit:
-            held += state.optimizer.state_tensors()
+    def _key(self, players, names, tensors, emit):
+        held = []
+        for p in players:
+            held += [*p.model.parameters(), *p.optimizer.accumulators()]
+            if p.ema is not None:
+                held += [*p.ema.shadow.values(), p.ema.step_decay]
+            if emit:
+                held += p.optimizer.state_tensors()
         return (names, tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
                 pointer_key(held))
 
-    def _replay(self, state, names, tensors, emit):
-        key = self._key(state, names, tensors, emit)
+    def _replay(self, state, players, names, tensors, emit):
+        key = self._key(players, names, tensors, emit)
         cached = self._graphs.get(emit)
         if cached is not None and cached[0] == key:
             entry = cached[1]
@@ -303,7 +430,7 @@ class TrainStep:
             return {k: v.clone() for k, v in entry.outputs.items()}
         self._graphs.pop(emit, None)  # stale pointers: drop the old graph first
         metrics, entry = self._warm_up_and_capture(state, names, tensors, emit)
-        self._graphs[emit] = (self._key(state, names, tensors, emit), entry)
+        self._graphs[emit] = (self._key(players, names, tensors, emit), entry)
         return metrics
 
     def _warm_up_and_capture(self, state, names, tensors, emit):
@@ -316,7 +443,7 @@ class TrainStep:
         with torch.cuda.stream(stream):  # the real step: it launches, and counts
             metrics = {k: v.clone() for k, v in body().items()}
         warm = time.perf_counter() - t0
-        generator = getattr(self.spec.dropout, "generator", None)
+        generator = getattr(getattr(self.spec, "dropout", None), "generator", None)
         graph, outputs, delta = capture_on(stream, body, "the train step",
                                            generators=() if generator is None else (generator,))
         self.last_capture = {"emit": emit, "warm_up_s": warm,
@@ -338,6 +465,7 @@ def make_uvit_train_step(
     autocast_dtype: Optional[torch.dtype] = None,
     with_diagnostics: bool = False,
     with_param_grad_norms: bool = False,
+    use_soft_targets: bool = False,
 ) -> TrainStep:
     """``train_step(state, batch, noise) -> metrics`` (``TrainStep`` around
     ``uvit_train_body``).
@@ -349,11 +477,14 @@ def make_uvit_train_step(
     runs the forward with the loss (under autocast to ``autocast_dtype``
     when given) and the backward, takes the global grad norm, has the
     optimizer clip and update (or accumulate, under gradient accumulation)
-    and then updates the EMA, and increments ``state.step``."""
+    and then updates the EMA, and increments ``state.step``.  With
+    ``use_soft_targets`` the batch also carries soft_targets (B, S, K) fp32
+    (the VQ model's ``get_soft_code``) and the loss is their cross entropy
+    over the masked positions."""
     return TrainStep(uvit_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, noise_type, predict_all_tokens,
         mask_contiguous_region_prob, label_smoothing, cond_dropout_prob, autocast_dtype,
-        with_diagnostics, with_param_grad_norms))
+        with_diagnostics, with_param_grad_norms, use_soft_targets=use_soft_targets))
 
 
 def make_v1_text2image_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
@@ -383,6 +514,22 @@ def make_maskgit_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
     return TrainStep(maskgit_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, label_smoothing=label_smoothing,
         autocast_dtype=autocast_dtype, dropout=dropout))
+
+
+def make_vqgan_train_step(*, l1_weight: float = 1.0, l2_weight: float = 1.0,
+                          codebook_weight: float = 1.0, perceptual_weight: float = 0.0,
+                          perceptual: Optional[Callable] = None, disc_weight: float = 0.0,
+                          disc_start: int = 0, disc_loss: str = "hinge") -> TrainStep:
+    """The VQGAN tokenizer's step, ``TrainStep`` around ``vqgan_train_body``:
+    ``step((generator,), {"pixel_values": x})``, or with ``disc_weight`` > 0
+    ``step((generator, discriminator), {"pixel_values": x})``, each player a
+    ``TrainState`` with its own AdamW and no EMA; the step fills the batch's
+    disc_factor from the generator's ``step`` and ``disc_start``."""
+    if disc_loss not in ("hinge", "vanilla"):
+        raise ValueError(f"disc_loss {disc_loss!r}: hinge or vanilla")
+    return TrainStep(vqgan_train_body, VQGANSpec(
+        l1_weight, l2_weight, codebook_weight, perceptual_weight,
+        perceptual if perceptual_weight > 0.0 else None, disc_weight, disc_start, disc_loss))
 
 
 def make_uvit_eval_step(mask_schedule, mask_id: int, *,
@@ -430,9 +577,13 @@ def _save_model(path: str, config, state_dict) -> None:
 
 
 def save_checkpoint(output_dir: str, state: TrainState,
-                    checkpoints_total_limit: Optional[int] = None) -> str:
+                    checkpoints_total_limit: Optional[int] = None,
+                    pretrained: bool = False) -> str:
     """Write ``output_dir/checkpoint-{step}/``, first removing the oldest
-    checkpoints beyond ``checkpoints_total_limit``."""
+    checkpoints beyond ``checkpoints_total_limit``.  ``pretrained``: the
+    model's ``save_pretrained`` directory as ``unwrapped_model/`` (what the
+    VQGAN trainer writes, as the JAX one does), which both packages'
+    ``from_pretrained`` read."""
     path = os.path.join(output_dir, f"checkpoint-{state.step}")
     os.makedirs(path, exist_ok=True)
     if checkpoints_total_limit is not None:
@@ -442,7 +593,10 @@ def save_checkpoint(output_dir: str, state: TrainState,
         while len(existing) >= checkpoints_total_limit:
             shutil.rmtree(os.path.join(output_dir, existing.pop(0)))
     config = state.model.config
-    _save_model(os.path.join(path, "unwrapped_model"), config, state.model.state_dict())
+    if pretrained:
+        state.model.save_pretrained(os.path.join(path, "unwrapped_model"))
+    else:
+        _save_model(os.path.join(path, "unwrapped_model"), config, state.model.state_dict())
     if state.ema is not None:
         _save_model(os.path.join(path, "ema_model"), config, state.ema.shadow)
     torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()},
@@ -467,8 +621,8 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     device = next(state.model.parameters()).device
 
     def weights(sub):
-        return torch.load(os.path.join(path, sub, WEIGHTS_NAMES[1]), map_location=device,
-                          weights_only=True)
+        name = next(n for n in WEIGHTS_NAMES if os.path.isfile(os.path.join(path, sub, n)))
+        return {k: v.to(device) for k, v in load_state_file(os.path.join(path, sub, name)).items()}
 
     state.model.load_state_dict(weights("unwrapped_model"))
     if state.ema is not None:

@@ -140,9 +140,12 @@ def test_port_imports_no_jax():
         from open_muse_tpu_torch.models.paella_vq import PaellaVQModel
         from open_muse_tpu_torch.models.t5_text import T5TextEncoder
         from open_muse_tpu_torch.kernels import flash_attention, fused_residual_layernorm
-        from open_muse_tpu_torch.training import train_maskgit_imagenet, train_muse
+        from open_muse_tpu_torch.training import train_maskgit_imagenet, train_muse, train_vqgan
         from open_muse_tpu_torch.training.trainer import (make_maskgit_train_step,
-                                                          make_v1_text2image_train_step)
+                                                          make_v1_text2image_train_step,
+                                                          make_vqgan_train_step)
+        from open_muse_tpu_torch.models.discriminator import PatchDiscriminator
+        from open_muse_tpu_torch.ops.perceptual import make_perceptual_loss_fn
         from open_muse_tpu_torch.training.data import ClassificationDataset
         from open_muse_tpu_torch.training.data import PreEncodedDataset, ShardSource
         from open_muse_tpu_torch.scripts import pre_encode
@@ -185,6 +188,16 @@ def test_port_imports_no_jax():
                                "class_ids": torch.tensor([0, 3])}},
                        draw_masking_noise(2, 16, torch.Generator().manual_seed(1), 64))
         assert state.step == 1 and metrics["loss"].isfinite()
+        vq = MaskGitVQGAN(resolution=32, hidden_channels=32, channel_mult=(1, 2),
+                          num_res_blocks=1, z_channels=16, num_embeddings=64,
+                          quantized_embed_dim=16)
+        disc = PatchDiscriminator(base_channels=8, n_layers=2)
+        players = (TrainState(model=vq, optimizer=get_optimizer("adamw", vq, 1e-3)),
+                   TrainState(model=disc, optimizer=get_optimizer("adamw", disc, 1e-3)))
+        gan = make_vqgan_train_step(perceptual_weight=1.0, perceptual=make_perceptual_loss_fn(0),
+                                    disc_weight=0.75)
+        metrics = gan(players, {{"pixel_values": torch.rand(2, 32, 32, 3)}})
+        assert metrics["d_loss"].isfinite() and metrics["perceptual"].isfinite()
         bad = [name for name in sys.modules
                if name.split(".")[0] in ("jax", "flax", "jaxlib", "open_muse_tpu")]
         assert not bad, bad

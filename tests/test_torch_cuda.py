@@ -242,13 +242,14 @@ def test_vq_split_kernel_matches_plain(device, n, c, k):
 
 @pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130),
                                    (512, 256, 8191), (300, 37, 1000), (4096, 4, 16384),
-                                   (2000, 4, 8192)])
+                                   (2000, 4, 8192), (2048, 256, 1024)])
 def test_vq_argmin_kernel_matches_plain(device, n, c, k):
     """fp32, TF32 off: ids equal except at rows whose two best plain scores
     lie within 1e-5 of the squared distances' scale (the split product's
     roundings and summation order), where the kernel's pick is within that
     of the minimum; two calls bit-equal; ragged rows, an odd codebook, C
-    not a multiple of 8, and the MOVQ / Paella latents' C 4."""
+    not a multiple of 8, the MOVQ / Paella latents' C 4, and the VQGAN
+    trainer's batch of 8 x 16 x 16 latents against its 1024 codes."""
     gen = torch.Generator().manual_seed(n)
     z = torch.randn(n, c, generator=gen).to(device)
     cb = torch.randn(k, c, generator=gen).to(device)
@@ -965,3 +966,56 @@ def test_captured_class_step_equals_eager_and_redraws_dropout(device):
         states.append(masks.generator.get_state())
     assert all(not torch.equal(x, y) for x, y in zip(states, states[1:]))
     assert all(math.isfinite(v) for v in losses), losses
+
+
+def test_captured_vqgan_step_equals_eager(device):
+    """Two copies of one seeded MaskGIT VQGAN and PatchGAN (32 px, batch 2,
+    the perceptual term, hinge loss, disc_start 1), one trained through the
+    step's graph (step 1, gated, the eager warm-up and the capture; steps 2
+    - 3 adversarial replays) and one through ``step.eager``, cuDNN
+    deterministic: every metric, both players' parameters and AdamW
+    moments bit-equal after each step; ``vq_argmin`` once a step, in the
+    graph too."""
+    from open_muse_tpu_torch.models.discriminator import PatchDiscriminator
+    from open_muse_tpu_torch.models.maskgit_vqgan import MaskGitVQGAN
+    from open_muse_tpu_torch.ops.perceptual import make_perceptual_loss_fn
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState, make_vqgan_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+    def players():
+        torch.manual_seed(0)
+        with torch.device(device):
+            vq = MaskGitVQGAN(resolution=32, hidden_channels=32, channel_mult=(1, 2),
+                              num_res_blocks=1, z_channels=16, num_embeddings=64,
+                              quantized_embed_dim=16)
+            disc = PatchDiscriminator(base_channels=8, n_layers=2)
+        return tuple(TrainState(model=m, optimizer=get_optimizer("adamw", m, lambda c: 1e-3,
+                                                                 max_grad_norm=1.0))
+                     for m in (vq, disc))
+
+    try:
+        with torch.device(device):
+            perceptual = make_perceptual_loss_fn(0)
+        step = make_vqgan_train_step(perceptual_weight=1.0, perceptual=perceptual,
+                                     disc_weight=0.75, disc_start=1)
+        a, b = players(), players()
+        pixels = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1)).to(device)
+        for i in range(3):
+            got, launches = _counted(lambda: step(a, {"pixel_values": pixels}))
+            want, eager_launches = _counted(lambda: step.eager(b, {"pixel_values": pixels}))
+            assert sorted(got) == sorted(want)
+            for key in want:
+                assert torch.equal(got[key], want[key]), (i, key)
+            assert launches == eager_launches and launches["vq_argmin"] == 1, launches
+            assert (float(got["d_weight"]) == 0.0) == (i == 0)
+            for x, y in zip(a, b):
+                for p, q in zip(x.model.parameters(), y.model.parameters()):
+                    assert torch.equal(p, q), i
+                    for key, value in x.optimizer.torch_optimizer.state[p].items():
+                        assert torch.equal(value, y.optimizer.torch_optimizer.state[q][key])
+        assert step.last_capture["launches"] == {"vq_argmin": 1}
+    finally:
+        torch.backends.cudnn.deterministic = False
