@@ -64,7 +64,21 @@ directly (eager); the token ids of the two must be equal:
   checkpoints, the saved VQ reloaded; ``[train_eq]`` for the VQGAN step;
 - train_soft: ``train_muse.main`` on the flagship config's raw branch with
   ``use_soft_code_target`` (soft targets (16, 256, 8192) from the f16 VQGAN's
-  ``get_soft_code``), 8 steps; ``[train_eq]`` for the soft-target step.
+  ``get_soft_code``), 8 steps; ``[train_eq]`` for the soft-target step;
+- train_opt: the training phase's step with ``8bit_adamw``, ``bf16_adamw``
+  and ``lion`` (AdamW timed beside them): captured against eager, the loss
+  falling, step time, peak memory, the optimizer state's bytes, a resume;
+- train_movq_class: ``train_maskgit_imagenet.main`` on
+  ``configs/imagenet_movq.yaml`` (1025 tokens: kernel 5's two-pass variant
+  in training; a MOVQ: ``vq_argmin`` at C 4), 8 steps;
+- distill: ``training.distill.main`` on ``configs/distill.yaml`` at batch 64
+  (a 12-step CFG teacher at 128 rows a step, the flagship model seeded and
+  saved as its checkpoint), 8 steps, the checkpoint reloaded; the captured
+  step against its eager body, the teacher's and the student's shares of a
+  step; then distilled: three 6-step CFG-free requests of the student
+  through ``distilled_generate``.  The kernel checks also time kernels 4,
+  7, 9 and 10 at the teacher's shapes, and train_raw runs the inpainting
+  panel.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
@@ -1048,10 +1062,13 @@ PROMPTS = ["a photo of an astronaut riding a horse", "a red cube on a blue spher
 def randomize_(module, seed: int) -> None:
     """Seeded weights with no zeroed layer: matrices and kernels ~
     N(0, 1 / fan_in), norm scales ~ 1 + N(0, 0.1), biases and GRN shifts ~
-    N(0, 0.1), GRN gains ~ N(0, 0.5)."""
+    N(0, 0.1), GRN gains ~ N(0, 0.5); BatchNorm statistics (parameters)
+    keep their initial (0, 1)."""
     gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("running_mean", "running_var"):  # Paella's BatchNorm statistics stay (0, 1)
+            continue
         noise = torch.randn(p.shape, generator=gen, device=p.device)
         if p.dim() >= 2 and leaf == "weight":
             noise /= p[0].numel() ** 0.5
@@ -1157,9 +1174,9 @@ def timed_call(fn):
     return seconds, images, tokens, {k: after[k] - before[k] for k in after}
 
 
-def expected_request_launches(cfg, sampler, vq=0):
+def expected_request_launches(cfg, sampler, vq=0, steps=TIMESTEPS):
     """Per request of the U-ViT ``cfg``, no backward kernel.  At each of the
-    12 steps: every trunk layer's two sublayers and GLU, its GLU pre-norm (a
+    ``steps`` steps: every trunk layer's two sublayers and GLU, its GLU pre-norm (a
     LayerNorm); each of the down and up stacks' num_res_blocks
     AttentionBlock2Ds two flash attentions and two RMSNorms, each ResBlock
     one RMSNorm; the RMSNorms of ConvEmbed, the two projections and the MLM
@@ -1169,12 +1186,12 @@ def expected_request_launches(cfg, sampler, vq=0):
 
     layers, blocks = cfg.num_hidden_layers, 2 * cfg.num_res_blocks
     expected = {name: 0 for name in kernels.launch_counts()}
-    expected.update({"attn_sublayer_self": layers * TIMESTEPS,
-                     "attn_sublayer_cross": layers * TIMESTEPS,
-                     "glu_down_matmul": layers * TIMESTEPS, sampler: TIMESTEPS,
-                     "flash_attention": 2 * blocks * TIMESTEPS,
-                     "fused_residual_rmsnorm": (3 * blocks + 4) * TIMESTEPS + 1,
-                     "fused_residual_layernorm": layers * TIMESTEPS})
+    expected.update({"attn_sublayer_self": layers * steps,
+                     "attn_sublayer_cross": layers * steps,
+                     "glu_down_matmul": layers * steps, sampler: steps,
+                     "flash_attention": 2 * blocks * steps,
+                     "fused_residual_rmsnorm": (3 * blocks + 4) * steps + 1,
+                     "fused_residual_layernorm": layers * steps})
     if vq:
         expected["vq_argmin"] = vq
     return expected
@@ -1271,6 +1288,7 @@ def nocfg_phase(pipe, smi):
         smi, "serving_nocfg", expected_request_launches(cfg, "fused_categorical"),
         lambda i, eager: one_request(pipe, PROMPTS[i % 4], i, guidance=0.0, eager=eager),
         guidance=0.0)
+    LATENCY_MS["serving_nocfg"] = median * 1e3
     profiled("CFG-free request", lambda: one_request(pipe, PROMPTS[3], 3, guidance=0.0), median,
              "profile_request_nocfg.txt", smi=smi, span=True)
     return launches
@@ -2228,6 +2246,7 @@ def training_phase(device, smi):
             f"{falling}, launches {launches} (expected {EXPECTED_TRAIN_LAUNCHES}: step 1 eager, "
             f"steps 2 - {TRAIN_STEPS} replays adding the capture's counts) "
             f"{'ok' if counts_ok else 'FAIL'}")
+        STEP_MS["training"] = median * 1e3
         log(f"[train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host clock, "
             f"synchronised), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
             f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
@@ -2246,9 +2265,10 @@ def training_phase(device, smi):
 TRAIN_EQ_STEPS = 4
 
 
-def _seeded_train_state(device, accumulation_steps=1):
+def _seeded_train_state(device, accumulation_steps=1, optimizer="adamw"):
     """The research-default model (per-layer checkpointing, fp32 weights),
-    AdamW at the flagship config's lr and decay, and an EMA, from one seed."""
+    ``optimizer`` (AdamW) at the flagship config's lr and decay, and an EMA,
+    from one seed."""
     from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
     from open_muse_tpu_torch.training.ema import EMA
     from open_muse_tpu_torch.training.optimizers import get_optimizer
@@ -2258,9 +2278,9 @@ def _seeded_train_state(device, accumulation_steps=1):
     with torch.device(device):
         model = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
     model.set_gradient_checkpointing(True)
-    optimizer = get_optimizer("adamw", model, lambda count: 1e-4, weight_decay=0.01,
-                              accumulation_steps=accumulation_steps)
-    return TrainState(model=model, optimizer=optimizer, ema=EMA(model))
+    return TrainState(model=model, optimizer=get_optimizer(
+        optimizer, model, lambda count: 1e-4, weight_decay=0.01,
+        accumulation_steps=accumulation_steps), ema=EMA(model))
 
 
 def _state_tensors(state):
@@ -2411,21 +2431,31 @@ RAW_IMAGES, RAW_EVAL_IMAGES = 32, 16
 STEP_MS = {}  # path -> median step ms (host clock), for the phases that compare
 
 
+# the in-repo inpainting validation folders (image, mask, the folder's name
+# the prompt)
+INPAINT_DIR, INPAINT_ENTRIES = os.path.join(HERE, "inpainting_validation"), 5
+
+
 def raw_launches(steps, eval_batches):
     """The raw run: ``steps`` train steps; each get_code one vq_argmin
     (every step's batch and each eval batch, the first call two: its graph's
     warm-up, then the replay); each eval batch one forward, the first two;
     one sample panel: a 12-step CFG decode of 4 images, twice (its graph's
-    warm-up and the replay)."""
+    warm-up and the replay); one inpainting panel: each of the
+    INPAINT_ENTRIES images encoded (one vq_argmin) and an 8-step CFG decode
+    from its masked tokens, the first of each twice (a graph's warm-up and
+    the replay)."""
     from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2Config
 
+    cfg = MaskGiTUViT_v2Config()
     expected = train_launches(steps)
     for name, n in forward_launches(eval_batches + 1).items():
         expected[name] += n
-    for name, n in expected_request_launches(MaskGiTUViT_v2Config(),
-                                             "fused_categorical_cfg").items():
+    for name, n in expected_request_launches(cfg, "fused_categorical_cfg").items():
         expected[name] += 2 * n
-    expected["vq_argmin"] = steps + eval_batches + 1
+    for name, n in expected_request_launches(cfg, "fused_categorical_cfg", steps=8).items():
+        expected[name] += (INPAINT_ENTRIES + 1) * n
+    expected["vq_argmin"] = steps + eval_batches + 1 + INPAINT_ENTRIES + 1
     return expected
 
 
@@ -2453,8 +2483,10 @@ def train_raw_phase(device, smi):
     """train_muse.main on configs/laiona6plus_uvit_clip.yaml without
     pre-encoding: seeded raw shards (train and eval), seeded full-width CLIP-L
     and f16 taming VQGAN directories; eval, the sample panel, the grad-norm
-    lines, the bucket diagnostics and a profiler window each once; then a
-    resume and a profiled raw step.  Returns (ok, launch counts)."""
+    lines, the bucket diagnostics, a profiler window and the inpainting
+    panel (the in-repo validation folders) each once; then the inpainting
+    panel's tokens outside each mask against the encoded image's, a resume
+    and a profiled raw step.  Returns (ok, launch counts)."""
     import shutil
     import tempfile
 
@@ -2483,6 +2515,7 @@ def train_raw_phase(device, smi):
                      f"experiment.generate_every={TRAIN_STEPS}",
                      f"experiment.log_grad_norm_every={TRAIN_STEPS}",
                      "experiment.log_entropy_buckets=true", "experiment.profile_steps=[4,5]",
+                     f"experiment.inpainting_validation_dir={INPAINT_DIR}",
                      f"model.text_encoder.pretrained={clip_dir}",
                      f"model.vq_model.pretrained={vq_dir}", f"training.batch_size={TRAIN_B}",
                      "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
@@ -2520,7 +2553,8 @@ def train_raw_phase(device, smi):
         evals = [m["eval_loss"] for m in logged if "eval_loss" in m]
         eval_ok = len(evals) == 1 and evals[0] == evals[0]
         panel = os.path.join(out, f"samples-{TRAIN_STEPS}.png")
-        panel_ok = os.path.isfile(panel)
+        panel_ok = os.path.isfile(panel) and os.path.isfile(
+            os.path.join(out, f"inpainting-{TRAIN_STEPS}.png"))
         norms = [m for m in logged if any(k.startswith("grad_norm/") for k in m)]
         names = [f"grad_norm/{n}" for n in grad_norm_param_names(state.model)]
         norms_ok = (len(norms) == 1 and [k for k in norms[0] if k != "step"] == names
@@ -2532,7 +2566,7 @@ def train_raw_phase(device, smi):
         log(f"[train_raw] {TRAIN_STEPS} steps in {wall:.1f} s (encoder and model build, eval, "
             f"panel and checkpoint included): last loss {losses[-1]:.4f} < first "
             f"{losses[0]:.4f} {falling}; eval_loss {evals} {eval_ok}; {os.path.basename(panel)} "
-            f"{panel_ok}; grad-norm lines under the {len(names)} flax names {norms_ok}; bucket "
+            f"and inpainting-{TRAIN_STEPS}.png {panel_ok}; grad-norm lines under the {len(names)} flax names {norms_ok}; bucket "
             f"diagnostics every step {buckets_ok}; trace {trace_ok} "
             f"({os.path.getsize(trace) if trace_ok else 0} bytes)")
         log(f"[train_raw] launches {launches} (expected {expected}) "
@@ -2545,6 +2579,7 @@ def train_raw_phase(device, smi):
         resume_ok = _resume_check("train_raw", train_muse, argv, state, out, TRAIN_STEPS)
         encoders = train_muse.FrozenEncoders.from_config(config, device)
         empty = encoders.empty_embeds()
+        inpaint_ok = inpainting_panel_check(state, encoders, empty, device, smi)
         raw = next(iter(Text2ImageDataset(shard, TRAIN_B, resolution=256, shuffle_buffer_size=16,
                                           seed=5)))
         profile_train_step(state, device, median, label="raw train step (encode + step)",
@@ -2553,13 +2588,41 @@ def train_raw_phase(device, smi):
                            cond_dropout_prob=0.1, with_diagnostics=True,
                            with_param_grad_norms=True)
         ok = (filter_ok and falling and eval_ok and panel_ok and norms_ok and buckets_ok
-              and trace_ok and counts_ok and resume_ok)
+              and trace_ok and counts_ok and resume_ok and inpaint_ok)
         del state, encoders
         gc.collect()
         torch.cuda.empty_cache()
         return ok, launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+@torch.no_grad()
+def inpainting_panel_check(state, encoders, empty, device, smi):
+    """``generate_inpainting_images`` as the trainer's panel calls it (the
+    EMA weights in bf16, the in-repo folders at 256 px over 16 x 16 tokens):
+    every token outside each mask must equal the encoded image's."""
+    from open_muse_tpu_torch.training import train_muse
+
+    model = type(state.model)(state.model.config).to(device, torch.bfloat16).eval()
+    model.load_state_dict(state.ema.shadow)
+    entries = train_muse.load_inpainting_validation_data(INPAINT_DIR, 256, 16)
+    micro = torch.tensor([[512.0, 512.0, 0.0, 0.0, 6.0]], device=device)
+    generated = train_muse.generate_inpainting_images(
+        model, encoders.vq_model, entries, encoders.encode_text, model.config.mask_token_id,
+        micro, empty["empty_embeds"], empty["empty_cond_embeds"], None,
+        lambda i: {"generator": torch.Generator().manual_seed(i)})
+    kept = []
+    for entry, ids in zip(entries, generated):
+        mask = torch.from_numpy(entry["mask"].reshape(-1)).to(device)
+        codes = train_muse.get_code(encoders.vq_model,
+                                    torch.from_numpy(entry["image"])[None].to(device))[0]
+        kept.append((int((~mask).sum()), bool(torch.equal(ids[0][~mask], codes[~mask].long()))))
+    ok = len(kept) == INPAINT_ENTRIES and all(same for _, same in kept)
+    log(f"[train_raw] inpainting panel ({len(entries)} folders of {INPAINT_DIR}, 8 steps, CFG "
+        f"8): tokens outside each mask equal the encoded image's "
+        f"{[f'{n} {same}' for n, same in kept]} {'ok' if ok else 'FAIL'}; {smi}")
+    return ok
 
 
 # -- the v1 trainers at full width --------------------------------------------
@@ -3284,6 +3347,531 @@ def train_soft_phase(device, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the other optimizers, step + guidance distillation, MOVQ class training --
+
+OPTIMIZER_NAMES = ("8bit_adamw", "bf16_adamw", "lion")
+OPT_EQ_STEPS, OPT_TIMED_STEPS = 3, 4
+
+
+def optimizer_state_bytes(optimizer):
+    """Bytes of the optimizer's state tensors (moments or their codes and
+    absmax, step counts)."""
+    return sum(v.numel() * v.element_size() for s in optimizer.torch_optimizer.state.values()
+               for v in s.values() if isinstance(v, torch.Tensor))
+
+
+def train_opt_phase(device, smi):
+    """The training phase's pre-encoded flagship step (batch 16, bf16
+    autocast, per-layer checkpointing, EMA) with each of OPTIMIZER_NAMES:
+    OPT_EQ_STEPS steps captured against ``step.eager`` on a second seeded
+    state (every metric, parameter, state tensor and EMA bit-equal, cuDNN
+    deterministic), then OPT_TIMED_STEPS more captured steps with the
+    counters at 0 (launches exact, step time, peak memory, the loss falling
+    over all steps), step time, peak memory and the optimizer state's bytes
+    beside AdamW's, timed first the same way, then ``save_checkpoint`` ->
+    ``load_checkpoint`` into a fresh
+    state and one more step on both: bit-equal.  Returns (ok, the timed
+    steps' launch counts summed over the three)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.training import trainer as T
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_opt_", dir=runs)
+    torch.backends.cudnn.deterministic = True
+    batch = train_batch(device)
+    launches, ok = zero_counts(), True
+
+    def timed(step, state, gen, losses):
+        """OPT_TIMED_STEPS captured steps, the counters at 0 before them:
+        (median s, launch counts, peak bytes)."""
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(OPT_TIMED_STEPS):
+            noise = draw_masking_noise(TRAIN_B, TRAIN_S, gen, 8192)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch, noise)["loss"]))
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), kernels.launch_counts(), torch.cuda.max_memory_allocated()
+
+    try:
+        step, state = _research_step(), _seeded_train_state(device)
+        gen = torch.Generator(device=device).manual_seed(21)
+        step(state, batch, draw_masking_noise(TRAIN_B, TRAIN_S, gen, 8192))  # warm-up, capture
+        adamw_s, _, adamw_peak = timed(step, state, gen, [])
+        adamw_bytes = optimizer_state_bytes(state.optimizer)
+        log(f"[train_opt] adamw (the yardstick): median step {adamw_s * 1e3:.1f} ms over "
+            f"{OPT_TIMED_STEPS} captured steps (host clock, synchronised), peak memory "
+            f"{adamw_peak / 2 ** 30:.2f} GiB, optimizer state {adamw_bytes / 2 ** 30:.3f} GiB; "
+            f"on {smi}")
+        del step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in OPTIMIZER_NAMES:
+            step = _research_step()
+            states = [_seeded_train_state(device, optimizer=name) for _ in range(2)]
+            gens = [torch.Generator(device=device).manual_seed(21) for _ in range(2)]
+            losses, metrics_equal = [], True
+            for _ in range(OPT_EQ_STEPS):
+                noise = [draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192) for g in gens]
+                got = step(states[0], batch, noise[0])
+                want = step.eager(states[1], batch, noise[1])
+                metrics_equal &= all(torch.equal(got[k], want[k]) for k in want)
+                losses.append(float(got["loss"]))
+            worst = _worst_diffs(*states)
+            eq = metrics_equal and all(v == 0.0 for v in worst.values())
+            log(f"[train_opt] {name}: {OPT_EQ_STEPS} steps captured / eager, every metric "
+                f"bit-equal {metrics_equal}; worst |captured - eager| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                + f" {'ok' if eq else 'FAIL'}")
+            state = states[0]
+            del states
+            gc.collect()
+            torch.cuda.empty_cache()
+            median, counts, peak = timed(step, state, gens[0], losses)
+            expected = train_launches(OPT_TIMED_STEPS)
+            counts_ok = counts == expected
+            for k, v in counts.items():
+                launches[k] += v
+            finite = all(math.isfinite(v) for v in losses)
+            falling = losses[-1] < losses[0]
+            n = sum(p.numel() for p in state.model.parameters())
+            state_bytes = optimizer_state_bytes(state.optimizer)
+            log(f"[train_opt] {name}: {OPT_TIMED_STEPS} captured steps (one replayed graph "
+                f"each): losses {' '.join(f'{v:.4f}' for v in losses)} finite {finite}, "
+                f"falling {falling}; launches {'ok' if counts_ok else 'FAIL'} "
+                f"({ {k: v for k, v in counts.items() if v} }, expected "
+                f"{ {k: v for k, v in expected.items() if v} })")
+            log(f"[train_opt] {name}: median step {median * 1e3:.1f} ms (host clock, "
+                f"synchronised) beside adamw's {adamw_s * 1e3:.1f} ms, "
+                f"{TRAIN_B * TRAIN_S / median:.0f} tokens/s, peak memory {peak / 2 ** 30:.2f} GiB "
+                f"(max_memory_allocated) beside adamw's {adamw_peak / 2 ** 30:.2f} GiB; optimizer "
+                f"state {state_bytes / 2 ** 30:.3f} GiB = {state_bytes / n:.3f} bytes a parameter "
+                f"beside adamw's {adamw_bytes / 2 ** 30:.3f} GiB = {adamw_bytes / n:.3f} over "
+                f"{n / 1e6:.1f} M parameters; on {smi}")
+            path = T.save_checkpoint(work, state)
+            resumed = T.load_checkpoint(path, _seeded_train_state(device, optimizer=name))
+            gen = [torch.Generator(device=device).manual_seed(33) for _ in range(2)]
+            a, b = (step(s, batch, draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192))
+                    for s, g in zip((state, resumed), gen))
+            resume_worst = _worst_diffs(state, resumed)
+            resume_ok = (torch.equal(a["loss"], b["loss"]) and resumed.optimizer.count
+                         == state.optimizer.count and all(v == 0.0 for v in resume_worst.values()))
+            log(f"[train_opt] {name}: resumed from {os.path.basename(path)} (save_checkpoint, "
+                f"load_checkpoint into a fresh state), one more step on both: loss "
+                f"{float(a['loss']):.6f}/{float(b['loss']):.6f}, worst |resumed - straight| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in resume_worst.items())
+                + f" {'ok' if resume_ok else 'FAIL'}")
+            ok &= eq and counts_ok and finite and falling and resume_ok
+            shutil.rmtree(path, ignore_errors=True)
+            del state, resumed, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        return ok, launches
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# configs/distill.yaml's batch, teacher steps and pairs; 8 steps
+DISTILL_B, DISTILL_STEPS, DISTILL_T, DISTILL_RATIO = 64, 8, 12, 2
+LATENCY_MS = {}  # request path -> captured median ms, for the paths that compare
+
+
+def distill_launches(cfg, steps):
+    """``steps`` distill steps: the teacher's 12-step CFG decode (as a
+    request's, its step context once), its forward at the pair's state
+    (the soft target) and the student's forward, each with the
+    conditioning's encoder norm, and the student's backward kernels once a
+    layer (no recompute: the config asks no checkpointing)."""
+    expected = expected_request_launches(cfg, "fused_categorical_cfg", steps=DISTILL_T)
+    for name, n in forward_launches(2).items():
+        expected[name] += n
+    for name in ("attn_sublayer_self_bwd", "attn_sublayer_cross_bwd", "glu_down_matmul_bwd"):
+        expected[name] += LAYERS
+    return {k: v * steps for k, v in expected.items()}
+
+
+def _distill_state(device, teacher_dir):
+    """The student as ``distill.main`` builds it: the saved teacher in fp32,
+    AdamW at the config's lr and decay, an EMA."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+    from open_muse_tpu_torch.training.ema import EMA
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+    from open_muse_tpu_torch.training.trainer import TrainState
+
+    model = MaskGiTUViT_v2.from_pretrained(teacher_dir, device=device).float().train()
+    return TrainState(model=model, optimizer=get_optimizer("adamw", model, lambda count: 5e-5,
+                                                           weight_decay=0.01), ema=EMA(model))
+
+
+def distill_eq(device, teacher_dir, clip_dir, smi, step_median):
+    """The captured distill step against ``step.eager`` on two students of
+    the saved teacher, 2 steps each on the same prompts and noise (every
+    metric, parameter, AdamW moment and EMA bit-equal, cuDNN
+    deterministic); the two steps' noise gives the teacher two different
+    trajectories; then the teacher's and the student's shares of an eager
+    step by CUDA events, a profiled captured step, and the student served
+    in bf16.  Returns (ok, the student in bf16)."""
+    import copy
+
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
+    from open_muse_tpu_torch.training import distill
+
+    clip = CLIPTextEncoder.from_pretrained(clip_dir, device=device).float().eval()
+    tokenizer = SimpleTokenizer(49408, 77)
+    prompts = [PROMPTS[i % 4] for i in range(DISTILL_B)]
+    ehs, pooled = distill.encode_prompts(clip, tokenizer, prompts, device)
+    empty_ehs, empty_pooled = distill.encode_prompts(clip, tokenizer, [""], device)
+    del clip
+    batch = {"encoder_hidden_states": ehs, "cond_embeds": pooled,
+             "micro_conds": torch.tensor([[256.0, 256.0, 0.0, 0.0, 6.0]] * DISTILL_B,
+                                         device=device),
+             "empty_embeds": empty_ehs, "empty_cond_embeds": empty_pooled}
+    torch.backends.cudnn.deterministic = True
+    states = [_distill_state(device, teacher_dir) for _ in range(2)]
+    teacher = distill.frozen_teacher(states[0].model, torch.bfloat16)
+    step = distill.make_distill_step(
+        teacher, mask_token_id=8255, teacher_timesteps=DISTILL_T, step_ratio=DISTILL_RATIO,
+        temperature=(2.0, 0.0), guidance_scale=8.0, seq_len=256, max_grad_norm=1.0,
+        soft_weight=0.5, autocast_dtype=torch.bfloat16)
+
+    def noise(seed):
+        return distill.draw_distill_noise(torch.Generator().manual_seed(seed),
+                                          timesteps=DISTILL_T, step_ratio=DISTILL_RATIO,
+                                          batch=DISTILL_B, seq_len=256, codebook_size=8192,
+                                          device=device)
+
+    metrics_equal, rows, targets = True, [], []
+    for seed in (101, 102):
+        got = step(states[0], batch, noise(seed))
+        want = step.eager(states[1], batch, noise(seed))
+        metrics_equal &= all(torch.equal(got[k], want[k]) for k in want)
+        rows.append(f"{float(got['loss']):.6f}/{float(want['loss']):.6f}")
+        targets.append(distill.teacher_targets(step.spec, {**batch, **step.spec.step_inputs(
+            0, device)}, noise(seed))[:2])
+    fresh = not torch.equal(targets[0][0], targets[1][0]) and \
+        not torch.equal(targets[0][1], targets[1][1])
+    worst = _worst_diffs(*states)
+    eq = metrics_equal and all(v == 0.0 for v in worst.values())
+    log(f"[distill_eq] 2 distill steps captured / eager (batch {DISTILL_B}, the 12-step CFG "
+        f"teacher, soft weight 0.5): loss {'; '.join(rows)}; every metric bit-equal "
+        f"{metrics_equal}; worst |captured - eager| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" {'ok' if eq else 'FAIL'}")
+    log(f"[distill_eq] the two steps' noise gives the teacher different trajectories (the "
+        f"pairs' carry-in states and targets differ): {fresh} {'ok' if fresh else 'FAIL'}")
+    torch.backends.cudnn.deterministic = False
+    state = states[0]
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    inputs = {**batch, **step.spec.step_inputs(0, device)}
+    shares = []
+    for seed in (103, 104, 105):
+        n = noise(seed)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        distill.teacher_targets(step.spec, inputs, n)
+        marks[1].record()
+        step.eager(state, batch, n)
+        marks[2].record()
+        marks[2].synchronize()
+        shares.append((marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])))
+    teacher_ms = statistics.median(s[0] for s in shares)
+    step_ms = statistics.median(s[1] for s in shares)
+    log(f"[distill] shares of an eager step by CUDA events (median of 3): the teacher's half "
+        f"(the 12-step CFG decode at {2 * DISTILL_B} rows, the pair pick, the soft-target "
+        f"forward) {teacher_ms:.1f} ms of the whole eager step {step_ms:.1f} ms = "
+        f"{teacher_ms / step_ms:.3f}; the student's update (forward, backward, clip, AdamW, "
+        f"EMA) the rest, {step_ms - teacher_ms:.1f} ms = {1 - teacher_ms / step_ms:.3f}; on {smi}")
+    seeds = iter(range(200, 300))
+    profiled("distill step (one replayed graph)",
+             lambda: float(step(state, batch, noise(next(seeds)))["loss"]), step_median,
+             "profile_distill_step.txt", smi=smi)
+    student = copy.deepcopy(state.model).to(torch.bfloat16).eval()
+    del state, step, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eq and fresh, student
+
+
+def distill_phase(device, smi):
+    """distill.main on configs/distill.yaml at batch DISTILL_B: the flagship
+    MaskGiTUViT_v2 seeded and saved by save_pretrained as the teacher
+    checkpoint, a CLIP tower at bench.py's widths saved without tokenizer
+    files (SimpleTokenizer), the config's 12-step CFG 8 teacher, temperature
+    (2, 0), pairs of 2, soft weight 0.5, EMA and clip 1.0; cut to 8 steps,
+    warmup 0, a checkpoint at step 8, a metrics line a step, bf16 autocast.
+    Then a reload of the checkpoint (main resumed), ``distill_eq`` and 3
+    requests of the distilled student: 6 steps without CFG through
+    ``distilled_generate``, captured against the decode loop called
+    directly.  Returns (ok, the run's launch counts, the requests')."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
+    from open_muse_tpu_torch.training import distill
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_distill_", dir=runs)
+    try:
+        teacher_dir, clip_dir = os.path.join(work, "teacher"), os.path.join(work, "clip")
+        with torch.device(device):
+            teacher = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
+            clip = CLIPTextEncoder(
+                vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                num_attention_heads=12, max_position_embeddings=77, projection_dim=768)
+        randomize_(teacher, 0)
+        randomize_(clip, 1)
+        teacher.save_pretrained(teacher_dir)
+        clip.save_pretrained(clip_dir)
+        cfg = teacher.config
+        del teacher, clip
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "distill.yaml"),
+                f"experiment.output_dir={out}", f"experiment.save_every={DISTILL_STEPS}",
+                "experiment.log_every=1", f"distill.teacher_checkpoint={teacher_dir}",
+                f"model.text_encoder.pretrained={clip_dir}",
+                f"training.batch_size={DISTILL_B}", "lr_scheduler.params.warmup_steps=0",
+                f"training.max_train_steps={DISTILL_STEPS}", "training.mixed_precision=bf16"]
+        for arg in argv:
+            log(f"[distill] argument {arg}")
+        log(f"[distill] cuts of configs/distill.yaml: max_train_steps 20000 -> {DISTILL_STEPS}, "
+            f"warmup 200 -> 0, save_every 1000 -> {DISTILL_STEPS}, log_every 50 -> 1; batch "
+            f"{DISTILL_B} (the config's); the teacher and student the flagship MaskGiTUViT_v2 "
+            f"(22 x 1024) with seeded weights; CLIP at bench.py's widths, seeded, hash-tokenized; "
+            f"precision: bf16 autocast, fp32 weights, the teacher held in bf16 (the config sets "
+            f"none; the JAX trainer runs fp32)")
+        expected = distill_launches(cfg, DISTILL_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = distill.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        logged = _logged(out)
+        for m in logged:
+            log(f"[distill] step {m['step']}: loss {m['loss']:.4f} soft_kl {m['soft_kl']:.4f} "
+                f"grad_norm {m['grad_norm']:.4f} masked {m['avg_masked_frac']:.3f} pair step "
+                f"{m['avg_pair_step']:.2f} step_time {m['step_time'] * 1e3:.1f} ms"
+                + (f" (eager warm-up step + capture; the capture alone {m['capture_s']:.2f} s)"
+                   if "capture_s" in m else ""))
+        median = statistics.median(m["step_time"] for m in logged[1:])
+        finite = all(math.isfinite(m["loss"]) and math.isfinite(m["soft_kl"]) for m in logged)
+        steps_ok = [m["step"] for m in logged] == list(range(1, DISTILL_STEPS + 1))
+        counts_ok = launches == expected
+        log(f"[distill] {DISTILL_STEPS} steps in {wall:.1f} s (teacher load, prompt encoding and "
+            f"checkpoint included): losses finite {finite}; launches {launches} (expected "
+            f"{expected}: step 1 eager, steps 2 - {DISTILL_STEPS} replays) "
+            f"{'ok' if counts_ok else 'FAIL'}")
+        log(f"[distill] median step {median * 1e3:.1f} ms over steps 2-{DISTILL_STEPS} (host "
+            f"clock, synchronised), {DISTILL_B * 256 / median:.0f} student tokens/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated), capture "
+            f"{[m['capture_s'] for m in logged if 'capture_s' in m]} s; on {smi}")
+        resume_ok = _resume_check("distill", distill, argv, state, out, DISTILL_STEPS)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        eq_ok, student = distill_eq(device, teacher_dir, clip_dir, smi, median)
+        serve_ok, serve_launches = distilled_requests(device, student, clip_dir, smi)
+        ok = finite and steps_ok and counts_ok and resume_ok and eq_ok and serve_ok
+        return ok, launches, serve_launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def distilled_requests(device, student, clip_dir, smi):
+    """Three 256px / bs1 requests of the distilled student (bf16): the CLIP
+    tower, ``distilled_generate`` (6 steps, no CFG) and the taming VQGAN's
+    decode_code, three replayed CUDA graphs (``core.captured``); eager: the
+    same three called directly, the decode loop on the same seed's noise.
+    The latency beside serving_nocfg's 12 steps (one graph for all three)."""
+    from open_muse_tpu_torch.core.captured import captured
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+    from open_muse_tpu_torch.models.transformer_v2 import (decode_noise, decode_schedules,
+                                                           parallel_decode_loop)
+    from open_muse_tpu_torch.training import distill
+
+    steps = DISTILL_T // DISTILL_RATIO
+    clip = CLIPTextEncoder.from_pretrained(clip_dir, device=device).float().eval()
+    tokenizer = SimpleTokenizer(49408, 77)
+    with torch.device(device):
+        vae = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
+                         quantized_embed_dim=256)
+    randomize_(vae, 2)
+    vae.eval()
+    micro = torch.tensor([[512.0, 512.0, 0.0, 0.0, 6.0]], device=device)
+    temps, _, ratios = decode_schedules(steps, TEMPERATURE, 0.0)
+
+    @torch.no_grad()
+    def text(ids):
+        hidden_states, _, pooled = clip(ids)
+        return hidden_states[-2], pooled
+
+    decode = torch.no_grad()(vae.decode_code)
+
+    @torch.no_grad()
+    def request(i, eager):
+        ids = torch.as_tensor(tokenizer([PROMPTS[i % 4]], padding="max_length", truncation=True,
+                                        max_length=77, return_tensors="np")["input_ids"])
+
+        def run():
+            if eager:
+                ehs, pooled = text(ids.to(device))
+                kind, sample, mask = decode_noise(torch.Generator().manual_seed(i),
+                                                  timesteps=steps, batch=1, seq_len=256,
+                                                  vocab=8192, device=device)
+                masked = torch.full((1, 256), 8255, dtype=torch.long, device=device)
+                tokens = parallel_decode_loop(
+                    student, masked, ehs, pooled, micro, temps.to(device), None, ratios.to(device),
+                    use_cfg=False, seq_len=256, timesteps=steps, mask_gumbel=mask,
+                    **{kind: sample})
+                return vae.decode_code(tokens), tokens
+            ehs, pooled = captured(clip, ("encode",), text, ids.to(device), modules=(clip,))
+            tokens = distill.distilled_generate(
+                student, ehs, pooled, micro, teacher_timesteps=DISTILL_T,
+                step_ratio=DISTILL_RATIO, temperature=TEMPERATURE,
+                generator=torch.Generator().manual_seed(i))
+            return captured(vae, ("decode_code",), decode, tokens, modules=(vae,)), tokens
+        return timed_call(run)
+
+    median, launches = run_requests(
+        smi, "distilled", expected_request_launches(student.config, "fused_categorical",
+                                                    steps=steps),
+        request, steps=steps, guidance=0.0)
+    nocfg = LATENCY_MS.get("serving_nocfg", float("nan"))
+    log(f"[latency] distilled: the {steps}-step CFG-free student request {median * 1e3:.1f} ms "
+        f"(text tower, decode and VQGAN decode, a replayed graph each) beside serving_nocfg's "
+        f"12-step request {nocfg:.1f} ms (one graph for all three): {median * 1e3 / nocfg:.3f}; "
+        f"on {smi}")
+    return True, launches
+
+
+# configs/imagenet_movq.yaml's batch 256 cut to the largest power of two that
+# fits: 24 layers of 1025 tokens without checkpointing, the step's eager
+# warm-up and its capture each holding the activations (the plain-VJP
+# attention's included); at 32, after the earlier phases and with the
+# config's EMA, the capture ran out of an 80 GB H100; 8 steps
+MOVQ_CLASS_B, MOVQ_CLASS_IMAGES = 16, 128
+
+
+def train_movq_class_phase(device, smi):
+    """train_maskgit_imagenet.main on configs/imagenet_movq.yaml (the v1
+    model, 24 x 1024, 1025 positions: kernel 5's two-pass variant in
+    training; a MOVQ at Kandinsky 2.1's widths: vq_argmin at C 4 over 16384
+    codes) at batch MOVQ_CLASS_B over seeded 256px PNGs with class ids, 8
+    steps, the panel at step 8.  Returns (ok, launch counts)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from open_muse_tpu_torch.training import train_maskgit_imagenet
+    from open_muse_tpu_torch.utils.config import load_config
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_movq_class_", dir=runs)
+    try:
+        shard = os.path.join(work, "imagenet-000.tar")
+        classes = np.random.RandomState(9).randint(0, 1000, MOVQ_CLASS_IMAGES)
+        write_image_shard(shard, MOVQ_CLASS_IMAGES, seed=9, classes=classes)
+        vq_dir = os.path.join(work, "movq")
+        build_movq(device, 13).save_pretrained(vq_dir)
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "imagenet_movq.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=64", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={V1_STEPS}",
+                f"experiment.generate_every={V1_STEPS}", f"model.vq_model.pretrained={vq_dir}",
+                f"training.batch_size={MOVQ_CLASS_B}", "lr_scheduler.params.warmup_steps=0",
+                f"training.max_train_steps={V1_STEPS}"]
+        for arg in argv:
+            log(f"[train_movq_class] argument {arg}")
+        config = load_config(argv)
+        tcfg = config.model.transformer.to_dict()
+        log(f"[train_movq_class] cuts of configs/imagenet_movq.yaml: batch 256 -> {MOVQ_CLASS_B}"
+            f" (32 ran out of the card after the earlier phases: activations of 1025 tokens, "
+            f"held by the warm-up and the capture), warmup 5000 -> 0, "
+            f"{V1_STEPS} steps, generate_every 1000 -> {V1_STEPS}; a seeded MOVQ at Kandinsky "
+            f"2.1's widths; {MOVQ_CLASS_IMAGES} seeded 256px PNGs, class ids in [0, 1000); as "
+            f"written: {tcfg['num_hidden_layers']} layers, hidden {tcfg['hidden_size']}, "
+            f"{tcfg['max_position_embeddings']} positions, codebook {tcfg['codebook_size']}, "
+            f"hidden_dropout {tcfg['hidden_dropout']}, use_ema {config.training.use_ema}, "
+            f"{config.training.mixed_precision}")
+        expected = class_launches(tcfg, V1_STEPS, 1)
+        state, launches, median, peak, capture, ok = _v1_run(
+            "train_movq_class", train_maskgit_imagenet, argv, out, expected, V1_STEPS)
+        panel_ok = os.path.isfile(os.path.join(out, f"samples-{V1_STEPS}.png"))
+        tokens = MOVQ_CLASS_B * 1024
+        log(f"[train_movq_class] {sum(p.numel() for p in state.model.parameters()) / 1e6:.1f} M "
+            f"params; samples-{V1_STEPS}.png {panel_ok}; median step {median * 1e3:.1f} ms over "
+            f"steps 2-{V1_STEPS} (host clock, synchronised; the MOVQ encode and the step), "
+            f"{tokens / median:.0f} image tokens/s, {MOVQ_CLASS_B / median:.2f} images/s, peak "
+            f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated), step 1's capture {capture} "
+            f"s; on {smi}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok and panel_ok, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def teacher_shapes(device):
+    """Kernels 4, 7, 9 and 10 at the distillation teacher's shapes (its CFG
+    decode of DISTILL_B prompts: 2 x DISTILL_B rows of 256 tokens): each
+    against its plain version and timed beside it (CUDA graph replay); no
+    one library call computes any of the four.  Returns ok."""
+    from open_muse_tpu_torch.kernels.fused_sample import (fused_categorical_cfg,
+                                                          fused_categorical_cfg_plain)
+
+    gen = torch.Generator().manual_seed(15)
+    rows = 2 * DISTILL_B
+    m, d = rows * TRAIN_S, HIDDEN
+    # bytes (bf16 inputs, weights and outputs once) and operations, as the
+    # report rows count them at the serving shapes
+    bounds = {"glu_down_matmul": bound_of(2 * (2 * m * INTER + d * INTER + m * d),
+                                          2 * m * INTER * d, "bf16"),
+              "attn_sublayer_self": bound_of(2 * (4 * m * d + 4 * d * d),
+                                             2 * m * 4 * d * d + 4 * m * TRAIN_S * d, "bf16"),
+              "attn_sublayer_cross": bound_of(2 * (4 * m * d + 2 * d * d + rows * KV_LEN * 2 * d),
+                                              2 * m * 2 * d * d + 4 * m * KV_LEN * d, "bf16")}
+    ok, _, (ms, plain_ms) = check_glu(device, gen, m)
+    times = {"glu_down_matmul": (ms, plain_ms)}
+    for name, (sub_ok, _, timing) in check_sublayers(device, gen, rows).items():
+        ok &= sub_ok
+        times[name] = timing
+    for name, (ms, plain_ms) in times.items():
+        bound, by = bounds[name]
+        log(f"[time] {name} at the teacher's shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms (median, CUDA graph replay); bound {bound:.4f} ms ({by})")
+    cuda_gen = torch.Generator(device=device).manual_seed(16)
+    logits = (torch.randn(rows, 256, 8256, generator=cuda_gen, device=device) * 2).to(
+        torch.bfloat16)
+    x = logits[..., :8192].float()
+    x = x[DISTILL_B:] + GUIDANCE * (x[:DISTILL_B] - x[DISTILL_B:])
+    sampler_ok, _, _ = check_philox_route(
+        "fused_categorical_cfg", lambda seed: fused_categorical_cfg(logits, GUIDANCE, 8192,
+                                                                    seed=seed),
+        lambda noise: fused_categorical_cfg_plain(logits, GUIDANCE, 8192, noise), logits, x,
+        8192, device, row=False)
+    return ok and sampler_ok
+
+
 # -- the Hopper GEMM's variants ---------------------------------------------
 
 # (m, n, k, layout): the products of kernels 7, 9 and 10 (the GLU
@@ -3417,8 +4005,10 @@ def main() -> int:
     for label, fn in splits:
         log_split(label, fn)
     del splits
-    kernels.reset_launch_counts()
     failed = [name for name, (ok, _, _) in report.items() if not ok]
+    if not teacher_shapes(device):
+        failed.append("kernels 4, 7, 9, 10 at the distillation teacher's shapes")
+    kernels.reset_launch_counts()
     log(f"[phase] kernel checks {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
@@ -3480,12 +4070,21 @@ def main() -> int:
         failed.append("v1 text training phase")
     log(f"[phase] train_v1_text {time.perf_counter() - phase_t0:.1f} s")
 
-    for name, phase in (("train_vqgan", train_vqgan_phase), ("train_soft", train_soft_phase)):
+    for name, phase in (("train_vqgan", train_vqgan_phase), ("train_soft", train_soft_phase),
+                        ("train_opt", train_opt_phase),
+                        ("train_movq_class", train_movq_class_phase)):
         phase_t0 = time.perf_counter()
         phase_ok, paths[name] = phase(device, smi)
         if not phase_ok:
             failed.append(f"{name} phase")
         log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    distill_ok, paths["distill"], paths["distilled"] = distill_phase(device, smi)
+    if not distill_ok:
+        failed.append("distill phase")
+    log(f"[phase] distill and the distilled student's requests "
+        f"{time.perf_counter() - phase_t0:.1f} s")
 
     rows = []
     for name, (ok, err, t) in report.items():

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flax_key_candidates", "jax_params_to_state_dict"]
+__all__ = ["flax_key_candidates", "jax_layout", "jax_params_to_state_dict"]
 
 _INDEX_RE = re.compile(r"\.(\d+)(?=\.|$)")
 _LEAF_CANDIDATES = {
@@ -47,16 +47,28 @@ def flax_key_candidates(torch_key: str) -> List[str]:
     return [".".join(base + [cand]) for cand in _LEAF_CANDIDATES.get(leaf, (leaf,))]
 
 
-def _to_torch_layout(value: np.ndarray, module: nn.Module, leaf: str) -> np.ndarray:
+def jax_layout(module: nn.Module, leaf: str):
+    """How the port's ``leaf`` of ``module`` sits in its JAX leaf: (the
+    permutation taking the torch axes to the JAX ones, the JAX axes then
+    flipped), or None where the layouts agree."""
     if leaf == "weight" and isinstance(module, nn.ConvTranspose2d):
         if getattr(module, "flax_transpose_kernel", False):
-            return value.transpose(3, 2, 0, 1)
-        return value[::-1, ::-1].transpose(2, 3, 0, 1)
+            return (2, 3, 1, 0), ()
+        return (2, 3, 0, 1), (0, 1)
     if leaf == "weight" and isinstance(module, nn.Conv2d):
-        return value.transpose(3, 2, 0, 1)
+        return (2, 3, 1, 0), ()
     if leaf == "weight" and isinstance(module, nn.Linear):
-        return value.T
-    return value
+        return (1, 0), ()
+    return None
+
+
+def _to_torch_layout(value: np.ndarray, module: nn.Module, leaf: str) -> np.ndarray:
+    layout = jax_layout(module, leaf)
+    if layout is None:
+        return value
+    perm, flip = layout
+    value = np.flip(value, flip) if flip else value
+    return value.transpose(np.argsort(perm))
 
 
 def jax_params_to_state_dict(flat_params: Mapping[str, np.ndarray], model: nn.Module

@@ -14,9 +14,8 @@ module names are the reference's (``in_block.1``, ``down_blocks.N``,
 
 Reproduced reference behaviour:
   * the model is inference-only: the BatchNorm applies its running
-    statistics, which are buffers here and parameters in the JAX tree (so
-    VQGAN training leaves them fixed here, where the JAX trainer moves them
-    by their gradients);
+    statistics, which are parameters, as in the JAX tree, so VQGAN training
+    moves them by their gradients as the JAX trainer does;
   * ``encode`` divides ``z_q`` by ``scale_factor`` and ``decode`` multiplies
     by it, but ``decode_code`` does not rescale.
 """
@@ -74,13 +73,32 @@ class ResBlock(nn.Module):
         return x + self.channelwise(h).permute(0, 3, 1, 2) * g[5]
 
 
-class BatchNorm2dInference(nn.BatchNorm2d):
-    """BatchNorm2d that applies its running statistics in training mode
-    too: the reference model is inference-only."""
+class BatchNorm2dInference(nn.Module):
+    """``(x - running_mean) * rsqrt(running_var + eps) * weight + bias`` over
+    the channels of an NCHW map, in training mode too: the reference model
+    is inference-only.  The statistics are parameters, as in the JAX tree,
+    and the normalisation is written out so that autograd reaches them
+    (``F.batch_norm`` in eval mode gives them no gradient).  The state-dict
+    names are ``nn.BatchNorm2d``'s but for its bookkeeping
+    ``num_batches_tracked``, which has no JAX leaf and is never read (a
+    checkpoint that carries it loads: ``from_pretrained`` ignores unknown
+    keys)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.running_mean = nn.Parameter(torch.zeros(channels))
+        self.running_var = nn.Parameter(torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        def per_channel(v):
+            return v[:, None, None]
+
+        inv = torch.rsqrt(per_channel(self.running_var) + self.eps)
+        return (x - per_channel(self.running_mean)) * inv * per_channel(self.weight) \
+            + per_channel(self.bias)
 
 
 class PaellaVQModel(VQModelMixin, ModelMixin, nn.Module):
@@ -120,11 +138,6 @@ class PaellaVQModel(VQModelMixin, ModelMixin, nn.Module):
         self.out_block = nn.Sequential(nn.Conv2d(c_levels[0], 3 * 4, 1), nn.PixelShuffle(2))
         self.vquantizer = VectorQuantizer(cfg.codebook_size, cfg.c_latent, "codebook",
                                           metric="l2")
-
-    @staticmethod
-    def _flax_key(key: str):
-        """BatchNorm bookkeeping has no JAX leaf."""
-        return None if key.endswith("num_batches_tracked") else key
 
     def _latents(self, pixel_values):
         """NHWC or NCHW images -> NHWC latents before quantization."""

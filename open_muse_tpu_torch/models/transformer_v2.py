@@ -584,12 +584,16 @@ def decode_schedules(timesteps: int, temperature=1.0, guidance_scale: float = 0.
 def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
                          guidance_scales, mask_ratios, *, use_cfg: bool, seq_len: int,
                          timesteps: int, mask_gumbel, seeds=None, sample_gumbel=None,
-                         return_intermediate: bool = False):
+                         return_intermediate: bool = False, return_trajectory: bool = False):
     """The MaskGIT decode: ``timesteps`` forwards of ``model`` with the
     text-derived tensors computed once (``model.step_context``), each
     followed by sampling and confidence re-masking.  Returns the token ids
     committed at the last step (B, S) int64, and with
-    ``return_intermediate`` also each step's raw samples (T, B, S).
+    ``return_intermediate`` also each step's raw samples (T, B, S).  With
+    ``return_trajectory`` it returns ``(final, states, sampled)``, the JAX
+    distillation teacher's contract: ``states[t]`` (T, B, S) the carry-in ids
+    of step t (``states[0]`` all masks), ``sampled[t]`` the committed grid
+    after step t.
 
     No host work inside, so that one CUDA graph can hold it: the
     ``temperatures`` and ``mask_ratios`` (T,) and all noise lie on the
@@ -604,8 +608,9 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
         raise ValueError(f"input_ids {tuple(input_ids.shape)} vs seq_len {seq_len}")
     step_ctx = model.step_context(ehs, conds, micros)
     ids = input_ids.long()
-    sampled, raws = ids, []
+    sampled, raws, states, committed = ids, [], [], []
     for step in range(timesteps):
+        states.append(ids)
         model_input = torch.cat([ids, ids], dim=0) if use_cfg else ids
         raw = model(model_input, step_ctx=step_ctx)
         ids, sampled, raw_ids = decode_step(
@@ -615,6 +620,9 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
             mask_gumbel=mask_gumbel[step], seed=None if seeds is None else seeds[step:step + 1],
             sample_gumbel=None if sample_gumbel is None else sample_gumbel[step])
         raws.append(raw_ids)
+        committed.append(sampled)
+    if return_trajectory:
+        return sampled, torch.stack(states), torch.stack(committed)
     return (sampled, torch.stack(raws)) if return_intermediate else sampled
 
 

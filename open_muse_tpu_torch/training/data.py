@@ -5,16 +5,20 @@ The port's own copy of the jax-free pieces of
 ``open_muse_tpu/training/data.py``: brace expansion, (``pipe:``) tar
 streaming with key grouping that skips corrupt members, the per-process shard
 split (the rank and the process count are given, never looked up), sample
-decoding, the resize-and-crop image transform, the metadata quality filter
-and a background prefetch thread.  ``PreEncodedDataset`` is the counterpart
-of the ``pre_encode`` branch of ``Text2ImageDataset``, ``Text2ImageDataset``
-of its raw-image branch, and ``ClassificationDataset`` of the class-id
-shards of ``train_maskgit_imagenet``.
+decoding, the resize-and-crop image transform, the dataset dialects'
+raw-sample maps (``DATASET_MAPS``), the metadata quality filter and a
+background prefetch thread.  ``PreEncodedDataset`` is the counterpart of
+the ``pre_encode`` branch of ``Text2ImageDataset`` (with the members named
+after the encoder checkpoints renamed), ``Text2ImageDataset`` of its
+raw-image branch (the native reader of ``native_io`` where it builds), and
+``ClassificationDataset`` of the class-id shards of
+``train_maskgit_imagenet``.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import logging
 import os
@@ -29,8 +33,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 __all__ = ["braceexpand", "expand_urls", "tar_samples", "ShardSource", "decode_sample",
-           "get_aesthetic_score", "person_token_replace", "image_transform", "WebdatasetSelect",
-           "PreEncodedDataset", "Text2ImageDataset", "ClassificationDataset"]
+           "get_aesthetic_score", "person_token_replace", "image_transform",
+           "sdxl_synthetic_dataset_map", "ds_clean_upscaled_map", "ds_clean_map", "DATASET_MAPS",
+           "WebdatasetSelect", "PreEncodedDataset", "Text2ImageDataset", "ClassificationDataset"]
 
 logger = logging.getLogger(__name__)
 
@@ -240,6 +245,56 @@ def image_transform(image, resolution: int = 256, rng: Optional[random.Random] =
     return arr, orig_size, (top, left)
 
 
+def sdxl_synthetic_dataset_map(sample: Dict[str, bytes]) -> Dict[str, bytes]:
+    """SDXL-synthetic shards: N candidate images ``<key>.<i>.png`` and
+    ``clip_scores.txt``; the best-scoring candidate is kept, with metadata
+    of its 1024 px generation and an aesthetic score of 5."""
+    scores = [float(x) for x in sample["clip_scores.txt"].decode("utf-8").split(",")]
+    best_key = f"{max(range(len(scores)), key=scores.__getitem__)}.png"
+    if best_key not in sample:
+        raise ValueError(f"{best_key} not found in sample; expected files <key>.<i>.png "
+                         f"matching the clip_scores.txt indices")
+    return {"__key__": sample.get("__key__"), "__url__": sample.get("__url__"),
+            "txt": sample["txt"], "png": sample[best_key],
+            "json": json.dumps({"aesthetic": 5, "original_width": 1024,
+                                "original_height": 1024}).encode()}
+
+
+def _png(data: bytes):
+    from PIL import Image
+
+    with io.BytesIO(data) as stream:
+        image = Image.open(stream)
+        image.load()
+    return image
+
+
+def ds_clean_upscaled_map(sample: Dict[str, bytes]) -> Dict[str, bytes]:
+    """ds_clean's upscaled variant: the image's own size as the original
+    size, an aesthetic score of 5."""
+    image = _png(sample["png"])
+    return {"__key__": sample.get("__key__"), "__url__": sample.get("__url__"),
+            "txt": sample["txt"], "png": sample["png"],
+            "json": json.dumps({"aesthetic": 5, "original_width": image.width,
+                                "original_height": image.height}).encode()}
+
+
+def ds_clean_map(sample: Dict[str, bytes]) -> Dict[str, bytes]:
+    """ds_clean's 2 x 2 grids: the top-left quadrant, re-encoded as PNG."""
+    image = _png(sample["png"])
+    width, height = image.width // 2, image.height // 2
+    buf = io.BytesIO()
+    image.crop((0, 0, width, height)).save(buf, format="PNG")
+    return {"__key__": sample.get("__key__"), "__url__": sample.get("__url__"),
+            "txt": sample["txt"], "png": buf.getvalue(),
+            "json": json.dumps({"aesthetic": 5, "original_width": width,
+                                "original_height": height}).encode()}
+
+
+DATASET_MAPS = {"sdxl_synthetic": sdxl_synthetic_dataset_map, "ds_clean": ds_clean_map,
+                "ds_clean_upscaled": ds_clean_upscaled_map}
+
+
 class WebdatasetSelect:
     """Metadata quality filter across the LAION / COYO metadata dialects: min
     size, watermark probability, aesthetic score, nsfw, spawning opt-out,
@@ -319,17 +374,26 @@ class PreEncodedDataset:
     member (``vq_f16.npy``, ``clip_penultimate.npy``, ``clip_pooled.npy``, ...)
     plus ``__keys__``, from shards resampled with replacement (or walked
     once with ``resample=False``); ``select`` filters on the decoded sample
-    (its ``metadata``).  One process: rank 0 of 1."""
+    (its ``metadata``).  The reference's dialect names members after the
+    encoder checkpoints that wrote them: ``<vae_checkpoint>.pth`` becomes
+    ``image_input_ids`` and ``<text_encoder_checkpoint>.pth``
+    ``encoder_hidden_states`` (each name lower-cased, ``/`` as ``.``).  One
+    process: rank 0 of 1."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
-                 resample: bool = True, seed: int = 0):
+                 resample: bool = True, seed: int = 0, vae_checkpoint: Optional[str] = None,
+                 text_encoder_checkpoint: Optional[str] = None):
         self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
                                   process_index=0, process_count=1)
         self.batch_size = batch_size
         self.shuffle_buffer_size = shuffle_buffer_size
         self.select = select
         self.rng = random.Random(seed + 1)
+        self.renames = {f"{name.lower().replace('/', '.')}.pth": canonical
+                        for name, canonical in ((vae_checkpoint, "image_input_ids"),
+                                                (text_encoder_checkpoint,
+                                                 "encoder_hidden_states")) if name}
 
     def _samples(self) -> Iterator[Dict[str, Any]]:
         for url in self.shards:
@@ -349,12 +413,11 @@ class PreEncodedDataset:
                 yield self._collate(batch)
                 batch = []
 
-    @staticmethod
-    def _collate(batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+    def _collate(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
         out: Dict[str, Any] = {"__keys__": [s["__key__"] for s in batch]}
         for k in batch[0]:
             if k.endswith("npy") or k.endswith("pth"):
-                out[k] = np.stack([np.asarray(s[k]) for s in batch])
+                out[self.renames.get(k, k)] = np.stack([np.asarray(s[k]) for s in batch])
         return out
 
 
@@ -367,14 +430,21 @@ class Text2ImageDataset:
     (B,), from shards resampled with replacement (or walked once with
     ``resample=False``), filtered by ``select`` on the decoded sample.  The
     crops, shuffles and person words come from one ``random.Random(seed +
-    1)``, as in the JAX dataset.  A sample without an image is skipped, and
-    one without a caption too unless ``require_text`` is False.  One
-    process: rank 0 of 1."""
+    1)``, as in the JAX dataset.  ``dataset_map`` (a name in
+    ``DATASET_MAPS`` or a callable) rewrites each raw sample first (a
+    sample it fails on is skipped with a warning; ``sdxl_synthetic`` skips
+    samples without ``clip_scores.txt``).  A sample without an image is
+    skipped, and one without a caption too unless ``require_text`` is
+    False.  ``use_native``: the shards are read by ``native_io``'s C++
+    threads, 16 sampled shards at a time, where the library builds, else
+    by the Python reader (the log says which).  One process: rank 0 of 1."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *, resolution: int = 256,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
                  resample: bool = True, seed: int = 0, center_crop: bool = False,
-                 prefetch_depth: int = 4, require_text: bool = True):
+                 prefetch_depth: int = 4, require_text: bool = True,
+                 dataset_map: Optional[Any] = None, use_native: bool = True,
+                 native_threads: int = 4):
         self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
                                   process_index=0, process_count=1)
         self.batch_size = batch_size
@@ -384,16 +454,48 @@ class Text2ImageDataset:
         self.center_crop = center_crop
         self.prefetch_depth = prefetch_depth
         self.require_text = require_text
+        self.dataset_map = DATASET_MAPS[dataset_map] if isinstance(dataset_map, str) \
+            else dataset_map
+        self.use_native = use_native
+        self.native_threads = native_threads
         self.rng = random.Random(seed + 1)
 
-    def _samples(self) -> Iterator[Dict[str, Any]]:
+    def _raw_samples(self) -> Iterator[Dict[str, bytes]]:
+        if self.use_native:
+            from .native_io import NativeShardReader, native_available
+
+            if native_available():
+                logger.info("reading shards with the native reader (%d threads)",
+                            self.native_threads)
+                # the sampled urls go to the C++ pool in chunks, so that
+                # resampling with replacement keeps its meaning
+                shard_iter = iter(self.shards)
+                while True:
+                    chunk = list(itertools.islice(shard_iter, 16))
+                    if not chunk:
+                        return
+                    with NativeShardReader(chunk, num_threads=self.native_threads) as reader:
+                        yield from reader
+        logger.info("reading shards with the Python reader")
         for url in self.shards:
-            for raw in tar_samples(url):
-                sample = decode_sample(raw)
-                if "image" not in sample or (self.require_text and "text" not in sample):
+            yield from tar_samples(url)
+
+    def _samples(self) -> Iterator[Dict[str, Any]]:
+        for raw in self._raw_samples():
+            if self.dataset_map is not None:
+                if self.dataset_map is sdxl_synthetic_dataset_map and \
+                        "clip_scores.txt" not in raw:
                     continue
-                if self.select is None or self.select(sample):
-                    yield sample
+                try:
+                    raw = self.dataset_map(raw)
+                except Exception as exc:  # warn and continue, as webdataset's handler
+                    logger.warning("dataset_map failed on %s: %s", raw.get("__key__"), exc)
+                    continue
+            sample = decode_sample(raw)
+            if "image" not in sample or (self.require_text and "text" not in sample):
+                continue
+            if self.select is None or self.select(sample):
+                yield sample
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         it = _shuffled(self._samples(), self.shuffle_buffer_size, self.rng)

@@ -21,8 +21,12 @@ grad norms, eval, the sample panel, checkpoint, a ``torch.profiler`` window }.
 autocast.  ``training.use_soft_code_target`` (the raw branch only) takes the
 image tokens and the v2 step's soft targets from the VQ model's
 ``get_soft_code`` (``soft_code_temp``; ``use_stochastic_code`` samples the
-codes with Gumbel noise from the trainer's generator).  The inpainting
-panels, ``dataset_map`` dialects, wandb and multi-host runs are not ported.
+codes with Gumbel noise from the trainer's generator).
+``experiment.inpainting_validation_dir`` (the raw v2 branch) adds an
+inpainting panel beside each sample panel.  Raw shards may name a
+``dataset.params.dataset_map`` dialect; pre-encoded ones may carry members
+named after ``vae_checkpoint`` / ``text_encoder_checkpoint``.  wandb and
+multi-host runs are not ported.
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from .masking import draw_masking_noise
 from .optimizers import get_optimizer
 
 __all__ = ["MetricsTracker", "FrozenEncoders", "load_vq_model", "get_code", "save_image_grid",
-           "prepare_batch", "SamplePanel", "log_step", "main"]
+           "prepare_batch", "SamplePanel", "load_inpainting_validation_data",
+           "generate_inpainting_images", "log_step", "main"]
 
 logger = logging.getLogger(__name__)
 
@@ -361,6 +366,62 @@ def v1_text_panel(model, batch, generator):
                            timesteps=12, guidance_scale=8.0, generator=generator)
 
 
+def load_inpainting_validation_data(directory: str, image_size: int, latent_side: int):
+    """Folders of an image and a mask, the folder's name the prompt
+    (underscores as spaces): [{"prompt", "image" (R, R, 3) float in [0, 1],
+    "mask" (latent_side, latent_side) bool, True where repainted}], sorted
+    by folder."""
+    from PIL import Image
+
+    entries = []
+    for prompt_dir in sorted(os.listdir(directory)):
+        full = os.path.join(directory, prompt_dir)
+        if not os.path.isdir(full):
+            continue
+        files = os.listdir(full)
+        img_file = next((f for f in files if "mask" not in f.lower()
+                         and f.lower().endswith((".png", ".jpg", ".jpeg"))), None)
+        mask_file = next((f for f in files if "mask" in f.lower()), None)
+        if not img_file or not mask_file:
+            continue
+        image = Image.open(os.path.join(full, img_file)).convert("RGB") \
+            .resize((image_size, image_size))
+        mask = Image.open(os.path.join(full, mask_file)).convert("L") \
+            .resize((latent_side, latent_side))
+        entries.append({"prompt": prompt_dir.replace("_", " "),
+                        "image": np.asarray(image, dtype=np.float32) / 255.0,
+                        "mask": np.asarray(mask) > 127})
+    return entries
+
+
+@torch.no_grad()
+def generate_inpainting_images(model, vq_model, entries, encode_text, mask_id: int,
+                               micro_conds, empty_embeds, empty_cond_embeds, out_path,
+                               noise_for: Callable[[int], dict]):
+    """The inpainting panel: each entry's image encoded (``get_code``, one
+    replayed CUDA graph on the card), its masked tokens set to ``mask_id``,
+    then ``generate2`` from them (8 steps, CFG 8 against the empty prompt;
+    ``noise_for(i)``: the entry's ``generator=`` or ``noise=``) and
+    ``decode_code``; the images as one grid at ``out_path`` (None: none
+    written).  Returns each entry's generated token ids (1, N)."""
+    device = next(model.parameters()).device
+    panels, generated = [], []
+    for i, entry in enumerate(entries):
+        pixels = torch.from_numpy(entry["image"])[None].to(device)
+        mask = torch.from_numpy(entry["mask"].reshape(1, -1)).to(device)
+        tokens = torch.where(mask, mask_id, get_code(vq_model, pixels).long())
+        ehs, pooled = encode_text([entry["prompt"]])
+        ids = model.generate2(ehs, pooled, micro_conds, empty_embeds=empty_embeds,
+                              empty_cond_embeds=empty_cond_embeds, input_ids=tokens,
+                              timesteps=8, guidance_scale=8.0, seq_len=tokens.shape[1],
+                              **noise_for(i))
+        generated.append(ids)
+        panels.append(vq_model.decode_code(ids)[0].float().cpu().numpy())
+    if panels and out_path is not None:
+        save_image_grid(np.stack(panels), out_path)
+    return generated
+
+
 def log_step(tracker, train_step, capture, metrics, state, batch_size: int, end: float,
              batch_time: AverageMeter, data_time: AverageMeter) -> dict:
     """One metrics line: the step's metrics (a device read, so it waits for
@@ -484,9 +545,12 @@ def main(argv=None) -> T.TrainState:
 
     def dataset(urls, center_crop: bool, **kw):
         if pre_encode:
-            return PreEncodedDataset(urls, batch_size, **kw)
+            return PreEncodedDataset(
+                urls, batch_size, vae_checkpoint=ds_params.get("vae_checkpoint"),
+                text_encoder_checkpoint=ds_params.get("text_encoder_checkpoint"), **kw)
         return Text2ImageDataset(urls, batch_size, resolution=resolution,
-                                 center_crop=center_crop, **kw)
+                                 center_crop=center_crop,
+                                 dataset_map=ds_params.get("dataset_map"), **kw)
 
     train_data = dataset(ds_params.train_shards_path_or_url,
                          bool(preprocessing.get("center_crop", False)),
@@ -501,6 +565,8 @@ def main(argv=None) -> T.TrainState:
     panel = None if encoders is None else SamplePanel(
         state, encoders.vq_model, autocast_dtype or torch.float32, seed,
         v1_text_panel if is_v1 else uvit_panel(empty))
+    inpaint_dir = config.experiment.get("inpainting_validation_dir")
+    inpaint_entries = None  # read at the first panel, at the batch's token grid
 
     max_steps = config.training.max_train_steps
     log_every = config.experiment.get("log_every", 50)
@@ -561,6 +627,16 @@ def main(argv=None) -> T.TrainState:
                 logger.info("step %d: eval_loss=%.4f", step, np.mean(losses))
         if panel is not None and generate_every and step % generate_every == 0:
             panel(batch, step, os.path.join(output_dir, f"samples-{step}.png"))
+            if inpaint_dir and not is_v1:
+                if inpaint_entries is None:
+                    inpaint_entries = load_inpainting_validation_data(
+                        inpaint_dir, resolution, int(batch["image_tokens"].shape[1] ** 0.5))
+                generate_inpainting_images(
+                    panel.model, encoders.vq_model, inpaint_entries, encoders.encode_text,
+                    mask_id, batch["micro_conds"][:1], empty["empty_embeds"],
+                    empty["empty_cond_embeds"],
+                    os.path.join(output_dir, f"inpainting-{step}.png"),
+                    lambda i: {"generator": torch.Generator().manual_seed(seed + 1000 * step + i)})
         if step % save_every == 0:
             T.save_checkpoint(output_dir, state,
                               checkpoints_total_limit=config.experiment.get(

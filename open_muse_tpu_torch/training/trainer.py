@@ -123,14 +123,14 @@ def grad_norm_param_names(model: nn.Module) -> List[str]:
     return [name for _, name in _flax_leaves(model)]
 
 
-def _autocast(spec: StepSpec, device: torch.device):
+def autocast(spec: StepSpec, device: torch.device):
     # no autocast cache: a capture must not keep casts of the weights made
     # before the optimizer's update
     return torch.autocast(device.type, dtype=spec.autocast_dtype or torch.bfloat16,
                           enabled=spec.autocast_dtype is not None, cache_enabled=False)
 
 
-def _backward(state: TrainState, loss):
+def backward(state: TrainState, loss):
     """The backward of ``loss`` into fresh ``.grad``s -> (grads in
     ``model.parameters()`` order, their global norm)."""
     state.optimizer.zero_grad()
@@ -184,7 +184,7 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         keep = noise.cond_dropout >= spec.cond_dropout_prob
         ehs = torch.where(keep[:, None, None], ehs, batch["empty_embeds"].to(ehs.dtype))
         cond = torch.where(keep[:, None], cond, batch["empty_cond_embeds"].to(cond.dtype))
-    with _autocast(spec, ehs.device):
+    with autocast(spec, ehs.device):
         if spec.use_soft_targets:  # neither loss_weight nor label_smoothing, as in JAX
             logits = model(input_ids, ehs, cond, batch["micro_conds"])
             loss = soft_target_cross_entropy(logits, labels, batch["soft_targets"],
@@ -192,7 +192,7 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         else:
             logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
                                  loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
-    grads, grad_norm = _backward(state, loss)
+    grads, grad_norm = backward(state, loss)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                "avg_masking_rate": mask_prob.mean()}
     if spec.with_diagnostics:
@@ -230,10 +230,10 @@ def v1_text2image_train_body(state: TrainState, spec: StepSpec, batch: Dict[str,
     cond_mask = None
     if spec.cond_dropout_prob > 0.0:
         cond_mask = cond_keep_mask(noise.cond_dropout, spec.cond_dropout_prob, ehs.dtype)
-    with _autocast(spec, ehs.device):
+    with autocast(spec, ehs.device):
         _, loss = state.model(input_ids, ehs, labels=labels, label_smoothing=spec.label_smoothing,
                               cond_dropout_mask=cond_mask, dropout=spec.dropout)
-    _, grad_norm = _backward(state, loss)
+    _, grad_norm = backward(state, loss)
     state.optimizer.update(grad_norm, emit)
     if state.ema is not None:
         state.ema.update(state.model)
@@ -253,10 +253,10 @@ def maskgit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch
     input_ids, labels, _, mask_prob = _masked(batch, spec, noise)
     input_ids, labels = prepend_class_token(input_ids, labels, batch["class_ids"],
                                             spec.codebook_size)
-    with _autocast(spec, input_ids.device):
+    with autocast(spec, input_ids.device):
         _, loss = state.model(input_ids, labels=labels, label_smoothing=spec.label_smoothing,
                               dropout=spec.dropout)
-    _, grad_norm = _backward(state, loss)
+    _, grad_norm = backward(state, loss)
     state.optimizer.update(grad_norm, emit)
     return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
 
@@ -332,11 +332,11 @@ def _flat_inputs(batch, noise):
     return tuple(names), tensors
 
 
-def _unflat_inputs(names, tensors):
+def _unflat_inputs(names, tensors, noise_cls):
     batch, noise = {}, {}
     for (kind, k), t in zip(names, tensors):
         (batch if kind == "batch" else noise)[k] = t
-    return batch, MaskingNoise(**noise) if noise else None
+    return batch, noise_cls(**noise) if noise else None
 
 
 @dataclasses.dataclass
@@ -402,7 +402,7 @@ class TrainStep:
         if not graph or all(t.device.type == "cpu" for t in tensors):
             metrics = self.body(state, self.spec, batch, noise, emit)
         else:
-            metrics = self._replay(state, players, names, tensors, emit)
+            metrics = self._replay(state, players, (type(noise), names), tensors, emit)
         for p in players:
             p.optimizer.end_step(emit)
             p.step += 1
@@ -436,8 +436,9 @@ class TrainStep:
     def _warm_up_and_capture(self, state, names, tensors, emit):
         t0 = time.perf_counter()
         inputs = [t.clone(memory_format=torch.contiguous_format) for t in tensors]
-        body = lambda: self.body(state, self.spec, *_unflat_inputs(names, inputs),  # noqa: E731
-                                 emit)
+        noise_cls, names = names
+        body = lambda: self.body(  # noqa: E731
+            state, self.spec, *_unflat_inputs(names, inputs, noise_cls), emit)
         stream = torch.cuda.Stream(device=inputs[0].device)
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):  # the real step: it launches, and counts

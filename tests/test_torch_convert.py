@@ -123,7 +123,9 @@ def test_clip_config_from_full_clip_model_dict():
 
 def test_port_imports_no_jax():
     """Neither jax, flax nor any module of the JAX package (open_muse_tpu.*)
-    is imported by the port's modules, entry points or chip_smoke.py."""
+    is imported by the port's modules, entry points or chip_smoke.py (the
+    optimizers, distillation, the dataset dialects and the native reader
+    included)."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO_ROOT!r})
@@ -198,6 +200,28 @@ def test_port_imports_no_jax():
                                     disc_weight=0.75)
         metrics = gan(players, {{"pixel_values": torch.rand(2, 32, 32, 3)}})
         assert metrics["d_loss"].isfinite() and metrics["perceptual"].isfinite()
+        from open_muse_tpu_torch.training import distill, native_io, quant8
+        from open_muse_tpu_torch.training.data import DATASET_MAPS
+        for name in ("8bit_adamw", "bf16_adamw", "lion"):
+            metrics = step(TrainState(model=v1, optimizer=get_optimizer(name, v1, 1e-3)),
+                           {{"image_tokens": torch.zeros(2, 16, dtype=torch.long),
+                            "class_ids": torch.tensor([0, 3])}},
+                           draw_masking_noise(2, 16, torch.Generator().manual_seed(1), 64))
+            assert metrics["loss"].isfinite()
+        dstep = distill.make_distill_step(distill.frozen_teacher(m), mask_token_id=67,
+                                          teacher_timesteps=2, step_ratio=2,
+                                          guidance_scale=2.0, seq_len=16, soft_weight=0.5)
+        dnoise = distill.draw_distill_noise(torch.Generator().manual_seed(2), timesteps=2,
+                                            step_ratio=2, batch=1, seq_len=16,
+                                            codebook_size=64, device="cpu")
+        z = lambda *shape: torch.zeros(*shape)  # noqa: E731
+        metrics = dstep(TrainState(model=m.train(), optimizer=get_optimizer("adamw", m, 1e-3)),
+                        {{"encoder_hidden_states": z(1, 7, 48), "cond_embeds": z(1, 32),
+                         "micro_conds": z(1, 5), "empty_embeds": z(1, 7, 48),
+                         "empty_cond_embeds": z(1, 32)}}, dnoise)
+        assert metrics["soft_kl"].isfinite() and quant8.BLOCK_SIZE == 256
+        assert sorted(DATASET_MAPS) == ["ds_clean", "ds_clean_upscaled", "sdxl_synthetic"]
+        assert native_io.SOURCE.name == "muse_io.cpp"
         bad = [name for name in sys.modules
                if name.split(".")[0] in ("jax", "flax", "jaxlib", "open_muse_tpu")]
         assert not bad, bad

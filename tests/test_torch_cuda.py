@@ -749,9 +749,9 @@ def test_compiled_text2image_replays_equal_fresh_eager_calls(device):
 
 # -- the captured train step -----------------------------------------------------
 
-def _train_state(device, accumulation_steps=1):
-    """The small U-ViT (per-layer checkpointing) with AdamW (clip 1.0, a
-    constant lr) and an EMA, from one seed."""
+def _train_state(device, accumulation_steps=1, optimizer="adamw"):
+    """The small U-ViT (per-layer checkpointing) with ``optimizer`` (AdamW;
+    clip 1.0, a constant lr) and an EMA, from one seed."""
     from open_muse_tpu_torch.training.ema import EMA
     from open_muse_tpu_torch.training.optimizers import get_optimizer
     from open_muse_tpu_torch.training.trainer import TrainState
@@ -759,9 +759,9 @@ def _train_state(device, accumulation_steps=1):
     torch.manual_seed(0)
     model = _small_v2(device)
     model.set_gradient_checkpointing(True)
-    optimizer = get_optimizer("adamw", model, lambda count: 1e-3, max_grad_norm=1.0,
-                              accumulation_steps=accumulation_steps)
-    return TrainState(model=model, optimizer=optimizer, ema=EMA(model))
+    return TrainState(model=model, optimizer=get_optimizer(
+        optimizer, model, lambda count: 1e-3, max_grad_norm=1.0,
+        accumulation_steps=accumulation_steps), ema=EMA(model))
 
 
 def _train_batch(device, b=4):
@@ -819,6 +819,61 @@ def test_captured_train_step_equals_eager(device, accumulation_steps):
         _assert_same_state(a, b)
     assert a.step == b.step == 4 and a.optimizer.count == 4 // accumulation_steps
     assert step.last_capture["launches"] == eager_launches
+
+
+@pytest.mark.parametrize("name", ["8bit_adamw", "bf16_adamw", "lion"])
+def test_captured_train_step_equals_eager_other_optimizers(device, name):
+    """The other optimizers inside the captured step: 3 steps of two copies
+    of one seeded state, one through the graph and one through
+    ``step.eager``: every metric, parameter, EMA shadow and optimizer state
+    tensor (uint8 codes and absmax, the bf16 moment) bit-equal, each replay
+    adding the eager step's launches."""
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    step = _train_step()
+    a, b = _train_state(device, optimizer=name), _train_state(device, optimizer=name)
+    gens = [torch.Generator(device=device).manual_seed(6) for _ in range(2)]
+    batch = _train_batch(device)
+    for i in range(3):
+        noise_a, noise_b = (draw_masking_noise(4, 16, g, 64, cond_dropout=True) for g in gens)
+        got, launches = _counted(lambda: step(a, batch, noise_a))
+        want, eager_launches = _counted(lambda: step.eager(b, batch, noise_b))
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, equal_nan=True,
+                                       msg=f"step {i}: {key}")
+        assert launches == eager_launches, (i, launches, eager_launches)
+        _assert_same_state(a, b)
+    assert a.optimizer.count == 3
+
+
+def test_captured_distill_step_equals_eager(device):
+    """One distill step graph (a 4-step CFG teacher held in bf16, pairs of
+    2, the soft KL, clip 1.0, AdamW, EMA) against ``step.eager`` on two
+    copies of one student, 2 steps on the same noise (Philox seeds, mask
+    Gumbel, pairs): every metric and state tensor bit-equal, each replay
+    adding the eager step's launches, the teacher untouched."""
+    from open_muse_tpu_torch.training import distill
+
+    a, b = _train_state(device), _train_state(device)
+    teacher = distill.frozen_teacher(a.model, torch.bfloat16)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    step = distill.make_distill_step(teacher, mask_token_id=67, teacher_timesteps=4,
+                                     step_ratio=2, temperature=(2.0, 0.0), guidance_scale=3.0,
+                                     seq_len=16, max_grad_norm=1.0, soft_weight=0.5,
+                                     autocast_dtype=torch.bfloat16)
+    batch = {k: v for k, v in _train_batch(device).items() if k != "image_tokens"}
+    for i in range(2):
+        noise_a, noise_b = (distill.draw_distill_noise(
+            torch.Generator().manual_seed(10 + i), timesteps=4, step_ratio=2, batch=4,
+            seq_len=16, codebook_size=64, device=device) for _ in range(2))
+        got, launches = _counted(lambda: step(a, batch, noise_a))
+        want, eager_launches = _counted(lambda: step.eager(b, batch, noise_b))
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, msg=f"{i}: {key}")
+        assert launches == eager_launches and launches["fused_categorical_cfg"] == 4
+        _assert_same_state(a, b)
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 def test_captured_train_step_recaptures_after_resume(device, tmp_path):

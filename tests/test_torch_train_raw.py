@@ -82,14 +82,16 @@ def test_raw_dataset_matches_jax(tmp_path):
     """The same shard, seed and filter: batches equal to the JAX
     ``Text2ImageDataset``'s (random crops, the person word, original sizes
     from the metadata where present, aesthetic scores), the filtered sample
-    left out; centred crops for eval.  Both read without the prefetch
-    thread, which would race the crop draws against the shuffle."""
+    left out; centred crops for eval.  Both read with the Python reader and
+    without the prefetch thread, which would race the crop draws against the
+    shuffle."""
     shard = str(tmp_path / "raw-000.tar")
     write_raw_shard(shard, 12)
     for center in (False, True):
         kw = dict(resolution=32, shuffle_buffer_size=4, seed=3, center_crop=center,
                   prefetch_depth=0)
-        port = Text2ImageDataset(shard, 4, select=WebdatasetSelect(**FILTER), **kw)
+        port = Text2ImageDataset(shard, 4, select=WebdatasetSelect(**FILTER), use_native=False,
+                                 **kw)
         jax_ds = jdata.Text2ImageDataset(shard, 4, select=jdata.WebdatasetSelect(**FILTER),
                                          use_native=False, **kw)
         for got, want in zip(_batches(port, 3), _batches(jax_ds, 3)):

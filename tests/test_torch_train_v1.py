@@ -328,7 +328,7 @@ def test_classification_dataset_matches_jax(tmp_path):
     """The same shard (images without captions but two), seed and class
     mapping: batches equal to the JAX ``ClassificationDataset``'s (random
     crops, class ids int32, the mapping's texts, the default centre crop
-    off), read without the prefetch thread."""
+    off), read with the Python reader and without the prefetch thread."""
     shard = str(tmp_path / "cls-000.tar")
     write_class_shard(shard, 12, captions=(2, 7))
     mapping = str(tmp_path / "classes.json")
@@ -336,7 +336,8 @@ def test_classification_dataset_matches_jax(tmp_path):
         json.dump({"0": "tench", "1": "goldfish", "3": "shark"}, f)
     kw = dict(resolution=32, shuffle_buffer_size=4, seed=3, prefetch_depth=0)
     for path in (None, mapping):
-        port = ClassificationDataset(shard, 4, imagenet_class_mapping_path=path, **kw)
+        port = ClassificationDataset(shard, 4, imagenet_class_mapping_path=path,
+                                     use_native=False, **kw)
         jax_ds = jdata.ClassificationDataset(shard, batch_size=4, use_native=False,
                                              imagenet_class_mapping_path=path, **kw)
         got_batches, want_batches = iter(port), iter(jax_ds)

@@ -375,8 +375,8 @@ def test_perceptual_loss_and_vgg16_layout_match_jax():
 def test_decay_mask_matches_decay_mask_fn(player):
     """``decay_mask`` on the port's parameters equals ``decay_mask_fn`` on the
     JAX tree at their flax names (codebooks ``embedding``, GroupNorm
-    ``scale`` / ``bias`` undecayed); every JAX leaf has a port parameter but
-    Paella's BatchNorm statistics, buffers in the port."""
+    ``scale`` / ``bias`` and Paella's BatchNorm statistics undecayed); every
+    JAX leaf has a port parameter, Paella's BatchNorm statistics too."""
     if player == "discriminator":
         _, params, port = disc_pair(0)
     else:
@@ -387,9 +387,7 @@ def test_decay_mask_matches_decay_mask_fn(player):
     got = decay_mask(port)
     names = {name: flax_param_name(port, name) for name in got}
     assert {name: want[flax] for name, flax in names.items()} == got
-    extra = sorted(set(want) - set(names.values()))
-    assert all(k.endswith(("running_mean", "running_var")) for k in extra), extra
-    assert bool(extra) == (player == "paella")
+    assert sorted(set(want) - set(names.values())) == []
     assert any(got.values()) and not all(got.values())
 
 
@@ -593,6 +591,45 @@ def test_vqgan_steps_match_jax(gan):
                 moved += int((diff > 2e-6).sum())
             assert moved <= 1e-3 * sum(p.numel() for p in player.model.parameters()), (i, moved)
     assert all(p.step == 3 and p.optimizer.count == 3 for p in players)
+
+
+def test_paella_batchnorm_statistics_train_as_jax():
+    """ROADMAP fault 3.12: three ``train_vqgan`` steps of a tiny Paella (no
+    perceptual or adversarial term, AdamW at a constant LR after a first
+    update at lr 0, weight decay 1e-2, clipping at 1.0) move ``running_mean``
+    / ``running_var`` as the JAX step does, where they are parameters: after
+    each step both statistics lie within 1e-5 of JAX's (an update is ~LR),
+    and after steps 2 and 3 they differ from their start; the
+    decay mask keeps weight decay off them, and the parameters move as in
+    ``test_vqgan_steps_match_jax``."""
+    jm, port = family_pair("paella", 130)
+    x = _images(131)
+    tx = jax_get_optimizer("adamw", jlr.get_scheduler("constant_with_warmup", LR, 0),
+                           weight_decay=1e-2, max_grad_norm=1.0)
+    jstate = {"step": jnp.int32(0), "params": jm.params, "opt": tx.init(jm.params)}
+    state = ttrainer.TrainState(model=port.train(), optimizer=get_optimizer(
+        "adamw", port, tlr.get_scheduler("constant_with_warmup", LR, 0), weight_decay=1e-2,
+        max_grad_norm=1.0))
+    stats = [n for n, _ in port.named_parameters() if n.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 2 and not any(decay_mask(port)[n] for n in stats)
+    start = {n: p.detach().clone() for n, p in port.named_parameters()}
+    jstep = jax_vqgan_steps(jm, tx, (1.0, 1.0, 1.0, 0.0, 0.0), None)
+    step = ttrainer.make_vqgan_train_step()
+    for i in range(3):
+        jstate, jmetrics = jstep(jstate, jnp.asarray(x))
+        metrics = step((state,), {"pixel_values": torch.from_numpy(x)})
+        for name in ("loss", "l2", "l1", "vq_loss"):
+            assert_close(metrics[name], jmetrics[name], name=name)
+        want = _port_state(jstate["params"], port)
+        moved = 0
+        for name, p in port.named_parameters():
+            diff = (p.detach() - want[name]).abs()
+            if name in stats:
+                assert torch.equal(p.detach(), start[name]) == (i == 0), (i, name)
+                assert float(diff.max()) <= 1e-5, (i, name, float(diff.max()))
+            assert float(diff.max()) <= LR, (i, name, float(diff.max()))
+            moved += int((diff > 2e-6).sum())
+        assert moved <= 1e-3 * sum(p.numel() for p in port.parameters()), (i, moved)
 
 
 # -- the CLI end to end ---------------------------------------------------------
