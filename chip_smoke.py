@@ -78,7 +78,24 @@ directly (eager); the token ids of the two must be equal:
   step; then distilled: three 6-step CFG-free requests of the student
   through ``distilled_generate``.  The kernel checks also time kernels 4,
   7, 9 and 10 at the teacher's shapes, and train_raw runs the inpainting
-  panel.
+  panel.  distill's checkpoint (unwrapped_model/ and ema_model/) is read by
+  ``PipelineMuse.from_pretrained`` and answers a request from each;
+- eval: a seeded CLIP ViT-L/14 + CLIP-L scorer saved as a full CLIPModel
+  directory and read back by ``CLIPScorer.from_pretrained`` (the tower's
+  kernels against its plain attention, 24 kernel-5 launches a forward,
+  images/s, a profiled forward); ``scripts.calculate_fid.main`` over the
+  serving pipeline saved by ``save_pretrained``: 64 captions, CLIP-FID
+  against 64 seeded PNGs and the CLIP score; the seeded InceptionV3's FID
+  and Inception Score at 299 px on both sets;
+- gen_synthetic: ``scripts.gen_synthetic_dataset.main``, 8 prompts x 4
+  candidates, read back through ``sdxl_synthetic_dataset_map``;
+- quality: ``eval.quality_regression.run_quality_regression`` at its
+  defaults with the Inception graph (trained beats untrained);
+- distill_midscale: ``eval.distill_midscale.run_distill_midscale`` at
+  ``MIDSCALE_CUT``.  Every eval number comes from seeded weights: a
+  regression number, not a published metric.  The kernel checks hold
+  kernel 5 at the eval stacks' head dims 16 and 32 and at ViT-L/14's
+  shapes too (``EVAL_FLASH_SHAPES``).
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; the run fails unless every kernel of the path launched exactly
@@ -843,38 +860,60 @@ def _attention_inputs(device, gen, b, tq, tk, heads, d):
     return (q, *kv.reshape(b, tk, 2 * heads, d).chunk(2, dim=2))
 
 
-def check_flash(device, gen):
-    """flash_attention against flash_attention_plain in bf16: out to ATTN_TOL
-    (the kernel rounds P to bf16 as the plain version does, but sums QK^T,
-    the softmax and PV in another order), two calls bit-equal; SDPA on the
-    same inputs timed as the library call."""
+# kernel 5 at the eval stacks' shapes (B, Tq, Tk, H, D): CLIP ViT-L/14's
+# vision tower at batch 2 and at the eval batch 32 (the one-pass variant, two
+# warps a row group); head dim 16: the seeded CLIP towers of the quality
+# regression (32 px, patch 8: 17 tokens) and of the mid-scale protocol (64 px:
+# 65 tokens), the quality trunk's 8 x 8 tokens and its 8 text keys at 16 rows;
+# head dim 32: the mid-scale trunk's blocks, 16 x 16 tokens and 8 text keys
+# at 32 (CFG) rows
+EVAL_FLASH_SHAPES = ((2, 257, 257, 16, 64), (32, 257, 257, 16, 64), (30, 17, 17, 4, 16),
+                     (32, 65, 65, 4, 16), (16, 64, 64, 4, 16), (16, 64, 8, 4, 16),
+                     (32, 256, 256, 2, 32), (32, 256, 8, 2, 32))
+
+
+def _flash_case(device, gen, b, tq, tk, heads, d):
+    """One shape of kernel 5 against its plain version: (ok, max_abs, (kernel
+    ms, plain ms), SDPA ms, (bytes, operations, type))."""
     from torch.nn import functional as F
 
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
+    q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
+    out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+    max_abs, rel = errors(out, ref)
+    twice = torch.equal(out, flash_attention(q, k, v))
+    case_ok = rel <= ATTN_TOL and twice and bool(torch.isfinite(out).all())
+    ms = (graph_ms(lambda: flash_attention(q, k, v)),
+          graph_ms(lambda: flash_attention_plain(q, k, v)))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    lib_ms = graph_ms(sdpa)
+    lib_err = errors(sdpa().transpose(1, 2), ref)[1]
+    # q, k, v read and o written once; QK^T and PV
+    moved = (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16")
+    log(f"[kernel] flash_attention q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: max_abs "
+        f"{max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), two calls "
+        f"bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {lib_ms:.4f} ms "
+        f"(CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
+        f"{bound_of(*moved)[0]:.4f} ms {'ok' if case_ok else 'FAIL'}")
+    return case_ok, max_abs, ms, lib_ms, moved
+
+
+def check_flash(device, gen):
+    """flash_attention against flash_attention_plain in bf16: out to ATTN_TOL
+    (the kernel rounds P to bf16 as the plain version does, but sums QK^T,
+    the softmax and PV in another order), two calls bit-equal; SDPA on the
+    same inputs timed as the library call.  The report row is the last of
+    FLASH_SHAPES; EVAL_FLASH_SHAPES (head dims 16, 32 and ViT-L's 64) are
+    held and timed too."""
     ok, worst, row = True, 0.0, None
-    for b, tq, tk, heads, d in FLASH_SHAPES:
-        q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
-        out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
-        max_abs, rel = errors(out, ref)
-        twice = torch.equal(out, flash_attention(q, k, v))
-        case_ok = rel <= ATTN_TOL and twice and bool(torch.isfinite(out).all())
+    for shape in FLASH_SHAPES + EVAL_FLASH_SHAPES:
+        case_ok, max_abs, ms, lib_ms, moved = _flash_case(device, gen, *shape)
         ok &= case_ok
         worst = max(worst, max_abs)
-        ms = (graph_ms(lambda: flash_attention(q, k, v)),
-              graph_ms(lambda: flash_attention_plain(q, k, v)))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        lib_ms = graph_ms(sdpa)
-        lib_err = errors(sdpa().transpose(1, 2), ref)[1]
-        # q, k, v read and o written once; QK^T and PV
-        row = (ms, lib_ms, (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16"))
-        BOUNDS["flash_attention"] = row[2]
-        log(f"[kernel] flash_attention q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: max_abs "
-            f"{max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), two calls "
-            f"bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {lib_ms:.4f} ms "
-            f"(CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
-            f"{bound_ms('flash_attention')[0]:.4f} ms {'ok' if case_ok else 'FAIL'}")
+        if shape in FLASH_SHAPES:
+            row = (ms, lib_ms, moved)
     ms, LIBRARY_MS["flash_attention"], BOUNDS["flash_attention"] = row
     return ok, worst, ms
 
@@ -3684,6 +3723,8 @@ def distill_phase(device, smi):
         del state
         gc.collect()
         torch.cuda.empty_cache()
+        resume_ok &= checkpoint_requests(device, os.path.join(out, f"checkpoint-{DISTILL_STEPS}"),
+                                         clip_dir, smi)
         eq_ok, student = distill_eq(device, teacher_dir, clip_dir, smi, median)
         serve_ok, serve_launches = distilled_requests(device, student, clip_dir, smi)
         ok = finite and steps_ok and counts_ok and resume_ok and eq_ok and serve_ok
@@ -3951,6 +3992,363 @@ def ptxas_report(build_log: str, names):
     return out
 
 
+# -- the eval stack: CLIP and Inception scoring, FID, the regressions ---------
+
+EVAL_IMAGES, EVAL_BATCH = 64, 32
+# the eval phases' files: the serving pipeline, the scorer, the image sets
+EVAL_WORK = os.path.join(HERE, "runs", "eval")
+PIPE_DIR, CLIP_DIR = os.path.join(EVAL_WORK, "pipe"), os.path.join(EVAL_WORK, "clip")
+# every number of these phases comes from seeded weights: regression numbers,
+# not published metrics
+SEEDED = "seeded weights, not a published metric"
+
+
+def seeded_images(n, seed, size=256):
+    """``n`` seeded uint8 images: smooth colour fields with noise."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+    out = []
+    for _ in range(n):
+        base = rs.rand(3, 3) @ np.stack([yy, xx, np.ones_like(xx)]).reshape(3, -1)
+        img = base.T.reshape(size, size, 3) + 0.1 * rs.randn(size, size, 3)
+        out.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return out
+
+
+def save_scorer(device, path):
+    """CLIP ViT-L/14 (24 x 1024, patch 14, 224 px, projection 768) and the
+    CLIP-L text tower of bench.py:35-38 (12 x 768), seeded, saved as one
+    full CLIPModel directory (logit scale 100)."""
+    from open_muse_tpu_torch.models.clip_text import CLIPTextEncoder, SimpleTokenizer
+    from open_muse_tpu_torch.models.clip_vision import CLIPScorer, CLIPVisionEncoder
+
+    with torch.device(device):
+        vision = CLIPVisionEncoder()  # ViT-L/14 defaults
+        text = CLIPTextEncoder(
+            vocab_size=49408, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+            num_attention_heads=12, max_position_embeddings=77, projection_dim=768)
+    randomize_(vision, 30)
+    randomize_(text, 31)
+    log(f"[eval] scorer: CLIP ViT-L/14 {param_counts(vision=vision)['vision'] / 1e6:.1f} M "
+        f"parameters, text tower {param_counts(text=text)['text'] / 1e6:.1f} M, seeded; saved "
+        f"as a full CLIPModel directory (fp32), served in bf16")
+    CLIPScorer(vision, text, SimpleTokenizer(49408, 77)).save_pretrained(path)
+
+
+def images_per_s(fn, n, calls=5):
+    """``n`` / the median host-clock seconds of ``calls`` synchronised calls,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return n / statistics.median(times), statistics.median(times)
+
+
+def vision_tower_check(scorer, images, smi):
+    """The ViT-L/14 tower on a batch of EVAL_BATCH images: the kernels'
+    embeddings against the plain attention's (rel tol 5e-2: bf16 roundings
+    through 24 layers), exactly 24 launches of kernel 5 a forward, all at
+    head dim 64; images/s of ``embed_images`` (host preprocessing included)
+    and of the tower alone; one profiled forward."""
+    import numpy as np
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention
+    from open_muse_tpu_torch.models.clip_vision import clip_preprocess_images
+
+    batch = images[:EVAL_BATCH]
+    px = torch.from_numpy(clip_preprocess_images(batch, scorer.vision.config.image_size)).to(
+        scorer.device)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fused = scorer.vision(px)[2]
+    torch.cuda.synchronize()
+    launches, by_dim = kernels.launch_counts(), dict(flash_attention.by_head_dim)
+    with torch.no_grad():
+        plain = scorer.vision(px, use_kernels=False)[2]
+    max_abs, rel = errors(fused, plain)
+    expected = {**zero_counts(), "flash_attention": 24}
+    ok = (rel <= 5e-2 and bool(torch.isfinite(fused).all()) and launches == expected
+          and by_dim == {64: 24})
+    log(f"[eval] ViT-L/14 image_embeds {tuple(fused.shape)} bf16, kernels vs plain attention: "
+        f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel 5e-2: bf16 roundings through 24 layers); "
+        f"launches a forward { {k: v for k, v in launches.items() if v} } by head dim {by_dim} "
+        f"(expected flash_attention 24 at 64) {'ok' if ok else 'FAIL'}")
+    rate, _ = images_per_s(lambda: scorer.embed_images(batch), len(batch))
+
+    def tower():
+        with torch.no_grad():
+            scorer.vision(px)
+
+    tower_rate, tower_s = images_per_s(tower, len(batch))
+    log(f"[eval] ViT-L/14 embed_images at batch {len(batch)}: {rate:.1f} images/s (PIL "
+        f"preprocessing on the host included); the tower alone {tower_rate:.1f} images/s "
+        f"({tower_s * 1e3:.2f} ms a forward; host clock, synchronised) on {smi}")
+    profiled(f"CLIP ViT-L/14 forward, batch {len(batch)}", tower, tower_s,
+             "profile_clip_vision.txt", smi=smi)
+    return ok, np.asarray(fused.float().cpu())
+
+
+def eval_phase(device, smi):
+    """The scorer saved and read back by CLIPScorer.from_pretrained; the
+    tower check; calculate_fid.main over the serving pipeline's directory:
+    64 captions at batch 8 (12 steps, CFG 8), CLIP-FID by --clip-model
+    against 64 seeded 256 px PNGs and --clip-score; the FID of the real set
+    against itself; the seeded InceptionV3's FID and Inception Score at 299
+    px on both sets.  Returns (ok, the calculate_fid run's launches)."""
+    import numpy as np
+    from PIL import Image
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.eval.fid import (CLIPFeatureExtractor, compute_statistics,
+                                              fid_between_image_sets, frechet_distance,
+                                              load_image_dir)
+    from open_muse_tpu_torch.eval.inception import (InceptionFeatureExtractor,
+                                                    inception_preprocess)
+    from open_muse_tpu_torch.eval.inception_score import inception_score_from_logits
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention
+    from open_muse_tpu_torch.models.clip_vision import CLIPScorer
+    from open_muse_tpu_torch.scripts import calculate_fid
+
+    real_dir, fake_dir = os.path.join(EVAL_WORK, "real"), os.path.join(EVAL_WORK, "fake")
+    os.makedirs(real_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    save_scorer(device, CLIP_DIR)
+    scorer = CLIPScorer.from_pretrained(CLIP_DIR, device=device)
+    log(f"[eval] scorer seeded, saved and read back by CLIPScorer.from_pretrained in "
+        f"{time.perf_counter() - t0:.1f} s")
+    real = seeded_images(EVAL_IMAGES, seed=40)
+    for i, img in enumerate(real):
+        Image.fromarray(img).save(os.path.join(real_dir, f"{i:06d}.png"))
+    tower_ok, _ = vision_tower_check(scorer, real, smi)
+
+    captions = os.path.join(EVAL_WORK, "captions.txt")
+    with open(captions, "w") as f:
+        f.write("\n".join(f"{PROMPTS[i % 4]}, number {i}" for i in range(EVAL_IMAGES)))
+    argv = ["--model", PIPE_DIR, "--captions", captions, "--output-dir", fake_dir,
+            "--num-images", str(EVAL_IMAGES), "--batch-size", "8", "--real-dir", real_dir,
+            "--clip-model", CLIP_DIR, "--clip-score", "--device", device.type]
+    log(f"[eval] calculate_fid.main {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = calculate_fid.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_dim = kernels.launch_counts(), dict(flash_attention.by_head_dim)
+    fakes = sorted(os.listdir(fake_dir))
+    names_ok = fakes == [f"{i:06d}.png" for i in range(EVAL_IMAGES)]
+    # 8 requests of 8 captions: one decode graph, whose first call also runs
+    # its warm-up eagerly (9 requests' launches), and 6 tower forwards: real
+    # and fake for the FID, fake for the CLIP score
+    expected = generation_launches(requests=8, tower_forwards=6)
+    launches_ok = launches == expected
+    self_fid = fid_between_image_sets(real, real, CLIPFeatureExtractor(scorer.vision))
+    fid_ok = (math.isfinite(result["fid"]) and math.isfinite(result["clip_score"])
+              and abs(self_fid) <= 1e-4 * result["fid"])
+    log(f"[eval] calculate_fid: {EVAL_IMAGES} images named by caption index {names_ok}, "
+        f"{result['images_per_s']:.2f} images/s generated (12 steps, CFG 8, batch 8, PNGs "
+        f"written), CLIP-FID {result['fid']:.4f} ({result['backend']}), CLIP score "
+        f"{result['clip_score']:.4f}, {wall:.1f} s in all; the real set against itself "
+        f"{self_fid:.3e} (gate |FID(x, x)| <= 1e-4 x FID) {'ok' if fid_ok else 'FAIL'} "
+        f"({SEEDED})")
+    log(f"[eval] calculate_fid launches {launches} by head dim {by_dim} (expected {expected}) "
+        f"{'ok' if launches_ok else 'FAIL'}")
+
+    inc = InceptionFeatureExtractor.seeded(seed=0, batch_size=EVAL_BATCH, device=device)
+    real_imgs, fake_imgs = load_image_dir(real_dir), load_image_dir(fake_dir)
+    t0 = time.perf_counter()
+    f_real, f_fake = inc.extract(real_imgs), inc.extract(fake_imgs)
+    extract_s = time.perf_counter() - t0
+    fid_inc = frechet_distance(*compute_statistics(f_real), *compute_statistics(f_fake))
+    fid_inc_self = frechet_distance(*compute_statistics(f_real), *compute_statistics(f_real))
+    isc = {name: inception_score_from_logits(np.log(inc.predict_proba(imgs) + 1e-20))
+           for name, imgs in (("generated", fake_imgs), ("real", real_imgs))}
+    inc_ok = (all(math.isfinite(x) for x in (fid_inc, *isc["generated"], *isc["real"]))
+              and np.isfinite(f_real).all() and abs(fid_inc_self) <= 1e-4 * fid_inc)
+    rate, _ = images_per_s(lambda: inc.extract(real_imgs[:EVAL_BATCH]), EVAL_BATCH)
+    px = inception_preprocess(real_imgs[:EVAL_BATCH], device=device)
+
+    def graph_alone():
+        with torch.no_grad():
+            inc.model(px)
+
+    graph_rate, graph_s = images_per_s(graph_alone, EVAL_BATCH)
+    log(f"[eval] InceptionV3 ('fid' graph, 299 px, {SEEDED}): FID generated vs real "
+        f"{fid_inc:.4f}, real against itself {fid_inc_self:.3e}; Inception Score generated "
+        f"{isc['generated'][0]:.4f} +- {isc['generated'][1]:.4f}, real {isc['real'][0]:.4f} +- "
+        f"{isc['real'][1]:.4f}; {2 * EVAL_IMAGES} images extracted in {extract_s:.2f} s "
+        f"{'ok' if inc_ok else 'FAIL'}")
+    log(f"[eval] InceptionV3 extract at batch {EVAL_BATCH}: {rate:.1f} images/s (host "
+        f"preprocessing included); the graph alone {graph_rate:.1f} images/s "
+        f"({graph_s * 1e3:.2f} ms a batch, fp32, TF32 off) on {smi}")
+    return tower_ok and names_ok and launches_ok and fid_ok and inc_ok, launches
+
+
+def generation_launches(requests, tower_forwards):
+    """The launches of ``requests`` PipelineMuse calls of one shape (12 steps,
+    CFG) with the saved pipeline, whose decode graph's first call also runs
+    its warm-up eagerly, and of ``tower_forwards`` ViT-L/14 forwards (24
+    kernel-5 launches each)."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+
+    with open(os.path.join(PIPE_DIR, "transformer", "config.json")) as f:
+        cfg = MaskGiTUViT_v2.config_from_dict(json.load(f))
+    per_request = expected_request_launches(cfg, "fused_categorical_cfg")
+    expected = {k: (requests + 1) * v for k, v in per_request.items()}
+    expected["flash_attention"] += 24 * tower_forwards
+    return expected
+
+
+SYNTHETIC_PROMPTS, SYNTHETIC_CANDIDATES = 8, 4
+# the mid-scale protocol as chip_smoke runs it: in full, as the JAX package's
+# recorded run (teacher 6000 steps, distill 2000; the rest the defaults: CFG 2,
+# soft weight 0.5, n_eval 240, seed 0), ~180 s on the card (PERF.md section 4)
+MIDSCALE_CUT = {"train_steps": 6000, "distill_steps": 2000}
+
+
+def gen_synthetic_phase(device, smi):
+    """gen_synthetic_dataset.main: 8 prompts x 4 candidates of the serving
+    pipeline (12 steps, CFG 8) scored by the saved scorer, into one shard;
+    read back through sdxl_synthetic_dataset_map, which must keep each
+    prompt's arg-max candidate."""
+    import numpy as np
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.scripts import gen_synthetic_dataset
+    from open_muse_tpu_torch.training.data import sdxl_synthetic_dataset_map, tar_samples
+
+    prompts = os.path.join(EVAL_WORK, "prompts.txt")
+    with open(prompts, "w") as f:
+        f.write("\n".join(f"{PROMPTS[i % 4]}, take {i}" for i in range(SYNTHETIC_PROMPTS)))
+    pattern = os.path.join(EVAL_WORK, "syn", "syn-%05d.tar")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    shards = gen_synthetic_dataset.main(
+        ["--model", PIPE_DIR, "--prompts", prompts, "--output", pattern,
+         "--candidates", str(SYNTHETIC_CANDIDATES), "--clip-model", CLIP_DIR,
+         "--samples-per-shard", str(SYNTHETIC_PROMPTS), "--device", device.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    samples = list(tar_samples(pattern % 0, handler="raise"))
+    # one request and one tower forward a prompt (its candidates are a batch)
+    expected = generation_launches(SYNTHETIC_PROMPTS, SYNTHETIC_PROMPTS)
+    picks_ok = len(samples) == SYNTHETIC_PROMPTS and shards == 1 and launches == expected
+    for sample in samples:
+        scores = [float(x) for x in sample["clip_scores.txt"].decode().split(",")]
+        best = sdxl_synthetic_dataset_map(dict(sample))
+        picks_ok &= (len(scores) == SYNTHETIC_CANDIDATES and all(map(math.isfinite, scores))
+                     and best["png"] == sample[f"{int(np.argmax(scores))}.png"])
+    log(f"[gen_synthetic] {SYNTHETIC_PROMPTS} prompts x {SYNTHETIC_CANDIDATES} candidates in "
+        f"{wall:.1f} s ({shards} shard): every sample read back, sdxl_synthetic_dataset_map "
+        f"keeps the arg-max candidate; last scores {scores}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected "
+        f"{ {k: v for k, v in expected.items() if v} }) ({SEEDED}) on {smi} "
+        f"{'ok' if picks_ok else 'FAIL'}")
+    return picks_ok, launches
+
+
+def quality_phase(device, smi):
+    """run_quality_regression at its defaults (200 train steps, 150 VQ
+    steps, 30 eval prompts) with inception=True, gated as the JAX slow test:
+    trained CLIP-FID < 0.5 x untrained, colour accuracy >= 0.9 trained and
+    <= 0.67 untrained."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.eval.quality_regression import run_quality_regression
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = run_quality_regression(inception=True, device=device,
+                               log=lambda msg: log(f"[quality] {msg.strip()}"))
+    wall = time.perf_counter() - t0
+    launches, by_dim = kernels.launch_counts(), dict(flash_attention.by_head_dim)
+    finite = all(math.isfinite(v) for v in m.values())
+    learned = (m["fid_clipfeat_seeded_trained"] < 0.5 * m["fid_clipfeat_seeded_untrained"]
+               and m["color_accuracy_trained"] >= 0.9 and m["color_accuracy_untrained"] <= 0.67)
+    ok = finite and learned
+    log(f"[quality] {json.dumps(m)}")
+    log(f"[quality] trained CLIP-FID {m['fid_clipfeat_seeded_trained']:.4f} vs untrained "
+        f"{m['fid_clipfeat_seeded_untrained']:.4f} (gate < 0.5x), colour accuracy trained "
+        f"{m['color_accuracy_trained']:.3f} (>= 0.9) untrained {m['color_accuracy_untrained']:.3f} "
+        f"(<= 0.67); {wall:.1f} s; launches { {k: v for k, v in launches.items() if v} } by "
+        f"head dim {by_dim} ({SEEDED}) on {smi} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def distill_midscale_phase(device, smi):
+    """run_distill_midscale with MIDSCALE_CUT, gated on finite metrics;
+    prints the margin fid_teacher_k - fid_student_k beside the split-half
+    floor."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.eval.distill_midscale import run_distill_midscale
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = run_distill_midscale(device=device, **MIDSCALE_CUT,
+                             log=lambda msg: log(f"[distill_midscale] {msg.strip()}"))
+    wall = time.perf_counter() - t0
+    launches, by_dim = kernels.launch_counts(), dict(flash_attention.by_head_dim)
+    ok = all(math.isfinite(v) for v in m.values())
+    margin = m["fid_teacher_k"] - m["fid_student_k"]
+    log(f"[distill_midscale] {json.dumps(m)}")
+    log(f"[distill_midscale] arguments {MIDSCALE_CUT} (the JAX package's recorded run): "
+        f"teacher_full "
+        f"{m['fid_teacher_full']:.4f}, teacher_k {m['fid_teacher_k']:.4f}, student_k "
+        f"{m['fid_student_k']:.4f}; margin teacher_k - student_k {margin:.4f} against the "
+        f"split-half floor {m['fid_split_half_floor']:.4f}: the student "
+        f"{'beats' if margin > m['fid_split_half_floor'] else 'does not beat'} the step-cut "
+        f"control beyond the floor; {wall:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} } by head dim {by_dim} ({SEEDED}) on "
+        f"{smi} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def checkpoint_requests(device, checkpoint, clip_dir, smi):
+    """A trainer checkpoint's ``unwrapped_model/`` and ``ema_model/`` each
+    read by PipelineMuse.from_pretrained (the transformer in bf16, a seeded
+    f16 taming VQGAN) and answering one 256px 12-step CFG request."""
+    from open_muse_tpu_torch.models.taming_vqgan import VQGANModel
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+
+    vae_dir = os.path.join(checkpoint, "..", "vae")
+    with torch.device(device):
+        vae = VQGANModel(resolution=256, num_embeddings=8192, z_channels=256,
+                         quantized_embed_dim=256)
+    randomize_(vae, 2)
+    vae.save_pretrained(vae_dir)
+    del vae
+    ok = True
+    for sub in ("unwrapped_model", "ema_model"):
+        pipe = PipelineMuse.from_pretrained(
+            transformer_path=os.path.join(checkpoint, sub), text_encoder_path=clip_dir,
+            vae_path=vae_dir, transformer_dtype=torch.bfloat16, device=device)
+        t0 = time.perf_counter()
+        images = pipe(PROMPTS[0], timesteps=12, guidance_scale=8.0,
+                      generator=torch.Generator().manual_seed(0), return_pil=False)
+        torch.cuda.synchronize()
+        sub_ok = tuple(images.shape) == IMAGE_SHAPE and bool(torch.isfinite(images).all())
+        ok &= sub_ok
+        log(f"[distill] fault 3.13: {os.path.basename(checkpoint)}/{sub} read by "
+            f"PipelineMuse.from_pretrained ({type(pipe.transformer).__name__}, "
+            f"{sum(p.numel() for p in pipe.transformer.parameters()) / 1e6:.1f} M, bf16) answers "
+            f"a 12-step CFG request: image {tuple(images.shape)} finite {sub_ok}, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call: capture included) on "
+            f"{smi} {'ok' if sub_ok else 'FAIL'}")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
 def device_line() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4019,6 +4417,7 @@ def main() -> int:
     pre_ok, paths["pre_encode"] = pre_encode_phase(pipe, device, smi)
     if not pre_ok:
         failed.append("pre_encode phase")
+    pipe.save_pretrained(PIPE_DIR)  # served again by the eval phases' scripts
     del pipe
     _EAGER.clear()
     gc.collect()  # the pipeline and its request functions hold each other: free its graphs
@@ -4085,6 +4484,22 @@ def main() -> int:
         failed.append("distill phase")
     log(f"[phase] distill and the distilled student's requests "
         f"{time.perf_counter() - phase_t0:.1f} s")
+
+    try:
+        for name, phase in (("eval", eval_phase), ("gen_synthetic", gen_synthetic_phase),
+                            ("quality", quality_phase),
+                            ("distill_midscale", distill_midscale_phase)):
+            phase_t0 = time.perf_counter()
+            phase_ok, paths[name] = phase(device, smi)
+            if not phase_ok:
+                failed.append(f"{name} phase")
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(EVAL_WORK, ignore_errors=True)
 
     rows = []
     for name, (ok, err, t) in report.items():

@@ -2,8 +2,9 @@
 
 ``from_config`` builds a model from a config object or dict;
 ``from_pretrained`` reads a checkpoint directory's ``config.json`` and its
-torch weights (``model.safetensors`` or ``pytorch_model.bin``) with the
-open-muse key names, or the JAX package's own ``save_pretrained`` weights
+torch weights (``model.safetensors``, ``pytorch_model.bin`` or diffusers'
+``diffusion_pytorch_model.bin``) with the open-muse key names, from the
+directory or its ``subfolder``, or the JAX package's own ``save_pretrained`` weights
 (``flax_model.safetensors``, the flax tree mapped by
 ``convert.jax_params_to_state_dict``), onto a device (the card unless the
 caller asks for the CPU); ``save_pretrained`` writes the torch format, which
@@ -23,7 +24,8 @@ from .configuration import CONFIG_NAME, BaseConfig, load_config_dict
 
 __all__ = ["ModelMixin", "load_state_file", "resolve_device", "WEIGHTS_NAMES"]
 
-WEIGHTS_NAMES = ("model.safetensors", "pytorch_model.bin")
+# [1] is the trainers' checkpoint name; [2] diffusers' name for the same format
+WEIGHTS_NAMES = ("model.safetensors", "pytorch_model.bin", "diffusion_pytorch_model.bin")
 FLAX_WEIGHTS_NAME = "flax_model.safetensors"  # the JAX package's save_pretrained
 
 
@@ -80,13 +82,15 @@ class ModelMixin:
         return cls(config if isinstance(config, BaseConfig) else cls.config_from_dict(config))
 
     @classmethod
-    def from_pretrained(cls, path: str, device="cuda"):
-        """Build on ``device`` from ``path/config.json`` and load the torch
-        weights beside it (unknown checkpoint keys such as buffers are
-        ignored; a missing key raises), else the JAX package's flax weights
-        (every leaf must map to one port key).  Raises when ``device`` is
-        CUDA and there is none."""
+    def from_pretrained(cls, path: str, subfolder: str | None = None, device="cuda"):
+        """Build on ``device`` from ``path/config.json`` (``path/subfolder/``
+        with ``subfolder``) and load the torch weights beside it (unknown
+        checkpoint keys such as buffers are ignored; a missing key raises),
+        else the JAX package's flax weights (every leaf must map to one port
+        key).  Raises when ``device`` is CUDA and there is none."""
         device = resolve_device(device)
+        if subfolder is not None:
+            path = os.path.join(path, subfolder)
         for name in (*WEIGHTS_NAMES, FLAX_WEIGHTS_NAME):
             weights = os.path.join(path, name)
             if os.path.isfile(weights):
@@ -102,16 +106,22 @@ class ModelMixin:
         raise EnvironmentError(f"no model weights ({' / '.join(WEIGHTS_NAMES)} / "
                                f"{FLAX_WEIGHTS_NAME}) in {path}")
 
-    def save_pretrained(self, save_directory: str) -> None:
-        """Write ``config.json`` (the config's fields and ``_class_name``) and
-        ``model.safetensors`` (the state_dict, open-muse key names)."""
-        from safetensors.torch import save_file
-
-        os.makedirs(save_directory, exist_ok=True)
+    def save_config(self, save_directory: str) -> None:
+        """Write ``config.json``: the config's fields, ``_extra_config`` and
+        ``_class_name``, which ``PipelineMuse.from_pretrained`` (of either
+        package) dispatches on."""
         config_dict = dataclasses.asdict(self.config)
         config_dict.update(self._extra_config)
         config_dict["_class_name"] = self._class_name or type(self).__name__
+        os.makedirs(save_directory, exist_ok=True)
         with open(os.path.join(save_directory, CONFIG_NAME), "w", encoding="utf-8") as f:
             json.dump(config_dict, f, indent=2, sort_keys=True)
+
+    def save_pretrained(self, save_directory: str) -> None:
+        """Write ``config.json`` (``save_config``) and ``model.safetensors``
+        (the state_dict, open-muse key names)."""
+        from safetensors.torch import save_file
+
+        self.save_config(save_directory)
         save_file({k: v.detach().cpu().contiguous() for k, v in self.state_dict().items()},
                   os.path.join(save_directory, WEIGHTS_NAMES[0]))

@@ -455,8 +455,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 }  // namespace
 
-// q (B, Tq, H, D), k and v (B, Tk, H, D) bf16, D 48 (v1) or 64 (v2's
-// blocks), each with d contiguous, heads D apart, and the batch and
+// q (B, Tq, H, D), k and v (B, Tk, H, D) bf16, D 16 (the eval stacks'
+// seeded CLIP towers and tiny trunks), 32 (the mid-scale trunk's blocks), 48
+// (v1) or 64 (v2's blocks, CLIP ViT-L/14), each with d contiguous, heads D apart, and the batch and
 // token strides given in elements (multiples of 8; pointers 16-byte aligned);
 // o (B, Tq, H, D) contiguous.  strides: q_sb, q_st, k_sb, k_st, v_sb, v_st.
 // Tk <= 288 takes the one-pass kernel, larger Tk the two-pass one.
@@ -466,6 +467,8 @@ extern "C" int muse_flash_attention(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535) return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, H, Tq, Tk, strides, scale, stream);
+    case 32: return launch<32>(q, k, v, o, B, H, Tq, Tk, strides, scale, stream);
     case 48: return launch<48>(q, k, v, o, B, H, Tq, Tk, strides, scale, stream);
     case 64: return launch<64>(q, k, v, o, B, H, Tq, Tk, strides, scale, stream);
     default: return int(cudaErrorInvalidValue);

@@ -104,3 +104,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    flash_attention.by_head_dim.clear()

@@ -9,8 +9,10 @@ weights cast to the input type before the PV product, and PV summed in fp32
 ``flash_attention`` is a ``torch.autograd.Function``:
   * CPU tensors: the plain version;
   * CUDA tensors: the kernel, or a raise.  It takes bf16 (under CUDA
-    autocast the inputs are cast to bf16 first), D 48 (v1) or 64 (v2's
-    attention blocks), any Tq and Tk, and views whose (H, D) axes are
+    autocast the inputs are cast to bf16 first), D 16 (the eval stacks'
+    seeded CLIP towers and tiny v2 trunks), 32 (the mid-scale distillation
+    trunk's blocks), 48 (v1) or 64 (v2's attention blocks, CLIP ViT-L/14's
+    vision tower), any Tq and Tk, and views whose (H, D) axes are
     contiguous with batch and token strides that are multiples of 8 elements
     (the q / k / v chunks of a fused projection), at 16-byte aligned
     addresses.  Up to 288 keys (every path: v1's 257, v2's 77) a
@@ -19,7 +21,10 @@ weights cast to the input type before the PV product, and PV summed in fp32
     over half of them above; more keys (the 1024-token v1 trunks' 1025 and
     1024) take the source's two-pass variant.  The choice is made on Tk
     before the launch; every variant counts as one launch of this wrapper,
-    and the two-pass one also in ``flash_attention_two_pass``.
+    and the two-pass one also in ``flash_attention_two_pass``.  The host's
+    own launches (a graph's warm-up included, its replays not) are also
+    counted by head dim in ``flash_attention.by_head_dim``, which tells
+    which instantiations a path reaches.
 The TPU kernel has no VJP (JAX enables it for inference only), so there is
 no backward kernel: the backward recomputes the plain version from the saved
 inputs and takes its gradient.
@@ -27,6 +32,7 @@ inputs and takes its gradient.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -38,7 +44,7 @@ from ._build import check, library
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_two_pass",
            "HEAD_DIMS", "ONE_PASS_MAX_KEYS"]
 
-HEAD_DIMS = (48, 64)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 48, 64)  # the kernel's instantiations
 ONE_PASS_MAX_KEYS = 288  # csrc kMaxKeys: more keys take the two-pass variant
 flash_attention_two_pass = LaunchCounter("flash_attention_two_pass")
 
@@ -83,6 +89,7 @@ def _forward(q, k, v):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, d, strides,
         1.0 / math.sqrt(d), stream_handle(q)), "flash_attention")
     flash_attention.launches += 1
+    flash_attention.by_head_dim[d] += 1
     if tk > ONE_PASS_MAX_KEYS:
         flash_attention_two_pass.launches += 1
     return out
@@ -112,3 +119,4 @@ def flash_attention(q, k, v):
 
 
 flash_attention.launches = 0
+flash_attention.by_head_dim = collections.Counter()

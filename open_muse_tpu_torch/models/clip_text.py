@@ -70,12 +70,17 @@ class CLIPAttention(nn.Module):
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
 
-    def forward(self, x, causal_mask):
+    def forward(self, x, causal_mask=None, use_kernels: bool = True):
+        """The text tower passes its causal mask (the plain path); the vision
+        tower passes none, and its unmasked attention at the default scale
+        goes to ``flash_attention`` (unless ``use_kernels`` is False)."""
         b, t, d = x.shape
         hd = d // self.heads
         split = lambda y: y.reshape(b, t, self.heads, hd)  # noqa: E731
+        scale = None if causal_mask is None else hd ** -0.5
         out = dot_product_attention(split(self.q_proj(x)), split(self.k_proj(x)),
-                                    split(self.v_proj(x)), scale=hd ** -0.5, mask=causal_mask)
+                                    split(self.v_proj(x)), scale=scale, mask=causal_mask,
+                                    use_kernels=use_kernels)
         return self.out_proj(out.reshape(b, t, d))
 
 
@@ -98,8 +103,8 @@ class CLIPEncoderLayer(nn.Module):
         self.mlp = _MLP(cfg)
         self.layer_norm2 = _LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x, causal_mask):
-        x = x + self.self_attn(self.layer_norm1(x), causal_mask)
+    def forward(self, x, causal_mask=None, use_kernels: bool = True):
+        x = x + self.self_attn(self.layer_norm1(x), causal_mask, use_kernels)
         return x + self.mlp(self.layer_norm2(x))
 
 

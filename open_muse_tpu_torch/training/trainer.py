@@ -570,10 +570,11 @@ def make_uvit_eval_step(mask_schedule, mask_id: int, *,
 _STATE_FILE = "training_state.pt"
 
 
-def _save_model(path: str, config, state_dict) -> None:
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=2)
+def _save_model(path: str, model, state_dict) -> None:
+    """``model``'s ``config.json``, as its ``save_pretrained`` writes it, and
+    ``state_dict`` as ``pytorch_model.bin``: a directory both packages'
+    ``from_pretrained`` (and so ``PipelineMuse.from_pretrained``) read."""
+    model.save_config(path)
     torch.save(state_dict, os.path.join(path, WEIGHTS_NAMES[1]))
 
 
@@ -593,13 +594,12 @@ def save_checkpoint(output_dir: str, state: TrainState,
                           key=lambda d: int(d.split("-")[1]))
         while len(existing) >= checkpoints_total_limit:
             shutil.rmtree(os.path.join(output_dir, existing.pop(0)))
-    config = state.model.config
     if pretrained:
         state.model.save_pretrained(os.path.join(path, "unwrapped_model"))
     else:
-        _save_model(os.path.join(path, "unwrapped_model"), config, state.model.state_dict())
+        _save_model(os.path.join(path, "unwrapped_model"), state.model, state.model.state_dict())
     if state.ema is not None:
-        _save_model(os.path.join(path, "ema_model"), config, state.ema.shadow)
+        _save_model(os.path.join(path, "ema_model"), state.model, state.ema.shadow)
     torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()},
                os.path.join(path, _STATE_FILE))
     with open(os.path.join(path, "metadata.json"), "w") as f:

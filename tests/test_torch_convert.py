@@ -124,7 +124,8 @@ def test_clip_config_from_full_clip_model_dict():
 def test_port_imports_no_jax():
     """Neither jax, flax nor any module of the JAX package (open_muse_tpu.*)
     is imported by the port's modules, entry points or chip_smoke.py (the
-    optimizers, distillation, the dataset dialects and the native reader
+    optimizers, distillation, the dataset dialects, the native reader, the
+    CLIP vision tower and scorer, the eval stack and its scripts
     included)."""
     code = textwrap.dedent(f"""
         import sys
@@ -222,6 +223,19 @@ def test_port_imports_no_jax():
         assert metrics["soft_kl"].isfinite() and quant8.BLOCK_SIZE == 256
         assert sorted(DATASET_MAPS) == ["ds_clean", "ds_clean_upscaled", "sdxl_synthetic"]
         assert native_io.SOURCE.name == "muse_io.cpp"
+        import numpy as np
+        from open_muse_tpu_torch import eval as port_eval
+        from open_muse_tpu_torch.eval import distill_midscale, inception, quality_regression
+        from open_muse_tpu_torch.models.clip_vision import CLIPScorer, CLIPVisionEncoder
+        from open_muse_tpu_torch.scripts import calculate_fid, gen_synthetic_dataset
+        vision = CLIPVisionEncoder(hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                                   num_attention_heads=2, image_size=28, patch_size=14,
+                                   projection_dim=16)
+        extractor = port_eval.CLIPFeatureExtractor(vision)
+        assert extractor.extract([np.zeros((30, 30, 3), np.uint8)] * 2).shape == (2, 16)
+        assert inception.InceptionV3("torchvision").fc.out_features == 1000
+        assert quality_regression.RESOLUTION == 16 and distill_midscale.CANVAS == 64
+        assert CLIPScorer and calculate_fid.main and gen_synthetic_dataset.main
         bad = [name for name in sys.modules
                if name.split(".")[0] in ("jax", "flax", "jaxlib", "open_muse_tpu")]
         assert not bad, bad

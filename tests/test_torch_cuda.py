@@ -462,6 +462,38 @@ def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     assert torch.equal(out, kernels.flash_attention(q, k, v))
 
 
+@pytest.mark.parametrize("q_shape,kv_len", [((2, 257, 16, 64), 257), ((32, 257, 16, 64), 257),
+                                            ((30, 17, 4, 16), 17), ((32, 65, 4, 16), 65),
+                                            ((16, 64, 4, 16), 64), ((16, 64, 4, 16), 8),
+                                            ((32, 256, 2, 32), 256), ((32, 256, 2, 32), 8),
+                                            ((2, 1024, 4, 16), 1024), ((2, 300, 2, 32), 300)])
+def test_flash_attention_eval_head_dims_match_plain(device, q_shape, kv_len):
+    """The eval stacks' shapes: CLIP ViT-L/14's vision tower (257 tokens at
+    head dim 64, batch 2 and 32); head dim 16 (one k step in QK^T, two n8
+    tiles in PV): the seeded CLIP towers (17 and 65 tokens), the quality
+    trunk's self- and cross-attention; head dim 32: the mid-scale trunk's
+    blocks; and both at the two-pass variant's key counts.  Each against
+    flash_attention_plain (rel ATTN_TOL), one launch counted at its head dim,
+    two calls bit-equal."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+
+    gen = torch.Generator().manual_seed(kv_len + q_shape[-1])
+    b, tq, h, d = q_shape
+    if tq == kv_len:
+        q, k, v = _rand(gen, b, tq, 3 * h * d).reshape(b, tq, 3 * h, d).chunk(3, dim=2)
+    else:
+        q = _rand(gen, b, tq, h, d)
+        k, v = _rand(gen, b, kv_len, 2 * h * d).reshape(b, kv_len, 2 * h, d).chunk(2, dim=2)
+    kernels.reset_launch_counts()
+    out = kernels.flash_attention(q, k, v)
+    assert kernels.flash_attention.launches == 1
+    assert dict(kernels.flash_attention.by_head_dim) == {d: 1}
+    assert kernels.flash_attention_two_pass.launches == int(kv_len > 288)
+    ref = flash_attention_plain(q, k, v)
+    assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
+    assert torch.equal(out, kernels.flash_attention(q, k, v))
+
+
 def test_norm_and_attention_wrappers_raise_on_inputs_they_do_not_take(device):
     gen = torch.Generator().manual_seed(3)
     x, scale = _rand(gen, 4, 64), 1 + _rand(gen, 64, scale=0.1)
