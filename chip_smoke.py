@@ -93,7 +93,19 @@ directly (eager); the token ids of the two must be equal:
   defaults with the Inception graph (trained beats untrained);
 - distill_midscale: ``eval.distill_midscale.run_distill_midscale`` at
   ``MIDSCALE_CUT``.  Every eval number comes from seeded weights: a
-  regression number, not a published metric.  The kernel checks hold
+  regression number, not a published metric;
+- dist_train: ``scripts/launch.py`` -> ``torch.distributed.run`` ->
+  ``train_muse.main`` (through this script's ``--train-child``) as rank 0 of
+  1 under NCCL on the training path's shard: its losses and parameters
+  against the single-process run's, its all-reduces recorded in the
+  captured step;
+- sharded_serving: ``compile_text2image(mesh=create_mesh())`` at batch 1
+  and 4, token ids equal to the unsharded call's on the same seeds;
+- serving_example: ``examples.serving`` at batch 4 over 8 prompts;
+- scripts: benchmark_models, the quickstart, compute_offline_ema (over the
+  quickstart's two checkpoints), log_generations, log_inpainting_images;
+- uvit_blocks: a Down + Up block stack at 1024 channels against its plain
+  versions.  The kernel checks hold
   kernel 5 at the eval stacks' head dims 16 and 32 and at ViT-L/14's
   shapes too (``EVAL_FLASH_SHAPES``).
 
@@ -1314,6 +1326,7 @@ def request_phase(pipe, device, smi):
     median, launches = run_requests(
         smi, "serving", expected_request_launches(cfg, "fused_categorical_cfg"),
         lambda i, eager: one_request(pipe, PROMPTS[i % 4], i, eager=eager))
+    LATENCY_MS["serving"] = median * 1e3
     profiled("request", lambda: one_request(pipe, PROMPTS[3], 3), median,
              "profile_request.txt", rows=18, smi=smi, span=True)
     return launches
@@ -2267,6 +2280,7 @@ def training_phase(device, smi):
             log(f"[train] argument {arg}")
 
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         state = train_muse.main(argv)
@@ -2286,6 +2300,8 @@ def training_phase(device, smi):
             f"steps 2 - {TRAIN_STEPS} replays adding the capture's counts) "
             f"{'ok' if counts_ok else 'FAIL'}")
         STEP_MS["training"] = median * 1e3
+        TRAIN_REF.update(losses=losses, digest=param_digest(state.model.state_dict()),
+                         peak=peak - base)
         log(f"[train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host clock, "
             f"synchronised), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
             f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
@@ -4210,7 +4226,9 @@ SYNTHETIC_PROMPTS, SYNTHETIC_CANDIDATES = 8, 4
 # the mid-scale protocol as chip_smoke runs it: in full, as the JAX package's
 # recorded run (teacher 6000 steps, distill 2000; the rest the defaults: CFG 2,
 # soft weight 0.5, n_eval 240, seed 0), ~180 s on the card (PERF.md section 4)
-MIDSCALE_CUT = {"train_steps": 6000, "distill_steps": 2000}
+# a sixth of the JAX package's recorded protocol's steps (6000 / 2000): the
+# script's time limit
+MIDSCALE_CUT = {"train_steps": 1000, "distill_steps": 350}
 
 
 def gen_synthetic_phase(device, smi):
@@ -4300,7 +4318,8 @@ def distill_midscale_phase(device, smi):
     ok = all(math.isfinite(v) for v in m.values())
     margin = m["fid_teacher_k"] - m["fid_student_k"]
     log(f"[distill_midscale] {json.dumps(m)}")
-    log(f"[distill_midscale] arguments {MIDSCALE_CUT} (the JAX package's recorded run): "
+    log(f"[distill_midscale] arguments {MIDSCALE_CUT} (cut from the JAX package's recorded "
+        f"run's 6000 / 2000 steps): "
         f"teacher_full "
         f"{m['fid_teacher_full']:.4f}, teacher_k {m['fid_teacher_k']:.4f}, student_k "
         f"{m['fid_student_k']:.4f}; margin teacher_k - student_k {margin:.4f} against the "
@@ -4349,6 +4368,389 @@ def checkpoint_requests(device, checkpoint, clip_dir, smi):
     return ok
 
 
+# -- multi-GPU, the user scripts and examples, uvit_blocks -------------------------
+
+TRAIN_REF = {}  # the training phase's single-process run: losses, parameter digest
+SLICE17_WORK = os.path.join(HERE, "runs", "slice17")
+
+
+def param_digest(state_dict):
+    """Per tensor: (the int64 sum of its fp32 bit patterns, its fp64 sum).
+    Equal first entries everywhere: bit-equal tensors (bar a cancelling
+    permutation of words); the second measures a difference."""
+    return {k: (int(v.detach().float().contiguous().view(torch.int32).long().sum()),
+                float(v.detach().double().sum())) for k, v in state_dict.items()}
+
+
+def train_child(out_json, argv):
+    """``--train-child OUT.json ARGS``: the body of the ``dist_train`` phase's
+    rank, started by ``scripts/launch.py`` under ``torch.distributed.run``:
+    ``train_muse.main(ARGS)`` with the kernels' launch counters at 0 before
+    it, then rank 0 writes the counts, the step's all-reduces (issued, and
+    issued while its stream was captured), its peak memory
+    (``max_memory_allocated``) and its rank and world size to OUT.json.
+    The bf16 reductions as the whole script sets them."""
+    import torch.distributed as dist
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.parallel.mesh import collectives
+    from open_muse_tpu_torch.training import train_muse
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels.reset_launch_counts()
+    state = train_muse.main(argv)
+    torch.cuda.synchronize()
+    if dist.get_rank() == 0:
+        with open(out_json, "w") as f:
+            json.dump({"launches": kernels.launch_counts(), "step": state.step,
+                       "backend": dist.get_backend(), "world": dist.get_world_size(),
+                       "collectives": collectives,
+                       "peak": torch.cuda.max_memory_allocated()}, f)
+    return 0
+
+
+def dist_train_phase(device, smi):
+    """``scripts/launch.py --nproc-per-node 1`` -> ``torch.distributed.run``
+    -> ``train_muse.main`` (as rank 0 of 1 under NCCL, through
+    ``train_child``) on the training phase's shard and overrides, with
+    its checkpoint at step 8.  Gates: the
+    losses and the final parameters those of the training phase's
+    single-process run (bit-equal expected; bound: losses and every
+    tensor's fp64 sum within rel 1e-3), the step's all-reduces recorded in
+    its graph at the capture (issued while its stream was captured) and
+    none issued by the replays, the launches of 8 train steps."""
+    from open_muse_tpu_torch.core.modeling import load_state_file
+
+    work = os.path.join(SLICE17_WORK, "dist_train")
+    os.makedirs(work, exist_ok=True)
+    shard = os.path.join(work, "synthetic-000.tar")
+    write_shard(shard)
+    out = os.path.join(work, "out")
+    counts_json = os.path.join(work, "launches.json")
+    overrides = [f"dataset.params.train_shards_path_or_url={shard}",
+                 "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                 "experiment.log_every=1", f"experiment.save_every={TRAIN_STEPS}",
+                 f"training.batch_size={TRAIN_B}", "training.pre_encode=true",
+                 "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                 f"training.max_train_steps={TRAIN_STEPS}"]
+    cmd = [sys.executable, "-m", "open_muse_tpu_torch.scripts.launch", "--nproc-per-node", "1",
+           "--module", "chip_smoke", "--", "--train-child", counts_json,
+           "config=" + os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml")] + overrides
+    log(f"[dist_train] command {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(HERE, "chiprun_out", "dist_train.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or not os.path.isfile(counts_json):
+        log(f"[dist_train] launcher exited {proc.returncode} after {wall:.1f} s FAIL; its "
+            f"output's end:\n{(proc.stdout + proc.stderr)[-3000:]}")
+        return False, zero_counts()
+    with open(counts_json) as f:
+        child = json.load(f)
+    launches = {**zero_counts(), **child["launches"]}
+    median, logged = _step_lines("dist_train", _logged(out))
+    losses = [m["loss"] for m in logged]
+    ref = TRAIN_REF.get("losses", [])
+    loss_bits = losses == ref
+    loss_ok = len(losses) == len(ref) and all(abs(a - b) <= 1e-3 * abs(b)
+                                              for a, b in zip(losses, ref))
+    weights = load_state_file(os.path.join(out, f"checkpoint-{TRAIN_STEPS}", "unwrapped_model",
+                                           "pytorch_model.bin"))
+    digest, want = param_digest(weights), TRAIN_REF.get("digest", {})
+    del weights
+    same_bits = sum(digest[k][0] == want.get(k, (None,))[0] for k in digest)
+    worst = max((abs(digest[k][1] - want[k][1]) / max(abs(want[k][1]), 1e-12)
+                 for k in digest if k in want), default=float("inf"))
+    params_ok = set(digest) == set(want) and worst <= 1e-3
+    issued, captured = child["collectives"]["issued"], child["collectives"]["captured"]
+    in_graph = captured > 0 and issued == 2 * captured  # the warm-up step, then the capture
+    counts_ok = launches == EXPECTED_TRAIN_LAUNCHES
+    single = STEP_MS.get("training", float("nan"))
+    ok = (child["backend"] == "nccl" and child["world"] == 1 and child["step"] == TRAIN_STEPS
+          and loss_ok and params_ok and in_graph and counts_ok)
+    log(f"[dist_train] launch.py -> torch.distributed.run -> train_muse.main as rank 0 of "
+        f"{child['world']} under {child['backend']}: {child['step']} steps in {wall:.1f} s "
+        f"(two process starts, model build and two checkpoints included)")
+    log(f"[dist_train] losses {'bit-equal to' if loss_bits else 'against'} the single-process "
+        f"run's (bound rel 1e-3): {loss_ok}; parameters after {TRAIN_STEPS} steps: "
+        f"{same_bits}/{len(digest)} tensors bit-equal, worst rel difference of a tensor's sum "
+        f"{worst:.3e} (bound 1e-3) {'ok' if params_ok else 'FAIL'}")
+    log(f"[dist_train] the gradient all-reduce inside the replayed graph: "
+        f"{'yes' if in_graph else 'NO'} ({captured} NCCL all-reduces a step (the loss "
+        f"denominator, the gradients, the metrics) issued while the step's stream was captured, "
+        f"{issued - captured} by the eager warm-up step, none by the {TRAIN_STEPS - 1} replays)")
+    log(f"[dist_train] peak memory {child['peak'] / 2 ** 30:.3f} GiB (max_memory_allocated, "
+        f"the rank's process); the single-process run "
+        f"{TRAIN_REF.get('peak', float('nan')) / 2 ** 30:.3f} GiB above what the script held "
+        f"before it")
+    log(f"[dist_train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host "
+        f"clock; the single-process step {single:.1f} ms); launches {launches} (expected "
+        f"{EXPECTED_TRAIN_LAUNCHES}) on {smi} {'ok' if ok else 'FAIL'}")
+    STEP_MS["dist_train"] = median * 1e3
+    return ok, launches
+
+
+SHARDED_BATCHES, SHARDED_REQUESTS = (1, 4), 3
+
+
+def sharded_serving_phase(device, smi):
+    """``compile_text2image(mesh=create_mesh())`` on a group of one under
+    NCCL at batch 1 and 4 (the serving pipeline at full width): three
+    requests each against the unsharded call on the same seeds (token ids
+    equal), ms a request; the sampler's Philox route at a row offset (a
+    rank's rows of a larger batch) against its plain stream first."""
+    import torch.distributed as dist
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.parallel import mesh as M
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn(8, 256, 8192, generator=gen, device=device)
+    logits = torch.cat([x, torch.randn_like(x)]).to(torch.bfloat16)
+    offset_ok = check_row_offset(device, logits)
+    del logits, x
+
+    mesh = M.create_mesh(device="cuda")
+    log(f"[sharded_serving] mesh {mesh} under {dist.get_backend()}: rank "
+        f"{dist.get_rank()} of {dist.get_world_size()}")
+    pipe = build_pipeline(device)
+    args = dict(timesteps=TIMESTEPS, guidance_scale=GUIDANCE, temperature=TEMPERATURE,
+                seq_len=256)
+    ok, launches = offset_ok, zero_counts()
+    try:
+        for batch in SHARDED_BATCHES:
+            ids = torch.as_tensor(pipe.tokenizer(PROMPTS[:batch])["input_ids"], dtype=torch.long)
+            micro = torch.tensor([[512, 512, 0, 0, 6.0]] * batch)
+            plain_fn = pipe.compile_text2image(batch_size=batch, **args)
+            want = [timed_call(lambda: plain_fn(ids, micro, torch.Generator().manual_seed(s),
+                                                return_tokens=True))
+                    for s in range(SHARDED_REQUESTS)]  # the first captures
+            unsharded_ms = statistics.median(w[0] for w in want[1:]) * 1e3
+            want = [w[1:3] for w in want]
+            sharded = pipe.compile_text2image(batch_size=batch, mesh=mesh, **args)
+            kernels.reset_launch_counts()
+            times, equal = [], True
+            for s in range(SHARDED_REQUESTS + 1):  # the first: warm-up and capture
+                seconds, images, tokens, _ = timed_call(lambda: sharded(
+                    ids, micro, torch.Generator().manual_seed(s % SHARDED_REQUESTS),
+                    return_tokens=True))
+                if s:
+                    times.append(seconds)
+                equal &= bool(torch.equal(tokens, want[s % SHARDED_REQUESTS][1]))
+                shape_ok = tuple(images.shape) == (batch, 256, 256, 3) and bool(
+                    torch.isfinite(images).all())
+                equal &= shape_ok
+            got = kernels.launch_counts()
+            expected = expected_request_launches(pipe.transformer.config, "fused_categorical_cfg")
+            expected = {k: v * (SHARDED_REQUESTS + 1) for k, v in expected.items()}
+            counts_ok = got == expected
+            for k, v in got.items():
+                launches[k] += v
+            ms = statistics.median(times) * 1e3
+            LATENCY_MS[f"sharded_serving_b{batch}"] = ms
+            ok &= equal and counts_ok
+            log(f"[sharded_serving] batch {batch}: {SHARDED_REQUESTS} requests (+ the capture) "
+                f"token ids equal to the unsharded call's on the same seeds: {equal}; median "
+                f"{ms:.1f} ms a request ({batch / ms * 1e3:.2f} images/s; the unsharded call "
+                f"{unsharded_ms:.1f} ms, median of 2 after its capture; the serving phase's "
+                f"batch 1 {LATENCY_MS.get('serving', float('nan')):.1f} ms); launches exact "
+                f"{counts_ok} on {smi} {'ok' if equal and counts_ok else 'FAIL'}")
+    finally:
+        del pipe
+        _EAGER.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    return ok, launches
+
+
+def check_row_offset(device, logits):
+    """The CFG sampler's Philox route at ``row0`` 4: its 8 images draw
+    images 4 - 11 of the seed's stream (what rank 1 of a batch split in
+    fours draws), against the plain version on ``philox_gumbel_plain`` at
+    the stream's row 4 x 256; the ids must also move from row0 0's."""
+    from open_muse_tpu_torch.kernels.fused_sample import (draw_seed, fused_categorical_cfg,
+                                                          fused_categorical_cfg_plain,
+                                                          philox_gumbel_plain)
+
+    b, s, v = logits.shape[0] // 2, logits.shape[1], logits.shape[2]
+    seed = draw_seed(torch.Generator().manual_seed(78))
+    buf = torch.tensor([seed], device=device)
+    ids, sel = fused_categorical_cfg(logits, 3.0, v, seed=buf, row0=4)
+    noise = philox_gumbel_plain(seed, b * s, v, device=device, row0=4 * s).reshape(b, s, v)
+    ref_ids, ref_sel = fused_categorical_cfg_plain(logits, 3.0, v, noise)
+    cond, uncond = logits[:b].float(), logits[b:].float()
+    top2 = torch.topk(uncond + 3.0 * (cond - uncond) + noise, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3
+    ids_ok = bool(((ids == ref_ids) | ~clear).all())
+    moved = bool((fused_categorical_cfg(logits, 3.0, v, seed=buf)[0] != ids).any())
+    max_abs, rel = errors(sel, ref_sel)
+    ok = ids_ok and moved and rel <= 1e-4
+    log(f"[kernel] fused_categorical_cfg Philox route at row0 4 (logits {tuple(logits.shape)}): "
+        f"ids equal to the plain version on the stream's images 4 - 11 where the top-2 gap > "
+        f"1e-3: {ids_ok} ({int(clear.sum())}/{clear.numel()} clear); ids differ from row0 0's: "
+        f"{moved}; sel max_abs {max_abs:.3e} rel {rel:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def serving_example_phase(device, smi):
+    """``python -m open_muse_tpu_torch.examples.serving`` in-process on the
+    saved serving pipeline: batch 4 over 8 prompts, each batch's latency
+    and images/s."""
+    from open_muse_tpu_torch.examples import serving
+
+    prompts = os.path.join(SLICE17_WORK, "serve_prompts.txt")
+    with open(prompts, "w") as f:
+        f.write("\n".join((PROMPTS * 2)[:8]) + "\n")
+    out = os.path.join(SLICE17_WORK, "served")
+    from open_muse_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    stats = serving.main(["--checkpoint", PIPE_DIR, "--prompts", prompts, "--batch-size", "4",
+                          "--out-dir", out])
+    launches = kernels.launch_counts()
+    written = sorted(os.listdir(out))
+    ok = [s["images"] for s in stats] == [4, 4] and len(written) == 8
+    for i, s in enumerate(stats):
+        log(f"[serving_example] batch {i}: {s['images']} images, {s['ms']:.1f} ms, "
+            f"{s['images_per_s']:.2f} images/s (batch 4, 12-step CFG 8, one replayed graph, "
+            f"host clock) on {smi}")
+    log(f"[serving_example] {len(written)} PNGs written; launches "
+        f"{ {k: v for k, v in launches.items() if v} } {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def scripts_phase(device, smi):
+    """The ported user scripts at full width, each through its ``main``:
+    benchmark_models (bf16 and fp32 lines), compute_offline_ema over the
+    quickstart's (a tiny stack trained, checkpointed at steps 10 and 20 and
+    sampled) two checkpoints, log_generations over 4 prompts,
+    log_inpainting_images over inpainting_validation/.  Gate: each returns
+    and writes its files."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.examples import quickstart
+    from open_muse_tpu_torch.scripts import (benchmark_models, compute_offline_ema,
+                                             log_generations, log_inpainting_images)
+
+    kernels.reset_launch_counts()
+    results = {}
+    t0 = time.perf_counter()
+    lines = benchmark_models.main(["--iters", "3"])
+    results["benchmark_models"] = [line["setting"] for line in lines] == ["bf16", "fp32"]
+    for line in lines:
+        log(f"[scripts] benchmark_models {json.dumps(line)} (MaskGiTUViT_v2 research defaults, "
+            f"seeded, 12-step CFG generate2, median of 3) on {smi}")
+    png = quickstart.main(["--workdir", os.path.join(SLICE17_WORK, "quickstart")])
+    results["quickstart"] = os.path.isfile(png)
+    ckpts = os.path.join(SLICE17_WORK, "quickstart", "run")
+    ema_out = os.path.join(SLICE17_WORK, "offline_ema")
+    compute_offline_ema.main(["--checkpoints-dir", ckpts, "--output", ema_out])
+    with open(os.path.join(ema_out, "config.json")) as f:
+        folded = json.load(f)["optimization_step"]
+    results["compute_offline_ema"] = folded == 1 and os.path.isfile(
+        os.path.join(ema_out, "model.safetensors"))
+    prompts = os.path.join(SLICE17_WORK, "log_prompts.txt")
+    with open(prompts, "w") as f:
+        f.write("\n".join(PROMPTS) + "\n")
+    gens = os.path.join(SLICE17_WORK, "generations")
+    written = log_generations.main(["--model", PIPE_DIR, "--prompts", prompts, "--output-dir",
+                                    gens, "--batch-size", "4"])
+    results["log_generations"] = len(written) == 1 and os.path.isfile(written[0])
+    inpaint = os.path.join(SLICE17_WORK, "inpainting")
+    log_inpainting_images.main(["--model", PIPE_DIR, "--validation-dir",
+                                os.path.join(HERE, "inpainting_validation"), "--output-dir",
+                                inpaint, "--num-generations", "2", "--timesteps", "12"])
+    grids = [f for f in os.listdir(inpaint) if f.endswith("_grid.png")]
+    results["log_inpainting_images"] = len(grids) == len(
+        [d for d in os.listdir(os.path.join(HERE, "inpainting_validation"))
+         if os.path.isdir(os.path.join(HERE, "inpainting_validation", d))])
+    launches = kernels.launch_counts()
+    ok = all(results.values())
+    log(f"[scripts] {results} in {time.perf_counter() - t0:.1f} s: offline EMA folded "
+        f"{folded + 1} checkpoints, {len(grids)} inpainting grids; launches "
+        f"{ {k: v for k, v in launches.items() if v} } on {smi} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+UVIT_BLOCK_TOL = 2e-2
+
+
+def uvit_blocks_phase(device, smi):
+    """A DownsampleBlock (RMSNorm, 1024 -> 1024 channels, 16 x 16 -> 8 x 8)
+    and an UpsampleBlock (LayerNorm, its first ResBlock over the down
+    block's output as skip, the ConvTranspose back to 16 x 16), each with
+    AdaLN and an AttentionBlock2D over 77 text states of 768 (16 heads of
+    64), seeded, bf16, batch 2: the kernels against the same stack with
+    every kernel swapped for its plain version (rel <= 2e-2)."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.models.uvit_blocks import DownsampleBlock, UpsampleBlock
+
+    kw = dict(num_res_blocks=1, num_heads=16, encoder_hidden_size=768, cond_embed_dim=768,
+              has_attention=True)
+    with torch.device(device):
+        down = DownsampleBlock(1024, 1024, norm_type="rmsnorm", **kw)
+        up = UpsampleBlock(1024, 1024, skip_channels=1024, norm_type="layernorm", **kw)
+    randomize_(down, 3)
+    randomize_(up, 4)
+    down.to(torch.bfloat16).eval()
+    up.to(torch.bfloat16).eval()
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(2, 16, 16, 1024, generator=gen, device=device).to(torch.bfloat16)
+    ehs = torch.randn(2, 77, 768, generator=gen, device=device).to(torch.bfloat16)
+    cond = torch.randn(2, 768, generator=gen, device=device).to(torch.bfloat16)
+
+    @torch.no_grad()
+    def stack(use_kernels):
+        y, states = down(x, None, cond, ehs, use_kernels=use_kernels)
+        return up(y, (states[-1],), cond, ehs, use_kernels=use_kernels)
+
+    ref = stack(False)
+    kernels.reset_launch_counts()
+    got = stack(True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    max_abs, rel = errors(got, ref)
+    expected = {**zero_counts(), "fused_residual_rmsnorm": 4, "fused_residual_layernorm": 4,
+                "flash_attention": 4}
+    ok = (tuple(got.shape) == (2, 16, 16, 1024) and bool(torch.isfinite(got).all())
+          and rel <= UVIT_BLOCK_TOL and launches == expected)
+    seconds = host_median(lambda: (stack(True), torch.cuda.synchronize()))
+    log(f"[uvit_blocks] Down + Up block stack, 1024 channels, 16 x 16, 77 text states, bf16, "
+        f"batch 2 ({sum(p.numel() for m in (down, up) for p in m.parameters()) / 1e6:.1f} M): "
+        f"kernels vs all-plain max_abs {max_abs:.3e} rel {rel:.3e} (tol {UVIT_BLOCK_TOL}); "
+        f"launches {launches} (expected {expected}); {seconds * 1e3:.2f} ms a stack (host "
+        f"clock, eager) on {smi} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def slice17_phases(device, smi, paths, failed):
+    """dist_train, sharded_serving, serving_example, scripts, uvit_blocks."""
+    import shutil
+
+    os.makedirs(SLICE17_WORK, exist_ok=True)
+    try:
+        for name, phase in (("dist_train", dist_train_phase),
+                            ("sharded_serving", sharded_serving_phase),
+                            ("serving_example", serving_example_phase),
+                            ("scripts", scripts_phase), ("uvit_blocks", uvit_blocks_phase)):
+            phase_t0 = time.perf_counter()
+            try:
+                phase_ok, paths[name] = phase(device, smi)
+            except Exception as exc:  # a phase that raises fails, the others still run
+                import traceback
+
+                log(f"[{name}] raised {exc!r} FAIL\n{traceback.format_exc()[-3000:]}")
+                phase_ok, paths[name] = False, zero_counts()
+            if not phase_ok:
+                failed.append(f"{name} phase")
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        shutil.rmtree(SLICE17_WORK, ignore_errors=True)
+
+
 def device_line() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4360,6 +4762,8 @@ def device_line() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train-child"]:  # a rank of the dist_train phase
+        return train_child(sys.argv[2], sys.argv[3:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--gemm-sweep", action="store_true",
                         help="only time every variant of the Hopper GEMM at the paths' shapes")
@@ -4496,6 +4900,7 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             log(f"[phase] {name} {time.perf_counter() - phase_t0:.1f} s")
+        slice17_phases(device, smi, paths, failed)  # the serving example reads PIPE_DIR
     finally:
         import shutil
 

@@ -17,7 +17,7 @@
 // memory (the TPU kernel takes its seed as an SMEM operand, so one compiled
 // program serves every request; here one captured CUDA graph does, the seed
 // buffer refilled before each replay): one Philox call per four columns,
-// counter (col / 4, row, 0, 0), its output word col % 4 the bits of column col
+// counter (col / 4, row0 + row, 0, 0), its output word col % 4 the bits of column col
 // (kernels/fused_sample.py `philox_gumbel_plain` is the same stream in torch).
 //
 // What bounds it on the H100: reading the logits -- 2 x 256 x 8192 bf16 = 8 MB
@@ -161,7 +161,7 @@ template <typename T, bool kCfg, bool kPhilox>
 __global__ void __launch_bounds__(kThreads, 2)
 sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, float guidance,
               const float* __restrict__ gumbel, int64_t g_stride,
-              const uint64_t* __restrict__ seed, int* __restrict__ ids,
+              const uint64_t* __restrict__ seed, int64_t row0, int* __restrict__ ids,
               float* __restrict__ sel) {
   // 8-column chunks a thread per segment: 8192 bf16 or 4096 fp32 columns
   constexpr int kChunks = sizeof(T) == 2 ? 4 : 2;
@@ -174,6 +174,9 @@ sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, f
   const bool vec_g = !kPhilox && aligned16(g_row);
   const uint64_t key = kPhilox ? *seed : 0ull;  // one load a block
   const uint32_t k0 = uint32_t(key), k1 = uint32_t(key >> 32);
+  // the stream's row: a rank that samples rows row0 .. row0 + N - 1 of a
+  // larger batch draws what the whole batch's call draws for them
+  const uint32_t prow = uint32_t(row0 + row);
 
   Best best{-INFINITY, -INFINITY, -INFINITY, 0.f, INT_MAX};
   for (int seg = 0; seg < vocab_limit; seg += kSegment) {
@@ -220,8 +223,8 @@ sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, f
       const int col0 = seg + (i * kThreads + threadIdx.x) * 8;
       if (col0 >= vocab_limit) continue;
       if constexpr (kPhilox) {  // two Philox calls: counters col0 / 4 and col0 / 4 + 1
-        const uint4 b0 = philox4x32_10(make_uint4(col0 / 4, row, 0, 0), k0, k1);
-        const uint4 b1 = philox4x32_10(make_uint4(col0 / 4 + 1, row, 0, 0), k0, k1);
+        const uint4 b0 = philox4x32_10(make_uint4(col0 / 4, prow, 0, 0), k0, k1);
+        const uint4 b1 = philox4x32_10(make_uint4(col0 / 4 + 1, prow, 0, 0), k0, k1);
         const uint32_t bits[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
@@ -279,28 +282,28 @@ sample_kernel(const T* __restrict__ logits, int N, int v_raw, int vocab_limit, f
 
 template <typename T, bool kCfg>
 void launch_route(const T* logits, int N, int v_raw, int vocab_limit, float guidance,
-                  const float* gumbel, int64_t g_stride, const uint64_t* seed, int* ids,
-                  float* sel, cudaStream_t stream) {
+                  const float* gumbel, int64_t g_stride, const uint64_t* seed, int64_t row0,
+                  int* ids, float* sel, cudaStream_t stream) {
   if (gumbel)
     sample_kernel<T, kCfg, false><<<N, kThreads, 0, stream>>>(
-        logits, N, v_raw, vocab_limit, guidance, gumbel, g_stride, seed, ids, sel);
+        logits, N, v_raw, vocab_limit, guidance, gumbel, g_stride, seed, row0, ids, sel);
   else
     sample_kernel<T, kCfg, true><<<N, kThreads, 0, stream>>>(
-        logits, N, v_raw, vocab_limit, guidance, gumbel, g_stride, seed, ids, sel);
+        logits, N, v_raw, vocab_limit, guidance, gumbel, g_stride, seed, row0, ids, sel);
 }
 
 template <bool kCfg>
 int launch(const void* logits, int logits_bf16, int N, int v_raw, int vocab_limit, float guidance,
-           const float* gumbel, int64_t g_stride, const uint64_t* seed, int* ids, float* sel,
-           void* stream_ptr) {
+           const float* gumbel, int64_t g_stride, const uint64_t* seed, int64_t row0, int* ids,
+           float* sel, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (logits_bf16)
     launch_route<__nv_bfloat16, kCfg>(static_cast<const __nv_bfloat16*>(logits), N, v_raw,
-                                      vocab_limit, guidance, gumbel, g_stride, seed, ids, sel,
-                                      stream);
+                                      vocab_limit, guidance, gumbel, g_stride, seed, row0, ids,
+                                      sel, stream);
   else
     launch_route<float, kCfg>(static_cast<const float*>(logits), N, v_raw, vocab_limit, guidance,
-                              gumbel, g_stride, seed, ids, sel, stream);
+                              gumbel, g_stride, seed, row0, ids, sel, stream);
   return int(cudaGetLastError());
 }
 
@@ -308,19 +311,21 @@ int launch(const void* logits, int logits_bf16, int N, int v_raw, int vocab_limi
 
 // logits: (2N, v_raw), cond rows first; bf16 when logits_bf16 != 0, else fp32.
 // gumbel: (N, g_stride) fp32, or nullptr for the in-kernel Philox stream,
-// keyed by the 64-bit value at `seed` (device memory; unread with gumbel).
+// keyed by the 64-bit value at `seed` (device memory; unread with gumbel),
+// its counters' rows starting at row0 (0 but for a rank's share of a batch).
 extern "C" int muse_cfg_sample(const void* logits, int logits_bf16, int N, int v_raw,
                                int vocab_limit, float guidance, const float* gumbel,
-                               int64_t g_stride, const uint64_t* seed, int* ids, float* sel,
-                               void* stream_ptr) {
+                               int64_t g_stride, const uint64_t* seed, int64_t row0, int* ids,
+                               float* sel, void* stream_ptr) {
   return launch<true>(logits, logits_bf16, N, v_raw, vocab_limit, guidance, gumbel, g_stride,
-                      seed, ids, sel, stream_ptr);
+                      seed, row0, ids, sel, stream_ptr);
 }
 
 // logits: (N, v_raw); no guidance.  Otherwise as muse_cfg_sample.
 extern "C" int muse_sample(const void* logits, int logits_bf16, int N, int v_raw,
                            int vocab_limit, const float* gumbel, int64_t g_stride,
-                           const uint64_t* seed, int* ids, float* sel, void* stream_ptr) {
+                           const uint64_t* seed, int64_t row0, int* ids, float* sel,
+                           void* stream_ptr) {
   return launch<false>(logits, logits_bf16, N, v_raw, vocab_limit, 0.f, gumbel, g_stride, seed,
-                       ids, sel, stream_ptr);
+                       row0, ids, sel, stream_ptr);
 }

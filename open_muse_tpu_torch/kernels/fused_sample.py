@@ -7,8 +7,10 @@ only in distribution; with the same explicit ``gumbel`` noise the token ids
 match exactly.
 
 On the card the kernel draws its noise from a Philox4x32-10 stream: one
-call per four columns, counter (col // 4, row, 0, 0), key the 64-bit seed,
-word col % 4 the bits of column col.  The kernel loads the seed from device
+call per four columns, counter (col // 4, row0 + row, 0, 0), key the 64-bit
+seed, word col % 4 the bits of column col; ``row0`` is 0 but where a rank
+samples rows ``row0 ..`` of a larger batch (sharded serving), so that it
+draws what the whole batch's call draws for them.  The kernel loads the seed from device
 memory, an int64 ``seed=`` tensor, so that a captured CUDA graph replays
 with each request's seed; a CPU ``generator=`` has one drawn on the host
 (``draw_seed``) and copied over.  ``philox_gumbel_plain`` draws the same
@@ -66,14 +68,14 @@ def philox4x32_plain(counters, key: int):
     return torch.stack(c, dim=-1)
 
 
-def philox_gumbel_plain(seed: int, rows: int, cols: int, device=None):
+def philox_gumbel_plain(seed: int, rows: int, cols: int, device=None, row0: int = 0):
     """The Gumbel noise (rows, cols) fp32 of the kernel's Philox route for a
     seed from ``draw_seed``: column col of row r takes word col % 4 of the
-    call on counter (col // 4, r, 0, 0); its top 24 bits give u in (0, 1) as
-    the TPU kernel does, then -log(-log(u)).  For the tests only."""
+    call on counter (col // 4, row0 + r, 0, 0); its top 24 bits give u in (0,
+    1) as the TPU kernel does, then -log(-log(u))."""
     calls = -(-cols // 4)
     col, row = torch.meshgrid(torch.arange(calls, device=device),
-                              torch.arange(rows, device=device), indexing="xy")
+                              torch.arange(row0, row0 + rows, device=device), indexing="xy")
     zero = torch.zeros_like(col)
     bits = philox4x32_plain(torch.stack([col, row, zero, zero], dim=-1), seed)
     bits = bits.reshape(rows, 4 * calls)[:, :cols]
@@ -97,7 +99,7 @@ def fused_categorical_cfg_plain(logits, guidance, vocab_limit: int, gumbel):
     return fused_categorical_plain(x[b:] + guidance * (x[:b] - x[b:]), vocab_limit, gumbel)
 
 
-def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generator, seed,
+def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generator, seed, row0,
             *guidance):
     """Shared by both wrappers: check the noise, then the plain version for
     CPU tensors or, for CUDA tensors, the kernel behind the C function
@@ -118,7 +120,8 @@ def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generato
         if generator is not None:
             gumbel = sample_gumbel((b, s, vocab_limit), generator)
         elif seed is not None:
-            gumbel = philox_gumbel_plain(int(seed.reshape(())), b * s, vocab_limit)
+            gumbel = philox_gumbel_plain(int(seed.reshape(())), b * s, vocab_limit,
+                                         row0=row0 * s)
             gumbel = gumbel.reshape(b, s, vocab_limit)
         return plain(logits, *guidance, vocab_limit, gumbel)
     require_cuda(name, (torch.bfloat16, torch.float32), logits)
@@ -135,34 +138,38 @@ def _sample(wrapper, entry: str, plain, logits, b, vocab_limit, gumbel, generato
         logits.data_ptr(), int(logits.dtype == torch.bfloat16), b * s, v_raw, vocab_limit,
         *guidance, None if gumbel is None else gumbel.data_ptr(),
         0 if gumbel is None else gumbel.shape[2], None if seed is None else seed.data_ptr(),
-        ids.data_ptr(), sel.data_ptr(), stream_handle(logits)), name)
+        row0 * s, ids.data_ptr(), sel.data_ptr(), stream_handle(logits)), name)
     wrapper.launches += 1
     return ids, sel
 
 
 def fused_categorical_cfg(logits, guidance: float, vocab_limit: int, gumbel=None,
-                          generator: torch.Generator | None = None, seed=None):
+                          generator: torch.Generator | None = None, seed=None,
+                          row0: int = 0):
     """logits (2B, S, V_raw), cond rows first -> (ids (B, S) int32,
     sel (B, S) fp32).  Noise is one of ``gumbel`` (B, S, >= vocab_limit)
     fp32, the Philox stream of ``seed`` (an int64 tensor of one element on
     the logits' device), or the stream of a seed drawn from the CPU
-    ``generator`` (on the CPU: ``sample_gumbel`` from it, as before)."""
+    ``generator`` (on the CPU: ``sample_gumbel`` from it, as before).
+    ``row0``: the batch row these logits' first image is in the stream
+    (a rank's share of a sharded batch), read with ``seed`` alone."""
     if logits.shape[0] % 2:
         raise ValueError(f"CFG logits {tuple(logits.shape)} need cond and uncond halves")
     return _sample(fused_categorical_cfg, "muse_cfg_sample", fused_categorical_cfg_plain, logits,
-                   logits.shape[0] // 2, vocab_limit, gumbel, generator, seed, float(guidance))
+                   logits.shape[0] // 2, vocab_limit, gumbel, generator, seed, row0,
+                   float(guidance))
 
 
 fused_categorical_cfg.launches = 0
 
 
 def fused_categorical(logits, vocab_limit: int, gumbel=None,
-                      generator: torch.Generator | None = None, seed=None):
+                      generator: torch.Generator | None = None, seed=None, row0: int = 0):
     """The CFG-free sampler: logits (B, S, V_raw) -> (ids (B, S) int32,
     sel (B, S) fp32) over the first ``vocab_limit`` columns.  Noise as for
     ``fused_categorical_cfg``."""
     return _sample(fused_categorical, "muse_sample", fused_categorical_plain, logits,
-                   logits.shape[0], vocab_limit, gumbel, generator, seed)
+                   logits.shape[0], vocab_limit, gumbel, generator, seed, row0)
 
 
 fused_categorical.launches = 0

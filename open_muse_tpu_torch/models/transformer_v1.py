@@ -87,13 +87,22 @@ class KeepMasks:
     flax's ``nn.Dropout`` draws its Bernoulli mask.  Inside a captured train
     step the generator is registered with the graph, so every replay draws
     fresh masks on the device.  Any callable of this signature can stand in
-    for it (the tests hand over the JAX module's masks)."""
+    for it (the tests hand over the JAX module's masks).  ``share``: (this
+    rank, the rank count) of a batch split over ranks
+    (``parallel.mesh.DataParallel.share``): a rank draws the global batch's
+    masks (dim 0 the batch) and keeps its rows."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator, share=(0, 1)):
         self.generator = generator
+        self.share = share
 
     def __call__(self, shape, keep_prob: float, device) -> torch.Tensor:
-        return torch.rand(shape, generator=self.generator, device=device) < keep_prob
+        rank, world = self.share
+        if world == 1:
+            return torch.rand(shape, generator=self.generator, device=device) < keep_prob
+        n = shape[0]
+        draw = torch.rand((world * n, *shape[1:]), generator=self.generator, device=device)
+        return draw[rank * n:(rank + 1) * n] < keep_prob
 
 
 def _dropout(x, rate: float, masks):

@@ -584,7 +584,8 @@ def decode_schedules(timesteps: int, temperature=1.0, guidance_scale: float = 0.
 def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
                          guidance_scales, mask_ratios, *, use_cfg: bool, seq_len: int,
                          timesteps: int, mask_gumbel, seeds=None, sample_gumbel=None,
-                         return_intermediate: bool = False, return_trajectory: bool = False):
+                         return_intermediate: bool = False, return_trajectory: bool = False,
+                         row0: int = 0):
     """The MaskGIT decode: ``timesteps`` forwards of ``model`` with the
     text-derived tensors computed once (``model.step_context``), each
     followed by sampling and confidence re-masking.  Returns the token ids
@@ -600,7 +601,9 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
     device -- ``mask_gumbel`` (T, B, S) and either ``seeds`` (T,) int64,
     the sampling kernel's Philox seeds, or ``sample_gumbel`` (T, B, S, >=
     codebook) (``decode_noise`` draws them) -- and ``guidance_scales`` (T
-    host floats, read without CFG never) is what a graph bakes in."""
+    host floats, read without CFG never) is what a graph bakes in.  ``row0``:
+    the first image's row in the seeds' Philox stream (a rank's share of a
+    sharded batch)."""
     if (seeds is None) == (sample_gumbel is None):
         raise ValueError("pass exactly one of seeds= and sample_gumbel=")
     cfg = model.config
@@ -618,7 +621,7 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
             guidance_scale=float(guidance_scales[step]) if use_cfg else None,
             mask_ratio=mask_ratios[step], temperature=temperatures[step],
             mask_gumbel=mask_gumbel[step], seed=None if seeds is None else seeds[step:step + 1],
-            sample_gumbel=None if sample_gumbel is None else sample_gumbel[step])
+            sample_gumbel=None if sample_gumbel is None else sample_gumbel[step], row0=row0)
         raws.append(raw_ids)
         committed.append(sampled)
     if return_trajectory:
@@ -627,7 +630,8 @@ def parallel_decode_loop(model, input_ids, ehs, conds, micros, temperatures,
 
 
 def decode_step(raw, ids, *, mask_token_id: int, codebook_size: int, guidance_scale,
-                mask_ratio, temperature, mask_gumbel, seed=None, sample_gumbel=None):
+                mask_ratio, temperature, mask_gumbel, seed=None, sample_gumbel=None,
+                row0: int = 0):
     """One MaskGIT step after the forward, shared by the v1 and v2 decodes:
     sample every position from the raw logits (B, S, >= codebook) (CFG
     halves, cond first, when ``guidance_scale`` is not None), keep the
@@ -636,13 +640,15 @@ def decode_step(raw, ids, *, mask_token_id: int, codebook_size: int, guidance_sc
     the next step, the committed samples, the raw samples).  Noise: the
     sampler's ``seed`` (one int64 on the device) or ``sample_gumbel`` (B, S,
     >= codebook), and ``mask_gumbel`` (B, S); ``mask_ratio`` and
-    ``temperature`` are 0-d device tensors (or floats)."""
+    ``temperature`` are 0-d device tensors (or floats); ``row0`` as in
+    ``parallel_decode_loop``."""
     batch, seq_len = ids.shape
     if guidance_scale is not None:
         raw_ids, sel = fused_categorical_cfg(raw, guidance_scale, codebook_size,
-                                             gumbel=sample_gumbel, seed=seed)
+                                             gumbel=sample_gumbel, seed=seed, row0=row0)
     else:
-        raw_ids, sel = fused_categorical(raw, codebook_size, gumbel=sample_gumbel, seed=seed)
+        raw_ids, sel = fused_categorical(raw, codebook_size, gumbel=sample_gumbel, seed=seed,
+                                         row0=row0)
     raw_ids = raw_ids.long()
     unknown = ids == mask_token_id
     sampled = torch.where(unknown, raw_ids, ids)

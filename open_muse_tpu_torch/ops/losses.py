@@ -3,6 +3,10 @@
 Counterpart of ``open_muse_tpu/ops/losses.py``: torch ``cross_entropy``
 semantics with ``ignore_index=-100`` and label smoothing, the reference v2
 loss weighting, and the soft-target cross entropy, all staged in fp32.
+Each loss is a ratio, ``ratio(total, count, min_count)``: a plain division
+by default; a data-parallel train step passes its
+``parallel.mesh.DataParallel.ratio``, whose denominator is the global
+batch's, as the JAX step takes it over the whole sharded batch.
 """
 
 from __future__ import annotations
@@ -27,23 +31,29 @@ def _per_token_ce(logits, labels, label_smoothing: float = 0.0):
     return torch.where(valid, nll, torch.zeros_like(nll)), valid
 
 
-def cross_entropy_loss(logits, labels, label_smoothing: float = 0.0):
+def _divide(total, count, min_count=None):
+    return total / (count if min_count is None else count.clamp(min=min_count))
+
+
+def cross_entropy_loss(logits, labels, label_smoothing: float = 0.0, ratio=_divide):
     """Mean CE over the tokens not labelled -100."""
     nll, valid = _per_token_ce(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                                label_smoothing)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return ratio(nll.sum(), valid.sum(), min_count=1)
 
 
-def weighted_cross_entropy_loss(logits, labels, loss_weight, label_smoothing: float = 0.0):
+def weighted_cross_entropy_loss(logits, labels, loss_weight, label_smoothing: float = 0.0,
+                                ratio=_divide):
     """Per-token CE times its weight over the weight sum, across the whole
     batch (reference modeling_transformer_v2.py:305-317)."""
     nll, _ = _per_token_ce(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                            label_smoothing)
     w = loss_weight.reshape(-1).float()
-    return (nll * w).sum() / w.sum()
+    return ratio((nll * w).sum(), w.sum())
 
 
-def soft_target_cross_entropy(logits, targets, soft_targets, drop_first: bool = True):
+def soft_target_cross_entropy(logits, targets, soft_targets, drop_first: bool = True,
+                              ratio=_divide):
     """Soft-target CE for soft VQ codes; ``drop_first`` drops a leading
     class token as the reference does unconditionally."""
     if drop_first:
@@ -52,4 +62,4 @@ def soft_target_cross_entropy(logits, targets, soft_targets, drop_first: bool = 
     padding = targets == IGNORE_INDEX
     loss = (-soft_targets * log_probs).sum(-1)
     loss = torch.where(padding, torch.zeros_like(loss), loss)
-    return loss.sum() / (padding.numel() - padding.sum())
+    return ratio(loss.sum(), padding.numel() - padding.sum())

@@ -209,7 +209,7 @@ class PipelineMuse:
     # -- the serving entry points: one captured graph a request ---------------
 
     def _text_decode(self, start_ids, input_ids, micro_conds, empty_ids, schedules, noise, *,
-                     guidance, timesteps: int):
+                     guidance, timesteps: int, row0: int = 0):
         """Tokenized text -> the v2 decode from ``start_ids`` (B, S): the
         prompt and the empty prompt are encoded in one batch under CFG."""
         tdtype = self.transformer.dtype
@@ -222,17 +222,21 @@ class PipelineMuse:
         return parallel_decode_loop(
             self.transformer, start_ids, hidden_states[-2].to(tdtype), pooled.to(tdtype), micros,
             schedules[0], guidance, schedules[1], use_cfg=guidance is not None,
-            seq_len=start_ids.shape[1], timesteps=timesteps, **noise)
+            seq_len=start_ids.shape[1], timesteps=timesteps, row0=row0, **noise)
 
     def _request_fn(self, name: str, start, seq_len_of, n_image: int, batch_size: int,
-                    timesteps: int, guidance_scale: float, temperature, noise_schedule: str):
+                    timesteps: int, guidance_scale: float, temperature, noise_schedule: str,
+                    row0: int = 0):
         """The request function of ``compile_text2image`` / ``compile_inpaint``:
         ``fn(*image_inputs, input_ids, micro_conds, generator_or_noise,
         return_tokens=False)``, ``start(*image_inputs)`` giving the start
         ids inside the graph and ``seq_len_of(*image_inputs)`` their
-        length.  The schedules go to the card and the empty prompt is
-        tokenized once, here; ``fn.eager`` runs the same body without the
-        graph (for comparisons)."""
+        length.  ``generator_or_noise`` may also be noise ``decode_noise``
+        drew, (kind, sampler noise, mask_gumbel).  The schedules go to the
+        card and the empty prompt is tokenized once, here; ``fn.eager`` runs
+        the same body without the graph (for comparisons).  ``row0``: the
+        first image's row in the Philox stream (a rank's share of a sharded
+        batch)."""
         if not isinstance(self.transformer, MaskGiTUViT_v2):
             raise TypeError(f"{name} serves MaskGiTUViT_v2, not {type(self.transformer).__name__}")
         device = self.device
@@ -247,7 +251,7 @@ class PipelineMuse:
             *image_inputs, input_ids, micro_conds, empty, sched, sample_noise, mask_gumbel = tensors
             tokens = self._text_decode(start(*image_inputs), input_ids, micro_conds, empty, sched,
                                        {kind: sample_noise, "mask_gumbel": mask_gumbel},
-                                       guidance=guidance, timesteps=timesteps)
+                                       guidance=guidance, timesteps=timesteps, row0=row0)
             return self.vae.decode_code(tokens), tokens
 
         @torch.no_grad()
@@ -260,17 +264,20 @@ class PipelineMuse:
                                  f"{tuple(input_ids.shape)}")
             image_inputs = [torch.as_tensor(x).to(device) for x in image_inputs]
             seq_len = seq_len_of(*image_inputs)
-            generator, noise = ((generator_or_noise, None)
-                                if isinstance(generator_or_noise, torch.Generator)
-                                else (None, generator_or_noise))
-            kind, sample_noise, mask_gumbel = decode_noise(
-                generator, noise, timesteps=timesteps, batch=batch_size, seq_len=seq_len,
-                vocab=codebook, device=device)
+            if isinstance(generator_or_noise, tuple) and len(generator_or_noise) == 3:
+                kind, sample_noise, mask_gumbel = generator_or_noise  # drawn already
+            else:
+                generator, noise = ((generator_or_noise, None)
+                                    if isinstance(generator_or_noise, torch.Generator)
+                                    else (None, generator_or_noise))
+                kind, sample_noise, mask_gumbel = decode_noise(
+                    generator, noise, timesteps=timesteps, batch=batch_size, seq_len=seq_len,
+                    vocab=codebook, device=device)
             tensors = (*image_inputs, input_ids.to(device).long(),
                        micro_conds.to(device, torch.float32), empty_ids, schedules, sample_noise,
                        mask_gumbel)
             if graph:
-                key = (name, batch_size, timesteps, guidance, seq_len, kind)
+                key = (name, batch_size, timesteps, guidance, seq_len, kind, row0)
                 images, tokens = captured(self, key, lambda *t: body(kind, *t), *tensors,
                                           modules=(self.transformer, self.text_encoder,
                                                    self.vae))
@@ -284,7 +291,7 @@ class PipelineMuse:
 
     def compile_text2image(self, batch_size: int = 1, timesteps: int = 12,
                            guidance_scale: float = 8.0, temperature=(2, 0), seq_len: int = 256,
-                           noise_schedule: str = "cosine"):
+                           noise_schedule: str = "cosine", mesh=None):
         """Tokenized text -> images as ONE captured CUDA graph a request (on
         the CPU, eagerly): the CLIP encode (prompt and empty prompt batched
         under CFG; batch B at guidance 0), the MaskGIT decode and the fp32
@@ -294,15 +301,78 @@ class PipelineMuse:
         CPU ``torch.Generator`` or ``(sample_gumbel (T, B, S, V), mask_gumbel
         (T, B, S))``.  The graph is cached on the pipeline under (batch,
         timesteps, guidance, seq_len, noise kind); the temperature and mask
-        schedules are its inputs."""
+        schedules are its inputs.
+
+        ``mesh`` (``parallel.mesh.create_mesh``, over every rank of the
+        group): sharded serving.  Every rank holds whole weights and answers
+        the same call with the whole batch: it draws the noise for the
+        global batch, runs its rows (ceil(B / ranks), the last rank's padded
+        with copies of a row) through its own captured graph, its sampler
+        drawing those rows' Philox noise, and all-gathers the images (and
+        token ids), dropping the pad rows, so every rank returns what the
+        unsharded call returns."""
         mask_token_id = self.transformer.config.mask_token_id
 
-        def start():
-            return torch.full((batch_size, seq_len), mask_token_id, dtype=torch.long,
-                              device=self.device)
+        def local_fn(rows: int, row0: int = 0):
+            def start():
+                return torch.full((rows, seq_len), mask_token_id, dtype=torch.long,
+                                  device=self.device)
 
-        return self._request_fn("text2image", start, lambda: seq_len, 0, batch_size, timesteps,
-                                guidance_scale, temperature, noise_schedule)
+            return self._request_fn("text2image", start, lambda: seq_len, 0, rows, timesteps,
+                                    guidance_scale, temperature, noise_schedule, row0)
+
+        if mesh is None:
+            return local_fn(batch_size)
+        return self._sharded(mesh, batch_size, local_fn, timesteps, seq_len)
+
+    def _sharded(self, mesh, batch_size: int, local_fn, timesteps: int, seq_len: int):
+        """``compile_text2image``'s sharded request function (see there)."""
+        from ..parallel.mesh import all_gather_rows, rank_and_world
+
+        rank, world = rank_and_world()
+        if mesh.size() != world:
+            raise ValueError(f"sharded serving splits the batch over every rank: the mesh has "
+                             f"{mesh.size()} of {world}")
+        rows = -(-batch_size // world)
+        lo, hi = min(rank * rows, batch_size), min((rank + 1) * rows, batch_size)
+        inner = local_fn(rows, rank * rows)
+        codebook = self.transformer.config.codebook_size
+
+        def take(x, dim=0):
+            """Rows lo:hi of ``x`` along ``dim``, padded to ``rows`` with copies
+            of the last (of row 0 where the rank has none)."""
+            x = x.movedim(dim, 0)
+            part = x[lo:hi] if hi > lo else x[:1]
+            pad = rows - part.shape[0]
+            if pad:
+                part = torch.cat([part, part[-1:].expand(pad, *part.shape[1:])])
+            return part.movedim(0, dim)
+
+        @torch.no_grad()
+        def run(graph: bool, input_ids, micro_conds, generator_or_noise,
+                return_tokens: bool = False):
+            if input_ids.shape[0] != batch_size:
+                raise ValueError(f"text2image was built for batch {batch_size}, got "
+                                 f"{tuple(input_ids.shape)}")
+            generator, noise = ((generator_or_noise, None)
+                                if isinstance(generator_or_noise, torch.Generator)
+                                else (None, generator_or_noise))
+            kind, sample_noise, mask_gumbel = decode_noise(
+                generator, noise, timesteps=timesteps, batch=batch_size, seq_len=seq_len,
+                vocab=codebook, device=self.device)
+            if kind == "sample_gumbel":
+                sample_noise = take(sample_noise, 1)
+            drawn = (kind, sample_noise, take(mask_gumbel, 1))
+            call = inner if graph else inner.eager
+            images, tokens = call(take(input_ids.to(self.device)),
+                                  take(micro_conds.to(self.device)), drawn, return_tokens=True)
+            images = all_gather_rows(images)[:batch_size]
+            tokens = all_gather_rows(tokens)[:batch_size]
+            return (images, tokens) if return_tokens else images
+
+        fn = lambda *args, **kwargs: run(True, *args, **kwargs)  # noqa: E731
+        fn.eager = lambda *args, **kwargs: run(False, *args, **kwargs)
+        return fn
 
     def _cached(self, name: str, compile_fn, batch_size: int, *args):
         key = (name, batch_size, *map(_hashable, args))
@@ -313,12 +383,13 @@ class PipelineMuse:
     @torch.no_grad()
     def text2image(self, input_ids, micro_conds, generator_or_noise, timesteps: int = 12,
                    guidance_scale: float = 8.0, temperature=(2, 0), seq_len: int = 256,
-                   noise_schedule: str = "cosine", return_tokens: bool = False):
+                   noise_schedule: str = "cosine", return_tokens: bool = False, mesh=None):
         """Tokenized text -> images, the serving entry point: input_ids (B,
         T) and micro_conds (B, 5) -> NHWC float images, through the
-        ``compile_text2image`` function of these arguments (built once)."""
+        ``compile_text2image`` function of these arguments (built once;
+        ``mesh``: sharded over its ranks)."""
         fn = self._cached("text2image", self.compile_text2image, input_ids.shape[0], timesteps,
-                          guidance_scale, temperature, seq_len, noise_schedule)
+                          guidance_scale, temperature, seq_len, noise_schedule, mesh)
         return fn(input_ids, micro_conds, generator_or_noise, return_tokens=return_tokens)
 
     # -- serialization ----------------------------------------------------------

@@ -9,8 +9,10 @@ on the card) and the CLIP text tower, and writes per sample the members
 (T, D), ``clip_pooled.npy`` fp16 (P,), plus the sample's ``.txt`` and ``.json``,
 into tar shards of the same names, which ``training.data.PreEncodedDataset``
 reads.  Models load in fp32 on ``--device`` (``cuda`` unless asked for
-``cpu``).  Without ``--task-id`` / ``--num-tasks`` the process takes every
-shard (rank 0 of 1).
+``cpu``).  Without ``--task-id`` / ``--num-tasks`` the process takes the
+share of its rank under a launcher (``RANK`` / ``WORLD_SIZE``, as
+``scripts/launch.py --module open_muse_tpu_torch.scripts.pre_encode`` starts
+it, on the card of its ``LOCAL_RANK``), else every shard (rank 0 of 1).
 
     python -m open_muse_tpu_torch.scripts.pre_encode \\
         --shards 'data/{00000..00099}.tar' --output-dir encoded/ \\
@@ -40,10 +42,18 @@ from ..models.clip_text import CLIPTextEncoder, SimpleTokenizer
 from ..pipelines.pipeline_muse import _VAE_CLASSES
 from ..training.data import decode_sample, expand_urls, image_transform, tar_samples
 
-__all__ = ["distribute_shards", "ShardWriterPool", "has_tokenizer_files", "load_tokenizer",
-           "to_device", "main"]
+__all__ = ["task_share", "distribute_shards", "ShardWriterPool", "has_tokenizer_files",
+           "load_tokenizer", "to_device", "main"]
 
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json")
+
+
+def task_share(task_id=None, num_tasks=None):
+    """(task id, task count): the given ones, else the launcher's rank and
+    world size (``RANK`` / ``WORLD_SIZE``), else task 0 of 1."""
+    if task_id is not None and num_tasks:
+        return task_id, num_tasks
+    return int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
 
 
 def distribute_shards(shards, task_id: int, num_tasks: int):
@@ -248,6 +258,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
     vaes = {f"vq_{kind}.npy": load_vae(path, device)
             for kind, path in (("f16", args.vae_f16), ("f8", args.vae_f8)) if path}
     text_encoder = tokenizer = None
@@ -255,9 +268,7 @@ def main(argv=None):
         text_encoder = CLIPTextEncoder.from_pretrained(args.text_encoder, device=device).eval()
         tokenizer = load_tokenizer(args.text_encoder, text_encoder)
 
-    task_id, num_tasks = 0, 1
-    if args.task_id is not None and args.num_tasks:
-        task_id, num_tasks = args.task_id, args.num_tasks
+    task_id, num_tasks = task_share(args.task_id, args.num_tasks)
     shards = distribute_shards(expand_urls(args.shards), task_id, num_tasks)
     writer = ShardWriterPool(os.path.join(args.output_dir, "{shard}"))
 

@@ -31,6 +31,7 @@ import threading
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 __all__ = ["braceexpand", "expand_urls", "tar_samples", "ShardSource", "decode_sample",
            "get_aesthetic_score", "person_token_replace", "image_transform",
@@ -125,6 +126,14 @@ def tar_samples(url: str, handler: str = "warn") -> Iterator[Dict[str, bytes]]:
             stream.close()
         except Exception:
             pass
+
+
+def _process(process_index: Optional[int], process_count: Optional[int]) -> dict:
+    """This process's rank and the rank count: the given ones, else the
+    ``torch.distributed`` group's (rank 0 of 1 without one)."""
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    return {"process_index": rank if process_index is None else process_index,
+            "process_count": world if process_count is None else process_count}
 
 
 class ShardSource:
@@ -377,15 +386,17 @@ class PreEncodedDataset:
     (its ``metadata``).  The reference's dialect names members after the
     encoder checkpoints that wrote them: ``<vae_checkpoint>.pth`` becomes
     ``image_input_ids`` and ``<text_encoder_checkpoint>.pth``
-    ``encoder_hidden_states`` (each name lower-cased, ``/`` as ``.``).  One
-    process: rank 0 of 1."""
+    ``encoder_hidden_states`` (each name lower-cased, ``/`` as ``.``).  The
+    shards are split by rank (``process_index`` / ``process_count``, by
+    default the ``torch.distributed`` group's; rank 0 of 1 without one)."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
                  resample: bool = True, seed: int = 0, vae_checkpoint: Optional[str] = None,
-                 text_encoder_checkpoint: Optional[str] = None):
+                 text_encoder_checkpoint: Optional[str] = None,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
-                                  process_index=0, process_count=1)
+                                  **_process(process_index, process_count))
         self.batch_size = batch_size
         self.shuffle_buffer_size = shuffle_buffer_size
         self.select = select
@@ -437,16 +448,18 @@ class Text2ImageDataset:
     skipped, and one without a caption too unless ``require_text`` is
     False.  ``use_native``: the shards are read by ``native_io``'s C++
     threads, 16 sampled shards at a time, where the library builds, else
-    by the Python reader (the log says which).  One process: rank 0 of 1."""
+    by the Python reader (the log says which).  The shards are split by rank
+    as ``PreEncodedDataset``'s."""
 
     def __init__(self, train_shards_path_or_url, batch_size: int, *, resolution: int = 256,
                  shuffle_buffer_size: int = 1000, select: Optional[Callable] = None,
                  resample: bool = True, seed: int = 0, center_crop: bool = False,
                  prefetch_depth: int = 4, require_text: bool = True,
                  dataset_map: Optional[Any] = None, use_native: bool = True,
-                 native_threads: int = 4):
+                 native_threads: int = 4, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self.shards = ShardSource(train_shards_path_or_url, resample=resample, seed=seed,
-                                  process_index=0, process_count=1)
+                                  **_process(process_index, process_count))
         self.batch_size = batch_size
         self.resolution = resolution
         self.shuffle_buffer_size = shuffle_buffer_size

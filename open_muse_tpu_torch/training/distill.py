@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import logging
 import os
 import sys
 import time
@@ -47,19 +46,23 @@ from ..models.clip_text import CLIPTextEncoder, SimpleTokenizer
 from ..models.transformer_v2 import (MaskGiTUViT_v2, decode_noise, decode_schedules,
                                      parallel_decode_loop)
 from ..ops import sampling
+from ..ops.losses import cross_entropy_loss
+from ..parallel.mesh import (SINGLE, DataParallel, data_parallel, init_training,
+                             local_batch_slice, rank_and_world)
 from ..scripts.pre_encode import load_tokenizer, to_device
+from ..utils import logging as mlog
 from ..utils.config import load_config
 from ..utils.training_utils import set_seed
 from . import trainer as T
 from .ema import EMA
 from .lr_schedules import get_scheduler
 from .optimizers import get_optimizer
-from .train_muse import MetricsTracker
+from .train_muse import MetricsTracker, save, shard_model
 
 __all__ = ["DistillNoise", "DistillSpec", "draw_distill_noise", "teacher_targets",
            "distill_train_body", "make_distill_step", "distilled_generate", "main"]
 
-logger = logging.getLogger(__name__)
+logger = mlog.get_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -72,6 +75,12 @@ class DistillNoise:
     pair: torch.Tensor
     seeds: Optional[torch.Tensor] = None
     sample_gumbel: Optional[torch.Tensor] = None
+
+    def rows(self, sl: slice) -> "DistillNoise":
+        """The noise of the batch rows ``sl`` (a rank's share of noise drawn
+        for the global batch); the Philox seeds serve every row."""
+        return DistillNoise(self.mask_gumbel[:, sl], self.pair[sl], self.seeds,
+                            None if self.sample_gumbel is None else self.sample_gumbel[:, sl])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +100,8 @@ class DistillSpec:
     max_grad_norm: Optional[float] = None
     soft_weight: float = 0.0
     autocast_dtype: Optional[torch.dtype] = None
+    # the reductions over the ranks the batch is split over (``SINGLE``: none)
+    data_parallel: DataParallel = SINGLE
 
     def step_inputs(self, step: int, device) -> Dict[str, torch.Tensor]:
         """The decode's schedules (3, T) as a device input: temperatures,
@@ -136,7 +147,8 @@ def teacher_targets(spec: DistillSpec, batch, noise: DistillNoise):
         teacher, ids, ehs, cond, micro, schedules[0],
         spec.schedules[1] if spec.use_cfg else None, schedules[2], use_cfg=spec.use_cfg,
         seq_len=spec.seq_len, timesteps=spec.teacher_timesteps, mask_gumbel=noise.mask_gumbel,
-        seeds=noise.seeds, sample_gumbel=noise.sample_gumbel, return_trajectory=True)
+        seeds=noise.seeds, sample_gumbel=noise.sample_gumbel, return_trajectory=True,
+        row0=spec.data_parallel.rank * bsz)
     t_in = noise.pair * spec.step_ratio
     rows = torch.arange(bsz, device=t_in.device)
     state_in, target = states[t_in, rows], sampled[t_in + spec.step_ratio - 1, rows]
@@ -151,13 +163,13 @@ def teacher_targets(spec: DistillSpec, batch, noise: DistillNoise):
     return state_in, target, soft, t_in
 
 
-def _soft_kl(logits, soft, masked):
+def _soft_kl(logits, soft, masked, dp: DataParallel):
     """KL(teacher || student) over the codebook, averaged over the masked
-    positions (at least one)."""
+    positions (at least one) of the global batch."""
     logp_s = F.log_softmax(logits[..., :soft.shape[-1]].float(), dim=-1)
     kl = (F.softmax(soft, dim=-1) * (F.log_softmax(soft, dim=-1) - logp_s)).sum(-1)
     mask = masked.float()
-    return (kl * mask).sum() / mask.sum().clamp_min(1.0)
+    return dp.ratio((kl * mask).sum(), mask.sum(), min_count=1.0)
 
 
 def distill_train_body(state: T.TrainState, spec: DistillSpec, batch: Dict[str, torch.Tensor],
@@ -171,25 +183,26 @@ def distill_train_body(state: T.TrainState, spec: DistillSpec, batch: Dict[str, 
     under CFG, empty_embeds (1, L, E) and empty_cond_embeds (1, C).
     Metrics: loss, grad_norm (before the clip), avg_masked_frac,
     avg_pair_step and, with ``soft_weight``, soft_kl."""
+    dp = spec.data_parallel
     state_in, target, soft, t_in = teacher_targets(spec, batch, noise)
     masked = state_in == spec.mask_token_id
     labels = torch.where(masked, target, -100)
     with T.autocast(spec, state_in.device):
-        logits, loss = state.model(state_in, batch["encoder_hidden_states"],
-                                   batch["cond_embeds"], batch["micro_conds"], labels=labels,
-                                   label_smoothing=spec.label_smoothing)
+        logits = state.model(state_in, batch["encoder_hidden_states"], batch["cond_embeds"],
+                             batch["micro_conds"])
+        loss = cross_entropy_loss(logits, labels, spec.label_smoothing, ratio=dp.ratio)
     metrics = {"avg_masked_frac": masked.float().mean(), "avg_pair_step": t_in.float().mean()}
     if soft is not None:
-        soft_kl = _soft_kl(logits, soft, masked)
+        soft_kl = _soft_kl(logits, soft, masked, dp)
         loss = loss + spec.soft_weight * soft_kl
         metrics["soft_kl"] = soft_kl.detach()
-    grads, grad_norm = T.backward(state, loss)
+    grads, grad_norm = T.backward(state, loss, dp)
     if spec.max_grad_norm is not None:
         torch._foreach_mul_(grads, torch.clamp(spec.max_grad_norm / (grad_norm + 1e-6), max=1.0))
-    state.optimizer.update(grad_norm, emit)
-    if state.ema is not None:
-        state.ema.update(state.model)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
+    T.update(state, grad_norm, emit, dp)
+    metrics["loss"] = loss.detach()
+    means = sorted(metrics)
+    return {"grad_norm": grad_norm, **dict(zip(means, dp.mean(*(metrics[k] for k in means))))}
 
 
 def make_distill_step(teacher: torch.nn.Module, *, mask_token_id: int,
@@ -198,14 +211,16 @@ def make_distill_step(teacher: torch.nn.Module, *, mask_token_id: int,
                       noise_schedule=sampling.cosine_schedule, seq_len: int = 256,
                       label_smoothing: float = 0.0, max_grad_norm: Optional[float] = None,
                       soft_weight: float = 0.0,
-                      autocast_dtype: Optional[torch.dtype] = None) -> T.TrainStep:
+                      autocast_dtype: Optional[torch.dtype] = None,
+                      data_parallel: DataParallel = SINGLE) -> T.TrainStep:
     """``step(state, batch, noise) -> metrics`` (``TrainStep`` around
     ``distill_train_body``).  ``teacher`` is the frozen model whose decode
     makes the targets; the state's model is the student, with its optimizer
     (built without ``max_grad_norm``: the step clips) and EMA.  The decode's
     schedules are ``decode_schedules``', shared with ``generate2``, so the
     student's K-step mask ratios are the teacher's at every
-    ``step_ratio``-th step."""
+    ``step_ratio``-th step.  ``data_parallel``: the reductions over the
+    ranks the global batch is split over (``parallel.mesh.data_parallel``)."""
     if teacher_timesteps % step_ratio:
         raise ValueError(f"teacher_timesteps ({teacher_timesteps}) must be a multiple of "
                          f"step_ratio ({step_ratio})")
@@ -215,7 +230,7 @@ def make_distill_step(teacher: torch.nn.Module, *, mask_token_id: int,
     return T.TrainStep(distill_train_body, DistillSpec(
         teacher, mask_token_id, cfg.codebook_size, teacher_timesteps, step_ratio,
         tuple(tuple(s.tolist()) for s in schedules), guidance_scale > 0, seq_len,
-        label_smoothing, max_grad_norm, soft_weight, autocast_dtype))
+        label_smoothing, max_grad_norm, soft_weight, autocast_dtype, data_parallel))
 
 
 def frozen_teacher(model: torch.nn.Module, dtype: Optional[torch.dtype] = None):
@@ -279,9 +294,17 @@ def main(argv=None) -> T.TrainState:
     them (``RandomState(seed).randint``) and its noise from a generator
     seeded by the step, so a resume (``experiment.resume_from_checkpoint``)
     continues as the run would have.  ``training.mixed_precision: bf16``
-    runs the student under bf16 autocast and holds the teacher in bf16."""
+    runs the student under bf16 autocast and holds the teacher in bf16.
+    Under a launcher the student is data-parallel and the teacher whole on
+    every rank: each rank draws the global batch's prompts and noise and
+    keeps its rows; rank 0 writes metrics and checkpoints."""
     config = load_config(argv if argv is not None else sys.argv[1:])
     device = resolve_device(config.get("device", "cuda"))
+    batch_size = int(config.training.batch_size)
+    mesh = init_training(device, batch_size, config.training.get("fsdp", 1))
+    mlog.set_verbosity_for_process()
+    is_main = rank_and_world()[0] == 0
+    rows = local_batch_slice(batch_size)
     seed = config.training.get("seed", 42)
     set_seed(seed)
     if device.type == "cuda":  # the fp32 text tower as serving runs it
@@ -289,13 +312,15 @@ def main(argv=None) -> T.TrainState:
         torch.backends.cudnn.allow_tf32 = False
     output_dir = config.experiment.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    tracker = MetricsTracker(output_dir)
+    tracker = MetricsTracker(output_dir) if is_main else None
     autocast_dtype = torch.bfloat16 if config.training.get("mixed_precision") == "bf16" else None
 
     dcfg = config.distill
     model = MaskGiTUViT_v2.from_pretrained(dcfg.teacher_checkpoint, device=device).float()
     teacher = frozen_teacher(model, autocast_dtype)
     model.train()
+    shard_model(model, mesh)  # fsdp > 1: the student alone; the teacher stays whole
+    dp = data_parallel(mesh, fsdp_applied=T.is_sharded(model))
     logger.info("student (= teacher init) params: %.1fM",
                 sum(p.numel() for p in model.parameters()) / 1e6)
     text_encoder, tokenizer = _text_tower(config, device)
@@ -308,8 +333,8 @@ def main(argv=None) -> T.TrainState:
 
     resolution = int(dcfg.get("resolution", 256))
     seq_len = int(dcfg.get("seq_len", (resolution // 16) ** 2))
-    batch_size = int(config.training.batch_size)
-    micro = torch.tensor([[resolution, resolution, 0, 0, 6.0]] * batch_size, device=device)
+    micro = torch.tensor([[resolution, resolution, 0, 0, 6.0]] * (rows.stop - rows.start),
+                         device=device)
     opt_cfg = config.optimizer.params
     schedule = get_scheduler(
         config.lr_scheduler.scheduler, base_lr=float(opt_cfg.learning_rate),
@@ -331,7 +356,8 @@ def main(argv=None) -> T.TrainState:
         guidance_schedule=dcfg.get("guidance_schedule"), seq_len=seq_len,
         label_smoothing=float(config.training.get("label_smoothing", 0.0)),
         max_grad_norm=config.training.get("max_grad_norm"),
-        soft_weight=float(dcfg.get("soft_weight", 0.0)), autocast_dtype=autocast_dtype)
+        soft_weight=float(dcfg.get("soft_weight", 0.0)), autocast_dtype=autocast_dtype,
+        data_parallel=dp)
     wanted = config.experiment.get("resume_from_checkpoint")
     if wanted:
         path = T.find_latest_checkpoint(output_dir) if wanted == "latest" else wanted
@@ -349,17 +375,18 @@ def main(argv=None) -> T.TrainState:
     t0, first = time.time(), state.step
     end = t0
     while state.step < max_steps:
-        idx = torch.from_numpy(rs.randint(0, len(prompts), size=batch_size)).to(device)
+        idx = torch.from_numpy(rs.randint(0, len(prompts), size=batch_size)[rows]).to(device)
         batch = {"encoder_hidden_states": all_ehs[idx], "cond_embeds": all_pooled[idx],
                  "micro_conds": micro, **empty}
         generator = torch.Generator().manual_seed(seed + 1 + state.step)
         noise = draw_distill_noise(generator, timesteps=timesteps, step_ratio=step_ratio,
                                    batch=batch_size, seq_len=seq_len,
-                                   codebook_size=model.config.codebook_size, device=device)
+                                   codebook_size=model.config.codebook_size,
+                                   device=device).rows(rows)
         capture = distill_step.last_capture
         metrics = distill_step(state, batch, noise)
         step = state.step
-        if step % log_every == 0:
+        if step % log_every == 0 and is_main:
             values = {k: float(v) for k, v in metrics.items()}  # waits for the step
             now = time.time()
             values.update(lr=optimizer.schedule(optimizer.count - 1), step_time=now - end,
@@ -370,12 +397,11 @@ def main(argv=None) -> T.TrainState:
             logger.info("step %d: loss=%.4f (%.2f it/s)", step, values["loss"],
                         values["steps_per_sec"])
         if step % save_every == 0 or step == max_steps:
-            T.save_checkpoint(output_dir, state)
+            save(output_dir, state, is_main)
         end = time.time()
     logger.info("distillation done at step %d", state.step)
     return state
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
     main()

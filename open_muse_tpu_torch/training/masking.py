@@ -46,6 +46,15 @@ class MaskingNoise:
     eval_index: Optional[torch.Tensor] = None
     cond_dropout: Optional[torch.Tensor] = None
 
+    def rows(self, sl: slice) -> "MaskingNoise":
+        """The draws of the batch rows ``sl`` (a rank's share of noise drawn
+        for the global batch); ``use_rect`` is the batch's one draw."""
+        def take(t, dim=0):
+            return None if t is None else t[(slice(None),) * dim + (sl,)]
+        return MaskingNoise(take(self.timesteps), take(self.permutation), take(self.rect, 1),
+                            self.use_rect, take(self.random_tokens), take(self.eval_index),
+                            take(self.cond_dropout))
+
 
 def draw_masking_noise(batch_size: int, seq_len: int, generator: torch.Generator,
                        codebook_size: int, num_eval_ratios: Optional[int] = None,

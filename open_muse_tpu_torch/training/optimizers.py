@@ -185,7 +185,8 @@ class Optimizer:
     parameters' ``.grad`` by ``grad_norm`` (when ``max_grad_norm`` is set)
     and updates.  With k > 1 every call folds the grads into a running mean
     (``acc + (g - acc) / (n + 1)``, n the calls since the last update), and
-    every k-th call emits: it clips the mean by the mean's own global norm,
+    every k-th call emits: it averages the mean over the ranks under data
+    parallelism, clips it by its own global norm,
     updates from it at the schedule's next value and zeroes it.
 
     On the card the lr and divisor are 0-d device tensors that
@@ -248,8 +249,12 @@ class Optimizer:
         self.mini_step = (self.mini_step + 1) % self.accumulation_steps
         self.count += int(emit)
 
-    def update(self, grad_norm: torch.Tensor, emit: bool = True) -> None:
-        """The step's device work from the parameters' ``.grad``."""
+    def update(self, grad_norm: torch.Tensor, emit: bool = True,
+               reduce: Optional[Callable] = None) -> None:
+        """The step's device work from the parameters' ``.grad``; under
+        accumulation ``reduce`` (a data-parallel step's
+        ``reduce_gradients_``) averages the accumulated mean over the ranks
+        in place before its norm."""
         grads = [p.grad for p in self.params]
         if self.acc:
             diff = torch._foreach_sub(grads, self.acc)
@@ -257,6 +262,8 @@ class Optimizer:
             torch._foreach_add_(self.acc, diff)
             if not emit:
                 return
+            if reduce is not None:
+                reduce(self.acc)
             for p, a in zip(self.params, self.acc):
                 p.grad = a
             grads, grad_norm = self.acc, global_norm(self.acc)

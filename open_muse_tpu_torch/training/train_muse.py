@@ -25,14 +25,23 @@ codes with Gumbel noise from the trainer's generator).
 ``experiment.inpainting_validation_dir`` (the raw v2 branch) adds an
 inpainting panel beside each sample panel.  Raw shards may name a
 ``dataset.params.dataset_map`` dialect; pre-encoded ones may carry members
-named after ``vae_checkpoint`` / ``text_encoder_checkpoint``.  wandb and
-multi-host runs are not ported.
+named after ``vae_checkpoint`` / ``text_encoder_checkpoint``.  wandb is not
+ported.
+
+Multi-process runs (``scripts/launch.py``, or ``torch.distributed.run``
+directly; ``parallel.mesh.init_training``): ``training.batch_size`` is the
+global batch, split over the ranks, which dp x fsdp must divide; each rank
+reads its shards (split by rank) at its share of the batch, draws the
+masking noise for the global batch and keeps its rows; the train step
+averages the gradients inside its graph (``training/trainer.py``); the lr
+scales by the world size under ``scale_lr``; the ranks agree on the eval
+batch count before the eval's collectives; rank 0 alone writes metrics,
+panels and checkpoints while the others wait.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import sys
 import time
@@ -53,7 +62,11 @@ from ..models.transformer_v1 import KeepMasks, MaskGitTransformer
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
 from ..ops.vq import gumbel_noise
+from ..parallel.mesh import (MeshAxes, all_reduce_min, barrier, data_parallel, init_training,
+                             local_batch_slice, rank_and_world)
+from ..parallel.sharding import shard_params
 from ..scripts.pre_encode import has_tokenizer_files, load_tokenizer, to_device
+from ..utils import logging as mlog
 from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
 from . import trainer as T
@@ -67,7 +80,7 @@ __all__ = ["MetricsTracker", "FrozenEncoders", "load_vq_model", "get_code", "sav
            "prepare_batch", "SamplePanel", "load_inpainting_validation_data",
            "generate_inpainting_images", "log_step", "main"]
 
-logger = logging.getLogger(__name__)
+logger = mlog.get_logger(__name__)
 
 VQ_CLASSES = {"vqgan": VQGANModel, "maskgit_vqgan": MaskGitVQGAN, "movq": MOVQ,
               "paella_vq": PaellaVQModel}
@@ -285,10 +298,13 @@ class FrozenEncoders:
 ARCHITECTURES = {"uvit": MaskGiTUViT_v2, "transformer": MaskGitTransformer}
 
 
-def build_state(config, device) -> T.TrainState:
+def build_state(config, device, world_size: int = 1, mesh=None) -> T.TrainState:
     """Model (``model.architecture``), optimizer (with the lr schedule and
     gradient accumulation) and EMA from ``config``.  The v1 model takes no
-    ``gradient_checkpointing``: the JAX package builds it without remat."""
+    ``gradient_checkpointing``: the JAX package builds it without remat.
+    ``scale_lr`` multiplies the lr by the global batch and the world size,
+    as the JAX trainer does.  On a ``mesh`` with fsdp > 1 the model is
+    sharded by FSDP2 before the optimizer sees it (``shard_model``)."""
     tcfg = config.model.transformer.to_dict()
     architecture = config.model.get("architecture", "uvit")
     if architecture not in ARCHITECTURES:
@@ -298,10 +314,11 @@ def build_state(config, device) -> T.TrainState:
         model = model_cls(model_cls.config_from_dict(tcfg))
     if model_cls is MaskGiTUViT_v2:
         model.set_gradient_checkpointing(config.model.get("gradient_checkpointing", False))
+    shard_model(model, mesh)
     opt_cfg = config.optimizer.params
     lr = float(opt_cfg.learning_rate)  # yaml reads 1e-4 as a string
     if opt_cfg.get("scale_lr", False):
-        lr = lr * config.training.batch_size
+        lr = lr * config.training.batch_size * world_size
     schedule = get_scheduler(
         config.lr_scheduler.scheduler, base_lr=lr,
         num_warmup_steps=config.lr_scheduler.params.get("warmup_steps", 500),
@@ -316,6 +333,18 @@ def build_state(config, device) -> T.TrainState:
     return T.TrainState(model=model, optimizer=optimizer, ema=ema)
 
 
+def shard_model(model, mesh) -> None:
+    """With fsdp > 1 on ``mesh``: the model's parameters sharded by the
+    partition rules (FSDP2), so that its steps' gradients are averaged over
+    dp alone (``data_parallel(mesh, fsdp_applied=True)``) and the step runs
+    eagerly (``TrainStep``).  Nothing otherwise."""
+    if mesh is None or mesh.size(MeshAxes.index("fsdp")) == 1:
+        return
+    shard_params(model, mesh)
+    logger.info("fsdp=%d: the model's parameters are FSDP2 shards; the train step runs eagerly",
+                mesh.size(MeshAxes.index("fsdp")))
+
+
 def _loggable(value):
     value = value.float().cpu()
     return value.tolist() if value.dim() else float(value)
@@ -326,23 +355,32 @@ class SamplePanel:
     from the EMA weights (else the model's), copied into one sample model in
     the trunk's compute type (so its captured decode replays), then
     ``decode_code`` -> ``samples-{step}.png``; the generator is the CPU one
-    of ``seed + step``."""
+    of ``seed + step``.  Every rank calls it: the weights of an
+    FSDP2-sharded model are gathered from every rank (a collective), and
+    rank 0 (``is_main``) alone samples and writes; it returns whether it
+    did."""
 
-    def __init__(self, state, vq_model, dtype, seed: int, generate: Callable):
+    def __init__(self, state, vq_model, dtype, seed: int, generate: Callable,
+                 is_main: bool = True):
         self.state, self.vq_model, self.generate = state, vq_model, generate
-        self.dtype, self.seed = dtype, seed
+        self.dtype, self.seed, self.is_main = dtype, seed, is_main
         self.model = None
 
     @torch.no_grad()
-    def __call__(self, batch, step: int, path: str) -> None:
+    def __call__(self, batch, step: int, path: str) -> bool:
         source = self.state.model
+        weights = self.state.ema.shadow if self.state.ema is not None else source.state_dict()
+        if T.is_sharded(source):
+            weights = T.full_tensors(weights)
+        if not self.is_main:
+            return False
         if self.model is None:
             with torch.device(next(source.parameters()).device):
-                self.model = type(source)(source.config).to(self.dtype).eval()
-        weights = self.state.ema.shadow if self.state.ema is not None else source.state_dict()
+                self.model = T.model_class(source)(source.config).to(self.dtype).eval()
         self.model.load_state_dict(weights)
         tokens = self.generate(self.model, batch, torch.Generator().manual_seed(self.seed + step))
         save_image_grid(self.vq_model.decode_code(tokens).float().cpu().numpy(), path)
+        return True
 
 
 def uvit_panel(empty) -> Callable:
@@ -456,9 +494,20 @@ def resume(config, state, output_dir: str) -> None:
 
 def main(argv=None) -> T.TrainState:
     """Train from ``argv`` (``config=path.yaml`` and ``a.b=value``
-    overrides) on the override ``device=``, else ``cuda``."""
+    overrides) on the override ``device=``, else ``cuda``; under a launcher,
+    as one rank of the job."""
     config = load_config(argv if argv is not None else sys.argv[1:])
     device = resolve_device(config.get("device", "cuda"))
+    batch_size = config.training.batch_size
+    mesh = init_training(device, batch_size, config.training.get("fsdp", 1),
+                         config.training.get("tp", 1))
+    mlog.set_verbosity_for_process()
+    rank, world = rank_and_world()
+    rows = local_batch_slice(batch_size)
+    is_main = rank == 0
+    if mesh is not None:
+        logger.info("rank %d of %d: rows %d - %d of the global batch %d", rank, world,
+                    rows.start, rows.stop, batch_size)
     seed = config.training.get("seed", 42)
     set_seed(seed)
     if device.type == "cuda":
@@ -468,11 +517,12 @@ def main(argv=None) -> T.TrainState:
 
     output_dir = config.experiment.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir, "config.yaml"), "w") as f:
-        import yaml
+    if is_main:
+        with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+            import yaml
 
-        yaml.safe_dump(config.to_dict(), f)
-    tracker = MetricsTracker(output_dir)
+            yaml.safe_dump(config.to_dict(), f)
+    tracker = MetricsTracker(output_dir) if is_main else None
 
     pre_encode = config.training.get("pre_encode", False)
     use_soft_targets = bool(config.training.get("use_soft_code_target", False))
@@ -482,8 +532,9 @@ def main(argv=None) -> T.TrainState:
         raise ValueError("training.use_soft_code_target needs the raw-image branch (the VQ "
                          "model's get_soft_code); pre-encoded shards carry no soft targets")
     encoders = None if pre_encode else FrozenEncoders.from_config(config, device)
-    state = build_state(config, device)
+    state = build_state(config, device, world, mesh)
     model = state.model
+    dp = data_parallel(mesh, fsdp_applied=T.is_sharded(model))
     is_v1 = isinstance(model, MaskGitTransformer)
     logger.info("transformer params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
     autocast_dtype = torch.bfloat16 if config.training.get("mixed_precision") == "bf16" else None
@@ -497,11 +548,12 @@ def main(argv=None) -> T.TrainState:
     if is_v1:
         dropout = None
         if model.config.hidden_dropout > 0.0:
-            dropout = KeepMasks(torch.Generator(device).manual_seed(seed + 1))
+            dropout = KeepMasks(torch.Generator(device).manual_seed(seed + 1), dp.share)
         train_step = T.make_v1_text2image_train_step(
             mask_schedule, mask_id, codebook_size=codebook_size,
             min_masking_rate=min_masking_rate, label_smoothing=label_smoothing,
-            cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout)
+            cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout,
+            data_parallel=dp)
         eval_step = None  # the JAX trainer has no v1 eval step
     else:
         train_step = T.make_uvit_train_step(
@@ -513,10 +565,11 @@ def main(argv=None) -> T.TrainState:
             label_smoothing=label_smoothing, cond_dropout_prob=cond_dropout_prob,
             autocast_dtype=autocast_dtype,
             with_diagnostics=bool(config.experiment.get("log_entropy_buckets", False)),
-            with_param_grad_norms=bool(log_grad_norm_every), use_soft_targets=use_soft_targets)
+            with_param_grad_norms=bool(log_grad_norm_every), use_soft_targets=use_soft_targets,
+            data_parallel=dp)
         eval_step = T.make_uvit_eval_step(mask_schedule, mask_id, eval_mask_ratios=eval_ratios,
                                           label_smoothing=label_smoothing,
-                                          autocast_dtype=autocast_dtype)
+                                          autocast_dtype=autocast_dtype, data_parallel=dp)
     grad_norm_names = T.grad_norm_param_names(model)
     resume(config, state, output_dir)
 
@@ -539,16 +592,16 @@ def main(argv=None) -> T.TrainState:
     select = None
     if config.dataset.get("quality_filter"):
         select = WebdatasetSelect(**config.dataset.quality_filter.to_dict())
-    batch_size = config.training.batch_size
+    local_batch = rows.stop - rows.start
     resolution = ds_params.get("resolution", 256)
     preprocessing = config.dataset.get("preprocessing") or {}
 
     def dataset(urls, center_crop: bool, **kw):
         if pre_encode:
             return PreEncodedDataset(
-                urls, batch_size, vae_checkpoint=ds_params.get("vae_checkpoint"),
+                urls, local_batch, vae_checkpoint=ds_params.get("vae_checkpoint"),
                 text_encoder_checkpoint=ds_params.get("text_encoder_checkpoint"), **kw)
-        return Text2ImageDataset(urls, batch_size, resolution=resolution,
+        return Text2ImageDataset(urls, local_batch, resolution=resolution,
                                  center_crop=center_crop,
                                  dataset_map=ds_params.get("dataset_map"), **kw)
 
@@ -564,7 +617,7 @@ def main(argv=None) -> T.TrainState:
     generator = torch.Generator(device).manual_seed(seed)
     panel = None if encoders is None else SamplePanel(
         state, encoders.vq_model, autocast_dtype or torch.float32, seed,
-        v1_text_panel if is_v1 else uvit_panel(empty))
+        v1_text_panel if is_v1 else uvit_panel(empty), is_main)
     inpaint_dir = config.experiment.get("inpainting_validation_dir")
     inpaint_entries = None  # read at the first panel, at the batch's token grid
 
@@ -592,7 +645,7 @@ def main(argv=None) -> T.TrainState:
             profiler.start()
         batch = prepare(cached, generator)
         noise = draw_masking_noise(batch_size, batch["image_tokens"].shape[1], generator,
-                                   codebook_size, cond_dropout=cond_dropout)
+                                   codebook_size, cond_dropout=cond_dropout).rows(rows)
         capture = train_step.last_capture
         metrics = train_step(state, batch, noise)
         step = state.step
@@ -601,33 +654,40 @@ def main(argv=None) -> T.TrainState:
                 torch.cuda.synchronize()
             profiler.stop()
             os.makedirs(os.path.join(output_dir, "profile"), exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(output_dir, "profile", "trace.json"))
+            if is_main:
+                profiler.export_chrome_trace(os.path.join(output_dir, "profile", "trace.json"))
             profiler = None
             logger.info("wrote the profiler trace to %s/profile", output_dir)
-        if step % log_every == 0:
+        if step % log_every == 0 and is_main:
             log_step(tracker, train_step, capture, metrics, state, batch_size, end, batch_time,
                      data_time)
-        if log_grad_norm_every and step % log_grad_norm_every == 0 and \
+        if log_grad_norm_every and step % log_grad_norm_every == 0 and is_main and \
                 "param_grad_norms" in metrics:
             norms = metrics["param_grad_norms"].float().cpu().tolist()
             tracker.log({f"grad_norm/{n}": v for n, v in zip(grad_norm_names, norms)}, step)
         if eval_every and eval_step is not None and eval_data is not None and \
                 step % eval_every == 0:
             eval_gen = torch.Generator(device).manual_seed(seed + 999 + step)
-            losses = []
-            for i, raw in enumerate(eval_data):
-                if i >= config.experiment.get("max_eval_batches", 8):
+            # the ranks agree on a common count before the eval's collectives,
+            # since uneven eval shards would leave some ranks waiting
+            buffered = []
+            for raw in eval_data:
+                if len(buffered) >= config.experiment.get("max_eval_batches", 8):
                     break
+                buffered.append(raw)
+            losses = []
+            for raw in buffered[:all_reduce_min(len(buffered), device)]:
                 eb = prepare(raw, eval_gen)
                 eval_noise = draw_masking_noise(batch_size, eb["image_tokens"].shape[1],
-                                                eval_gen, codebook_size, len(eval_ratios))
+                                                eval_gen, codebook_size,
+                                                len(eval_ratios)).rows(rows)
                 losses.append(float(eval_step(model, eb, eval_noise)))
-            if losses:
+            if losses and is_main:
                 tracker.log({"eval_loss": float(np.mean(losses))}, step)
                 logger.info("step %d: eval_loss=%.4f", step, np.mean(losses))
         if panel is not None and generate_every and step % generate_every == 0:
-            panel(batch, step, os.path.join(output_dir, f"samples-{step}.png"))
-            if inpaint_dir and not is_v1:
+            sampled = panel(batch, step, os.path.join(output_dir, f"samples-{step}.png"))
+            if sampled and inpaint_dir and not is_v1:
                 if inpaint_entries is None:
                     inpaint_entries = load_inpainting_validation_data(
                         inpaint_dir, resolution, int(batch["image_tokens"].shape[1] ** 0.5))
@@ -638,16 +698,23 @@ def main(argv=None) -> T.TrainState:
                     os.path.join(output_dir, f"inpainting-{step}.png"),
                     lambda i: {"generator": torch.Generator().manual_seed(seed + 1000 * step + i)})
         if step % save_every == 0:
-            T.save_checkpoint(output_dir, state,
-                              checkpoints_total_limit=config.experiment.get(
-                                  "checkpoints_total_limit"))
+            save(output_dir, state, is_main,
+                 checkpoints_total_limit=config.experiment.get("checkpoints_total_limit"))
         end = time.time()
+    barrier()  # every rank looks before any writes the last checkpoint
     if not os.path.isdir(os.path.join(output_dir, f"checkpoint-{state.step}")):
-        T.save_checkpoint(output_dir, state)
+        save(output_dir, state, is_main)
     logger.info("training done at step %d", state.step)
     return state
 
 
+def save(output_dir: str, state, is_main: bool, **kwargs) -> None:
+    """``save_checkpoint`` on every rank (rank 0 writes the checkpoint; an
+    FSDP2-sharded state is gathered first and each rank writes its optimizer
+    shard), then a barrier."""
+    T.save_checkpoint(output_dir, state, is_main=is_main, **kwargs)
+    barrier()
+
+
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
     main()

@@ -21,11 +21,17 @@ first 8 images every ``generate_every``, checkpoints every ``save_every`` and
 at the end: ``checkpoint-{step}/unwrapped_model/`` the VQ model's
 ``save_pretrained`` directory, the discriminator's under
 ``discriminator/`` }.  No resume, as in the JAX trainer.
+
+Under a launcher the batch is split over the ranks as ``train_muse`` splits
+it: each rank reads its shards at its share of ``training.batch_size`` and
+the step averages both players' gradients (and the adaptive weight's two
+gradients) over the ranks in its graph.  Neither player keeps batch
+statistics (the PatchGAN uses GroupNorm, the tokenizers none in training),
+so nothing else is reduced.  Rank 0 writes metrics, panels and checkpoints.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import sys
 import time
@@ -35,7 +41,10 @@ import torch
 from ..core.modeling import resolve_device
 from ..models.discriminator import PatchDiscriminator, last_decoder_conv
 from ..ops.perceptual import make_perceptual_loss_fn
+from ..parallel.mesh import (barrier, data_parallel, init_training, local_batch_slice,
+                             rank_and_world)
 from ..scripts.pre_encode import to_device
+from ..utils import logging as mlog
 from ..utils.config import load_config
 from ..utils.training_utils import AverageMeter, set_seed
 from . import trainer as T
@@ -46,7 +55,7 @@ from .train_muse import VQ_CLASSES, MetricsTracker, log_step, save_image_grid
 
 __all__ = ["main"]
 
-logger = logging.getLogger(__name__)
+logger = mlog.get_logger(__name__)
 
 
 def main(argv=None):
@@ -56,6 +65,10 @@ def main(argv=None):
     config = load_config(argv if argv is not None else sys.argv[1:])
     device = resolve_device(config.get("device", "cuda"))
     tcfg = config.training
+    dp = data_parallel(init_training(device, tcfg.batch_size))
+    mlog.set_verbosity_for_process()
+    is_main = rank_and_world()[0] == 0
+    rows = local_batch_slice(tcfg.batch_size)
     seed = tcfg.get("seed", 42)
     set_seed(seed)
     if device.type == "cuda":  # fp32 throughout, as the port's VQ code runs
@@ -63,7 +76,7 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
 
     output_dir = config.experiment.output_dir
-    tracker = MetricsTracker(output_dir)
+    tracker = MetricsTracker(output_dir) if is_main else None
 
     vq_type = config.model.get("vq_model_type", "maskgit_vqgan")
     if vq_type not in VQ_CLASSES:
@@ -103,10 +116,11 @@ def main(argv=None):
         l1_weight=tcfg.get("l1_weight", 1.0), l2_weight=tcfg.get("l2_weight", 1.0),
         codebook_weight=tcfg.get("codebook_weight", 1.0), perceptual_weight=perceptual_weight,
         perceptual=perceptual, disc_weight=disc_weight, disc_start=tcfg.get("disc_start", 0),
-        disc_loss=tcfg.get("disc_loss", "hinge"))
+        disc_loss=tcfg.get("disc_loss", "hinge"), data_parallel=dp)
 
     dataset = Text2ImageDataset(
-        config.dataset.params.train_shards_path_or_url, tcfg.batch_size, resolution=resolution,
+        config.dataset.params.train_shards_path_or_url, rows.stop - rows.start,
+        resolution=resolution,
         shuffle_buffer_size=config.dataset.params.get("shuffle_buffer_size", 1000),
         require_text=False, seed=seed)
     log_every = config.experiment.get("log_every", 50)
@@ -117,9 +131,11 @@ def main(argv=None):
     gen = players[0]
 
     def save(limit=None):
-        T.save_checkpoint(output_dir, gen, checkpoints_total_limit=limit, pretrained=True)
-        if len(players) > 1:
-            T.save_checkpoint(os.path.join(output_dir, "discriminator"), players[1])
+        if is_main:
+            T.save_checkpoint(output_dir, gen, checkpoints_total_limit=limit, pretrained=True)
+            if len(players) > 1:
+                T.save_checkpoint(os.path.join(output_dir, "discriminator"), players[1])
+        barrier()
 
     batch_time, data_time = AverageMeter(), AverageMeter()
     data_iter = iter(dataset)
@@ -135,10 +151,10 @@ def main(argv=None):
         capture = train_step.last_capture
         metrics = train_step(players, {"pixel_values": pixels})
         step = gen.step
-        if step % log_every == 0:
+        if step % log_every == 0 and is_main:
             log_step(tracker, train_step, capture, metrics, gen, tcfg.batch_size, end,
                      batch_time, data_time)
-        if step % generate_every == 0:
+        if step % generate_every == 0 and is_main:
             with torch.no_grad():
                 recon = model(pixels[:8])[0]
             save_image_grid(recon.float().cpu().numpy(),
@@ -146,6 +162,7 @@ def main(argv=None):
         if step % save_every == 0:
             save(total_limit)
         end = time.time()
+    barrier()  # every rank looks before any writes the last checkpoint
     if not os.path.isdir(os.path.join(output_dir, f"checkpoint-{gen.step}")):
         save()
     logger.info("training done at step %d", gen.step)
@@ -153,5 +170,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
     main()

@@ -15,10 +15,27 @@ come in as an argument
 v1 model's dropout masks are drawn inside the step from the spec's
 ``dropout`` source.
 
+Under data parallelism (a spec's ``data_parallel``, from
+``parallel.mesh.data_parallel``) each rank runs a step on its rows of the
+global batch, with the noise drawn for the global
+batch and sliced by rank: the losses' denominators are global, the
+gradients are averaged over the ranks right after the backward (before the
+global norm, since JAX clips by the global gradient's norm; under gradient
+accumulation once, on the mean in the step that updates), and the metrics
+are the ranks' means, so a rank's update is the single-process update on
+the global batch.  The collectives are issued on the step's stream, inside
+its captured graph.  The bucket diagnostics stay this rank's, and under
+accumulation so does the ``grad_norm`` metric (the micro-batch's norm; the
+update clips the reduced mean by its own norm).
+
 A checkpoint is ``checkpoint-{step}/`` with ``metadata.json``,
 ``unwrapped_model/`` and ``ema_model/`` (``config.json`` + ``pytorch_model.bin``)
 and ``training_state.pt`` (step, optimizer).  The JAX package's Orbax
-checkpoints are not read.
+checkpoints are not read.  A model sharded by FSDP2
+(``parallel.sharding.shard_params``) steps eagerly, since its hooks and
+all-gathers are not captured into a graph (``TrainStep`` logs it once); its
+checkpoint holds the whole weights and EMA, gathered from every rank, and
+each rank's optimizer shard as ``training_state-rank{r}.pt``.
 """
 
 from __future__ import annotations
@@ -38,12 +55,17 @@ from ..core.modeling import WEIGHTS_NAMES, load_state_file
 from ..models.discriminator import (adaptive_disc_weight, generator_loss, hinge_d_loss,
                                     last_decoder_conv, vanilla_d_loss)
 from ..models.taming_vqgan import to_nhwc
-from ..ops.losses import soft_target_cross_entropy
+from ..ops.losses import (cross_entropy_loss, soft_target_cross_entropy,
+                          weighted_cross_entropy_loss)
+from ..parallel.mesh import SINGLE, DataParallel, rank_and_world
+from ..utils import logging as mlog
 from ..utils import training_utils as tu
 from .ema import EMA
 from .masking import (MaskingNoise, cond_keep_mask, mask_or_random_replace_tokens,
                       prepend_class_token)
 from .optimizers import Optimizer, flax_param_name, global_norm
+
+logger = mlog.get_logger(__name__)
 
 __all__ = ["TrainState", "StepSpec", "VQGANSpec", "TrainStep", "uvit_train_body",
            "v1_text2image_train_body", "maskgit_train_body", "vqgan_train_body",
@@ -80,6 +102,8 @@ class StepSpec:
     dropout: Optional[Callable] = None
     # v2: the loss is the soft-target cross entropy against batch["soft_targets"]
     use_soft_targets: bool = False
+    # the reductions over the ranks the batch is split over (``SINGLE``: none)
+    data_parallel: DataParallel = SINGLE
 
     def step_inputs(self, step: int, device) -> Dict[str, torch.Tensor]:
         """Device inputs the host derives from the step count: none."""
@@ -100,6 +124,7 @@ class VQGANSpec:
     disc_weight: float = 0.0
     disc_start: int = 0
     disc_loss: str = "hinge"
+    data_parallel: DataParallel = SINGLE
 
     def step_inputs(self, step: int, device) -> Dict[str, torch.Tensor]:
         """``disc_factor``: 1 from the generator's update ``disc_start`` on,
@@ -108,6 +133,22 @@ class VQGANSpec:
         if self.disc_weight <= 0.0:
             return {}
         return {"disc_factor": torch.full((), float(step >= self.disc_start), device=device)}
+
+
+def is_sharded(model: nn.Module) -> bool:
+    """True when ``model`` is FSDP2-sharded (``fully_shard``): its
+    parameters are DTensor shards but between a forward without a backward
+    (an eval) and the next step, when the root holds them whole."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def model_class(model: nn.Module) -> type:
+    """The model's own class (FSDP2 puts a subclass of it in its place)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return next(c for c in type(model).__mro__ if not issubclass(c, FSDPModule))
 
 
 def _flax_leaves(model: nn.Module):
@@ -130,25 +171,43 @@ def autocast(spec: StepSpec, device: torch.device):
                           enabled=spec.autocast_dtype is not None, cache_enabled=False)
 
 
-def backward(state: TrainState, loss):
-    """The backward of ``loss`` into fresh ``.grad``s -> (grads in
-    ``model.parameters()`` order, their global norm)."""
+def _reduced(state: TrainState, grads, dp: DataParallel):
+    """``grads`` averaged over the ranks, unless the optimizer accumulates
+    (it then reduces the mean once, in the step that updates)."""
+    if state.optimizer.accumulation_steps == 1:
+        dp.reduce_gradients_(grads)
+    return grads
+
+
+def update(state: TrainState, grad_norm, emit: bool, dp: DataParallel) -> None:
+    """The optimizer's update (under accumulation the mean reduced over the
+    ranks first) and the EMA's."""
+    state.optimizer.update(grad_norm, emit, dp.reduce_gradients_)
+    if state.ema is not None:
+        state.ema.update(state.model)
+
+
+def backward(state: TrainState, loss, dp: DataParallel = SINGLE):
+    """The backward of ``loss`` into fresh ``.grad``s, averaged over the
+    ranks of ``dp`` -> (grads in ``model.parameters()`` order, their global
+    norm)."""
     state.optimizer.zero_grad()
     loss.backward()
     for p in state.model.parameters():
         if p.grad is None:  # a parameter the loss does not reach: JAX's grad is 0
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in state.model.parameters()]
+    grads = _reduced(state, [p.grad for p in state.model.parameters()], dp)
     return grads, global_norm(grads)
 
 
-def _grads(state: TrainState, loss):
+def _grads(state: TrainState, loss, dp: DataParallel):
     """``torch.autograd.grad`` of ``loss`` over the state's model alone, set
     as its parameters' ``.grad`` -> (grads, their global norm); a parameter
     the loss does not reach gets 0, as JAX's grad."""
     params = list(state.model.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = _reduced(state, [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)], dp)
     for p, g in zip(params, grads):
         p.grad = g
     return grads, global_norm(grads)
@@ -173,7 +232,7 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
     the EMA update.  Metrics: loss, grad_norm (the micro-batch's, before
     clipping), avg_masking_rate and, when asked, the four bucket diagnostics
     and ``param_grad_norms`` (``grad_norm_param_names`` order)."""
-    model = state.model
+    model, dp = state.model, spec.data_parallel
     input_ids, labels, loss_weight, mask_prob = mask_or_random_replace_tokens(
         batch["image_tokens"], spec.mask_id, spec.mask_schedule, noise,
         min_masking_rate=spec.min_masking_rate, noise_type=spec.noise_type,
@@ -185,16 +244,18 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         ehs = torch.where(keep[:, None, None], ehs, batch["empty_embeds"].to(ehs.dtype))
         cond = torch.where(keep[:, None], cond, batch["empty_cond_embeds"].to(cond.dtype))
     with autocast(spec, ehs.device):
+        logits = model(input_ids, ehs, cond, batch["micro_conds"])
         if spec.use_soft_targets:  # neither loss_weight nor label_smoothing, as in JAX
-            logits = model(input_ids, ehs, cond, batch["micro_conds"])
             loss = soft_target_cross_entropy(logits, labels, batch["soft_targets"],
-                                             drop_first=False)
+                                             drop_first=False, ratio=dp.ratio)
+        elif loss_weight is not None:
+            loss = weighted_cross_entropy_loss(logits, labels, loss_weight,
+                                               spec.label_smoothing, ratio=dp.ratio)
         else:
-            logits, loss = model(input_ids, ehs, cond, batch["micro_conds"], labels=labels,
-                                 loss_weight=loss_weight, label_smoothing=spec.label_smoothing)
-    grads, grad_norm = backward(state, loss)
-    metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-               "avg_masking_rate": mask_prob.mean()}
+            loss = cross_entropy_loss(logits, labels, spec.label_smoothing, ratio=dp.ratio)
+    grads, grad_norm = backward(state, loss, dp)
+    loss, masking_rate = dp.mean(loss.detach(), mask_prob.mean())
+    metrics = {"loss": loss, "grad_norm": grad_norm, "avg_masking_rate": masking_rate}
     if spec.with_diagnostics:
         logits = logits.detach()
         metrics["pixel_entropy_by_bucket"] = tu.pixel_entropy_per_percent_masked_bucket(
@@ -206,11 +267,11 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         metrics["token_prob_deciles_by_bucket"] = \
             tu.token_prob_deciles_per_percent_masked_bucket(logits, input_ids, spec.mask_id)
     if spec.with_param_grad_norms:
-        metrics["param_grad_norms"] = torch.stack(
-            torch._foreach_norm([grads[i].float() for i, _ in _flax_leaves(model)]))
-    state.optimizer.update(grad_norm, emit)
-    if state.ema is not None:
-        state.ema.update(model)
+        norms = torch.stack(torch._foreach_norm([grads[i].float() for i, _ in _flax_leaves(model)]))
+        # FSDP2 shards' norms: a DTensor, whole after its reduction
+        metrics["param_grad_norms"] = norms.full_tensor() if hasattr(norms, "full_tensor") \
+            else norms
+    update(state, grad_norm, emit, dp)
     return metrics
 
 
@@ -230,14 +291,14 @@ def v1_text2image_train_body(state: TrainState, spec: StepSpec, batch: Dict[str,
     cond_mask = None
     if spec.cond_dropout_prob > 0.0:
         cond_mask = cond_keep_mask(noise.cond_dropout, spec.cond_dropout_prob, ehs.dtype)
+    dp = spec.data_parallel
     with autocast(spec, ehs.device):
-        _, loss = state.model(input_ids, ehs, labels=labels, label_smoothing=spec.label_smoothing,
-                              cond_dropout_mask=cond_mask, dropout=spec.dropout)
-    _, grad_norm = backward(state, loss)
-    state.optimizer.update(grad_norm, emit)
-    if state.ema is not None:
-        state.ema.update(state.model)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
+        logits = state.model(input_ids, ehs, cond_dropout_mask=cond_mask, dropout=spec.dropout)
+        loss = cross_entropy_loss(logits, labels, spec.label_smoothing, ratio=dp.ratio)
+    _, grad_norm = backward(state, loss, dp)
+    update(state, grad_norm, emit, dp)
+    loss, masking_rate = dp.mean(loss.detach(), mask_prob.mean())
+    return {"loss": loss, "grad_norm": grad_norm, "avg_masking_rate": masking_rate}
 
 
 def maskgit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Tensor],
@@ -253,12 +314,14 @@ def maskgit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch
     input_ids, labels, _, mask_prob = _masked(batch, spec, noise)
     input_ids, labels = prepend_class_token(input_ids, labels, batch["class_ids"],
                                             spec.codebook_size)
+    dp = spec.data_parallel
     with autocast(spec, input_ids.device):
-        _, loss = state.model(input_ids, labels=labels, label_smoothing=spec.label_smoothing,
-                              dropout=spec.dropout)
-    _, grad_norm = backward(state, loss)
-    state.optimizer.update(grad_norm, emit)
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "avg_masking_rate": mask_prob.mean()}
+        logits = state.model(input_ids, dropout=spec.dropout)
+        loss = cross_entropy_loss(logits, labels, spec.label_smoothing, ratio=dp.ratio)
+    _, grad_norm = backward(state, loss, dp)
+    state.optimizer.update(grad_norm, emit, dp.reduce_gradients_)
+    loss, masking_rate = dp.mean(loss.detach(), mask_prob.mean())
+    return {"loss": loss, "grad_norm": grad_norm, "avg_masking_rate": masking_rate}
 
 
 def vqgan_train_body(states, spec: VQGANSpec, batch: Dict[str, torch.Tensor], noise=None,
@@ -281,7 +344,7 @@ def vqgan_train_body(states, spec: VQGANSpec, batch: Dict[str, torch.Tensor], no
     Metrics as JAX names them: loss, grad_norm (before clipping), l2, l1,
     perceptual, vq_loss and with the term g_loss, d_loss, d_weight,
     logits_real, logits_fake."""
-    gen = states[0]
+    gen, dp = states[0], spec.data_parallel
     target = to_nhwc(batch["pixel_values"])
     recon, _, _, vq_loss = gen.model(target, return_loss=True)
     l2 = (recon - target).square().mean()
@@ -301,21 +364,23 @@ def vqgan_train_body(states, spec: VQGANSpec, batch: Dict[str, torch.Tensor], no
         weight = last_decoder_conv(gen.model).weight
         rec_grad, = torch.autograd.grad(nll, weight, retain_graph=True)
         gan_grad, = torch.autograd.grad(g_loss, weight, retain_graph=True)
+        dp.reduce_gradients_([rec_grad, gan_grad])  # the global batch's, as in JAX
         d_weight = adaptive_disc_weight(rec_grad, gan_grad, spec.disc_weight) * disc_factor
         loss = loss + d_weight * g_loss
         metrics.update(g_loss=g_loss.detach(), d_weight=d_weight)
-    _, grad_norm = _grads(gen, loss)
-    gen.optimizer.update(grad_norm, emit)
+    _, grad_norm = _grads(gen, loss, dp)
+    gen.optimizer.update(grad_norm, emit, dp.reduce_gradients_)
     metrics.update(loss=loss.detach(), grad_norm=grad_norm)
     if len(states) > 1:
         d_loss_fn = hinge_d_loss if spec.disc_loss == "hinge" else vanilla_d_loss
         logits_real, logits_fake = disc(target), disc(recon.detach())
         d_loss = disc_factor * d_loss_fn(logits_real, logits_fake)
-        _, d_grad_norm = _grads(states[1], d_loss)
-        states[1].optimizer.update(d_grad_norm, emit)
+        _, d_grad_norm = _grads(states[1], d_loss, dp)
+        states[1].optimizer.update(d_grad_norm, emit, dp.reduce_gradients_)
         metrics.update(d_loss=d_loss.detach(), logits_real=logits_real.detach().mean(),
                        logits_fake=logits_fake.detach().mean())
-    return metrics
+    means = [k for k in metrics if k not in ("grad_norm", "d_weight")]  # those two are global
+    return {**metrics, **dict(zip(means, dp.mean(*(metrics[k] for k in means))))}
 
 
 def _flat_inputs(batch, noise):
@@ -380,6 +445,7 @@ class TrainStep:
         self.spec = spec
         self._graphs: Dict[bool, tuple] = {}  # emit -> (key, _StepGraph)
         self.last_capture: Dict[str, Any] = {}
+        self._told_eager = False
 
     def __call__(self, state, batch, noise: Optional[MaskingNoise] = None):
         return self._run(state, batch, noise, graph=True)
@@ -399,7 +465,12 @@ class TrainStep:
         device = next(iter(batch.values())).device
         batch = {**batch, **self.spec.step_inputs(players[0].step, device)}
         names, tensors = _flat_inputs(batch, noise)
-        if not graph or all(t.device.type == "cpu" for t in tensors):
+        sharded = any(is_sharded(p.model) for p in players)
+        if sharded and graph and device.type == "cuda" and not self._told_eager:
+            logger.warning("the model is FSDP2-sharded: its train step runs eagerly (FSDP2's "
+                           "hooks and all-gathers are not captured into a CUDA graph)")
+            self._told_eager = True
+        if not graph or sharded or all(t.device.type == "cpu" for t in tensors):
             metrics = self.body(state, self.spec, batch, noise, emit)
         else:
             metrics = self._replay(state, players, (type(noise), names), tensors, emit)
@@ -467,6 +538,7 @@ def make_uvit_train_step(
     with_diagnostics: bool = False,
     with_param_grad_norms: bool = False,
     use_soft_targets: bool = False,
+    data_parallel: DataParallel = SINGLE,
 ) -> TrainStep:
     """``train_step(state, batch, noise) -> metrics`` (``TrainStep`` around
     ``uvit_train_body``).
@@ -481,65 +553,79 @@ def make_uvit_train_step(
     and then updates the EMA, and increments ``state.step``.  With
     ``use_soft_targets`` the batch also carries soft_targets (B, S, K) fp32
     (the VQ model's ``get_soft_code``) and the loss is their cross entropy
-    over the masked positions."""
+    over the masked positions.  ``data_parallel``
+    (``parallel.mesh.data_parallel``): the reductions over the ranks the
+    global batch is split over, each rank stepping on its rows."""
     return TrainStep(uvit_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, noise_type, predict_all_tokens,
         mask_contiguous_region_prob, label_smoothing, cond_dropout_prob, autocast_dtype,
-        with_diagnostics, with_param_grad_norms, use_soft_targets=use_soft_targets))
+        with_diagnostics, with_param_grad_norms, use_soft_targets=use_soft_targets,
+        data_parallel=data_parallel))
 
 
 def make_v1_text2image_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
                                   min_masking_rate: float = 0.0, label_smoothing: float = 0.0,
                                   cond_dropout_prob: float = 0.0,
                                   autocast_dtype: Optional[torch.dtype] = None,
-                                  dropout: Optional[Callable] = None) -> TrainStep:
+                                  dropout: Optional[Callable] = None,
+                                  data_parallel: DataParallel = SINGLE) -> TrainStep:
     """The v1 ``MaskGitTransformer`` text -> image step (``model.architecture:
     transformer``), ``TrainStep`` around ``v1_text2image_train_body``.  An
     image keeps its text where ``noise.cond_dropout >= cond_dropout_prob``;
     ``dropout`` (``KeepMasks``) draws the model's ``hidden_dropout`` masks,
     None runs the forward deterministic.  The EMA moves where the state has
     one (the JAX trainer's ``ema_decay`` 0.9999 under ``use_ema``);
-    clipping is the optimizer's (``max_grad_norm``)."""
+    clipping is the optimizer's (``max_grad_norm``); ``data_parallel`` as in
+    ``make_uvit_train_step``."""
     return TrainStep(v1_text2image_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, label_smoothing=label_smoothing,
-        cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout))
+        cond_dropout_prob=cond_dropout_prob, autocast_dtype=autocast_dtype, dropout=dropout,
+        data_parallel=data_parallel))
 
 
 def make_maskgit_train_step(mask_schedule, mask_id: int, *, codebook_size: int,
                             min_masking_rate: float = 0.0, label_smoothing: float = 0.0,
                             autocast_dtype: Optional[torch.dtype] = None,
-                            dropout: Optional[Callable] = None) -> TrainStep:
+                            dropout: Optional[Callable] = None,
+                            data_parallel: DataParallel = SINGLE) -> TrainStep:
     """The class-conditional MaskGIT step (``train_maskgit_imagenet``),
     ``TrainStep`` around ``maskgit_train_body``; batch: image_tokens (B, S),
-    class_ids (B,); ``dropout`` as in ``make_v1_text2image_train_step``."""
+    class_ids (B,); ``dropout`` and ``data_parallel`` as in
+    ``make_v1_text2image_train_step``."""
     return TrainStep(maskgit_train_body, StepSpec(
         mask_schedule, mask_id, codebook_size, min_masking_rate, label_smoothing=label_smoothing,
-        autocast_dtype=autocast_dtype, dropout=dropout))
+        autocast_dtype=autocast_dtype, dropout=dropout, data_parallel=data_parallel))
 
 
 def make_vqgan_train_step(*, l1_weight: float = 1.0, l2_weight: float = 1.0,
                           codebook_weight: float = 1.0, perceptual_weight: float = 0.0,
                           perceptual: Optional[Callable] = None, disc_weight: float = 0.0,
-                          disc_start: int = 0, disc_loss: str = "hinge") -> TrainStep:
+                          disc_start: int = 0, disc_loss: str = "hinge",
+                          data_parallel: DataParallel = SINGLE) -> TrainStep:
     """The VQGAN tokenizer's step, ``TrainStep`` around ``vqgan_train_body``:
     ``step((generator,), {"pixel_values": x})``, or with ``disc_weight`` > 0
     ``step((generator, discriminator), {"pixel_values": x})``, each player a
     ``TrainState`` with its own AdamW and no EMA; the step fills the batch's
-    disc_factor from the generator's ``step`` and ``disc_start``."""
+    disc_factor from the generator's ``step`` and ``disc_start``;
+    ``data_parallel`` as in ``make_uvit_train_step``."""
     if disc_loss not in ("hinge", "vanilla"):
         raise ValueError(f"disc_loss {disc_loss!r}: hinge or vanilla")
     return TrainStep(vqgan_train_body, VQGANSpec(
         l1_weight, l2_weight, codebook_weight, perceptual_weight,
-        perceptual if perceptual_weight > 0.0 else None, disc_weight, disc_start, disc_loss))
+        perceptual if perceptual_weight > 0.0 else None, disc_weight, disc_start, disc_loss,
+        data_parallel))
 
 
 def make_uvit_eval_step(mask_schedule, mask_id: int, *,
                         eval_mask_ratios=(0.1, 0.3, 0.5, 0.7, 0.9),
                         label_smoothing: float = 0.0,
-                        autocast_dtype: Optional[torch.dtype] = None) -> Callable:
+                        autocast_dtype: Optional[torch.dtype] = None,
+                        data_parallel: DataParallel = SINGLE) -> Callable:
     """``eval_step(model, batch, noise) -> loss`` at fixed mask ratios
-    (``noise.eval_index`` picks one per image); on the card one replayed
+    (``noise.eval_index`` picks one per image; with ``data_parallel``, the
+    global batch's loss from this rank's rows); on the card one replayed
     CUDA graph (``core.captured``), as the JAX eval step is jitted."""
+    dp = data_parallel
     ratios = tuple(eval_mask_ratios)
 
     @torch.no_grad()
@@ -550,12 +636,18 @@ def make_uvit_eval_step(mask_schedule, mask_id: int, *,
             is_train=False)
         with torch.autocast(ehs.device.type, dtype=autocast_dtype or torch.bfloat16,
                             enabled=autocast_dtype is not None, cache_enabled=False):
-            _, loss = model(input_ids, ehs, cond, micro, labels=labels,
-                            label_smoothing=label_smoothing)
-        return loss
+            logits = model(input_ids, ehs, cond, micro)
+            loss = cross_entropy_loss(logits, labels, label_smoothing, ratio=dp.ratio)
+        return dp.mean(loss)
 
     def eval_step(model, batch, noise: MaskingNoise):
-        return captured(model, ("eval_step", ratios, label_smoothing, autocast_dtype),
+        if is_sharded(model):  # FSDP2's all-gathers stay out of graphs
+            return body(model, batch["image_tokens"], batch["encoder_hidden_states"],
+                        batch["cond_embeds"], batch["micro_conds"], noise.permutation,
+                        noise.eval_index,
+                        torch.tensor(ratios, device=noise.eval_index.device))
+        return captured(model, ("eval_step", ratios, label_smoothing, autocast_dtype,
+                                dp.share, dp.batch_group is None),
                         lambda *t: body(model, *t), batch["image_tokens"],
                         batch["encoder_hidden_states"], batch["cond_embeds"],
                         batch["micro_conds"], noise.permutation, noise.eval_index,
@@ -578,15 +670,36 @@ def _save_model(path: str, model, state_dict) -> None:
     torch.save(state_dict, os.path.join(path, WEIGHTS_NAMES[1]))
 
 
+def full_tensors(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Whole tensors of a state: DTensor shards gathered from every rank
+    (a collective: every rank calls it)."""
+    return {k: v.full_tensor() if hasattr(v, "full_tensor") else v for k, v in tensors.items()}
+
+
 def save_checkpoint(output_dir: str, state: TrainState,
                     checkpoints_total_limit: Optional[int] = None,
-                    pretrained: bool = False) -> str:
+                    pretrained: bool = False, is_main: bool = True) -> str:
     """Write ``output_dir/checkpoint-{step}/``, first removing the oldest
     checkpoints beyond ``checkpoints_total_limit``.  ``pretrained``: the
     model's ``save_pretrained`` directory as ``unwrapped_model/`` (what the
     VQGAN trainer writes, as the JAX one does), which both packages'
-    ``from_pretrained`` read."""
+    ``from_pretrained`` read.  An FSDP2-sharded state is saved by every
+    rank's call (``is_main`` on rank 0 alone): the weights and EMA are
+    gathered and rank 0 writes them, and each rank writes its optimizer
+    shard."""
     path = os.path.join(output_dir, f"checkpoint-{state.step}")
+    if is_sharded(state.model):
+        weights = full_tensors(state.model.state_dict())
+        shadow = full_tensors(state.ema.shadow) if state.ema is not None else None
+        os.makedirs(path, exist_ok=True)
+        torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()},
+                   os.path.join(path, f"training_state-rank{rank_and_world()[0]}.pt"))
+        if not is_main:
+            return path
+    elif not is_main:
+        return path
+    else:
+        weights, shadow = None, None
     os.makedirs(path, exist_ok=True)
     if checkpoints_total_limit is not None:
         existing = sorted((d for d in os.listdir(output_dir)
@@ -594,14 +707,19 @@ def save_checkpoint(output_dir: str, state: TrainState,
                           key=lambda d: int(d.split("-")[1]))
         while len(existing) >= checkpoints_total_limit:
             shutil.rmtree(os.path.join(output_dir, existing.pop(0)))
-    if pretrained:
+    if pretrained and weights is None:
         state.model.save_pretrained(os.path.join(path, "unwrapped_model"))
     else:
-        _save_model(os.path.join(path, "unwrapped_model"), state.model, state.model.state_dict())
+        _save_model(os.path.join(path, "unwrapped_model"), state.model,
+                    weights if weights is not None else state.model.state_dict())
     if state.ema is not None:
-        _save_model(os.path.join(path, "ema_model"), state.model, state.ema.shadow)
-    torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()},
-               os.path.join(path, _STATE_FILE))
+        _save_model(os.path.join(path, "ema_model"), state.model,
+                    shadow if shadow is not None else state.ema.shadow)
+    if weights is None:
+        torch.save({"step": state.step, "optimizer": state.optimizer.state_dict()},
+                   os.path.join(path, _STATE_FILE))
+    else:
+        torch.save({"step": state.step}, os.path.join(path, _STATE_FILE))
     with open(os.path.join(path, "metadata.json"), "w") as f:
         json.dump({"global_step": state.step}, f)
     return path
@@ -618,13 +736,33 @@ def find_latest_checkpoint(output_dir: str) -> Optional[str]:
 
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Restore model, optimizer, EMA and step from ``path`` into ``state``."""
+    """Restore model, optimizer, EMA and step from ``path`` into ``state``
+    (an FSDP2-sharded state: each rank its shards of the whole weights and
+    EMA, and its own optimizer shard)."""
     device = next(state.model.parameters()).device
 
     def weights(sub):
         name = next(n for n in WEIGHTS_NAMES if os.path.isfile(os.path.join(path, sub, n)))
         return {k: v.to(device) for k, v in load_state_file(os.path.join(path, sub, name)).items()}
 
+    if is_sharded(state.model):
+        from torch.distributed.checkpoint.state_dict import (StateDictOptions,
+                                                             set_model_state_dict)
+
+        set_model_state_dict(state.model, weights("unwrapped_model"),
+                             options=StateDictOptions(full_state_dict=True))
+        if state.ema is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            shadow = weights("ema_model")
+            for name, shard in state.ema.shadow.items():
+                shard.copy_(distribute_tensor(shadow[name].to(shard.dtype), shard.device_mesh,
+                                              shard.placements))
+        saved = torch.load(os.path.join(path, f"training_state-rank{rank_and_world()[0]}.pt"),
+                           map_location=device, weights_only=False)
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        return state
     state.model.load_state_dict(weights("unwrapped_model"))
     if state.ema is not None:
         state.ema.load_state_dict({"decay": state.ema.decay, "shadow": weights("ema_model")})

@@ -805,13 +805,13 @@ def _train_batch(device, b=4):
             "empty_embeds": randn(1, 7, 48), "empty_cond_embeds": randn(1, 32)}
 
 
-def _train_step(autocast_dtype=torch.bfloat16):
+def _train_step(autocast_dtype=torch.bfloat16, **kwargs):
     from open_muse_tpu_torch.ops.sampling import get_mask_schedule
     from open_muse_tpu_torch.training.trainer import make_uvit_train_step
 
     return make_uvit_train_step(get_mask_schedule("cosine"), 67, codebook_size=64,
                                 cond_dropout_prob=0.5, autocast_dtype=autocast_dtype,
-                                with_diagnostics=True, with_param_grad_norms=True)
+                                with_diagnostics=True, with_param_grad_norms=True, **kwargs)
 
 
 def _assert_same_state(a, b):
@@ -1106,3 +1106,41 @@ def test_captured_vqgan_step_equals_eager(device):
         assert step.last_capture["launches"] == {"vq_argmin": 1}
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+def test_captured_dp_step_on_a_one_rank_nccl_group_equals_eager(device):
+    """A dp step on a group of one under NCCL (``parallel.mesh``): the loss
+    denominators, gradients and metrics go through NCCL all-reduces issued
+    while the step's stream is captured, so its graph holds them (the
+    capture counts them; a replay issues none from Python); every metric,
+    parameter, EMA shadow and AdamW moment bit-equal to ``step.eager``
+    after each of 3 steps."""
+    import torch.distributed as dist
+
+    from open_muse_tpu_torch.parallel import mesh as M
+    from open_muse_tpu_torch.training.masking import draw_masking_noise
+
+    mesh = M.create_mesh(device="cuda")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    try:
+        step = _train_step(data_parallel=M.data_parallel(mesh))
+        a, b = _train_state(device), _train_state(device)
+        gens = [torch.Generator(device=device).manual_seed(5) for _ in range(2)]
+        batch = _train_batch(device)
+        for i in range(3):
+            noise_a, noise_b = (draw_masking_noise(4, 16, g, 64, cond_dropout=True)
+                                for g in gens)
+            before = dict(M.collectives)
+            got = step(a, batch, noise_a)
+            issued = M.collectives["issued"] - before["issued"]
+            captured = M.collectives["captured"] - before["captured"]
+            # step 1: the eager warm-up, then the capture records as many; then replays
+            assert (issued, captured) == ((2 * captured, captured) if i == 0 else (0, 0)), i
+            assert i or captured >= 3  # a denominator, the gradients, the metrics
+            want = step.eager(b, batch, noise_b)
+            for key in want:
+                torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, equal_nan=True,
+                                           msg=f"step {i}: {key}")
+            _assert_same_state(a, b)
+    finally:
+        dist.destroy_process_group()
