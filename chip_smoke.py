@@ -39,6 +39,10 @@ directly (eager); the token ids of the two must be equal:
   one replayed CUDA graph a step, then a resume from its checkpoint; before
   it, one forward and backward with the kernels against one with the plain
   versions;
+- tp_train: ``train_muse.main`` at ``training.tp=2`` on the training
+  phase's shard and overrides, two ranks of this script (``--tp-child``) on
+  cuda:0 in a gloo group, 4 eager steps, against the training phase's run;
+  the kernel checks also hold kernels 7 - 12 at a tp=2 rank's shapes;
 - train_eq: the captured train step against its eager body on one seeded
   full-width state, 4 steps, without and with gradient accumulation 2;
   dots: one step each of no, full and 'dots' checkpointing;
@@ -115,6 +119,7 @@ as often as the path needs.  Exits non-zero on any failure or without a GPU.
 
     python3 chip_smoke.py                 # one GPU; a few minutes on an H100
     python3 chip_smoke.py --gemm-sweep    # only the Hopper GEMM's variants, vq_argmin's widths
+    python3 chip_smoke.py --tp-cards      # four GPUs: tp=2 x dp=2 under NCCL, captured
 
 The second-to-last line is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -334,13 +339,14 @@ def log_floor(device):
         f"{one * 1e3:.3f}, 132 blocks {full * 1e3:.3f}")
 
 
-def check_glu(device, gen, m, timed=True, splits=None):
+def check_glu(device, gen, m, timed=True, splits=None, k=2816):
     """m rows: 512 when serving (2 x 256 tokens), 4096 when training; other
-    row counts check the ragged edge (``timed=False``).  Appends the
-    kernel's (label, call) to ``splits`` for a launch split."""
+    row counts check the ragged edge (``timed=False``); ``k`` the GLU width
+    (2816, or a tensor-parallel rank's columns).  Appends the kernel's
+    (label, call) to ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 
-    k, n = 2816, 1024  # intermediate 2816, hidden 1024
+    n = 1024  # hidden 1024
     bf = torch.bfloat16
     a = torch.randn(m, k, generator=gen).to(device, bf)
     b = torch.randn(m, k, generator=gen).to(device, bf)
@@ -368,26 +374,29 @@ def check_glu(device, gen, m, timed=True, splits=None):
     return ok, max_abs, timing
 
 
-def _sublayer_inputs(device, gen, b=2, s=256, d=1024):
+def _sublayer_inputs(device, gen, b=2, s=256, d=1024, inner=None):
     bf = torch.bfloat16
+    inner = d if inner is None else inner
     rand = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device, bf)  # noqa: E731
     return dict(x=rand(b, s, d), res=rand(b, s, d), ln_scale=1 + rand(d, scale=0.1),
-                adaln=rand(b, 2 * d, scale=0.1), wout=rand(d, d, scale=d ** -0.5))
+                adaln=rand(b, 2 * d, scale=0.1), wout=rand(d, inner, scale=inner ** -0.5))
 
 
-def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
+def check_sublayers(device, gen, b, s=256, timed=True, splits=None, heads=16):
     """b batch rows of s tokens: 2 x 256 when serving (CFG at bs1), 16 x 256
     when training; other token counts check the ragged edge
-    (``timed=False``).  Appends both sublayers' (label, call) to ``splits``
-    for a launch split."""
+    (``timed=False``); ``heads`` of 64 (16, or a tensor-parallel rank's
+    share: the inner width 64 x heads).  Appends both sublayers' (label,
+    call) to ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
-    d, heads, bf = 1024, 16, torch.bfloat16
+    d, bf = 1024, torch.bfloat16
+    inner = 64 * heads
     results = {}
-    inp = _sublayer_inputs(device, gen, b=b, s=s)
-    wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(device, bf)
-    wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(device, bf)
-    kv = torch.randn(b, 77, 2 * d, generator=gen).to(device, bf)
+    inp = _sublayer_inputs(device, gen, b=b, s=s, inner=inner)
+    wqkv = (torch.randn(3 * inner, d, generator=gen) * d ** -0.5).to(device, bf)
+    wq = (torch.randn(inner, d, generator=gen) * d ** -0.5).to(device, bf)
+    kv = torch.randn(b, 77, 2 * inner, generator=gen).to(device, bf)
     cases = {
         "attn_sublayer_self": (
             lambda res: A.attn_sublayer_self(inp["x"], res, inp["ln_scale"], inp["adaln"],
@@ -415,7 +424,8 @@ def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
             ok &= case_ok
             worst = max(worst, max_abs)
             log(f"[kernel] {name} x {tuple(inp['x'].shape)} res={'given' if res is not None else 'None'}"
-                f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16: max_abs {max_abs:.3e} "
+                f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} {heads} heads bf16: "
+                f"max_abs {max_abs:.3e} "
                 f"rel {rel:.3e} (tol rel {tol}: bf16 roundings of qkv / probs / output), "
                 f"residual bit-equal {h_equal}, two calls bit-equal {twice} "
                 f"{'ok' if case_ok else 'FAIL'}")
@@ -425,6 +435,8 @@ def check_sublayers(device, gen, b, s=256, timed=True, splits=None):
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        if heads != 16:  # a tensor-parallel rank's shard: no product split, no bound
+            continue
         if splits is not None:
             splits.append((f"{name} x {tuple(inp['x'].shape)}"
                            f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
@@ -993,16 +1005,17 @@ def _check_outputs(name, names, got, ref, again, shapes):
     return ok, worst
 
 
-def check_glu_bwd(device, gen, splits=None):
-    """The GLU backward at the training rows; appends its (label, call) to
-    ``splits`` and logs its two products alone."""
+def check_glu_bwd(device, gen, splits=None, k=INTER):
+    """The GLU backward at the training rows (``k``: 2816, or a
+    tensor-parallel rank's columns); appends its (label, call) to ``splits``
+    and logs its two products alone."""
     from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd,
                                                         glu_down_matmul_bwd_plain)
 
     m, bf = TRAIN_B * TRAIN_S, torch.bfloat16
-    a = torch.randn(m, INTER, generator=gen).to(device, bf)
-    b = torch.randn(m, INTER, generator=gen).to(device, bf)
-    wo = (torch.randn(HIDDEN, INTER, generator=gen) * INTER ** -0.5).to(device, bf)
+    a = torch.randn(m, k, generator=gen).to(device, bf)
+    b = torch.randn(m, k, generator=gen).to(device, bf)
+    wo = (torch.randn(HIDDEN, k, generator=gen) * k ** -0.5).to(device, bf)
     g = (torch.randn(m, HIDDEN, generator=gen) * m ** -0.5).to(device, bf)
     got, again = glu_down_matmul_bwd(a, b, wo, g), glu_down_matmul_bwd(a, b, wo, g)
     ok, worst = _check_outputs("glu_down_matmul_bwd", ("da", "db", "dwo"), got,
@@ -1010,6 +1023,8 @@ def check_glu_bwd(device, gen, splits=None):
                                f"a,b {tuple(a.shape)} g {tuple(g.shape)} bf16")
     timing = (graph_ms(lambda: glu_down_matmul_bwd(a, b, wo, g)),
               graph_ms(lambda: glu_down_matmul_bwd_plain(a, b, wo, g)))
+    if k != INTER:  # a tensor-parallel rank's columns: no product split, no bound
+        return ok, worst, timing
     if splits is not None:
         splits.append((f"glu_down_matmul_bwd a,b {tuple(a.shape)} g {tuple(g.shape)}",
                        functools.partial(glu_down_matmul_bwd, a, b, wo, g)))
@@ -1023,38 +1038,39 @@ def check_glu_bwd(device, gen, splits=None):
     return ok, worst, timing
 
 
-def check_sublayer_bwd(device, gen, splits=None):
-    """Both sublayer backwards at the training shapes; appends their (label,
-    call) to ``splits`` for a launch split."""
+def check_sublayer_bwd(device, gen, splits=None, heads=HEADS):
+    """Both sublayer backwards at the training shapes (``heads`` of 64: 16,
+    or a tensor-parallel rank's share); appends their (label, call) to
+    ``splits`` for a launch split."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
-    d, bf = HIDDEN, torch.bfloat16
+    d, bf, inner = HIDDEN, torch.bfloat16, 64 * heads
     rand = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device, bf)  # noqa: E731
-    inp = _sublayer_inputs(device, gen, b=TRAIN_B, s=TRAIN_S, d=d)
-    wqkv, wq = rand(3 * d, d, scale=d ** -0.5), rand(d, d, scale=d ** -0.5)
-    kv = rand(TRAIN_B, KV_LEN, 2 * d)
+    inp = _sublayer_inputs(device, gen, b=TRAIN_B, s=TRAIN_S, d=d, inner=inner)
+    wqkv, wq = rand(3 * inner, d, scale=d ** -0.5), rand(inner, d, scale=d ** -0.5)
+    kv = rand(TRAIN_B, KV_LEN, 2 * inner)
     g_out, g_res = rand(TRAIN_B, TRAIN_S, d, scale=0.01), rand(TRAIN_B, TRAIN_S, d, scale=0.01)
     common = (inp["ln_scale"], inp["adaln"])
     cases = {
         "attn_sublayer_self_bwd": (
             ("dx", "dres", "dln", "dadaln", "dwqkv", "dwout"),
             lambda res: A.attn_sublayer_self_bwd(inp["x"], res, *common, wqkv, inp["wout"],
-                                                 g_out, g_res, HEADS),
+                                                 g_out, g_res, heads),
             lambda res: A.attn_sublayer_self_bwd_plain(inp["x"], res, *common, wqkv,
-                                                       inp["wout"], g_out, g_res, HEADS)),
+                                                       inp["wout"], g_out, g_res, heads)),
         "attn_sublayer_cross_bwd": (
             ("dx", "dres", "dln", "dadaln", "dwq", "dwout", "dkv"),
             lambda res: A.attn_sublayer_cross_bwd(inp["x"], res, *common, wq, inp["wout"], kv,
-                                                  g_out, g_res, HEADS),
+                                                  g_out, g_res, heads),
             lambda res: A.attn_sublayer_cross_bwd_plain(inp["x"], res, *common, wq, inp["wout"],
-                                                        kv, g_out, g_res, HEADS)),
+                                                        kv, g_out, g_res, heads)),
     }
     results = {}
     for name, (names, kern, plain) in cases.items():
         ok, worst = True, 0.0
         for res in (inp["res"], None):
             shapes = (f"x {tuple(inp['x'].shape)} res={'given' if res is not None else 'None'}"
-                      f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} bf16")
+                      f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''} {heads} heads bf16")
             ref = plain(torch.zeros_like(inp["x"]) if res is None else res)
             case_ok, case_worst = _check_outputs(name, names, kern(res), ref, kern(res), shapes)
             ok &= case_ok
@@ -1062,6 +1078,8 @@ def check_sublayer_bwd(device, gen, splits=None):
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
+        if heads != HEADS:  # a tensor-parallel rank's shard: no product split, no bound
+            continue
         if splits is not None:
             splits.append((f"{name} x {tuple(inp['x'].shape)}"
                            f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
@@ -1100,6 +1118,57 @@ def backward_kernel_phase(device, splits):
             f"CUDA graph replay)")
     kernels.reset_launch_counts()
     return report
+
+
+# a tensor-parallel rank's shapes at tp 2 (the tp_train phase's): 8 of the 16
+# heads (inner width 512) and 1408 of the GLU's 2816 columns
+TP, TP_HEADS, TP_INTER = 2, HEADS // 2, INTER // 2
+
+
+def tp_kernel_phase(device, report):
+    """Kernels 9 - 12 at x (16, 256, 1024) with 8 heads (cross kv (16, 77,
+    1024)) and kernels 7 / 8 at k 1408: a tp=2 rank's shards of the training
+    shapes, each against its plain version in bf16 and timed by graph
+    replay; their results fold into ``report``'s rows (a failure fails the
+    row)."""
+    from open_muse_tpu_torch import kernels
+
+    gen = torch.Generator().manual_seed(2)
+    local = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S, k=TP_INTER),
+             "glu_down_matmul_bwd": check_glu_bwd(device, gen, k=TP_INTER)}
+    local.update(check_sublayers(device, gen, TRAIN_B, heads=TP_HEADS))
+    local.update(check_sublayer_bwd(device, gen, heads=TP_HEADS))
+    rows, d, inner, bf = TRAIN_B * TRAIN_S, HIDDEN, 64 * TP_HEADS, 2  # bf16: 2 bytes
+    act, w_inner = rows * d * bf, d * inner * bf
+    # bytes: inputs read once, outputs written once; operations as the
+    # full-width rows count them, over the rank's inner width
+    bounds = {
+        "glu_down_matmul": ((2 * rows * TP_INTER + d * TP_INTER + rows * d) * bf,
+                            2 * rows * TP_INTER * d),
+        "glu_down_matmul_bwd": ((4 * rows * TP_INTER + 2 * d * TP_INTER + rows * d) * bf,
+                                4 * rows * TP_INTER * d),
+        "attn_sublayer_self": (4 * act + 4 * w_inner + (d + 2 * TRAIN_B * d) * bf,
+                               2 * rows * 4 * d * inner + 4 * TRAIN_B * TP_HEADS * TRAIN_S
+                               * TRAIN_S * 64),
+        "attn_sublayer_cross": (4 * act + 2 * w_inner + (d + 2 * TRAIN_B * d) * bf
+                                + TRAIN_B * KV_LEN * 2 * inner * bf,
+                                2 * rows * 2 * d * inner + 4 * TRAIN_B * TP_HEADS * TRAIN_S
+                                * KV_LEN * 64),
+        "attn_sublayer_self_bwd": (6 * act + 8 * w_inner + 2 * (d + 2 * TRAIN_B * d) * bf,
+                                   2 * rows * 11 * d * inner + 12 * TRAIN_B * TP_HEADS
+                                   * TRAIN_S * TRAIN_S * 64),
+        "attn_sublayer_cross_bwd": (6 * act + 4 * w_inner + 2 * (d + 2 * TRAIN_B * d) * bf
+                                    + 2 * TRAIN_B * KV_LEN * 2 * inner * bf,
+                                    2 * rows * 5 * d * inner + 12 * TRAIN_B * TP_HEADS
+                                    * TRAIN_S * KV_LEN * 64)}
+    for name, (ok, err, (ms, plain_ms)) in local.items():
+        bound, by = bound_of(*bounds[name], "bf16")
+        log(f"[time] {name} at a tp={TP} rank's training shapes ({TP_HEADS} heads, GLU k "
+            f"{TP_INTER}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA graph "
+            f"replay); bound {bound:.4f} ms ({by})")
+        row_ok, row_err, timing = report[name]
+        report[name] = (row_ok and ok, max(row_err, err), timing)
+    kernels.reset_launch_counts()
 
 
 # -- phase 4: the serving path at full width -------------------------------
@@ -2301,7 +2370,8 @@ def training_phase(device, smi):
             f"{'ok' if counts_ok else 'FAIL'}")
         STEP_MS["training"] = median * 1e3
         TRAIN_REF.update(losses=losses, digest=param_digest(state.model.state_dict()),
-                         peak=peak - base)
+                         peak=peak - base, grad_norms=[m["grad_norm"] for m in logged],
+                         shapes={k: list(v.shape) for k, v in state.model.state_dict().items()})
         log(f"[train] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host clock, "
             f"synchronised), {TRAIN_B * TRAIN_S / median:.0f} tokens/s, "
             f"{TRAIN_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
@@ -4382,6 +4452,250 @@ def param_digest(state_dict):
                 float(v.detach().double().sum())) for k, v in state_dict.items()}
 
 
+TP_TRAIN_STEPS = 4
+
+
+def tp_child(out_json, rank, port, argv):
+    """``--tp-child OUT.json RANK PORT ARGS``: a rank of the ``tp_train``
+    phase on cuda:0: it joins the phase's two-rank gloo group
+    (``tcp://127.0.0.1:PORT``), records the shapes kernels 7 - 12 launch at
+    (the sublayers' launchers and the GLU's call in the model, wrapped), and
+    runs ``train_muse.main(ARGS)`` with the launch counters at 0 before it;
+    then writes its counts, shapes, step, peak memory and whether the model
+    was sharded to OUT.json."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels import attn_sublayer
+    from open_muse_tpu_torch.models import transformer_v2
+
+    faulthandler.enable()  # a crash prints each thread's Python stack to the rank's log
+    from open_muse_tpu_torch.training import train_muse
+    from open_muse_tpu_torch.training import trainer as T
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=TP)
+    shapes = set()
+
+    def recorded(launcher):
+        def launch(name, x, res, ln_scale, adaln, w_in, wout, kv, *rest):
+            shapes.add(f"{name} x {list(x.shape)} w_in {list(w_in.shape)} wout "
+                       f"{list(wout.shape)}" + ("" if kv is None else f" kv {list(kv.shape)}"))
+            return launcher(name, x, res, ln_scale, adaln, w_in, wout, kv, *rest)
+        return launch
+
+    attn_sublayer._launch = recorded(attn_sublayer._launch)
+    attn_sublayer._launch_bwd = recorded(attn_sublayer._launch_bwd)
+    glu = transformer_v2.glu_down_matmul
+
+    def glu_recorded(a, b, wo):
+        shapes.add(f"glu_down_matmul a {list(a.shape)} wo {list(wo.shape)}")
+        return glu(a, b, wo)
+
+    transformer_v2.glu_down_matmul = glu_recorded
+    kernels.reset_launch_counts()
+    state = train_muse.main(argv)
+    torch.cuda.synchronize()
+    with open(out_json, "w") as f:
+        json.dump({"launches": kernels.launch_counts(), "step": state.step, "rank": rank,
+                   "shapes": sorted(shapes), "sharded": T.is_sharded(state.model),
+                   "backend": dist.get_backend(), "peak": torch.cuda.max_memory_allocated()}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(device, smi):
+    """``train_muse.main`` at ``training.tp=2`` on the flagship config at full
+    width: two ranks (``tp_child``) on cuda:0 in a gloo group the phase
+    starts and joins, each eager (gloo's collectives are not captured), on
+    the training phase's shard and overrides, every rank taking all 16 rows,
+    4 steps.  Gates: step 1's grad norm within rel 5e-3 of the single-process
+    run's, the 4 losses within rel 1e-3 (~10 - 20x the spread read on an
+    H100: grad norm rel 4.4e-4, losses 4.7e-5 at most),
+    the checkpoint's whole weights with every name and shape of the
+    single-process run's, and on each rank the launches of 4 single-process
+    steps (``train_launches``), kernels 9 - 12 at a rank's shapes (8 heads,
+    inner width 512) and kernel 7 at k 1408.  Returns rank 0's counts."""
+    import shutil
+    import socket
+
+    from open_muse_tpu_torch.core.modeling import load_state_file
+
+    work = os.path.join(HERE, "runs", "tp_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        shard = os.path.join(work, "synthetic-000.tar")
+        write_shard(shard)
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={TP_TRAIN_STEPS}",
+                f"training.batch_size={TRAIN_B}", "training.pre_encode=true",
+                "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                f"training.max_train_steps={TP_TRAIN_STEPS}", f"training.tp={TP}"]
+        log(f"[tp_train] arguments {' '.join(argv)}")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("MUSE_", "RANK", "WORLD_SIZE", "MASTER_", "LOCAL_RANK"))}
+        results = [os.path.join(work, f"rank{r}.json") for r in range(TP)]
+        logs = [open(os.path.join(HERE, "chiprun_out", f"tp_train_rank{r}.log"), "w")
+                for r in range(TP)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                   "--tp-child", results[r], str(r), str(port), *argv],
+                                  cwd=HERE, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(TP)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=600)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        codes = [proc.returncode for proc in procs]
+        if any(codes) or not all(os.path.isfile(r) for r in results):
+            for r in range(TP):
+                with open(os.path.join(HERE, "chiprun_out", f"tp_train_rank{r}.log")) as f:
+                    log(f"[tp_train] rank {r} exited {codes[r]} FAIL; its output's end:\n"
+                        f"{f.read()[-3000:]}")
+            return False, zero_counts()
+        ranks = []
+        for r in results:
+            with open(r) as f:
+                ranks.append(json.load(f))
+        median, logged = _step_lines("tp_train", _logged(out))
+        log(f"[tp_train] median step {median * 1e3:.1f} ms over steps 2-{TP_TRAIN_STEPS} (eager, "
+            f"gloo through the host; host clock) beside the single-process captured "
+            f"{STEP_MS.get('training', float('nan')):.1f} ms")
+        losses, norms = [m["loss"] for m in logged], [m["grad_norm"] for m in logged]
+        ref_losses, ref_norms = TRAIN_REF["losses"], TRAIN_REF["grad_norms"]
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+        step1_ok = (len(losses) == TP_TRAIN_STEPS and rel(losses[0], ref_losses[0]) <= 1e-3
+                    and rel(norms[0], ref_norms[0]) <= 5e-3)
+        losses_ok = len(losses) == TP_TRAIN_STEPS and all(
+            rel(a, b) <= 1e-3 for a, b in zip(losses, ref_losses))
+        log(f"[tp_train] step 1 loss {losses[0]:.6f} against {ref_losses[0]:.6f} (rel "
+            f"{rel(losses[0], ref_losses[0]):.2e}, bound 1e-3), grad_norm {norms[0]:.6f} against "
+            f"{ref_norms[0]:.6f} (rel {rel(norms[0], ref_norms[0]):.2e}, bound 5e-3); losses "
+            f"{[round(v, 6) for v in losses]} against {[round(v, 6) for v in ref_losses[:4]]} "
+            f"(bound rel 1e-3) {'ok' if step1_ok and losses_ok else 'FAIL'}")
+        weights = load_state_file(os.path.join(out, f"checkpoint-{TP_TRAIN_STEPS}",
+                                               "unwrapped_model", "pytorch_model.bin"))
+        shapes = {k: list(v.shape) for k, v in weights.items()}
+        del weights
+        ckpt_ok = shapes == TRAIN_REF["shapes"]
+        log(f"[tp_train] checkpoint-{TP_TRAIN_STEPS}: {len(shapes)} whole tensors, names and "
+            f"shapes those of the single-process run's {ckpt_ok} {'ok' if ckpt_ok else 'FAIL'}")
+        expected = train_launches(TP_TRAIN_STEPS)
+        x, inner = f"x [{TRAIN_B}, {TRAIN_S}, {HIDDEN}]", 64 * TP_HEADS
+        local = {f"glu_down_matmul a [{TRAIN_B * TRAIN_S}, {TP_INTER}] wo [{HIDDEN}, {TP_INTER}]"}
+        for bwd in ("", "_bwd"):  # kernels 9 - 12 at a rank's heads
+            local.add(f"attn_sublayer_self{bwd} {x} w_in [{3 * inner}, {HIDDEN}] wout "
+                      f"[{HIDDEN}, {inner}]")
+            local.add(f"attn_sublayer_cross{bwd} {x} w_in [{inner}, {HIDDEN}] wout "
+                      f"[{HIDDEN}, {inner}] kv [{TRAIN_B}, {KV_LEN}, {2 * inner}]")
+        ok = step1_ok and losses_ok and ckpt_ok
+        for r in ranks:
+            launches = {**zero_counts(), **r["launches"]}
+            rank_ok = (launches == expected and set(r["shapes"]) == local and r["sharded"]
+                       and r["step"] == TP_TRAIN_STEPS and r["backend"] == "gloo")
+            ok &= rank_ok
+            log(f"[tp_train] rank {r['rank']}: {r['step']} eager steps under {r['backend']}, "
+                f"sharded {r['sharded']}; launches {launches} (expected {expected}: the "
+                f"single-process step's, {TP_TRAIN_STEPS} times); kernel shapes {r['shapes']}; "
+                f"peak memory {r['peak'] / 2 ** 30:.2f} GiB {'ok' if rank_ok else 'FAIL'}")
+        log(f"[tp_train] two ranks on one card in {wall:.1f} s (two process starts, model "
+            f"builds and a checkpoint included) on {smi} {'ok' if ok else 'FAIL'}")
+        return ok, {**zero_counts(), **ranks[0]["launches"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tp_cards_check(device, smi):
+    """``--tp-cards`` (four cards; not part of the run without arguments):
+    the flagship training cell at ``training.tp=2`` over dp 2 under NCCL,
+    through ``scripts/launch.py --nproc-per-node 4`` (``train_child``), held
+    against the same cell at dp 2 alone (tp 1, two cards: the same shards,
+    rows and noise a dp rank; PR 17 held dp against one process).  Gates:
+    the 4 losses within rel 1e-2 of the dp run's and step 1's within 1e-3;
+    every step one captured graph on rank 0 (the collectives issued while
+    the stream was captured, none by the replays: issued = 2 x captured);
+    the launches of 4 single-process steps, the replays adding the
+    capture's counts."""
+    import shutil
+
+    work = os.path.join(HERE, "runs", "tp_cards")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        for i in range(2):  # a shard a dp rank
+            write_shard(os.path.join(work, f"synthetic-{i:03d}.tar"), seed=i)
+
+        def run(tag, ranks, *extra):
+            out, counts_json = os.path.join(work, tag), os.path.join(work, f"{tag}.json")
+            cmd = [sys.executable, "-m", "open_muse_tpu_torch.scripts.launch",
+                   "--nproc-per-node", str(ranks), "--module", "chip_smoke", "--",
+                   "--train-child", counts_json,
+                   "config=" + os.path.join(HERE, "configs", "laiona6plus_uvit_clip.yaml"),
+                   "dataset.params.train_shards_path_or_url="
+                   + os.path.join(work, "synthetic-{000..001}.tar"),
+                   "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                   "experiment.log_every=1", f"experiment.save_every={TP_TRAIN_STEPS}",
+                   f"training.batch_size={TRAIN_B}", "training.pre_encode=true",
+                   "training.overfit_one_batch=true", "lr_scheduler.params.warmup_steps=0",
+                   f"training.max_train_steps={TP_TRAIN_STEPS}", *extra]
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+            with open(os.path.join(HERE, "chiprun_out", f"tp_cards_{tag}.log"), "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            if proc.returncode != 0 or not os.path.isfile(counts_json):
+                log(f"[tp_cards] {tag}: launcher exited {proc.returncode} FAIL; its output's "
+                    f"end:\n{(proc.stdout + proc.stderr)[-3000:]}")
+                return None
+            with open(counts_json) as f:
+                child = json.load(f)
+            median, logged = _step_lines(f"tp_cards {tag}", _logged(out))
+            return child, median, [m["loss"] for m in logged]
+
+        ref = run("dp2", 2)
+        got = run("tp2_dp2", 4, f"training.tp={TP}")
+        if ref is None or got is None:
+            return False
+        (child, median, losses), want = got, ref[2]
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)  # noqa: E731
+        loss_ok = (len(losses) == len(want) == TP_TRAIN_STEPS
+                   and rel(losses[0], want[0]) <= 1e-3
+                   and all(rel(a, b) <= 1e-2 for a, b in zip(losses, want)))
+        issued, captured = child["collectives"]["issued"], child["collectives"]["captured"]
+        in_graph = captured > 0 and issued == 2 * captured
+        launches = {**zero_counts(), **child["launches"]}
+        counts_ok = launches == train_launches(TP_TRAIN_STEPS)
+        ok = (loss_ok and in_graph and counts_ok and child["backend"] == "nccl"
+              and child["world"] == 4 and child["step"] == TP_TRAIN_STEPS)
+        log(f"[tp_cards] tp=2 x dp=2 under {child['backend']} on {child['world']} ranks: losses "
+            f"{[round(v, 6) for v in losses]} against dp=2's {[round(v, 6) for v in want]} "
+            f"(step 1 rel {rel(losses[0], want[0]):.2e}, bound 1e-3; the rest 1e-2) {loss_ok}; "
+            f"{captured} collectives a step issued while the step's stream was captured, "
+            f"{issued - captured} by the eager warm-up step, none by the replays {in_graph}; "
+            f"launches {launches} (expected the single-process step's) {counts_ok}; median step "
+            f"{median * 1e3:.1f} ms against dp=2's {ref[1] * 1e3:.1f} (host clock) on {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        return ok
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def train_child(out_json, argv):
     """``--train-child OUT.json ARGS``: the body of the ``dist_train`` phase's
     rank, started by ``scripts/launch.py`` under ``torch.distributed.run``:
@@ -4764,9 +5078,14 @@ def device_line() -> str:
 def main() -> int:
     if sys.argv[1:2] == ["--train-child"]:  # a rank of the dist_train phase
         return train_child(sys.argv[2], sys.argv[3:])
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    if sys.argv[1:2] == ["--tp-child"]:  # a rank of the tp_train phase
+        return tp_child(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5:])
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0], allow_abbrev=False)
     parser.add_argument("--gemm-sweep", action="store_true",
                         help="only time every variant of the Hopper GEMM at the paths' shapes")
+    parser.add_argument("--tp-cards", action="store_true",
+                        help="four cards: the training cell at tp=2 x dp=2 under NCCL, each step "
+                             "one captured graph, against dp=2 alone")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4799,11 +5118,16 @@ def main() -> int:
         if not gemm_sweep(device):
             raise SystemExit("chip_smoke: a GEMM variant failed")
         return 0
+    if args.tp_cards:
+        if not tp_cards_check(device, smi):
+            raise SystemExit("chip_smoke: the four-card tensor-parallel check failed")
+        return 0
 
     phase_t0 = time.perf_counter()
     splits = []  # kernels 7 - 12 by launch, profiled after every graph timing
     report = kernel_phase(device, splits)
     report.update(backward_kernel_phase(device, splits))
+    tp_kernel_phase(device, report)
     for label, fn in splits:
         log_split(label, fn)
     del splits
@@ -4847,6 +5171,18 @@ def main() -> int:
     if not train_ok:
         failed.append("training phase")
     log(f"[phase] gradient check and training {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    try:
+        tp_ok, paths["tp_train"] = tp_train_phase(device, smi)
+    except Exception as exc:  # the phase fails, the others still run
+        import traceback
+
+        log(f"[tp_train] raised {exc!r} FAIL\n{traceback.format_exc()[-3000:]}")
+        tp_ok, paths["tp_train"] = False, zero_counts()
+    if not tp_ok:
+        failed.append("tp_train phase")
+    log(f"[phase] tp_train {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
     if not train_eq_phase(device):

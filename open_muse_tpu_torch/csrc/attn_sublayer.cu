@@ -748,29 +748,30 @@ rms_adaln_bwd_reduce_kernel(const float* __restrict__ partial, __nv_bfloat16* __
 // Launch helpers
 // ---------------------------------------------------------------------------
 
-// q/k/v pointers and strides of one sublayer: `kv` == nullptr selects self
-// attention over proj = qkv (B, S, 3D); otherwise proj = q (B, S, D) and kv
-// the (B, L, 2D) [k|v] projection of the text context.
-AttnArgs attn_args(const __nv_bfloat16* proj, const __nv_bfloat16* kv, int S, int D, int L,
+// q/k/v pointers and strides of one sublayer of inner width I (64 x the
+// heads): `kv` == nullptr selects self attention over proj = qkv (B, S, 3I);
+// otherwise proj = q (B, S, I) and kv the (B, L, 2I) [k|v] projection of the
+// text context.
+AttnArgs attn_args(const __nv_bfloat16* proj, const __nv_bfloat16* kv, int S, int I, int L,
                    int kv_len) {
   AttnArgs args{};
   const bool self_attn = kv == nullptr;
-  const int n_in = self_attn ? 3 * D : D;
+  const int n_in = self_attn ? 3 * I : I;
   args.q = proj;
   args.q_bs = int64_t(S) * n_in;
   args.q_rs = n_in;
   if (self_attn) {
-    args.k = proj + D;
-    args.v = proj + 2 * D;
+    args.k = proj + I;
+    args.v = proj + 2 * I;
     args.kv_bs = args.q_bs;
     args.kv_rs = args.q_rs;
     args.L = S;
     args.kv_len = S;
   } else {
     args.k = kv;
-    args.v = kv + D;
-    args.kv_bs = int64_t(L) * 2 * D;
-    args.kv_rs = 2 * D;
+    args.v = kv + I;
+    args.kv_bs = int64_t(L) * 2 * I;
+    args.kv_rs = 2 * I;
     args.L = L;
     args.kv_len = kv_len;
   }
@@ -801,11 +802,13 @@ cudaError_t launch_norm_rows(const void* x, const void* res, const void* ln, con
 
 // One sublayer forward as four launches on `stream`: the row kernel, the
 // in-projection and the out projection on the Hopper GEMM, and
-// flash_attention.cu's attention over q / k / v as strided views.  `kv` ==
-// nullptr selects the self sublayer: w_in is Wqkv (3D, D) and qkv_buf is
-// (B, S, 3D).  Otherwise w_in is Wq (D, D), qkv_buf is (B, S, D) and kv is
-// the (B, L, 2D) [k|v] projection of the text context, of which the first
-// kv_len keys are attended.  res may be nullptr (zeros).
+// flash_attention.cu's attention over q / k / v as strided views.  The
+// attention's inner width is I = 64 H: the model width D, or a tensor-parallel
+// rank's share of D (its H heads).  `kv` == nullptr selects the self
+// sublayer: w_in is Wqkv (3I, D) and qkv_buf is (B, S, 3I).  Otherwise w_in
+// is Wq (I, D), qkv_buf is (B, S, I) and kv is the (B, L, 2I) [k|v]
+// projection of the text context, of which the first kv_len keys are
+// attended.  w_out is (D, I), attn_buf (B, S, I).  res may be nullptr (zeros).
 extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln,
                                   const void* adaln, const void* w_in, const void* w_out,
                                   const void* kv, void* h_out, void* a_buf, void* qkv_buf,
@@ -814,7 +817,8 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
   using bf = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
-  const int n_in = kv == nullptr ? 3 * D : D;
+  const int I = kHeadDim * H;
+  const int n_in = kv == nullptr ? 3 * I : I;
   cudaError_t err =
       launch_norm_rows(x, res, ln, adaln, h_out, a_buf, nullptr, rows, S, D, eps, stream);
   if (err != cudaSuccess) return int(err);
@@ -822,22 +826,24 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
   err = muse::sm90::gemm_tn(static_cast<const bf*>(a_buf), static_cast<const bf*>(w_in),
                             muse::StoreBf16{proj, n_in}, rows, n_in, D, stream);
   if (err != cudaSuccess) return int(err);
-  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, D, L, kv_len);
+  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, I, L, kv_len);
   const int64_t strides[6] = {args.q_bs, args.q_rs, args.kv_bs, args.kv_rs, args.kv_bs, args.kv_rs};
   const int status = muse_flash_attention(args.q, args.k, args.v, attn_buf, B, H, S, args.kv_len,
                                           kHeadDim, strides, args.scale, stream);
   if (status != 0) return status;
   return int(muse::sm90::gemm_tn(static_cast<const bf*>(attn_buf), static_cast<const bf*>(w_out),
-                                 muse::StoreBf16{static_cast<bf*>(out), D}, rows, D, D, stream));
+                                 muse::StoreBf16{static_cast<bf*>(out), D}, rows, D, I, stream));
 }
 
 // One sublayer backward on `stream`, inputs as the forward's plus g_out and
-// g_res (B, S, D).  Outputs: dx (B, S, D) -- also the gradient of res --,
-// dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv (B, S, 3D) or dq (B,
-// S, D), attn (B, S, D) and, for cross, dkv (B, L, 2D), zero past kv_len.
-// Scratch: h (B, S, D), proj like dproj, dattn (B, S, D), stats (3, B, H, S
-// rounded up to 64) fp32, rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 *
-// D) fp32.  Self (kernel 11) and cross (kernel 12) run one chain of nine
+// g_res (B, S, D); I = 64 H as in the forward.  Outputs: dx (B, S, D) -- also
+// the gradient of res --, dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv
+// (B, S, 3I) or dq (B, S, I), attn (B, S, I) and, for cross, dkv (B, L, 2I),
+// zero past kv_len.  Scratch: h (B, S, D), proj like dproj, dattn (B, S,
+// max(D, I)), stats (3, B, H, S rounded up to 64) fp32, rstd (B * S) fp32,
+// partial (B * ceil(S / 32) * 3 * D) fp32.  On a head shard (I < D) dx, dln
+// and dadaln are this shard's part of the gradients; the caller sums them
+// over the shards.  Self (kernel 11) and cross (kernel 12) run one chain of nine
 // launches: the row kernel (keeping 1/rms; the register one at width 1024),
 // the in-projection (qkv or q) and dattn = g_out @ Wout on the Hopper GEMM
 // (Wout read MN-major), the two register-fragment attention kernels, da =
@@ -854,7 +860,8 @@ extern "C" int muse_attn_sublayer_bwd(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = B * S;
   const bool self_attn = kv == nullptr;
-  const int n_in = self_attn ? 3 * D : D;
+  const int I = kHeadDim * H;
+  const int n_in = self_attn ? 3 * I : I;
   const bf* ln_ = static_cast<const bf*>(ln);
   const bf* adaln_ = static_cast<const bf*>(adaln);
   const bf* w_in_ = static_cast<const bf*>(w_in);
@@ -872,11 +879,11 @@ extern "C" int muse_attn_sublayer_bwd(
   err = muse::sm90::gemm_tn(a, w_in_, muse::StoreBf16{proj, n_in}, rows, n_in, D, stream);
   if (err != cudaSuccess) return int(err);
   err = muse::sm90::gemm_nn(static_cast<const bf*>(g_out), static_cast<const bf*>(w_out),
-                            muse::StoreBf16{dattn, D}, rows, D, D, stream);
+                            muse::StoreBf16{dattn, I}, rows, I, D, stream);
   if (err != cudaSuccess) return int(err);
 
   // the attention backward with S / P / dP / dS in registers
-  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, D, L, kv_len);
+  const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, I, L, kv_len);
   const int Sp = (S + kTile - 1) / kTile * kTile;
   const int64_t n_stats = int64_t(B) * H * Sp;
   AttnBwdArgs bargs{};
@@ -886,8 +893,8 @@ extern "C" int muse_attn_sublayer_bwd(
   bargs.dout = dattn;
   bargs.out = static_cast<bf*>(attn_buf);
   bargs.dq = dproj_;
-  bargs.dk = self_attn ? dproj_ + D : static_cast<bf*>(dkv);
-  bargs.dv = bargs.dk + D;
+  bargs.dk = self_attn ? dproj_ + I : static_cast<bf*>(dkv);
+  bargs.dv = bargs.dk + I;
   bargs.stat_m = stats_;
   bargs.stat_il = stats_ + n_stats;
   bargs.delta = stats_ + 2 * n_stats;
@@ -895,8 +902,8 @@ extern "C" int muse_attn_sublayer_bwd(
   bargs.q_st = args.q_rs;
   bargs.kv_sb = args.kv_bs;  // dq / dk / dv lie as q / k / v do
   bargs.kv_st = args.kv_rs;
-  bargs.o_sb = int64_t(S) * D;
-  bargs.o_st = D;
+  bargs.o_sb = int64_t(S) * I;
+  bargs.o_st = I;
   bargs.H = H;
   bargs.S = S;
   bargs.Sp = Sp;
@@ -912,7 +919,8 @@ extern "C" int muse_attn_sublayer_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  // da = dproj @ W_in (into the dattn buffer, consumed above), then the
+  // da = dproj @ W_in (into the dattn buffer, consumed above, of max(D, I)
+  // columns a row), then the
   // rmsnorm / AdaLN backward
   bf* da = dattn;
   err = muse::sm90::gemm_nn(static_cast<const bf*>(dproj_), w_in_, muse::StoreBf16{da, D}, rows, D,

@@ -6,8 +6,11 @@ kernels ``_self_bwd_pallas`` and ``_cross_bwd_pallas``.  The plain forward
 versions are ``_xla_ref_self`` / ``_xla_ref_cross`` written in torch, with the
 same precision staging as the unfused RMSNorm -> AdaLN -> Attention chain;
 the plain backward versions compute what the Pallas backward bodies return.
-Weights follow torch's ``nn.Linear`` layout: ``wqkv`` is (3D, D), ``wq`` and
-``wout`` are (D, D), and so are their gradients.
+Weights follow torch's ``nn.Linear`` layout: ``wqkv`` is (3I, D), ``wq`` is
+(I, D) and ``wout`` (D, I), and so are their gradients, with I = 64 x the
+head count: the model width D, or on a tensor-parallel rank the width of
+its heads (``parallel.tensor_parallel``), where the outputs and the
+backward's dx, d(ln) and d(adaln) are that rank's partial sums.
 
 ``attn_sublayer_self`` / ``attn_sublayer_cross`` are ``torch.autograd``
 Functions: on the CPU both directions run the plain versions, on the card
@@ -36,10 +39,12 @@ CHUNK_ROWS = 32  # rows per partial sum of d(adaln) and d(ln) in the kernel
 STAT_ROWS = 64  # the backward's row statistics cover S rounded up to this
 
 
-def sublayer_shapes_supported(hidden: int, num_heads: int) -> bool:
+def sublayer_shapes_supported(hidden: int, num_heads: int, tp: int = 1) -> bool:
     """The kernels take head_dim 64 in an even number of heads, as the TPU
-    kernel does (attn_sublayer.py:157-184)."""
-    return num_heads > 0 and num_heads % 2 == 0 and hidden == HEAD_DIM * num_heads
+    kernel does (attn_sublayer.py:157-184): ``num_heads`` of the model's
+    ``hidden``, split over ``tp`` ranks, each rank's share of the heads."""
+    local = num_heads // tp if num_heads % tp == 0 else 0
+    return local > 0 and local % 2 == 0 and hidden == HEAD_DIM * num_heads
 
 
 def _rmsnorm_adaln(x, res, ln_scale, adaln, eps):
@@ -161,16 +166,20 @@ def attn_sublayer_cross_bwd_plain(x, res, ln_scale, adaln, wq, wout, kv, g_out, 
 # -- checks and launches -------------------------------------------------------
 
 def _check(name, x, res, ln_scale, adaln, w_in, n_in, wout, num_heads, kv=None, grads=()):
+    """``n_in``: the in-projection's rows in units of the inner width (3 for
+    qkv, 1 for q)."""
     b, s, d = x.shape
-    if (res is not None and res.shape != x.shape) or ln_scale.shape != (d,) \
-            or adaln.shape != (b, 2 * d) or w_in.shape != (n_in, d) \
-            or wout.shape != (d, d) or any(g.shape != x.shape for g in grads):
-        raise ValueError(f"{name}: shape mismatch for x{tuple(x.shape)}")
-    if kv is not None and (kv.dim() != 3 or kv.shape[0] != b or kv.shape[2] != 2 * d):
-        raise ValueError(f"{name}: kv{tuple(kv.shape)} vs x{tuple(x.shape)}")
-    if not sublayer_shapes_supported(d, num_heads):
+    inner = HEAD_DIM * num_heads
+    if num_heads <= 0 or num_heads % 2:
         raise ValueError(f"{name}: needs head_dim {HEAD_DIM} and an even head count, "
-                         f"got hidden {d} with {num_heads} heads")
+                         f"got {num_heads} heads")
+    if (res is not None and res.shape != x.shape) or ln_scale.shape != (d,) \
+            or adaln.shape != (b, 2 * d) or w_in.shape != (n_in * inner, d) \
+            or wout.shape != (d, inner) or any(g.shape != x.shape for g in grads):
+        raise ValueError(f"{name}: shape mismatch for x{tuple(x.shape)} with {num_heads} "
+                         f"heads of {HEAD_DIM}: w_in{tuple(w_in.shape)} wout{tuple(wout.shape)}")
+    if kv is not None and (kv.dim() != 3 or kv.shape[0] != b or kv.shape[2] != 2 * inner):
+        raise ValueError(f"{name}: kv{tuple(kv.shape)} vs x{tuple(x.shape)}")
 
 
 def _ptr(t):
@@ -179,12 +188,12 @@ def _ptr(t):
 
 def _launch(name, x, res, ln_scale, adaln, w_in, wout, kv, num_heads, eps):
     b, s, d = x.shape
-    n_in = w_in.shape[0]
+    n_in, inner = w_in.shape[0], wout.shape[1]
     require_cuda(name, (torch.bfloat16,), x, res, ln_scale, adaln, w_in, wout, kv)
     h = torch.empty_like(x)
     out = torch.empty_like(x)
     a_buf = torch.empty_like(x)
-    attn_buf = torch.empty_like(x)
+    attn_buf = torch.empty((b, s, inner), dtype=x.dtype, device=x.device)
     proj_buf = torch.empty((b, s, n_in), dtype=x.dtype, device=x.device)
     length = 0 if kv is None else kv.shape[1]
     check(library().muse_attn_sublayer(
@@ -197,13 +206,14 @@ def _launch(name, x, res, ln_scale, adaln, w_in, wout, kv, num_heads, eps):
 def _launch_bwd(name, x, res, ln_scale, adaln, w_in, wout, kv, g_out, g_res, num_heads, eps):
     """Returns (dx, dln, dadaln, a, dproj, attn, dkv) from the kernel chain."""
     b, s, d = x.shape
-    n_in = w_in.shape[0]
+    n_in, inner = w_in.shape[0], wout.shape[1]
     require_cuda(name, (torch.bfloat16,), x, res, ln_scale, adaln, w_in, wout, kv, g_out, g_res)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)  # noqa: E731
-    dx, a, attn = new(b, s, d), new(b, s, d), new(b, s, d)
+    dx, a, attn = new(b, s, d), new(b, s, d), new(b, s, inner)
     dadaln, dln, dproj = new(b, 2 * d), new(d), new(b, s, n_in)
     dkv = None if kv is None else torch.empty_like(kv)
-    h, proj, dattn = new(b, s, d), new(b, s, n_in), new(b, s, d)
+    # dattn (B, S, I), then da (B, S, D) in the same buffer
+    h, proj, dattn = new(b, s, d), new(b, s, n_in), new(b, s, max(d, inner))
     stats = new(3, b, num_heads, -(-s // STAT_ROWS) * STAT_ROWS, dtype=torch.float32)
     rstd = new(b * s, dtype=torch.float32)
     partial = new(b * -(-s // CHUNK_ROWS) * 3 * d, dtype=torch.float32)
@@ -222,8 +232,8 @@ def attn_sublayer_self_bwd(x, res, ln_scale, adaln, wqkv, wout, g_out, g_res,
                            num_heads: int, eps: float = 1e-6):
     """Backward of `attn_sublayer_self` given the gradients of (out, h):
     (dx, dres, dln, dadaln, dwqkv, dwout); ``res`` may be None (zeros)."""
-    _check("attn_sublayer_self_bwd", x, res, ln_scale, adaln, wqkv, 3 * x.shape[-1], wout,
-           num_heads, grads=(g_out, g_res))
+    _check("attn_sublayer_self_bwd", x, res, ln_scale, adaln, wqkv, 3, wout, num_heads,
+           grads=(g_out, g_res))
     if on_cpu(x, res, ln_scale, adaln, wqkv, wout, g_out, g_res):
         res = torch.zeros_like(x) if res is None else res
         return attn_sublayer_self_bwd_plain(x, res, ln_scale, adaln, wqkv, wout, g_out, g_res,
@@ -239,8 +249,8 @@ def attn_sublayer_cross_bwd(x, res, ln_scale, adaln, wq, wout, kv, g_out, g_res,
                             num_heads: int, eps: float = 1e-6):
     """Backward of `attn_sublayer_cross`: (dx, dres, dln, dadaln, dwq, dwout,
     dkv).  Keys are not padded: the kernels mask past the key length."""
-    _check("attn_sublayer_cross_bwd", x, res, ln_scale, adaln, wq, x.shape[-1], wout,
-           num_heads, kv=kv, grads=(g_out, g_res))
+    _check("attn_sublayer_cross_bwd", x, res, ln_scale, adaln, wq, 1, wout, num_heads, kv=kv,
+           grads=(g_out, g_res))
     if on_cpu(x, res, ln_scale, adaln, wq, wout, kv, g_out, g_res):
         res = torch.zeros_like(x) if res is None else res
         return attn_sublayer_cross_bwd_plain(x, res, ln_scale, adaln, wq, wout, kv, g_out,
@@ -274,59 +284,92 @@ def _cross_forward(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps):
     return result
 
 
+def _tp_forward(out, tp):
+    """On a head shard the out projection is this rank's partial sum: the
+    whole output is the sum over the tp ranks."""
+    if tp is not None:
+        tp.all_reduce_([out])
+    return out
+
+
+def _tp_backward(g_res, tp):
+    """The residual-gradient rule of a head shard (trap 1 of the
+    tensor-parallel port).  The backward's dx is d(norm path) + g_res: the
+    norm path's part is this rank's partial sum, g_res is already whole on
+    every rank, and so are d(ln) and d(adaln) partial.  The rank of tp index
+    0 alone adds g_res, the others 0, so that summing dx, d(ln) and d(adaln)
+    over the ranks (``_tp_sum``) counts g_res once."""
+    if tp is None or tp.rank == 0:
+        return g_res
+    return torch.zeros_like(g_res)
+
+
+def _tp_sum(tp, *grads):
+    if tp is not None:
+        tp.all_reduce_(list(grads))
+    return grads
+
+
 class _SelfSublayer(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
-    def forward(ctx, x, res, ln_scale, adaln, wqkv, wout, num_heads, eps):
-        ctx.num_heads, ctx.eps, ctx.has_res = num_heads, eps, res is not None
+    def forward(ctx, x, res, ln_scale, adaln, wqkv, wout, num_heads, eps, tp):
+        ctx.num_heads, ctx.eps, ctx.has_res, ctx.tp = num_heads, eps, res is not None, tp
         ctx.save_for_backward(x, res, ln_scale, adaln, wqkv, wout)
-        return _self_forward(x, res, ln_scale, adaln, wqkv, wout, num_heads, eps)
+        out, h = _self_forward(x, res, ln_scale, adaln, wqkv, wout, num_heads, eps)
+        return _tp_forward(out, tp), h
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g_out, g_res):
         x, res, ln_scale, adaln, wqkv, wout = ctx.saved_tensors
         dx, dres, dln, dadaln, dwqkv, dwout = attn_sublayer_self_bwd(
-            x, res, ln_scale, adaln, wqkv, wout, g_out.contiguous(), g_res.contiguous(),
-            ctx.num_heads, ctx.eps)
-        return dx, dres if ctx.has_res else None, dln, dadaln, dwqkv, dwout, None, None
+            x, res, ln_scale, adaln, wqkv, wout, g_out.contiguous(),
+            _tp_backward(g_res.contiguous(), ctx.tp), ctx.num_heads, ctx.eps)
+        dx, dln, dadaln = _tp_sum(ctx.tp, dx, dln, dadaln)
+        return (dx, dx if ctx.has_res else None, dln, dadaln, dwqkv, dwout, None, None, None)
 
 
 class _CrossSublayer(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
-    def forward(ctx, x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps):
-        ctx.num_heads, ctx.eps, ctx.has_res = num_heads, eps, res is not None
+    def forward(ctx, x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps, tp):
+        ctx.num_heads, ctx.eps, ctx.has_res, ctx.tp = num_heads, eps, res is not None, tp
         ctx.save_for_backward(x, res, ln_scale, adaln, wq, wout, kv)
-        return _cross_forward(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps)
+        out, h = _cross_forward(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps)
+        return _tp_forward(out, tp), h
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g_out, g_res):
         x, res, ln_scale, adaln, wq, wout, kv = ctx.saved_tensors
         dx, dres, dln, dadaln, dwq, dwout, dkv = attn_sublayer_cross_bwd(
-            x, res, ln_scale, adaln, wq, wout, kv, g_out.contiguous(), g_res.contiguous(),
-            ctx.num_heads, ctx.eps)
-        return dx, dres if ctx.has_res else None, dln, dadaln, dwq, dwout, dkv, None, None
+            x, res, ln_scale, adaln, wq, wout, kv, g_out.contiguous(),
+            _tp_backward(g_res.contiguous(), ctx.tp), ctx.num_heads, ctx.eps)
+        dx, dln, dadaln = _tp_sum(ctx.tp, dx, dln, dadaln)
+        return (dx, dx if ctx.has_res else None, dln, dadaln, dwq, dwout, dkv, None, None,
+                None)
 
 
 def attn_sublayer_self(x, res, ln_scale, adaln, wqkv, wout, num_heads: int,
-                       eps: float = 1e-6):
+                       eps: float = 1e-6, tp=None):
     """x, res (B, S, D); ln_scale (D,); adaln (B, 2D) mapped scale|shift;
-    wqkv (3D, D); wout (D, D).  Returns (attention output, prenorm residual);
-    ``res`` may be None (first trunk layer).  Differentiable."""
-    _check("attn_sublayer_self", x, res, ln_scale, adaln, wqkv, 3 * x.shape[-1], wout,
-           num_heads)
-    return _SelfSublayer.apply(x, res, ln_scale, adaln, wqkv, wout, num_heads, eps)
+    wqkv (3I, D); wout (D, I), I = 64 ``num_heads``.  Returns (attention
+    output, prenorm residual); ``res`` may be None (first trunk layer).
+    Differentiable.  ``tp`` (``parallel.tensor_parallel.TensorParallel``):
+    the weights are this rank's head shard; the output is summed over the
+    ranks, and so are the backward's dx, d(ln) and d(adaln)."""
+    _check("attn_sublayer_self", x, res, ln_scale, adaln, wqkv, 3, wout, num_heads)
+    return _SelfSublayer.apply(x, res, ln_scale, adaln, wqkv, wout, num_heads, eps, tp)
 
 
 def attn_sublayer_cross(x, res, ln_scale, adaln, wq, wout, kv, num_heads: int,
-                        eps: float = 1e-6):
-    """Cross-attention variant: ``kv`` is the (B, L, 2D) [k|v] projection of
-    the text context.  Differentiable, also in ``kv``."""
-    _check("attn_sublayer_cross", x, res, ln_scale, adaln, wq, x.shape[-1], wout, num_heads,
-           kv=kv)
-    return _CrossSublayer.apply(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps)
+                        eps: float = 1e-6, tp=None):
+    """Cross-attention variant: ``wq`` (I, D); ``kv`` is the (B, L, 2I) [k|v]
+    projection of the text context.  Differentiable, also in ``kv``; ``tp``
+    as in ``attn_sublayer_self`` (``kv`` is then this rank's heads')."""
+    _check("attn_sublayer_cross", x, res, ln_scale, adaln, wq, 1, wout, num_heads, kv=kv)
+    return _CrossSublayer.apply(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps, tp)
 
 
 attn_sublayer_self.launches = 0

@@ -31,9 +31,10 @@ from ..core.configuration import BaseConfig
 from ..core.modeling import ModelMixin
 from ..kernels.fused_sample import sample_gumbel
 from ..ops import sampling
-from ..ops.layers import Attention, LayerNorm, Norm
+from ..ops.layers import Attention, LayerNorm, Norm, column_linear, row_linear
 from ..ops.losses import cross_entropy_loss
-from .transformer_v2 import _conv1x1, decode_noise, decode_step
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, scatter_to_tp
+from .transformer_v2 import _conv1x1, _split_conv1x1, decode_noise, decode_step
 
 __all__ = ["MaskGitTransformer", "MaskGitTransformerConfig", "KeepMasks", "v1_schedules",
            "v1_decode_loop", "v1_generate_loop", "masked_counts"]
@@ -90,7 +91,9 @@ class KeepMasks:
     for it (the tests hand over the JAX module's masks).  ``share``: (this
     rank, the rank count) of a batch split over ranks
     (``parallel.mesh.DataParallel.share``): a rank draws the global batch's
-    masks (dim 0 the batch) and keeps its rows."""
+    masks (dim 0 the batch) and keeps its rows; the ranks of a tp group
+    share a batch share and a generator, so they draw the same masks (trap 4
+    of the tensor-parallel port)."""
 
     def __init__(self, generator: torch.Generator, share=(0, 1)):
         self.generator = generator
@@ -105,15 +108,21 @@ class KeepMasks:
         return draw[rank * n:(rank + 1) * n] < keep_prob
 
 
-def _dropout(x, rate: float, masks):
+def _dropout(x, rate: float, masks, tp=None):
     """flax ``nn.Dropout(rate)`` at ``deterministic=False`` with keep masks
     from ``masks``: kept values scaled by 1 / (1 - rate), the rest zero.
     ``x`` itself when ``masks`` is None (``deterministic=True``) or the rate
-    is 0, so nothing is drawn or launched."""
+    is 0, so nothing is drawn or launched.  ``tp``: ``x``'s last dim is this
+    rank's part of a tp-split dim; the mask is drawn whole and sliced, so a
+    tp run draws the masks one process draws."""
     if masks is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    return torch.where(masks(x.shape, keep_prob, x.device), x / keep_prob, 0.0)
+    if tp is None:
+        keep = masks(x.shape, keep_prob, x.device)
+    else:
+        keep = tp.shard_last(masks((*x.shape[:-1], tp.size * x.shape[-1]), keep_prob, x.device))
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 class Embed(nn.Module):
@@ -190,7 +199,12 @@ class Norm2D(nn.Module):
 
 
 class ConvMlmLayer(nn.Module):
-    """1x1 conv -> pixel-shuffle -> Norm2D -> 1x1 conv to logits."""
+    """1x1 conv -> pixel-shuffle -> Norm2D -> 1x1 conv to logits; under
+    tensor-parallel weights (``tp``) ``conv2`` holds this rank's part of the
+    logits, gathered whole on every rank (as the v2 head's)."""
+
+    tp_leaves = ("conv2.weight",)
+    tp = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -207,13 +221,26 @@ class ConvMlmLayer(nn.Module):
         if p > 1:
             b, h, w, _ = x.shape
             x = x.reshape(b, h, w, -1, p, p).permute(0, 1, 4, 2, 5, 3).reshape(b, h * p, w * p, -1)
-        logits = _conv1x1(self.conv2, self.layer_norm(x, use_kernels))
+        x = self.layer_norm(x, use_kernels)
+        if self.tp is None:
+            logits = _conv1x1(self.conv2, x)
+        else:
+            logits = gather_from_tp(_split_conv1x1(self.conv2, copy_to_tp(x, self.tp), self.tp),
+                                    self.tp)
         return logits.reshape(batch, -1, logits.shape[-1])
 
 
 class FeedForward(nn.Module):
     """Normformer GLU FFN, dropout before ``wo``.  The pre-MLP norm is a
-    LayerNorm whatever ``norm_type`` says, as in the reference."""
+    LayerNorm whatever ``norm_type`` says, as in the reference.  Under
+    tensor-parallel weights (``tp``) ``wi_0`` / ``wi_1`` hold this rank's
+    columns and ``wo`` their rows; the mid-MLP norm, which normalises the
+    split width, runs on the whole row (trap 2 of the tensor-parallel port:
+    the row is gathered around the norm kernel and sliced back), and the
+    dropout mask over the split width is drawn whole and sliced."""
+
+    tp_leaves = ("wi_0.weight", "wi_1.weight", "wo.weight")
+    tp = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -226,11 +253,13 @@ class FeedForward(nn.Module):
         self.hidden_dropout = cfg.hidden_dropout
 
     def forward(self, x, use_kernels: bool = True, masks=None):
-        x = self.pre_mlp_layer_norm(x, use_kernels=use_kernels)
-        x = F.gelu(self.wi_0(x)) * self.wi_1(x)
+        tp = self.tp
+        x = copy_to_tp(self.pre_mlp_layer_norm(x, use_kernels=use_kernels), tp)
+        x = F.gelu(column_linear(x, self.wi_0, tp)) * column_linear(x, self.wi_1, tp)
         if self.mid_mlp_layer_norm is not None:
-            x = self.mid_mlp_layer_norm(x, use_kernels=use_kernels)
-        return self.wo(_dropout(x, self.hidden_dropout, masks))
+            x = scatter_to_tp(self.mid_mlp_layer_norm(gather_from_tp(x, tp),
+                                                      use_kernels=use_kernels), tp)
+        return row_linear(_dropout(x, self.hidden_dropout, masks, tp), self.wo, tp)
 
 
 class TransformerLayer(nn.Module):

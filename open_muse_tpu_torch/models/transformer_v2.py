@@ -37,7 +37,8 @@ from ..kernels.glu_matmul import glu_down_matmul, glu_down_matmul_plain
 from ..ops import sampling
 from ..ops.losses import cross_entropy_loss, weighted_cross_entropy_loss
 from ..ops.layers import (AdaLNModulation, Attention, GlobalResponseNorm, LayerNorm, Norm,
-                          sinusoidal_encode)
+                          column_linear, sinusoidal_encode)
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, reduce_from_tp, scatter_to_tp
 
 __all__ = ["MaskGiTUViT_v2", "MaskGiTUViT_v2Config", "decode_schedules", "decode_noise",
            "captured_decode", "parallel_decode_loop", "decode_step"]
@@ -85,11 +86,13 @@ def _norm(cfg, dim):
     return Norm(dim, cfg.norm_type, cfg.layer_norm_eps, cfg.use_bias, cfg.ln_elementwise_affine)
 
 
-def _use_fused_attn_sublayer(cfg) -> bool:
+def _use_fused_attn_sublayer(cfg, tp=None) -> bool:
     """The fused sublayer kernels take the research shapes: rmsnorm with an
-    affine scale, no bias, head_dim 64 in an even number of heads."""
+    affine scale, no bias, head_dim 64 in an even number of heads (of this
+    rank's heads under tensor-parallel weights ``tp``)."""
     return (cfg.norm_type == "rmsnorm" and not cfg.use_bias and cfg.ln_elementwise_affine
-            and sublayer_shapes_supported(cfg.hidden_size, cfg.num_attention_heads))
+            and sublayer_shapes_supported(cfg.hidden_size, cfg.num_attention_heads,
+                                          1 if tp is None else tp.size))
 
 
 def _nhwc_conv(conv: nn.Module, x):
@@ -99,6 +102,12 @@ def _nhwc_conv(conv: nn.Module, x):
 def _conv1x1(conv: nn.Conv2d, x):
     """A 1x1 conv on NHWC maps as a matmul over the channel axis."""
     return F.linear(x, conv.weight.flatten(1), conv.bias)
+
+
+def _split_conv1x1(conv: nn.Conv2d, x, tp):
+    """``_conv1x1`` of a conv holding this rank's output channels."""
+    return F.linear(x, conv.weight.flatten(1),
+                    None if conv.bias is None else scatter_to_tp(conv.bias, tp))
 
 
 class Norm2D(nn.Module):
@@ -238,7 +247,15 @@ class UpsampleBlock(_ResAttnStack):
 
 class GLUFeedForward(nn.Module):
     """GLU FFN with the fused-residual prenorm.  The pre-MLP norm is a
-    LayerNorm even under ``norm_type="rmsnorm"``, as in the reference."""
+    LayerNorm even under ``norm_type="rmsnorm"``, as in the reference.
+    Under tensor-parallel weights (``tp``) ``wi_0`` / ``wi_1`` hold this
+    rank's columns and ``wo`` their rows: the norm and AdaLN stay whole
+    outside the split, the normed input enters it through ``copy_to_tp``,
+    the GLU kernel runs on the rank's K columns, and its partial output is
+    summed over the ranks."""
+
+    tp_leaves = ("wi_0.weight", "wi_1.weight", "wo.weight")
+    tp = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -252,12 +269,12 @@ class GLUFeedForward(nn.Module):
     def forward(self, x, cond_embeds, residual=None, adaln_cache=None, use_kernels=True):
         x, residual = self.pre_mlp_layer_norm(x, residual, return_residual=True,
                                               use_kernels=use_kernels)
-        x = self.adaLN_modulation(x, cond_embeds, cached=adaln_cache)
-        a, b = self.wi_0(x), self.wi_1(x)
+        x = copy_to_tp(self.adaLN_modulation(x, cond_embeds, cached=adaln_cache), self.tp)
+        a, b = column_linear(x, self.wi_0, self.tp), column_linear(x, self.wi_1, self.tp)
         k = a.shape[-1]
         glu = glu_down_matmul if use_kernels and k % 8 == 0 else glu_down_matmul_plain
         out = glu(a.reshape(-1, k), b.reshape(-1, k), self.wo.weight)
-        out = out.reshape(*a.shape[:-1], -1)
+        out = reduce_from_tp(out.reshape(*a.shape[:-1], -1), self.tp)
         return (out if self.wo.bias is None else out + self.wo.bias), residual
 
 
@@ -275,6 +292,10 @@ class TransformerLayer(nn.Module):
         self.crossattn_layer_norm = _norm(cfg, d)
         self.cross_attn_adaLN_modulation = AdaLNModulation(d, d, cfg.use_bias)
         self.crossattention = Attention(d, heads, d, cfg.use_bias)
+        if _use_fused_attn_sublayer(cfg):
+            # the fused kernels take an even head count: a tp that would give
+            # a rank an odd one leaves both attentions whole (sharding.py)
+            self.attention.head_multiple = self.crossattention.head_multiple = 2
         self.ffn = GLUFeedForward(cfg)
 
     def precompute(self, encoder_hidden_states, cond_embeds):
@@ -293,14 +314,18 @@ class TransformerLayer(nn.Module):
         cfg = self.config
         if ctx is None:
             ctx = self.precompute(encoder_hidden_states, cond_embeds)
-        if use_kernels and _use_fused_attn_sublayer(cfg):
+        tp = self.attention.tp
+        if use_kernels and _use_fused_attn_sublayer(cfg, tp):
+            # under tp: this rank's heads, the sums over the ranks inside the
+            # Functions (kernels.attn_sublayer: the residual-gradient rule)
             x, residual = attn_sublayer_self(
                 x, residual, self.attn_layer_norm.weight, ctx["self_adaln"], ctx["wqkv"][0],
-                self.attention.out.weight, cfg.num_attention_heads, cfg.layer_norm_eps)
+                self.attention.out.weight, self.attention.local_heads, cfg.layer_norm_eps, tp)
             x, residual = attn_sublayer_cross(
                 x, residual, self.crossattn_layer_norm.weight, ctx["cross_adaln"],
                 self.crossattention.query.weight, self.crossattention.out.weight,
-                ctx["cross_kv"], cfg.num_attention_heads, cfg.layer_norm_eps)
+                ctx["cross_kv"], self.crossattention.local_heads, cfg.layer_norm_eps,
+                self.crossattention.tp)
         else:
             x, residual = self.attn_layer_norm(x, residual, return_residual=True,
                                                use_kernels=use_kernels)
@@ -313,7 +338,14 @@ class TransformerLayer(nn.Module):
 
 
 class ConvMlmLayer(nn.Module):
-    """1x1 conv -> Norm2D -> 1x1 conv to codebook logits."""
+    """1x1 conv -> Norm2D -> 1x1 conv to codebook logits.  Under
+    tensor-parallel weights (``tp``) ``conv2`` holds this rank's part of the
+    vocabulary: its logits are gathered whole on every rank (trap 3 of the
+    tensor-parallel port), so the loss, label smoothing, soft targets and
+    the bucket diagnostics read the whole rows."""
+
+    tp_leaves = ("conv2.weight",)
+    tp = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -322,7 +354,11 @@ class ConvMlmLayer(nn.Module):
         self.conv2 = nn.Conv2d(cfg.in_channels, cfg.codebook_size, 1, bias=cfg.use_bias)
 
     def forward(self, x, use_kernels: bool = True):
-        return _conv1x1(self.conv2, self.layer_norm(_conv1x1(self.conv1, x), use_kernels))
+        h = self.layer_norm(_conv1x1(self.conv1, x), use_kernels)
+        if self.tp is None:
+            return _conv1x1(self.conv2, h)
+        return gather_from_tp(_split_conv1x1(self.conv2, copy_to_tp(h, self.tp), self.tp),
+                              self.tp)
 
 
 class MaskGiTUViT_v2(ModelMixin, nn.Module):

@@ -25,9 +25,11 @@ from torch import nn
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_norm import fused_residual_layernorm, fused_residual_rmsnorm
+from ..parallel.tensor_parallel import copy_to_tp, reduce_from_tp, scatter_to_tp
 
 __all__ = ["RMSNorm", "LayerNorm", "Norm", "GlobalResponseNorm", "AdaLNModulation",
-           "sinusoidal_encode", "dot_product_attention", "Attention"]
+           "sinusoidal_encode", "dot_product_attention", "Attention", "column_linear",
+           "row_linear"]
 
 
 def _result(out, prenorm, residual, return_residual):
@@ -166,12 +168,38 @@ def dot_product_attention(query, key, value, scale: float | None = None, mask=No
     return torch.einsum("bhqk,bkhd->bqhd", weights, value)
 
 
+def column_linear(x, layer: nn.Linear, tp=None):
+    """``layer(x)`` for a ``layer`` whose weight may be this rank's split of
+    its output features (``tp``): its whole bias sliced to this rank's part.
+    ``x`` is already this rank's input to the split (``copy_to_tp``)."""
+    return F.linear(x, layer.weight, None if layer.bias is None else
+                    scatter_to_tp(layer.bias, tp))
+
+
+def row_linear(x, layer: nn.Linear, tp=None):
+    """``layer(x)`` for a ``layer`` whose weight may be this rank's split of
+    its input features (``tp``): the partial products summed over the ranks
+    (``reduce_from_tp``), then the whole bias."""
+    if tp is None:
+        return F.linear(x, layer.weight, layer.bias)
+    out = reduce_from_tp(F.linear(x, layer.weight), tp)
+    return out if layer.bias is None else out + layer.bias
+
+
 class Attention(nn.Module):
     """Multi-head self / cross attention with open-muse parameter names
     (query / key / value / out).  Self attention runs q, k and v as one
     matmul against the concatenated weights; cross attention takes the
     [k | v] projection of the context, which ``precompute_kv`` returns so a
-    decode loop can compute it once."""
+    decode loop can compute it once.  Under tensor-parallel weights
+    (``tp``, set by ``parallel.sharding.shard_params``) q / k / v hold this
+    rank's heads and ``out`` their input features: the inputs enter through
+    ``copy_to_tp``, the heads are the local ones, and the output is summed
+    over the ranks."""
+
+    tp_leaves = ("query.weight", "key.weight", "value.weight", "out.weight")
+    tp = None
+    head_multiple = 1  # a tp rank's head count must be a multiple of this, else no split
 
     def __init__(self, hidden_size: int, num_heads: int, context_dim: int | None = None,
                  use_bias: bool = False):
@@ -184,34 +212,41 @@ class Attention(nn.Module):
         self.value = nn.Linear(kv_in, hidden_size, bias=use_bias)
         self.out = nn.Linear(hidden_size, hidden_size, bias=use_bias)
 
-    @staticmethod
-    def _cat(layers):
+    def _cat(self, layers):
         weight = torch.cat([m.weight for m in layers], dim=0)
-        bias = None if layers[0].bias is None else torch.cat([m.bias for m in layers])
+        bias = None if layers[0].bias is None else torch.cat(
+            [scatter_to_tp(m.bias, self.tp) for m in layers])
         return weight, bias
 
+    @property
+    def local_heads(self) -> int:
+        return self.num_heads if self.tp is None else self.num_heads // self.tp.size
+
     def qkv_weight(self):
-        """(3D, D) [Wq | Wk | Wv] in nn.Linear layout (and the bias)."""
+        """(3I, D) [Wq | Wk | Wv] in nn.Linear layout (and the bias); I = D,
+        or this rank's heads' width under tp."""
         return self._cat((self.query, self.key, self.value))
 
     def precompute_kv(self, context):
-        return F.linear(context, *self._cat((self.key, self.value)))
+        """The (B, L, 2I) [k | v] projection of ``context``."""
+        return F.linear(copy_to_tp(context, self.tp), *self._cat((self.key, self.value)))
 
     def forward(self, hidden_states, context=None, cached_kv=None, qkv_weight=None,
                 attention_mask=None, use_kernels: bool = True):
         """``attention_mask`` (broadcast to (B, H, Tq, Tk), True = masked
         out) keeps the call on the plain path, as in JAX."""
+        hidden_states = copy_to_tp(hidden_states, self.tp)
         if context is None and cached_kv is None:
             w, b = qkv_weight if qkv_weight is not None else self.qkv_weight()
             q, k, v = F.linear(hidden_states, w, b).chunk(3, dim=-1)
         else:
-            q = self.query(hidden_states)
+            q = column_linear(hidden_states, self.query, self.tp)
             kv = cached_kv if cached_kv is not None else self.precompute_kv(context)
             k, v = kv.chunk(2, dim=-1)
         bsz, q_len, _ = q.shape
-        heads, hd = self.num_heads, self.hidden_size // self.num_heads
+        heads, hd = self.local_heads, self.hidden_size // self.num_heads
         attn = dot_product_attention(q.reshape(bsz, q_len, heads, hd),
                                      k.reshape(bsz, k.shape[1], heads, hd),
                                      v.reshape(bsz, v.shape[1], heads, hd),
                                      mask=attention_mask, use_kernels=use_kernels)
-        return self.out(attn.reshape(bsz, q_len, self.hidden_size))
+        return row_linear(attn.reshape(bsz, q_len, heads * hd), self.out, self.tp)

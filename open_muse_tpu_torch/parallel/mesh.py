@@ -9,9 +9,10 @@ same dims, one rank a device, and the collectives are written out:
   JAX package's ``MUSE_*`` variables);
 - ``create_mesh`` builds the mesh, with ``mesh.py:29-42``'s defaults and
   errors;
-- the batch is split over the ranks (``local_batch_slice``): each rank loads
-  and runs its rows, as each JAX host contributes its slice of the global
-  array;
+- the batch is split over the dp x fsdp coordinates (``batch_share``,
+  ``local_batch_slice``): each rank loads and runs its rows, as each JAX
+  host contributes its slice of the global array; the ranks of one tp group
+  (``tensor_parallel``) take the same rows;
 - ``data_parallel(mesh)`` gives the reductions that make a rank's step
   compute the global batch's (``DataParallel``): a trainer hands them to
   its steps, and nothing else reads them.  ``SINGLE``, the single process's,
@@ -28,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["MeshAxes", "REPLICATED_BATCH_KEYS", "create_mesh", "initialize_distributed",
-           "local_batch_slice", "put_batch", "rank_and_world", "init_training",
+           "local_batch_slice", "batch_share", "put_batch", "rank_and_world", "init_training",
            "DataParallel", "SINGLE", "data_parallel", "collectives", "all_gather_rows",
            "barrier", "all_reduce_min"]
 
@@ -95,7 +96,9 @@ def create_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1, device=Non
     """A ``DeviceMesh`` of dims ``('dp', 'fsdp', 'tp')`` over the group's
     ranks; dp defaults to all the ranks fsdp and tp leave.  A process with no
     group gets a group of one first (NCCL on the card, gloo when ``device``
-    is the CPU), so that one code path serves every world size."""
+    is the CPU), so that one code path serves every world size.  The mesh's
+    device type is ``device``'s where given (a gloo group may carry CUDA
+    tensors), else the group's backend's."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -108,7 +111,8 @@ def create_mesh(dp: Optional[int] = None, fsdp: int = 1, tp: int = 1, device=Non
         dp = n // (fsdp * tp)
     if dp * fsdp * tp != n:
         raise ValueError(f"dp*fsdp*tp={dp * fsdp * tp} != {n} devices")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = torch.device(device).type if device is not None else (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(device_type, (dp, fsdp, tp), mesh_dim_names=MeshAxes)
 
 
@@ -120,10 +124,21 @@ def rank_and_world(group=None):
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+def batch_share(mesh=None):
+    """(this rank's index, the count) of the batch split: its dp x fsdp
+    coordinate on ``mesh`` (the ranks of one tp group share their rows), or
+    (rank, world size) without a mesh."""
+    if mesh is None:
+        return rank_and_world()
+    dp, fsdp, _ = mesh.get_coordinate()
+    return dp * mesh.size(1) + fsdp, mesh.size(0) * mesh.size(1)
+
+
 def local_batch_slice(global_batch: int, process_index: Optional[int] = None,
                       process_count: Optional[int] = None) -> slice:
     """This rank's slice of the global batch (accelerate's split_batches:
-    the global batch stays fixed whatever the rank count)."""
+    the global batch stays fixed whatever the rank count); the split is
+    over every rank unless given (``batch_share`` under tp)."""
     rank, world = rank_and_world()
     process_index = rank if process_index is None else process_index
     process_count = world if process_count is None else process_count
@@ -165,10 +180,7 @@ def init_training(device, batch_size: int, fsdp: int = 1, tp: int = 1):
             raise ValueError(f"training.fsdp={fsdp} / training.tp={tp} need {fsdp * tp} ranks; "
                              f"this is a single process")
         return None
-    if tp != 1:
-        raise NotImplementedError("training.tp > 1 (tensor-parallel weights) is not ported; "
-                                  "every config sets tp: 1")
-    mesh = create_mesh(fsdp=fsdp, tp=tp)
+    mesh = create_mesh(fsdp=fsdp, tp=tp, device=device)
     shards = mesh.size(0) * mesh.size(1)
     if batch_size % shards:
         raise ValueError(f"training.batch_size={batch_size} must be divisible by "
@@ -210,8 +222,8 @@ class DataParallel:
 
     batch_group: object = None  # the ranks the batch is split over (dp x fsdp)
     grad_group: object = None  # the ranks whose gradients this code averages
-    rank: int = 0
-    world: int = 1
+    rank: int = 0  # this rank's index in batch_group
+    world: int = 1  # batch_group's size
 
     @property
     def share(self):
@@ -274,16 +286,25 @@ SINGLE = DataParallel()
 
 def data_parallel(mesh=None, fsdp_applied: bool = False) -> DataParallel:
     """The train steps' reductions over ``mesh`` (None: ``SINGLE``).  The
-    batch is split over all the ranks (tp must be 1); the gradients are
-    averaged over all of them, or with ``fsdp_applied`` (the model sharded
+    batch is split over dp x fsdp (``batch_share``); the gradients are
+    averaged over those ranks, or with ``fsdp_applied`` (the model sharded
     by ``sharding.shard_params``: FSDP2 reduces its gradients over fsdp)
-    over dp alone."""
+    over dp alone.  Under tp each group of ranks that share a tp coordinate
+    reduces apart (trap 5 of the tensor-parallel port: a tp shard's gradient
+    is averaged with the same shard's on the other batch ranks); a mesh
+    whose dp x fsdp is 1 (tp alone) reduces nothing: ``SINGLE``'s
+    reductions with the mesh's one batch share."""
     if mesh is None:
         return SINGLE
-    if mesh.size(MeshAxes.index("tp")) != 1:
-        raise ValueError("the train steps split the batch over dp x fsdp; tp must be 1")
-    grad_group = mesh.get_group("dp") if fsdp_applied else dist.group.WORLD
-    return DataParallel(dist.group.WORLD, grad_group, dist.get_rank(), dist.get_world_size())
+    rank, world = batch_share(mesh)
+    if mesh.size(MeshAxes.index("tp")) == 1:
+        batch_group = dist.group.WORLD
+    elif world == 1:
+        return SINGLE
+    else:
+        batch_group = mesh["dp", "fsdp"]._flatten("dp_fsdp").get_group()
+    grad_group = mesh.get_group("dp") if fsdp_applied else batch_group
+    return DataParallel(batch_group, grad_group, rank, world)
 
 
 def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:

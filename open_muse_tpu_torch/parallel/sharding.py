@@ -10,14 +10,19 @@ and a torch ``Linear.weight`` (out, in), so ``P('fsdp', 'tp')`` on
 ``attention.query.kernel`` is ``('tp', 'fsdp')`` on the torch weight, and a
 convolution's HWIO spec is read in OIHW.
 
-``shard_params`` applies the fsdp axis with FSDP2 ``fully_shard`` over the
-mesh's fsdp dim: every parameter is stored as shards of the dim its rule
-names for fsdp (dim 0 where the rule names none: FSDP2 shards every
-parameter it manages), and the root module's forward all-gathers whole
-weights first, so the kernels run on gathered tensors.  The tp axis
-(tensor-parallel weights) is not applied yet: ``make_param_shardings``
-gives each parameter's tp dim, and ``shard_params`` raises for tp > 1
-(every config sets ``tp: 1``).
+``shard_params`` applies the tp axis first (tensor-parallel weights,
+``tensor_parallel``): every parameter becomes a DTensor on the mesh's tp
+dim, ``Shard`` on the dim its rule names for tp (q / k / v and ``wi_0`` /
+``wi_1`` on their output features, ``out`` and ``wo`` on their input
+features, the v2 head's ``conv2`` on the vocabulary), ``Replicate``
+otherwise, as in JAX where an axis does not divide the dim (``_fits``); the
+modules that own split weights get the tp group (``module.tp``) and put the
+collectives around their products.  Then the fsdp axis, with FSDP2
+``fully_shard`` over the mesh's fsdp dim on top (torch's 2-D recipe):
+every parameter is stored as shards of the dim its rule names for fsdp
+(dim 0 where the rule names none: FSDP2 shards every parameter it manages),
+and the root module's forward all-gathers the weights over fsdp first, so
+the kernels run on gathered tensors (each rank's tp shards under tp).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 from torch import nn
 
 from ..core.convert import jax_layout
+from .tensor_parallel import TensorParallel, use_local_params
 
 __all__ = ["DEFAULT_RULES", "spec_for_path", "torch_spec", "make_param_shardings",
            "shard_params"]
@@ -122,24 +128,71 @@ def make_param_shardings(model: nn.Module, mesh, rules=None) -> Dict[str, Spec]:
     return out
 
 
-def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
-    """Shard ``model`` over ``mesh`` by the rules, in place: with fsdp > 1
-    FSDP2 ``fully_shard`` over the fsdp dim, each parameter stored as
-    shards of the dim its rule names for fsdp (else dim 0).  The model's
-    forward all-gathers the weights; the gradients come back reduced over
-    fsdp, and the train step's ``mesh.data_parallel(mesh, fsdp_applied=True)``
-    then averages them over dp alone.  tp > 1 raises: not ported."""
-    sizes = _sizes(mesh)
-    if sizes.get("tp", 1) != 1:
-        raise NotImplementedError("tp > 1 (tensor-parallel weights) is not ported; every "
-                                  "config sets tp: 1")
-    if sizes.get("fsdp", 1) == 1:
-        return model
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
+def _tp_dim(spec: Spec) -> Optional[int]:
+    return next((d for d, axis in enumerate(spec) if axis == "tp"), None)
 
+
+def _split_over_tp(model: nn.Module, mesh, specs: Dict[str, Spec]) -> TensorParallel:
+    """Each parameter as a DTensor on ``mesh``'s tp dim (this rank's chunk
+    of its tp dim, or the whole tensor where its spec names no tp), and
+    ``module.tp`` set on every module whose ``tp_leaves`` are split."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tp_mesh = mesh["tp"]
+    tp = TensorParallel(tp_mesh.get_group(), tp_mesh.get_local_rank(), tp_mesh.size())
+    dims = {name: _tp_dim(spec) for name, spec in specs.items()}
+    for prefix, module in model.named_modules():
+        # an attention whose heads tp does not divide keeps its weights whole:
+        # a rank's columns would cut a head, which its kernels cannot attend;
+        # so does one whose ranks' head count would not be a multiple of its
+        # ``head_multiple`` (2 where the fused sublayer kernels 9 - 12 take
+        # it, which then run at full width on every rank)
+        heads, multiple = getattr(module, "num_heads", 0), getattr(module, "head_multiple", 1)
+        if (heads % tp.size or heads // tp.size % multiple) and hasattr(type(module), "tp_leaves"):
+            for leaf in type(module).tp_leaves:
+                dims[f"{prefix}.{leaf}" if prefix else leaf] = None
+    for name, p in list(model.named_parameters()):
+        dim = dims[name]
+        part = p.detach() if dim is None else p.detach().chunk(tp.size, dim)[tp.rank]
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(
+            DTensor.from_local(part.contiguous(), tp_mesh,
+                               [Replicate() if dim is None else Shard(dim)], run_check=False),
+            requires_grad=p.requires_grad))
+    for prefix, module in model.named_modules():
+        leaves = [f"{prefix}.{leaf}" if prefix else leaf
+                  for leaf in getattr(type(module), "tp_leaves", ())]
+        split = {dims[n] is not None for n in leaves if n in dims}
+        if len(split) > 1:
+            raise ValueError(f"{prefix}: its weights {leaves} are split over tp only in part")
+        if split == {True}:
+            module.tp = tp
+    return tp
+
+
+def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
+    """Shard ``model`` over ``mesh`` by the rules, in place: with tp > 1
+    every parameter a DTensor on the tp dim (this rank's shard of the dim
+    its rule names for tp, else replicated), each module's forward reading
+    its local tensors (``tensor_parallel.use_local_params``); with fsdp > 1
+    FSDP2 ``fully_shard`` over the fsdp dim on top, each parameter stored
+    as shards of the dim its rule names for fsdp (else dim 0).  The model's
+    forward all-gathers the weights over fsdp; the gradients come back
+    reduced over fsdp, and the train step's ``mesh.data_parallel(mesh,
+    fsdp_applied=True)`` then averages them over dp alone."""
+    sizes = _sizes(mesh)
+    if sizes.get("tp", 1) == 1 and sizes.get("fsdp", 1) == 1:
+        return model
     specs = make_param_shardings(model, sizes, rules)
-    dims = {p: next((d for d, axis in enumerate(specs[n]) if axis == "fsdp"), 0)
-            for n, p in model.named_parameters()}
-    fully_shard(model, mesh=mesh["fsdp"], shard_placement_fn=lambda p: Shard(dims[p]))
+    tp = _split_over_tp(model, mesh, specs) if sizes.get("tp", 1) > 1 else None
+    if sizes.get("fsdp", 1) > 1:
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        dims = {p: next((d for d, axis in enumerate(specs[n]) if axis == "fsdp"), 0)
+                for n, p in model.named_parameters()}
+        fully_shard(model, mesh=mesh["fsdp"], shard_placement_fn=lambda p: Shard(dims[p]))
+    if tp is not None:
+        model._tensor_parallel = tp
+        use_local_params(model, getattr(model, "transformer_layers", ()))
     return model

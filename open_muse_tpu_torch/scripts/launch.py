@@ -17,6 +17,11 @@ reaches (c10d rendezvous).  The ranks read ``RANK`` / ``WORLD_SIZE`` /
         [--module open_muse_tpu_torch.training.train_muse] -- \\
         config=configs/research_run_512.yaml training.batch_size=512
 
+Tensor-parallel weights take the trainer's own overrides: ``--nproc-per-node 2
+-- config=configs/laiona6plus_uvit_clip.yaml training.tp=2`` splits every
+rank pair's heads and GLU columns (``training.fsdp=2 training.tp=2`` on four
+ranks adds FSDP2 on top); with ``device=cpu`` the ranks join under gloo.
+
 ``--dry-run`` prints the command (``DRY-RUN: ...``) and runs nothing.
 The ranks inherit the launcher's environment, so a ``TORCH_NCCL_*`` or
 ``NCCL_*`` setting goes before the command on each node, e.g.

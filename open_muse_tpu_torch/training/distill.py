@@ -320,7 +320,7 @@ def main(argv=None) -> T.TrainState:
     teacher = frozen_teacher(model, autocast_dtype)
     model.train()
     shard_model(model, mesh)  # fsdp > 1: the student alone; the teacher stays whole
-    dp = data_parallel(mesh, fsdp_applied=T.is_sharded(model))
+    dp = data_parallel(mesh, fsdp_applied=T.is_fsdp(model))
     logger.info("student (= teacher init) params: %.1fM",
                 sum(p.numel() for p in model.parameters()) / 1e6)
     text_encoder, tokenizer = _text_tower(config, device)

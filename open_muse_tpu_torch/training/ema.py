@@ -14,6 +14,8 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..parallel.tensor_parallel import local
+
 __all__ = ["ema_decay", "EMA"]
 
 
@@ -51,8 +53,9 @@ class EMA:
     def update(self, model: nn.Module) -> None:
         params = dict(model.named_parameters())
         names = list(self.shadow)
-        shadow = [self.shadow[n] for n in names]
-        diff = torch._foreach_sub(shadow, [params[n].detach().float() for n in names])
+        # a DTensor shard's own elements (the shadow shards like its parameter)
+        shadow = [local(self.shadow[n]) for n in names]
+        diff = torch._foreach_sub(shadow, [local(params[n].detach()).float() for n in names])
         torch._foreach_mul_(diff, 1 - self.step_decay)
         torch._foreach_sub_(shadow, diff)
 

@@ -31,14 +31,16 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.convert import flax_key_candidates, jax_layout
 from ..models.paella_vq import BatchNorm2dInference
+from ..parallel.tensor_parallel import local
 from .quant8 import AdamW8bit, KeepStateDtypes
 
 __all__ = ["NO_DECAY_SUBSTRINGS", "OPTIMIZERS", "flax_param_name", "decay_mask", "AdamWBf16Moment",
-           "Lion", "Optimizer", "get_optimizer", "global_norm"]
+           "Lion", "Optimizer", "get_optimizer", "global_norm", "leaf_norms"]
 
 NO_DECAY_SUBSTRINGS = ("bias", "scale", "gamma", "beta", "embedding", "gammas",
                        "running_mean", "running_var")
@@ -69,9 +71,53 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
             for name, _ in model.named_parameters()}
 
 
+def _sharded_square_sums(tensors) -> torch.Tensor:
+    """Each tensor's sum of squares over the whole tensor, fp32, (n,), where
+    some are DTensors (FSDP2's shards, tensor-parallel weights): a leaf's
+    local sum is summed over the mesh dims it is sharded over, one
+    all-reduce a mesh dim, and a leaf replicated over a dim is counted once
+    (trap 5 of the tensor-parallel port)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.mesh import _count
+
+    sq = list(torch.stack(torch._foreach_norm([local(t).float() for t in tensors])).square())
+    groups = {}  # mesh dim name -> (its group, the leaves sharded over it)
+    for i, t in enumerate(tensors):
+        if isinstance(t, DTensor):
+            for d, placement in enumerate(t.placements):
+                if placement.is_shard():
+                    name = t.device_mesh.mesh_dim_names[d]
+                    groups.setdefault(name, (t.device_mesh.get_group(d), []))[1].append(i)
+    for name in sorted(groups):  # the same order on every rank
+        group, leaves = groups[name]
+        part = torch.stack([sq[i] for i in leaves])
+        dist.all_reduce(part, group=group)
+        _count(part)
+        for j, i in enumerate(leaves):
+            sq[i] = part[j]
+    return torch.stack(sq)
+
+
+def _sharded(tensors) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def leaf_norms(tensors) -> torch.Tensor:
+    """Each tensor's norm, fp32, (n,): of the whole tensor where it is a
+    DTensor shard."""
+    if _sharded(tensors):
+        return _sharded_square_sums(tensors).sqrt()
+    return torch.stack(torch._foreach_norm([t.float() for t in tensors]))
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every element (``optax.global_norm``),
-    in fp32."""
+    in fp32; of the whole tensors where they are DTensor shards."""
+    if _sharded(tensors):
+        return _sharded_square_sums(tensors).sum().sqrt()
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -104,15 +150,16 @@ class AdamWBf16Moment(KeepStateDtypes):
             b1, b2 = group["betas"]
             b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
             neg_lr = _neg(group["lr"])
-            for p in group["params"]:
-                if p.grad is None:
+            for param in group["params"]:
+                if param.grad is None:
                     continue
-                state = self.state[p]
+                state = self.state[param]
+                p = local(param)  # a DTensor shard's own elements
                 if not state:
                     state.update(step=torch.zeros((), dtype=torch.float32, device=p.device),
                                  exp_avg=torch.zeros_like(p, dtype=torch.bfloat16),
                                  exp_avg_sq=torch.zeros_like(p, dtype=torch.float32))
-                g = p.grad.float()
+                g = local(param.grad).float()
                 step = state["step"].add_(1)
                 mu = (1.0 - b1) * g + b1_bf16 * state["exp_avg"].float()
                 nu = state["exp_avg_sq"].mul_(b2).add_((1.0 - b2) * (g * g))
@@ -138,12 +185,13 @@ class Lion(KeepStateDtypes):
             raise ValueError("Lion takes no closure")
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            params = [p for p in group["params"] if p.grad is not None]
-            for p in params:
+            owned = [p for p in group["params"] if p.grad is not None]
+            for p in owned:
                 if not self.state[p]:
-                    self.state[p]["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-            grads = [p.grad.float() for p in params]
-            mus = [self.state[p]["exp_avg"] for p in params]
+                    self.state[p]["exp_avg"] = torch.zeros_like(local(p), dtype=torch.float32)
+            grads = [local(p.grad).float() for p in owned]
+            mus = [self.state[p]["exp_avg"] for p in owned]
+            params = [local(p) for p in owned]  # DTensor shards' own elements
             updates = torch._foreach_mul(grads, 1.0 - b1)
             torch._foreach_add_(updates, torch._foreach_mul(mus, b1))
             torch._foreach_sign_(updates)
@@ -270,7 +318,7 @@ class Optimizer:
         if self.max_grad_norm is not None:
             scale = torch.where(grad_norm < self.max_grad_norm, torch.ones_like(grad_norm),
                                 self.max_grad_norm / grad_norm)
-            torch._foreach_mul_(grads, scale)
+            torch._foreach_mul_([local(g) for g in grads], scale)
         self.torch_optimizer.step()
         if self.acc:
             torch._foreach_zero_(self.acc)

@@ -30,13 +30,18 @@ ported.
 
 Multi-process runs (``scripts/launch.py``, or ``torch.distributed.run``
 directly; ``parallel.mesh.init_training``): ``training.batch_size`` is the
-global batch, split over the ranks, which dp x fsdp must divide; each rank
-reads its shards (split by rank) at its share of the batch, draws the
-masking noise for the global batch and keeps its rows; the train step
-averages the gradients inside its graph (``training/trainer.py``); the lr
-scales by the world size under ``scale_lr``; the ranks agree on the eval
-batch count before the eval's collectives; rank 0 alone writes metrics,
-panels and checkpoints while the others wait.
+global batch, split over the dp x fsdp coordinates, which must divide it;
+each rank reads its shards (split by that coordinate) at its share of the
+batch, draws the masking noise for the global batch and keeps its rows;
+the train step averages the gradients inside its graph
+(``training/trainer.py``); the lr scales by the world size under
+``scale_lr``; the ranks agree on the eval batch count before the eval's
+collectives; rank 0 alone writes metrics, panels and checkpoints while the
+others wait.  ``training.fsdp`` shards the model with FSDP2 and
+``training.tp`` splits its weights over tp ranks (``parallel.sharding``,
+``parallel.tensor_parallel``): the ranks of one tp group read the same
+rows, draw the same noise and dropout masks, and run the kernels on their
+own heads and columns; a sharded model's checkpoint holds whole weights.
 """
 
 from __future__ import annotations
@@ -62,8 +67,8 @@ from ..models.transformer_v1 import KeepMasks, MaskGitTransformer
 from ..models.transformer_v2 import MaskGiTUViT_v2
 from ..ops.sampling import get_mask_schedule
 from ..ops.vq import gumbel_noise
-from ..parallel.mesh import (MeshAxes, all_reduce_min, barrier, data_parallel, init_training,
-                             local_batch_slice, rank_and_world)
+from ..parallel.mesh import (MeshAxes, all_reduce_min, barrier, batch_share, data_parallel,
+                             init_training, local_batch_slice, rank_and_world)
 from ..parallel.sharding import shard_params
 from ..scripts.pre_encode import has_tokenizer_files, load_tokenizer, to_device
 from ..utils import logging as mlog
@@ -303,8 +308,8 @@ def build_state(config, device, world_size: int = 1, mesh=None) -> T.TrainState:
     gradient accumulation) and EMA from ``config``.  The v1 model takes no
     ``gradient_checkpointing``: the JAX package builds it without remat.
     ``scale_lr`` multiplies the lr by the global batch and the world size,
-    as the JAX trainer does.  On a ``mesh`` with fsdp > 1 the model is
-    sharded by FSDP2 before the optimizer sees it (``shard_model``)."""
+    as the JAX trainer does.  On a ``mesh`` with fsdp or tp > 1 the model
+    is sharded before the optimizer sees it (``shard_model``)."""
     tcfg = config.model.transformer.to_dict()
     architecture = config.model.get("architecture", "uvit")
     if architecture not in ARCHITECTURES:
@@ -334,15 +339,17 @@ def build_state(config, device, world_size: int = 1, mesh=None) -> T.TrainState:
 
 
 def shard_model(model, mesh) -> None:
-    """With fsdp > 1 on ``mesh``: the model's parameters sharded by the
-    partition rules (FSDP2), so that its steps' gradients are averaged over
-    dp alone (``data_parallel(mesh, fsdp_applied=True)``) and the step runs
-    eagerly (``TrainStep``).  Nothing otherwise."""
-    if mesh is None or mesh.size(MeshAxes.index("fsdp")) == 1:
+    """With fsdp or tp > 1 on ``mesh``: the model's parameters sharded by the
+    partition rules (``shard_params``): tp splits the weights over the tp
+    ranks (DTensors), fsdp shards them with FSDP2 on top, so that its steps'
+    gradients are averaged over dp alone (``data_parallel(mesh,
+    fsdp_applied=True)``) and the step runs eagerly (``TrainStep``).
+    Nothing otherwise."""
+    fsdp, tp = (1, 1) if mesh is None else (mesh.size(MeshAxes.index(a)) for a in ("fsdp", "tp"))
+    if fsdp * tp == 1:
         return
     shard_params(model, mesh)
-    logger.info("fsdp=%d: the model's parameters are FSDP2 shards; the train step runs eagerly",
-                mesh.size(MeshAxes.index("fsdp")))
+    logger.info("fsdp=%d, tp=%d: the model's parameters are DTensor shards", fsdp, tp)
 
 
 def _loggable(value):
@@ -503,7 +510,8 @@ def main(argv=None) -> T.TrainState:
                          config.training.get("tp", 1))
     mlog.set_verbosity_for_process()
     rank, world = rank_and_world()
-    rows = local_batch_slice(batch_size)
+    share = batch_share(mesh)  # the ranks of one tp group take the same rows
+    rows = local_batch_slice(batch_size, *share)
     is_main = rank == 0
     if mesh is not None:
         logger.info("rank %d of %d: rows %d - %d of the global batch %d", rank, world,
@@ -534,7 +542,7 @@ def main(argv=None) -> T.TrainState:
     encoders = None if pre_encode else FrozenEncoders.from_config(config, device)
     state = build_state(config, device, world, mesh)
     model = state.model
-    dp = data_parallel(mesh, fsdp_applied=T.is_sharded(model))
+    dp = data_parallel(mesh, fsdp_applied=T.is_fsdp(model))
     is_v1 = isinstance(model, MaskGitTransformer)
     logger.info("transformer params: %.1fM", sum(p.numel() for p in model.parameters()) / 1e6)
     autocast_dtype = torch.bfloat16 if config.training.get("mixed_precision") == "bf16" else None
@@ -597,6 +605,7 @@ def main(argv=None) -> T.TrainState:
     preprocessing = config.dataset.get("preprocessing") or {}
 
     def dataset(urls, center_crop: bool, **kw):
+        kw.update(process_index=share[0], process_count=share[1])
         if pre_encode:
             return PreEncodedDataset(
                 urls, local_batch, vae_checkpoint=ds_params.get("vae_checkpoint"),

@@ -33,9 +33,13 @@ A checkpoint is ``checkpoint-{step}/`` with ``metadata.json``,
 and ``training_state.pt`` (step, optimizer).  The JAX package's Orbax
 checkpoints are not read.  A model sharded by FSDP2
 (``parallel.sharding.shard_params``) steps eagerly, since its hooks and
-all-gathers are not captured into a graph (``TrainStep`` logs it once); its
-checkpoint holds the whole weights and EMA, gathered from every rank, and
-each rank's optimizer shard as ``training_state-rank{r}.pt``.
+all-gathers are not captured into a graph (``TrainStep`` logs it once), and
+so does one with tensor-parallel weights whose tp group is not NCCL's
+(gloo's collectives are not captured); under NCCL a tensor-parallel step is
+one captured graph, its collectives inside.  A sharded model's checkpoint
+(FSDP2, tensor-parallel or both) holds the whole weights and EMA, gathered
+from every rank, and each rank's optimizer shard as
+``training_state-rank{r}.pt``.
 """
 
 from __future__ import annotations
@@ -58,12 +62,13 @@ from ..models.taming_vqgan import to_nhwc
 from ..ops.losses import (cross_entropy_loss, soft_target_cross_entropy,
                           weighted_cross_entropy_loss)
 from ..parallel.mesh import SINGLE, DataParallel, rank_and_world
+from ..parallel.tensor_parallel import local, tensor_parallel_of
 from ..utils import logging as mlog
 from ..utils import training_utils as tu
 from .ema import EMA
 from .masking import (MaskingNoise, cond_keep_mask, mask_or_random_replace_tokens,
                       prepend_class_token)
-from .optimizers import Optimizer, flax_param_name, global_norm
+from .optimizers import Optimizer, flax_param_name, global_norm, leaf_norms
 
 logger = mlog.get_logger(__name__)
 
@@ -135,13 +140,27 @@ class VQGANSpec:
         return {"disc_factor": torch.full((), float(step >= self.disc_start), device=device)}
 
 
-def is_sharded(model: nn.Module) -> bool:
-    """True when ``model`` is FSDP2-sharded (``fully_shard``): its
-    parameters are DTensor shards but between a forward without a backward
-    (an eval) and the next step, when the root holds them whole."""
+def is_fsdp(model: nn.Module) -> bool:
+    """True when ``model`` is FSDP2-sharded (``fully_shard``)."""
     from torch.distributed.fsdp import FSDPModule
 
     return isinstance(model, FSDPModule)
+
+
+def is_sharded(model: nn.Module) -> bool:
+    """True when ``model``'s parameters are DTensor shards
+    (``parallel.sharding.shard_params``): FSDP2-sharded (but between a
+    forward without a backward (an eval) and the next step, when the root
+    holds them whole), tensor-parallel, or both."""
+    return is_fsdp(model) or tensor_parallel_of(model) is not None
+
+
+def steps_eagerly(model: nn.Module) -> bool:
+    """True when ``model``'s train step cannot be one captured graph: FSDP2's
+    hooks and all-gathers, or a tp group whose collectives (gloo's) are not
+    captured."""
+    tp = tensor_parallel_of(model)
+    return is_fsdp(model) or (tp is not None and not tp.nccl)
 
 
 def model_class(model: nn.Module) -> type:
@@ -267,10 +286,8 @@ def uvit_train_body(state: TrainState, spec: StepSpec, batch: Dict[str, torch.Te
         metrics["token_prob_deciles_by_bucket"] = \
             tu.token_prob_deciles_per_percent_masked_bucket(logits, input_ids, spec.mask_id)
     if spec.with_param_grad_norms:
-        norms = torch.stack(torch._foreach_norm([grads[i].float() for i, _ in _flax_leaves(model)]))
-        # FSDP2 shards' norms: a DTensor, whole after its reduction
-        metrics["param_grad_norms"] = norms.full_tensor() if hasattr(norms, "full_tensor") \
-            else norms
+        # DTensor shards' norms: of the whole tensors
+        metrics["param_grad_norms"] = leaf_norms([grads[i] for i, _ in _flax_leaves(model)])
     update(state, grad_norm, emit, dp)
     return metrics
 
@@ -465,12 +482,13 @@ class TrainStep:
         device = next(iter(batch.values())).device
         batch = {**batch, **self.spec.step_inputs(players[0].step, device)}
         names, tensors = _flat_inputs(batch, noise)
-        sharded = any(is_sharded(p.model) for p in players)
-        if sharded and graph and device.type == "cuda" and not self._told_eager:
-            logger.warning("the model is FSDP2-sharded: its train step runs eagerly (FSDP2's "
-                           "hooks and all-gathers are not captured into a CUDA graph)")
+        eagerly = any(steps_eagerly(p.model) for p in players)
+        if eagerly and graph and device.type == "cuda" and not self._told_eager:
+            logger.warning("the model is FSDP2-sharded or its tensor-parallel group is not "
+                           "NCCL's: its train step runs eagerly (FSDP2's hooks and all-gathers "
+                           "and gloo's collectives are not captured into a CUDA graph)")
             self._told_eager = True
-        if not graph or sharded or all(t.device.type == "cpu" for t in tensors):
+        if not graph or eagerly or all(t.device.type == "cpu" for t in tensors):
             metrics = self.body(state, self.spec, batch, noise, emit)
         else:
             metrics = self._replay(state, players, (type(noise), names), tensors, emit)
@@ -488,7 +506,7 @@ class TrainStep:
             if emit:
                 held += p.optimizer.state_tensors()
         return (names, tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
-                pointer_key(held))
+                pointer_key(local(t) for t in held))
 
     def _replay(self, state, players, names, tensors, emit):
         key = self._key(players, names, tensors, emit)
@@ -670,10 +688,29 @@ def _save_model(path: str, model, state_dict) -> None:
     torch.save(state_dict, os.path.join(path, WEIGHTS_NAMES[1]))
 
 
+def _whole(v):
+    """A DTensor gathered whole: on a 1-D mesh of even shards (tensor-parallel
+    weights) by a list all-gather, which gloo also takes for CUDA tensors;
+    otherwise by ``full_tensor``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(v, DTensor):
+        return v
+    mesh, (placement,) = v.device_mesh, v.placements[:1]
+    if mesh.ndim != 1 or (placement.is_shard() and v.shape[placement.dim] % mesh.size()):
+        return v.full_tensor()
+    part = v.to_local().detach()
+    if not placement.is_shard():
+        return part
+    parts = [torch.empty_like(part) for _ in range(mesh.size())]
+    torch.distributed.all_gather(parts, part.contiguous(), group=mesh.get_group())
+    return torch.cat(parts, dim=placement.dim)
+
+
 def full_tensors(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Whole tensors of a state: DTensor shards gathered from every rank
     (a collective: every rank calls it)."""
-    return {k: v.full_tensor() if hasattr(v, "full_tensor") else v for k, v in tensors.items()}
+    return {k: _whole(v) for k, v in tensors.items()}
 
 
 def save_checkpoint(output_dir: str, state: TrainState,

@@ -331,6 +331,58 @@ def test_glu_backward_kernel_matches_plain(device, m, k, n):
         assert torch.equal(mine, twice), name
 
 
+@pytest.mark.parametrize("heads", [8, 4])
+def test_sublayer_kernels_on_a_head_shard_match_plain(device, heads):
+    """A tensor-parallel rank's shard of the training shapes: x (16, 256,
+    1024) with 8 heads (tp 2: inner width 512, wqkv (1536, 1024), wout
+    (1024, 512), kv (16, 77, 1024)) and 4 (tp 4); kernels 9 - 12 against
+    their plain versions (forward rel 3e-2, the residual bit-equal;
+    backward ``BWD_TOL``), two calls bit-equal."""
+    gen = torch.Generator().manual_seed(heads)
+    b, s, d, inner = 16, 256, 1024, 64 * heads
+    x, res = _rand(gen, b, s, d), _rand(gen, b, s, d)
+    ln, adaln = 1 + _rand(gen, d, scale=0.1), _rand(gen, b, 2 * d, scale=0.1)
+    wqkv, wq = _rand(gen, 3 * inner, d, scale=d ** -0.5), _rand(gen, inner, d, scale=d ** -0.5)
+    wout, kv = _rand(gen, d, inner, scale=inner ** -0.5), _rand(gen, b, 77, 2 * inner)
+    g_out, g_res = _rand(gen, b, s, d, scale=0.01), _rand(gen, b, s, d, scale=0.01)
+    for kern, plain, bwd, bwd_plain, w in (
+            (kernels.attn_sublayer_self, A.attn_sublayer_self_plain, kernels.attn_sublayer_self_bwd,
+             A.attn_sublayer_self_bwd_plain, (wqkv, wout)),
+            (kernels.attn_sublayer_cross, A.attn_sublayer_cross_plain,
+             kernels.attn_sublayer_cross_bwd, A.attn_sublayer_cross_bwd_plain, (wq, wout, kv))):
+        out, hh = kern(x, res, ln, adaln, *w, heads)
+        ref, ref_h = plain(x, res, ln, adaln, *w, heads)
+        assert _rel(out, ref) <= 3e-2 and torch.equal(hh, ref_h), kern.__name__
+        assert torch.equal(out, kern(x, res, ln, adaln, *w, heads)[0]), kern.__name__
+        got = bwd(x, res, ln, adaln, *w, g_out, g_res, heads)
+        again = bwd(x, res, ln, adaln, *w, g_out, g_res, heads)
+        for i, (mine, want) in enumerate(zip(got, bwd_plain(x, res, ln, adaln, *w, g_out, g_res,
+                                                             heads))):
+            assert mine.shape == want.shape and _rel(mine, want) <= BWD_TOL, (bwd.__name__, i)
+            assert torch.equal(mine, again[i]), (bwd.__name__, i)
+
+
+@pytest.mark.parametrize("k", [1408, 704])
+def test_glu_kernels_on_a_column_shard_match_plain(device, k):
+    """The GLU at a tensor-parallel rank's columns of the flagship's 2816
+    (tp 2: 1408, tp 4: 704) at the training rows: kernel 7 within rel 2e-2
+    and kernel 8's outputs within ``BWD_TOL`` of the plain versions, two
+    calls bit-equal."""
+    gen = torch.Generator().manual_seed(k)
+    m, n = 4096, 1024
+    a, b = _rand(gen, m, k), _rand(gen, m, k)
+    wo, g = _rand(gen, n, k, scale=k ** -0.5), _rand(gen, m, n, scale=0.1)
+    got = kernels.glu_down_matmul(a, b, wo)
+    assert _rel(got, glu_down_matmul_plain(a, b, wo)) <= 2e-2
+    assert torch.equal(got, kernels.glu_down_matmul(a, b, wo))
+    got = kernels.glu_down_matmul_bwd(a, b, wo, g)
+    again = kernels.glu_down_matmul_bwd(a, b, wo, g)
+    for name, mine, want, twice in zip(("da", "db", "dwo"), got,
+                                       glu_down_matmul_bwd_plain(a, b, wo, g), again):
+        assert _rel(mine, want) <= BWD_TOL, (name, _rel(mine, want))
+        assert torch.equal(mine, twice), name
+
+
 def _small_v2(device):
     """Two trunk layers and one down / up block pair, heads of 64 in the
     trunk and in the attention blocks (the sublayer and attention kernels'

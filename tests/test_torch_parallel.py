@@ -19,7 +19,20 @@ its sample and inpainting panels; and sharded ``compile_text2image`` at batch 2 
 3 (3 does not divide over 2 ranks) under noise JAX draws, whose token ids
 must equal the unsharded port call's and JAX's (the unsharded call's images
 equal JAX's: ``test_torch_pipeline.py``), images within 1e-5 of the range
-of the unsharded call's (the VQ decode at another batch).  One pair of processes for the whole file, with its own timeout.
+of the unsharded call's (the VQ decode at another batch).  Tensor-parallel
+weights (``training.tp=2``, the whole batch on both ranks): two v2 steps of
+a U-ViT with 4 heads (2 a rank: the fused sublayers' plain versions on head
+shards) and two v1 text steps (biases, RMSNorm, the Normformer mid-MLP
+norm, dropout 0.1 on the JAX step's masks, cond dropout), whose metrics
+(rtol 2e-5) and whole weights and EMA must equal the single-process
+port's and the JAX step's on a (1, 1, 2) JAX mesh (atol 2e-6 where
+AdamW's first moment exceeds 1e-7, else the lr: see
+``test_torch_train_v1._assert_params``); ``8bit_adamw`` at tp=2 against
+one process (its blocks that straddle the shards take the largest absmax
+of their parts); ``train_muse.main`` at ``training.tp=2`` for v2 and v1,
+the v2 checkpoint of whole weights read by one port process and by the
+JAX loader, then resumed.  One pair of processes for the whole file, with
+its own timeout.
 """
 
 import dataclasses
@@ -51,12 +64,17 @@ from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
 from open_muse_tpu_torch.parallel import sharding
 from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
 from open_muse_tpu_torch.training.optimizers import flax_param_name
-from test_torch_models import UVIT_TINY, VQGAN_TINY, port_of, random_params
+from open_muse_tpu.training import lr_schedules as jlr
+from open_muse_tpu.training import trainer as jtrainer
+from open_muse_tpu.ops.sampling import get_mask_schedule as jax_mask_schedule
+from open_muse_tpu.training.optimizers import get_optimizer as jax_get_optimizer
+from test_torch_models import UVIT_TINY, VQGAN_TINY, port_of, random_params, uvit_inputs
 from test_torch_pipeline import CLIP_FOR_UVIT, jax_noise
 from test_torch_train_cli import REPO_ROOT, _argv, make_preencoded_shard
 from test_torch_train_raw import _raw_argv, write_raw_shard
+from test_torch_train_v1 import _v1_text_argv, jax_keep_masks, v1_pair_with_dropout
 from test_torch_training import (_assert_state_matches, _batches, _jax_and_port_steps,
-                                 _port_noise, _port_params)
+                                 _port_noise, _port_params, jax_masking_noise, uvit_pair)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the pair takes ~45 s alone; a loaded machine (the whole suite in
@@ -144,6 +162,112 @@ def _serving_pipelines():
 PROMPTS = ["a photo of a cat", "two red cubes", "a dog on a beach"]
 
 
+# a U-ViT whose 4 heads split 2 a rank at tp=2: the fused sublayers run
+UVIT_TP = dict(hidden_size=256, num_attention_heads=4)
+TP_STEPS = 2
+
+
+def _jax_steps(jm, jstep_fn, steps, mesh=None, **kw):
+    """``steps`` JAX steps (AdamW, warmup over 2 updates, clip 1, EMA) from
+    ``jm``'s params, on ``mesh`` when given: (state, [metrics])."""
+    tx = jax_get_optimizer("adamw", jlr.get_scheduler("constant_with_warmup", 1e-3, 2),
+                           weight_decay=0.01, max_grad_norm=1.0)
+    params = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), jm.params)  # donated
+    jstate = jtrainer.create_train_state(params, tx, mesh=mesh, with_ema=True)
+    jstep = jstep_fn(jm.module, tx, jax_mask_schedule("cosine"), jm.config.mask_token_id,
+                     codebook_size=jm.config.codebook_size, **kw)
+    metrics = []
+    for batch, key in steps:
+        jstate, m = jstep(jstate, batch, key)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return jstate, metrics
+
+
+def _single(case, optimizer_name="adamw"):
+    """The single-process port's two steps of ``case``, as the workers run
+    them sharded (``torch_parallel_worker.tp_steps``)."""
+    from torch_parallel_worker import tp_steps
+
+    out = tp_steps(case, None, optimizer_name)
+    state = out.pop("state")
+    out["model"] = state.model
+    if optimizer_name == "adamw":
+        moments = state.optimizer.torch_optimizer.state
+        out["moments"] = {n: moments[p]["exp_avg"] for n, p in state.model.named_parameters()}
+    return out
+
+
+def _tp_cases(work):
+    """The tp=2 cases the workers run, with the single-process port's and
+    JAX's results on a (1, 1, 2) mesh."""
+    mesh = jax_create_mesh(dp=1, fsdp=1, tp=2, devices=jax.devices()[:2])
+    # v2: the batch whole on both ranks; JAX keys -> the port's noise
+    jm, port = uvit_pair(7, **UVIT_TP)
+    weights = {k: v.clone() for k, v in port.state_dict().items()}
+    ids, ehs, cond, micro = uvit_inputs(8, batch=4)
+    jbatch = {"image_tokens": jnp.asarray(ids % jm.config.codebook_size),
+              "encoder_hidden_states": jnp.asarray(ehs), "cond_embeds": jnp.asarray(cond),
+              "micro_conds": jnp.asarray(micro)}
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+    tbatch["image_tokens"] = tbatch["image_tokens"].long()
+    keys = [jax.random.PRNGKey(800 + i) for i in range(TP_STEPS)]
+    noise = [_port_noise(k, np.asarray(jbatch["image_tokens"]), jm.config.codebook_size)
+             for k in keys]
+    v2 = {"kind": "v2", "config": dataclasses.asdict(port.config), "weights": weights,
+          "batch": tbatch, "noise": noise, "mask_id": jm.config.mask_token_id,
+          "codebook": jm.config.codebook_size}
+    refs = {"v2": {"jax_mesh": _jax_steps(jm, jtrainer.make_uvit_train_step,
+                                          [(jbatch, k) for k in keys], mesh),
+                   "port": _single(v2), "port_8bit": _single(v2, "8bit_adamw"), "jm": jm}}
+    # v1 text: biases, RMSNorm, Normformer norms, dropout 0.1, cond dropout 0.5
+    jm1, port1 = v1_pair_with_dropout("text_rms_bias")
+    cfg = jm1.config
+    rs = np.random.RandomState(13)
+    tokens = rs.randint(0, cfg.codebook_size, size=(4, cfg.num_vq_tokens)).astype(np.int32)
+    ehs1 = rs.randn(4, 5, 48).astype(np.float32)
+    jbatch1 = {"image_tokens": jnp.asarray(tokens), "encoder_hidden_states": jnp.asarray(ehs1)}
+    keys1 = [jax.random.PRNGKey(900 + i) for i in range(TP_STEPS)]
+    masks, noise1 = [], []
+    jax_kw = {"cond_dropout_prob": 0.5, "ema_decay": 0.9999}
+    # flax's dropout masks depend on the key and the shapes, not on the
+    # params: each step's come from its key through the initial params
+    for key in keys1:
+        mask_key, drop_key, dropout_key = jax.random.split(key, 3)
+        masks.append(jax_keep_masks(jm1, jm1.params, dropout_key,
+                                    jnp.zeros((4, cfg.num_vq_tokens), jnp.int32),
+                                    jnp.asarray(ehs1))[0])
+        n = jax_masking_noise(mask_key, *tokens.shape, cfg.codebook_size)
+        n.cond_dropout = torch.from_numpy(np.array(
+            jax.random.uniform(drop_key, (4, 1, 1)))).reshape(-1)
+        noise1.append(n)
+    v1 = {"kind": "v1", "config": dataclasses.asdict(port1.config),
+          "weights": {k: v.clone() for k, v in port1.state_dict().items()},
+          "batch": {"image_tokens": torch.from_numpy(tokens).long(),
+                    "encoder_hidden_states": torch.from_numpy(ehs1)},
+          "noise": noise1, "masks": masks, "mask_id": cfg.mask_token_id,
+          "codebook": cfg.codebook_size}
+    refs["v1"] = {"jax_mesh": _jax_steps(jm1, jtrainer.make_v1_text2image_train_step,
+                                         [(jbatch1, k) for k in keys1], mesh, **jax_kw),
+                  "port": _single(v1), "jm": jm1}
+    # train_muse.main at tp=2: the CLI's tiny U-ViT with 4 heads, and v1 text
+    shard = str(work / "tp-enc-000.tar")
+    make_preencoded_shard(shard, 8)
+    tp_out = str(work / "main_tp")
+    widths = [f"model.transformer.{k}={v}" for k, v in UVIT_TP.items()]
+    main_v2 = _argv(shard, tp_out, 2) + widths + ["training.tp=2", "device=cpu"]
+    resume = [a for a in main_v2 if not a.startswith(("training.max_train_steps",
+                                                       "experiment.resume"))]
+    v1_shard = str(work / "tp-v1-000.tar")
+    make_preencoded_shard(v1_shard, 8, seq=256, text_dim=48)
+    out = {"v2": v2, "v1": v1, "main_v2": main_v2,
+           "main_v2_resume": resume + ["training.max_train_steps=3",
+                                       "experiment.resume_from_checkpoint=latest"],
+           "main_v1": _v1_text_argv(v1_shard, str(work / "main_tp_v1"), 2,
+                                    extra=["training.pre_encode=true", "training.tp=2"])}
+    refs["main_out"] = tp_out
+    return out, refs
+
+
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
     """The single-process port and JAX results, and both ranks' outputs."""
@@ -211,11 +335,12 @@ def cluster(tmp_path_factory):
         serve_ref[batch] = {"images": images, "tokens": tokens,
                             "jax_tokens": np.asarray(jax_tokens)}
 
+    tp_inputs, tp_refs = _tp_cases(work)
     torch.save({"config": dataclasses.asdict(port.config), "weights": weights,
                 "batch": tbatch, "noise": noises, "mask_id": jm.config.mask_token_id,
                 "codebook": jm.config.codebook_size, "main_argv": main_argv,
-                "main_out": main_out, "raw_argv": raw_argv, "serve": serve},
-               str(work / "inputs.pt"))
+                "main_out": main_out, "raw_argv": raw_argv, "serve": serve,
+                "tp": tp_inputs}, str(work / "inputs.pt"))
     port_number = _free_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("MUSE_", "RANK", "WORLD_SIZE", "MASTER_", "LOCAL_RANK"))}
@@ -243,7 +368,7 @@ def cluster(tmp_path_factory):
     return {"base_lr": base_lr, "jstate": jstate, "jax_metrics": jax_metrics, "single": single,
             "state": state, "acc": (acc_port, acc_jstate, acc_single),
             "port": port, "ranks": ranks, "serve_ref": serve_ref, "main_out": main_out,
-            "raw_out": raw_out}
+            "raw_out": raw_out, "tp": tp_refs}
 
 
 def _metrics_close(got, want, names=("loss", "grad_norm", "avg_masking_rate")):
@@ -365,3 +490,95 @@ def test_sharded_text2image_equals_the_unsharded_call_and_jax(cluster, batch):
         # the VQ decode of 1 - 2 rows a rank against all rows: fp32 summation order
         scale = np.abs(ref["images"].numpy()).max()
         assert np.abs(got["images"].numpy() - ref["images"].numpy()).max() <= 1e-5 * scale
+
+
+# -- tensor-parallel weights (training.tp = 2) ---------------------------------------
+
+def assert_adamw_params(got, want, moments, lr=1e-3):
+    """``got`` (whole weights or EMA) against ``want`` as
+    ``test_torch_train_v1._assert_params`` holds them: atol 2e-6 where the
+    single-process port's AdamW first moment exceeds 1e-7, else the lr (m /
+    (sqrt(v) + eps) of an exactly-zero gradient's fp32 noise: the attention
+    key biases)."""
+    for name in moments:
+        err = np.abs(got[name].numpy() - want[name].numpy())
+        sharp = (moments[name].abs() > 1e-7).numpy()
+        assert err[sharp].max(initial=0) <= 2e-6, (name, err[sharp].max())
+        assert err.max() <= lr, (name, err.max())
+
+
+def _tp_case_matches(cluster, kind):
+    """Both ranks' tp=2 steps of ``kind``: the metrics equal the
+    single-process port's and the JAX step's on the (1, 1, 2) mesh to rtol
+    2e-5; the whole weights and EMA equal the port's and JAX's as
+    ``assert_adamw_params`` holds them (fp32, summation order)."""
+    refs = cluster["tp"][kind]
+    single = refs["port"]
+    port = refs["port"]["model"]
+    moments = refs["port"]["moments"]
+    for rank in cluster["ranks"]:
+        got = rank["tp"][kind]
+        assert got["sharded"]
+        want_metrics = [{k: float(v) for k, v in m.items() if v.dim() == 0}
+                        for m in single["metrics"]]
+        got_metrics = [{k: float(v) for k, v in m.items() if v.dim() == 0}
+                       for m in got["metrics"]]
+        _metrics_close(got_metrics, want_metrics)
+        _metrics_close(got_metrics, refs["jax_mesh"][1])
+        for key in ("params", "ema"):
+            assert_adamw_params(got[key], single[key], moments)
+        jstate = refs["jax_mesh"][0]
+        assert_adamw_params(got["params"], _port_params(jstate.params, port), moments)
+        assert_adamw_params(got["ema"], _port_params(jstate.ema_params, port), moments)
+
+
+def test_tp2_v2_steps_match_the_single_process_port_and_jax(cluster):
+    _tp_case_matches(cluster, "v2")
+    for rank in cluster["ranks"]:  # the per-parameter grad norms: of the whole leaves
+        for got, want in zip(rank["tp"]["v2"]["metrics"], cluster["tp"]["v2"]["port"]["metrics"]):
+            np.testing.assert_allclose(got["param_grad_norms"].numpy(),
+                                       want["param_grad_norms"].numpy(), rtol=2e-5, atol=1e-7)
+
+
+def test_tp2_v1_text_steps_match_the_single_process_port_and_jax(cluster):
+    _tp_case_matches(cluster, "v1")
+
+
+def test_tp2_8bit_adamw_matches_one_process(cluster):
+    """``8bit_adamw`` at tp=2: the GLU's column shards (128 of 256 a rank)
+    cut its 256-wide blocks, which take the largest absmax of their parts,
+    so the codes are the whole leaf's.  The weights equal the single-process
+    port's to atol 2e-6 but at the rare elements whose moment sits at a
+    code's tie (fp32 summation order flips the code): at most 1e-3 of a
+    leaf's elements, each within the lr."""
+    want = cluster["tp"]["v2"]["port_8bit"]
+    for rank in cluster["ranks"]:
+        got = rank["tp"]["v2_8bit"]
+        for name, p in want["params"].items():
+            err = np.abs(got["params"][name].numpy() - p.numpy())
+            assert (err > 2e-6).mean() <= 1e-3, (name, (err > 2e-6).mean())
+            assert err.max() <= 1e-3, (name, err.max())
+
+
+def test_tp2_main_saves_whole_weights_read_by_one_process_and_jax(cluster):
+    """``train_muse.main`` at ``training.tp=2`` (v2, the kernels' plain
+    versions on 2 heads a rank): the parameters are DTensor shards, rank 0
+    writes whole weights, which one port process and the JAX loader read
+    equal to both ranks' gathered weights; a resume re-shards them and
+    steps on; the v1 text run at tp=2 finishes too."""
+    from open_muse_tpu.models.transformer_v2 import MaskGiTUViT_v2 as JaxModel
+
+    ckpt = os.path.join(cluster["tp"]["main_out"], "checkpoint-2", "unwrapped_model")
+    model = MaskGiTUViT_v2.from_pretrained(ckpt, device="cpu")
+    saved = model.state_dict()
+    jax_saved = _port_params(JaxModel.from_pretrained(ckpt).params, model)
+    a, b = (r["tp"]["main_v2"] for r in cluster["ranks"])
+    for got in (a, b):
+        assert got["sharded"] and got["step"] == 2 and got["resumed_step"] == 3
+        assert set(got["params"]) == set(saved)
+        for name, p in saved.items():
+            assert torch.equal(got["params"][name], p), name
+            assert torch.equal(jax_saved[name], p), name
+    for r in cluster["ranks"]:
+        assert r["tp"]["main_v1"]["sharded"] and r["tp"]["main_v1"]["step"] == 2
+

@@ -22,15 +22,127 @@ against the single-process port and JAX:
   ``raw_fsdp``: the raw-image branch with ``training.fsdp=2``, its sample
   and inpainting panels at step 2 (the sharded weights gathered on both
   ranks, rank 0 sampling);
-- ``serve``: sharded ``compile_text2image`` at batch 2 and 3.
+- ``serve``: sharded ``compile_text2image`` at batch 2 and 3;
+- ``tp`` (tensor-parallel weights, ``training.tp``; the whole batch on both
+  ranks): two tp=2 steps each of the v2 U-ViT (AdamW, and ``8bit_adamw``)
+  and of the v1 text model (dropout on the JAX step's masks, handed over
+  whole), the whole weights and EMA gathered after; ``train_muse.main`` at
+  ``training.tp=2`` for v2 (its checkpoint, then a resumed step) and v1.
+
+Run with a world of 4 (``tests/test_torch_tensor_parallel.py``), it runs the
+fsdp=2 x tp=2 stages alone: two v2 steps, and ``train_muse.main`` for v2
+(pre-encoded and raw, with its panels) and v1 at ``training.fsdp=2
+training.tp=2``; and two tp=4 steps of a v2 with 12 heads (3 a rank).
 """
 
+import collections
+import contextlib
 import os
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
+
+
+class _Masks:
+    """Dropout keep masks handed over in order (the JAX step's own)."""
+
+    def __init__(self, masks):
+        self.masks = list(masks)
+
+    def __call__(self, shape, keep_prob, device):
+        import torch
+
+        keep = torch.from_numpy(self.masks.pop(0))
+        assert tuple(keep.shape) == tuple(shape), (keep.shape, shape)
+        return keep.to(device)
+
+
+@contextlib.contextmanager
+def _counted(module, name, calls):
+    """``module.name`` counting its calls into ``calls[name]`` while open."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[name] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def tp_steps(case, mesh, optimizer_name="adamw"):
+    """Two steps of ``case`` (a dict of the test's inputs) with the model
+    sharded over ``mesh`` (None: one process), each rank on its batch
+    share's rows: the metrics, and the whole weights and EMA after."""
+    import torch
+
+    from open_muse_tpu_torch.models.transformer_v1 import MaskGitTransformer
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+    from open_muse_tpu_torch.ops.sampling import get_mask_schedule
+    from open_muse_tpu_torch.parallel import mesh as M
+    from open_muse_tpu_torch.parallel.sharding import shard_params
+    from open_muse_tpu_torch.training import lr_schedules as tlr
+    from open_muse_tpu_torch.training import trainer as T
+    from open_muse_tpu_torch.training.ema import EMA
+    from open_muse_tpu_torch.training.optimizers import get_optimizer
+
+    from open_muse_tpu_torch.models import transformer_v2 as V2
+
+    v1 = case["kind"] == "v1"
+    cls = MaskGitTransformer if v1 else MaskGiTUViT_v2
+    model = cls(cls.config_from_dict(case["config"]))
+    model.load_state_dict(case["weights"])
+    model.train()
+    if mesh is not None:
+        shard_params(model, mesh)
+    optimizer = get_optimizer(optimizer_name, model,
+                              tlr.get_scheduler("constant_with_warmup", 1e-3, 2),
+                              weight_decay=0.01, max_grad_norm=1.0)
+    state = T.TrainState(model=model, optimizer=optimizer, ema=EMA(model))
+    dp = M.data_parallel(mesh, fsdp_applied=T.is_fsdp(model))
+    schedule = get_mask_schedule("cosine")
+    if v1:
+        step = T.make_v1_text2image_train_step(
+            schedule, case["mask_id"], codebook_size=case["codebook"], cond_dropout_prob=0.5,
+            dropout=_Masks([m for masks in case["masks"] for m in masks]), data_parallel=dp)
+    else:
+        step = T.make_uvit_train_step(schedule, case["mask_id"], codebook_size=case["codebook"],
+                                      data_parallel=dp, with_param_grad_norms=True)
+    rows = M.local_batch_slice(case["batch"]["image_tokens"].shape[0], *M.batch_share(mesh))
+    local = {k: v[rows] for k, v in case["batch"].items()}
+    calls = collections.Counter()
+    with _counted(V2, "attn_sublayer_self", calls), _counted(V2, "attn_sublayer_cross", calls):
+        metrics = [{k: v.clone() for k, v in step(state, local, noise.rows(rows)).items()}
+                   for noise in case["noise"]]
+    layer = model.transformer_layers[0]
+    out = {"metrics": metrics, "params": T.full_tensors(model.state_dict()),
+           "ema": T.full_tensors(state.ema.shadow), "sharded": T.is_sharded(model),
+           "sublayer_calls": dict(calls),
+           "split": {"attention": layer.attention.tp is not None,
+                     "ffn": getattr(layer.ffn, "tp", None) is not None}}
+    if mesh is None:
+        out["state"] = state
+    return out
+
+
+def tp_main(argv, resume_argv=None):
+    """``train_muse.main`` on ``argv``: its step count, whether its model is
+    sharded, and its whole weights; with ``resume_argv`` also the step a
+    resumed run ends at."""
+    from open_muse_tpu_torch.training import trainer as T
+    from open_muse_tpu_torch.training.train_muse import main as train_main
+
+    trained = train_main(argv)
+    out = {"step": trained.step, "sharded": T.is_sharded(trained.model),
+           "params": T.full_tensors(trained.model.state_dict())}
+    if resume_argv is not None:
+        out["resumed_step"] = train_main(resume_argv).step
+    return out
 
 
 def _step_state(inputs, model_cls, build_optimizer):
@@ -61,6 +173,17 @@ def main():
 
     assert M.initialize_distributed("cpu") is True
     assert dist.get_world_size() == world and dist.get_backend() == "gloo"
+    if world == 4:  # fsdp = 2 x tp = 2
+        inputs = torch.load(os.path.join(workdir, "inputs4.pt"), weights_only=False)
+        mesh = M.create_mesh(dp=1, fsdp=2, tp=2, device="cpu")
+        out = {"steps": tp_steps(inputs["v2"], mesh),
+               "tp4": tp_steps(inputs["v2_tp4"], M.create_mesh(dp=1, tp=4, device="cpu")),
+               **{run: tp_main(inputs[run]) for run in ("main_v2", "main_v1", "main_raw")}}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        M.barrier()
+        dist.destroy_process_group()
+        print(f"worker {rank}: done", flush=True)
+        return
     inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
     out = {}
     rows = M.local_batch_slice(inputs["batch"]["image_tokens"].shape[0])
@@ -147,6 +270,14 @@ def main():
                                      mesh=mesh)
         images, tokens = fn(ids, micro, noise, return_tokens=True)
         out["serve"][batch] = {"images": images, "tokens": tokens}
+
+    # tp = 2: tensor-parallel weights, the batch whole on both ranks
+    tp_mesh = M.create_mesh(dp=1, tp=2, device="cpu")
+    tp = inputs["tp"]
+    out["tp"] = {"v2": tp_steps(tp["v2"], tp_mesh), "v1": tp_steps(tp["v1"], tp_mesh),
+                 "v2_8bit": tp_steps(tp["v2"], tp_mesh, "8bit_adamw"),
+                 "main_v2": tp_main(tp["main_v2"], tp["main_v2_resume"]),
+                 "main_v1": tp_main(tp["main_v1"])}
 
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     M.barrier()
