@@ -12,6 +12,10 @@ directly (eager); the token ids of the two must be equal:
 - serving: three 256px / batch-1 / 12-step CFG text-to-image requests through
   ``PipelineMuse.text2image`` (one graph: text tower, decode, VQGAN decode);
 - serving_nocfg: three such requests at guidance 0 (the CFG-free sampler);
+- serving_512: three 512px / batch-1 / 12-step CFG requests of
+  ``configs/research_run_512.yaml``'s transformer (the flagship's 1024-token
+  trunk: kernel 9's attention takes kernel 5's two-pass variant) through
+  ``text2image(seq_len=1024)``;
 - inpainting: three 256px / batch-1 / 12-step CFG requests through
   ``PipelineMuseInpainting.inpaint`` (one graph: the VQGAN encoder and
   ``vq_argmin``, the decode, the VQGAN decode);
@@ -182,6 +186,9 @@ HBM_BYTES_PER_S = 3.35e12
 # compute capability 9.0 for 32-bit integer multiply-add and for bitwise
 # operations) x the 1.98 GHz boost clock
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int32": 132 * 64 * 1.98e9}
+# ex2 results a second: the same table's 16 a clock an SM for the special
+# function unit (base-2 exponential) x 132 SMs x the 1.98 GHz boost clock
+MUFU_PER_S = 132 * 16 * 1.98e9
 BOUNDS = {}  # kernel -> (bytes, operations, type), from the timed inputs
 # kernel -> ms of one PyTorch call computing the same function on the timed
 # inputs (a yardstick only: the port never calls it)
@@ -203,8 +210,9 @@ def bound_ms(name):
 
 
 def zero_counts() -> dict:
-    """Every launch counter at 0: the 12 kernels' wrappers and kernel 5's
-    two-pass variant, counted apart."""
+    """Every launch counter at 0: the 12 kernels' wrappers, kernel 5's
+    two-pass variant counted apart, and the kernel 9 / 10 forwards whose
+    attention takes it."""
     from open_muse_tpu_torch import kernels
 
     return {name: 0 for name in kernels.launch_counts()}
@@ -780,12 +788,14 @@ def check_vq(device, gen, splits=None):
 # the norms' path shapes: v1's 257 tokens (class + 256) and v2's CFG batch of
 # 2 x 256 at width 768 with a residual, v2's trunk pre-MLP LayerNorm at 1024
 # with one, the v1 trainers' norms at batch 64 (the class model's 768 and
-# 3072, the text model's 1024: no residual), v1's 3072-wide mid-MLP norm
-# without; the report's row is the last, residual-free shape, where one
-# PyTorch call (F.rms_norm / F.layer_norm) computes the same function
+# 3072, the text model's 1024: no residual), the CC12M / MOVQ v1 models'
+# 4096-wide mid-MLP norm under CFG (2 x 1024 tokens) and at the text
+# trainer's batch, v1's 3072-wide mid-MLP norm without; every residual-free
+# shape is also timed as one PyTorch call (F.rms_norm / F.layer_norm), which
+# computes the same function; the report's row is the last shape
 NORM_SHAPES = (((1, 257, 768), True), ((2, 256, 768), True), ((2, 256, 1024), True),
                ((64, 257, 768), False), ((64, 257, 3072), False), ((64, 256, 1024), False),
-               ((1, 257, 3072), False))
+               ((2, 1024, 4096), False), ((64, 256, 4096), False), ((1, 257, 3072), False))
 NORM_EPS, NORM_TOL = 1e-6, 1e-2
 
 
@@ -842,11 +852,12 @@ def check_norms(device, gen):
                     f"rounding), prenorm bit-equal {pre_ok}, two calls bit-equal {twice}; kernel "
                     f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms (CUDA graph replay), bound "
                     f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) {'ok' if case_ok else 'FAIL'}")
+            if res is None:  # one PyTorch call computes the same function
+                lib_ms = graph_ms(lambda: lib(x, w))
+                lib_err = errors(lib(x, w), ref)[1]
+                log(f"[kernel] {name} library call on x {shape}: {lib_ms:.4f} ms (CUDA graph "
+                    f"replay; rel {lib_err:.3e} vs plain)")
         # the last shape, residual-free, in the model staging is the report's row
-        lib_ms = graph_ms(lambda: lib(x, w))
-        lib_err = errors(lib(x, w), ref)[1]
-        log(f"[kernel] {name} library call on x {shape}: {lib_ms:.4f} ms (CUDA graph replay; "
-            f"rel {lib_err:.3e} vs plain)")
         LIBRARY_MS[name] = lib_ms
         results[name] = (ok, worst, ms)
         # x read and out written once, the scale read once; fp32 operations
@@ -861,8 +872,9 @@ def check_norms(device, gen):
 # training batch of 16; 256 keys at head_dim 64, the split one-pass variant
 # that v1 takes at 48; above the one-pass capacity of 288 keys (the two-pass
 # variant) the MOVQ configs' 1024-token trunks: the class model's 1025
-# tokens at batch 1, the text model's 1024 under CFG (batch 2) and its
-# cross-attention over 77 T5 keys; the v1 trainers' batch of 64: the class
+# tokens at batch 1, the text model's 1024 under CFG (batch 2: also the
+# 512px v2's self-attention inside kernel 9) and its cross-attention over 77
+# T5 keys; the v1 trainers' batch of 64: the class
 # model's self-attention, the text model's self-attention and its
 # cross-attention over 32 text keys; last v1's self-attention (257 tokens,
 # 16 heads of 48, q / k / v views into the fused projection), the report's
@@ -901,9 +913,12 @@ def _flash_case(device, gen, b, tq, tk, heads, d):
     ms, plain ms), SDPA ms, (bytes, operations, type))."""
     from torch.nn import functional as F
 
-    from open_muse_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from open_muse_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                             flash_attention_plain,
+                                                             takes_two_pass)
 
     q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
+    variant = "two-pass" if takes_two_pass(tk) else "one-pass"
     out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
     max_abs, rel = errors(out, ref)
     twice = torch.equal(out, flash_attention(q, k, v))
@@ -916,11 +931,14 @@ def _flash_case(device, gen, b, tq, tk, heads, d):
     lib_err = errors(sdpa().transpose(1, 2), ref)[1]
     # q, k, v read and o written once; QK^T and PV
     moved = (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16")
-    log(f"[kernel] flash_attention q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: max_abs "
-        f"{max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), two calls "
-        f"bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {lib_ms:.4f} ms "
-        f"(CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
-        f"{bound_of(*moved)[0]:.4f} ms {'ok' if case_ok else 'FAIL'}")
+    # the two-pass variant takes two exponentials a score
+    mufu = (f", MUFU floor {2 * b * heads * tq * tk / MUFU_PER_S * 1e3:.4f} ms"
+            if variant == "two-pass" else "")
+    log(f"[kernel] flash_attention {variant} q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: "
+        f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), "
+        f"two calls bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms (CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
+        f"{bound_of(*moved)[0]:.4f} ms{mufu} {'ok' if case_ok else 'FAIL'}")
     return case_ok, max_abs, ms, lib_ms, moved
 
 
@@ -968,12 +986,19 @@ def kernel_phase(device, splits):
     for name, (ok, err, (ms, plain_ms)) in train.items():
         log(f"[time] {name} at the training shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
             f"(median, CUDA graph replay)")
+    # the 512px trunk: 2 x 1024 tokens, the self sublayer's attention kernel
+    # 5's two-pass variant
+    wide = check_sublayers(device, gen, 2, s=SEQ_512)
+    for name, (ok, err, (ms, plain_ms)) in wide.items():
+        log(f"[time] {name} at the 512px shapes, x (2, {SEQ_512}, 1024): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (median, CUDA graph replay)")
     # ragged edges: 300 GLU rows (not a multiple of the tiles), 100 tokens
     ragged = {"glu_down_matmul": check_glu(device, gen, 300, timed=False)}
     ragged.update(check_sublayers(device, gen, 2, s=100, timed=False))
-    for name, (ok, err, _) in {**train, **ragged}.items():
-        serving_ok, serving_err, timing = report[name]
-        report[name] = (serving_ok and ok, max(serving_err, err), timing)
+    for more in (train, wide, ragged):
+        for name, (ok, err, _) in more.items():
+            serving_ok, serving_err, timing = report[name]
+            report[name] = (serving_ok and ok, max(serving_err, err), timing)
     kernels.reset_launch_counts()
     return report
 
@@ -1224,41 +1249,43 @@ def build_pipeline(device):
                                   tokenizer=SimpleTokenizer(49408, 77))
 
 
-def check_logits(pipe, device):
+def check_logits(pipe, device, seq_len=256):
     """One forward with the kernels against the all-plain forward."""
     t = pipe.transformer
     ids = pipe._tokenize(PROMPTS[:1] + [""])
     hidden_states, _, pooled = pipe.text_encoder(ids)
     micro = torch.tensor([[512, 512, 0, 0, 6.0]] * 2, device=device)
     gen = torch.Generator(device=device).manual_seed(5)
-    tokens = torch.randint(0, 8192, (2, 256), generator=gen, device=device)
-    tokens[torch.rand(2, 256, generator=gen, device=device) < 0.5] = t.config.mask_token_id
+    tokens = torch.randint(0, 8192, (2, seq_len), generator=gen, device=device)
+    tokens[torch.rand(2, seq_len, generator=gen, device=device) < 0.5] = t.config.mask_token_id
     with torch.no_grad():
         ctx = t.step_context(hidden_states[-2].to(t.dtype), pooled.to(t.dtype), micro)
         fused = t(tokens, step_ctx=ctx, use_kernels=True)
         plain = t(tokens, step_ctx=ctx, use_kernels=False)
     max_abs, rel = errors(fused, plain)
     ok = rel <= 5e-2 and bool(torch.isfinite(fused).all())
-    log(f"[logits] full-width forward (2, 256, 8192) bf16, kernels vs all-plain: max_abs "
+    log(f"[logits] full-width forward {tuple(fused.shape)} bf16, kernels vs all-plain: max_abs "
         f"{max_abs:.3e} rel {rel:.3e} (tol rel 5e-2: bf16 roundings through 22 layers) "
         f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
-def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None, eager=False):
-    """One 256px / bs1 / 12-step request through ``PipelineMuse.text2image``,
-    or through ``PipelineMuseInpainting.inpaint`` with ``inpaint=(pixels,
-    mask)``: one replayed CUDA graph holding the text tower, the decode and
-    the VQGAN (the graph's second output is the token ids).  ``eager=True``
-    runs the same request with the decode loop called directly
+def one_request(pipe, prompt, seed, guidance=GUIDANCE, inpaint=None, eager=False,
+                seq_len=256):
+    """One 256px / bs1 / 12-step request through ``PipelineMuse.text2image``
+    (512px at ``seq_len`` 1024: 32 x 32 tokens), or through
+    ``PipelineMuseInpainting.inpaint`` with ``inpaint=(pixels, mask)``: one
+    replayed CUDA graph holding the text tower, the decode and the VQGAN
+    (the graph's second output is the token ids).  ``eager=True`` runs the
+    same request with the decode loop called directly
     (``compile_*(...).eager``).  Returns (seconds, images, tokens, launch
     deltas)."""
     ids = torch.as_tensor(pipe.tokenizer([prompt])["input_ids"], dtype=torch.long)
     micro = torch.tensor([[512, 512, 0, 0, 6.0]])
     args = dict(timesteps=TIMESTEPS, guidance_scale=guidance, temperature=TEMPERATURE)
     if inpaint is None:
-        fn = (eager_request(pipe, "text2image", **args, seq_len=256) if eager else
-              functools.partial(pipe.text2image, **args, seq_len=256))
+        fn = (eager_request(pipe, "text2image", **args, seq_len=seq_len) if eager else
+              functools.partial(pipe.text2image, **args, seq_len=seq_len))
         inputs = (ids, micro)
     else:
         fn = (eager_request(pipe, "inpaint", **args) if eager else
@@ -1317,17 +1344,18 @@ def expected_request_launches(cfg, sampler, vq=0, steps=TIMESTEPS):
     return expected
 
 
-IMAGE_SHAPE = (1, 256, 256, 3)  # every request: one 256px image
+IMAGE_SHAPE = (1, 256, 256, 3)  # every request: one 256px image (serving_512: 512px)
+SEQ_512 = 1024  # the 512px request's 32 x 32 tokens
 
 
 def run_requests(smi, path, expected, request, label=None, check=None, codebook=8192,
-                  steps=TIMESTEPS, guidance=GUIDANCE):
+                  steps=TIMESTEPS, guidance=GUIDANCE, image_shape=IMAGE_SHAPE):
     """A path's three requests, eager then captured, each set with the
     launch counters at 0 just before it and read just after.
     ``request(i, eager)`` -> (seconds, images, tokens, launch deltas).
     Before them one captured request (the capture: a warm-up on a side
     stream, the capture, a replay) and one eager one, uncounted.  Each
-    request must give a finite IMAGE_SHAPE image, tokens in [0,
+    request must give a finite ``image_shape`` image, tokens in [0,
     codebook), the expected launches and pass ``check(tokens)``; the
     captured tokens must equal the eager ones of the same seed, all of them.
     Returns (captured median seconds, the captured run's launch counts)."""
@@ -1356,7 +1384,7 @@ def run_requests(smi, path, expected, request, label=None, check=None, codebook=
             finite = bool(torch.isfinite(images).all())
             tokens_ok = bool(((tokens >= 0) & (tokens < codebook)).all())
             extra = "" if check is None else check(tokens)
-            ok = (tuple(images.shape) == IMAGE_SHAPE and finite and tokens_ok
+            ok = (tuple(images.shape) == image_shape and finite and tokens_ok
                   and delta == expected and not extra.endswith("FAIL"))
             log(f"[{path}] {route} {i} on {smi}: {label(i)} seed {i}: {seconds * 1e3:.1f} ms, "
                 f"image "
@@ -1383,7 +1411,8 @@ def run_requests(smi, path, expected, request, label=None, check=None, codebook=
     if not all(equal):
         raise SystemExit(f"chip_smoke: {path} captured tokens differ from the eager loop's")
     log(f"[latency] {path}: median request eager {medians['eager'] * 1e3:.1f} ms, captured "
-        f"{medians['captured'] * 1e3:.1f} ms over the same 3 requests (256px, bs1, {steps} "
+        f"{medians['captured'] * 1e3:.1f} ms over the same 3 requests ({image_shape[1]}px, bs1, "
+        f"{steps} "
         f"steps, guidance {guidance}; host clock, synchronised) on {smi}")
     return medians["captured"], counts["captured"]
 
@@ -1412,6 +1441,47 @@ def nocfg_phase(pipe, smi):
     LATENCY_MS["serving_nocfg"] = median * 1e3
     profiled("CFG-free request", lambda: one_request(pipe, PROMPTS[3], 3, guidance=0.0), median,
              "profile_request_nocfg.txt", smi=smi, span=True)
+    return launches
+
+
+def serving_512_phase(pipe, device, smi):
+    """configs/research_run_512.yaml's transformer, the flagship v2 at 512 px
+    (hidden 1024, 22 layers of 16 heads of 64 over a 32 x 32 = 1024-token
+    trunk; the research defaults), seeded, bf16, served with the serving
+    pipeline's CLIP tower and f16 VQGAN (a 512px image from 32 x 32 codes):
+    the full-width kernels-vs-plain logits at 1024 tokens, three 512px / bs1
+    / 12-step CFG requests through ``text2image(seq_len=1024)`` eager and
+    captured, a profiled request.  Each trunk layer's self-attention sublayer
+    (kernel 9) attends over 1024 keys: kernel 5's two-pass variant inside
+    it, counted by ``attn_sublayer_two_pass`` (22 x 12 = 264 a request).
+    Returns the captured run's launch counts."""
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2
+    from open_muse_tpu_torch.pipelines.pipeline_muse import PipelineMuse
+    from open_muse_tpu_torch.utils.config import load_config
+
+    config = load_config(["config=" + os.path.join(HERE, "configs", "research_run_512.yaml")])
+    tcfg = config.model.transformer.to_dict()
+    with torch.device(device):
+        transformer = MaskGiTUViT_v2(MaskGiTUViT_v2.config_from_dict(tcfg))
+    randomize_(transformer, 50)
+    transformer.to(torch.bfloat16).eval()
+    cfg = transformer.config
+    log(f"[serving_512] params {param_counts(uvit=transformer)}; bf16; transformer config "
+        f"{tcfg}; CLIP tower and f16 VQGAN of the serving pipeline")
+    pipe512 = PipelineMuse(vae=pipe.vae, transformer=transformer, text_encoder=pipe.text_encoder,
+                           tokenizer=pipe.tokenizer)
+    if not check_logits(pipe512, device, seq_len=SEQ_512):
+        raise SystemExit("chip_smoke: the 512px forward disagrees with the plain forward")
+    expected = expected_request_launches(cfg, "fused_categorical_cfg")
+    expected["attn_sublayer_two_pass"] = cfg.num_hidden_layers * TIMESTEPS
+    median, launches = run_requests(
+        smi, "serving_512", expected,
+        lambda i, eager: one_request(pipe512, PROMPTS[i % 4], i, eager=eager, seq_len=SEQ_512),
+        image_shape=(1, 512, 512, 3))
+    LATENCY_MS["serving_512"] = median * 1e3
+    profiled("512px request", lambda: one_request(pipe512, PROMPTS[3], 3, seq_len=SEQ_512),
+             median, "profile_request_512.txt", rows=18, smi=smi, span=True)
+    del pipe512, transformer
     return launches
 
 
@@ -4057,7 +4127,8 @@ def gemm_sweep(device) -> bool:
 # sampler and the VQ split pass
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
                  "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel",
-                 "sample_kernel", "vq_split_kernel")
+                 "sample_kernel", "vq_split_kernel", "two_pass_kernel", "two_pass_wgmma_kernel",
+                 "register_row_kernel")
 
 
 def ptxas_report(build_log: str, names):
@@ -4295,10 +4366,10 @@ def generation_launches(requests, tower_forwards):
 SYNTHETIC_PROMPTS, SYNTHETIC_CANDIDATES = 8, 4
 # the mid-scale protocol as chip_smoke runs it: in full, as the JAX package's
 # recorded run (teacher 6000 steps, distill 2000; the rest the defaults: CFG 2,
-# soft weight 0.5, n_eval 240, seed 0), ~180 s on the card (PERF.md section 4)
-# a sixth of the JAX package's recorded protocol's steps (6000 / 2000): the
-# script's time limit
-MIDSCALE_CUT = {"train_steps": 1000, "distill_steps": 350}
+# soft weight 0.5, n_eval 240, seed 0), ~180 s on the card (PERF.md section 4);
+# here a twelfth of its teacher's steps and under a tenth of its distillation
+# (6000 / 2000): the script's time limit
+MIDSCALE_CUT = {"train_steps": 500, "distill_steps": 175}
 
 
 def gen_synthetic_phase(device, smi):
@@ -5145,12 +5216,16 @@ def main() -> int:
     pre_ok, paths["pre_encode"] = pre_encode_phase(pipe, device, smi)
     if not pre_ok:
         failed.append("pre_encode phase")
+    log(f"[phase] serving, serving_nocfg, inpainting, pre_encode "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    phase_t0 = time.perf_counter()
+    paths["serving_512"] = serving_512_phase(pipe, device, smi)
     pipe.save_pretrained(PIPE_DIR)  # served again by the eval phases' scripts
     del pipe
     _EAGER.clear()
     gc.collect()  # the pipeline and its request functions hold each other: free its graphs
     torch.cuda.empty_cache()
-    log(f"[phase] serving, serving_nocfg, inpainting, pre_encode {time.perf_counter() - phase_t0:.1f} s")
+    log(f"[phase] serving_512 {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
     paths["class_conditional"], paths["class_inpainting"] = class_conditional_phase(device, smi)
@@ -5253,10 +5328,15 @@ def main() -> int:
                      "bound_by": bound_by, "library_ms": LIBRARY_MS.get(name)})
         if name == "flash_attention":  # its variants counted apart
             two_pass = {path: p["flash_attention_two_pass"] for path, p in paths.items()}
+            # the two-pass variant launched inside kernels 9 / 10 (the 512px trunk)
+            in_sublayer = {path: p["attn_sublayer_two_pass"] for path, p in paths.items()}
             rows[-1]["launches_by_variant"] = {"one_pass": rows[-1]["launches"]
                                                - sum(two_pass.values()),
-                                               "two_pass": sum(two_pass.values())}
+                                               "two_pass": sum(two_pass.values()),
+                                               "two_pass_in_attn_sublayer":
+                                                   sum(in_sublayer.values())}
             rows[-1]["two_pass_launches_by_path"] = two_pass
+            rows[-1]["two_pass_in_attn_sublayer_by_path"] = in_sublayer
     missing = [r["name"] for r in rows if r["launches"] == 0]
     missing += [f"{r['name']} ({variant})" for r in rows
                 for variant, n in r.get("launches_by_variant", {}).items() if n == 0]

@@ -43,11 +43,28 @@
 //    maxima and sums meet in shared memory (sums added in warp order) and
 //    the second warp's partial P V is added to the first's before the store.
 //  * Tk > 288 (the 1024-token v1 trunks of the MOVQ configs: 1025 keys
-//    with the class token, 1024 without): two passes over 64-key tiles, four
-//    warps, 64 query rows a block: the first pass takes each row's max and
-//    sum of exponentials online, the second recomputes S, forms P in bf16
-//    and accumulates P V, with K and V loaded synchronously and V transposed
-//    into padded shared memory.
+//    with the class token, 1024 without; the 512px v2 trunk's 1024 inside
+//    kernel 9): two passes over 64-key tiles.  A row of 1024 fp32 logits
+//    does not fit beside 64+ query rows on the card, so the exact staging
+//    is kept by computing S twice: pass 1 streams K and takes each row's
+//    max and sum of exponentials (online, per thread, the row's four
+//    threads meeting once at the end), pass 2 streams K and V, recomputes
+//    S, forms P = 2^(S' - max') / sum rounded to bf16 and accumulates P V.
+//    What bounds it: three products (12.9 GFLOP at (2, 1024, 16, 64): 13 us
+//    at 989 TFLOP/s) and two exponentials a score (67 M: 16 us on the MUFU
+//    at 16 a clock an SM), where the PV-and-QK^T bound the report counts is
+//    8.7 us.  What the design does about it: K and V tiles go through
+//    rings of three slots in shared memory by cp.async, one commit group a
+//    tile, so two tiles are in flight while one is read; exp is ex2.approx
+//    with the scale and log2(e) folded into one FMA and one IEEE reciprocal
+//    a row; the tile's max and sum are trees.  At D 64 (every path) two
+//    warpgroups of 64 query rows (128 a block) run wgmma: S with Q's
+//    fragments in registers as A and the K tile as a K-major B, P V with
+//    P's fragments (S's accumulators rounded, whose layout is an A
+//    fragment's) as A and the V tile, row-major, as an MN-major B through
+//    wgmma's transpose flag; the tiles are written in the layout of TMA's
+//    128-byte swizzle.  At D 16 / 32 / 48 four warps of 16 rows run
+//    mma.sync with ldmatrix / ldmatrix.trans fragments.
 //
 // All count as one launch of the wrapper; the wrapper counts the two-pass
 // variant apart too.  Query rows, keys and the batch /
@@ -60,6 +77,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "gemm_sm90.cuh"
 #include "mma_frag.cuh"
 
 namespace {
@@ -281,141 +299,436 @@ one_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // ---------------------------------------------------------------------------
-// two passes: Tk > kMaxKeys
+// two passes over streamed key tiles on mma.sync: Tk > kMaxKeys, D 16 / 32 / 48
 
-constexpr int kTwoWarps = 4;
-constexpr int kTwoThreads = 32 * kTwoWarps;
-constexpr int kBlockK = 64;                      // keys a tile
-constexpr int kKPad = kBlockK + 8;               // V^T row length in shared memory
+constexpr int kTileKeys = 64;  // keys a tile
+constexpr int kStages = 3;     // ring slots: two tiles in flight while one is read
 
 template <int D>
-__global__ void __launch_bounds__(kTwoThreads)
+__host__ __device__ constexpr int tile_elems() { return kTileKeys * one_pass_row<D>(); }
+
+// dynamic shared memory: a ring of kStages K tiles, then one of V tiles
+template <int D>
+size_t two_pass_smem() { return 2 * size_t(kStages) * tile_elems<D>() * sizeof(T); }
+
+// A block holds kWarps groups of 16 query rows of one (batch, head) pair,
+// one warp a group, and streams K (pass 1) and K and V (pass 2) through the
+// rings by cp.async, one commit group a tile: tile j is waited for while
+// tiles j + 1 .. j + kStages - 1 are still arriving.  One __syncthreads a
+// tile, after which the slot read one tile ago is refilled.  Four warps (64
+// rows) a block: on the card, 8 warps were 0 - 25% slower at every shape
+// but (2, 1024, 16, 64), 7% faster there (since taken by wgmma).
+constexpr int kWarps = 4;
+
+template <int D>
+__global__ void __launch_bounds__(32 * kWarps, 16 / kWarps)
 two_pass_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ o, int H, int Tq, int Tk, int64_t q_sb, int64_t q_st,
-                int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, float scale) {
+                int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st, float scale_log2) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kDPad = D + 8;  // K row length in shared memory
-  constexpr int kChunks = D / 8;
-  __shared__ __align__(16) T Ks[kBlockK][kDPad];
-  __shared__ __align__(16) T Vt[D][kKPad];
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kRow = one_pass_row<D>();
+  constexpr int kDChunks = D / 8;
+  constexpr int kTile = tile_elems<D>();
+  constexpr int kN = kTileKeys / 8;  // m16n8 C fragments of S a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kStages * kTile;
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const T* kb = k + b * k_sb + int64_t(h) * D;
   const T* vb = v + b * v_sb + int64_t(h) * D;
-  const int64_t o_st = int64_t(H) * D;
-  T* ob = o + (int64_t(b) * Tq * H + h) * D;
+  const int tiles = (Tk + kTileKeys - 1) / kTileKeys;
 
-  const int r0 = blockIdx.x * (kTwoWarps * kRowsPerWarp) + warp * kRowsPerWarp + g, r1 = r0 + 8;
+  // tile j of K or V into ring slot j % kStages, keys past Tk zero-filled
+  auto load_tile = [&](const T* src, int64_t st, T* ring, int j) {
+    T* dst = ring + (j % kStages) * kTile;
+    const int j0 = j * kTileKeys;
+#pragma unroll
+    for (int idx = threadIdx.x; idx < kTileKeys * kDChunks; idx += kThreads) {
+      const int r = idx / kDChunks, c = (idx % kDChunks) * 8;
+      const bool in = j0 + r < Tk;
+      cp_async16(dst + r * kRow + c, in ? src + (j0 + r) * st + c : src, in ? 16 : 0);
+    }
+  };
+  // the first kStages - 1 tiles of a pass, one commit group each (empty
+  // past the last tile, so that every wait below counts alike)
+  auto prologue = [&](bool with_v) {
+#pragma unroll
+    for (int j = 0; j < kStages - 1; ++j) {
+      if (j < tiles) {
+        load_tile(kb, k_st, Ks, j);
+        if (with_v) load_tile(vb, v_st, Vs, j);
+      }
+      cp_async_commit();
+    }
+  };
+  // wait for tile j, then refill the slot every warp finished reading
+  auto next_tile = [&](int j, bool with_v) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (j + kStages - 1 < tiles) {
+      load_tile(kb, k_st, Ks, j + kStages - 1);
+      if (with_v) load_tile(vb, v_st, Vs, j + kStages - 1);
+    }
+    cp_async_commit();
+  };
+
+  prologue(false);  // K in flight while Q loads into registers
+  const int r0 = blockIdx.x * (kWarps * kRowsPerWarp) + warp * kRowsPerWarp + g;
   uint32_t qf[D / 16][4];
   load_a<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
 
-  auto load_k = [&](int j0) {
-    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kTwoThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < Tk) val = *reinterpret_cast<const uint4*>(kb + (j0 + r) * k_st + c);
-      *reinterpret_cast<uint4*>(&Ks[r][c]) = val;
-    }
-  };
-  auto load_v = [&](int j0) {
-    for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kTwoThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < Tk) val = *reinterpret_cast<const uint4*>(vb + (j0 + r) * v_st + c);
-      const T* e = reinterpret_cast<const T*>(&val);
+  // S of the warp's 16 rows and tile j's keys, unscaled, laid out as in the
+  // one-pass kernel (s[n]: keys j * 64 + n * 8 ..; elements 0, 1 row g, 2, 3
+  // row g + 8); keys past Tk -inf
+  float s[kN][4];
+  const T* kl = Ks + ((lane & 7) + ((lane >> 4) << 3)) * kRow + (((lane >> 3) & 1) << 3);
+  auto scores = [&](int j) {
+    const T* kt = kl + (j % kStages) * kTile;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[c + i][r] = e[i];
-    }
-  };
-
-  // S for this warp's 16 rows and the tile's 64 keys, laid out as in the
-  // one-pass kernel; masked keys are -inf
-  float s[kBlockK / 8][4];
-  auto scores = [&](int j0) {
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < kN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
 #pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n) {
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kc * 16 + t4 * 2]);
-        bf[1] = *reinterpret_cast<const uint32_t*>(&Ks[n * 8 + g][kc * 16 + t4 * 2 + 8]);
-        mma16816(s[n], qf[kc], bf);
+      for (int c = 0; c < kTileKeys / 16; ++c) {
+        uint32_t bf[4];  // (b0, b1) of keys c * 16 .. + 7, then of + 8 .. + 15
+        ldmatrix_x4(bf, kt + c * 16 * kRow + kc * 16);
+        mma16816(s[2 * c], qf[kc], bf);
+        mma16816(s[2 * c + 1], qf[kc], bf + 2);
       }
     }
+    if ((j + 1) * kTileKeys > Tk) {
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+      for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = key < Tk ? s[n][e] * scale : -INFINITY;
-      }
+        for (int e = 0; e < 4; ++e)
+          if (j * kTileKeys + n * 8 + t4 * 2 + (e & 1) >= Tk) s[n][e] = -INFINITY;
     }
   };
 
-  // pass 1: each row's max and sum of exp(S - max), online over the tiles
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int j0 = 0; j0 < Tk; j0 += kBlockK) {
-    __syncthreads();
-    load_k(j0);
-    __syncthreads();
-    scores(j0);
+  // pass 1: this thread's running max of its own columns (unscaled) and sum
+  // of 2^(S c - max c), c = log2(e) / sqrt(D): exp(S / sqrt(D) - max), with
+  // no shuffle a tile; the row's four threads meet once, after the last
+  // tile.  The tile's max and sum are trees over its 16 columns of the row,
+  // not chains of 16 dependent operations.
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+  for (int j = 0; j < tiles; ++j) {
+    next_tile(j, false);
+    scores(j);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
+      float t[kN];
 #pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));  // finite: a tile holds a key < Tk
-      float sum = 0.f;
+      for (int n = 0; n < kN; ++n) t[n] = fmaxf(s[n][2 * r], s[n][2 * r + 1]);
 #pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n)
-        sum += expf(s[n][2 * r] - m_new) + expf(s[n][2 * r + 1] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + quad_sum(sum);
-      m[r] = m_new;
+      for (int w = kN / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+      const float m = fmaxf(mx[r], t[0]);
+      const float base = m == -INFINITY ? 0.f : m * scale_log2;
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+        t[n] = ex2(fmaf(s[n][2 * r], scale_log2, -base)) +
+               ex2(fmaf(s[n][2 * r + 1], scale_log2, -base));
+#pragma unroll
+      for (int w = kN / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int n = 0; n < w; ++n) t[n] += t[n + w];
+      sm[r] = sm[r] * ex2(fmaf(mx[r], scale_log2, -base)) + t[0];  // 2^-inf = 0 on the first
+      mx[r] = m;
     }
   }
+  // the row's max over its four threads (finite: key 0 is never masked) and
+  // its exact sum; one IEEE reciprocal a row
+  float base[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    base[r] = quad_max(mx[r]) * scale_log2;
+    const float part = mx[r] == -INFINITY ? 0.f : sm[r] * ex2(fmaf(mx[r], scale_log2, -base[r]));
+    inv[r] = __frcp_rn(quad_sum(part));
+  }
 
-  // pass 2: P = exp(S - max) / sum in the input type, O += P V in fp32
-  float acc[kChunks][4];
+  // pass 2: P = 2^(S c - max c) / sum rounded to bf16, O += P V in fp32
+  __syncthreads();  // every warp is done with pass 1's slots
+  prologue(true);
+  float acc[kDChunks][4];
 #pragma unroll
-  for (int n = 0; n < kChunks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int j0 = 0; j0 < Tk; j0 += kBlockK) {
-    __syncthreads();
-    load_k(j0);
-    load_v(j0);
-    __syncthreads();
-    scores(j0);
+  for (int n = 0; n < kDChunks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // ldmatrix.trans row of lane: keys (lane & 7) + 8 ((lane >> 3) & 1), d 8 (lane >> 4)
+  const T* vl = Vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRow + ((lane >> 4) << 3);
+  for (int j = 0; j < tiles; ++j) {
+    next_tile(j, true);
+    scores(j);
+    const T* vt = vl + (j % kStages) * kTile;
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
+    for (int c = 0; c < kTileKeys / 16; ++c) {
+      uint32_t pa[4];  // the A fragment of P for keys c * 16 .. + 15
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n = 2 * kk + half;
-        pa[2 * half] = pack2(__fdiv_rn(expf(s[n][0] - m[0]), l[0]),
-                             __fdiv_rn(expf(s[n][1] - m[0]), l[0]));
-        pa[2 * half + 1] = pack2(__fdiv_rn(expf(s[n][2] - m[1]), l[1]),
-                                 __fdiv_rn(expf(s[n][3] - m[1]), l[1]));
+      for (int hi = 0; hi < 2; ++hi) {
+        const float* sn = s[2 * c + hi];
+        pa[2 * hi] = pack2(ex2(fmaf(sn[0], scale_log2, -base[0])) * inv[0],
+                           ex2(fmaf(sn[1], scale_log2, -base[0])) * inv[0]);
+        pa[2 * hi + 1] = pack2(ex2(fmaf(sn[2], scale_log2, -base[1])) * inv[1],
+                               ex2(fmaf(sn[3], scale_log2, -base[1])) * inv[1]);
       }
 #pragma unroll
-      for (int n = 0; n < kChunks; ++n) {
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(&Vt[n * 8 + g][kk * 16 + t4 * 2]);
-        bf[1] = *reinterpret_cast<const uint32_t*>(&Vt[n * 8 + g][kk * 16 + t4 * 2 + 8]);
+      for (int n = 0; n < kDChunks; n += 2) {  // (b0, b1) of d n*8 .. +7, then of n*8+8 .. +15
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt + c * 16 * kRow + n * 8);
         mma16816(acc[n], pa, bf);
+        mma16816(acc[n + 1], pa, bf + 2);
       }
     }
   }
 
+  const int64_t o_st = int64_t(H) * D;
+  T* ob = o + (int64_t(b) * Tq * H + h) * D;
+  const int r1 = r0 + 8;
 #pragma unroll
-  for (int n = 0; n < kChunks; ++n) {
+  for (int n = 0; n < kDChunks; ++n) {
     const int c = n * 8 + t4 * 2;
     if (r0 < Tq) *reinterpret_cast<uint32_t*>(ob + r0 * o_st + c) = pack2(acc[n][0], acc[n][1]);
     if (r1 < Tq) *reinterpret_cast<uint32_t*>(ob + r1 * o_st + c) = pack2(acc[n][2], acc[n][3]);
   }
 }
+
+template <int D>
+int launch_two_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
+                    const int64_t* s, float scale, cudaStream_t stream) {
+  auto kernel = two_pass_kernel<D>;
+  const size_t smem = two_pass_smem<D>();
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  constexpr int rows = kWarps * kRowsPerWarp;
+  const dim3 grid((Tq + rows - 1) / rows, B * H);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(q, k, v, o, H, Tq, Tk, s[0], s[1], s[2], s[3], s[4],
+                                              s[5], scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// two passes on warpgroup products: Tk > kMaxKeys, D 64
+
+namespace wg {
+
+using muse::sm90::fence_accumulators;
+using muse::sm90::smem_desc;
+using muse::sm90::smem_desc_mn;
+using muse::sm90::smem_u32;
+using muse::sm90::wgmma_commit;
+using muse::sm90::wgmma_fence;
+using muse::sm90::wgmma_wait;
+
+constexpr int kRows = 128;          // query rows a block: two warpgroups of 64
+constexpr int kThreads = 256;
+constexpr int kTileBytes = 64 * 128;  // 64 keys x 64 d of bf16, rows of 128 bytes
+constexpr int kSmem = 1024 + kStages * 2 * kTileBytes;
+
+// D (64 x 64 fp32) (+)= A (64 x 16) B: A from registers (each warp its 16
+// rows as an mma.sync A fragment), B 16 x 64 from 128-byte-swizzled shared
+// memory, K-major (kTransB 0: rows of B's 64 columns) or MN-major (1: rows
+// of its 16 k); scale_d 0 overwrites D
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB), "r"(scale_d));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A block holds two warpgroups of 64 query rows of one (batch, head) pair.
+// K and V tiles of 64 keys go through rings of kStages slots by cp.async
+// into the layout TMA's 128-byte swizzle would give (16-byte chunk c of row
+// r at chunk c ^ (r % 8)), so wgmma reads a K tile as a K-major B (S = Q
+// K^T, Q's fragments in registers as A) and a V tile as an MN-major B (P V,
+// P's fragments in registers as A, rounded from S's accumulators, whose
+// layout is an A fragment's).  The accumulators of S and of O are each 32
+// floats a thread; element 4 n + e is the one-pass kernel's s[n][e].
+__global__ void __launch_bounds__(kThreads, 1)
+two_pass_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, int H, int Tq, int Tk, int64_t q_sb, int64_t q_st,
+                      int64_t k_sb, int64_t k_st, int64_t v_sb, int64_t v_st,
+                      float scale_log2) {
+  constexpr int D = 64;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // the swizzle repeats every 1024 bytes: tiles start on that grain
+  unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + kStages * kTileBytes;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* kb = k + b * k_sb + int64_t(h) * D;
+  const T* vb = v + b * v_sb + int64_t(h) * D;
+  const int tiles = (Tk + 63) / 64;
+
+  auto load_tile = [&](const T* src, int64_t st, unsigned char* ring, int j) {
+    unsigned char* dst = ring + (j % kStages) * kTileBytes;
+    const int j0 = j * 64;
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / 8, c = idx % 8;
+      const bool in = j0 + r < Tk;
+      cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), in ? src + (j0 + r) * st + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  };
+  auto prologue = [&](bool with_v) {
+#pragma unroll
+    for (int j = 0; j < kStages - 1; ++j) {
+      if (j < tiles) {
+        load_tile(kb, k_st, Ks, j);
+        if (with_v) load_tile(vb, v_st, Vs, j);
+      }
+      cp_async_commit();
+    }
+  };
+  // wait for tile j, make it visible to wgmma (the async proxy), then
+  // refill the slot every product finished reading
+  auto next_tile = [&](int j, bool with_v) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (j + kStages - 1 < tiles) {
+      load_tile(kb, k_st, Ks, j + kStages - 1);
+      if (with_v) load_tile(vb, v_st, Vs, j + kStages - 1);
+    }
+    cp_async_commit();
+  };
+
+  prologue(false);
+  const int r0 = blockIdx.x * kRows + warp * kRowsPerWarp + g;  // warp w: rows 16 w .. of the block
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, q + b * q_sb + int64_t(h) * D, q_st, r0, Tq, t4);
+
+  float s[32];  // S of the warpgroup's 64 rows and the tile's 64 keys
+  auto scores = [&](int j) {
+    const uint32_t kt = smem_u32(Ks + (j % kStages) * kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_rs<0>(s, qf[kk], smem_desc(kt + kk * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(s);
+    if ((j + 1) * 64 > Tk) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (j * 64 + (e / 4) * 8 + t4 * 2 + (e & 1) >= Tk) s[e] = -INFINITY;
+    }
+  };
+
+  // pass 1, as the mma.sync kernel's: per thread, trees over a tile
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+  for (int j = 0; j < tiles; ++j) {
+    next_tile(j, false);
+    scores(j);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) t[n] = fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]);
+#pragma unroll
+      for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+        for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+      const float m = fmaxf(mx[r], t[0]);
+      const float base = m == -INFINITY ? 0.f : m * scale_log2;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        t[n] = ex2(fmaf(s[4 * n + 2 * r], scale_log2, -base)) +
+               ex2(fmaf(s[4 * n + 2 * r + 1], scale_log2, -base));
+#pragma unroll
+      for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+        for (int n = 0; n < w; ++n) t[n] += t[n + w];
+      sm[r] = sm[r] * ex2(fmaf(mx[r], scale_log2, -base)) + t[0];
+      mx[r] = m;
+    }
+  }
+  float base[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    base[r] = quad_max(mx[r]) * scale_log2;
+    const float part = mx[r] == -INFINITY ? 0.f : sm[r] * ex2(fmaf(mx[r], scale_log2, -base[r]));
+    inv[r] = __frcp_rn(quad_sum(part));
+  }
+
+  // pass 2: P rounded to bf16 after the exact sum, O += P V in fp32
+  __syncthreads();
+  prologue(true);
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int j = 0; j < tiles; ++j) {
+    next_tile(j, true);
+    scores(j);
+    uint32_t pa[4][4];  // A fragments of P, keys c * 16 .. + 15
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const float* sn = s + 4 * (2 * c + hi);
+        pa[c][2 * hi] = pack2(ex2(fmaf(sn[0], scale_log2, -base[0])) * inv[0],
+                              ex2(fmaf(sn[1], scale_log2, -base[0])) * inv[0]);
+        pa[c][2 * hi + 1] = pack2(ex2(fmaf(sn[2], scale_log2, -base[1])) * inv[1],
+                                  ex2(fmaf(sn[3], scale_log2, -base[1])) * inv[1]);
+      }
+    const uint32_t vt = smem_u32(Vs + (j % kStages) * kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs<1>(acc, pa[c], smem_desc_mn(vt + c * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(acc);
+  }
+
+  const int64_t o_st = int64_t(H) * D;
+  T* ob = o + (int64_t(b) * Tq * H + h) * D;
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = n * 8 + t4 * 2;
+    if (r0 < Tq)
+      *reinterpret_cast<uint32_t*>(ob + r0 * o_st + c) = pack2(acc[4 * n], acc[4 * n + 1]);
+    if (r1 < Tq)
+      *reinterpret_cast<uint32_t*>(ob + r1 * o_st + c) = pack2(acc[4 * n + 2], acc[4 * n + 3]);
+  }
+}
+
+int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
+           const int64_t* s, float scale, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      two_pass_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid((Tq + kRows - 1) / kRows, B * H);
+  two_pass_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      q, k, v, o, H, Tq, Tk, s[0], s[1], s[2], s[3], s[4], s[5], scale * kLog2e);
+  return int(cudaGetLastError());
+}
+
+}  // namespace wg
 
 template <int D, int kGroups, int kSplit, int kChunks>
 int launch_one_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
@@ -432,6 +745,7 @@ int launch_one_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int 
   return int(cudaGetLastError());
 }
 
+// the rule: one pass up to kMaxKeys keys, above two passes, on wgmma at D 64
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
            const int64_t* s, float scale, cudaStream_t stream) {
@@ -439,31 +753,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
-  if (Tk <= 80) {
-    return launch_one_pass<D, 4, 1, 5>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
-  } else if (Tk <= kMaxKeys) {
-    return launch_one_pass<D, 4, 2, kMaxKeys / 32>(qp, kp, vp, op, B, H, Tq, Tk, s, scale,
-                                                   stream);
-  } else {
-    constexpr int rows = kTwoWarps * kRowsPerWarp;
-    const dim3 grid((Tq + rows - 1) / rows, B * H);
-    two_pass_kernel<D><<<grid, kTwoThreads, 0, stream>>>(
-        qp, kp, vp, op, H, Tq, Tk, s[0], s[1], s[2], s[3], s[4], s[5], scale);
+  if (Tk > kMaxKeys) {
+    if constexpr (D == 64) return wg::launch(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
+    else return launch_two_pass<D>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
   }
-  return int(cudaGetLastError());
+  if (Tk <= 80)
+    return launch_one_pass<D, 4, 1, 5>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
+  return launch_one_pass<D, 4, 2, kMaxKeys / 32>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
 }
 
-}  // namespace
-
-// q (B, Tq, H, D), k and v (B, Tk, H, D) bf16, D 16 (the eval stacks'
-// seeded CLIP towers and tiny trunks), 32 (the mid-scale trunk's blocks), 48
-// (v1) or 64 (v2's blocks, CLIP ViT-L/14), each with d contiguous, heads D apart, and the batch and
-// token strides given in elements (multiples of 8; pointers 16-byte aligned);
-// o (B, Tq, H, D) contiguous.  strides: q_sb, q_st, k_sb, k_st, v_sb, v_st.
-// Tk <= 288 takes the one-pass kernel, larger Tk the two-pass one.
-extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                    int H, int Tq, int Tk, int D, const int64_t* strides,
-                                    float scale, void* stream_ptr) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
+             int D, const int64_t* strides, float scale, void* stream_ptr) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || B * H > 65535) return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
@@ -473,4 +773,19 @@ extern "C" int muse_flash_attention(const void* q, const void* k, const void* v,
     case 64: return launch<64>(q, k, v, o, B, H, Tq, Tk, strides, scale, stream);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// q (B, Tq, H, D), k and v (B, Tk, H, D) bf16, D 16 (the eval stacks'
+// seeded CLIP towers and tiny trunks), 32 (the mid-scale trunk's blocks), 48
+// (v1) or 64 (v2's blocks, CLIP ViT-L/14), each with d contiguous, heads D apart, and the batch and
+// token strides given in elements (multiples of 8; pointers 16-byte aligned);
+// o (B, Tq, H, D) contiguous.  strides: q_sb, q_st, k_sb, k_st, v_sb, v_st.
+// Tk <= 288 takes the one-pass kernel, larger Tk the two-pass one (wgmma
+// at D 64, mma.sync otherwise).
+extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                    int H, int Tq, int Tk, int D, const int64_t* strides,
+                                    float scale, void* stream_ptr) {
+  return dispatch(q, k, v, o, B, H, Tq, Tk, D, strides, scale, stream_ptr);
 }

@@ -19,22 +19,31 @@
 //    factor (RMS) or the normalised value (LN) rounded to the input type,
 //    then the scale and the bias each applied in the input type.
 //
-// What bounds it on the H100: latency, not the bytes.  Each row is read once
-// (x, and the residual when given) and written once or twice (out, and
-// prenorm with a residual): 3.16 MB at v1's (1, 257, 3072), 0.94 us at
-// 3.35 TB/s, and a few fp32 operations an element are nothing beside that.
-// What a call of a few microseconds waits on is its memory round trips in a
-// row and how many SMs hold a block.
+// What bounds it on the H100: the bytes at the large shapes, latency at the
+// small ones.  Each row is read once (x, and the residual when given) and
+// written once or twice (out, and prenorm with a residual), and a few fp32
+// operations an element are nothing beside that: 33.6 MB at the v1 text
+// model's mid-MLP norm under CFG, (2, 1024, 4096), 10.0 us at 3.35 TB/s, so
+// there every SM needs enough 16-byte loads in flight; 3.16 MB at v1's (1,
+// 257, 3072), 0.94 us, where a call of a few microseconds waits on its
+// memory round trips in a row and on how many SMs hold a block.
 //
 // What the design does about it.  Variant rule, chosen on the width D before
 // launch:
 //
 //  * D 768 and 1024 (v2's blocks and trunk, v1's hidden width): a warp a
 //    row, two rows a block; each lane holds 3 / 4 16-byte vectors of the row.
-//  * D 3072 (v1's mid-MLP norm): a block of 128 threads a row, 3 vectors a
-//    thread, so (1, 257, 3072) runs 257 blocks on the 132 SMs; the warps'
-//    partial sums meet in shared memory, one float a warp, added in warp
-//    order.
+//  * D 1280 (the larger Paella-VQ U-ViTs' hidden width): a block of 160
+//    threads a row, one vector a thread (40 registers; five vectors a lane,
+//    as a warp a row would hold them, take 156 - 159, so few warps fit an
+//    SM, and measured up to 20% slower).
+//  * D 3072 and 4096 (v1's mid-MLP norm: intermediate_size 3072 in the
+//    ImageNet config, 4096 in the CC12M and MOVQ ones): a block of 128
+//    threads a row, D / 1024 (3, 4) vectors a thread, so (1, 257, 3072)
+//    runs 257 blocks on the 132 SMs and (2, 1024, 4096) 2048.
+//
+//    Where a block holds one row, its warps' partial sums meet in shared
+//    memory, one float a warp, added in warp order.
 //
 //    In both, the row lives in registers.  Every thread issues all of its
 //    16-byte loads of x, the residual, the scale and the bias before any
@@ -202,15 +211,25 @@ register_row_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
   const float inv = norm_factor<kModel, kLayerNorm>(var, eps);
 
-  // the normalised row with its affine
+  // the normalised row with its affine.  RMS in the model staging multiplies
+  // bf16 pairs: h, the rounded factor and the scale are bf16 values, so the
+  // exact product rounded once is the staging's rounding of each step
+  const T2 inv2 = __float2bfloat162_rn(inv);
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
     uint4 ov;
     T2* oe = reinterpret_cast<T2*>(&ov);
 #pragma unroll
-    for (int p = 0; p < kVec / 2; ++p)
-      oe[p] = normed2<kModel>(make_float2(h[i][2 * p], h[i][2 * p + 1]), mean, inv,
-                              scale != nullptr, pair(sv[i], p), bias != nullptr, pair(bv[i], p));
+    for (int p = 0; p < kVec / 2; ++p) {
+      if constexpr (kModel && !kLayerNorm) {
+        T2 y = __hmul2(__floats2bfloat162_rn(h[i][2 * p], h[i][2 * p + 1]), inv2);
+        oe[p] = scale != nullptr ? __hmul2(y, reinterpret_cast<const T2*>(&sv[i])[p]) : y;
+      } else {
+        oe[p] = normed2<kModel>(make_float2(h[i][2 * p], h[i][2 * p + 1]), mean, inv,
+                                scale != nullptr, pair(sv[i], p), bias != nullptr,
+                                pair(bv[i], p));
+      }
+    }
     reinterpret_cast<uint4*>(out + row * D)[i * kRowThreads + t] = ov;
   }
 }
@@ -336,7 +355,9 @@ int launch(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
     case 768: return launch_register_row<kLayerNorm, kModel, 3, 32, 2>(a, stream);
     case 1024: return launch_register_row<kLayerNorm, kModel, 4, 32, 2>(a, stream);
+    case 1280: return launch_register_row<kLayerNorm, kModel, 1, 160, 1>(a, stream);
     case 3072: return launch_register_row<kLayerNorm, kModel, 3, 128, 1>(a, stream);
+    case 4096: return launch_register_row<kLayerNorm, kModel, 4, 128, 1>(a, stream);
     default: break;
   }
   const size_t smem = sizeof(float) * kGenericRows * size_t(D);
@@ -358,8 +379,8 @@ int launch(const Args& a, int D, cudaStream_t stream) {
 // contiguous, 16-byte aligned.  res, scale, bias and prenorm may be null
 // (prenorm must be given with res).  layer_norm 0 = RMSNorm, 1 = LayerNorm;
 // model_staging 0 = the Pallas kernels' staging, 1 = the JAX model's.  D 768,
-// 1024 and 3072 keep the row in registers; other widths take the generic
-// kernel.
+// 1024, 1280, 3072 and 4096 keep the row in registers; other widths take the
+// generic kernel.
 extern "C" int muse_fused_norm(const void* x, const void* res, const void* scale,
                                const void* bias, void* out, void* prenorm, int rows, int D,
                                float eps, int layer_norm, int model_staging, void* stream_ptr) {

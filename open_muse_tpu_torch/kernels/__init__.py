@@ -5,7 +5,8 @@ tensors launches its kernel or raises: there is no fallback.  Each wrapper
 counts its launches in a plain integer attribute, ``wrapper.launches``;
 ``flash_attention_two_pass`` counts apart the launches of
 ``flash_attention`` that take its two-pass variant (more keys than the
-one-pass kernel holds).  The forward wrappers are
+one-pass kernel holds), ``attn_sublayer_two_pass`` the sublayer forwards
+whose attention takes it.  The forward wrappers are
 ``torch.autograd.Function``s whose backward is the matching backward
 wrapper, so one Function runs the plain versions on the CPU and the kernels
 on the card in both directions.  The fused norms and
@@ -78,7 +79,7 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
 
 
 from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
-                            attn_sublayer_self, attn_sublayer_self_bwd)
+                            attn_sublayer_self, attn_sublayer_self_bwd, attn_sublayer_two_pass)
 from .flash_attention import flash_attention, flash_attention_two_pass  # noqa: E402
 from .fused_norm import fused_residual_layernorm, fused_residual_rmsnorm  # noqa: E402
 from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
@@ -89,12 +90,14 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul"
            "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
            "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
-           "flash_attention", "flash_attention_two_pass", "LaunchCounter"]
+           "flash_attention", "flash_attention_two_pass", "attn_sublayer_two_pass",
+           "LaunchCounter"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
             glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
-            fused_residual_layernorm, flash_attention, flash_attention_two_pass)
+            fused_residual_layernorm, flash_attention, flash_attention_two_pass,
+            attn_sublayer_two_pass)
 
 
 def launch_counts() -> dict:

@@ -25,18 +25,22 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import at_least_fp32, on_cpu, require_cuda, stream_handle
+from . import LaunchCounter, at_least_fp32, on_cpu, require_cuda, stream_handle
 from ._build import check, library
-from .flash_attention import flash_attention_plain
+from .flash_attention import flash_attention_plain, takes_two_pass
 
 __all__ = ["attn_sublayer_self", "attn_sublayer_cross", "attn_sublayer_self_plain",
            "attn_sublayer_cross_plain", "attn_sublayer_self_bwd", "attn_sublayer_cross_bwd",
            "attn_sublayer_self_bwd_plain", "attn_sublayer_cross_bwd_plain",
-           "sublayer_shapes_supported"]
+           "attn_sublayer_two_pass", "sublayer_shapes_supported"]
 
 HEAD_DIM = 64
 CHUNK_ROWS = 32  # rows per partial sum of d(adaln) and d(ln) in the kernel
 STAT_ROWS = 64  # the backward's row statistics cover S rounded up to this
+# the self and cross forwards whose attention (flash_attention.cu's launcher,
+# called inside the chain) takes the two-pass variant: more than 288 keys,
+# as the 512 px v2's 1024 tokens in the self sublayer
+attn_sublayer_two_pass = LaunchCounter("attn_sublayer_two_pass")
 
 
 def sublayer_shapes_supported(hidden: int, num_heads: int, tp: int = 1) -> bool:
@@ -271,6 +275,7 @@ def _self_forward(x, res, ln_scale, adaln, wqkv, wout, num_heads, eps):
     result = _launch("attn_sublayer_self", x, res, ln_scale, adaln, wqkv, wout, None,
                      num_heads, eps)
     attn_sublayer_self.launches += 1
+    _count_two_pass(x.shape[1])
     return result
 
 
@@ -281,7 +286,13 @@ def _cross_forward(x, res, ln_scale, adaln, wq, wout, kv, num_heads, eps):
     result = _launch("attn_sublayer_cross", x, res, ln_scale, adaln, wq, wout, kv, num_heads,
                      eps)
     attn_sublayer_cross.launches += 1
+    _count_two_pass(kv.shape[1])
     return result
+
+
+def _count_two_pass(keys):
+    if takes_two_pass(keys):
+        attn_sublayer_two_pass.launches += 1
 
 
 def _tp_forward(out, tp):

@@ -15,16 +15,20 @@ weights cast to the input type before the PV product, and PV summed in fp32
     vision tower), any Tq and Tk, and views whose (H, D) axes are
     contiguous with batch and token strides that are multiples of 8 elements
     (the q / k / v chunks of a fused projection), at 16-byte aligned
-    addresses.  Up to 288 keys (every path: v1's 257, v2's 77) a
-    block stages all of K and V in shared memory and computes S once, one
-    warp over every key of 16 query rows up to 80 keys and two warps each
-    over half of them above; more keys (the 1024-token v1 trunks' 1025 and
-    1024) take the source's two-pass variant.  The choice is made on Tk
-    before the launch; every variant counts as one launch of this wrapper,
-    and the two-pass one also in ``flash_attention_two_pass``.  The host's
-    own launches (a graph's warm-up included, its replays not) are also
-    counted by head dim in ``flash_attention.by_head_dim``, which tells
-    which instantiations a path reaches.
+    addresses.  Up to 288 keys (v1's 257, v2's 77) a block stages all of K
+    and V in shared memory and computes S once, one warp over every key of
+    16 query rows up to 80 keys and two warps each over half of them above;
+    more keys (the 1024-token v1 trunks' 1025 and 1024, the 512 px v2's
+    1024 inside kernel 9) take the two-pass variant, which streams 64-key
+    tiles of K (pass 1: row max and sum) and of K and V (pass 2: P and P V)
+    through rings in shared memory: on wgmma, 128 query rows a block, at
+    head dim 64; on mma.sync, 64 rows a block, at the others.  The choice is
+    made before the launch by ``takes_two_pass``, the C launcher's rule;
+    every variant counts as one launch of this wrapper, and the two-pass one
+    also in ``flash_attention_two_pass``.  The host's own launches (a
+    graph's warm-up included, its replays not) are also counted by head dim
+    in ``flash_attention.by_head_dim``, which tells which instantiations a
+    path reaches.
 The TPU kernel has no VJP (JAX enables it for inference only), so there is
 no backward kernel: the backward recomputes the plain version from the saved
 inputs and takes its gradient.
@@ -42,11 +46,17 @@ from . import LaunchCounter, on_cpu, plain_vjp, stream_handle
 from ._build import check, library
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_two_pass",
-           "HEAD_DIMS", "ONE_PASS_MAX_KEYS"]
+           "takes_two_pass", "HEAD_DIMS", "ONE_PASS_MAX_KEYS"]
 
 HEAD_DIMS = (16, 32, 48, 64)  # the kernel's instantiations
-ONE_PASS_MAX_KEYS = 288  # csrc kMaxKeys: more keys take the two-pass variant
+ONE_PASS_MAX_KEYS = 288  # csrc kMaxKeys: the one-pass capacity
 flash_attention_two_pass = LaunchCounter("flash_attention_two_pass")
+
+
+def takes_two_pass(tk: int) -> bool:
+    """The C launcher's variant rule (csrc/flash_attention.cu ``launch``):
+    more keys than the one-pass kernel holds."""
+    return tk > ONE_PASS_MAX_KEYS
 
 
 def flash_attention_plain(q, k, v):
@@ -90,7 +100,7 @@ def _forward(q, k, v):
         1.0 / math.sqrt(d), stream_handle(q)), "flash_attention")
     flash_attention.launches += 1
     flash_attention.by_head_dim[d] += 1
-    if tk > ONE_PASS_MAX_KEYS:
+    if takes_two_pass(tk):
         flash_attention_two_pass.launches += 1
     return out
 

@@ -58,10 +58,13 @@ def test_glu_kernel_matches_plain(device, m, k, n):
     assert torch.equal(got, kernels.glu_down_matmul(a, b, wo))
 
 
-@pytest.mark.parametrize("b,s,kv_len", [(2, 256, 77), (16, 256, 77), (2, 100, 130)])
+@pytest.mark.parametrize("b,s,kv_len", [(2, 256, 77), (16, 256, 77), (2, 100, 130),
+                                        (2, 1024, 77)])
 def test_sublayer_kernels_match_plain(device, b, s, kv_len):
-    """The serving and training batches and ragged query and key tiles; rel
-    3e-2 (bf16 roundings of qkv, probs and output); the prenorm residual
+    """The serving and training batches, ragged query and key tiles and the
+    512px trunk's 1024 tokens (the self sublayer's attention in kernel 5's
+    two-pass variant, counted by ``attn_sublayer_two_pass``); rel 3e-2
+    (bf16 roundings of qkv, probs and output); the prenorm residual
     bit-equal; two calls bit-equal."""
     gen = torch.Generator().manual_seed(s)
     d, h = 1024, 16
@@ -74,7 +77,10 @@ def test_sublayer_kernels_match_plain(device, b, s, kv_len):
         for kern, plain, args in (
                 (kernels.attn_sublayer_self, A.attn_sublayer_self_plain, (wqkv, wout)),
                 (kernels.attn_sublayer_cross, A.attn_sublayer_cross_plain, (wq, wout, kv))):
+            before = kernels.attn_sublayer_two_pass.launches
             out, hh = kern(x, r, ln, adaln, *args, h)
+            keys = s if kern is kernels.attn_sublayer_self else kv_len
+            assert kernels.attn_sublayer_two_pass.launches - before == int(keys > 288)
             ref, ref_h = plain(x, rr, ln, adaln, *args, h)
             assert _rel(out, ref) <= 3e-2 and torch.equal(hh, ref_h), kern.__name__
             again, again_h = kern(x, r, ln, adaln, *args, h)
@@ -438,12 +444,15 @@ NORM_TOL, ATTN_TOL = 1e-2, 2e-2
 @pytest.mark.parametrize("staging", ["pallas", "model"])
 @pytest.mark.parametrize("shape,with_residual", [((1, 257, 768), True), ((2, 256, 768), True),
                                                  ((2, 256, 1024), True), ((1, 257, 3072), False),
-                                                 ((64 * 257, 3072), False), ((3, 37, 100), True)])
+                                                 ((64 * 257, 3072), False), ((3, 37, 100), True),
+                                                 ((2, 1024, 4096), False), ((2, 1024, 4096), True),
+                                                 ((3, 1280), False), ((3, 1280), True)])
 def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
     """Both kernels in both stagings (the Pallas kernels': fp32 affine, one
     cast; the JAX model's: rounded op for op) at the paths' shapes (widths
-    768, 1024, 3072: the row in registers) and at a width of the generic
-    variant (100, not a multiple of 8), LayerNorm with and without a bias;
+    768, 1024, 1280, 3072, 4096: the row in registers) and at a width of the
+    generic variant (100, not a multiple of 8), LayerNorm with and without a
+    bias;
     the class trainer's mid-MLP norm at batch 64 (64 x 257 rows of 3072);
     the prenorm sum bit-equal (x itself without a residual), two calls
     bit-equal, one launch each."""
@@ -494,7 +503,7 @@ def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     self-attention and its cross-attention over 32 text keys.  The inputs
     as views into fused [q | k | v] / [k | v] projections; two calls
     bit-equal."""
-    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain, takes_two_pass
 
     gen = torch.Generator().manual_seed(kv_len)
     b, tq, h, d = q_shape
@@ -508,7 +517,7 @@ def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
     after = kernels.launch_counts()
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert (after["flash_attention_two_pass"] - before["flash_attention_two_pass"]
-            == int(kv_len > 288))
+            == int(takes_two_pass(kv_len)) == int(kv_len > 288))
     ref = flash_attention_plain(q, k, v)
     assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
     assert torch.equal(out, kernels.flash_attention(q, k, v))
@@ -544,6 +553,36 @@ def test_flash_attention_eval_head_dims_match_plain(device, q_shape, kv_len):
     ref = flash_attention_plain(q, k, v)
     assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
     assert torch.equal(out, kernels.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", [
+    (2, 289, 289, 16, 48), (2, 300, 300, 2, 32), (1, 1025, 1025, 16, 64),
+    (2, 1024, 1024, 16, 64), (2, 1024, 1024, 4, 16), (3, 77, 1024, 2, 64),
+    (1, 1000, 300, 3, 32), (2, 130, 1025, 2, 16), (1, 200, 511, 5, 48)])
+def test_flash_attention_two_pass_variant_matches_plain(device, b, tq, tk, h, d):
+    """Kernel 5's two-pass variant (more than 288 keys) at 289, 300, 511,
+    1024 and 1025 keys, head dims 16 / 32 / 48 (the mma.sync kernel) and 64
+    (the wgmma one), ragged Tq (77, 130, 200, 289, 1000, 1025 rows) against
+    the plain version at rel ATTN_TOL, with q / k / v as views into a packed
+    [q | k | v] projection (or q apart and a packed [k | v]); two calls
+    bit-equal; each launch counted once in ``flash_attention`` and once in
+    ``flash_attention_two_pass``."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain, takes_two_pass
+
+    gen = torch.Generator().manual_seed(tk + tq + d)
+    if tq == tk:
+        q, k, v = _rand(gen, b, tq, 3 * h * d).reshape(b, tq, 3 * h, d).chunk(3, dim=2)
+    else:
+        q = _rand(gen, b, tq, h, d)
+        k, v = _rand(gen, b, tk, 2 * h * d).reshape(b, tk, 2 * h, d).chunk(2, dim=2)
+    ref = flash_attention_plain(q, k, v)
+    kernels.reset_launch_counts()
+    out = kernels.flash_attention(q, k, v)
+    assert takes_two_pass(tk)
+    assert kernels.flash_attention.launches == kernels.flash_attention_two_pass.launches == 1
+    assert out.shape == (b, tq, h, d) and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
+    assert torch.equal(out, kernels.flash_attention(q, k, v))
+    assert kernels.flash_attention.launches == kernels.flash_attention_two_pass.launches == 2
 
 
 def test_norm_and_attention_wrappers_raise_on_inputs_they_do_not_take(device):

@@ -53,10 +53,13 @@ def _close(got, want, rtol):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=rtol * np.abs(want).max())
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 96), (3, 768), (1, 5, 3072)])
+@pytest.mark.parametrize("shape", [(2, 37, 96), (3, 768), (1, 5, 3072), (2, 9, 4096),
+                                   (3, 1280)])
 @pytest.mark.parametrize("with_residual", [True, False])
 def test_rmsnorm_plain_matches_jax_kernel(shape, with_residual):
-    """Ragged row counts (the JAX kernel pads to its 256-row blocks)."""
+    """Ragged row counts (the JAX kernel pads to its 256-row blocks); widths
+    4096 (v1's mid-MLP norm in the CC12M and MOVQ configs) and 1280 (the
+    larger Paella-VQ U-ViTs) keep the row in registers on the card."""
     x, res, scale, _ = _rows(sum(shape), shape, with_residual)
     want, want_pre = jax_rmsnorm(_j(x), _j(res), _j(scale), eps=1e-6, interpret=True)
     got, pre = fused_residual_rmsnorm_plain(_t(x), _t(res), _t(scale), 1e-6)
@@ -64,7 +67,8 @@ def test_rmsnorm_plain_matches_jax_kernel(shape, with_residual):
     np.testing.assert_array_equal(pre.numpy(), np.asarray(want_pre))
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 96), (1, 257, 768), (1, 5, 3072)])
+@pytest.mark.parametrize("shape", [(2, 37, 96), (1, 257, 768), (1, 5, 3072), (2, 9, 4096),
+                                   (3, 1280)])
 @pytest.mark.parametrize("with_residual,with_bias", [(True, True), (False, True), (True, False)])
 def test_layernorm_plain_matches_jax_kernel(shape, with_residual, with_bias):
     x, res, scale, bias = _rows(sum(shape) + 1, shape, with_residual)
@@ -91,11 +95,13 @@ def _bf16(a):
     return None if a is None else torch.from_numpy(a).bfloat16()
 
 
-def _differing(got, want):
-    """The fraction of elements that differ; asserts each within one ulp."""
+def _differing(got, want, magnitude=None):
+    """The fraction of elements that differ; asserts each within one ulp of
+    ``magnitude`` (by default of the value itself)."""
     got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    magnitude = np.abs(want) if magnitude is None else magnitude
     diff = got != want
-    assert np.all(np.abs(got - want)[diff] <= 2.0 ** -7 * np.abs(want)[diff])
+    assert np.all(np.abs(got - want)[diff] <= 2.0 ** -7 * magnitude[diff])
     return diff.mean()
 
 
@@ -133,6 +139,44 @@ def test_model_staging_norms_match_jax_layers_in_bf16(kind, width, with_residual
     assert torch.equal(got, ref) and torch.equal(pre, ref_pre) and torch.equal(routed, ref)
 
 
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("width", [1280, 4096])
+@pytest.mark.parametrize("with_residual", [True, False])
+def test_model_staging_wide_norms_match_jax_layers_in_bf16(kind, width, with_residual):
+    """Widths 1280 (the larger Paella-VQ U-ViTs' hidden width) and 4096
+    (v1's mid-MLP norm in the CC12M and MOVQ configs), which the card runs
+    in the register-row variants: the plain model staging against the JAX
+    layers in bf16, and bit for bit against the port's ``use_kernels=False``
+    layers.  The prenorm sum bit-equal; at most MODEL_DIFFERING of the
+    normed elements differ, each by at most one bf16 ulp of the value before
+    the bias add: over 4096-wide rows the bias cancels some normed values
+    almost to 0, so a one-ulp step before the add is many ulps after it."""
+    x, res, scale, bias = _rows(width + with_residual, (4, 33, width), with_residual)
+    xb, rb = jnp.asarray(x, jnp.bfloat16), None if res is None else jnp.asarray(res, jnp.bfloat16)
+    xt, rt, st, bt = _bf16(x), _bf16(res), _bf16(scale), _bf16(bias)
+    params = {"scale": jnp.asarray(scale, jnp.bfloat16)}
+    if kind == "rms":
+        want, want_pre = JaxRMSNorm(width).apply({"params": params}, xb, rb, return_residual=True)
+        got, pre = fused_residual_rmsnorm_model_plain(xt, rt, st, 1e-6)
+        port, before_bias = layers.RMSNorm(width, 1e-6), None
+    else:
+        params["bias"] = jnp.asarray(bias, jnp.bfloat16)
+        want, want_pre = JaxLayerNorm(width, use_bias=True).apply(
+            {"params": params}, xb, rb, return_residual=True)
+        got, pre = fused_residual_layernorm_model_plain(xt, rt, st, bt, 1e-5)
+        port = layers.LayerNorm(width, 1e-5, use_bias=True)
+        port.bias.data = bt.clone()
+        before_bias = np.maximum(np.abs(np.asarray(want.astype(jnp.float32))),
+                                 np.abs(np.asarray(want.astype(jnp.float32)) - bt.float().numpy()))
+    np.testing.assert_array_equal(pre.float().numpy(), np.asarray(want_pre.astype(jnp.float32)))
+    assert _differing(got, want, before_bias) <= MODEL_DIFFERING
+    port.weight.data = st.clone()
+    with torch.no_grad():
+        ref, ref_pre = port.bfloat16()(xt, rt, return_residual=True, use_kernels=False)
+        routed, _ = port(xt, rt, return_residual=True)
+    assert torch.equal(got, ref) and torch.equal(pre, ref_pre) and torch.equal(routed, ref)
+
+
 def test_norm_wrappers_on_cpu_return_x_as_prenorm_and_launch_nothing():
     """Without a residual the prenorm output is x itself (no copy); CPU
     tensors take the plain versions."""
@@ -162,6 +206,8 @@ ATTN_RTOL = 1e-5
     (1, 257, 257, 2, 48),  # v1 self-attention: ragged Tq and Tk, head_dim 48
     (2, 64, 77, 3, 16),    # the 77 text keys (the JAX kernel pads K to 128)
     (2, 300, 20, 1, 16),   # Tq past one JAX block of 256
+    (1, 300, 1025, 1, 64),  # past the one-pass kernel's 288 keys: the MOVQ class trunk's 1025
+    (2, 64, 289, 2, 48),   # one key past it, head_dim 48
 ])
 def test_flash_attention_plain_matches_jax_kernel(b, tq, tk, h, d):
     q, k, v = _qkv(tq + tk, b, tq, tk, h, d)

@@ -117,6 +117,36 @@ def test_text2image_matches_jax_compile_text2image(pipelines):
     assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
 
 
+def test_text2image_at_the_512px_token_grid_matches_jax(pipelines):
+    """A 512 px request's 32 x 32 = 1024 tokens through the port's entry
+    point ``text2image(seq_len=1024)`` (on the card the flagship's trunk
+    attends over 1024 keys: kernel 5's two-pass variant inside kernel 9):
+    token ids exactly equal to the JAX decode's under JAX-drawn noise, the
+    images to 1e-4 of their range against JAX ``compile_text2image``."""
+    jax_pipe, port_pipe = pipelines
+    tok = JaxTokenizer(100, 16)
+    ids = np.asarray(tok(["a lighthouse at dusk"])["input_ids"])
+    empty = jnp.asarray(tok([""])["input_ids"])
+    micro = np.asarray([[512, 512, 0, 0, 6.0]], np.float32)
+    key, steps, guidance = jax.random.PRNGKey(19), 2, 3.0
+    hs, _, pooled = jax_pipe.text_encoder.encode(jnp.asarray(ids))
+    ehs_e, _, pooled_e = jax_pipe.text_encoder.encode(empty)
+    want_tokens = jax_pipe.transformer.generate2(
+        hs[-2], pooled, jnp.asarray(micro), empty_embeds=ehs_e[-2], empty_cond_embeds=pooled_e,
+        temperature=(2, 0), timesteps=steps, guidance_scale=guidance, key=key, seq_len=1024)
+    fused = jax_pipe.compile_text2image(batch_size=1, timesteps=steps, guidance_scale=guidance,
+                                        seq_len=1024)
+    want = np.asarray(fused(jnp.asarray(ids), jnp.asarray(micro), key))
+    noise = jax_noise(key, steps, 1, 1024, UVIT_TINY["codebook_size"])
+    got, tokens = port_pipe.text2image(torch.from_numpy(ids), torch.from_numpy(micro), noise,
+                                       timesteps=steps, guidance_scale=guidance, seq_len=1024,
+                                       return_tokens=True)
+    assert tokens.shape == (1, 1024)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want_tokens))
+    assert got.shape == want.shape == (1, 64, 64, 3)
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
 def test_pipeline_call_with_generator(pipelines):
     """The user entry point: prompts in, PIL images out; seeded runs repeat;
     guidance 0 runs the CFG-free decode."""

@@ -6,6 +6,7 @@ into a git-ignored directory, so that both run in one chip call):
     python3 tools/chip_measure.py kernels TREE  # chip_smoke's kernel phases alone
     python3 tools/chip_measure.py host TREE     # host enqueue cost a call
     python3 tools/chip_measure.py serving TREE  # request latency around a profile
+    python3 tools/chip_measure.py attn_norm TREE  # kernel 5 and SDPA, kernels 1 / 2 wide
 
 ``split`` times the samplers (kernels 3 and 4, the Philox route at the
 serving shape), ``vq_argmin`` (kernel 6, at the pre-encode and inpainting
@@ -25,7 +26,12 @@ chip_smoke's full-width serving pipeline and times 5 CFG requests (256px,
 bs1, 12 steps; eager and captured where the tree's requests replay a CUDA
 graph), then one more under torch.profiler, printing the host
 (self CPU) time of its top operations: where a host-bound request spends
-its time.
+its time.  ``attn_norm`` times kernel 5 at ATTN_SHAPES (the variant its
+rule takes) beside SDPA, with each one's error against the plain version,
+its bound (bytes or two products) and its MUFU floor (two exponentials a
+score, 16 a clock an SM),
+and kernels 1 and 2 at NORM_SHAPES in both stagings beside F.rms_norm /
+F.layer_norm.
 """
 
 from __future__ import annotations
@@ -222,12 +228,93 @@ def serving(tree):
               f"{e.self_cpu_time_total / 1e3:.2f} ms over {e.count} calls", flush=True)
 
 
+# kernel 5 (b, tq, tk, heads, d): the MOVQ trunks' 1025 and 1024 keys (the
+# 512 px v2's self-attention inside kernel 9 is the second), the v1
+# trainers' batch of 64 (head dims 64 and 48), CLIP ViT-L/14 at the eval
+# batch and at 2, v1 serving's 257, v2's 256 tokens when serving and at the
+# training batch, a cross-attention over 77 keys, and the eval stacks' head
+# dims 16 and 32 above 288 keys
+ATTN_SHAPES = ((1, 1025, 1025, 16, 64), (2, 1024, 1024, 16, 64), (64, 256, 256, 16, 64),
+               (64, 257, 257, 16, 48), (32, 257, 257, 16, 64), (2, 257, 257, 16, 64),
+               (1, 257, 257, 16, 48), (2, 256, 256, 12, 64), (16, 256, 256, 16, 64),
+               (2, 1024, 77, 16, 64), (2, 1024, 1024, 4, 16), (2, 300, 300, 2, 32),
+               (2, 289, 289, 16, 48))
+# kernels 1 / 2 (shape, residual): v1's 4096-wide mid-MLP norm under CFG and
+# at the text trainer's batch, 1280 (the larger Paella-VQ U-ViTs), the class
+# trainer's 3072, the 512 px v2's trunk norm at 1024
+NORM_SHAPES = (((2, 1024, 4096), False), ((64, 256, 4096), False), ((2, 1024, 4096), True),
+               ((2, 1024, 1280), False), ((2, 1024, 1280), True), ((64, 257, 3072), False),
+               ((2, 1024, 1024), True))
+
+
+def attn_norm(tree):
+    from torch.nn import functional as F
+
+    tree, C = _load(tree)
+    from open_muse_tpu_torch.kernels import flash_attention
+    from open_muse_tpu_torch.kernels import fused_norm as N
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+
+    dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
+    name = os.path.basename(tree)
+    for shape in ATTN_SHAPES:
+        b, tq, tk, h, d = shape
+        q, k, v = C._attention_inputs(dev, gen, *shape)
+        ref = flash_attention_plain(q, k, v)
+        calls = {"kernel": functools.partial(flash_attention, q, k, v),
+                 "sdpa": lambda: F.scaled_dot_product_attention(  # noqa: E731, B023
+                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)}
+        moved = C.nbytes(q, k, v, ref)
+        bound, by = C.bound_of(moved, 4 * b * h * tq * tk * d, "bf16")
+        mufu = 2 * b * h * tq * tk / C.MUFU_PER_S * 1e6
+        three = 6 * b * h * tq * tk * d / C.PEAK_OPS_PER_S["bf16"] * 1e6
+        for label, fn in calls.items():
+            out = fn()
+            rel = C.errors(out, ref)[1]
+            twice = torch.equal(out, fn())
+            us = C.graph_ms(fn) * 1e3
+            print(f"[attn] {name} {shape} {label}: {us:.2f} us, rel {rel:.3e} (tol "
+                  f"{C.ATTN_TOL}), two calls bit-equal {twice}; bound {bound * 1e3:.2f} us "
+                  f"({by}), three products {three:.2f} us, MUFU floor {mufu:.2f} us", flush=True)
+    for shape, with_res in NORM_SHAPES:
+        x = (torch.randn(*shape, generator=gen) * 2).to(dev, torch.bfloat16)
+        res = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16) if with_res else None
+        w = (1 + 0.1 * torch.randn(shape[-1], generator=gen)).to(dev, torch.bfloat16)
+        moved = C.nbytes(x, res, w, x, None if res is None else x)
+        cases = {
+            "rms": (lambda st: N.fused_residual_rmsnorm(x, res, w, 1e-6, staging=st),
+                    {"pallas": lambda: N.fused_residual_rmsnorm_plain(x, res, w, 1e-6),
+                     "model": lambda: N.fused_residual_rmsnorm_model_plain(x, res, w, 1e-6)},
+                    lambda: F.rms_norm(x, (shape[-1],), w, 1e-6)),
+            "ln": (lambda st: N.fused_residual_layernorm(x, res, w, None, 1e-6, staging=st),
+                   {"pallas": lambda: N.fused_residual_layernorm_plain(x, res, w, None, 1e-6),
+                    "model": lambda: N.fused_residual_layernorm_model_plain(x, res, w, None,
+                                                                           1e-6)},
+                   lambda: F.layer_norm(x, (shape[-1],), w, None, 1e-6)),
+        }
+        for kind, (kern, plains, lib) in cases.items():
+            for staging, plain in plains.items():
+                out, pre = kern(staging)
+                ref, ref_pre = plain()
+                rel = C.errors(out, ref)[1]
+                same = torch.equal(pre, ref_pre) and torch.equal(out, kern(staging)[0])
+                us = C.graph_ms(lambda: kern(staging)) * 1e3  # noqa: B023
+                print(f"[norm] {name} {kind} {staging} x {shape} res={with_res}: {us:.2f} us, "
+                      f"rel {rel:.3e} (tol {C.NORM_TOL}), prenorm and two calls bit-equal "
+                      f"{same}; bound {moved / C.HBM_BYTES_PER_S * 1e6:.2f} us (bytes)",
+                      flush=True)
+            if res is None:
+                print(f"[norm] {name} {kind} library call x {shape}: "
+                      f"{C.graph_ms(lib) * 1e3:.2f} us", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("split", "kernels", "host", "serving"))
+    parser.add_argument("what", choices=("split", "kernels", "host", "serving", "attn_norm"))
     parser.add_argument("tree", help="the checkout whose kernels to measure")
     args = parser.parse_args()
-    {"split": split, "kernels": kernels, "host": host, "serving": serving}[args.what](args.tree)
+    {"split": split, "kernels": kernels, "host": host, "serving": serving,
+     "attn_norm": attn_norm}[args.what](args.tree)
     return 0
 
 
