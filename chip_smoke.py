@@ -869,8 +869,8 @@ def check_norms(device, gen):
 # flash attention (b, tq, tk, heads, d): v2's block attention (2 x 256
 # queries, 12 heads of 64, the 77 text keys as views into the [k | v]
 # projection: both attentions of an AttentionBlock2D) when serving and at the
-# training batch of 16; 256 keys at head_dim 64, the split one-pass variant
-# that v1 takes at 48; above the one-pass capacity of 288 keys (the two-pass
+# training batch of 16; 256 keys at head_dim 64; above the one-pass
+# capacity of 288 keys (the two-pass
 # variant) the MOVQ configs' 1024-token trunks: the class model's 1025
 # tokens at batch 1, the text model's 1024 under CFG (batch 2: also the
 # 512px v2's self-attention inside kernel 9) and its cross-attention over 77
@@ -878,11 +878,14 @@ def check_norms(device, gen):
 # model's self-attention, the text model's self-attention and its
 # cross-attention over 32 text keys; last v1's self-attention (257 tokens,
 # 16 heads of 48, q / k / v views into the fused projection), the report's
-# row
+# row.  Kernels 9 and 10 call the same launcher on views of their
+# projections: their cores at serving's 16 heads, (2, 256) x 256 and x 77
+# keys, and at the distillation teacher's 128 rows, before the last.
 FLASH_SHAPES = ((2, 256, 256, 12, 64), (2, 256, 77, 12, 64), (16, 256, 77, 12, 64),
                 (1, 1025, 1025, 16, 64), (2, 1024, 1024, 16, 64), (2, 1024, 77, 16, 64),
                 (64, 257, 257, 16, 48), (64, 256, 256, 16, 64), (64, 256, 32, 16, 64),
-                (1, 257, 257, 16, 48))
+                (2, 256, 256, 16, 64), (2, 256, 77, 16, 64), (128, 256, 256, 16, 64),
+                (128, 256, 77, 16, 64), (1, 257, 257, 16, 48))
 ATTN_TOL = 2e-2
 
 
@@ -897,8 +900,8 @@ def _attention_inputs(device, gen, b, tq, tk, heads, d):
 
 
 # kernel 5 at the eval stacks' shapes (B, Tq, Tk, H, D): CLIP ViT-L/14's
-# vision tower at batch 2 and at the eval batch 32 (the one-pass variant, two
-# warps a row group); head dim 16: the seeded CLIP towers of the quality
+# vision tower at batch 2 (a cluster a pair) and at the eval batch 32 (the
+# one-pass wgmma kernel's persistent blocks); head dim 16: the seeded CLIP towers of the quality
 # regression (32 px, patch 8: 17 tokens) and of the mid-scale protocol (64 px:
 # 65 tokens), the quality trunk's 8 x 8 tokens and its 8 text keys at 16 rows;
 # head dim 32: the mid-scale trunk's blocks, 16 x 16 tokens and 8 text keys
@@ -914,11 +917,13 @@ def _flash_case(device, gen, b, tq, tk, heads, d):
     from torch.nn import functional as F
 
     from open_muse_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                             flash_attention_plain,
-                                                             takes_two_pass)
+                                                             flash_attention_plain, takes_two_pass,
+                                                             variant)
 
     q, k, v = _attention_inputs(device, gen, b, tq, tk, heads, d)
-    variant = "two-pass" if takes_two_pass(tk) else "one-pass"
+    # the C launcher's rule, mirrored: which kernel the launch takes
+    name = variant(tk, d, b * heads, tq, torch.cuda.get_device_properties(device)
+                   .multi_processor_count)
     out, ref = flash_attention(q, k, v), flash_attention_plain(q, k, v)
     max_abs, rel = errors(out, ref)
     twice = torch.equal(out, flash_attention(q, k, v))
@@ -933,8 +938,8 @@ def _flash_case(device, gen, b, tq, tk, heads, d):
     moved = (nbytes(q, k, v, out), 4 * b * heads * tq * tk * d, "bf16")
     # the two-pass variant takes two exponentials a score
     mufu = (f", MUFU floor {2 * b * heads * tq * tk / MUFU_PER_S * 1e3:.4f} ms"
-            if variant == "two-pass" else "")
-    log(f"[kernel] flash_attention {variant} q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: "
+            if takes_two_pass(tk) else "")
+    log(f"[kernel] flash_attention {name} q {tuple(q.shape)} k,v {tuple(k.shape)} bf16: "
         f"max_abs {max_abs:.3e} rel {rel:.3e} (tol rel {ATTN_TOL}: summation order, bf16 P), "
         f"two calls bit-equal {twice}; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA "
         f"{lib_ms:.4f} ms (CUDA graph replay; rel {lib_err:.3e} vs plain), bound "
@@ -4124,11 +4129,11 @@ def gemm_sweep(device) -> bool:
 
 # the kernels whose ptxas lines the run prints: the Hopper GEMM, the GLU
 # product, the register row kernels, the sublayers' backward attention, the
-# sampler and the VQ split pass
+# sampler, the VQ split pass and kernel 5's wgmma and two-pass kernels
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
                  "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel",
                  "sample_kernel", "vq_split_kernel", "two_pass_kernel", "two_pass_wgmma_kernel",
-                 "register_row_kernel")
+                 "one_pass_wgmma_kernel", "register_row_kernel")
 
 
 def ptxas_report(build_log: str, names):

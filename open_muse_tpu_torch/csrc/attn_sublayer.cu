@@ -33,12 +33,15 @@
 //   x, res, ln and the AdaLN rows issued before any arithmetic; the
 //   block-a-row kernel below at other widths), the in-projection (qkv or q)
 //   on the Hopper GEMM of gemm_sm90.cuh (TMA, wgmma), flash_attention.cu's
-//   attention through its launcher (`muse_flash_attention`: one pass with
-//   K and V of a (batch, head) pair staged once by cp.async, S in registers,
-//   P rounded to bf16 after the exact row sum, one warp a 16-row group to 80
-//   keys -- the 77 text keys --, two to 288; two passes above) reading q /
-//   k / v as strided views of the (B, S, 3D) projection or of q and the
-//   (B, L, 2D) [k|v] projection, and the out projection on the Hopper GEMM.
+//   attention through its launcher (`muse_flash_attention`, by its rule: up
+//   to 288 keys one pass with S in registers and P rounded to bf16 after the
+//   exact row sum -- on wgmma with a (batch, head) pair's K and V read once
+//   by TMA into a persistent block, or multicast into a cluster's blocks at
+//   serving's 256 tokens; on mma.sync over the 77 text keys at serving's
+//   batch --; two passes above) reading q / k / v as strided views of the
+//   (B, S, 3D) projection or of q and the (B, L, 2D) [k|v] projection (4-D
+//   tensor maps with free batch and token strides), and the out projection
+//   on the Hopper GEMM.
 // - Backward, self (kernel 11) and cross (kernel 12) alike, nine launches:
 //   the register row kernel again (recompute a, keeping 1/rms), the Hopper
 //   GEMM for the recomputed qkv or q and, with the weight read MN-major, for

@@ -11,37 +11,63 @@
 // pairs' whole K/V in VMEM, pads K/V to 128 lanes and masks the pad.  Neither
 // the grouping nor the padding is carried over: here a block owns one
 // (batch, head) pair and a tile of query rows and masks the ragged keys in
-// place.  The exact staging rules out online-softmax rescaling of an
+// place (the one-pass wgmma kernel reads a pair's K and V once, as the
+// grouping did).  The exact staging rules out online-softmax rescaling of an
 // unnormalised PV: P is rounded to bf16 only after the exact row sum is known.
 //
-// What bounds it on the H100: at the paths' shapes (v1's self-attention
-// (1, 257, 16, 48); v2's block attention (2, 256, 12, 64) over the 77 text
-// keys, 16 rows of batch when training) neither bytes (1.6 MB at v1: 0.5 us)
-// nor operations (0.2 GFLOP: 0.2 us) but latency: how many dependent memory
-// round trips a block waits on, how long one warp's chain of mma, exp and
-// shuffles is, and how many SMs hold a block at all.
+// What bounds it on the H100: bytes at the trainers', eval's and the
+// distillation teacher's batches (16 - 128 rows of 16 heads: q, k, v read
+// and o written once are 10 - 80 us at 3.35 TB/s, the two products 3 - 26
+// us at 989 TFLOP/s, the exponentials 2 - 16 us on the MUFU at 16 a clock
+// an SM); latency when serving at batch 1 - 2 (1.6 MB at v1's (1, 257, 16,
+// 48): 0.5 us): how many dependent memory round trips a block waits on, how
+// long one warp's chain of products, exponentials and shuffles is, and how
+// many SMs hold a block at all.  Variant rule, on Tk, D, the (batch, head)
+// pairs B H and Tq before the launch (kernels/flash_attention.py `variant`
+// mirrors it):
 //
-// What the design does about it: one pass over K, with all of a (batch,
-// head) pair's K and V, rounded up to 16 keys and zero-filled, copied into
-// dynamic shared memory by cp.async 16-byte copies issued at once, K as one
-// commit group and V as a second, while the Q fragments load straight into
-// registers.  The block waits once for K, computes S once (mma.sync
-// m16n8k16, K fragments by ldmatrix) and keeps it in registers, takes the
-// row max, exp and the row sum while V is still arriving, then forms P =
-// exp * (1 / sum) rounded to bf16 and P V (V fragments by ldmatrix.trans on
-// row-major V, so no transposed copy).  exp is ex2.approx with log2(e) folded into the
-// scale and the division a product with the row sum's IEEE reciprocal: both
-// within a few fp32 ulps of the TPU kernel's exp(S - max) / sum, far below
-// the bf16 rounding of P that follows.  Blocks hold 4 groups of 16 query
-// rows (64 rows); S's register footprint is fixed at compile time, so the
-// capacity follows Tk.  Variant rule, on Tk before the launch:
-//
-//  * Tk <= 80 (v2's 77 text keys): one warp a group over every key, 128
-//    threads; S is 40 floats a thread.
-//  * 80 < Tk <= 288 (v1's 257): two warps a group, each over its
-//    half of the 16-key chunks (at most 9), 256 threads; the halves' row
-//    maxima and sums meet in shared memory (sums added in warp order) and
-//    the second warp's partial P V is added to the first's before the store.
+//  * Tk <= 288, D 48 / 64, and the pairs fill the card (`op::cluster_for`
+//    is 1: more than SMs / 2 pairs, or no row tiles to share), or D 64 over
+//    more than 96 keys: one pass on warpgroup products (namespace op).
+//    Bytes are the bound, so K and V are read once per (batch, head) pair:
+//    a persistent block (one an SM) walks over pairs and holds two pairs' K
+//    and V in shared memory, loaded by TMA (a 4-D tensor map (D, H, T, B) with the batch and
+//    token strides free, 64-key boxes in the 128-byte swizzle, zeros past D
+//    and Tk) while two or three consumer warpgroups of 64 query rows work
+//    on the pair before; when the pairs do not fill the card (serving's 24 -
+//    32), the blocks that share a pair's row tiles form a cluster and each
+//    loads a share of K and V, multicast into every block of it.  A
+//    producer warpgroup issues every load (K, V and each task's Q tile, on
+//    mbarriers; setmaxnreg gives its registers to the consumers), so loads
+//    overlap math.  A consumer warpgroup runs S = Q K^T on wgmma with Q and
+//    K from shared memory (n256 + n32 at 257 - 288 keys, two n128 at 97 -
+//    256, n64 + n32 at 33 - 96, n32 below: the capacity is a template
+//    argument, no product is skipped at run time), keeps S in registers
+//    (up to 144 floats a thread), takes the exact softmax by its warps' rows
+//    (exp as ex2.approx with log2(e) folded into the scale, one IEEE
+//    reciprocal a row), runs P V on wgmma with P's bf16 fragments in
+//    registers as A and V as an MN-major B (the transpose flag; D 48 reads
+//    the box's zero columns 48 .. 63 too), and stores O through a swizzled
+//    tile by one TMA store.  Tq = 257's last row tile is one more task of a
+//    warpgroup (no block of its own); its warps past Tq take no
+//    exponential.  The swizzle is 128 bytes at D 48 too: the box is 64
+//    columns wide, one swizzle row, and the map's zeros fill 48 .. 63.
+//  * Tk <= 288 otherwise (D 16 / 32: the eval stacks' seeded towers and
+//    trunks; D 48 and the 77 text keys at few pairs: v1 and v2 serving),
+//    where the mma.sync kernel's small blocks were faster on the card: one
+//    pass on mma.sync.  A block holds 4 groups of 16 query rows (64 rows) of
+//    one pair and copies all of its K and V, rounded up to 16 keys and
+//    zero-filled, into dynamic shared memory by cp.async, K as one commit
+//    group and V as a second, while the Q fragments load straight into
+//    registers; it waits once for K, computes S once (m16n8k16, K fragments
+//    by ldmatrix) and keeps it in registers, takes the row max, exp and sum
+//    while V is still arriving, then forms P = exp * (1 / sum) rounded to
+//    bf16 and P V (V fragments by ldmatrix.trans on row-major V).  Up to 80
+//    keys one warp a group covers every key (S 40 floats a thread); above,
+//    two warps a group each take half of the 16-key chunks (at most 9), the
+//    halves' row maxima and sums meeting in shared memory (sums added in
+//    warp order) and the second warp's partial P V added to the first's
+//    before the store.
 //  * Tk > 288 (the 1024-token v1 trunks of the MOVQ configs: 1025 keys
 //    with the class token, 1024 without; the 512px v2 trunk's 1024 inside
 //    kernel 9): two passes over 64-key tiles.  A row of 1024 fp32 logits
@@ -74,6 +100,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -730,6 +757,442 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int T
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// one pass on warpgroup products: Tk <= kMaxKeys, D 48 / 64
+
+namespace op {
+
+using muse::sm90::encode_tiled;
+using muse::sm90::fence_accumulators;
+using muse::sm90::mbar_arrive;
+using muse::sm90::mbar_expect_tx;
+using muse::sm90::mbar_init;
+using muse::sm90::mbar_wait;
+using muse::sm90::smem_desc;
+using muse::sm90::smem_desc_mn;
+using muse::sm90::smem_u32;
+using muse::sm90::wgmma_commit;
+using muse::sm90::wgmma_fence;
+using muse::sm90::wgmma_m64n128k16;
+using muse::sm90::wgmma_m64n256k16;
+using muse::sm90::wgmma_m64n64k16;
+using muse::sm90::wgmma_wait;
+
+constexpr int kBox = 64 * 128;  // a TMA box: 64 tokens x 64 d of bf16, rows of 128 bytes
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// The key capacities instantiated, in 32-key chunks: 1 (up to 32 keys), 3
+// (96: the 77 text keys), 8 (256: v2's tokens), 9 (288: 257, v1's and CLIP
+// ViT-L/14's).  S's products cover the capacity, none skipped at run time
+// (a product under a run-time condition makes ptxas serialise the
+// warpgroup's products); keys past Tk are masked.
+constexpr int chunks_for(int Tk) { return Tk <= 32 ? 1 : Tk <= 96 ? 3 : Tk <= 256 ? 8 : 9; }
+
+// What a capacity fixes: consumer warpgroups of 64 query rows (3 up to 256
+// keys, 2 where S takes 144 registers a thread) beside the
+// producer's warpgroup; the registers a thread after setmaxnreg (each
+// quadrant's 512 a warp slot shared as consumers x kRegs + kProducerRegs);
+// the TMA boxes of 64 keys a pair's K (or V) takes, zeros past Tk, so that
+// every product reads staged rows; the slots of pairs' K and V a persistent
+// block keeps (two: the next pair's arrive while one is read; a third
+// gained nothing on the card; a cluster's block one); the ring of Q tiles
+// (two a consumer warpgroup: a third gained nothing either); the dynamic
+// shared memory: the K / V slots, the Q ring, a tile of O a consumer
+// warpgroup and the mbarriers, 1024-byte aligned.
+constexpr int consumers_for(int chunks) { return chunks <= 8 ? 3 : 2; }
+
+template <int kChunks>
+struct Cfg {
+  static constexpr int kConsumers = consumers_for(kChunks);
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kProducerRegs = kConsumers == 3 ? 32 : 24;
+  static constexpr int kRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kBoxes = (kChunks * 32 + 63) / 64;
+  static constexpr int kKvBytes = 2 * kBoxes * kBox;  // a pair's K, then its V
+  static constexpr int kKvSlots = 2;
+  static constexpr int kQSlots = 2 * kConsumers;
+  static constexpr int kBarriers = 3 * kKvSlots + 2 * kQSlots;
+  static constexpr size_t smem(int kv_slots) {
+    return 1024 + size_t(kv_slots) * kKvBytes + (kQSlots + kConsumers) * kBox + kBarriers * 8;
+  }
+  static_assert(smem(kKvSlots) <= 232448, "the SM's shared memory");
+};
+
+// The cluster size: 1 (persistent blocks walking over the (batch, head)
+// pairs) once the pairs fill the card; else a cluster of c blocks a pair, c
+// as large as the card holds (pairs * c <= SMs) but no larger than gives
+// each consumer warpgroup one 64-row tile, at most 8.
+inline int cluster_for(int pairs, int Tq, int Tk, int sms) {
+  const int tiles = (Tq + 63) / 64, consumers = consumers_for(chunks_for(Tk));
+  return std::max(1, std::min({sms / pairs, (tiles + consumers - 1) / consumers, kMaxCluster}));
+}
+
+// Where this kernel runs, and the mma.sync one-pass kernel otherwise:
+// wherever its blocks are persistent (the pairs fill the card), and in
+// clusters at D 64 over more than 96 keys.  With fewer pairs than that, at
+// 96 keys or fewer (the 77 text keys when serving) and at D 48 (v1
+// serving's (1, 257, 16, 48)), the mma.sync kernel's 64-row blocks were
+// 22 - 61% faster on the card (PERF.md).
+inline bool takes(int pairs, int Tq, int Tk, int D, int sms) {
+  return cluster_for(pairs, Tq, Tk, sms) == 1 || (D == 64 && Tk > 96);
+}
+
+// S (64 x 32, fp32) += A (64 x 16) B: A = Q and B = K, both K-major in
+// 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, 1, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// one k step (16 of d) of S = Q K^T over the capacity, in few products
+// (n256 + n32 at 9; n128 + n128 at 8, whose three warpgroups compile to 128
+// registers a thread, too few for an n256 product's operands; n64 + n32; n32);
+// K's row r lies 128 r bytes into its stage
+template <int kChunks>
+__device__ __forceinline__ void scores_step(float* sc, uint32_t qa, uint32_t ks, int kk) {
+  const uint64_t a = smem_desc(qa + kk * 32);
+  if constexpr (kChunks == 9) {
+    wgmma_m64n256k16<0, 0>(sc, a, smem_desc(ks + kk * 32));
+    wgmma_m64n32k16(sc + 128, a, smem_desc(ks + 256 * 128 + kk * 32));
+  } else if constexpr (kChunks == 8) {
+    wgmma_m64n128k16<0, 0>(sc, a, smem_desc(ks + kk * 32));
+    wgmma_m64n128k16<0, 0>(sc + 64, a, smem_desc(ks + 128 * 128 + kk * 32));
+  } else if constexpr (kChunks == 3) {
+    wgmma_m64n64k16<0, 0>(sc, a, smem_desc(ks + kk * 32));
+    wgmma_m64n32k16(sc + 32, a, smem_desc(ks + 64 * 128 + kk * 32));
+  } else {
+    static_assert(kChunks == 1, "a capacity of chunks_for");
+    wgmma_m64n32k16(sc, a, smem_desc(ks + kk * 32));
+  }
+}
+
+// keeps the compiler from reusing the registers of an A operand that an
+// asynchronous product may still be reading
+template <int kCount>
+__device__ __forceinline__ void fence_operands(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < kCount; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// one box of a (D, H, T, B) tensor map (d 0 .. 63 of head h, 64 tokens from
+// t, batch row b) into this block's shared memory, completion counted in
+// bytes on `bar`; the multicast form writes it, and counts it, at the same
+// offsets in every block of the cluster that `mask` names
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                        int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// a box of the O tile from this block's shared memory into (D, H, T, B),
+// clipped at D and T; completion tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void tma_store_box(const CUtensorMap* map, const void* src, int h, int t,
+                                              int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(0), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// until the O tiles this thread stored no longer read shared memory
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void tma_box_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                  int h, int t, int b, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(0), "r"(h),
+      "r"(t), "r"(b)
+      : "memory");
+}
+
+// Clusters of csize blocks along x (1: persistent blocks).  Cluster c takes
+// the pairs c, c + clusters, ...; block `rank` of it the pair's 64-row tiles
+// rank, rank + csize, ...; the block's tasks (pair, row tile) in order go
+// round its consumer warpgroups.  The producer warpgroup's first thread
+// keeps the loads in flight: a pair's K and V into one of kv_slots slots (a
+// persistent block's two: the next pair's arrive while this one's are read;
+// in a cluster, one pair a cluster, each block loads a share of the boxes
+// and multicasts it), the tasks' Q tiles into the ring.  A consumer
+// warpgroup waits for the pair's K and V and the task's Q, runs S = Q K^T
+// (A and B from shared memory), frees the Q slot, takes the exact softmax
+// in registers (each warp its 16 rows, a row's four threads meeting by
+// shuffles), runs O = P V as m64n64k16 products with P from registers and V
+// an MN-major B, and stores O from registers.  Every consumer warpgroup
+// releases the pair's slot once past its tasks.
+template <int D, int kChunks>
+__global__ void __launch_bounds__(Cfg<kChunks>::kThreads, 1)
+one_pass_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o, int B, int H, int Tq, int Tk,
+                      float scale_log2) {
+  namespace cg = cooperative_groups;
+  using C = Cfg<kChunks>;
+  static_assert(D == 48 || D == 64, "a head within one 128-byte swizzle row");
+  constexpr int kN = 64;  // P V's width: at D 48 also the box's zero columns 48 .. 63
+  constexpr int kS = 16 * kChunks;  // S's accumulators a thread
+  constexpr int kSteps = 2 * kChunks;  // P V's k steps of 16 keys
+  extern __shared__ __align__(1024) unsigned char op_smem[];
+  unsigned char* smem = op_smem + ((1024 - (smem_u32(op_smem) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const int kv_slots = csize == 1 ? C::kKvSlots : 1;
+  unsigned char* kv = smem;
+  unsigned char* qs = smem + kv_slots * C::kKvBytes;
+  unsigned char* os = qs + C::kQSlots * kBox;  // each consumer warpgroup's O tile
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(os + C::kConsumers * kBox);
+  uint64_t* full_v = full_k + C::kKvSlots;
+  uint64_t* empty_kv = full_v + C::kKvSlots;
+  uint64_t* full_q = empty_kv + C::kKvSlots;
+  uint64_t* empty_q = full_q + C::kQSlots;
+
+  const int pairs = B * H, tiles = (Tq + 63) / 64;
+  const int clusters = gridDim.x / csize, cid = blockIdx.x / csize;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kKvSlots; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_kv[s], 128 * C::kConsumers);
+    }
+    for (int s = 0; s < C::kQSlots; ++s) {
+      mbar_init(&full_q[s], 1);
+      mbar_init(&empty_q[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every block's barriers are set before a multicast lands in it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * C::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    if (warp == 4 * C::kConsumers && lane == 0) {  // the producer
+      int task = 0;
+      for (int i = 0, p = cid; p < pairs; ++i, p += clusters) {
+        const int b = p / H, h = p % H, s = i % kv_slots;
+        if (i >= kv_slots) mbar_wait(&empty_kv[s], (i / kv_slots - 1) & 1);
+        // K, then V, each on its own barrier: S waits for K alone
+        mbar_expect_tx(&full_k[s], C::kKvBytes / 2);
+        mbar_expect_tx(&full_v[s], C::kKvBytes / 2);
+        for (int j = rank; j < 2 * C::kBoxes; j += csize) {
+          const bool is_v = j >= C::kBoxes;
+          const int t = (is_v ? j - C::kBoxes : j) * 64;
+          unsigned char* dst = kv + s * C::kKvBytes + j * kBox;
+          uint64_t* bar = is_v ? &full_v[s] : &full_k[s];
+          if (csize == 1)
+            tma_box(dst, is_v ? &map_v : &map_k, bar, h, t, b);
+          else
+            tma_box_multicast(dst, is_v ? &map_v : &map_k, bar, h, t, b,
+                              uint16_t((1u << csize) - 1));
+        }
+        for (int t = rank; t < tiles; t += csize, ++task) {
+          const int slot = task % C::kQSlots;
+          if (task >= C::kQSlots) mbar_wait(&empty_q[slot], (task / C::kQSlots - 1) & 1);
+          mbar_expect_tx(&full_q[slot], kBox);
+          tma_box(qs + slot * kBox, &map_q, &full_q[slot], h, t * 64, b);
+        }
+      }
+    }
+    __syncwarp();
+    // no block leaves while a multicast may still be writing into another
+    if (csize > 1) cluster.sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kRegs));
+    const int wg = warp / 4, w4 = warp % 4;  // warp w4 of the warpgroup: rows 16 w4 .. + 15
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool leader = threadIdx.x % 128 == 0;  // stores the warpgroup's O tiles
+    unsigned char* ot = os + wg * kBox;
+    int task = 0;
+    for (int i = 0, p = cid; p < pairs; ++i, p += clusters) {
+      const int b = p / H, h = p % H, s = i % kv_slots;
+      mbar_wait(&full_k[s], (i / kv_slots) & 1);
+      const uint32_t ks = smem_u32(kv + s * C::kKvBytes), vs = ks + C::kBoxes * kBox;
+      for (int t = rank; t < tiles; t += csize, ++task) {
+        if (task % C::kConsumers != wg) continue;
+        const int slot = task % C::kQSlots;
+        mbar_wait(&full_q[slot], (task / C::kQSlots) & 1);
+        const uint32_t qa = smem_u32(qs + slot * kBox);
+
+        // S of the warpgroup's 64 rows and every key: sc[4 n + e] is key 8
+        // n + 2 t4 + (e & 1) of row g (e < 2) or g + 8 (e >= 2)
+        float sc[kS];
+#pragma unroll
+        for (int e = 0; e < kS; ++e) sc[e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) scores_step<kChunks>(sc, qa, ks, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_accumulators<kS>(sc);
+        mbar_arrive(&empty_q[slot]);
+
+        // P = 2^(S c - max c) / sum with c = log2(e) / sqrt(D), rounded to
+        // bf16 after the exact sum, as P V's A fragments of 16 keys.  A warp
+        // whose rows all lie past Tq (the ragged last tile: Q's rows there
+        // are zeros, and so is S) takes no exponential and keeps P zero.
+        const bool live = t * 64 + w4 * 16 < Tq;
+        float inv0 = 0.f, inv1 = 0.f;
+        if (live) {
+          float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < kS / 4; ++n) {
+            float* x = sc + 4 * n;
+            if (8 * n + 8 > Tk) {  // keys at or past Tk: -inf
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (8 * n + t4 * 2 + (e & 1) >= Tk) x[e] = -INFINITY;
+            }
+            m0 = fmaxf(m0, fmaxf(x[0], x[1]));
+            m1 = fmaxf(m1, fmaxf(x[2], x[3]));
+          }
+          // finite: key 0 is never masked
+          const float base0 = quad_max(m0) * scale_log2, base1 = quad_max(m1) * scale_log2;
+          float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+          for (int n = 0; n < kS / 4; ++n) {
+            float* x = sc + 4 * n;
+            x[0] = ex2(fmaf(x[0], scale_log2, -base0));
+            x[1] = ex2(fmaf(x[1], scale_log2, -base0));
+            x[2] = ex2(fmaf(x[2], scale_log2, -base1));
+            x[3] = ex2(fmaf(x[3], scale_log2, -base1));
+            l0 += x[0] + x[1];
+            l1 += x[2] + x[3];
+          }
+          inv0 = __frcp_rn(quad_sum(l0));
+          inv1 = __frcp_rn(quad_sum(l1));
+        }
+
+        // O = P V in fp32, V's 16-key step j 2048 bytes on
+        uint32_t pa[kSteps][4];  // P rounded to bf16 after the product with 1 / sum
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          const float* x = sc + 8 * j;  // keys 16 j .. + 15
+          pa[j][0] = pack2(x[0] * inv0, x[1] * inv0);
+          pa[j][1] = pack2(x[2] * inv1, x[3] * inv1);
+          pa[j][2] = pack2(x[4] * inv0, x[5] * inv0);
+          pa[j][3] = pack2(x[6] * inv1, x[7] * inv1);
+        }
+        mbar_wait(&full_v[s], (i / kv_slots) & 1);
+        float acc[kN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j)
+          wg::wgmma_rs<1>(acc, pa[j], smem_desc_mn(vs + j * 2048), j);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_accumulators<kN / 2>(acc);
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) fence_operands<4>(pa[j]);
+
+        // O rounded to bf16 into the warpgroup's tile in the 128-byte
+        // swizzle (16-byte chunk c of row r at c ^ (r % 8): a warp's stores
+        // hit 32 banks), then one TMA store of the tile, clipped at Tq and D
+        if (leader) tma_store_drain();  // the previous task's tile has left
+        warpgroup_sync(wg);
+        const int r = w4 * 16 + g;  // rows r and r + 8 of the tile
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(ot + r * 128 + ((n ^ (r & 7)) << 4) + 4 * t4) =
+              pack2(acc[4 * n], acc[4 * n + 1]);
+          *reinterpret_cast<uint32_t*>(ot + (r + 8) * 128 + ((n ^ (r & 7)) << 4) + 4 * t4) =
+              pack2(acc[4 * n + 2], acc[4 * n + 3]);
+        }
+        wg::fence_proxy_async();  // the tile, written by threads, to the TMA's proxy
+        warpgroup_sync(wg);
+        if (leader) tma_store_box(&map_o, ot, h, t * 64, b);
+      }
+      mbar_arrive(&empty_kv[s]);
+    }
+    if (leader) tma_store_drain();  // the last tile has left shared memory
+    if (csize > 1) cluster.sync();
+  }
+}
+
+// (B, T, H, D) bf16 with d contiguous, heads D apart and batch and token
+// strides sb, st in elements, as the 4-D tensor (D, H, T, B) in boxes of 64
+// d x one head x 64 tokens, 128-byte swizzle; zeros past D (at 48) and T
+cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D, int64_t sb,
+                     int64_t st) {
+  const auto encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(st) * 2, cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int kChunks>
+int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
+           const int64_t* s, float scale, cudaStream_t stream) {
+  using C = Cfg<kChunks>;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  cudaError_t err = head_map(&map_q, q, B, Tq, H, D, s[0], s[1]);
+  if (err == cudaSuccess) err = head_map(&map_k, k, B, Tk, H, D, s[2], s[3]);
+  if (err == cudaSuccess) err = head_map(&map_v, v, B, Tk, H, D, s[4], s[5]);
+  if (err == cudaSuccess) err = head_map(&map_o, o, B, Tq, H, D, int64_t(Tq) * H * D, int64_t(H) * D);
+  if (err != cudaSuccess) return int(err);
+  auto kernel = one_pass_wgmma_kernel<D, kChunks>;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::smem(C::kKvSlots)));
+  if (configured != cudaSuccess) return int(configured);
+  const int pairs = B * H, sms = muse::sm90::sm_count();
+  const int csize = cluster_for(pairs, Tq, Tk, sms);
+  cudaLaunchConfig_t config = {};
+  // persistent blocks, one an SM at most; or a cluster a pair
+  config.gridDim = dim3(csize == 1 ? std::min(pairs, sms) : pairs * csize);
+  config.blockDim = dim3(C::kThreads);
+  config.dynamicSmemBytes = C::smem(csize == 1 ? C::kKvSlots : 1);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, map_q, map_k, map_v, map_o, B, H, Tq, Tk,
+                           scale * kLog2e);
+  return int(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int D>
+int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
+           const int64_t* s, float scale, cudaStream_t stream) {
+  switch (chunks_for(Tk)) {
+    case 1: return launch<D, 1>(q, k, v, o, B, H, Tq, Tk, s, scale, stream);
+    case 3: return launch<D, 3>(q, k, v, o, B, H, Tq, Tk, s, scale, stream);
+    case 8: return launch<D, 8>(q, k, v, o, B, H, Tq, Tk, s, scale, stream);
+    default: return launch<D, 9>(q, k, v, o, B, H, Tq, Tk, s, scale, stream);
+  }
+}
+
+}  // namespace op
+
 template <int D, int kGroups, int kSplit, int kChunks>
 int launch_one_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int Tq, int Tk,
                     const int64_t* s, float scale, cudaStream_t stream) {
@@ -745,21 +1208,26 @@ int launch_one_pass(const T* q, const T* k, const T* v, T* o, int B, int H, int 
   return int(cudaGetLastError());
 }
 
-// the rule: one pass up to kMaxKeys keys, above two passes, on wgmma at D 64
+// the rule: one pass up to kMaxKeys keys (on wgmma at D 48 / 64), above
+// two passes (on wgmma at D 64)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
            const int64_t* s, float scale, cudaStream_t stream) {
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
+  T* out = static_cast<T*>(o);
   if (Tk > kMaxKeys) {
-    if constexpr (D == 64) return wg::launch(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
-    else return launch_two_pass<D>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
+    if constexpr (D == 64) return wg::launch(qp, kp, vp, out, B, H, Tq, Tk, s, scale, stream);
+    else return launch_two_pass<D>(qp, kp, vp, out, B, H, Tq, Tk, s, scale, stream);
+  }
+  if constexpr (D >= 48) {
+    if (op::takes(B * H, Tq, Tk, D, muse::sm90::sm_count()))
+      return op::launch<D>(qp, kp, vp, out, B, H, Tq, Tk, s, scale, stream);
   }
   if (Tk <= 80)
-    return launch_one_pass<D, 4, 1, 5>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
-  return launch_one_pass<D, 4, 2, kMaxKeys / 32>(qp, kp, vp, op, B, H, Tq, Tk, s, scale, stream);
+    return launch_one_pass<D, 4, 1, 5>(qp, kp, vp, out, B, H, Tq, Tk, s, scale, stream);
+  return launch_one_pass<D, 4, 2, kMaxKeys / 32>(qp, kp, vp, out, B, H, Tq, Tk, s, scale, stream);
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
@@ -782,8 +1250,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // (v1) or 64 (v2's blocks, CLIP ViT-L/14), each with d contiguous, heads D apart, and the batch and
 // token strides given in elements (multiples of 8; pointers 16-byte aligned);
 // o (B, Tq, H, D) contiguous.  strides: q_sb, q_st, k_sb, k_st, v_sb, v_st.
-// Tk <= 288 takes the one-pass kernel, larger Tk the two-pass one (wgmma
-// at D 64, mma.sync otherwise).
+// Tk <= 288 takes a one-pass kernel (wgmma or mma.sync, by the rule in the
+// header), larger Tk the two-pass one (wgmma at D 64, mma.sync otherwise).
 extern "C" int muse_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int Tq, int Tk, int D, const int64_t* strides,
                                     float scale, void* stream_ptr) {

@@ -108,3 +108,4 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     flash_attention.by_head_dim.clear()
+    flash_attention.by_variant.clear()

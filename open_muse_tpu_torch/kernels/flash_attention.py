@@ -15,20 +15,30 @@ weights cast to the input type before the PV product, and PV summed in fp32
     vision tower), any Tq and Tk, and views whose (H, D) axes are
     contiguous with batch and token strides that are multiples of 8 elements
     (the q / k / v chunks of a fused projection), at 16-byte aligned
-    addresses.  Up to 288 keys (v1's 257, v2's 77) a block stages all of K
-    and V in shared memory and computes S once, one warp over every key of
-    16 query rows up to 80 keys and two warps each over half of them above;
-    more keys (the 1024-token v1 trunks' 1025 and 1024, the 512 px v2's
-    1024 inside kernel 9) take the two-pass variant, which streams 64-key
-    tiles of K (pass 1: row max and sum) and of K and V (pass 2: P and P V)
-    through rings in shared memory: on wgmma, 128 query rows a block, at
-    head dim 64; on mma.sync, 64 rows a block, at the others.  The choice is
-    made before the launch by ``takes_two_pass``, the C launcher's rule;
-    every variant counts as one launch of this wrapper, and the two-pass one
-    also in ``flash_attention_two_pass``.  The host's own launches (a
-    graph's warm-up included, its replays not) are also counted by head dim
-    in ``flash_attention.by_head_dim``, which tells which instantiations a
-    path reaches.
+    addresses.  Up to 288 keys (v1's 257, v2's 256 and 77) S is computed
+    once and kept in registers.  At head dims 48 and 64 a (batch, head)
+    pair's K and V are read once, by TMA, into one block that walks over
+    pairs (the next pair's K and V arriving while this one's are read) or,
+    when the pairs do not fill the card, into every block of a cluster that
+    shares the pair's row tiles (one multicast load); two or three
+    warpgroups of 64 query rows run ``wgmma`` for S and for P V.  At 16 and
+    32, and where the pairs do not fill the card at 96 keys or fewer or at
+    head dim 48 (serving's text keys, v1 at batch 1), a block of 64 rows
+    stages K and V by cp.async and runs mma.sync, one warp over every key of
+    16 query rows up to 80 keys and two warps each over half of them
+    above.  More keys (the 1024-token v1 trunks' 1025 and 1024, the
+    512 px v2's 1024 inside kernel 9) take the two-pass variant, which
+    streams 64-key tiles of K (pass 1: row max and sum) and of K and V
+    (pass 2: P and P V) through rings in shared memory: on wgmma, 128 query
+    rows a block, at head dim 64; on mma.sync, 64 rows a block, at the
+    others.  The choice is made before the launch by ``variant``, the C
+    launcher's rule (``takes_two_pass`` its first test); every variant
+    counts as one launch of this wrapper, and the two-pass one also in
+    ``flash_attention_two_pass``.  The host's own launches (a graph's
+    warm-up included, its replays not) are also counted by head dim in
+    ``flash_attention.by_head_dim`` and by variant in
+    ``flash_attention.by_variant``, which tell which instantiations a path
+    reaches.
 The TPU kernel has no VJP (JAX enables it for inference only), so there is
 no backward kernel: the backward recomputes the plain version from the saved
 inputs and takes its gradient.
@@ -38,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,17 +57,59 @@ from . import LaunchCounter, on_cpu, plain_vjp, stream_handle
 from ._build import check, library
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_two_pass",
-           "takes_two_pass", "HEAD_DIMS", "ONE_PASS_MAX_KEYS"]
+           "takes_two_pass", "variant", "one_pass_chunks", "one_pass_cluster", "HEAD_DIMS",
+           "ONE_PASS_MAX_KEYS", "VARIANTS"]
 
 HEAD_DIMS = (16, 32, 48, 64)  # the kernel's instantiations
 ONE_PASS_MAX_KEYS = 288  # csrc kMaxKeys: the one-pass capacity
+ONE_PASS_WARP_KEYS = 80  # the mma.sync one-pass kernel's one warp a row group
+WGMMA_ONE_PASS_DIMS = (48, 64)  # head dims of the one-pass wgmma kernel
+MAX_CLUSTER = 8  # csrc op::kMaxCluster
+H100_SMS = 132
+VARIANTS = ("one_pass_mma", "one_pass_mma_split", "one_pass_wgmma", "one_pass_cluster",
+            "two_pass_mma", "two_pass_wgmma")
 flash_attention_two_pass = LaunchCounter("flash_attention_two_pass")
 
 
 def takes_two_pass(tk: int) -> bool:
-    """The C launcher's variant rule (csrc/flash_attention.cu ``launch``):
-    more keys than the one-pass kernel holds."""
+    """More keys than the one-pass kernels hold: the two-pass variant."""
     return tk > ONE_PASS_MAX_KEYS
+
+
+def one_pass_chunks(tk: int) -> int:
+    """csrc ``op::chunks_for``: the one-pass wgmma kernel's key capacity, in
+    32-key chunks, that Tk takes: 1, 3 (96 keys), 8 (256) or 9 (288)."""
+    return 1 if tk <= 32 else 3 if tk <= 96 else 8 if tk <= 256 else 9
+
+
+def one_pass_cluster(bh: int, tq: int, tk: int, sms: int = H100_SMS) -> int:
+    """csrc ``op::cluster_for``: the blocks of the one-pass wgmma kernel that
+    share a (batch, head) pair.  1 (persistent blocks, one an SM, walking over
+    the pairs) when the pairs fill the card; else as many as the card holds
+    for every pair, but no more than give each of a block's consumer
+    warpgroups (3 up to 256 keys, else 2) one 64-row tile, and at most 8."""
+    tiles = -(-tq // 64)
+    consumers = 3 if one_pass_chunks(tk) <= 8 else 2
+    return max(1, min(sms // bh, -(-tiles // consumers), MAX_CLUSTER))
+
+
+def variant(tk: int, d: int, bh: int, tq: int, sms: int = H100_SMS) -> str:
+    """The C launcher's rule (csrc/flash_attention.cu ``launch``), on what it
+    knows before the launch: the key count, the head dim, the (batch, head)
+    pairs and the query rows (and the card's SM count)."""
+    if takes_two_pass(tk):
+        return "two_pass_wgmma" if d == 64 else "two_pass_mma"
+    if d in WGMMA_ONE_PASS_DIMS:
+        if one_pass_cluster(bh, tq, tk, sms) == 1:
+            return "one_pass_wgmma"
+        if d == 64 and tk > 96:
+            return "one_pass_cluster"
+    return "one_pass_mma" if tk <= ONE_PASS_WARP_KEYS else "one_pass_mma_split"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention_plain(q, k, v):
@@ -100,6 +153,7 @@ def _forward(q, k, v):
         1.0 / math.sqrt(d), stream_handle(q)), "flash_attention")
     flash_attention.launches += 1
     flash_attention.by_head_dim[d] += 1
+    flash_attention.by_variant[variant(tk, d, b * h, tq, _sm_count(q.device.index or 0))] += 1
     if takes_two_pass(tk):
         flash_attention_two_pass.launches += 1
     return out
@@ -130,3 +184,4 @@ def flash_attention(q, k, v):
 
 flash_attention.launches = 0
 flash_attention.by_head_dim = collections.Counter()
+flash_attention.by_variant = collections.Counter()

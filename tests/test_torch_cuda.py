@@ -486,57 +486,88 @@ def test_fused_norm_kernels_match_plain(device, shape, with_residual, staging):
         assert torch.equal(out, kern()[0]), name
 
 
+def _attention_views(gen, b, tq, tk, h, d):
+    """q / k / v as views into a packed [q | k | v] projection (tq == tk) or
+    q apart and k / v views into a packed [k | v] one."""
+    if tq == tk:
+        return _rand(gen, b, tq, 3 * h * d).reshape(b, tq, 3 * h, d).chunk(3, dim=2)
+    q = _rand(gen, b, tq, h, d)
+    return (q, *_rand(gen, b, tk, 2 * h * d).reshape(b, tk, 2 * h, d).chunk(2, dim=2))
+
+
+def _check_flash_case(b, tq, tk, h, d, seed):
+    """One launch counted (and its variant: the rule's), rel ATTN_TOL
+    against flash_attention_plain, two calls bit-equal."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain, variant
+
+    q, k, v = _attention_views(torch.Generator().manual_seed(seed), b, tq, tk, h, d)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    kernels.reset_launch_counts()
+    out = kernels.flash_attention(q, k, v)
+    assert kernels.flash_attention.launches == 1
+    assert kernels.flash_attention_two_pass.launches == int(tk > 288)
+    assert dict(kernels.flash_attention.by_variant) == {variant(tk, d, b * h, tq, sms): 1}
+    ref = flash_attention_plain(q, k, v)
+    assert out.shape == (b, tq, h, d) and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
+    assert torch.equal(out, kernels.flash_attention(q, k, v))
+
+
 @pytest.mark.parametrize("q_shape,kv_len", [((1, 257, 16, 48), 257), ((2, 256, 12, 64), 77),
                                             ((2, 256, 12, 64), 256), ((16, 256, 12, 64), 77),
                                             ((1, 1025, 16, 64), 1025), ((2, 1024, 16, 64), 1024),
                                             ((2, 1024, 16, 64), 77), ((64, 257, 16, 48), 257),
-                                            ((64, 256, 16, 64), 256), ((64, 256, 16, 64), 32)])
+                                            ((64, 256, 16, 64), 256), ((64, 256, 16, 64), 32),
+                                            ((2, 256, 16, 64), 256), ((2, 256, 16, 64), 77),
+                                            ((128, 256, 16, 64), 256), ((128, 256, 16, 64), 77),
+                                            ((16, 256, 8, 64), 256), ((16, 256, 8, 64), 77),
+                                            ((32, 257, 16, 64), 257)])
 def test_flash_attention_kernel_matches_plain(device, q_shape, kv_len):
-    """v1's self-attention (ragged 257 x 257, head_dim 48: the one-pass
-    variant with two warps a row group), v2's block attention over the 77
-    text keys (head_dim 64: one warp a row group) when serving and at the
-    training batch, 256 keys at head_dim 64 (two warps a row group), and
-    1025 and 1024 keys, above the one-pass capacity of 288: the two-pass
-    variant (the MOVQ configs' class and CFG text trunks), counted apart;
-    the text trunk's cross-attention over 77 T5 keys; the v1 trainers'
-    batch 64: the class model's self-attention, the text model's
-    self-attention and its cross-attention over 32 text keys.  The inputs
-    as views into fused [q | k | v] / [k | v] projections; two calls
-    bit-equal."""
-    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain, takes_two_pass
-
-    gen = torch.Generator().manual_seed(kv_len)
+    """v1's self-attention (ragged 257 x 257, head_dim 48) serving and at
+    the class trainer's batch 64; v2's block attention over the 77 text keys
+    and over its 256 tokens when serving (12 and 16 heads), at the training
+    batch of 16, at the distillation teacher's 128 rows and on a tp=2 rank's
+    8 heads; the v1 text trainer's batch 64 over 256 and 32 keys; CLIP
+    ViT-L/14 at the eval batch; 1025 and 1024 keys, above the one-pass
+    capacity of 288: the two-pass variant (the MOVQ configs' class and CFG
+    text trunks), counted apart; the text trunk's cross-attention over 77 T5
+    keys.  The inputs as views into fused [q | k | v] / [k | v] projections;
+    one launch, of the variant the rule names; two calls bit-equal."""
     b, tq, h, d = q_shape
-    if tq == kv_len:
-        q, k, v = _rand(gen, b, tq, 3 * h * d).reshape(b, tq, 3 * h, d).chunk(3, dim=2)
-    else:
-        q = _rand(gen, b, tq, h, d)
-        k, v = _rand(gen, b, kv_len, 2 * h * d).reshape(b, kv_len, 2 * h, d).chunk(2, dim=2)
-    before = kernels.launch_counts()
-    out = kernels.flash_attention(q, k, v)
-    after = kernels.launch_counts()
-    assert after["flash_attention"] == before["flash_attention"] + 1
-    assert (after["flash_attention_two_pass"] - before["flash_attention_two_pass"]
-            == int(takes_two_pass(kv_len)) == int(kv_len > 288))
-    ref = flash_attention_plain(q, k, v)
-    assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)
-    assert torch.equal(out, kernels.flash_attention(q, k, v))
+    _check_flash_case(b, tq, kv_len, h, d, seed=kv_len)
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("b,h", [(1, 2), (9, 16)])
+@pytest.mark.parametrize("tk", [1, 8, 77, 80, 81, 256, 257, 288])
+@pytest.mark.parametrize("tq", [1, 17, 65, 257])
+def test_flash_attention_one_pass_variants_match_plain(device, tq, tk, b, h, d):
+    """Every query and key count at the one-pass kernels' edges (Tq 1, 17,
+    65, 257: one row, ragged 64-row tiles, a last tile of one row; Tk 1 -
+    288: one key, one 32-key product, the 77 text keys, 80 / 81 around 16-
+    and 32-key steps, 256 - 288 up to the capacity), at head dims 48 and 64,
+    with 2 (batch, head) pairs (clusters of up to 3 blocks sharing a pair by
+    multicast) and 144 (more than the card's SMs: persistent blocks)."""
+    _check_flash_case(b, tq, tk, h, d, seed=tq * 1000 + tk + d)
 
 
 @pytest.mark.parametrize("q_shape,kv_len", [((2, 257, 16, 64), 257), ((32, 257, 16, 64), 257),
                                             ((30, 17, 4, 16), 17), ((32, 65, 4, 16), 65),
                                             ((16, 64, 4, 16), 64), ((16, 64, 4, 16), 8),
                                             ((32, 256, 2, 32), 256), ((32, 256, 2, 32), 8),
-                                            ((2, 1024, 4, 16), 1024), ((2, 300, 2, 32), 300)])
+                                            ((2, 1024, 4, 16), 1024), ((2, 300, 2, 32), 300),
+                                            ((4, 33, 2, 16), 80), ((4, 33, 2, 32), 81),
+                                            ((2, 65, 2, 16), 288), ((3, 1, 2, 32), 1)])
 def test_flash_attention_eval_head_dims_match_plain(device, q_shape, kv_len):
     """The eval stacks' shapes: CLIP ViT-L/14's vision tower (257 tokens at
     head dim 64, batch 2 and 32); head dim 16 (one k step in QK^T, two n8
     tiles in PV): the seeded CLIP towers (17 and 65 tokens), the quality
     trunk's self- and cross-attention; head dim 32: the mid-scale trunk's
-    blocks; and both at the two-pass variant's key counts.  Each against
-    flash_attention_plain (rel ATTN_TOL), one launch counted at its head dim,
-    two calls bit-equal."""
-    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
+    blocks; both at the two-pass variant's key counts, and the mma.sync
+    one-pass kernel's edges (80 and 81 keys: one warp or two a row group;
+    288; one row and one key).  Each against flash_attention_plain (rel
+    ATTN_TOL), one launch counted at its head dim and its variant, two calls
+    bit-equal."""
+    from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain, variant
 
     gen = torch.Generator().manual_seed(kv_len + q_shape[-1])
     b, tq, h, d = q_shape
@@ -549,6 +580,8 @@ def test_flash_attention_eval_head_dims_match_plain(device, q_shape, kv_len):
     out = kernels.flash_attention(q, k, v)
     assert kernels.flash_attention.launches == 1
     assert dict(kernels.flash_attention.by_head_dim) == {d: 1}
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    assert dict(kernels.flash_attention.by_variant) == {variant(kv_len, d, b * h, tq, sms): 1}
     assert kernels.flash_attention_two_pass.launches == int(kv_len > 288)
     ref = flash_attention_plain(q, k, v)
     assert out.shape == q_shape and _rel(out, ref) <= ATTN_TOL, _rel(out, ref)

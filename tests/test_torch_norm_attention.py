@@ -208,6 +208,12 @@ ATTN_RTOL = 1e-5
     (2, 300, 20, 1, 16),   # Tq past one JAX block of 256
     (1, 300, 1025, 1, 64),  # past the one-pass kernel's 288 keys: the MOVQ class trunk's 1025
     (2, 64, 289, 2, 48),   # one key past it, head_dim 48
+    (1, 1, 1, 1, 64),      # one query row, one key
+    (1, 17, 8, 2, 48),     # ragged rows over one 32-key product of the wgmma kernel
+    (1, 65, 80, 1, 64),    # one warp a row group in the mma.sync kernel's last
+    (1, 65, 81, 1, 48),    # and two
+    (2, 1, 256, 1, 48),    # the wgmma kernel's 256-key capacity
+    (1, 17, 288, 1, 64),   # the one-pass capacity
 ])
 def test_flash_attention_plain_matches_jax_kernel(b, tq, tk, h, d):
     q, k, v = _qkv(tq + tk, b, tq, tk, h, d)

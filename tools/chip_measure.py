@@ -2,7 +2,7 @@
 the command line (this one, or a parent commit unpacked with ``git archive``
 into a git-ignored directory, so that both run in one chip call):
 
-    python3 tools/chip_measure.py split TREE    # kernels 3, 4, 6, 8, 10 - 12 by launch
+    python3 tools/chip_measure.py split TREE    # kernels 3, 4, 6, 8 - 12 by launch
     python3 tools/chip_measure.py kernels TREE  # chip_smoke's kernel phases alone
     python3 tools/chip_measure.py host TREE     # host enqueue cost a call
     python3 tools/chip_measure.py serving TREE  # request latency around a profile
@@ -13,10 +13,11 @@ serving shape), ``vq_argmin`` (kernel 6, at the pre-encode and inpainting
 shapes), the GLU backward (kernel 8) and the sublayer kernels 10, 11 and 12
 by CUDA graph replay and splits each by launch with
 ``chip_smoke.launch_split`` (the tree's own kernels, this script's shapes:
-kernel 8 at a, b (4096, 2816) and g (4096, 1024), kernel 10 at x (2, 256,
-1024) and (16, 256, 1024) over 77 text keys, kernels 11 and 12 at x (16,
-256, 1024)), then times cuBLAS alone on kernels 8, 10, 11 and 12's
-products.  ``kernels`` runs the tree's ``chip_smoke.kernel_phase`` and
+kernel 8 at a, b (4096, 2816) and g (4096, 1024), kernels 9 and 10 at x (2,
+256, 1024) (serving), (128, 256, 1024) (the distillation teacher) and (16,
+256, 1024) (training), 10 over 77 text keys: their attention cores' shares,
+kernels 11 and 12 at x (16, 256, 1024)), then times cuBLAS alone on kernels
+8, 10, 11 and 12's products.  ``kernels`` runs the tree's ``chip_smoke.kernel_phase`` and
 ``backward_kernel_phase`` (every kernel row against its plain version) and
 their launch splits.  ``host``
 times 200 eager calls of kernels 5, 9, 10 and 11 enqueued without a
@@ -62,13 +63,14 @@ def _load(tree):
     return tree, chip_smoke
 
 
-def _sublayer_calls(C, dev, gen):
-    """(label, call) of kernels 9 and 10 at batch 2 and 16, 11 and 12 at 16."""
+def _sublayer_calls(C, dev, gen, batches=(2, 16)):
+    """(label, call) of kernels 9 and 10 at ``batches`` (the last 16), 11 and
+    12 at 16."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     bf, d, heads = torch.bfloat16, 1024, 16
     calls = {}
-    for b in (2, 16):
+    for b in batches:
         inp = C._sublayer_inputs(dev, gen, b=b, s=256)
         wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(dev, bf)
         wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(dev, bf)
@@ -109,11 +111,13 @@ def _sample_vq_calls(C, dev, gen):
     bf = torch.bfloat16
     one = (torch.randn(1, 256, 8256, generator=gen) * 2).to(dev, bf)
     two = (torch.randn(2, 256, 8192, generator=gen) * 2).to(dev, bf)
-    ph = torch.Generator().manual_seed(7)
+    # the seed on the device, as a captured request passes it (a host
+    # generator's seed would be a host-to-device copy inside the capture)
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
     calls = {"k3 fused_categorical Philox (1, 256, 8256 -> 8192)":
-             lambda: fused_categorical(one, 8192, generator=ph),
+             lambda: fused_categorical(one, 8192, seed=seed),
              "k4 fused_categorical_cfg Philox (2, 256, 8192)":
-             lambda: fused_categorical_cfg(two, 8.0, 8192, generator=ph)}
+             lambda: fused_categorical_cfg(two, 8.0, 8192, seed=seed)}
     for path, (n, c, k) in C.VQ_SHAPES.items():
         z = torch.randn(n, c, generator=gen).to(dev)
         cb = torch.randn(k, c, generator=gen).to(dev)
@@ -127,7 +131,7 @@ def split(tree):
     dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
     calls = _sample_vq_calls(C, dev, gen)
     calls.update([_glu_bwd_call(dev, gen)])
-    calls.update((k, v) for k, v in _sublayer_calls(C, dev, gen).items() if not k.startswith("k9"))
+    calls.update(_sublayer_calls(C, dev, gen, batches=(2, 128, 16)))
     for label, fn in calls.items():
         print(f"[time] {label}: {C.graph_ms(fn):.4f} ms (graph replay)", flush=True)
     for label, fn in calls.items():
@@ -230,15 +234,22 @@ def serving(tree):
 
 # kernel 5 (b, tq, tk, heads, d): the MOVQ trunks' 1025 and 1024 keys (the
 # 512 px v2's self-attention inside kernel 9 is the second), the v1
-# trainers' batch of 64 (head dims 64 and 48), CLIP ViT-L/14 at the eval
-# batch and at 2, v1 serving's 257, v2's 256 tokens when serving and at the
-# training batch, a cross-attention over 77 keys, and the eval stacks' head
-# dims 16 and 32 above 288 keys
+# trainers' batch of 64 (head dims 64 and 48) and the text trainer's
+# cross-attention over 32 keys, CLIP ViT-L/14 at the eval batch and at 2, v1
+# serving's 257, v2's 256 tokens when serving (12 and 16 heads: the latter
+# kernel 9's core), at the training batch and at the distillation teacher's
+# 128 rows, and its 77 text keys at each (kernel 10's core), the 1024-token
+# cross-attention over 77 keys, and the eval stacks' head dims 16 and 32
+# below and above 288 keys
 ATTN_SHAPES = ((1, 1025, 1025, 16, 64), (2, 1024, 1024, 16, 64), (64, 256, 256, 16, 64),
-               (64, 257, 257, 16, 48), (32, 257, 257, 16, 64), (2, 257, 257, 16, 64),
-               (1, 257, 257, 16, 48), (2, 256, 256, 12, 64), (16, 256, 256, 16, 64),
-               (2, 1024, 77, 16, 64), (2, 1024, 1024, 4, 16), (2, 300, 300, 2, 32),
-               (2, 289, 289, 16, 48))
+               (64, 257, 257, 16, 48), (32, 257, 257, 16, 64), (64, 256, 32, 16, 64),
+               (2, 257, 257, 16, 64), (1, 257, 257, 16, 48), (2, 256, 256, 12, 64),
+               (2, 256, 77, 12, 64), (2, 256, 256, 16, 64), (2, 256, 77, 16, 64),
+               (16, 256, 256, 16, 64), (16, 256, 77, 12, 64), (128, 256, 256, 16, 64),
+               (128, 256, 77, 16, 64), (2, 1024, 77, 16, 64), (30, 17, 17, 4, 16),
+               (32, 65, 65, 4, 16), (16, 64, 64, 4, 16), (16, 64, 8, 4, 16),
+               (32, 256, 256, 2, 32), (32, 256, 8, 2, 32), (2, 1024, 1024, 4, 16),
+               (2, 300, 300, 2, 32), (2, 289, 289, 16, 48))
 # kernels 1 / 2 (shape, residual): v1's 4096-wide mid-MLP norm under CFG and
 # at the text trainer's batch, 1280 (the larger Paella-VQ U-ViTs), the class
 # trainer's 3072, the 512 px v2's trunk norm at 1024
@@ -255,6 +266,9 @@ def attn_norm(tree):
     from open_muse_tpu_torch.kernels import fused_norm as N
     from open_muse_tpu_torch.kernels.flash_attention import flash_attention_plain
 
+    # the module (the package's name flash_attention is the wrapper)
+    FA = sys.modules["open_muse_tpu_torch.kernels.flash_attention"]
+
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
     name = os.path.basename(tree)
     for shape in ATTN_SHAPES:
@@ -267,13 +281,18 @@ def attn_norm(tree):
         moved = C.nbytes(q, k, v, ref)
         bound, by = C.bound_of(moved, 4 * b * h * tq * tk * d, "bf16")
         mufu = 2 * b * h * tq * tk / C.MUFU_PER_S * 1e6
+        # the tree's own rule where it names its variants (a parent may not)
+        rule = (FA.variant(tk, d, b * h, tq, torch.cuda.get_device_properties(dev)
+                           .multi_processor_count) if hasattr(FA, "variant")
+                else "two-pass" if FA.takes_two_pass(tk) else "one-pass")
         three = 6 * b * h * tq * tk * d / C.PEAK_OPS_PER_S["bf16"] * 1e6
         for label, fn in calls.items():
             out = fn()
             rel = C.errors(out, ref)[1]
             twice = torch.equal(out, fn())
             us = C.graph_ms(fn) * 1e3
-            print(f"[attn] {name} {shape} {label}: {us:.2f} us, rel {rel:.3e} (tol "
+            print(f"[attn] {name} {shape} {label if label == 'sdpa' else rule}: {us:.2f} us, "
+                  f"rel {rel:.3e} (tol "
                   f"{C.ATTN_TOL}), two calls bit-equal {twice}; bound {bound * 1e3:.2f} us "
                   f"({by}), three products {three:.2f} us, MUFU floor {mufu:.2f} us", flush=True)
     for shape, with_res in NORM_SHAPES:
