@@ -211,8 +211,9 @@ def bound_ms(name):
 
 def zero_counts() -> dict:
     """Every launch counter at 0: the 12 kernels' wrappers, kernel 5's
-    two-pass variant counted apart, and the kernel 9 / 10 forwards whose
-    attention takes it."""
+    two-pass variant counted apart, the kernel 9 / 10 forwards whose
+    attention takes it, and the kernel 11 / 12 backwards whose attention
+    takes the mma.sync pair (no path's: every count is checked exactly)."""
     from open_muse_tpu_torch import kernels
 
     return {name: 0 for name in kernels.launch_counts()}
@@ -1068,18 +1069,52 @@ def check_glu_bwd(device, gen, splits=None, k=INTER):
     return ok, worst, timing
 
 
-def check_sublayer_bwd(device, gen, splits=None, heads=HEADS):
-    """Both sublayer backwards at the training shapes (``heads`` of 64: 16,
-    or a tensor-parallel rank's share); appends their (label, call) to
-    ``splits`` for a launch split."""
+def sdpa_fwd_bwd_ms(device, gen, batch, heads, queries, keys):
+    """SDPA's forward plus backward at one attention's shape (bf16, head dim
+    64), by graph replay: a yardstick for the sublayer backwards' attention
+    core, which the port never calls."""
+    from torch.nn import functional as F
+
+    bf = torch.bfloat16
+    q = torch.randn(batch, heads, queries, 64, generator=gen).to(device, bf).requires_grad_()
+    k, v = (torch.randn(batch, heads, keys, 64, generator=gen).to(device, bf).requires_grad_()
+            for _ in range(2))
+    dout = torch.randn(batch, heads, queries, 64, generator=gen).to(device, bf)
+    return graph_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v),
+                                                (q, k, v), dout))
+
+
+def log_core(name, batch, heads, keys, fn, sdpa_ms):
+    """The attention backward inside kernel 11 / 12 alone: its launches'
+    device time in a launch split of the sublayer backward ``fn``, beside
+    the core's bound (q, k, v and dO read once, out, dq, dk and dv written
+    once; its six products) and SDPA's forward plus backward."""
+    split = [(n, us) for n, us in launch_split(fn) if n.startswith("attn_bwd")]
+    moved = 2 * 64 * batch * heads * 4 * (TRAIN_S + keys)  # bf16
+    bound, by = bound_of(moved, 6 * 2 * batch * heads * TRAIN_S * keys * 64, "bf16")
+    log(f"[time] {name} attention core alone, x ({batch}, {TRAIN_S}, {HIDDEN}) {heads} heads "
+        f"over {keys} keys: {' + '.join(f'{n} {us:.2f}' for n, us in split) or 'not measured'} "
+        f"= {sum(us for _, us in split):.2f} us (torch.profiler, median of ~10 calls); bound "
+        f"{bound * 1e3:.2f} us ({by}); yardstick, not a call of the port: SDPA forward + "
+        f"backward {sdpa_ms * 1e3:.2f} us (CUDA graph replay)")
+
+
+def check_sublayer_bwd(device, gen, splits=None, heads=HEADS, batch=TRAIN_B, cores=None,
+                       seq=TRAIN_S):
+    """Both sublayer backwards at x (``batch``, ``seq``, 1024) (16 x 256:
+    the training shapes; 64 x 256: the distillation student's; 2 x 1024:
+    the 512px config's) with ``heads`` of 64 (16, or a tensor-parallel
+    rank's share); appends their (label, call) to
+    ``splits`` for a launch split and, with SDPA's time at the shape, to
+    ``cores`` for the attention core's line (``log_core``)."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
     d, bf, inner = HIDDEN, torch.bfloat16, 64 * heads
     rand = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(device, bf)  # noqa: E731
-    inp = _sublayer_inputs(device, gen, b=TRAIN_B, s=TRAIN_S, d=d, inner=inner)
+    inp = _sublayer_inputs(device, gen, b=batch, s=seq, d=d, inner=inner)
     wqkv, wq = rand(3 * inner, d, scale=d ** -0.5), rand(inner, d, scale=d ** -0.5)
-    kv = rand(TRAIN_B, KV_LEN, 2 * inner)
-    g_out, g_res = rand(TRAIN_B, TRAIN_S, d, scale=0.01), rand(TRAIN_B, TRAIN_S, d, scale=0.01)
+    kv = rand(batch, KV_LEN, 2 * inner)
+    g_out, g_res = rand(batch, seq, d, scale=0.01), rand(batch, seq, d, scale=0.01)
     common = (inp["ln_scale"], inp["adaln"])
     cases = {
         "attn_sublayer_self_bwd": (
@@ -1108,12 +1143,16 @@ def check_sublayer_bwd(device, gen, splits=None, heads=HEADS):
         timing = (graph_ms(lambda: kern(inp["res"])),
                   graph_ms(lambda: plain(inp["res"])))
         results[name] = (ok, worst, timing)
-        if heads != HEADS:  # a tensor-parallel rank's shard: no product split, no bound
-            continue
+        keys = seq if "self" in name else KV_LEN
+        if cores is not None:
+            cores.append((name, batch, heads, keys, functools.partial(kern, inp["res"]),
+                          sdpa_fwd_bwd_ms(device, gen, batch, heads, seq, keys)))
         if splits is not None:
             splits.append((f"{name} x {tuple(inp['x'].shape)}"
                            f"{f' kv {tuple(kv.shape)}' if 'cross' in name else ''}",
                            functools.partial(kern, inp["res"])))
+        if heads != HEADS or batch != TRAIN_B or seq != TRAIN_S:  # no products alone, no bound
+            continue
         # the three products of the kernel, alone
         rows, acts = TRAIN_B * TRAIN_S, rand(TRAIN_B * TRAIN_S, d)
         w_in, tag = (wqkv, "qkv") if "self" in name else (wq, "q")
@@ -1127,7 +1166,7 @@ def check_sublayer_bwd(device, gen, splits=None, heads=HEADS):
         # recomputes qkv and takes dattn, dWout, dWqkv, da (11 d x d
         # products per row), cross recomputes q and takes dattn, dWout, dWq,
         # da (5); attention recomputes S and O and takes dP, dV, dQ, dK (6)
-        keys, proj = (TRAIN_S, 11) if "self" in name else (KV_LEN, 5)
+        proj = 11 if "self" in name else 5
         ops = 2 * rows * proj * d * d + 12 * TRAIN_B * HEADS * TRAIN_S * keys * (d // HEADS)
         moved = nbytes(inp["x"], inp["res"], *common, inp["wout"], g_out, g_res,
                        *((wqkv,) if "self" in name else (wq, kv)), *kern(inp["res"]))
@@ -1135,19 +1174,67 @@ def check_sublayer_bwd(device, gen, splits=None, heads=HEADS):
     return results
 
 
-def backward_kernel_phase(device, splits):
-    """Every backward kernel against its plain version; appends the GLU and
-    sublayer backwards to ``splits``."""
+def sublayer_bwd_bound(name, batch, heads):
+    """(bytes, operations) of kernel 11 / 12 at x (batch, 256, 1024) with
+    ``heads`` of 64: inputs read once, outputs written once; the products of
+    the backward, forward recompute included (self 11 d x inner products a
+    row, cross 5; the attention's 6)."""
+    rows, d, inner, bf = batch * TRAIN_S, HIDDEN, 64 * heads, 2  # bf16: 2 bytes
+    act, w_inner = rows * d * bf, d * inner * bf
+    if "self" in name:
+        return (6 * act + 8 * w_inner + 2 * (d + 2 * batch * d) * bf,
+                2 * rows * 11 * d * inner + 12 * batch * heads * TRAIN_S * TRAIN_S * 64)
+    return (6 * act + 4 * w_inner + 2 * (d + 2 * batch * d) * bf + 2 * batch * KV_LEN * 2 * inner
+            * bf, 2 * rows * 5 * d * inner + 12 * batch * heads * TRAIN_S * KV_LEN * 64)
+
+
+def backward_kernel_phase(device, splits, cores=None):
+    """Every backward kernel against its plain version, kernels 11 / 12 also
+    at the distillation student's x (64, 256, 1024) and, through the
+    mma.sync pair, at the 512px config's x (2, 1024, 1024) (folded into
+    their rows: a failure fails the row); appends the GLU and sublayer backwards to
+    ``splits``, and the sublayer backwards to ``cores``."""
     from open_muse_tpu_torch import kernels
 
     gen = torch.Generator().manual_seed(1)
     report = {"glu_down_matmul_bwd": check_glu_bwd(device, gen, splits)}
-    report.update(check_sublayer_bwd(device, gen, splits))
+    report.update(check_sublayer_bwd(device, gen, splits, cores=cores))
     for name, (ok, err, (ms, plain_ms)) in report.items():
         log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, "
             f"CUDA graph replay)")
+    student = check_sublayer_bwd(device, gen, splits, batch=DISTILL_B, cores=cores)
+    for name, (ok, err, (ms, plain_ms)) in student.items():
+        bound, by = bound_of(*sublayer_bwd_bound(name, DISTILL_B, HEADS), "bf16")
+        log(f"[time] {name} at the distillation student's x ({DISTILL_B}, {TRAIN_S}, "
+            f"{HIDDEN}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA graph "
+            f"replay); bound {bound:.4f} ms ({by})")
+        row_ok, row_err, timing = report[name]
+        report[name] = (row_ok and ok, max(row_err, err), timing)
+    # the 512px config's 1024 tokens, over the one-block kernel's 288
+    # queries: every launch of this check takes the mma.sync pair (folded
+    # into the rows: a failure, or a launch that did not take the pair,
+    # fails the row)
+    kernels.reset_launch_counts()
+    pair = check_sublayer_bwd(device, gen, batch=2, seq=SEQ_512)
+    counts = kernels.launch_counts()
+    taken = sum(counts[name] for name in pair)
+    pair_ok = taken > 0 and counts["attn_sublayer_bwd_pair"] == taken
+    log(f"[check] kernels 11 / 12 at x (2, {SEQ_512}, {HIDDEN}), kv (2, {KV_LEN}, "
+        f"{2 * HIDDEN}): {counts['attn_sublayer_bwd_pair']} of {taken} launches took the "
+        f"mma.sync pair: {'ok' if pair_ok else 'FAIL'}")
+    for name, (ok, err, (ms, plain_ms)) in pair.items():
+        log(f"[time] {name} at the 512px config's x (2, {SEQ_512}, {HIDDEN}) (the mma.sync "
+            f"pair): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA graph replay)")
+        PAIR_CHECK[name] = counts[name]
+        row_ok, row_err, timing = report[name]
+        report[name] = (row_ok and ok and pair_ok, max(row_err, err), timing)
     kernels.reset_launch_counts()
     return report
+
+
+# kernel 11 / 12 -> its launches in backward_kernel_phase's 1024-token check,
+# each of which took the mma.sync pair
+PAIR_CHECK = {}
 
 
 # a tensor-parallel rank's shapes at tp 2 (the tp_train phase's): 8 of the 16
@@ -1155,7 +1242,7 @@ def backward_kernel_phase(device, splits):
 TP, TP_HEADS, TP_INTER = 2, HEADS // 2, INTER // 2
 
 
-def tp_kernel_phase(device, report):
+def tp_kernel_phase(device, report, cores=None):
     """Kernels 9 - 12 at x (16, 256, 1024) with 8 heads (cross kv (16, 77,
     1024)) and kernels 7 / 8 at k 1408: a tp=2 rank's shards of the training
     shapes, each against its plain version in bf16 and timed by graph
@@ -1167,7 +1254,7 @@ def tp_kernel_phase(device, report):
     local = {"glu_down_matmul": check_glu(device, gen, TRAIN_B * TRAIN_S, k=TP_INTER),
              "glu_down_matmul_bwd": check_glu_bwd(device, gen, k=TP_INTER)}
     local.update(check_sublayers(device, gen, TRAIN_B, heads=TP_HEADS))
-    local.update(check_sublayer_bwd(device, gen, heads=TP_HEADS))
+    local.update(check_sublayer_bwd(device, gen, heads=TP_HEADS, cores=cores))
     rows, d, inner, bf = TRAIN_B * TRAIN_S, HIDDEN, 64 * TP_HEADS, 2  # bf16: 2 bytes
     act, w_inner = rows * d * bf, d * inner * bf
     # bytes: inputs read once, outputs written once; operations as the
@@ -1184,13 +1271,8 @@ def tp_kernel_phase(device, report):
                                 + TRAIN_B * KV_LEN * 2 * inner * bf,
                                 2 * rows * 2 * d * inner + 4 * TRAIN_B * TP_HEADS * TRAIN_S
                                 * KV_LEN * 64),
-        "attn_sublayer_self_bwd": (6 * act + 8 * w_inner + 2 * (d + 2 * TRAIN_B * d) * bf,
-                                   2 * rows * 11 * d * inner + 12 * TRAIN_B * TP_HEADS
-                                   * TRAIN_S * TRAIN_S * 64),
-        "attn_sublayer_cross_bwd": (6 * act + 4 * w_inner + 2 * (d + 2 * TRAIN_B * d) * bf
-                                    + 2 * TRAIN_B * KV_LEN * 2 * inner * bf,
-                                    2 * rows * 5 * d * inner + 12 * TRAIN_B * TP_HEADS
-                                    * TRAIN_S * KV_LEN * 64)}
+        "attn_sublayer_self_bwd": sublayer_bwd_bound("self", TRAIN_B, TP_HEADS),
+        "attn_sublayer_cross_bwd": sublayer_bwd_bound("cross", TRAIN_B, TP_HEADS)}
     for name, (ok, err, (ms, plain_ms)) in local.items():
         bound, by = bound_of(*bounds[name], "bf16")
         log(f"[time] {name} at a tp={TP} rank's training shapes ({TP_HEADS} heads, GLU k "
@@ -4131,7 +4213,8 @@ def gemm_sweep(device) -> bool:
 # product, the register row kernels, the sublayers' backward attention, the
 # sampler, the VQ split pass and kernel 5's wgmma and two-pass kernels
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
-                 "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "rms_adaln_bwd_rows_kernel",
+                 "attn_bwd_wgmma_kernel", "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                 "rms_adaln_bwd_rows_kernel",
                  "sample_kernel", "vq_split_kernel", "two_pass_kernel", "two_pass_wgmma_kernel",
                  "one_pass_wgmma_kernel", "register_row_kernel")
 
@@ -5201,12 +5284,15 @@ def main() -> int:
 
     phase_t0 = time.perf_counter()
     splits = []  # kernels 7 - 12 by launch, profiled after every graph timing
+    cores = []  # kernels 11 / 12's attention backward alone, profiled likewise
     report = kernel_phase(device, splits)
-    report.update(backward_kernel_phase(device, splits))
-    tp_kernel_phase(device, report)
+    report.update(backward_kernel_phase(device, splits, cores))
+    tp_kernel_phase(device, report, cores)
     for label, fn in splits:
         log_split(label, fn)
-    del splits
+    for core in cores:
+        log_core(*core)
+    del splits, cores
     failed = [name for name, (ok, _, _) in report.items() if not ok]
     if not teacher_shapes(device):
         failed.append("kernels 4, 7, 9, 10 at the distillation teacher's shapes")
@@ -5342,6 +5428,15 @@ def main() -> int:
                                                    sum(in_sublayer.values())}
             rows[-1]["two_pass_launches_by_path"] = two_pass
             rows[-1]["two_pass_in_attn_sublayer_by_path"] = in_sublayer
+        if name in ("attn_sublayer_self_bwd", "attn_sublayer_cross_bwd"):
+            # kernels 11 and 12 together: the launches whose attention took
+            # the mma.sync pair (over 288 queries or 256 keys), 0 on every
+            # path (each path's counts are checked exactly); the rest took
+            # the one-block wgmma kernel.  The pair is checked apart, at
+            # 1024 tokens (backward_kernel_phase)
+            pair = sum(p["attn_sublayer_bwd_pair"] for p in paths.values())
+            rows[-1]["mma_sync_pair_launches_with_11_and_12"] = pair
+            rows[-1]["mma_sync_pair_launches_in_its_check"] = PAIR_CHECK.get(name, 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     missing += [f"{r['name']} ({variant})" for r in rows
                 for variant, n in r.get("launches_by_variant", {}).items() if n == 0]

@@ -42,23 +42,28 @@
 //   (B, S, 3D) projection or of q and the (B, L, 2D) [k|v] projection (4-D
 //   tensor maps with free batch and token strides), and the out projection
 //   on the Hopper GEMM.
-// - Backward, self (kernel 11) and cross (kernel 12) alike, nine launches:
+// - Backward, self (kernel 11) and cross (kernel 12) alike, eight launches:
 //   the register row kernel again (recompute a, keeping 1/rms), the Hopper
 //   GEMM for the recomputed qkv or q and, with the weight read MN-major, for
-//   dattn = g_out @ Wout and da = dproj @ W_in; two attention kernels on
-//   mma.sync fragments that keep S, P, dP and dS in registers (a block per
-//   64 query rows: the row statistics, the output, D and dQ in three passes
-//   over streamed key tiles; a block per 64 keys: dK and dV in one pass over
-//   streamed query tiles), reading q / k / v and writing dq / dk / dv as
-//   strided views of the (B, S, 3D) projection or of q and the (B, L, 2D)
-//   [k|v] projection and their gradients; the register row kernel of dx and
-//   a two-stage column reduction of d(adaln) and d(ln).  The block-a-row
-//   kernels take the rows at widths other than 1024.
+//   dattn = g_out @ Wout and da = dproj @ W_in; the attention backward,
+//   reading q / k / v and writing dq / dk / dv as strided views of the (B,
+//   S, 3I) projection or of q and the (B, L, 2I) [k|v] projection and their
+//   gradients: up to 288 queries and 256 keys (every path's shape) one block a
+//   (batch, head) pair on wgmma (namespace bwd: Q, K, V and dO read once by
+//   TMA, S and dP each computed twice, the row statistics in shared memory);
+//   above, two mma.sync kernels (a ninth launch) that keep S, P, dP and dS in
+//   registers (a block per 64 query rows: the row statistics, the output, D
+//   and dQ in three passes over streamed key tiles; a block per 64 keys: dK
+//   and dV in one pass over streamed query tiles); the register row kernel
+//   of dx and a two-stage column reduction of d(adaln) and d(ln).  The
+//   block-a-row kernels take the rows at widths other than 1024.
 // d(adaln) and d(ln) are reduced in two stages (per 32-row chunk, then over
 // chunks) without atomics; no kernel uses atomics, so two calls give
 // bit-equal results.
+#include <algorithm>
 #include <cmath>
 
+#include "attn_sm90.cuh"
 #include "bf16x2.cuh"
 #include "gemm_sm90.cuh"
 #include "mma_frag.cuh"
@@ -218,7 +223,8 @@ struct AttnArgs {
 };
 
 // ---------------------------------------------------------------------------
-// Backward of the sublayers' attention: S, P, dP and dS in registers
+// Backward of the sublayers' attention above 288 queries or 256 keys: S, P, dP
+// and dS in registers
 // ---------------------------------------------------------------------------
 //
 // Two launches over grids of (64-row tile, batch x head), 4 warps of 16 rows
@@ -583,6 +589,562 @@ __global__ void __launch_bounds__(kAttnThreads) attn_bwd_kv_kernel(AttnBwdArgs p
 }
 
 // ---------------------------------------------------------------------------
+// Backward of the sublayers' attention, S <= 288 and L <= 256: one block a
+// (batch, head) pair on warpgroup products
+// ---------------------------------------------------------------------------
+//
+// What bounds it: bytes.  At x (16, 256, 1024) the self core reads q, k, v
+// and dO and writes out, dq, dk and dv, 67.1 MB (20.0 us at 3.35 TB/s),
+// against 12.9 GFLOP of six products (13.0 us at 989 TFLOP/s); the cross
+// core over 77 keys moves 43.7 MB (13.0 us) for 3.9 GFLOP.  The mma.sync pair
+// above computes S four times, reads K and V once per 64-query block and pass
+// and Q and dO once per 64-key block, on mma.sync, with the row statistics
+// through device memory between its two launches.
+//
+// What the design does about it (namespace bwd):
+// - A persistent block (one an SM) walks over the pairs and holds a pair's
+//   Q, K, V and dO in shared memory, each read once from device memory by
+//   TMA (the 4-D head maps of attn_sm90.cuh: free batch and token strides,
+//   64-row boxes in the 128-byte swizzle, zeros past S and kv_len), each
+//   on its own mbarrier, so the products start before the pair is whole.
+//   Up to 128 keys the next pair's K, V and first two query tiles land
+//   while a pair is worked on (Layout); above, once it is done.
+// - Two warpgroups of 64 rows, no producer warpgroup (one thread issues the
+//   loads): the 256-key phase A needs nearly all of a thread's 255
+//   registers.  Every product is a wgmma.  Phase A, a warpgroup a 64-query
+//   tile: S = Q K^T over the key capacity (a template argument, 96 or 256
+//   keys: no product under a run-time condition), the exact softmax in
+//   registers (P kept in fp32 as 2^(S c - max) with c = log2(e) / 8, one
+//   IEEE reciprocal a row); then, over the keys in groups of 32, the next
+//   group's products in flight while one is used: O = bf16(P) V (P's
+//   fragments as A) and D = rowsum(dO * O) from the fp32 O and the dO
+//   tile, as the mma.sync pair takes it; then dP = dO V^T with dS = bf16(P
+//   (dP - D) / 8) and dQ += dS K, dO's fragments in registers.  The rows'
+//   max, 1 / sum and D stay in shared memory (rows past S as (0, 0, 0):
+//   their P is 0).  Phase B, after both warpgroups' statistics are in, a
+//   warpgroup a 64-key block with K and V as A fragments: per 64 queries
+//   S^T = K Q^T and dP^T = V dO^T, P^T from the statistics, dV += bf16(P^T)
+//   dO and dK += dS^T Q.  S and dP are each computed twice, none stored;
+//   nothing leaves the block but the four outputs.
+// - out and dq (phase A) and dk and dv (phase B, rows past kv_len as zeros)
+//   leave through a warpgroup's swizzled tiles by TMA stores, clipped at S
+//   and L, while the warpgroup goes on.
+// - Sums in a fixed order, no atomics: two calls are bit-equal.
+namespace bwd {
+
+using muse::attn::desc_at;
+using muse::attn::fence_operands;
+using muse::attn::fence_proxy_async;
+using muse::attn::head_map;
+using muse::attn::kBox;
+using muse::attn::scores_step;
+using muse::attn::tma_box;
+using muse::attn::tma_store_box;
+using muse::attn::tma_store_drain;
+using muse::attn::tile_a_frags;
+using muse::attn::warpgroup_sync;
+using muse::attn::wgmma_rs;
+using muse::attn::wgmma_rs_n32;
+using muse::frag::ex2;
+using muse::frag::pack2;
+using muse::frag::quad_max;
+using muse::frag::quad_sum;
+using muse::sm90::fence_accumulators;
+using muse::sm90::mbar_arrive;
+using muse::sm90::mbar_expect_tx;
+using muse::sm90::mbar_init;
+using muse::sm90::mbar_wait;
+using muse::sm90::smem_desc;
+using muse::sm90::smem_desc_mn;
+using muse::sm90::smem_u32;
+using muse::sm90::wgmma_commit;
+using muse::sm90::wgmma_fence;
+using muse::sm90::wgmma_wait;
+
+constexpr int kMaxRows = 288;  // the queries one block holds
+constexpr int kMaxKeys = 256;  // and its keys: capacity 96 (cross's 77) or 256 (self's 256)
+constexpr int kMaxTiles = (kMaxRows + 63) / 64;
+constexpr int kConsumers = 2;  // warpgroups of 64 rows; no producer: one thread issues the loads
+constexpr int kThreads = 128 * kConsumers;
+
+// whether this kernel takes (S, L); the mma.sync pair takes the others
+constexpr bool takes(int S, int L) { return S <= kMaxRows && L <= kMaxKeys; }
+
+// the key capacity of L keys, in 32-key chunks (keys past L masked)
+constexpr int chunks_of(int L) { return L <= 96 ? 3 : 8; }
+
+// Shared memory of a key capacity and a pair's query tiles, 1024-byte
+// aligned: K (k_slots slots of kKeyBoxes boxes), V, a ring of `slots` Q
+// tiles and one of dO tiles, two output tiles a warpgroup, each row's max, 1
+// / sum and D, the mbarriers (a K slot's, V's, K and V read, a ring slot's
+// Q and dO).  What of the next pair loads while a pair is worked on:
+// - up to 128 keys (kEarly), its K and V (phase B takes its K and V
+//   fragments at its start) and, in two more ring slots where they fit,
+//   its first two query tiles;
+// - above, its K, into a second K slot where that fits; V and the query
+//   tiles once this pair is done.  A second key block a
+//   warpgroup in registers, or the ring's bookkeeping, cost the 256-key
+//   kernel spills that made it slower on the card (PERF.md).
+template <int kChunks>
+struct Layout {
+  static constexpr int kKeyBoxes = (kChunks * 32 + 63) / 64;
+  static constexpr bool kEarly = kKeyBoxes <= kConsumers;
+  static constexpr int kSpare = kEarly ? 2 : 0;
+  int q_tiles, slots, k_slots;
+  __host__ __device__ constexpr int v() const { return k_slots * kKeyBoxes * kBox; }
+  __host__ __device__ constexpr int q() const { return v() + kKeyBoxes * kBox; }
+  __host__ __device__ constexpr int dout() const { return q() + slots * kBox; }
+  __host__ __device__ constexpr int tiles() const { return dout() + slots * kBox; }
+  __host__ __device__ constexpr int stats() const { return tiles() + 2 * kConsumers * kBox; }
+  __host__ __device__ constexpr int barriers() const { return stats() + 3 * kMaxTiles * 64 * 4; }
+  __host__ __device__ constexpr int bytes() const {
+    return 1024 + barriers() + (4 + kMaxTiles + kSpare) * 8;
+  }
+  __host__ __device__ constexpr bool fits() const { return bytes() <= 232448; }
+  // the layout of S queries: the next pair's slots where they fit
+  __host__ __device__ static constexpr Layout of(int S) {
+    const int t = (S + 63) / 64;
+    if (kEarly) return Layout{t, t + kSpare, 1}.fits() ? Layout{t, t + kSpare, 1} : Layout{t, t, 1};
+    return Layout{t, t, 2}.fits() ? Layout{t, t, 2} : Layout{t, t, 1};
+  }
+};
+static_assert(Layout<chunks_of(kMaxKeys)>{kMaxTiles, kMaxTiles, 1}.fits(),
+              "the SM's shared memory");
+
+// the 64 x 64 fp32 accumulators of a warpgroup as bf16 into a tile in the
+// 128-byte swizzle (16-byte chunk n of row r at n ^ (r % 8)); rows r, r + 8
+// written as zeros where `keep0` / `keep1` is false
+__device__ __forceinline__ void to_tile(unsigned char* tile, const float* acc, int r, int t4,
+                                        bool keep0 = true, bool keep1 = true) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<uint32_t*>(tile + r * 128 + ((n ^ (r & 7)) << 4) + 4 * t4) =
+        keep0 ? pack2(acc[4 * n], acc[4 * n + 1]) : 0u;
+    *reinterpret_cast<uint32_t*>(tile + (r + 8) * 128 + ((n ^ (r & 7)) << 4) + 4 * t4) =
+        keep1 ? pack2(acc[4 * n + 2], acc[4 * n + 3]) : 0u;
+  }
+}
+
+// 16-key (or 16-query) steps of a 64 x 64 fp32 accumulator block as bf16 A
+// fragments: x holds keys 16 j .. + 15 of rows g (0, 1, 4, 5) and g + 8
+__device__ __forceinline__ void a_frag(uint32_t a[4], const float* x) {
+  a[0] = pack2(x[0], x[1]);
+  a[1] = pack2(x[2], x[3]);
+  a[2] = pack2(x[4], x[5]);
+  a[3] = pack2(x[6], x[7]);
+}
+
+// Phase A goes over the key capacity in groups of 32 keys (two 16-key steps
+// from step j0), each group's products one commit group and the next
+// group's in flight while one is used: S's accumulators stay live through
+// the passes, and the rest has to fit beside them.
+
+// P's A fragments for keys 16 j0 .. + 31: the exponentials x (of those
+// keys) times each row's 1 / sum, rounded to bf16
+__device__ __forceinline__ void p_frags(uint32_t (&a)[2][4], const float* x, float inv0,
+                                        float inv1) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = x[8 * j + e] * ((e & 2) ? inv1 : inv0);  // 2, 3, 6, 7: r + 8
+    a_frag(a[j], v);
+  }
+}
+
+// dP = dO V^T over keys 16 j0 .. + 31, one commit group: dO's fragments
+// from registers, V K-major from shared memory (descriptor vk)
+__device__ __forceinline__ void issue_dp(float* dp, const uint32_t (&dof)[4][4], uint64_t vk,
+                                         int j0) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32<0>(dp, dof[kk], desc_at(vk, j0 * 2048 + kk * 32), kk);
+  wgmma_commit();
+}
+
+template <int kChunks>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_o,
+                      const __grid_constant__ CUtensorMap map_dq,
+                      const __grid_constant__ CUtensorMap map_dk,
+                      const __grid_constant__ CUtensorMap map_dv, int B, int H, int S, int L,
+                      int kv_len, float scale_log2, float scale) {
+  using Lay = Layout<kChunks>;
+  constexpr int kS = 16 * kChunks;     // S's accumulators a thread
+  constexpr int kSteps = 2 * kChunks;  // 16-key steps of the capacity
+  constexpr int kKeyBoxes = Lay::kKeyBoxes;
+  constexpr bool kEarly = Lay::kEarly;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* smem = bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  const Lay lay = Lay::of(S);
+  const int q_tiles = lay.q_tiles, slots = lay.slots, k_slots = lay.k_slots;
+  const int k_blocks = (L + 63) / 64;
+  const int ahead = slots - q_tiles;  // the next pair's tiles loaded during this pair
+  const uint32_t k0 = smem_u32(smem), vs = k0 + lay.v(), qs = k0 + lay.q(), dos = k0 + lay.dout();
+  float* stat_m = reinterpret_cast<float*>(smem + lay.stats());
+  float* stat_il = stat_m + kMaxTiles * 64;
+  float* stat_d = stat_il + kMaxTiles * 64;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + lay.barriers());  // a K slot's
+  uint64_t* full_v = full_k + 2;
+  uint64_t* kv_read = full_k + 3;  // every thread has its K and V fragments
+  uint64_t* full_t = full_k + 4;   // a ring slot's Q and dO
+
+  // the warpgroup, broadcast so that ptxas sees it uniform: loops over a
+  // warpgroup's tasks would otherwise serialise its wgmma (C7520)
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = w4 * 16 + g;  // this thread's rows r and r + 8 of a warpgroup's 64
+  const bool leader = threadIdx.x % 128 == 0;  // issues the warpgroup's stores
+  unsigned char* tile0 = smem + lay.tiles() + wg * 2 * kBox;
+  unsigned char* tile1 = tile0 + kBox;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4 + kMaxTiles + Lay::kSpare; ++i)
+      mbar_init(&full_k[i], i == 3 ? kThreads : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Loads, all issued by thread 0.  Query tile t of the block's i-th pair
+  // (global tile n = i q_tiles + t) lies in ring slot n % slots, its
+  // barrier's phase n / slots: the slot's last user is pair i - 1 (its
+  // tiles past `ahead`) or, for the first `ahead` tiles, pair i - 2's.
+  auto load_k = [&](int i, int pb, int ph) {  // into the K slot of the block's i-th pair
+    unsigned char* dst = smem + (i % k_slots) * kKeyBoxes * kBox;
+    uint64_t* bar = &full_k[i % k_slots];
+    mbar_expect_tx(bar, kKeyBoxes * kBox);
+    for (int j = 0; j < kKeyBoxes; ++j) tma_box(dst + j * kBox, &map_k, bar, ph, j * 64, pb);
+  };
+  auto load_v = [&](int pb, int ph) {
+    mbar_expect_tx(full_v, kKeyBoxes * kBox);
+    for (int j = 0; j < kKeyBoxes; ++j)
+      tma_box(smem + lay.v() + j * kBox, &map_v, full_v, ph, j * 64, pb);
+  };
+  auto load_tile = [&](int i, int t) {
+    const int pp = blockIdx.x + i * gridDim.x, slot = (i * q_tiles + t) % slots;
+    mbar_expect_tx(&full_t[slot], 2 * kBox);
+    tma_box(smem + lay.q() + slot * kBox, &map_q, &full_t[slot], pp % H, t * 64, pp / H);
+    tma_box(smem + lay.dout() + slot * kBox, &map_do, &full_t[slot], pp % H, t * 64, pp / H);
+  };
+  const int pairs = B * H;
+  if (threadIdx.x == 0 && int(blockIdx.x) < pairs) {  // the first pair's operands loaded ahead
+    if (kEarly || k_slots > 1) load_k(0, blockIdx.x / H, blockIdx.x % H);
+    if (kEarly) load_v(blockIdx.x / H, blockIdx.x % H);
+    for (int t = 0; t < ahead && t < q_tiles; ++t) load_tile(0, t);
+  }
+
+  for (int i = 0, p = blockIdx.x; p < pairs; ++i, p += gridDim.x) {
+    const int b = p / H, h = p % H;
+    const uint32_t parity = i & 1;
+    const bool next = p + int(gridDim.x) < pairs;
+    // ring slot and barrier phase of this pair's query tile t
+    auto slot_of = [&](int t) { return kEarly ? (i * q_tiles + t) % slots : t; };
+    auto phase_of = [&](int t) {
+      return kEarly ? uint32_t((i * q_tiles + t) / slots) & 1 : parity;
+    };
+    if (threadIdx.x == 0) {  // every earlier read of these slots is done
+      if constexpr (kEarly) {
+        for (int t = ahead; t < q_tiles; ++t) load_tile(i, t);
+        if (next)
+          for (int t = 0; t < ahead && t < q_tiles; ++t) load_tile(i + 1, t);
+      } else {  // (K), the first tiles, V (which the products need after S), the
+                // rest, the next pair's K into the other K slot
+        if (k_slots == 1) load_k(i, b, h);
+        for (int t = 0; t < min(q_tiles, kConsumers); ++t) load_tile(i, t);
+        load_v(b, h);
+        for (int t = kConsumers; t < q_tiles; ++t) load_tile(i, t);
+        if (k_slots > 1 && next) load_k(i + 1, (p + gridDim.x) / H, (p + gridDim.x) % H);
+      }
+    }
+
+    // phase A: query tiles t = wg, wg + 2, ...
+    const uint32_t ks = k0 + (i % k_slots) * kKeyBoxes * kBox;
+    unsigned char* kbase = smem + (i % k_slots) * kKeyBoxes * kBox;
+    mbar_wait(&full_k[i % k_slots], uint32_t(i / k_slots) & 1);
+    for (int t = wg; t < q_tiles; t += kConsumers) {
+      const int slot = slot_of(t);
+      mbar_wait(&full_t[slot], phase_of(t));
+      const uint32_t qa = qs + slot * kBox;
+      float sc[kS];  // sc[4 n + e]: key 8 n + 2 t4 + (e & 1) of row r (e < 2) or r + 8
+#pragma unroll
+      for (int e = 0; e < kS; ++e) sc[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) scores_step<kChunks>(sc, qa, ks, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_accumulators<kS>(sc);
+
+      // P = 2^(S c - max c) / sum, kept as the exponentials and 1 / sum
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kS / 4; ++n) {
+        float* x = sc + 4 * n;
+        if (8 * n + 8 > kv_len) {  // keys at or past kv_len: -inf
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * n + t4 * 2 + (e & 1) >= kv_len) x[e] = -INFINITY;
+        }
+        m0 = fmaxf(m0, fmaxf(x[0], x[1]));
+        m1 = fmaxf(m1, fmaxf(x[2], x[3]));
+      }
+      // finite: key 0 is never masked
+      const float base0 = quad_max(m0) * scale_log2, base1 = quad_max(m1) * scale_log2;
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < kS / 4; ++n) {
+        float* x = sc + 4 * n;
+        x[0] = ex2(fmaf(x[0], scale_log2, -base0));
+        x[1] = ex2(fmaf(x[1], scale_log2, -base0));
+        x[2] = ex2(fmaf(x[2], scale_log2, -base1));
+        x[3] = ex2(fmaf(x[3], scale_log2, -base1));
+        l0 += x[0] + x[1];
+        l1 += x[2] + x[3];
+      }
+      const float inv0 = __frcp_rn(quad_sum(l0)), inv1 = __frcp_rn(quad_sum(l1));
+
+      // pass 1: O = bf16(P) V in fp32, P's fragments of one group built
+      // while the group before multiplies
+      mbar_wait(full_v, parity);
+      const uint64_t vmn = smem_desc_mn(vs), vk = smem_desc(vs), kmn = smem_desc_mn(ks);
+      float acc[32];
+      {
+        uint32_t pa[2][2][4];
+#pragma unroll
+        for (int j0 = 0; j0 < kSteps; j0 += 2) {
+          const int buf = (j0 / 2) & 1;
+          if (j0 >= 4) {  // the group that read this buffer is done
+            wgmma_wait<1>();
+            fence_operands<8>(&pa[buf][0][0]);
+          }
+          p_frags(pa[buf], sc + 8 * j0, inv0, inv1);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wgmma_rs<1>(acc, pa[buf][j], desc_at(vmn, (j0 + j) * 2048), j0 + j);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_operands<16>(&pa[0][0][0]);
+      }
+      fence_accumulators<32>(acc);
+
+      // D = rowsum(dO * O): dO's bf16 pairs at the places of O's
+      // accumulators in the swizzled tile
+      const unsigned char* dot = smem + lay.dout() + slot * kBox;
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int at = ((n ^ (r & 7)) << 4) + 4 * t4;
+        const auto* g0 = reinterpret_cast<const __nv_bfloat162*>(dot + r * 128 + at);
+        const auto* g1 = reinterpret_cast<const __nv_bfloat162*>(dot + (r + 8) * 128 + at);
+        const float2 o0 = __bfloat1622float2(*g0), o1 = __bfloat1622float2(*g1);
+        d0 += acc[4 * n] * o0.x + acc[4 * n + 1] * o0.y;
+        d1 += acc[4 * n + 2] * o1.x + acc[4 * n + 3] * o1.y;
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+
+      // out through tile 0 (the previous task's tiles have left first)
+      if (leader) tma_store_drain();
+      warpgroup_sync(wg);
+      to_tile(tile0, acc, r, t4);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (leader) tma_store_box(&map_o, tile0, h, t * 64, b);
+
+      uint32_t dof[4][4];  // dO's A fragments, for dP
+      tile_a_frags(dof, dot, r, t4);
+      if (t4 == 0) {  // the rows' statistics; rows past S (0, 0, 0): P = 0 in phase B
+        const int row = t * 64 + r;
+        const bool ok0 = row < S, ok1 = row + 8 < S;
+        stat_m[row] = ok0 ? base0 : 0.f;
+        stat_il[row] = ok0 ? inv0 : 0.f;
+        stat_d[row] = ok0 ? d0 : 0.f;
+        stat_m[row + 8] = ok1 ? base1 : 0.f;
+        stat_il[row + 8] = ok1 ? inv1 : 0.f;
+        stat_d[row + 8] = ok1 ? d1 : 0.f;
+      }
+
+      // pass 2: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ += dS K; the next
+      // group's dP in flight while one group's dS is formed
+      float dq[32];
+      {
+        float dp[2][16];
+        uint32_t ds[2][4];
+        issue_dp(dp[0], dof, vk, 0);
+#pragma unroll
+        for (int j0 = 0; j0 < kSteps; j0 += 2) {
+          const int buf = (j0 / 2) & 1;
+          if (j0 + 2 < kSteps) {  // then: this group's dP and the last group's dQ are done
+            issue_dp(dp[buf ^ 1], dof, vk, j0 + 2);
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_accumulators<16>(dp[buf]);
+          fence_operands<8>(&ds[0][0]);
+          const float* x = sc + 8 * j0;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const bool up = e & 2;  // elements 2, 3, 6, 7: row r + 8
+              v[e] = (x[8 * j + e] * (up ? inv1 : inv0)) * (dp[buf][8 * j + e] - (up ? d1 : d0)) *
+                     scale;
+            }
+            a_frag(ds[j], v);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wgmma_rs<1>(dq, ds[j], desc_at(kmn, (j0 + j) * 2048), j0 + j);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_operands<8>(&ds[0][0]);
+        fence_operands<16>(&dof[0][0]);
+      }
+      fence_accumulators<32>(dq);
+      to_tile(tile1, dq, r, t4);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (leader) tma_store_box(&map_dq, tile1, h, t * 64, b);
+    }
+    __syncthreads();  // every row's statistics are in
+
+    // phase B: key blocks kb0, kb0 + 2, ..., the warpgroup that had fewer
+    // query tiles first; K and V as A fragments (up to 128 keys, one block a
+    // warpgroup, read before the next pair's K and V are let in)
+    const int kb0 = (wg + q_tiles) % kConsumers;
+    uint32_t kf[4][4], vf[4][4];
+    if constexpr (kEarly) {  // the block's fragments now, then the next pair's K and V
+      if (kb0 < k_blocks) {
+        tile_a_frags(kf, kbase + kb0 * kBox, r, t4);
+        tile_a_frags(vf, smem + lay.v() + kb0 * kBox, r, t4);
+      }
+      mbar_arrive(kv_read);
+      if (threadIdx.x == 0 && next) {
+        mbar_wait(kv_read, parity);
+        load_k(i + 1, (p + gridDim.x) / H, (p + gridDim.x) % H);
+        load_v((p + gridDim.x) / H, (p + gridDim.x) % H);
+      }
+    }
+    for (int kb = kb0; kb < k_blocks; kb += kConsumers) {
+      if constexpr (!kEarly) {
+        tile_a_frags(kf, kbase + kb * kBox, r, t4);
+        tile_a_frags(vf, smem + lay.v() + kb * kBox, r, t4);
+      }
+      float dv[32], dk[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.f;
+      uint32_t pt[4][4], dt[4][4];  // the last 64 queries' A fragments of P^T and dS^T
+      for (int c = 0; c < q_tiles; ++c) {
+        float st[32], dpt[32];  // st[4 n + e]: query 64 c + 8 n + 2 t4 + (e & 1), key row r / r + 8
+        const uint32_t qc = qs + slot_of(c) * kBox, dc = dos + slot_of(c) * kBox;
+        const uint64_t qk = smem_desc(qc), dok = smem_desc(dc);
+        const uint64_t qmn = smem_desc_mn(qc), dmn = smem_desc_mn(dc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<0>(st, kf[kk], desc_at(qk, kk * 32), kk);
+          wgmma_rs<0>(dpt, vf[kk], desc_at(dok, kk * 32), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();  // also the last 64 queries' dV and dK products
+        fence_accumulators<32>(st);
+        fence_accumulators<32>(dpt);
+        fence_operands<16>(&pt[0][0]);
+        fence_operands<16>(&dt[0][0]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int q = c * 64 + 8 * n + 2 * t4;
+          const float2 m = *reinterpret_cast<const float2*>(stat_m + q);
+          const float2 il = *reinterpret_cast<const float2*>(stat_il + q);
+          const float2 dd = *reinterpret_cast<const float2*>(stat_d + q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const float pv = ex2(fmaf(st[4 * n + e], scale_log2, -(odd ? m.y : m.x))) *
+                             (odd ? il.y : il.x);
+            dpt[4 * n + e] = pv * (dpt[4 * n + e] - (odd ? dd.y : dd.x)) * scale;
+            st[4 * n + e] = pv;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a_frag(pt[j], st + 8 * j);
+          a_frag(dt[j], dpt + 8 * j);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_rs<1>(dv, pt[j], desc_at(dmn, j * 2048), 1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wgmma_rs<1>(dk, dt[j], desc_at(qmn, j * 2048), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_operands<16>(&pt[0][0]);
+      fence_operands<16>(&dt[0][0]);
+      fence_operands<16>(&kf[0][0]);
+      fence_operands<16>(&vf[0][0]);
+      fence_accumulators<32>(dv);
+      fence_accumulators<32>(dk);
+      // keys past kv_len: zero rows (their P^T, from zero K rows, is not 0)
+      const int key = kb * 64 + r;
+      if (leader) tma_store_drain();
+      warpgroup_sync(wg);
+      to_tile(tile0, dk, r, t4, key < kv_len, key + 8 < kv_len);
+      to_tile(tile1, dv, r, t4, key < kv_len, key + 8 < kv_len);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (leader) {
+        tma_store_box(&map_dk, tile0, h, kb * 64, b);
+        tma_store_box(&map_dv, tile1, h, kb * 64, b);
+      }
+    }
+    __syncthreads();  // the pair's operands are read: the next pair's may land
+  }
+  if (leader) tma_store_drain();  // the last tiles have left shared memory
+}
+
+template <int kChunks>
+cudaError_t launch(const AttnBwdArgs& p, int B, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_do, map_o, map_dq, map_dk, map_dv;
+  const int H = p.H, S = p.S;
+  cudaError_t err = head_map(&map_q, p.q, B, S, H, kHeadDim, p.q_sb, p.q_st);
+  if (err == cudaSuccess) err = head_map(&map_k, p.k, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&map_v, p.v, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&map_do, p.dout, B, S, H, kHeadDim, p.o_sb, p.o_st);
+  if (err == cudaSuccess) err = head_map(&map_o, p.out, B, S, H, kHeadDim, p.o_sb, p.o_st);
+  if (err == cudaSuccess) err = head_map(&map_dq, p.dq, B, S, H, kHeadDim, p.q_sb, p.q_st);
+  if (err == cudaSuccess) err = head_map(&map_dk, p.dk, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&map_dv, p.dv, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err != cudaSuccess) return err;
+  auto kernel = attn_bwd_wgmma_kernel<kChunks>;
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (configured != cudaSuccess) return configured;
+  const int grid = std::min(B * H, muse::sm90::sm_count());  // persistent: one block an SM
+  kernel<<<grid, kThreads, Layout<kChunks>::of(S).bytes(), stream>>>(
+      map_q, map_k, map_v, map_do, map_o, map_dq, map_dk, map_dv, B, H, S, p.L, p.kv_len,
+      p.scale_log2, p.scale);
+  return cudaGetLastError();
+}
+
+// by the key capacity of L
+cudaError_t launch(const AttnBwdArgs& p, int B, cudaStream_t stream) {
+  return chunks_of(p.L) == 3 ? launch<3>(p, B, stream) : launch<8>(p, B, stream);
+}
+
+}  // namespace bwd
+
+// ---------------------------------------------------------------------------
 // Backward: rmsnorm / AdaLN (attn_sublayer.py `_rms_adaln_bwd`)
 // ---------------------------------------------------------------------------
 
@@ -843,16 +1405,18 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
 // the gradient of res --, dadaln (B, 2D), dln (D,), a (B, S, D), dproj = dqkv
 // (B, S, 3I) or dq (B, S, I), attn (B, S, I) and, for cross, dkv (B, L, 2I),
 // zero past kv_len.  Scratch: h (B, S, D), proj like dproj, dattn (B, S,
-// max(D, I)), stats (3, B, H, S rounded up to 64) fp32, rstd (B * S) fp32,
-// partial (B * ceil(S / 32) * 3 * D) fp32.  On a head shard (I < D) dx, dln
-// and dadaln are this shard's part of the gradients; the caller sums them
-// over the shards.  Self (kernel 11) and cross (kernel 12) run one chain of nine
+// max(D, I)), rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 * D) fp32 and,
+// where muse_attn_bwd_one_block(S, L) is 0, stats (3, B, H, S rounded up to
+// 64) fp32 (else it may be null).  On a head shard (I < D) dx, dln and dadaln
+// are this shard's part of the gradients; the caller sums them over the
+// shards.  Self (kernel 11) and cross (kernel 12) run one chain of eight
 // launches: the row kernel (keeping 1/rms; the register one at width 1024),
 // the in-projection (qkv or q) and dattn = g_out @ Wout on the Hopper GEMM
-// (Wout read MN-major), the two register-fragment attention kernels, da =
-// dproj @ W_in on the Hopper GEMM (W_in read MN-major), the row kernel of dx
-// (the register one at width 1024), and the two-stage d(adaln) / d(ln)
-// reduction.
+// (Wout read MN-major), the attention backward (one block a (batch, head)
+// pair on wgmma up to 288 queries and 256 keys; above, the two mma.sync
+// kernels, a ninth launch), da = dproj @ W_in on the Hopper GEMM (W_in read
+// MN-major), the row kernel of dx (the register one at width 1024), and the
+// two-stage d(adaln) / d(ln) reduction.
 extern "C" int muse_attn_sublayer_bwd(
     const void* x, const void* res, const void* ln, const void* adaln, const void* w_in,
     const void* w_out, const void* kv, const void* g_out, const void* g_res, void* dx,
@@ -875,6 +1439,7 @@ extern "C" int muse_attn_sublayer_bwd(
   bf* dproj_ = static_cast<bf*>(dproj);
   float* rstd_ = static_cast<float*>(rstd);
   float* stats_ = static_cast<float*>(stats);
+  if (!self_attn && (kv_len < 1 || kv_len > L)) return int(cudaErrorInvalidValue);
 
   // recompute a (and keep 1/rms), the projection, and dattn = g_out @ Wout
   cudaError_t err = launch_norm_rows(x, res, ln, adaln, h, a, rstd_, rows, S, D, eps, stream);
@@ -885,10 +1450,9 @@ extern "C" int muse_attn_sublayer_bwd(
                             muse::StoreBf16{dattn, I}, rows, I, D, stream);
   if (err != cudaSuccess) return int(err);
 
-  // the attention backward with S / P / dP / dS in registers
+  // the attention backward: one block a (batch, head) pair on wgmma up to
+  // 288 queries and 256 keys, the pair of mma.sync kernels above
   const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, I, L, kv_len);
-  const int Sp = (S + kTile - 1) / kTile * kTile;
-  const int64_t n_stats = int64_t(B) * H * Sp;
   AttnBwdArgs bargs{};
   bargs.q = args.q;
   bargs.k = args.k;
@@ -898,9 +1462,6 @@ extern "C" int muse_attn_sublayer_bwd(
   bargs.dq = dproj_;
   bargs.dk = self_attn ? dproj_ + I : static_cast<bf*>(dkv);
   bargs.dv = bargs.dk + I;
-  bargs.stat_m = stats_;
-  bargs.stat_il = stats_ + n_stats;
-  bargs.delta = stats_ + 2 * n_stats;
   bargs.q_sb = args.q_bs;
   bargs.q_st = args.q_rs;
   bargs.kv_sb = args.kv_bs;  // dq / dk / dv lie as q / k / v do
@@ -909,17 +1470,30 @@ extern "C" int muse_attn_sublayer_bwd(
   bargs.o_st = I;
   bargs.H = H;
   bargs.S = S;
-  bargs.Sp = Sp;
   bargs.L = args.L;
   bargs.kv_len = args.kv_len;
-  bargs.scale = args.scale;
+  // dS's factor 1 / 8; over one key the softmax is the constant 1 and its
+  // gradient 0 exactly (dP - D, from two sums of the same products, would
+  // leave rounding there)
+  bargs.scale = args.kv_len == 1 ? 0.f : args.scale;
   bargs.scale_log2 = args.scale * muse::frag::kLog2e;
-  attn_bwd_q_kernel<<<dim3(Sp / kTile, B * H), kAttnThreads, 0, stream>>>(bargs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  attn_bwd_kv_kernel<<<dim3((args.L + kTile - 1) / kTile, B * H), kAttnThreads, 0, stream>>>(
-      bargs);
-  err = cudaGetLastError();
+  if (bwd::takes(S, args.L)) {
+    err = bwd::launch(bargs, B, stream);
+  } else {
+    if (stats == nullptr) return int(cudaErrorInvalidValue);
+    const int Sp = (S + kTile - 1) / kTile * kTile;
+    const int64_t n_stats = int64_t(B) * H * Sp;
+    bargs.stat_m = stats_;
+    bargs.stat_il = stats_ + n_stats;
+    bargs.delta = stats_ + 2 * n_stats;
+    bargs.Sp = Sp;
+    attn_bwd_q_kernel<<<dim3(Sp / kTile, B * H), kAttnThreads, 0, stream>>>(bargs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    attn_bwd_kv_kernel<<<dim3((args.L + kTile - 1) / kTile, B * H), kAttnThreads, 0, stream>>>(
+        bargs);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return int(err);
 
   // da = dproj @ W_in (into the dattn buffer, consumed above, of max(D, I)
@@ -951,3 +1525,8 @@ extern "C" int muse_attn_sublayer_bwd(
       chunks);
   return int(cudaGetLastError());
 }
+
+// 1 where muse_attn_sublayer_bwd's attention takes the one-block wgmma kernel
+// (S queries at most 288, L keys at most 256), 0 where it takes the mma.sync pair
+// and needs the stats scratch
+extern "C" int muse_attn_bwd_one_block(int S, int L) { return bwd::takes(S, L) ? 1 : 0; }

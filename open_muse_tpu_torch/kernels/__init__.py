@@ -6,10 +6,12 @@ counts its launches in a plain integer attribute, ``wrapper.launches``;
 ``flash_attention_two_pass`` counts apart the launches of
 ``flash_attention`` that take its two-pass variant (more keys than the
 one-pass kernel holds), ``attn_sublayer_two_pass`` the sublayer forwards
-whose attention takes it.  The forward wrappers are
-``torch.autograd.Function``s whose backward is the matching backward
-wrapper, so one Function runs the plain versions on the CPU and the kernels
-on the card in both directions.  The fused norms and
+whose attention takes it, ``attn_sublayer_bwd_pair`` the sublayer backwards
+whose attention takes the mma.sync pair (more than 288 queries or 256
+keys).
+The forward wrappers are ``torch.autograd.Function``s whose backward is the
+matching backward wrapper, so one Function runs the plain versions on the
+CPU and the kernels on the card in both directions.  The fused norms and
 ``flash_attention`` have no backward kernel, as their TPU kernels have none:
 their Functions launch the kernel forward and take the gradient of the plain
 version, recomputed from the saved inputs (``plain_vjp``).  Under CUDA
@@ -78,8 +80,9 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-from .attn_sublayer import (attn_sublayer_cross, attn_sublayer_cross_bwd,  # noqa: E402
-                            attn_sublayer_self, attn_sublayer_self_bwd, attn_sublayer_two_pass)
+from .attn_sublayer import (attn_sublayer_bwd_pair, attn_sublayer_cross,  # noqa: E402
+                            attn_sublayer_cross_bwd, attn_sublayer_self, attn_sublayer_self_bwd,
+                            attn_sublayer_two_pass)
 from .flash_attention import flash_attention, flash_attention_two_pass  # noqa: E402
 from .fused_norm import fused_residual_layernorm, fused_residual_rmsnorm  # noqa: E402
 from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
@@ -91,13 +94,13 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul"
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
            "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
            "flash_attention", "flash_attention_two_pass", "attn_sublayer_two_pass",
-           "LaunchCounter"]
+           "attn_sublayer_bwd_pair", "LaunchCounter"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
             glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
             fused_residual_layernorm, flash_attention, flash_attention_two_pass,
-            attn_sublayer_two_pass)
+            attn_sublayer_two_pass, attn_sublayer_bwd_pair)
 
 
 def launch_counts() -> dict:

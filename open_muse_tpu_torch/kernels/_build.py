@@ -32,6 +32,7 @@ _SIGNATURES = {
     "muse_glu_down_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "muse_attn_sublayer": [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P],
     "muse_attn_sublayer_bwd": [_P] * 22 + [_I] * 6 + [ctypes.c_float, _P],
+    "muse_attn_bwd_one_block": [_I, _I],
     "muse_cfg_sample": [_P, _I, _I, _I, _I, ctypes.c_float, _P, ctypes.c_int64, _P,
                         ctypes.c_int64, _P, _P, _P],
     "muse_sample": [_P, _I, _I, _I, _I, _P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P, _P],

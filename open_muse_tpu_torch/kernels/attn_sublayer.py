@@ -32,15 +32,27 @@ from .flash_attention import flash_attention_plain, takes_two_pass
 __all__ = ["attn_sublayer_self", "attn_sublayer_cross", "attn_sublayer_self_plain",
            "attn_sublayer_cross_plain", "attn_sublayer_self_bwd", "attn_sublayer_cross_bwd",
            "attn_sublayer_self_bwd_plain", "attn_sublayer_cross_bwd_plain",
-           "attn_sublayer_two_pass", "sublayer_shapes_supported"]
+           "attn_sublayer_two_pass", "attn_sublayer_bwd_pair", "bwd_one_block",
+           "sublayer_shapes_supported"]
 
 HEAD_DIM = 64
 CHUNK_ROWS = 32  # rows per partial sum of d(adaln) and d(ln) in the kernel
-STAT_ROWS = 64  # the backward's row statistics cover S rounded up to this
+STAT_ROWS = 64  # the mma.sync backward's row statistics cover S rounded up to this
 # the self and cross forwards whose attention (flash_attention.cu's launcher,
 # called inside the chain) takes the two-pass variant: more than 288 keys,
 # as the 512 px v2's 1024 tokens in the self sublayer
 attn_sublayer_two_pass = LaunchCounter("attn_sublayer_two_pass")
+# the self and cross backwards whose attention takes the mma.sync pair of
+# kernels (more than 288 queries or 256 keys) instead of the one-block wgmma
+# kernel
+attn_sublayer_bwd_pair = LaunchCounter("attn_sublayer_bwd_pair")
+
+
+def bwd_one_block(queries: int, keys: int) -> bool:
+    """Whether the backward's attention over ``queries`` and ``keys`` takes
+    the one-block wgmma kernel, by the rule in csrc/attn_sublayer.cu (read
+    from the built library: the rule lives in C alone)."""
+    return bool(library().muse_attn_bwd_one_block(queries, keys))
 
 
 def sublayer_shapes_supported(hidden: int, num_heads: int, tp: int = 1) -> bool:
@@ -218,10 +230,13 @@ def _launch_bwd(name, x, res, ln_scale, adaln, w_in, wout, kv, g_out, g_res, num
     dkv = None if kv is None else torch.empty_like(kv)
     # dattn (B, S, I), then da (B, S, D) in the same buffer
     h, proj, dattn = new(b, s, d), new(b, s, n_in), new(b, s, max(d, inner))
-    stats = new(3, b, num_heads, -(-s // STAT_ROWS) * STAT_ROWS, dtype=torch.float32)
     rstd = new(b * s, dtype=torch.float32)
     partial = new(b * -(-s // CHUNK_ROWS) * 3 * d, dtype=torch.float32)
     length = 0 if kv is None else kv.shape[1]
+    stats = None  # the mma.sync pair's row statistics, through device memory
+    if not bwd_one_block(s, length or s):
+        stats = new(3, b, num_heads, -(-s // STAT_ROWS) * STAT_ROWS, dtype=torch.float32)
+        attn_sublayer_bwd_pair.launches += 1
     check(library().muse_attn_sublayer_bwd(
         _ptr(x), _ptr(res), _ptr(ln_scale), _ptr(adaln), _ptr(w_in), _ptr(wout), _ptr(kv),
         _ptr(g_out), _ptr(g_res), _ptr(dx), _ptr(dadaln), _ptr(dln), _ptr(a), _ptr(dproj),

@@ -39,7 +39,10 @@ def _rand(gen, *shape, scale=1.0, device="cuda"):
 
 
 def _rel(got, ref):
-    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    """max |error| over max |reference|; an error of 0 against a reference
+    of zeros is 0 (any other error against it stays huge)."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 2816, 1024), (4096, 2816, 1024), (300, 2816, 1024),
@@ -286,13 +289,18 @@ BWD_TOL = 5e-2
 
 
 @pytest.mark.parametrize("b,s,kv_len", [(4, 256, 77), (16, 256, 77), (1, 1024, 77),
-                                        (2, 100, 130)])
+                                        (2, 100, 130), (64, 256, 77), (2, 288, 77), (2, 289, 77),
+                                        (2, 256, 1), (2, 256, 288), (2, 256, 289),
+                                        (2, 256, 97), (2, 256, 256), (2, 256, 257)])
 def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
-    """The training batch (16 x 256), the 512px config's 1024 tokens (over
-    the forward attention's one-pass capacity of 288 keys: the backward
-    streams its key and query tiles at any length), ragged query and key
-    tiles (100 rows, 130 keys); every output against the plain backward, and
-    two calls bit-equal."""
+    """The training batch (16 x 256), the distillation student's (64 x 256),
+    the 512px config's 1024 tokens (over the one-block attention kernel's
+    288 queries and 256 keys: the mma.sync pair, which streams its key and
+    query tiles at any length), the rule's edges (256 / 288 / 289 queries,
+    1 / 96 / 97 / 256 / 257 / 288 / 289 text keys), ragged query and key
+    tiles (100 rows, 130 keys); every
+    output against the plain backward, two calls bit-equal, and the launches
+    that take the mma.sync pair counted apart."""
     gen = torch.Generator().manual_seed(s)
     d, h = 1024, 16
     p = _sublayer_bwd_inputs(gen, b, s, d, kv_len)
@@ -300,8 +308,10 @@ def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
         rr = torch.zeros_like(p["x"]) if res is None else res
         args = (p["x"], res, p["ln"], p["adaln"], p["wqkv"], p["wout"], p["g_out"], p["g_res"], h)
         before = kernels.attn_sublayer_self_bwd.launches
+        pair = kernels.attn_sublayer_bwd_pair.launches
         got = kernels.attn_sublayer_self_bwd(*args)
         assert kernels.attn_sublayer_self_bwd.launches == before + 1
+        assert kernels.attn_sublayer_bwd_pair.launches == pair + (s > 256)
         again = kernels.attn_sublayer_self_bwd(*args)
         ref = A.attn_sublayer_self_bwd_plain(p["x"], rr, *args[2:])
         for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwqkv", "dwout"),
@@ -310,13 +320,63 @@ def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
             assert torch.equal(mine, twice), name
         args = (p["x"], res, p["ln"], p["adaln"], p["wq"], p["wout"], p["kv"], p["g_out"],
                 p["g_res"], h)
+        pair = kernels.attn_sublayer_bwd_pair.launches
         got = kernels.attn_sublayer_cross_bwd(*args)
+        assert kernels.attn_sublayer_bwd_pair.launches == pair + (s > 288 or kv_len > 256)
         again = kernels.attn_sublayer_cross_bwd(*args)
         ref = A.attn_sublayer_cross_bwd_plain(p["x"], rr, *args[2:])
         for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwq", "dwout", "dkv"),
                                            got, ref, again):
             assert _rel(mine, want) <= BWD_TOL, (name, _rel(mine, want))
             assert torch.equal(mine, twice), name
+
+
+# the attention backward alone: its forward attention's tolerance (the whole
+# sublayer's BWD_TOL could hide an error of the core)
+CORE_TOL = 2e-2
+
+
+@pytest.mark.parametrize("b,s,kv_len,heads", [(16, 256, 77, 16), (16, 256, 77, 8),
+                                              (16, 256, 77, 4), (64, 256, 77, 16),
+                                              (2, 288, 288, 16), (2, 100, 130, 8),
+                                              (3, 17, 1, 16), (1, 1024, 77, 16),
+                                              (2, 256, 289, 4), (2, 288, 256, 8)])
+def test_attention_backward_core_matches_plain(device, b, s, kv_len, heads):
+    """The attention backward inside kernels 11 / 12 alone: the chain's
+    dproj (dqkv, or dq) and attention output, and cross's dkv, against
+    ``_attention_bwd`` on the same recomputed projection (the chain's own
+    ``a`` through torch's product) and dattn = g_out @ wout, within
+    ``CORE_TOL``; 16, 8 and 4 heads (a tp rank's), the one-block kernel at
+    its two key capacities (96: 1 and 77 keys; 256: 130 and 256) and the
+    mma.sync pair (1024 queries; 288 and 289 keys), two calls bit-equal."""
+    gen = torch.Generator().manual_seed(b * s + kv_len)
+    d, inner = 1024, 64 * heads
+    x, res = _rand(gen, b, s, d), _rand(gen, b, s, d)
+    ln, adaln = 1 + _rand(gen, d, scale=0.1), _rand(gen, b, 2 * d, scale=0.1)
+    wqkv, wq = _rand(gen, 3 * inner, d, scale=d ** -0.5), _rand(gen, inner, d, scale=d ** -0.5)
+    wout, kv = _rand(gen, d, inner, scale=inner ** -0.5), _rand(gen, b, kv_len, 2 * inner)
+    g_out, g_res = _rand(gen, b, s, d, scale=0.1), _rand(gen, b, s, d, scale=0.1)
+    dattn = g_out @ wout
+    for name, w_in, context in (("self", wqkv, None), ("cross", wq, kv)):
+        call = lambda: A._launch_bwd(name, x, res, ln, adaln, w_in, wout, context,  # noqa: E731
+                                     g_out, g_res, heads, 1e-6)
+        got, again = call(), call()
+        a, dproj, attn, dkv = got[3:]
+        proj = torch.nn.functional.linear(a, w_in)
+        if context is None:
+            q, k, v = proj.chunk(3, dim=-1)
+        else:
+            q, (k, v) = proj, context.chunk(2, dim=-1)
+        out, dq, dk, dv = A._attention_bwd(q, k, v, dattn, heads)
+        pairs = {"attn": (attn, out), "dproj": (dproj, torch.cat([dq, dk, dv], dim=-1)
+                                                if context is None else dq)}
+        if context is not None:
+            pairs["dkv"] = (dkv, torch.cat([dk, dv], dim=-1))
+        for out_name, (mine, want) in pairs.items():
+            assert mine.shape == want.shape, (name, out_name)
+            assert _rel(mine, want) <= CORE_TOL, (name, out_name, _rel(mine, want))
+        for i in (1, 4, 5, 6):  # dln, dproj, attn, dkv
+            assert got[i] is None or torch.equal(got[i], again[i]), (name, i)
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 2816, 1024), (512, 2816, 1024), (300, 2816, 1024),

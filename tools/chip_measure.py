@@ -63,29 +63,38 @@ def _load(tree):
     return tree, chip_smoke
 
 
-def _sublayer_calls(C, dev, gen, batches=(2, 16)):
-    """(label, call) of kernels 9 and 10 at ``batches`` (the last 16), 11 and
-    12 at 16."""
+def _sublayer_calls(C, dev, gen, batches=(2, 16), backward=((16, 16),)):
+    """(label, call) of kernels 9 and 10 at ``batches``, 11 and 12 at each
+    (batch, heads) of ``backward``: the training batch (16, 16), a tp=2
+    rank's 8 heads (16, 8), the distillation student's (64, 16)."""
     from open_muse_tpu_torch.kernels import attn_sublayer as A
 
-    bf, d, heads = torch.bfloat16, 1024, 16
+    bf, d = torch.bfloat16, 1024
+
+    def operands(b, heads):
+        inner = 64 * heads
+        inp = C._sublayer_inputs(dev, gen, b=b, s=256, d=d, inner=inner)
+        wq = (torch.randn(inner, d, generator=gen) * d ** -0.5).to(dev, bf)
+        wqkv = (torch.randn(3 * inner, d, generator=gen) * d ** -0.5).to(dev, bf)
+        kv = torch.randn(b, 77, 2 * inner, generator=gen).to(dev, bf)
+        return (inp["x"], inp["res"], inp["ln_scale"], inp["adaln"]), inp["wout"], wq, wqkv, kv
+
     calls = {}
     for b in batches:
-        inp = C._sublayer_inputs(dev, gen, b=b, s=256)
-        wq = (torch.randn(d, d, generator=gen) * d ** -0.5).to(dev, bf)
-        wqkv = (torch.randn(3 * d, d, generator=gen) * d ** -0.5).to(dev, bf)
-        kv = torch.randn(b, 77, 2 * d, generator=gen).to(dev, bf)
-        common = (inp["x"], inp["res"], inp["ln_scale"], inp["adaln"])
+        common, wout, wq, wqkv, kv = operands(b, 16)
         calls[f"k9 self fwd x ({b}, 256, 1024)"] = functools.partial(
-            A.attn_sublayer_self, *common, wqkv, inp["wout"], heads)
+            A.attn_sublayer_self, *common, wqkv, wout, 16)
         calls[f"k10 cross fwd x ({b}, 256, 1024) kv ({b}, 77, 2048)"] = functools.partial(
-            A.attn_sublayer_cross, *common, wq, inp["wout"], kv, heads)
-    g_out = (torch.randn(16, 256, d, generator=gen) * 0.01).to(dev, bf)
-    g_res = (torch.randn(16, 256, d, generator=gen) * 0.01).to(dev, bf)
-    calls["k11 self bwd x (16, 256, 1024)"] = functools.partial(
-        A.attn_sublayer_self_bwd, *common, wqkv, inp["wout"], g_out, g_res, heads)
-    calls["k12 cross bwd x (16, 256, 1024) kv (16, 77, 2048)"] = functools.partial(
-        A.attn_sublayer_cross_bwd, *common, wq, inp["wout"], kv, g_out, g_res, heads)
+            A.attn_sublayer_cross, *common, wq, wout, kv, 16)
+    for b, heads in backward:
+        common, wout, wq, wqkv, kv = operands(b, heads)
+        g_out = (torch.randn(b, 256, d, generator=gen) * 0.01).to(dev, bf)
+        g_res = (torch.randn(b, 256, d, generator=gen) * 0.01).to(dev, bf)
+        calls[f"k11 self bwd x ({b}, 256, 1024) {heads} heads"] = functools.partial(
+            A.attn_sublayer_self_bwd, *common, wqkv, wout, g_out, g_res, heads)
+        calls[f"k12 cross bwd x ({b}, 256, 1024) kv ({b}, 77, {128 * heads}) {heads} heads"] = (
+            functools.partial(A.attn_sublayer_cross_bwd, *common, wq, wout, kv, g_out, g_res,
+                              heads))
     return calls
 
 
@@ -131,7 +140,8 @@ def split(tree):
     dev, gen, bf = torch.device("cuda", 0), torch.Generator().manual_seed(0), torch.bfloat16
     calls = _sample_vq_calls(C, dev, gen)
     calls.update([_glu_bwd_call(dev, gen)])
-    calls.update(_sublayer_calls(C, dev, gen, batches=(2, 128, 16)))
+    calls.update(_sublayer_calls(C, dev, gen, batches=(2, 128, 16),
+                                backward=((16, 16), (16, 8), (64, 16))))
     for label, fn in calls.items():
         print(f"[time] {label}: {C.graph_ms(fn):.4f} ms (graph replay)", flush=True)
     for label, fn in calls.items():
