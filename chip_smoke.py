@@ -50,6 +50,13 @@ directly (eager); the token ids of the two must be equal:
 - train_eq: the captured train step against its eager body on one seeded
   full-width state, 4 steps, without and with gradient accumulation 2;
   dots: one step each of no, full and 'dots' checkpointing;
+- train_512: ``train_muse.main`` on ``configs/research_run_512.yaml`` (the
+  flagship 512px run: 22 x 1024 over 1024 tokens, no cut in width or depth)
+  at batch 8 on a seeded pre-encoded shard of 32 x 32 tokens, 8 captured
+  steps: kernels 11 / 12's attention over 1024 queries on the long route
+  (two wgmma kernels, rows then columns); the captured step against its
+  eager body, and the kernels' gradients against the plain versions' on a
+  2-layer cut;
 - train_raw: ``train_muse.main`` on the same config's raw-image branch (the
   CLIP-L tower and f16 VQGAN encode every batch, ``vq_argmin`` once a batch,
   CFG cond dropout) with eval, the sample panel, the grad-norm lines, the
@@ -213,7 +220,7 @@ def zero_counts() -> dict:
     """Every launch counter at 0: the 12 kernels' wrappers, kernel 5's
     two-pass variant counted apart, the kernel 9 / 10 forwards whose
     attention takes it, and the kernel 11 / 12 backwards whose attention
-    takes the mma.sync pair (no path's: every count is checked exactly)."""
+    takes the long route (train_512's: every count is checked exactly)."""
     from open_muse_tpu_torch import kernels
 
     return {name: 0 for name in kernels.launch_counts()}
@@ -485,6 +492,39 @@ def _library_sass() -> str:
     if out.returncode != 0:
         raise SystemExit(f"chip_smoke: cuobjdump -sass {lib} failed: {out.stderr.strip()[:300]}")
     return out.stdout
+
+
+# the kernels muse_attn_sublayer_bwd launches (csrc/attn_sublayer.cu): the
+# row kernels, the Hopper GEMM, the attention backward's (the one-block
+# kernel, the long route's rows and columns kernels), the dx and d(adaln) /
+# d(ln) kernels
+BWD_CHAIN_KERNELS = ("rmsnorm_adaln_kernel", "rmsnorm_adaln_rows_kernel", "wgmma_gemm_kernel",
+                     "attn_bwd_", "rms_adaln_bwd_")
+
+
+# the attention backward's kernels: the one-block kernel (two key
+# capacities) and the long route's rows (ring or short keys) and columns
+BWD_ATTN_KERNELS = ("attn_bwd_wgmma_kernel", "attn_bwd_rows_kernel", "attn_bwd_rows_short_kernel",
+                    "attn_bwd_cols_kernel")
+
+
+def bwd_chain_sass() -> bool:
+    """``cuobjdump -sass`` of the built library: no HMMA (mma.sync) in any
+    kernel the sublayer backward's chain launches, and HGMMA (wgmma) in each
+    of its attention kernels."""
+    bodies = {part.split("\n", 1)[0].strip(): part
+              for part in re.split(r"\n\s*Function : ", _library_sass())[1:]}
+    chain = {n: b for n, b in bodies.items() if any(k in n for k in BWD_CHAIN_KERNELS)}
+    attn = [n for n in chain if "attn_bwd_" in n]
+    hmma = [n for n, b in chain.items() if re.search(r"\bHMMA\.", b)]
+    no_hgmma = [n for n in attn if "HGMMA" not in chain[n]]
+    found = {k for k in BWD_ATTN_KERNELS for n in attn if re.search(rf"\d{k}", n)}
+    ok = not hmma and not no_hgmma and found == set(BWD_ATTN_KERNELS)
+    log(f"[sass] the sublayer backward's chain: {len(chain)} kernels (their instantiations), "
+        f"{len(attn)} of them the attention backward's; with HMMA (mma.sync): {hmma or 'none'}; "
+        f"attention kernels without HGMMA (wgmma): {no_hgmma or 'none'} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 @functools.lru_cache(maxsize=None)
@@ -1084,15 +1124,22 @@ def sdpa_fwd_bwd_ms(device, gen, batch, heads, queries, keys):
                                                 (q, k, v), dout))
 
 
-def log_core(name, batch, heads, keys, fn, sdpa_ms):
+def core_bound(batch, heads, queries, keys):
+    """(ms, "bytes" or "operations") of the attention backward inside kernel
+    11 / 12 alone: q, dO, out and dq (queries rows) and k, v, dk and dv (keys
+    rows) of 64 bf16 a head, each read or written once; its six products (S,
+    O, dP, dV, dQ, dK)."""
+    moved = 2 * 64 * batch * heads * 4 * (queries + keys)
+    return bound_of(moved, 6 * 2 * batch * heads * queries * keys * 64, "bf16")
+
+
+def log_core(name, batch, heads, queries, keys, fn, sdpa_ms):
     """The attention backward inside kernel 11 / 12 alone: its launches'
     device time in a launch split of the sublayer backward ``fn``, beside
-    the core's bound (q, k, v and dO read once, out, dq, dk and dv written
-    once; its six products) and SDPA's forward plus backward."""
+    the core's bound and SDPA's forward plus backward."""
     split = [(n, us) for n, us in launch_split(fn) if n.startswith("attn_bwd")]
-    moved = 2 * 64 * batch * heads * 4 * (TRAIN_S + keys)  # bf16
-    bound, by = bound_of(moved, 6 * 2 * batch * heads * TRAIN_S * keys * 64, "bf16")
-    log(f"[time] {name} attention core alone, x ({batch}, {TRAIN_S}, {HIDDEN}) {heads} heads "
+    bound, by = core_bound(batch, heads, queries, keys)
+    log(f"[time] {name} attention core alone, x ({batch}, {queries}, {HIDDEN}) {heads} heads "
         f"over {keys} keys: {' + '.join(f'{n} {us:.2f}' for n, us in split) or 'not measured'} "
         f"= {sum(us for _, us in split):.2f} us (torch.profiler, median of ~10 calls); bound "
         f"{bound * 1e3:.2f} us ({by}); yardstick, not a call of the port: SDPA forward + "
@@ -1145,7 +1192,7 @@ def check_sublayer_bwd(device, gen, splits=None, heads=HEADS, batch=TRAIN_B, cor
         results[name] = (ok, worst, timing)
         keys = seq if "self" in name else KV_LEN
         if cores is not None:
-            cores.append((name, batch, heads, keys, functools.partial(kern, inp["res"]),
+            cores.append((name, batch, heads, seq, keys, functools.partial(kern, inp["res"]),
                           sdpa_fwd_bwd_ms(device, gen, batch, heads, seq, keys)))
         if splits is not None:
             splits.append((f"{name} x {tuple(inp['x'].shape)}"
@@ -1174,25 +1221,25 @@ def check_sublayer_bwd(device, gen, splits=None, heads=HEADS, batch=TRAIN_B, cor
     return results
 
 
-def sublayer_bwd_bound(name, batch, heads):
-    """(bytes, operations) of kernel 11 / 12 at x (batch, 256, 1024) with
+def sublayer_bwd_bound(name, batch, heads, seq=TRAIN_S):
+    """(bytes, operations) of kernel 11 / 12 at x (batch, seq, 1024) with
     ``heads`` of 64: inputs read once, outputs written once; the products of
     the backward, forward recompute included (self 11 d x inner products a
     row, cross 5; the attention's 6)."""
-    rows, d, inner, bf = batch * TRAIN_S, HIDDEN, 64 * heads, 2  # bf16: 2 bytes
+    rows, d, inner, bf = batch * seq, HIDDEN, 64 * heads, 2  # bf16: 2 bytes
     act, w_inner = rows * d * bf, d * inner * bf
     if "self" in name:
         return (6 * act + 8 * w_inner + 2 * (d + 2 * batch * d) * bf,
-                2 * rows * 11 * d * inner + 12 * batch * heads * TRAIN_S * TRAIN_S * 64)
+                2 * rows * 11 * d * inner + 12 * batch * heads * seq * seq * 64)
     return (6 * act + 4 * w_inner + 2 * (d + 2 * batch * d) * bf + 2 * batch * KV_LEN * 2 * inner
-            * bf, 2 * rows * 5 * d * inner + 12 * batch * heads * TRAIN_S * KV_LEN * 64)
+            * bf, 2 * rows * 5 * d * inner + 12 * batch * heads * seq * KV_LEN * 64)
 
 
 def backward_kernel_phase(device, splits, cores=None):
     """Every backward kernel against its plain version, kernels 11 / 12 also
-    at the distillation student's x (64, 256, 1024) and, through the
-    mma.sync pair, at the 512px config's x (2, 1024, 1024) (folded into
-    their rows: a failure fails the row); appends the GLU and sublayer backwards to
+    at the distillation student's x (64, 256, 1024) and, through the long
+    route, at the 512px config's x (2, 1024, 1024) (folded into their rows:
+    a failure fails the row); appends the GLU and sublayer backwards to
     ``splits``, and the sublayer backwards to ``cores``."""
     from open_muse_tpu_torch import kernels
 
@@ -1211,30 +1258,32 @@ def backward_kernel_phase(device, splits, cores=None):
         row_ok, row_err, timing = report[name]
         report[name] = (row_ok and ok, max(row_err, err), timing)
     # the 512px config's 1024 tokens, over the one-block kernel's 288
-    # queries: every launch of this check takes the mma.sync pair (folded
-    # into the rows: a failure, or a launch that did not take the pair,
-    # fails the row)
+    # queries: every launch of this check takes the long route (folded into
+    # the rows: a failure, or a launch that did not take the route, fails
+    # the row)
     kernels.reset_launch_counts()
-    pair = check_sublayer_bwd(device, gen, batch=2, seq=SEQ_512)
+    wide = check_sublayer_bwd(device, gen, batch=2, seq=SEQ_512, cores=cores)
     counts = kernels.launch_counts()
-    taken = sum(counts[name] for name in pair)
-    pair_ok = taken > 0 and counts["attn_sublayer_bwd_pair"] == taken
+    taken = sum(counts[name] for name in wide)
+    long_ok = taken > 0 and counts["attn_sublayer_bwd_long"] == taken
     log(f"[check] kernels 11 / 12 at x (2, {SEQ_512}, {HIDDEN}), kv (2, {KV_LEN}, "
-        f"{2 * HIDDEN}): {counts['attn_sublayer_bwd_pair']} of {taken} launches took the "
-        f"mma.sync pair: {'ok' if pair_ok else 'FAIL'}")
-    for name, (ok, err, (ms, plain_ms)) in pair.items():
-        log(f"[time] {name} at the 512px config's x (2, {SEQ_512}, {HIDDEN}) (the mma.sync "
-            f"pair): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA graph replay)")
-        PAIR_CHECK[name] = counts[name]
+        f"{2 * HIDDEN}): {counts['attn_sublayer_bwd_long']} of {taken} launches took the "
+        f"long route: {'ok' if long_ok else 'FAIL'}")
+    for name, (ok, err, (ms, plain_ms)) in wide.items():
+        bound, by = bound_of(*sublayer_bwd_bound(name, 2, HEADS, SEQ_512), "bf16")
+        log(f"[time] {name} at the 512px config's x (2, {SEQ_512}, {HIDDEN}) (the long "
+            f"route): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median, CUDA graph replay); "
+            f"bound {bound:.4f} ms ({by})")
+        LONG_CHECK[name] = counts[name]
         row_ok, row_err, timing = report[name]
-        report[name] = (row_ok and ok and pair_ok, max(row_err, err), timing)
+        report[name] = (row_ok and ok and long_ok, max(row_err, err), timing)
     kernels.reset_launch_counts()
     return report
 
 
 # kernel 11 / 12 -> its launches in backward_kernel_phase's 1024-token check,
-# each of which took the mma.sync pair
-PAIR_CHECK = {}
+# each of which took the long route
+LONG_CHECK = {}
 
 
 # a tensor-parallel rank's shapes at tp 2 (the tp_train phase's): 8 of the 16
@@ -2005,6 +2054,7 @@ def profiled(label, fn, unprofiled_s, filename, rows=16, smi="", span=False):
         f"{1 - busy:.3f}{span_ms if span else ''}{'; ' + smi if smi else ''}")
     for line in table.splitlines()[:rows]:
         log(f"[profile] {line}")
+    return events
 
 
 # -- the pre-encode path at full width ------------------------------------------
@@ -2303,32 +2353,32 @@ EXPECTED_TRAIN_LAUNCHES = train_launches(TRAIN_STEPS)
 GRAD_REL_TOL, GRAD_COS_MIN = 0.1, 0.99
 
 
-def train_batch(device):
+def train_batch(device, b=TRAIN_B, s=TRAIN_S):
     gen = torch.Generator(device=device).manual_seed(11)
-    return {"image_tokens": torch.randint(0, 8192, (TRAIN_B, TRAIN_S), generator=gen,
-                                          device=device),
-            "encoder_hidden_states": torch.randn(TRAIN_B, KV_LEN, 768, generator=gen,
-                                                 device=device),
-            "cond_embeds": torch.randn(TRAIN_B, 768, generator=gen, device=device),
-            "micro_conds": torch.tensor([[512.0, 512.0, 0.0, 0.0, 6.0]] * TRAIN_B, device=device)}
+    return {"image_tokens": torch.randint(0, 8192, (b, s), generator=gen, device=device),
+            "encoder_hidden_states": torch.randn(b, KV_LEN, 768, generator=gen, device=device),
+            "cond_embeds": torch.randn(b, 768, generator=gen, device=device),
+            "micro_conds": torch.tensor([[512.0, 512.0, 0.0, 0.0, 6.0]] * b, device=device)}
 
 
-def gradient_check(device):
-    """One forward + backward of the research-default model at batch 16 with
-    the kernels and one with the plain versions, on the same weights, batch
-    and masking noise (bf16 autocast, fp32 weights, per-layer checkpointing,
-    as the trainer runs)."""
+def gradient_check(device, config=None, b=TRAIN_B, s=TRAIN_S, rel_tol=None, tag="grad"):
+    """One forward + backward of the research-default model (or of
+    ``config``) at batch ``b`` of ``s`` tokens with the kernels and one with
+    the plain versions, on the same weights, batch and masking noise (bf16
+    autocast, fp32 weights, per-layer checkpointing, as the trainer runs);
+    each trunk tensor's gradient within ``rel_tol`` (GRAD_REL_TOL) and
+    GRAD_COS_MIN of the plain one's."""
     from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2, MaskGiTUViT_v2Config
     from open_muse_tpu_torch.ops.sampling import get_mask_schedule
     from open_muse_tpu_torch.training.masking import draw_masking_noise, mask_or_random_replace_tokens
 
+    rel_tol = GRAD_REL_TOL if rel_tol is None else rel_tol
     torch.manual_seed(0)
     with torch.device(device):
-        model = MaskGiTUViT_v2(MaskGiTUViT_v2Config())
+        model = MaskGiTUViT_v2(config or MaskGiTUViT_v2Config())
     model.set_gradient_checkpointing(True)
-    batch = train_batch(device)
-    noise = draw_masking_noise(TRAIN_B, TRAIN_S, torch.Generator(device=device).manual_seed(3),
-                               8192)
+    batch = train_batch(device, b, s)
+    noise = draw_masking_noise(b, s, torch.Generator(device=device).manual_seed(3), 8192)
     input_ids, labels, _, _ = mask_or_random_replace_tokens(
         batch["image_tokens"], model.config.mask_token_id, get_mask_schedule("cosine"), noise)
     grads, losses = {}, {}
@@ -2355,23 +2405,24 @@ def gradient_check(device):
         worst_rel = max(worst_rel, (rel, n))
         worst_cos = min(worst_cos, (cos, n))
     trunk = sum(n.startswith("transformer_layers.") for n in names)
-    ok = (not missing and not bad and worst_rel[0] <= GRAD_REL_TOL and worst_cos[0] >= GRAD_COS_MIN
+    ok = (not missing and not bad and worst_rel[0] <= rel_tol and worst_cos[0] >= GRAD_COS_MIN
           and all(torch.isfinite(torch.tensor(v)) for v in losses.values()))
-    log(f"[grad] full-width model ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
-        f"params) at batch {TRAIN_B}: loss kernels {losses[True]:.6f} plain {losses[False]:.6f} "
+    log(f"[{tag}] model of {model.config.num_hidden_layers} layers "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params) at batch {b} x {s} "
+        f"tokens: loss kernels {losses[True]:.6f} plain {losses[False]:.6f} "
         f"(diff {abs(losses[True] - losses[False]):.3e}); {len(names)} parameters, "
         f"missing grads {missing[:4]}, zero or non-finite {bad[:4]}")
-    log(f"[grad] {trunk} trunk tensors, kernels vs plain: worst relative error "
-        f"{worst_rel[0]:.3e} ({worst_rel[1]}; bound {GRAD_REL_TOL}), worst cosine "
+    log(f"[{tag}] {trunk} trunk tensors, kernels vs plain: worst relative error "
+        f"{worst_rel[0]:.3e} ({worst_rel[1]}; bound {rel_tol}), worst cosine "
         f"{worst_cos[0]:.6f} ({worst_cos[1]}; bound {GRAD_COS_MIN}) {'ok' if ok else 'FAIL'}")
     del model, grads
     torch.cuda.empty_cache()
     return ok
 
 
-def write_shard(path, samples=32, seed=0, text=(KV_LEN, 768), pooled=True):
+def write_shard(path, samples=32, seed=0, text=(KV_LEN, 768), pooled=True, tokens=TRAIN_S):
     """A seeded pre-encoded shard in the dialect of scripts/pre_encode.py at
-    the config's shapes: tokens (256,) in [0, 8192) (each image uses 16
+    the config's shapes: ``tokens`` (256,) in [0, 8192) (each image uses 16
     codes, so a repeated batch is learnable), the text states ``text``
     (CLIP penultimate (77, 768) by default) fp16 in the member the script
     writes them to, pooled (768,) fp16 where ``pooled``, and LAION metadata
@@ -2391,7 +2442,7 @@ def write_shard(path, samples=32, seed=0, text=(KV_LEN, 768), pooled=True):
     with tarfile.open(path, "w") as tf:
         for i in range(samples):
             codes = rs.choice(8192, CODES_PER_IMAGE, replace=False)
-            members = [("vq_f16.npy", npy(rs.choice(codes, TRAIN_S).astype(np.int32))),
+            members = [("vq_f16.npy", npy(rs.choice(codes, tokens).astype(np.int32))),
                        ("clip_penultimate.npy", npy(rs.randn(*text).astype(np.float16))),
                        ("json", meta.encode())]
             if pooled:
@@ -2427,13 +2478,13 @@ def profile_train_step(state, device, median_s, label="train step (one replayed 
 
     def one():
         b = batch if prepare is None else prepare()
-        noise = draw_masking_noise(TRAIN_B, TRAIN_S, gen, 8192,
+        noise = draw_masking_noise(*b["image_tokens"].shape, gen, 8192,
                                    cond_dropout="empty_embeds" in b)
         return float(step(state, b, noise)["loss"])
 
     one()  # the warm-up step and the capture
     one()  # a first replay
-    profiled(label, one, median_s, filename)
+    return profiled(label, one, median_s, filename)
 
 
 def _logged(out):
@@ -2586,37 +2637,37 @@ def _worst_diffs(a, b):
     return worst
 
 
-def train_eq_phase(device, soft_targets=False):
+def train_eq_phase(device, soft_targets=False, b=TRAIN_B, s=TRAIN_S, accumulations=(1, 2)):
     """The captured step against the eager body on one seeded full-width
-    state (batch 16, cond dropout 0.1 with empty-prompt embeddings, the
-    bucket diagnostics and per-parameter norms on, cuDNN deterministic):
+    state (batch ``b`` of ``s`` tokens: 16 x 256, or the 512px config's 8 x
+    1024; cond dropout 0.1 with empty-prompt embeddings, the bucket
+    diagnostics and per-parameter norms on, cuDNN deterministic):
     TRAIN_EQ_STEPS steps each, the noise from generators of one seed; the
     losses, grad norms and the worst absolute difference of every
-    parameter, AdamW moment and EMA shadow (and accumulator); without and
-    with gradient accumulation 2; with ``soft_targets``, the soft-target
-    step (seeded soft targets (16, 256, 8192)) without accumulation.  Gate:
-    bit-equal.  Where not, a second eager state tells whether eager is
-    itself nondeterministic."""
+    parameter, AdamW moment and EMA shadow (and accumulator); at each of
+    ``accumulations``; with ``soft_targets``, the soft-target step (seeded
+    soft targets (b, s, 8192)) without accumulation.  Gate: bit-equal.
+    Where not, a second eager state tells whether eager is itself
+    nondeterministic."""
     from open_muse_tpu_torch.training.masking import draw_masking_noise
 
     torch.backends.cudnn.deterministic = True
     gen = torch.Generator(device=device).manual_seed(12)
-    batch = {**train_batch(device),
+    batch = {**train_batch(device, b, s),
              "empty_embeds": torch.randn(1, KV_LEN, 768, generator=gen, device=device),
              "empty_cond_embeds": torch.randn(1, 768, generator=gen, device=device)}
     if soft_targets:
         batch["soft_targets"] = torch.softmax(
-            4 * torch.randn(TRAIN_B, TRAIN_S, 8192, generator=gen, device=device), -1)
+            4 * torch.randn(b, s, 8192, generator=gen, device=device), -1)
     ok = True
-    for accumulation in (1,) if soft_targets else (1, 2):
+    for accumulation in (1,) if soft_targets else accumulations:
         step = _research_step(cond_dropout_prob=0.1, with_diagnostics=True,
                               with_param_grad_norms=True, use_soft_targets=soft_targets)
         states = [_seeded_train_state(device, accumulation) for _ in range(2)]
         gens = [torch.Generator(device=device).manual_seed(21) for _ in range(2)]
         rows, metrics_equal = [], True
         for i in range(TRAIN_EQ_STEPS):
-            noise = [draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192, cond_dropout=True)
-                     for g in gens]
+            noise = [draw_masking_noise(b, s, g, 8192, cond_dropout=True) for g in gens]
             got = step(states[0], batch, noise[0])
             want = step.eager(states[1], batch, noise[1])
             metrics_equal &= all(torch.equal(got[k].nan_to_num(), want[k].nan_to_num())
@@ -2625,8 +2676,8 @@ def train_eq_phase(device, soft_targets=False):
                         f"{float(got['grad_norm']):.6f}/{float(want['grad_norm']):.6f}")
         worst = _worst_diffs(*states)
         equal = metrics_equal and all(v == 0.0 for v in worst.values())
-        log(f"[train_eq] {'soft targets, ' if soft_targets else ''}accumulation {accumulation}, "
-            f"{TRAIN_EQ_STEPS} steps captured / eager: "
+        log(f"[train_eq] {'soft targets, ' if soft_targets else ''}batch {b} x {s} tokens, "
+            f"accumulation {accumulation}, {TRAIN_EQ_STEPS} steps captured / eager: "
             f"loss and grad_norm per step {'; '.join(rows)}; every metric bit-equal "
             f"{metrics_equal}; worst |captured - eager| "
             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -2635,8 +2686,7 @@ def train_eq_phase(device, soft_targets=False):
             third = _seeded_train_state(device, accumulation)
             g = torch.Generator(device=device).manual_seed(21)
             for i in range(TRAIN_EQ_STEPS):
-                step.eager(third, batch, draw_masking_noise(TRAIN_B, TRAIN_S, g, 8192,
-                                                            cond_dropout=True))
+                step.eager(third, batch, draw_masking_noise(b, s, g, 8192, cond_dropout=True))
             again = _worst_diffs(states[1], third)
             log("[train_eq] eager against eager: worst "
                 + ", ".join(f"{k} {v:.3e}" for k, v in again.items()))
@@ -2707,6 +2757,114 @@ def dots_phase(device):
     gc.collect()
     torch.cuda.empty_cache()
     return ok
+
+
+# -- the flagship 512px config's train step (1024 tokens) ---------------------
+
+# configs/research_run_512.yaml's global batch of 1024 cut to 8: 128 (batch,
+# head) pairs, about one an SM, and 8192 tokens a step
+TRAIN_512_B, TRAIN_512_GRAD_LAYERS = 8, 2
+
+
+def train_512_launches(steps):
+    """``train_launches`` at 1024 tokens: kernel 9's attention (forward and
+    recompute) over 1024 keys in kernel 5's two-pass variant, and every
+    kernel 11 / 12 launch on the long route (1024 queries)."""
+    expected = train_launches(steps)
+    expected["attn_sublayer_two_pass"] = 2 * LAYERS * steps
+    expected["attn_sublayer_bwd_long"] = 2 * LAYERS * steps
+    return expected
+
+
+def train_512_phase(device, smi):
+    """train_muse.main on configs/research_run_512.yaml (22 x 1024, 16 heads
+    of 64 over 32 x 32 = 1024 tokens, fused AdamW, EMA, bf16, per-layer
+    checkpointing; no cut in depth or width) on a seeded pre-encoded shard of
+    1024-token images and 77 CLIP-L text states, the global batch cut from
+    1024 to TRAIN_512_B, TRAIN_STEPS steps, each one replayed graph: finite
+    and falling losses, exact launches (every kernel 11 / 12 launch on the
+    long route), step time, tokens/s, peak memory, one profiled step (device
+    ms, operations, busy share, the attention kernels' shares); then the
+    captured step against its eager body and the kernels' gradients against
+    the plain versions' on a TRAIN_512_GRAD_LAYERS-layer cut at the same
+    widths and batch (within BWD_TOL).  The config's transformer is the
+    research default (MaskGiTUViT_v2Config).  Returns (ok, the run's
+    launches)."""
+    import shutil
+    import tempfile
+
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.models.transformer_v2 import MaskGiTUViT_v2Config
+    from open_muse_tpu_torch.training import train_muse
+
+    runs = os.path.join(HERE, "runs")
+    os.makedirs(runs, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_512_", dir=runs)
+    expected = train_512_launches(TRAIN_STEPS)
+    try:
+        shard = os.path.join(work, "synthetic-512-000.tar")
+        write_shard(shard, tokens=SEQ_512)
+        out = os.path.join(work, "out")
+        argv = ["config=" + os.path.join(HERE, "configs", "research_run_512.yaml"),
+                f"dataset.params.train_shards_path_or_url={shard}",
+                "dataset.params.shuffle_buffer_size=16", f"experiment.output_dir={out}",
+                "experiment.log_every=1", f"experiment.save_every={TRAIN_STEPS}",
+                f"training.batch_size={TRAIN_512_B}", "training.overfit_one_batch=true",
+                "lr_scheduler.params.warmup_steps=0", f"training.max_train_steps={TRAIN_STEPS}"]
+        for arg in argv:
+            log(f"[train_512] argument {arg}")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_muse.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        median, logged = _step_lines("train_512", _logged(out))
+        losses = [m["loss"] for m in logged]
+        finite = all(v == v and abs(v) != float("inf") for v in losses)
+        falling = losses[-1] < losses[0]
+        steps_ok = [m["step"] for m in logged] == list(range(1, TRAIN_STEPS + 1))
+        counts_ok = launches == expected
+        long_ok = (launches["attn_sublayer_bwd_long"] == launches["attn_sublayer_self_bwd"]
+                   + launches["attn_sublayer_cross_bwd"] > 0)
+        log(f"[train_512] {TRAIN_STEPS} captured steps in {wall:.1f} s (model build and "
+            f"checkpoint included): losses finite {finite}, last {losses[-1]:.4f} < first "
+            f"{losses[0]:.4f} {falling}, launches {launches} (expected {expected}) "
+            f"{'ok' if counts_ok else 'FAIL'}; kernel 11 / 12 launches on the long route "
+            f"{launches['attn_sublayer_bwd_long']} of {launches['attn_sublayer_self_bwd']} + "
+            f"{launches['attn_sublayer_cross_bwd']} {'ok' if long_ok else 'FAIL'}")
+        STEP_MS["train_512"] = median * 1e3
+        log(f"[train_512] median step {median * 1e3:.1f} ms over steps 2-{TRAIN_STEPS} (host "
+            f"clock, synchronised), {TRAIN_512_B * SEQ_512 / median:.0f} tokens/s, "
+            f"{TRAIN_512_B / median:.2f} images/s, peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated, {(peak - base) / 2 ** 30:.2f} above the phase's start) on "
+            f"{smi}")
+        batch = train_batch(device, TRAIN_512_B, SEQ_512)  # the shard's shapes, seeded
+        events = profile_train_step(state, device, median, label="512px train step (one "
+                                    "replayed graph)", filename="profile_train_512_step.txt",
+                                    prepare=lambda: batch)
+        device_us = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        for what, keys in (("kernel 9's attention (kernel 5's two-pass core, forward and "
+                            "recompute)", ("two_pass_wgmma_kernel",)),
+                           ("kernels 11 / 12's long-route attention backward",
+                            ("lng::attn_bwd",))):
+            us = sum(e.self_device_time_total for e in events if any(k in e.key for k in keys))
+            log(f"[train_512] {what}: {us / 1e3:.1f} ms of the profiled step's {device_us / 1e3:.1f}"
+                f" device ms ({us / max(device_us, 1e-9):.3f})")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok = finite and falling and steps_ok and counts_ok and long_ok
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok &= train_eq_phase(device, b=TRAIN_512_B, s=SEQ_512, accumulations=(1,))
+    ok &= gradient_check(device, MaskGiTUViT_v2Config(num_hidden_layers=TRAIN_512_GRAD_LAYERS),
+                         TRAIN_512_B, SEQ_512, rel_tol=BWD_TOL, tag="train_512 grad")
+    return ok, launches
 
 
 RAW_IMAGES, RAW_EVAL_IMAGES = 32, 16
@@ -4213,7 +4371,8 @@ def gemm_sweep(device) -> bool:
 # product, the register row kernels, the sublayers' backward attention, the
 # sampler, the VQ split pass and kernel 5's wgmma and two-pass kernels
 PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_kernel",
-                 "attn_bwd_wgmma_kernel", "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                 "attn_bwd_wgmma_kernel", "attn_bwd_rows_kernel", "attn_bwd_rows_short_kernel",
+                 "attn_bwd_cols_kernel",
                  "rms_adaln_bwd_rows_kernel",
                  "sample_kernel", "vq_split_kernel", "two_pass_kernel", "two_pass_wgmma_kernel",
                  "one_pass_wgmma_kernel", "register_row_kernel")
@@ -5294,6 +5453,8 @@ def main() -> int:
         log_core(*core)
     del splits, cores
     failed = [name for name, (ok, _, _) in report.items() if not ok]
+    if not bwd_chain_sass():
+        failed.append("mma.sync in the sublayer backward's chain")
     if not teacher_shapes(device):
         failed.append("kernels 4, 7, 9, 10 at the distillation teacher's shapes")
     kernels.reset_launch_counts()
@@ -5356,6 +5517,12 @@ def main() -> int:
     if not dots_phase(device):
         failed.append("'dots' checkpointing")
     log(f"[phase] train_eq and dots {time.perf_counter() - phase_t0:.1f} s")
+
+    phase_t0 = time.perf_counter()
+    train_512_ok, paths["train_512"] = train_512_phase(device, smi)
+    if not train_512_ok:
+        failed.append("512px training phase")
+    log(f"[phase] train_512 {time.perf_counter() - phase_t0:.1f} s")
 
     phase_t0 = time.perf_counter()
     raw_ok, paths["train_raw"] = train_raw_phase(device, smi)
@@ -5430,13 +5597,13 @@ def main() -> int:
             rows[-1]["two_pass_in_attn_sublayer_by_path"] = in_sublayer
         if name in ("attn_sublayer_self_bwd", "attn_sublayer_cross_bwd"):
             # kernels 11 and 12 together: the launches whose attention took
-            # the mma.sync pair (over 288 queries or 256 keys), 0 on every
-            # path (each path's counts are checked exactly); the rest took
-            # the one-block wgmma kernel.  The pair is checked apart, at
-            # 1024 tokens (backward_kernel_phase)
-            pair = sum(p["attn_sublayer_bwd_pair"] for p in paths.values())
-            rows[-1]["mma_sync_pair_launches_with_11_and_12"] = pair
-            rows[-1]["mma_sync_pair_launches_in_its_check"] = PAIR_CHECK.get(name, 0)
+            # the long route (over 288 queries or 256 keys: train_512's,
+            # each path's counts checked exactly); the rest took the
+            # one-block wgmma kernel.  Also checked at 1024 tokens against
+            # the plain version (backward_kernel_phase)
+            rows[-1]["long_route_launches_with_11_and_12_by_path"] = {
+                path: p["attn_sublayer_bwd_long"] for path, p in paths.items()}
+            rows[-1]["long_route_launches_in_its_check"] = LONG_CHECK.get(name, 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     missing += [f"{r['name']} ({variant})" for r in rows
                 for variant, n in r.get("launches_by_variant", {}).items() if n == 0]

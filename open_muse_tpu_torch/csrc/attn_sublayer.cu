@@ -51,11 +51,12 @@
 //   gradients: up to 288 queries and 256 keys (every path's shape) one block a
 //   (batch, head) pair on wgmma (namespace bwd: Q, K, V and dO read once by
 //   TMA, S and dP each computed twice, the row statistics in shared memory);
-//   above, two mma.sync kernels (a ninth launch) that keep S, P, dP and dS in
-//   registers (a block per 64 query rows: the row statistics, the output, D
-//   and dQ in three passes over streamed key tiles; a block per 64 keys: dK
-//   and dV in one pass over streamed query tiles); the register row kernel
-//   of dx and a two-stage column reduction of d(adaln) and d(ln).  The
+//   above (the 512px trunk's 1024 tokens), two wgmma kernels (a ninth
+//   launch; namespace lng: a block per 128 query rows takes the row
+//   statistics, the output, D and dQ in three passes over key tiles streamed
+//   by TMA, a block per 128 keys dK and dV in one pass over query tiles, the
+//   statistics through an fp32 scratch between them); the register row
+//   kernel of dx and a two-stage column reduction of d(adaln) and d(ln).  The
 //   block-a-row kernels take the rows at widths other than 1024.
 // d(adaln) and d(ln) are reduced in two stages (per 32-row chunk, then over
 // chunks) without atomics; no kernel uses atomics, so two calls give
@@ -208,7 +209,6 @@ rmsnorm_adaln_rows_kernel(const uint4* __restrict__ x, const uint4* __restrict__
 }
 
 constexpr int kHeadDim = 64;
-constexpr int kAttnThreads = 128;  // the attention backward's blocks: 4 warps of 16 rows
 
 // q / k / v of one sublayer as strided views of its projections: the first
 // kv_len of L keys are attended
@@ -222,35 +222,8 @@ struct AttnArgs {
   float scale;
 };
 
-// ---------------------------------------------------------------------------
-// Backward of the sublayers' attention above 288 queries or 256 keys: S, P, dP
-// and dS in registers
-// ---------------------------------------------------------------------------
-//
-// Two launches over grids of (64-row tile, batch x head), 4 warps of 16 rows
-// each, on mma.sync m16n8k16 fragments (mma_frag.cuh): every S, P, dP and dS
-// tile lives in a warp's accumulators and feeds the next product as an A
-// fragment, with no shared-memory staging; the streamed operand's 64-row
-// tiles come in by cp.async into two buffers, the next tile's copies in
-// flight while the current one is used.  Self attention (kernel 11) and
-// cross attention (kernel 12) alike: S queries against the first kv_len of
+// The attention backward's operands: S queries against the first kv_len of
 // L keys, q / dq and k, v / dk, dv strided views of their projections.
-// - attn_bwd_q_kernel, a block per 64 query rows: three passes over the
-//   ceil(kv_len / 64) key tiles, keys past kv_len at a logit of -inf (P
-//   exactly 0).  1: the rows' max and sum of exp (online, in the log2
-//   domain).  2: P = exp(S - max) / sum rounded to bf16, O = P V summed in
-//   fp32, stored as the attention output; D = rowsum(dO * O) from the fp32
-//   O; the rows' statistics (max, 1 / sum, D) stored for the second kernel.
-//   3: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ = dS K.
-// - attn_bwd_kv_kernel, a block per 64 keys of the L: one pass over the
-//   query tiles with their statistics: S^T = K Q^T, P^T from the first
-//   kernel's statistics, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T, dK += dS^T
-//   Q; the rows of keys past kv_len are stored as zeros.
-// Both sum in a fixed order: two calls are bit-equal.  Any S and L: the key
-// and query tiles are streamed, not held.
-constexpr int kTile = 64;               // rows of a block, and of a streamed tile
-constexpr int kTileRow = kHeadDim + 8;  // bf16 a staged row: ldmatrix rows on distinct banks
-
 struct AttnBwdArgs {
   const __nv_bfloat16* q;  // (B, S) rows of q, strides q_sb, q_st; dq alike
   const __nv_bfloat16* k;  // (B, L) rows of k and v, strides kv_sb, kv_st; dk, dv alike
@@ -260,332 +233,34 @@ struct AttnBwdArgs {
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  float* stat_m;   // (B, H, Sp): each row's max of the scaled logits, log2 domain,
-  float* stat_il;  // 1 / its sum of exp, and D = rowsum(dO * O); Sp = S rounded
-  float* delta;    // up to kTile, rows past S (0, 0, 0)
+  float* stats;          // the long route's row statistics (namespace lng)
   int64_t q_sb, q_st;    // batch / token strides of q and dq (elements)
   int64_t kv_sb, kv_st;  // of k, v, dk and dv
   int64_t o_sb, o_st;    // of out and dout
-  int H, S, Sp, L, kv_len;
+  int H, S, L, kv_len;
   float scale_log2;  // 1 / sqrt(64) * log2(e)
-  float scale;       // 1 / sqrt(64)
+  float scale;       // 1 / sqrt(64); 0 over one key
 };
 
-// tile rows [r0, r0 + 64) of a (S, 64) operand with token stride st into a
-// staged tile, rows past S zero-filled; 512 16-byte copies over 128 threads
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t st,
-                                           int r0, int S) {
-  using namespace muse::frag;
-#pragma unroll
-  for (int i = 0; i < kTile * (kHeadDim / 8) / kAttnThreads; ++i) {
-    const int c = threadIdx.x + i * kAttnThreads;
-    const int r = c / (kHeadDim / 8), col = (c % (kHeadDim / 8)) * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * kTileRow + col, ok ? src + (r0 + r) * st + col : src, ok ? 16 : 0);
-  }
-}
+// The TMA maps of the attention backward's eight tensors (attn_sm90.cuh's
+// 4-D head maps: 64-row boxes, zeros past S and kv_len on load, stores
+// clipped at S and L)
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, out, dq, dk, dv;
+};
 
-// s (16 rows x 64 columns, as 8 m16n8 C fragments) = A (16 x 64, fragments
-// af) times the staged tile's rows transposed; `lk` is this lane's ldmatrix
-// row of the tile (keys (lane & 7) + 8 (lane >> 4), d 8 ((lane >> 3) & 1))
-__device__ __forceinline__ void rows_by_tile_t(float s[8][4], const uint32_t af[4][4],
-                                               const __nv_bfloat16* lk) {
-  using namespace muse::frag;
-#pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[2 * j][e] = s[2 * j + 1][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < kHeadDim / 16; ++kc) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, lk + j * 16 * kTileRow + kc * 16);
-      mma16816(s[2 * j], af[kc], bf);
-      mma16816(s[2 * j + 1], af[kc], bf + 2);
-    }
-  }
-}
-
-// acc (16 x 64) += the 16 x 16 A fragment pa times rows [16 j, 16 j + 16) of
-// the staged tile; `lt` is this lane's ldmatrix.trans row (rows (lane & 7) +
-// 8 ((lane >> 3) & 1), d 8 (lane >> 4))
-__device__ __forceinline__ void accumulate_tile(float acc[8][4], const uint32_t pa[4],
-                                                const __nv_bfloat16* lt, int j) {
-  using namespace muse::frag;
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; n += 2) {
-    uint32_t bf[4];
-    ldmatrix_x4_trans(bf, lt + j * 16 * kTileRow + n * 8);
-    mma16816(acc[n], pa, bf);
-    mma16816(acc[n + 1], pa, bf + 2);
-  }
-}
-
-// columns [16 j, 16 j + 16) of a 16 x 64 fp32 C-fragment tile as the bf16 A
-// fragment of the next product
-__device__ __forceinline__ void a_fragment(uint32_t pa[4], const float s[8][4], int j) {
-  using namespace muse::frag;
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    pa[2 * hi] = pack2(s[2 * j + hi][0], s[2 * j + hi][1]);
-    pa[2 * hi + 1] = pack2(s[2 * j + hi][2], s[2 * j + hi][3]);
-  }
-}
-
-// rows r0 and r0 + 8 (< rows) of a 16 x 64 fp32 accumulator as bf16, rows
-// from `valid` on as zeros
-__device__ __forceinline__ void store_rows16(__nv_bfloat16* base, int64_t st, const float acc[8][4],
-                                             int r0, int rows, int valid, int t4) {
-  using namespace muse::frag;
-  const bool ok0 = r0 < valid, ok1 = r0 + 8 < valid;
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(base + r0 * st + c) = ok0 ? pack2(acc[n][0], acc[n][1]) : 0u;
-    if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + c) =
-          ok1 ? pack2(acc[n][2], acc[n][3]) : 0u;
-  }
-}
-
-__global__ void __launch_bounds__(kAttnThreads) attn_bwd_q_kernel(AttnBwdArgs p) {
-  using namespace muse::frag;
-  __shared__ __align__(16) __nv_bfloat16 Ks[2][kTile * kTileRow];
-  __shared__ __align__(16) __nv_bfloat16 Vs[2][kTile * kTileRow];
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int64_t head = int64_t(h) * kHeadDim;
-  const __nv_bfloat16* kb = p.k + b * p.kv_sb + head;
-  const __nv_bfloat16* vb = p.v + b * p.kv_sb + head;
-  const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's rows r0, r0 + 8
-  const int tiles = (p.kv_len + kTile - 1) / kTile;   // the key tiles with an attended key
-
-  uint32_t qf[kHeadDim / 16][4], dof[kHeadDim / 16][4];
-  load_a<kHeadDim>(qf, p.q + b * p.q_sb + head, p.q_st, r0, p.S, t4);
-  load_a<kHeadDim>(dof, p.dout + b * p.o_sb + head, p.o_st, r0, p.S, t4);
-  // this lane's ldmatrix row (lk) and ldmatrix.trans row (lt) in a staged tile
-  const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
-  const int lt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kTileRow + ((lane >> 4) << 3);
-
-  // one pass over the key tiles, K (and V) of tile t + 1 in flight while
-  // tile t is used
-  auto stream = [&](bool with_v, auto&& body) {
-    stage_tile(Ks[0], kb, p.kv_st, 0, p.kv_len);
-    if (with_v) stage_tile(Vs[0], vb, p.kv_st, 0, p.kv_len);
-    cp_async_commit();
-    for (int t = 0; t < tiles; ++t) {
-      const int buf = t & 1;
-      if (t + 1 < tiles) {
-        stage_tile(Ks[buf ^ 1], kb, p.kv_st, (t + 1) * kTile, p.kv_len);
-        if (with_v) stage_tile(Vs[buf ^ 1], vb, p.kv_st, (t + 1) * kTile, p.kv_len);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      body(t, Ks[buf], Vs[buf]);
-      __syncthreads();  // every warp is done with buf before tile t + 2 overwrites it
-    }
-  };
-  // S of tile t in the log2 domain, keys past kv_len at -inf
-  auto logits = [&](float s[8][4], int t, const __nv_bfloat16* K) {
-    rows_by_tile_t(s, qf, K + lk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t * kTile + n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = key < p.kv_len ? s[n][e] * p.scale_log2 : -INFINITY;
-      }
-    }
-  };
-
-  // pass 1: the rows' max and sum of exp, online over the tiles
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  stream(false, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16*) {
-    float s[8][4];
-    logits(s, t, K);
-    float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
-      x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
-    }
-    // finite from the first tile on: key 0 < kv_len
-    const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      a0 += ex2(s[n][0] - n0) + ex2(s[n][1] - n0);
-      a1 += ex2(s[n][2] - n1) + ex2(s[n][3] - n1);
-    }
-    l0 = l0 * ex2(m0 - n0) + quad_sum(a0);
-    l1 = l1 * ex2(m1 - n1) + quad_sum(a1);
-    m0 = n0;
-    m1 = n1;
-  });
-  const float il0 = __frcp_rn(l0), il1 = __frcp_rn(l1);
-
-  // pass 2: O = bf16(P) V in fp32, then D = rowsum(dO * O)
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  stream(true, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16* V) {
-    float s[8][4];
-    logits(s, t, K);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = ex2(s[n][0] - m0) * il0;
-      s[n][1] = ex2(s[n][1] - m0) * il0;
-      s[n][2] = ex2(s[n][2] - m1) * il1;
-      s[n][3] = ex2(s[n][3] - m1) * il1;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      a_fragment(pa, s, j);
-      accumulate_tile(acc, pa, V + lt, j);
-    }
-  });
-  // dof[kc] holds dO at the columns of acc[2 kc] (registers 0, 1) and
-  // acc[2 kc + 1] (2, 3)
-  float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < kHeadDim / 16; ++kc) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const float2 lo = __bfloat1622float2(reinterpret_cast<const bf2&>(dof[kc][2 * hi]));
-      const float2 up = __bfloat1622float2(reinterpret_cast<const bf2&>(dof[kc][2 * hi + 1]));
-      d0 += lo.x * acc[2 * kc + hi][0] + lo.y * acc[2 * kc + hi][1];
-      d1 += up.x * acc[2 * kc + hi][2] + up.y * acc[2 * kc + hi][3];
-    }
-  }
-  d0 = quad_sum(d0);
-  d1 = quad_sum(d1);
-  store_rows16(p.out + b * p.o_sb + head, p.o_st, acc, r0, p.S, p.S, t4);
-  if (t4 == 0) {  // every row of the tile, past S too (0, 0, 0: P = 0 in the second kernel)
-    const int64_t row = int64_t(blockIdx.y) * p.Sp + r0;
-    const bool ok0 = r0 < p.S, ok1 = r0 + 8 < p.S;
-    p.stat_m[row] = ok0 ? m0 : 0.f;
-    p.stat_il[row] = ok0 ? il0 : 0.f;
-    p.delta[row] = ok0 ? d0 : 0.f;
-    p.stat_m[row + 8] = ok1 ? m1 : 0.f;
-    p.stat_il[row + 8] = ok1 ? il1 : 0.f;
-    p.delta[row + 8] = ok1 ? d1 : 0.f;
-  }
-
-  // pass 3: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ = dS K
-#pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  stream(true, [&](int t, const __nv_bfloat16* K, const __nv_bfloat16* V) {
-    float s[8][4], dp[8][4];
-    logits(s, t, K);
-    rows_by_tile_t(dp, dof, V + lk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = (ex2(s[n][0] - m0) * il0) * (dp[n][0] - d0) * p.scale;
-      s[n][1] = (ex2(s[n][1] - m0) * il0) * (dp[n][1] - d0) * p.scale;
-      s[n][2] = (ex2(s[n][2] - m1) * il1) * (dp[n][2] - d1) * p.scale;
-      s[n][3] = (ex2(s[n][3] - m1) * il1) * (dp[n][3] - d1) * p.scale;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      a_fragment(pa, s, j);
-      accumulate_tile(acc, pa, K + lt, j);
-    }
-  });
-  store_rows16(p.dq + b * p.q_sb + head, p.q_st, acc, r0, p.S, p.S, t4);
-}
-
-__global__ void __launch_bounds__(kAttnThreads) attn_bwd_kv_kernel(AttnBwdArgs p) {
-  using namespace muse::frag;
-  __shared__ __align__(16) __nv_bfloat16 Qs[2][kTile * kTileRow];
-  __shared__ __align__(16) __nv_bfloat16 dOs[2][kTile * kTileRow];
-  __shared__ __align__(16) float St[2][3][kTile];  // max | 1 / sum | D of the query tile
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int64_t head = int64_t(h) * kHeadDim;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + head;
-  const __nv_bfloat16* dob = p.dout + b * p.o_sb + head;
-  const int64_t stat0 = int64_t(blockIdx.y) * p.Sp;
-  const int r0 = blockIdx.x * kTile + warp * 16 + g;  // this lane's keys r0, r0 + 8
-  const int tiles = p.Sp / kTile;
-
-  uint32_t kf[kHeadDim / 16][4], vf[kHeadDim / 16][4];
-  load_a<kHeadDim>(kf, p.k + b * p.kv_sb + head, p.kv_st, r0, p.kv_len, t4);
-  load_a<kHeadDim>(vf, p.v + b * p.kv_sb + head, p.kv_st, r0, p.kv_len, t4);
-  const int lk = ((lane & 7) + ((lane >> 4) << 3)) * kTileRow + (((lane >> 3) & 1) << 3);
-  const int lt = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kTileRow + ((lane >> 4) << 3);
-
-  auto issue = [&](int t, int buf) {
-    stage_tile(Qs[buf], qb, p.q_st, t * kTile, p.S);
-    stage_tile(dOs[buf], dob, p.o_st, t * kTile, p.S);
-    if (threadIdx.x < 3 * kTile / 4) {  // the statistics: whole 64-row tiles of Sp
-      const int a = threadIdx.x / (kTile / 4), c = (threadIdx.x % (kTile / 4)) * 4;
-      const float* src = (a == 0 ? p.stat_m : a == 1 ? p.stat_il : p.delta) + stat0 + t * kTile + c;
-      cp_async16(&St[buf][a][c], src, 16);
-    }
-  };
-
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-  issue(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) issue(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* sm = St[buf][0];
-    const float* si = St[buf][1];
-    const float* sd = St[buf][2];
-    // S^T (this warp's 16 keys x the tile's 64 queries) -> P^T, fp32
-    float s[8][4];
-    rows_by_tile_t(s, kf, Qs[buf] + lk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = ex2(s[n][e] * p.scale_log2 - sm[q]) * si[q];
-      }
-    }
-    // dV += bf16(P^T) dO
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      a_fragment(pa, s, j);
-      accumulate_tile(dv, pa, dOs[buf] + lt, j);
-    }
-    // dP^T = V dO^T; dS^T = bf16(P^T (dP^T - D) / 8); dK += dS^T Q
-    float dp[8][4];
-    rows_by_tile_t(dp, vf, dOs[buf] + lk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = s[n][e] * (dp[n][e] - sd[q]) * p.scale;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      a_fragment(pa, s, j);
-      accumulate_tile(dk, pa, Qs[buf] + lt, j);
-    }
-    __syncthreads();
-  }
-  // keys past kv_len: zero rows (their P^T, from zero K rows, is not 0)
-  store_rows16(p.dk + b * p.kv_sb + head, p.kv_st, dk, r0, p.L, p.kv_len, t4);
-  store_rows16(p.dv + b * p.kv_sb + head, p.kv_st, dv, r0, p.L, p.kv_len, t4);
+cudaError_t bwd_maps(BwdMaps* m, const AttnBwdArgs& p, int B) {
+  using muse::attn::head_map;
+  const int H = p.H, S = p.S;
+  cudaError_t err = head_map(&m->q, p.q, B, S, H, kHeadDim, p.q_sb, p.q_st);
+  if (err == cudaSuccess) err = head_map(&m->k, p.k, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&m->v, p.v, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&m->dout, p.dout, B, S, H, kHeadDim, p.o_sb, p.o_st);
+  if (err == cudaSuccess) err = head_map(&m->out, p.out, B, S, H, kHeadDim, p.o_sb, p.o_st);
+  if (err == cudaSuccess) err = head_map(&m->dq, p.dq, B, S, H, kHeadDim, p.q_sb, p.q_st);
+  if (err == cudaSuccess) err = head_map(&m->dk, p.dk, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
+  if (err == cudaSuccess) err = head_map(&m->dv, p.dv, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -596,10 +271,10 @@ __global__ void __launch_bounds__(kAttnThreads) attn_bwd_kv_kernel(AttnBwdArgs p
 // What bounds it: bytes.  At x (16, 256, 1024) the self core reads q, k, v
 // and dO and writes out, dq, dk and dv, 67.1 MB (20.0 us at 3.35 TB/s),
 // against 12.9 GFLOP of six products (13.0 us at 989 TFLOP/s); the cross
-// core over 77 keys moves 43.7 MB (13.0 us) for 3.9 GFLOP.  The mma.sync pair
-// above computes S four times, reads K and V once per 64-query block and pass
-// and Q and dO once per 64-key block, on mma.sync, with the row statistics
-// through device memory between its two launches.
+// core over 77 keys moves 43.7 MB (13.0 us) for 3.9 GFLOP.  Two kernels
+// (namespace lng, above 288 queries or 256 keys) would read K and V once per
+// 128-query block and pass and Q and dO once per 128-key block, with the row
+// statistics through device memory between them.
 //
 // What the design does about it (namespace bwd):
 // - A persistent block (one an SM) walks over the pairs and holds a pair's
@@ -618,7 +293,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_bwd_kv_kernel(AttnBwdArgs p
 //   IEEE reciprocal a row); then, over the keys in groups of 32, the next
 //   group's products in flight while one is used: O = bf16(P) V (P's
 //   fragments as A) and D = rowsum(dO * O) from the fp32 O and the dO
-//   tile, as the mma.sync pair takes it; then dP = dO V^T with dS = bf16(P
+//   tile, as namespace lng takes it; then dP = dO V^T with dS = bf16(P
 //   (dP - D) / 8) and dQ += dS K, dO's fragments in registers.  The rows'
 //   max, 1 / sum and D stay in shared memory (rows past S as (0, 0, 0):
 //   their P is 0).  Phase B, after both warpgroups' statistics are in, a
@@ -667,7 +342,7 @@ constexpr int kMaxTiles = (kMaxRows + 63) / 64;
 constexpr int kConsumers = 2;  // warpgroups of 64 rows; no producer: one thread issues the loads
 constexpr int kThreads = 128 * kConsumers;
 
-// whether this kernel takes (S, L); the mma.sync pair takes the others
+// whether this kernel takes (S, L); namespace lng takes the others
 constexpr bool takes(int S, int L) { return S <= kMaxRows && L <= kMaxKeys; }
 
 // the key capacity of L keys, in 32-key chunks (keys past L masked)
@@ -1115,25 +790,17 @@ attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int kChunks>
 cudaError_t launch(const AttnBwdArgs& p, int B, cudaStream_t stream) {
-  CUtensorMap map_q, map_k, map_v, map_do, map_o, map_dq, map_dk, map_dv;
-  const int H = p.H, S = p.S;
-  cudaError_t err = head_map(&map_q, p.q, B, S, H, kHeadDim, p.q_sb, p.q_st);
-  if (err == cudaSuccess) err = head_map(&map_k, p.k, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
-  if (err == cudaSuccess) err = head_map(&map_v, p.v, B, p.kv_len, H, kHeadDim, p.kv_sb, p.kv_st);
-  if (err == cudaSuccess) err = head_map(&map_do, p.dout, B, S, H, kHeadDim, p.o_sb, p.o_st);
-  if (err == cudaSuccess) err = head_map(&map_o, p.out, B, S, H, kHeadDim, p.o_sb, p.o_st);
-  if (err == cudaSuccess) err = head_map(&map_dq, p.dq, B, S, H, kHeadDim, p.q_sb, p.q_st);
-  if (err == cudaSuccess) err = head_map(&map_dk, p.dk, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
-  if (err == cudaSuccess) err = head_map(&map_dv, p.dv, B, p.L, H, kHeadDim, p.kv_sb, p.kv_st);
+  BwdMaps m;
+  const cudaError_t err = bwd_maps(&m, p, B);
   if (err != cudaSuccess) return err;
   auto kernel = attn_bwd_wgmma_kernel<kChunks>;
   static const cudaError_t configured =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (configured != cudaSuccess) return configured;
-  const int grid = std::min(B * H, muse::sm90::sm_count());  // persistent: one block an SM
-  kernel<<<grid, kThreads, Layout<kChunks>::of(S).bytes(), stream>>>(
-      map_q, map_k, map_v, map_do, map_o, map_dq, map_dk, map_dv, B, H, S, p.L, p.kv_len,
-      p.scale_log2, p.scale);
+  const int grid = std::min(B * p.H, muse::sm90::sm_count());  // persistent: one block an SM
+  kernel<<<grid, kThreads, Layout<kChunks>::of(p.S).bytes(), stream>>>(
+      m.q, m.k, m.v, m.dout, m.out, m.dq, m.dk, m.dv, B, p.H, p.S, p.L, p.kv_len, p.scale_log2,
+      p.scale);
   return cudaGetLastError();
 }
 
@@ -1143,6 +810,812 @@ cudaError_t launch(const AttnBwdArgs& p, int B, cudaStream_t stream) {
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward of the sublayers' attention above 288 queries or 256 keys: two
+// kernels on warpgroup products
+// ---------------------------------------------------------------------------
+//
+// What bounds it: operations.  At the 512px trunk's x (8, 1024, 1024), 128
+// (batch, head) pairs of 1024 queries and keys, the six products (S, O, dP,
+// dV, dQ, dK) are 103.1 GFLOP (104.2 us at 989 TFLOP/s) against 134 MB of
+// q, k, v, dO, out, dq, dk and dv (40.1 us at 3.35 TB/s).  A row of 1024
+// fp32 logits does not fit beside 64 query rows, and the exact staging
+// (P rounded to bf16 after the exact row sum) rules out an online softmax
+// of an unnormalised O, so S is computed four times (three passes of the
+// rows kernel, one of the columns kernel): ten products, and four
+// exponentials a score on the MUFU (134 M at x (2, 1024, 1024): 32 us at 16
+// a clock an SM).
+//
+// What the design does about it (namespace lng):
+// - Two launches, each a block of two consumer warpgroups of 64 rows and a
+//   producer warpgroup (its registers given to the consumers by
+//   setmaxnreg) whose first thread issues every load by TMA (the 4-D head
+//   maps: free batch and token strides, zeros past S and kv_len) into a
+//   ring of kStages slots, full and empty mbarriers a slot, so loads run
+//   ahead of the products and the two warpgroups need not keep step.
+//   Every product is a wgmma with A from registers.
+// - attn_bwd_rows_kernel, a block per 128 queries of a pair: its Q and dO
+//   tiles loaded once (A fragments of S and dP), the pair's 64-key tiles
+//   of K, then of K and V twice, streamed through the ring.  Pass 1: S and
+//   each row's max and sum (per thread, the quad meeting once, as kernel
+//   5's two-pass variant).  Pass 2: P = 2^(S c - max c) / sum rounded to
+//   bf16, O += P V; D = rowsum(dO * O) from the fp32 O and the dO tile; O
+//   stored by TMA through a swizzled tile; the rows' (max c, 1 / sum, D)
+//   written to an fp32 scratch, rows past S as (0, 0, 0).  Pass 3: dP = dO
+//   V^T, dS = bf16(P (dP - D) / 8), dQ += dS K, all of dQ summed in one
+//   warpgroup's registers; dQ stored by TMA.  Keys past kv_len are masked
+//   in pass 1 only: their K and V rows load as zeros, so their P and dS
+//   multiply zeros in O, dP and dQ.  Up to 96 keys (the cross sublayer's
+//   77 text keys) attn_bwd_rows_short_kernel takes its place: the pair's K
+//   and V loaded once, S over the 96-key capacity in registers (computed
+//   once, one exponential a score), two query tiles a warpgroup (x (8,
+//   1024, 1024), kv 77: 60.3 -> 36.5 us on the card).
+// - attn_bwd_cols_kernel, a block per 128 keys of a pair: its K and V tiles
+//   loaded once (A fragments), then per 64 queries the Q and dO tiles and
+//   their 768 bytes of statistics (one bulk copy) through the ring: S^T = K
+//   Q^T and dP^T = V dO^T, P^T from the statistics, dV += bf16(P^T) dO and
+//   dK += dS^T Q in registers, the next tile's S^T issued after them; dK
+//   and dV stored by TMA, rows past kv_len as zeros.  Its two warpgroups
+//   take turns (named barriers) to issue S^T and dP^T, so that one's
+//   exponentials overlap the other's products (48 -> 36 us at x (2, 1024,
+//   1024) on the card).  Where even twice its blocks fit the card in one
+//   wave (cross at batch 2: 32 blocks), a block takes one key block and
+//   its warpgroups share out the query tiles (`halves`), warpgroup 1's
+//   sums added to warpgroup 0's in shared memory (18.0 -> 11.2 us with the
+//   ring of 8 slots).
+// - No atomics: dQ is summed over the keys inside one warpgroup and dK, dV
+//   over the queries, each in a fixed order, so two calls are bit-equal.
+// - Measured on the card and not kept (rows kernel at x (8, 1024, 1024),
+//   PERF.md): the next item's products in flight while one item's
+//   exponentials are taken (ptxas serialised every wgmma, C7515 / C7514:
+//   +19 - 43%), turns as in the columns kernel, also with a step's products
+//   in one group (+5 - 8%), a third consumer warpgroup (-5%, but +24% at x
+//   (2, 1024, 1024)), S and dP with A from shared memory and a ring of 8
+//   slots rather than 4 (within 1%; kept for `halves`).  Its products and
+//   exponentials add up rather than overlap: ~40% of the tensor rate and
+//   ~35% of the MUFU rate.  A columns kernel whose queries were split over
+//   a cluster, the partial sums reduced in distributed shared memory, was
+//   slower (cross at batch 2: 18.0 -> 23.3 us).
+namespace lng {
+
+using bwd::a_frag;
+using bwd::to_tile;
+using muse::attn::desc_at;
+using muse::attn::fence_operands;
+using muse::attn::fence_proxy_async;
+using muse::attn::kBox;
+using muse::attn::tile_a_frags;
+using muse::attn::tma_box;
+using muse::attn::tma_store_box;
+using muse::attn::tma_store_drain;
+using muse::attn::warpgroup_sync;
+using muse::attn::wgmma_rs;
+using muse::frag::ex2;
+using muse::frag::pack2;
+using muse::frag::quad_max;
+using muse::frag::quad_sum;
+using muse::sm90::fence_accumulators;
+using muse::sm90::mbar_arrive;
+using muse::sm90::mbar_expect_tx;
+using muse::sm90::mbar_init;
+using muse::sm90::mbar_wait;
+using muse::sm90::smem_desc;
+using muse::sm90::smem_desc_mn;
+using muse::sm90::smem_u32;
+using muse::sm90::wgmma_commit;
+using muse::sm90::wgmma_fence;
+using muse::sm90::wgmma_wait;
+
+constexpr int kConsumers = 2;                    // warpgroups of 64 rows (queries, or keys)
+constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer's warpgroup
+// registers a thread after setmaxnreg: the producer's go to the consumers
+// (128 x 24 + 256 x 240 = 64512 of 65536; at the 168 of a launch of 384
+// threads the columns kernel spilled)
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 8;                       // ring slots
+constexpr int kStatRows = 64;                    // a query tile's statistics:
+constexpr int kStatFloats = 3 * kStatRows;       // max c, 1 / sum, D
+constexpr int kStatBytes = kStatFloats * 4;
+
+// shared memory, 1024-byte aligned: the rows kernel's ring of K and of V
+// tiles, its warpgroups' Q, dO and output tiles, its mbarriers (full and
+// empty a slot, a warpgroup's Q and dO)
+constexpr int kRowsV = kStages * kBox;
+constexpr int kRowsQ = 2 * kStages * kBox;
+constexpr int kRowsDO = kRowsQ + kConsumers * kBox;
+constexpr int kRowsOut = kRowsDO + kConsumers * kBox;
+constexpr int kRowsBars = kRowsOut + kConsumers * kBox;
+constexpr int kRowsSmem = 1024 + kRowsBars + (2 * kStages + kConsumers) * 8;
+// the columns kernel's K and V tiles (its output tiles after), its ring of
+// Q, dO and statistics, its mbarriers (full and empty a slot, K and V)
+constexpr int kColsV = kConsumers * kBox;
+constexpr int kColsQ = 2 * kConsumers * kBox;
+constexpr int kColsDO = kColsQ + kStages * kBox;
+constexpr int kColsStats = kColsDO + kStages * kBox;
+constexpr int kColsBars = kColsStats + kStages * kStatBytes;
+constexpr int kColsPart = kColsBars + 1024;  // with halves: warpgroup 1's fp32 dK and dV
+constexpr int kColsSmem = 1024 + kColsPart + 2 * 64 * 64 * 4;
+// the short-keys rows kernel's (kv_len <= kShortKeys): K's two boxes, V's,
+// the block's kShortTiles query tiles of Q and of dO, a warpgroup's output
+// tile, its mbarriers (K and V, a query tile's Q and dO)
+constexpr int kShortKeys = 96;  // S over a capacity of 3 x 32 keys, in registers
+constexpr int kShortTiles = 2 * kConsumers;  // query tiles a block: two a warpgroup
+constexpr int kShortQ = 4 * kBox;
+constexpr int kShortDO = kShortQ + kShortTiles * kBox;
+constexpr int kShortOut = kShortDO + kShortTiles * kBox;
+constexpr int kShortBars = kShortOut + kConsumers * kBox;
+constexpr int kShortSmem = 1024 + kShortBars + (1 + kShortTiles) * 8;
+static_assert(kRowsSmem <= 232448 && kColsSmem <= 232448 && kShortSmem <= 232448 &&
+                  (2 * kStages + 1) * 8 <= kColsPart - kColsBars,
+              "the SM's shared memory");
+
+// `bytes` (a multiple of 16) from global to shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// named barriers 3 and 4 (1 and 2 are warpgroup_sync's): the turn of
+// consumer warpgroup 0 or 1 to issue its products, passed by the other
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(3 + wg), "n"(128 * kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(3 + (1 - wg)), "n"(128 * kConsumers) : "memory");
+}
+
+// this thread's warpgroup (kConsumers: the producer's), broadcast so that
+// ptxas sees it uniform (C7520), its registers set by setmaxnreg
+__device__ __forceinline__ int warpgroup() {
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  if (wg == kConsumers)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  return wg;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_rows_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_o,
+                     const __grid_constant__ CUtensorMap map_dq, float* __restrict__ stats, int H,
+                     int S, int kv_len, float scale_log2, float scale) {
+  extern __shared__ __align__(1024) unsigned char rows_smem[];
+  unsigned char* smem = rows_smem + ((1024 - (smem_u32(rows_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRowsBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* full_q = empty + kStages;
+  const int pair = blockIdx.y, b = pair / H, h = pair % H;
+  const int q_tiles = (S + 63) / 64, t0 = blockIdx.x * kConsumers;
+  const int active = min(kConsumers, q_tiles - t0);  // warpgroups with a query tile
+  const int kt = (kv_len + 63) / 64;                 // key tiles
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * active);
+    }
+    for (int c = 0; c < kConsumers; ++c) mbar_init(&full_q[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = warpgroup();
+  if (wg == kConsumers) {  // the producer: Q and dO, then K; K and V; K and V (one thread)
+    if (threadIdx.x == 128 * kConsumers) {
+      for (int c = 0; c < active; ++c) {
+        mbar_expect_tx(&full_q[c], 2 * kBox);
+        tma_box(smem + kRowsQ + c * kBox, &map_q, &full_q[c], h, (t0 + c) * 64, b);
+        tma_box(smem + kRowsDO + c * kBox, &map_do, &full_q[c], h, (t0 + c) * 64, b);
+      }
+      for (int n = 0; n < 3 * kt; ++n) {
+        const int s = n % kStages, j = n % kt;
+        if (n >= kStages) mbar_wait(&empty[s], uint32_t(n / kStages - 1) & 1);
+        const bool with_v = n >= kt;
+        mbar_expect_tx(&full[s], with_v ? 2 * kBox : kBox);
+        tma_box(smem + s * kBox, &map_k, &full[s], h, j * 64, b);
+        if (with_v) tma_box(smem + kRowsV + s * kBox, &map_v, &full[s], h, j * 64, b);
+      }
+    }
+    return;
+  }
+  if (wg >= active) return;
+
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = w4 * 16 + g;  // this thread's rows r and r + 8 of the warpgroup's 64
+  const bool leader = threadIdx.x % 128 == 0;
+  const int t = t0 + wg;  // the query tile
+  const unsigned char* dot = smem + kRowsDO + wg * kBox;
+  unsigned char* tile = smem + kRowsOut + wg * kBox;
+  const uint32_t k0 = smem_u32(smem), v0 = k0 + kRowsV;
+  mbar_wait(&full_q[wg], 0);
+  uint32_t qf[4][4];  // Q's A fragments
+  tile_a_frags(qf, smem + kRowsQ + wg * kBox, r, t4);
+
+  // S = Q K^T of ring item n (32 accumulators: s[4 c + e] is key 8 c + 2 t4
+  // + (e & 1) of the tile, row r for e < 2, else r + 8), issued
+  auto issue_scores = [&](float* s, int n) {
+    const uint64_t kd = smem_desc(k0 + (n % kStages) * kBox);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(s, qf[kk], desc_at(kd, kk * 32), kk);
+  };
+  auto wait_item = [&](int n) { mbar_wait(&full[n % kStages], uint32_t(n / kStages) & 1); };
+  auto release = [&](int n) { mbar_arrive(&empty[n % kStages]); };
+
+  // pass 1: each row's max and sum of 2^(S c), per thread, trees over a tile
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+  int n = 0;
+  for (int j = 0; j < kt; ++j, ++n) {
+    float s[32];
+    wait_item(n);
+    wgmma_fence();
+    issue_scores(s, n);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(s);
+    release(n);
+    if ((j + 1) * 64 > kv_len) {  // keys at or past kv_len: -inf
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (j * 64 + (e / 4) * 8 + t4 * 2 + (e & 1) >= kv_len) s[e] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[c] = fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]);
+#pragma unroll
+      for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+        for (int c = 0; c < w; ++c) x[c] = fmaxf(x[c], x[c + w]);
+      const float m = fmaxf(mx[i], x[0]);
+      const float base = m == -INFINITY ? 0.f : m * scale_log2;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        x[c] = ex2(fmaf(s[4 * c + 2 * i], scale_log2, -base)) +
+               ex2(fmaf(s[4 * c + 2 * i + 1], scale_log2, -base));
+#pragma unroll
+      for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+        for (int c = 0; c < w; ++c) x[c] += x[c + w];
+      sm[i] = sm[i] * ex2(fmaf(mx[i], scale_log2, -base)) + x[0];
+      mx[i] = m;
+    }
+  }
+  float base[2], inv[2];  // rows r and r + 8: finite, key 0 is never masked
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    base[i] = quad_max(mx[i]) * scale_log2;
+    const float part = mx[i] == -INFINITY ? 0.f : sm[i] * ex2(fmaf(mx[i], scale_log2, -base[i]));
+    inv[i] = __frcp_rn(quad_sum(part));
+  }
+
+  // pass 2: O = bf16(P) V in fp32 (keys past kv_len meet V's zero rows)
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int j = 0; j < kt; ++j, ++n) {
+    float s[32];
+    wait_item(n);
+    wgmma_fence();
+    issue_scores(s, n);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(s);
+    uint32_t pa[4][4];  // P's A fragments, keys 16 c .. + 15
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = (e >> 1) & 1;  // elements 2, 3, 6, 7: row r + 8
+        v[e] = ex2(fmaf(s[8 * c + e], scale_log2, -base[i])) * inv[i];
+      }
+      a_frag(pa[c], v);
+    }
+    const uint64_t vmn = smem_desc_mn(v0 + (n % kStages) * kBox);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs<1>(acc, pa[c], desc_at(vmn, c * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(acc);
+    fence_operands<16>(&pa[0][0]);
+    release(n);
+  }
+
+  // D = rowsum(dO * O): dO's bf16 pairs at the places of O's accumulators
+  // in the swizzled tile
+  float d[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int at = ((c ^ (r & 7)) << 4) + 4 * t4;
+    const float2 o0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dot + r * 128 + at));
+    const float2 o1 =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dot + (r + 8) * 128 + at));
+    d[0] += acc[4 * c] * o0.x + acc[4 * c + 1] * o0.y;
+    d[1] += acc[4 * c + 2] * o1.x + acc[4 * c + 3] * o1.y;
+  }
+  d[0] = quad_sum(d[0]);
+  d[1] = quad_sum(d[1]);
+  if (t4 == 0) {  // the rows' statistics; rows past S (0, 0, 0): P = 0 in the columns kernel
+    float* st = stats + (int64_t(pair) * q_tiles + t) * kStatFloats;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r + 8 * i;
+      const bool ok = t * 64 + row < S;
+      st[row] = ok ? base[i] : 0.f;
+      st[kStatRows + row] = ok ? inv[i] : 0.f;
+      st[2 * kStatRows + row] = ok ? d[i] : 0.f;
+    }
+  }
+  to_tile(tile, acc, r, t4);  // out, through the warpgroup's tile
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  if (leader) tma_store_box(&map_o, tile, h, t * 64, b);
+  uint32_t dof[4][4];  // dO's A fragments, for dP
+  tile_a_frags(dof, dot, r, t4);
+
+  // pass 3: dP = dO V^T, dS = bf16(P (dP - D) / 8), dQ += dS K
+  float dq[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+  for (int j = 0; j < kt; ++j, ++n) {
+    float s[32], dp[32];
+    wait_item(n);
+    const uint32_t ks = k0 + (n % kStages) * kBox;
+    const uint64_t vd = smem_desc(v0 + (n % kStages) * kBox);
+    wgmma_fence();
+    issue_scores(s, n);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(dp, dof[kk], desc_at(vd, kk * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(s);
+    fence_accumulators<32>(dp);
+    uint32_t ds[4][4];  // dS's A fragments, keys 16 c .. + 15
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = (e >> 1) & 1;
+        v[e] = (ex2(fmaf(s[8 * c + e], scale_log2, -base[i])) * inv[i]) * (dp[8 * c + e] - d[i]) *
+               scale;
+      }
+      a_frag(ds[c], v);
+    }
+    const uint64_t kmn = smem_desc_mn(ks);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs<1>(dq, ds[c], desc_at(kmn, c * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<32>(dq);
+    fence_operands<16>(&ds[0][0]);
+    release(n);
+  }
+  fence_operands<16>(&dof[0][0]);
+  fence_operands<16>(&qf[0][0]);
+  if (leader) tma_store_drain();  // out has left the tile
+  warpgroup_sync(wg);
+  to_tile(tile, dq, r, t4);
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  if (leader) {
+    tma_store_box(&map_dq, tile, h, t * 64, b);
+    tma_store_drain();
+  }
+}
+
+// The rows kernel's work over at most kShortKeys keys (the cross
+// sublayer's 77 text keys): the pair's K and V loaded once, S held in
+// registers over the key capacity, so S is computed once and each score
+// takes one exponential (the ring kernel above computes S three times):
+// the exact softmax, O = bf16(P) V, D, the statistics, dP = dO V^T, dS and
+// dQ, every product one commit group, as the one-block kernel's phase A.
+// A warpgroup takes two query tiles (t and t + 2 of the block's four), the
+// second's Q and dO landing while the first is worked on.
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_rows_short_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const __grid_constant__ CUtensorMap map_o,
+                           const __grid_constant__ CUtensorMap map_dq, float* __restrict__ stats,
+                           int H, int S, int kv_len, float scale_log2, float scale) {
+  using muse::attn::scores_step;
+  constexpr int kS = 48;     // S's accumulators a thread: 3 chunks of 32 keys
+  constexpr int kSteps = 6;  // 16-key steps of the capacity
+  extern __shared__ __align__(1024) unsigned char short_smem[];
+  unsigned char* smem = short_smem + ((1024 - (smem_u32(short_smem) & 1023)) & 1023);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + kShortBars);
+  uint64_t* full_q = full_kv + 1;
+  const int pair = blockIdx.y, b = pair / H, h = pair % H;
+  const int q_tiles = (S + 63) / 64, t0 = blockIdx.x * kShortTiles;
+  const int tiles = min(kShortTiles, q_tiles - t0);   // the block's query tiles
+  const int active = min(kConsumers, tiles);          // warpgroups with a query tile
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int c = 0; c < kShortTiles; ++c) mbar_init(&full_q[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = warpgroup();
+  if (wg == kConsumers) {  // the producer: K and V (two boxes each), Q and dO (one thread)
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_expect_tx(full_kv, 4 * kBox);
+      for (int j = 0; j < 2; ++j) {
+        tma_box(smem + j * kBox, &map_k, full_kv, h, j * 64, b);
+        tma_box(smem + (2 + j) * kBox, &map_v, full_kv, h, j * 64, b);
+      }
+      for (int c = 0; c < tiles; ++c) {
+        mbar_expect_tx(&full_q[c], 2 * kBox);
+        tma_box(smem + kShortQ + c * kBox, &map_q, &full_q[c], h, (t0 + c) * 64, b);
+        tma_box(smem + kShortDO + c * kBox, &map_do, &full_q[c], h, (t0 + c) * 64, b);
+      }
+    }
+    return;
+  }
+  if (wg >= active) return;
+
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = w4 * 16 + g;  // this thread's rows r and r + 8 of the warpgroup's 64
+  const bool leader = threadIdx.x % 128 == 0;
+  unsigned char* tile = smem + kShortOut + wg * kBox;
+  const uint32_t ks = smem_u32(smem), vs = ks + 2 * kBox;
+  mbar_wait(full_kv, 0);
+  for (int c = wg; c < tiles; c += kConsumers) {  // the warpgroup's query tiles
+    const int t = t0 + c;
+    const unsigned char* dot = smem + kShortDO + c * kBox;
+    mbar_wait(&full_q[c], 0);
+
+    // S = Q K^T over the capacity (sc[4 n + e]: key 8 n + 2 t4 + (e & 1) of
+    // row r for e < 2, else r + 8), the exact softmax kept as the
+    // exponentials and each row's 1 / sum
+    float sc[kS];
+#pragma unroll
+    for (int e = 0; e < kS; ++e) sc[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) scores_step<3>(sc, smem_u32(smem + kShortQ + c * kBox), ks, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<kS>(sc);
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kS / 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * n + 2 * t4 + (e & 1) >= kv_len) sc[4 * n + e] = -INFINITY;  // keys past kv_len
+      m[0] = fmaxf(m[0], fmaxf(sc[4 * n], sc[4 * n + 1]));
+      m[1] = fmaxf(m[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+    float base[2], inv[2], l[2] = {0.f, 0.f};  // finite: key 0 is never masked
+#pragma unroll
+    for (int i = 0; i < 2; ++i) base[i] = quad_max(m[i]) * scale_log2;
+#pragma unroll
+    for (int n = 0; n < kS / 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale_log2, -base[i]));
+        l[i] += sc[4 * n + e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) inv[i] = __frcp_rn(quad_sum(l[i]));
+
+    // O = bf16(P) V in fp32, V MN-major over its two boxes (16-key step j at
+    // 2048 j bytes)
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    {
+      uint32_t pa[kSteps][4];
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = sc[8 * j + e] * inv[(e >> 1) & 1];
+        a_frag(pa[j], v);
+      }
+      const uint64_t vmn = smem_desc_mn(vs);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) wgmma_rs<1>(acc, pa[j], desc_at(vmn, j * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<kSteps * 4>(&pa[0][0]);
+    }
+    fence_accumulators<32>(acc);
+
+    // D = rowsum(dO * O) from the fp32 O and the dO tile; the statistics
+    float d[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int at = ((c ^ (r & 7)) << 4) + 4 * t4;
+      const float2 o0 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dot + r * 128 + at));
+      const float2 o1 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dot + (r + 8) * 128 + at));
+      d[0] += acc[4 * c] * o0.x + acc[4 * c + 1] * o0.y;
+      d[1] += acc[4 * c + 2] * o1.x + acc[4 * c + 3] * o1.y;
+    }
+    d[0] = quad_sum(d[0]);
+    d[1] = quad_sum(d[1]);
+    if (t4 == 0) {  // rows past S (0, 0, 0): P = 0 in the columns kernel
+      float* st = stats + (int64_t(pair) * q_tiles + t) * kStatFloats;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r + 8 * i;
+        const bool ok = t * 64 + row < S;
+        st[row] = ok ? base[i] : 0.f;
+        st[kStatRows + row] = ok ? inv[i] : 0.f;
+        st[2 * kStatRows + row] = ok ? d[i] : 0.f;
+      }
+    }
+    if (leader) tma_store_drain();  // the last tile's dq has left the tile
+    warpgroup_sync(wg);
+    to_tile(tile, acc, r, t4);  // out, through the warpgroup's tile
+    fence_proxy_async();
+    warpgroup_sync(wg);
+    if (leader) tma_store_box(&map_o, tile, h, t * 64, b);
+
+    // dP = dO V^T over the capacity, dS = bf16(P (dP - D) / 8), dQ = dS K
+    float dp[kS];
+#pragma unroll
+    for (int e = 0; e < kS; ++e) dp[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) scores_step<3>(dp, smem_u32(dot), vs, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulators<kS>(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;  // dQ, O having left for the tile
+    {
+      uint32_t ds[kSteps][4];
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = (e >> 1) & 1;
+          v[e] = (sc[8 * j + e] * inv[i]) * (dp[8 * j + e] - d[i]) * scale;
+        }
+        a_frag(ds[j], v);
+      }
+      const uint64_t kmn = smem_desc_mn(ks);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) wgmma_rs<1>(acc, ds[j], desc_at(kmn, j * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<kSteps * 4>(&ds[0][0]);
+    }
+    fence_accumulators<32>(acc);
+    if (leader) tma_store_drain();  // out has left the tile
+    warpgroup_sync(wg);
+    to_tile(tile, acc, r, t4);
+    fence_proxy_async();
+    warpgroup_sync(wg);
+    if (leader) tma_store_box(&map_dq, tile, h, t * 64, b);
+  }
+  if (leader) tma_store_drain();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_cols_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_dk,
+                     const __grid_constant__ CUtensorMap map_dv, const float* __restrict__ stats,
+                     int H, int S, int L, int kv_len, int halves, float scale_log2, float scale) {
+  extern __shared__ __align__(1024) unsigned char cols_smem[];
+  unsigned char* smem = cols_smem + ((1024 - (smem_u32(cols_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kColsBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* full_kv = empty + kStages;
+  const int pair = blockIdx.y, b = pair / H, h = pair % H;
+  // a key block a warpgroup, or with `halves` (below a card's worth of
+  // blocks) one key block a block, its query tiles shared out between the
+  // warpgroups (even and odd) and their sums added in shared memory
+  const int q_tiles = (S + 63) / 64, kb0 = halves ? blockIdx.x : blockIdx.x * kConsumers;
+  const int key_blocks = halves ? 1 : min(kConsumers, (L + 63) / 64 - kb0);
+  const int active = halves ? min(kConsumers, q_tiles) : key_blocks;  // working warpgroups
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], halves ? 128 : 128 * active);
+    }
+    mbar_init(full_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = warpgroup();
+  if (wg == kConsumers) {  // the producer: K and V, then Q, dO and statistics a query tile
+                           // (one thread)
+    if (threadIdx.x == 128 * kConsumers) {
+      mbar_expect_tx(full_kv, 2 * key_blocks * kBox);
+      for (int c = 0; c < key_blocks; ++c) {
+        tma_box(smem + c * kBox, &map_k, full_kv, h, (kb0 + c) * 64, b);
+        tma_box(smem + kColsV + c * kBox, &map_v, full_kv, h, (kb0 + c) * 64, b);
+      }
+      const float* src = stats + int64_t(pair) * q_tiles * kStatFloats;
+      for (int n = 0; n < q_tiles; ++n) {
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(&empty[s], uint32_t(n / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kBox + kStatBytes);
+        tma_box(smem + kColsQ + s * kBox, &map_q, &full[s], h, n * 64, b);
+        tma_box(smem + kColsDO + s * kBox, &map_do, &full[s], h, n * 64, b);
+        bulk_copy(smem + kColsStats + s * kStatBytes, src + n * kStatFloats, kStatBytes, &full[s]);
+      }
+    }
+    return;
+  }
+  if (wg >= active) return;
+
+  const int w4 = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = w4 * 16 + g;  // this thread's keys r and r + 8 of the warpgroup's 64
+  const bool leader = threadIdx.x % 128 == 0;
+  const int kb = halves ? kb0 : kb0 + wg;  // the key block
+  unsigned char* kt = smem + (halves ? 0 : wg) * kBox;
+  unsigned char* vt = smem + kColsV + (halves ? 0 : wg) * kBox;
+  const int first = halves ? wg : 0, step = halves ? kConsumers : 1;  // the query tiles taken
+  mbar_wait(full_kv, 0);
+  uint32_t kf[4][4], vf[4][4];  // K's and V's A fragments
+  tile_a_frags(kf, kt, r, t4);
+  tile_a_frags(vf, vt, r, t4);
+  float dv[32], dk[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dv[e] = dk[e] = 0.f;
+  uint32_t pt[4][4], dt[4][4];  // the last query tile's A fragments of P^T and dS^T
+  // the two warpgroups take turns to issue S^T and dP^T, warpgroup 0 first,
+  // so that one's exponentials overlap the other's products (with halves
+  // their counts of tiles may differ: no turns)
+  const bool turns = active == kConsumers && !halves;
+  if (turns && wg == 1) turn_pass(wg);
+  for (int n = first; n < q_tiles; n += step) {
+    const int slot = n % kStages;
+    float st[32], dpt[32];  // st[4 c + e]: query 64 n + 8 c + 2 t4 + (e & 1), key row r / r + 8
+    const uint32_t qc = smem_u32(smem + kColsQ + slot * kBox);
+    const uint32_t dc = smem_u32(smem + kColsDO + slot * kBox);
+    const uint64_t qk = smem_desc(qc), dok = smem_desc(dc);
+    mbar_wait(&full[slot], uint32_t(n / kStages) & 1);
+    if (turns) turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<0>(st, kf[kk], desc_at(qk, kk * 32), kk);
+      wgmma_rs<0>(dpt, vf[kk], desc_at(dok, kk * 32), kk);
+    }
+    wgmma_commit();
+    if (turns && !(wg == 1 && n == q_tiles - 1)) turn_pass(wg);  // every turn taken
+    wgmma_wait<0>();  // also the last query tile's dV and dK products
+    fence_accumulators<32>(st);
+    fence_accumulators<32>(dpt);
+    fence_operands<16>(&pt[0][0]);
+    fence_operands<16>(&dt[0][0]);
+    const float* sm = reinterpret_cast<const float*>(smem + kColsStats + slot * kStatBytes);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int q = 8 * c + 2 * t4;
+      const float2 m = *reinterpret_cast<const float2*>(sm + q);
+      const float2 il = *reinterpret_cast<const float2*>(sm + kStatRows + q);
+      const float2 dd = *reinterpret_cast<const float2*>(sm + 2 * kStatRows + q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e & 1;
+        const float pv =
+            ex2(fmaf(st[4 * c + e], scale_log2, -(odd ? m.y : m.x))) * (odd ? il.y : il.x);
+        dpt[4 * c + e] = pv * (dpt[4 * c + e] - (odd ? dd.y : dd.x)) * scale;
+        st[4 * c + e] = pv;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a_frag(pt[j], st + 8 * j);
+      a_frag(dt[j], dpt + 8 * j);
+    }
+    const uint64_t dmn = smem_desc_mn(dc), qmn = smem_desc_mn(qc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<1>(dv, pt[j], desc_at(dmn, j * 2048), 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_rs<1>(dk, dt[j], desc_at(qmn, j * 2048), 1);
+    wgmma_commit();
+    // the last tile's slot, read by products the wait above saw done, goes
+    // back to the producer only now: released between that wait and these
+    // products, the card gave wrong dK and dV past the first query tile
+    // (with the ring's slots in order from 0; the cause was not found)
+    if (n > first) mbar_arrive(&empty[(n - step) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_operands<16>(&pt[0][0]);
+  fence_operands<16>(&dt[0][0]);
+  fence_operands<16>(&kf[0][0]);
+  fence_operands<16>(&vf[0][0]);
+  fence_accumulators<32>(dv);
+  fence_accumulators<32>(dk);
+  if (halves && active > 1) {  // warpgroup 1's sums into warpgroup 0's, in that order
+    float* part = reinterpret_cast<float*>(smem + kColsPart);  // [dK, dV][64 x 64]
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int at = (r + 8 * ((e >> 1) & 1)) * 64 + 8 * (e / 4) + 2 * t4 + (e & 1);
+        part[at] = dk[e];
+        part[64 * 64 + at] = dv[e];
+      }
+    }
+    asm volatile("bar.sync 5, %0;\n" ::"n"(128 * kConsumers) : "memory");
+    if (wg == 1) return;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int at = (r + 8 * ((e >> 1) & 1)) * 64 + 8 * (e / 4) + 2 * t4 + (e & 1);
+      dk[e] += part[at];
+      dv[e] += part[64 * 64 + at];
+    }
+  }
+  // dk and dv through the K and V tiles (read into registers at the start);
+  // keys past kv_len as zero rows (their P^T, from zero K rows, is not 0)
+  const int key = kb * 64 + r;
+  to_tile(kt, dk, r, t4, key < kv_len, key + 8 < kv_len);
+  to_tile(vt, dv, r, t4, key < kv_len, key + 8 < kv_len);
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  if (leader) {
+    tma_store_box(&map_dk, kt, h, kb * 64, b);
+    tma_store_box(&map_dv, vt, h, kb * 64, b);
+    tma_store_drain();
+  }
+}
+
+cudaError_t launch(const AttnBwdArgs& p, int B, cudaStream_t stream) {
+  if (p.stats == nullptr) return cudaErrorInvalidValue;
+  BwdMaps m;
+  cudaError_t err = bwd_maps(&m, p, B);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t configured = [] {
+    const auto smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel, smem, kRowsSmem);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(attn_bwd_rows_short_kernel, smem, kShortSmem);
+    return e == cudaSuccess ? cudaFuncSetAttribute(attn_bwd_cols_kernel, smem, kColsSmem) : e;
+  }();
+  if (configured != cudaSuccess) return configured;
+  const int q_tiles = (p.S + 63) / 64, k_blocks = (p.L + 63) / 64;
+  // halves where the doubled grid still fits the card in one wave (the
+  // cross sublayer's one block a pair at batch 2: 32 blocks; at 128 blocks
+  // it ran 21.5 -> 35.2 us at x (8, 1024, 1024) on the card)
+  const int halves =
+      2 * ((k_blocks + kConsumers - 1) / kConsumers) * B * p.H <= muse::sm90::sm_count();
+  const dim3 rows_grid((q_tiles + kConsumers - 1) / kConsumers, B * p.H);
+  if (p.kv_len <= kShortKeys) {
+    const dim3 short_grid((q_tiles + kShortTiles - 1) / kShortTiles, B * p.H);
+    attn_bwd_rows_short_kernel<<<short_grid, kThreads, kShortSmem, stream>>>(
+        m.q, m.k, m.v, m.dout, m.out, m.dq, p.stats, p.H, p.S, p.kv_len, p.scale_log2, p.scale);
+  } else {
+    attn_bwd_rows_kernel<<<rows_grid, kThreads, kRowsSmem, stream>>>(
+        m.q, m.k, m.v, m.dout, m.out, m.dq, p.stats, p.H, p.S, p.kv_len, p.scale_log2, p.scale);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 cols_grid(halves ? k_blocks : (k_blocks + kConsumers - 1) / kConsumers, B * p.H);
+  attn_bwd_cols_kernel<<<cols_grid, kThreads, kColsSmem, stream>>>(
+      m.q, m.k, m.v, m.dout, m.dk, m.dv, p.stats, p.H, p.S, p.L, p.kv_len, halves, p.scale_log2,
+      p.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace lng
 
 // ---------------------------------------------------------------------------
 // Backward: rmsnorm / AdaLN (attn_sublayer.py `_rms_adaln_bwd`)
@@ -1406,15 +1879,15 @@ extern "C" int muse_attn_sublayer(const void* x, const void* res, const void* ln
 // (B, S, 3I) or dq (B, S, I), attn (B, S, I) and, for cross, dkv (B, L, 2I),
 // zero past kv_len.  Scratch: h (B, S, D), proj like dproj, dattn (B, S,
 // max(D, I)), rstd (B * S) fp32, partial (B * ceil(S / 32) * 3 * D) fp32 and,
-// where muse_attn_bwd_one_block(S, L) is 0, stats (3, B, H, S rounded up to
-// 64) fp32 (else it may be null).  On a head shard (I < D) dx, dln and dadaln
+// where muse_attn_bwd_one_block(S, L) is 0, stats (B, H, ceil(S / 64), 3,
+// 64) fp32 (lng::kStatFloats a query tile; else it may be null).  On a head shard (I < D) dx, dln and dadaln
 // are this shard's part of the gradients; the caller sums them over the
 // shards.  Self (kernel 11) and cross (kernel 12) run one chain of eight
 // launches: the row kernel (keeping 1/rms; the register one at width 1024),
 // the in-projection (qkv or q) and dattn = g_out @ Wout on the Hopper GEMM
 // (Wout read MN-major), the attention backward (one block a (batch, head)
-// pair on wgmma up to 288 queries and 256 keys; above, the two mma.sync
-// kernels, a ninth launch), da = dproj @ W_in on the Hopper GEMM (W_in read
+// pair on wgmma up to 288 queries and 256 keys; above, the rows and columns
+// kernels of namespace lng, a ninth launch), da = dproj @ W_in on the Hopper GEMM (W_in read
 // MN-major), the row kernel of dx (the register one at width 1024), and the
 // two-stage d(adaln) / d(ln) reduction.
 extern "C" int muse_attn_sublayer_bwd(
@@ -1438,7 +1911,6 @@ extern "C" int muse_attn_sublayer_bwd(
   bf* dattn = static_cast<bf*>(dattn_buf);
   bf* dproj_ = static_cast<bf*>(dproj);
   float* rstd_ = static_cast<float*>(rstd);
-  float* stats_ = static_cast<float*>(stats);
   if (!self_attn && (kv_len < 1 || kv_len > L)) return int(cudaErrorInvalidValue);
 
   // recompute a (and keep 1/rms), the projection, and dattn = g_out @ Wout
@@ -1451,7 +1923,7 @@ extern "C" int muse_attn_sublayer_bwd(
   if (err != cudaSuccess) return int(err);
 
   // the attention backward: one block a (batch, head) pair on wgmma up to
-  // 288 queries and 256 keys, the pair of mma.sync kernels above
+  // 288 queries and 256 keys, the rows and columns kernels above
   const AttnArgs args = attn_args(proj, static_cast<const bf*>(kv), S, I, L, kv_len);
   AttnBwdArgs bargs{};
   bargs.q = args.q;
@@ -1477,23 +1949,8 @@ extern "C" int muse_attn_sublayer_bwd(
   // leave rounding there)
   bargs.scale = args.kv_len == 1 ? 0.f : args.scale;
   bargs.scale_log2 = args.scale * muse::frag::kLog2e;
-  if (bwd::takes(S, args.L)) {
-    err = bwd::launch(bargs, B, stream);
-  } else {
-    if (stats == nullptr) return int(cudaErrorInvalidValue);
-    const int Sp = (S + kTile - 1) / kTile * kTile;
-    const int64_t n_stats = int64_t(B) * H * Sp;
-    bargs.stat_m = stats_;
-    bargs.stat_il = stats_ + n_stats;
-    bargs.delta = stats_ + 2 * n_stats;
-    bargs.Sp = Sp;
-    attn_bwd_q_kernel<<<dim3(Sp / kTile, B * H), kAttnThreads, 0, stream>>>(bargs);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    attn_bwd_kv_kernel<<<dim3((args.L + kTile - 1) / kTile, B * H), kAttnThreads, 0, stream>>>(
-        bargs);
-    err = cudaGetLastError();
-  }
+  bargs.stats = static_cast<float*>(stats);
+  err = bwd::takes(S, args.L) ? bwd::launch(bargs, B, stream) : lng::launch(bargs, B, stream);
   if (err != cudaSuccess) return int(err);
 
   // da = dproj @ W_in (into the dattn buffer, consumed above, of max(D, I)
@@ -1527,6 +1984,6 @@ extern "C" int muse_attn_sublayer_bwd(
 }
 
 // 1 where muse_attn_sublayer_bwd's attention takes the one-block wgmma kernel
-// (S queries at most 288, L keys at most 256), 0 where it takes the mma.sync pair
-// and needs the stats scratch
+// (S queries at most 288, L keys at most 256), 0 where it takes the rows and
+// columns kernels (namespace lng) and needs the stats scratch
 extern "C" int muse_attn_bwd_one_block(int S, int L) { return bwd::takes(S, L) ? 1 : 0; }

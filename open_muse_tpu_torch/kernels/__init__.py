@@ -6,9 +6,9 @@ counts its launches in a plain integer attribute, ``wrapper.launches``;
 ``flash_attention_two_pass`` counts apart the launches of
 ``flash_attention`` that take its two-pass variant (more keys than the
 one-pass kernel holds), ``attn_sublayer_two_pass`` the sublayer forwards
-whose attention takes it, ``attn_sublayer_bwd_pair`` the sublayer backwards
-whose attention takes the mma.sync pair (more than 288 queries or 256
-keys).
+whose attention takes it, ``attn_sublayer_bwd_long`` the sublayer backwards
+whose attention takes the long route (more than 288 queries or 256 keys:
+two wgmma kernels, rows then columns).
 The forward wrappers are ``torch.autograd.Function``s whose backward is the
 matching backward wrapper, so one Function runs the plain versions on the
 CPU and the kernels on the card in both directions.  The fused norms and
@@ -80,7 +80,7 @@ def at_least_fp32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-from .attn_sublayer import (attn_sublayer_bwd_pair, attn_sublayer_cross,  # noqa: E402
+from .attn_sublayer import (attn_sublayer_bwd_long, attn_sublayer_cross,  # noqa: E402
                             attn_sublayer_cross_bwd, attn_sublayer_self, attn_sublayer_self_bwd,
                             attn_sublayer_two_pass)
 from .flash_attention import flash_attention, flash_attention_two_pass  # noqa: E402
@@ -94,13 +94,13 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul"
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
            "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
            "flash_attention", "flash_attention_two_pass", "attn_sublayer_two_pass",
-           "attn_sublayer_bwd_pair", "LaunchCounter"]
+           "attn_sublayer_bwd_long", "LaunchCounter"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
             glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
             fused_residual_layernorm, flash_attention, flash_attention_two_pass,
-            attn_sublayer_two_pass, attn_sublayer_bwd_pair)
+            attn_sublayer_two_pass, attn_sublayer_bwd_long)
 
 
 def launch_counts() -> dict:

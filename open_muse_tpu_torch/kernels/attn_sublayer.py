@@ -32,20 +32,22 @@ from .flash_attention import flash_attention_plain, takes_two_pass
 __all__ = ["attn_sublayer_self", "attn_sublayer_cross", "attn_sublayer_self_plain",
            "attn_sublayer_cross_plain", "attn_sublayer_self_bwd", "attn_sublayer_cross_bwd",
            "attn_sublayer_self_bwd_plain", "attn_sublayer_cross_bwd_plain",
-           "attn_sublayer_two_pass", "attn_sublayer_bwd_pair", "bwd_one_block",
-           "sublayer_shapes_supported"]
+           "attn_sublayer_two_pass", "attn_sublayer_bwd_long", "bwd_one_block",
+           "bwd_stats_shape", "sublayer_shapes_supported"]
 
 HEAD_DIM = 64
 CHUNK_ROWS = 32  # rows per partial sum of d(adaln) and d(ln) in the kernel
-STAT_ROWS = 64  # the mma.sync backward's row statistics cover S rounded up to this
+# the long route's row statistics (csrc lng::kStatRows, lng::kStatFloats): a
+# query tile's max, 1 / sum and D
+STAT_ROWS, STATS = 64, 3
 # the self and cross forwards whose attention (flash_attention.cu's launcher,
 # called inside the chain) takes the two-pass variant: more than 288 keys,
 # as the 512 px v2's 1024 tokens in the self sublayer
 attn_sublayer_two_pass = LaunchCounter("attn_sublayer_two_pass")
-# the self and cross backwards whose attention takes the mma.sync pair of
-# kernels (more than 288 queries or 256 keys) instead of the one-block wgmma
-# kernel
-attn_sublayer_bwd_pair = LaunchCounter("attn_sublayer_bwd_pair")
+# the self and cross backwards whose attention takes the long route (more than
+# 288 queries or 256 keys: the rows and columns kernels, as the 512 px trunk's
+# 1024 tokens) instead of the one-block wgmma kernel
+attn_sublayer_bwd_long = LaunchCounter("attn_sublayer_bwd_long")
 
 
 def bwd_one_block(queries: int, keys: int) -> bool:
@@ -53,6 +55,14 @@ def bwd_one_block(queries: int, keys: int) -> bool:
     the one-block wgmma kernel, by the rule in csrc/attn_sublayer.cu (read
     from the built library: the rule lives in C alone)."""
     return bool(library().muse_attn_bwd_one_block(queries, keys))
+
+
+def bwd_stats_shape(batch: int, heads: int, queries: int) -> tuple:
+    """The long route's fp32 scratch between its two kernels: each (batch,
+    head) pair's query tiles of STAT_ROWS rows, a tile's STATS rows of
+    statistics (max, 1 / sum, D) one after the other, as the C launcher
+    indexes them."""
+    return batch, heads, -(-queries // STAT_ROWS), STATS, STAT_ROWS
 
 
 def sublayer_shapes_supported(hidden: int, num_heads: int, tp: int = 1) -> bool:
@@ -233,10 +243,10 @@ def _launch_bwd(name, x, res, ln_scale, adaln, w_in, wout, kv, g_out, g_res, num
     rstd = new(b * s, dtype=torch.float32)
     partial = new(b * -(-s // CHUNK_ROWS) * 3 * d, dtype=torch.float32)
     length = 0 if kv is None else kv.shape[1]
-    stats = None  # the mma.sync pair's row statistics, through device memory
+    stats = None  # the long route's row statistics, through device memory
     if not bwd_one_block(s, length or s):
-        stats = new(3, b, num_heads, -(-s // STAT_ROWS) * STAT_ROWS, dtype=torch.float32)
-        attn_sublayer_bwd_pair.launches += 1
+        stats = new(*bwd_stats_shape(b, num_heads, s), dtype=torch.float32)
+        attn_sublayer_bwd_long.launches += 1
     check(library().muse_attn_sublayer_bwd(
         _ptr(x), _ptr(res), _ptr(ln_scale), _ptr(adaln), _ptr(w_in), _ptr(wout), _ptr(kv),
         _ptr(g_out), _ptr(g_res), _ptr(dx), _ptr(dadaln), _ptr(dln), _ptr(a), _ptr(dproj),

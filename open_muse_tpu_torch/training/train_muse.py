@@ -328,10 +328,12 @@ def build_state(config, device, world_size: int = 1, mesh=None) -> T.TrainState:
         config.lr_scheduler.scheduler, base_lr=lr,
         num_warmup_steps=config.lr_scheduler.params.get("warmup_steps", 500),
         num_training_steps=config.training.get("max_train_steps", 1000000))
+    # yaml reads 1e-8 (research_run_512.yaml's epsilon) as a string too
     optimizer = get_optimizer(
         config.optimizer.get("name", "adamw"), model, schedule,
-        beta1=opt_cfg.get("beta1", 0.9), beta2=opt_cfg.get("beta2", 0.999),
-        weight_decay=opt_cfg.get("weight_decay", 0.01), epsilon=opt_cfg.get("epsilon", 1e-8),
+        beta1=float(opt_cfg.get("beta1", 0.9)), beta2=float(opt_cfg.get("beta2", 0.999)),
+        weight_decay=float(opt_cfg.get("weight_decay", 0.01)),
+        epsilon=float(opt_cfg.get("epsilon", 1e-8)),
         max_grad_norm=config.training.get("max_grad_norm"),
         accumulation_steps=config.training.get("gradient_accumulation_steps", 1))
     ema = EMA(model) if config.training.get("use_ema", False) else None

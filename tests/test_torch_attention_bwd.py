@@ -4,8 +4,10 @@
 attention kernels compute (the CUDA kernels are held against it on the card
 in tests/test_torch_cuda.py).  Here it is held against ``jax.vjp`` of the JAX
 package's XLA attention oracle ``_xla_attention`` at the kernels' edges: 1,
-77 and 288 queries (the one-block kernel's most) against 1, 77 and 288 keys
-(past its 256: the mma.sync pair's), on the same numpy inputs.
+77, 288 (the one-block kernel's most) and 1024 queries against 1, 77, 288
+(past its 256) and 1024 keys (the long route's), on the same numpy inputs.
+At 1024 tokens the JAX package's own backward stays on XLA's VJP, so that
+VJP is the reference there.
 """
 
 import functools
@@ -19,7 +21,7 @@ from open_muse_tpu.ops.pallas import attn_sublayer as A
 from open_muse_tpu_torch.kernels import attn_sublayer as TA
 
 HEADS = 2  # of 64
-ROWS = (1, 77, 288)
+ROWS = (1, 77, 288, 1024)
 SHAPES = [(queries, keys) for queries in ROWS for keys in ROWS]
 
 

@@ -291,16 +291,19 @@ BWD_TOL = 5e-2
 @pytest.mark.parametrize("b,s,kv_len", [(4, 256, 77), (16, 256, 77), (1, 1024, 77),
                                         (2, 100, 130), (64, 256, 77), (2, 288, 77), (2, 289, 77),
                                         (2, 256, 1), (2, 256, 288), (2, 256, 289),
-                                        (2, 256, 97), (2, 256, 256), (2, 256, 257)])
+                                        (2, 256, 97), (2, 256, 256), (2, 256, 257),
+                                        (2, 1024, 77), (8, 1024, 77), (2, 300, 77), (2, 520, 77),
+                                        (2, 260, 260), (2, 1024, 1)])
 def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
     """The training batch (16 x 256), the distillation student's (64 x 256),
-    the 512px config's 1024 tokens (over the one-block attention kernel's
-    288 queries and 256 keys: the mma.sync pair, which streams its key and
-    query tiles at any length), the rule's edges (256 / 288 / 289 queries,
-    1 / 96 / 97 / 256 / 257 / 288 / 289 text keys), ragged query and key
-    tiles (100 rows, 130 keys); every
-    output against the plain backward, two calls bit-equal, and the launches
-    that take the mma.sync pair counted apart."""
+    the 512px config's 1024 tokens at batch 1, 2 and 8 (over the one-block
+    attention kernel's 288 queries and 256 keys: the long route's rows and
+    columns kernels, which stream their key and query tiles at any length),
+    the rule's edges (256 / 288 / 289 queries, 1 / 96 / 97 / 256 / 257 /
+    288 / 289 text keys), ragged query and key tiles (100 rows, 130 keys;
+    300 and 520 queries, 260 self keys past 256), one text key at 1024
+    queries; every output against the plain backward, two calls bit-equal,
+    and the launches that take the long route counted apart."""
     gen = torch.Generator().manual_seed(s)
     d, h = 1024, 16
     p = _sublayer_bwd_inputs(gen, b, s, d, kv_len)
@@ -308,10 +311,10 @@ def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
         rr = torch.zeros_like(p["x"]) if res is None else res
         args = (p["x"], res, p["ln"], p["adaln"], p["wqkv"], p["wout"], p["g_out"], p["g_res"], h)
         before = kernels.attn_sublayer_self_bwd.launches
-        pair = kernels.attn_sublayer_bwd_pair.launches
+        long = kernels.attn_sublayer_bwd_long.launches
         got = kernels.attn_sublayer_self_bwd(*args)
         assert kernels.attn_sublayer_self_bwd.launches == before + 1
-        assert kernels.attn_sublayer_bwd_pair.launches == pair + (s > 256)
+        assert kernels.attn_sublayer_bwd_long.launches == long + (s > 256)
         again = kernels.attn_sublayer_self_bwd(*args)
         ref = A.attn_sublayer_self_bwd_plain(p["x"], rr, *args[2:])
         for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwqkv", "dwout"),
@@ -320,9 +323,9 @@ def test_sublayer_backward_kernels_match_plain(device, b, s, kv_len):
             assert torch.equal(mine, twice), name
         args = (p["x"], res, p["ln"], p["adaln"], p["wq"], p["wout"], p["kv"], p["g_out"],
                 p["g_res"], h)
-        pair = kernels.attn_sublayer_bwd_pair.launches
+        long = kernels.attn_sublayer_bwd_long.launches
         got = kernels.attn_sublayer_cross_bwd(*args)
-        assert kernels.attn_sublayer_bwd_pair.launches == pair + (s > 288 or kv_len > 256)
+        assert kernels.attn_sublayer_bwd_long.launches == long + (s > 288 or kv_len > 256)
         again = kernels.attn_sublayer_cross_bwd(*args)
         ref = A.attn_sublayer_cross_bwd_plain(p["x"], rr, *args[2:])
         for name, mine, want, twice in zip(("dx", "dres", "dln", "dadaln", "dwq", "dwout", "dkv"),
@@ -340,7 +343,10 @@ CORE_TOL = 2e-2
                                               (16, 256, 77, 4), (64, 256, 77, 16),
                                               (2, 288, 288, 16), (2, 100, 130, 8),
                                               (3, 17, 1, 16), (1, 1024, 77, 16),
-                                              (2, 256, 289, 4), (2, 288, 256, 8)])
+                                              (2, 256, 289, 4), (2, 288, 256, 8),
+                                              (2, 1024, 77, 16), (8, 1024, 77, 16),
+                                              (2, 300, 77, 16), (2, 520, 77, 8),
+                                              (2, 270, 270, 16), (2, 1024, 1, 16)])
 def test_attention_backward_core_matches_plain(device, b, s, kv_len, heads):
     """The attention backward inside kernels 11 / 12 alone: the chain's
     dproj (dqkv, or dq) and attention output, and cross's dkv, against
@@ -348,7 +354,9 @@ def test_attention_backward_core_matches_plain(device, b, s, kv_len, heads):
     ``a`` through torch's product) and dattn = g_out @ wout, within
     ``CORE_TOL``; 16, 8 and 4 heads (a tp rank's), the one-block kernel at
     its two key capacities (96: 1 and 77 keys; 256: 130 and 256) and the
-    mma.sync pair (1024 queries; 288 and 289 keys), two calls bit-equal."""
+    long route (1024 queries at batch 1, 2 and 8; 288 and 289 keys; 300 and
+    520 queries; 270 self keys; one text key at 1024 queries), two calls
+    bit-equal, and exactly the long-route launches counted."""
     gen = torch.Generator().manual_seed(b * s + kv_len)
     d, inner = 1024, 64 * heads
     x, res = _rand(gen, b, s, d), _rand(gen, b, s, d)
@@ -360,7 +368,10 @@ def test_attention_backward_core_matches_plain(device, b, s, kv_len, heads):
     for name, w_in, context in (("self", wqkv, None), ("cross", wq, kv)):
         call = lambda: A._launch_bwd(name, x, res, ln, adaln, w_in, wout, context,  # noqa: E731
                                      g_out, g_res, heads, 1e-6)
+        long = kernels.attn_sublayer_bwd_long.launches
         got, again = call(), call()
+        takes_long = s > 288 or (s if context is None else kv_len) > 256
+        assert kernels.attn_sublayer_bwd_long.launches == long + 2 * takes_long, name
         a, dproj, attn, dkv = got[3:]
         proj = torch.nn.functional.linear(a, w_in)
         if context is None:

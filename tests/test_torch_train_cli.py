@@ -93,3 +93,25 @@ def test_train_muse_main_trains_saves_and_resumes(tmp_path):
     more = main(_argv(shard, out, 6, resume="latest") + ["device=cpu"])
     assert more.step == 6
     assert [m["step"] for m in _metrics(out)][-2:] == [5, 6]
+
+
+def test_train_muse_main_trains_the_512px_config(tmp_path):
+    """configs/research_run_512.yaml (the flagship 512px run, 1024 tokens),
+    shrunk in width and depth as chip_smoke.py's train_512 phase is not:
+    its optimizer settings reach AdamW as numbers (yaml reads its ``1e-8``
+    as a string) and two steps over a 32 x 32 token grid stay finite."""
+    shard, out = str(tmp_path / "enc-000.tar"), str(tmp_path / "out")
+    make_preencoded_shard(shard, 8, seq=1024)
+    argv = ([f"config={os.path.join(REPO_ROOT, 'configs', 'research_run_512.yaml')}",
+             f"dataset.params.train_shards_path_or_url={shard}",
+             "dataset.params.shuffle_buffer_size=8", f"experiment.output_dir={out}",
+             "experiment.log_every=1", "experiment.resume_from_checkpoint=null",
+             "training.batch_size=2", "training.mixed_precision=no",
+             "training.max_train_steps=2", "lr_scheduler.params.warmup_steps=0", "device=cpu"]
+            + [f"model.transformer.{k}={v}" for k, v in TINY.items()])
+    state = main(argv)
+    group = state.optimizer.torch_optimizer.param_groups[0]
+    assert group["eps"] == 1e-8 and group["betas"] == (0.9, 0.999)
+    logged = _metrics(out)
+    assert [m["step"] for m in logged] == [1, 2]
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in logged)

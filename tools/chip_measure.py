@@ -17,7 +17,10 @@ kernel 8 at a, b (4096, 2816) and g (4096, 1024), kernels 9 and 10 at x (2,
 256, 1024) (serving), (128, 256, 1024) (the distillation teacher) and (16,
 256, 1024) (training), 10 over 77 text keys: their attention cores' shares,
 kernels 11 and 12 at x (16, 256, 1024)), then times cuBLAS alone on kernels
-8, 10, 11 and 12's products.  ``kernels`` runs the tree's ``chip_smoke.kernel_phase`` and
+8, 10, 11 and 12's products, then holds kernels 11 and 12 at the 512px
+trunk's x (2 | 8, 1024, 1024), kv 77, against their plain versions through
+the tree's own ``check_sublayer_bwd`` and splits out their attention core
+(its ``attn_bwd*`` launches) beside its bound and SDPA's forward + backward.  ``kernels`` runs the tree's ``chip_smoke.kernel_phase`` and
 ``backward_kernel_phase`` (every kernel row against its plain version) and
 their launch splits.  ``host``
 times 200 eager calls of kernels 5, 9, 10 and 11 enqueued without a
@@ -163,6 +166,39 @@ def split(tree):
              else (lambda: a @ w) if nn else (lambda: a @ w.t()))  # noqa: B023
         print(f"[product] {label}, the product alone: cuBLAS {C.graph_ms(f) * 1e3:.2f} us",
               flush=True)
+    wide_cores(C, dev, gen)
+
+
+def core_bound_us(batch, heads, queries, keys):
+    """The attention backward core's bound, as chip_smoke's ``core_bound``
+    counts it (a parent tree may not have that function): q, dO, out, dq
+    and k, v, dk, dv of 64 bf16 a head each moved once, six products."""
+    moved = 2 * 64 * batch * heads * 4 * (queries + keys)
+    ops = 6 * 2 * batch * heads * queries * keys * 64
+    t_bytes, t_ops = moved / 3.35e12 * 1e6, ops / 989e12 * 1e6
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wide_cores(C, dev, gen, seq=1024, kv_len=77, heads=16):
+    """Kernels 11 / 12 at x (2 | 8, seq, 1024): each output against the
+    plain version (the tree's check lines), the rows by graph replay, and
+    the attention core alone by launch split."""
+    for batch in (2, 8):
+        cores = []
+        rows = C.check_sublayer_bwd(dev, gen, batch=batch, seq=seq, cores=cores)
+        for name, (ok, err, (ms, plain_ms)) in rows.items():
+            print(f"[wide] {name} x ({batch}, {seq}, 1024): ok {ok} max_abs {err:.3e} kernel "
+                  f"{ms * 1e3:.2f} us plain {plain_ms * 1e3:.2f} us (graph replay)", flush=True)
+        for core in cores:  # (name, batch, heads, [seq,] keys, fn, sdpa_ms)
+            name, keys, fn, sdpa_ms = core[0], core[-3], core[-2], core[-1]
+            split = [(n, us) for n, us in C.launch_split(fn) if n.startswith("attn_bwd")]
+            bound, by = core_bound_us(batch, heads, seq, keys)
+            total = sum(us for _, us in split)
+            print(f"[wide] {name} core x ({batch}, {seq}, 1024) over {keys} keys: "
+                  f"{' + '.join(f'{n} {us:.2f}' for n, us in split) or 'not measured'} = "
+                  f"{total:.2f} us (torch.profiler); bound {bound:.2f} us ({by}), "
+                  f"{total / bound:.2f}x; SDPA forward + backward {sdpa_ms * 1e3:.2f} us, "
+                  f"{total / (sdpa_ms * 1e3):.2f}x", flush=True)
 
 
 def kernels(tree):
