@@ -31,7 +31,8 @@ directly (eager); the token ids of the two must be equal:
 - movq_class: three 256px / batch-1 / 8-step class-id requests with the v1
   transformer of ``configs/imagenet_movq.yaml`` (1025 tokens: kernel 5's
   two-pass variant) and a MOVQ at its published widths, then a MOVQ
-  ``get_code`` round trip (``vq_argmin`` at C 4, K 16384);
+  ``get_code`` round trip (``vq_argmin`` at C 4, K 16384, on its narrow
+  route);
 - movq_text: three 256px / batch-1 / 12-step CFG text requests with the v1
   transformer of ``configs/cc12m_movq.yaml``, a T5 tower at
   google/t5-v1_1-large's widths (bf16 against fp32 first) and the MOVQ;
@@ -219,8 +220,9 @@ def bound_ms(name):
 def zero_counts() -> dict:
     """Every launch counter at 0: the 12 kernels' wrappers, kernel 5's
     two-pass variant counted apart, the kernel 9 / 10 forwards whose
-    attention takes it, and the kernel 11 / 12 backwards whose attention
-    takes the long route (train_512's: every count is checked exactly)."""
+    attention takes it, the kernel 11 / 12 backwards whose attention takes
+    the long route (train_512's) and kernel 6's narrow route (C 4: MOVQ and
+    Paella; every count is checked exactly)."""
     from open_muse_tpu_torch import kernels
 
     return {name: 0 for name in kernels.launch_counts()}
@@ -527,6 +529,22 @@ def bwd_chain_sass() -> bool:
     return ok
 
 
+def vq_narrow_sass() -> bool:
+    """``cuobjdump -sass`` of the built library: kernel 6's narrow route
+    (``vq_narrow_kernel``, both k-step instantiations) runs its products on
+    HGMMA (wgmma) and has no HMMA (mma.sync)."""
+    bodies = {part.split("\n", 1)[0].strip(): part
+              for part in re.split(r"\n\s*Function : ", _library_sass())[1:]}
+    narrow = {n: b for n, b in bodies.items() if "vq_narrow_kernel" in n}
+    hmma = [n for n, b in narrow.items() if re.search(r"\bHMMA\.", b)]
+    no_hgmma = [n for n, b in narrow.items() if "HGMMA" not in b]
+    ok = len(narrow) == 2 and not hmma and not no_hgmma
+    log(f"[sass] kernel 6's narrow route: {len(narrow)} instantiations of vq_narrow_kernel; with "
+        f"HMMA (mma.sync): {hmma or 'none'}; without HGMMA (wgmma): {no_hgmma or 'none'} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 @functools.lru_cache(maxsize=None)
 def philox_call_instructions(cfg: bool):
     """Per-lane SASS instructions of one Philox4x32-10 call in the timed
@@ -753,26 +771,35 @@ def check_samplers_movq(device, gen):
 # rows) and one 256px inpainting request, against the taming VQGAN's
 # 8192-code codebook; one 256px class-id inpainting request against the
 # MaskGIT VQGAN's 1024 codes, and the class trainer's batch of 64 against
-# them; at C 4 (padded to 64 in the split): the MOVQ round trip of 4 images
-# (32 x 32 latents) against its 16384 codes, and the Paella's (64 x 64
-# latents) of a pre-encode batch of 64 against its 8192; the VQGAN trainer's
-# batch of 8 (16 x 16 latents) against configs/vqgan_gan.yaml's 1024 codes
+# them; at C 4 (the narrow route): the MOVQ round trip of 4 images (32 x 32
+# latents) against its 16384 codes, the Paella's (64 x 64 latents) of a
+# pre-encode batch of 64 against its 8192, and train_movq_class's batch of
+# 16 against the MOVQ's 16384; the VQGAN trainer's batch of 8 (16 x 16
+# latents) against configs/vqgan_gan.yaml's 1024 codes
 VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
              "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192),
              "train_class": (64 * 256, 256, 1024), "movq_class": (4 * 1024, 4, 16384),
-             "paella": (64 * 4096, 4, 8192), "vqgan_train": (8 * 256, 256, 1024)}
+             "paella": (64 * 4096, 4, 8192), "vqgan_train": (8 * 256, 256, 1024),
+             "train_movq_class": (16 * 1024, 4, 16384)}
 VQ_RTOL = 1e-5
+# one comparison a lane a clock, the floor of the narrow route's per-score
+# minimum: 132 SMs x 128 fp32 lanes x the 1.98 GHz boost clock
+COMPARES_PER_S = 132 * 128 * 1.98e9
 
 
 def check_vq(device, gen, splits=None):
-    """vq_argmin against vq_argmin_plain in fp32, TF32 off, at both path
-    shapes: ids equal except at rows whose two best plain scores lie within
+    """vq_argmin against vq_argmin_plain in fp32, TF32 off, at every path
+    shape: ids equal except at rows whose two best plain scores lie within
     VQ_RTOL of the squared distances' scale, where the kernel's pick is
-    within that of the minimum; two calls bit-equal.  Appends both calls to
-    ``splits`` (the split pass, the GEMM, the unpack by launch); at the
-    pre-encode shape, the products alone beside cuBLAS."""
-    from open_muse_tpu_torch.kernels.vq_argmin import (SPLIT_PRODUCTS, vq_argmin, vq_argmin_plain,
-                                                       vq_near_ties, vq_split)
+    within that of the minimum; two calls bit-equal; C up to NARROW_MAX_C
+    on the narrow route, wider C on the split route (its counter).  Appends
+    every call to ``splits`` (its launches: the split pass, the GEMM, the
+    unpack; or the pack pass and the narrow kernel); at the pre-encode
+    shape, the products alone beside cuBLAS."""
+    from open_muse_tpu_torch import kernels
+    from open_muse_tpu_torch.kernels.vq_argmin import (NARROW_MAX_C, SPLIT_PRODUCTS, vq_argmin,
+                                                       vq_argmin_plain, vq_near_ties, vq_route,
+                                                       vq_split)
 
     ok, timing, worst = True, None, 0.0
     for path, (n, c, k) in VQ_SHAPES.items():
@@ -780,17 +807,23 @@ def check_vq(device, gen, splits=None):
         # and its codebook are
         z = torch.randn(n, c, generator=gen).to(device)
         cb = torch.randn(k, c, generator=gen).to(device)
+        narrow = vq_route(n, c, k)[0]
+        route = "narrow" if narrow else "split"
+        before = kernels.vq_argmin_narrow.launches
         ids = vq_argmin(z, cb)
         again = vq_argmin(z, cb)
+        route_ok = (narrow == (c <= NARROW_MAX_C)
+                    and kernels.vq_argmin_narrow.launches - before == 2 * narrow)
         ref = vq_argmin_plain(z, cb)
         near, gap, over = vq_near_ties(ids, z, cb, VQ_RTOL)
         differ = ids != ref
-        case_ok = (torch.equal(ids, again) and bool((~differ | near).all())
+        case_ok = (torch.equal(ids, again) and bool((~differ | near).all()) and route_ok
                    and bool((over[differ] <= 0).all()) and bool(((ids >= 0) & (ids < k)).all()))
         ok &= case_ok
         picked = max(over.max().item() + VQ_RTOL, 0.0)  # the kernel's pick above the minimum
         worst = max(worst, picked)
-        log(f"[kernel] vq_argmin z ({n}, {c}) codebook ({k}, {c}) fp32 ({path}): "
+        log(f"[kernel] vq_argmin ({route} route{', as its counter says' if route_ok else ''}) "
+            f"z ({n}, {c}) codebook ({k}, {c}) fp32 ({path}): "
             f"{int(differ.sum())} of {n} ids differ from plain, all at near-ties "
             f"{bool((~differ | near).all())}; {int(near.sum())} rows whose best two plain scores "
             f"lie within {VQ_RTOL} of the scale (|z|^2 + max |e|^2), smallest gap "
@@ -800,12 +833,16 @@ def check_vq(device, gen, splits=None):
         ms = (graph_ms(lambda: vq_argmin(z, cb), reps=10, trials=5),
               graph_ms(lambda: vq_argmin_plain(z, cb), reps=10, trials=5))
         split_ops = 12 * n * k * c  # the six bf16 products
-        log(f"[time] vq_argmin ({path}, N {n}): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms "
-            f"(median, CUDA graph replay); bound {split_ops / PEAK_OPS_PER_S['bf16'] * 1e3:.4f} "
-            f"ms (the split route: 12NKC bf16 operations), "
+        bound, bound_by = bound_of(nbytes(z, cb, ids), split_ops, "bf16")
+        floor = n * k / COMPARES_PER_S * 1e3
+        log(f"[time] vq_argmin ({route} route; {path}, N {n}): kernel {ms[0]:.4f} ms, plain "
+            f"{ms[1]:.4f} ms (median, CUDA graph replay); bound {bound:.4f} ms ({bound_by}: the "
+            f"six part products' 12NKC bf16 operations, or bytes); the per-score minimum's "
+            f"floor {floor:.4f} ms (NK comparisons, one a lane a clock), "
+            f"{'below' if floor < bound else 'above'} the bound; "
             f"{2 * n * k * c / PEAK_OPS_PER_S['fp32'] * 1e3:.4f} ms for fp32 FMA (2NKC)")
         if splits is not None:
-            splits.append((f"vq_argmin z ({n}, {c}) codebook ({k}, {c}) ({path})",
+            splits.append((f"vq_argmin ({route} route) z ({n}, {c}) codebook ({k}, {c}) ({path})",
                            functools.partial(vq_argmin, z, cb)))
         if timing is None:  # the pre-encode shape is the kernel's row in the report
             timing = ms
@@ -1874,7 +1911,7 @@ def movq_round_trip(vae, device, smi, n=4):
     images = vae.decode_code(ids)
     finite = bool(torch.isfinite(images).all())
     ok = (ids_ok and finite and tuple(images.shape) == (n, 256, 256, 3)
-          and launches == {**zero_counts(), "vq_argmin": 1})
+          and launches == {**zero_counts(), "vq_argmin": 1, "vq_argmin_narrow": 1})
     log(f"[movq_class] get_code round trip of {n} seeded 256px images: ids {tuple(ids.shape)}, "
         f"{int(differ.sum())} of {flat.numel()} differ from the all-plain search, all at "
         f"near-ties {ids_ok}; decode_code {tuple(images.shape)} finite {finite}; launches "
@@ -2250,7 +2287,9 @@ def paella_phase(device, smi):
         argv = ["--shards", shard, "--output-dir", out, "--vae-f16", f16_dir, "--vae-f8", f8_dir,
                 "--batch-size", str(PRE_ENCODE_BATCH), "--resolution", "256", "--device", "cuda"]
         log(f"[paella] arguments {' '.join(argv)}")
-        expected = {**zero_counts(), "vq_argmin": 2 * PRE_ENCODE_IMAGES // PRE_ENCODE_BATCH}
+        # twice a batch, the f8 Paella's C 4 on the narrow route
+        expected = {**zero_counts(), "vq_argmin": 2 * PRE_ENCODE_IMAGES // PRE_ENCODE_BATCH,
+                    "vq_argmin_narrow": PRE_ENCODE_IMAGES // PRE_ENCODE_BATCH}
 
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -4255,6 +4294,7 @@ def train_movq_class_phase(device, smi):
             f"hidden_dropout {tcfg['hidden_dropout']}, use_ema {config.training.use_ema}, "
             f"{config.training.mixed_precision}")
         expected = class_launches(tcfg, V1_STEPS, 1)
+        expected["vq_argmin_narrow"] = expected["vq_argmin"]  # the MOVQ's C 4
         state, launches, median, peak, capture, ok = _v1_run(
             "train_movq_class", train_maskgit_imagenet, argv, out, expected, V1_STEPS)
         panel_ok = os.path.isfile(os.path.join(out, f"samples-{V1_STEPS}.png"))
@@ -4374,8 +4414,9 @@ PTXAS_KERNELS = ("wgmma_gemm_kernel", "glu_product_kernel", "rmsnorm_adaln_rows_
                  "attn_bwd_wgmma_kernel", "attn_bwd_rows_kernel", "attn_bwd_rows_short_kernel",
                  "attn_bwd_cols_kernel",
                  "rms_adaln_bwd_rows_kernel",
-                 "sample_kernel", "vq_split_kernel", "two_pass_kernel", "two_pass_wgmma_kernel",
-                 "one_pass_wgmma_kernel", "register_row_kernel")
+                 "sample_kernel", "vq_split_kernel", "vq_pack_kernel", "vq_narrow_kernel",
+                 "two_pass_kernel", "two_pass_wgmma_kernel", "one_pass_wgmma_kernel",
+                 "register_row_kernel")
 
 
 def ptxas_report(build_log: str, names):
@@ -5455,6 +5496,8 @@ def main() -> int:
     failed = [name for name, (ok, _, _) in report.items() if not ok]
     if not bwd_chain_sass():
         failed.append("mma.sync in the sublayer backward's chain")
+    if not vq_narrow_sass():
+        failed.append("kernel 6's narrow route off wgmma")
     if not teacher_shapes(device):
         failed.append("kernels 4, 7, 9, 10 at the distillation teacher's shapes")
     kernels.reset_launch_counts()
@@ -5604,9 +5647,15 @@ def main() -> int:
             rows[-1]["long_route_launches_with_11_and_12_by_path"] = {
                 path: p["attn_sublayer_bwd_long"] for path, p in paths.items()}
             rows[-1]["long_route_launches_in_its_check"] = LONG_CHECK.get(name, 0)
+        if name == "vq_argmin":  # its routes counted apart: C up to 10 the narrow route
+            narrow = {path: p.get("vq_argmin_narrow", 0) for path, p in paths.items()}
+            rows[-1]["launches_by_route"] = {"narrow": sum(narrow.values()),
+                                             "split": rows[-1]["launches"] - sum(narrow.values())}
+            rows[-1]["narrow_launches_by_path"] = narrow
     missing = [r["name"] for r in rows if r["launches"] == 0]
     missing += [f"{r['name']} ({variant})" for r in rows
-                for variant, n in r.get("launches_by_variant", {}).items() if n == 0]
+                for variant, n in {**r.get("launches_by_variant", {}),
+                                   **r.get("launches_by_route", {})}.items() if n == 0]
     if missing:
         failed.append(f"kernels never launched on a path: {missing}")
     print(smi)

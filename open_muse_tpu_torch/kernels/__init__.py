@@ -8,7 +8,8 @@ counts its launches in a plain integer attribute, ``wrapper.launches``;
 one-pass kernel holds), ``attn_sublayer_two_pass`` the sublayer forwards
 whose attention takes it, ``attn_sublayer_bwd_long`` the sublayer backwards
 whose attention takes the long route (more than 288 queries or 256 keys:
-two wgmma kernels, rows then columns).
+two wgmma kernels, rows then columns), ``vq_argmin_narrow`` the
+``vq_argmin`` launches that take its narrow route (C up to 10).
 The forward wrappers are ``torch.autograd.Function``s whose backward is the
 matching backward wrapper, so one Function runs the plain versions on the
 CPU and the kernels on the card in both directions.  The fused norms and
@@ -87,20 +88,20 @@ from .flash_attention import flash_attention, flash_attention_two_pass  # noqa: 
 from .fused_norm import fused_residual_layernorm, fused_residual_rmsnorm  # noqa: E402
 from .fused_sample import fused_categorical, fused_categorical_cfg  # noqa: E402
 from .glu_matmul import glu_down_matmul, glu_down_matmul_bwd  # noqa: E402
-from .vq_argmin import vq_argmin  # noqa: E402
+from .vq_argmin import vq_argmin, vq_argmin_narrow  # noqa: E402
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts", "glu_down_matmul",
            "glu_down_matmul_bwd", "attn_sublayer_self", "attn_sublayer_self_bwd",
            "attn_sublayer_cross", "attn_sublayer_cross_bwd", "fused_categorical_cfg",
            "fused_categorical", "vq_argmin", "fused_residual_rmsnorm", "fused_residual_layernorm",
            "flash_attention", "flash_attention_two_pass", "attn_sublayer_two_pass",
-           "attn_sublayer_bwd_long", "LaunchCounter"]
+           "attn_sublayer_bwd_long", "vq_argmin_narrow", "LaunchCounter"]
 
 WRAPPERS = (attn_sublayer_self, attn_sublayer_cross, glu_down_matmul,
             fused_categorical_cfg, attn_sublayer_self_bwd, attn_sublayer_cross_bwd,
             glu_down_matmul_bwd, fused_categorical, vq_argmin, fused_residual_rmsnorm,
             fused_residual_layernorm, flash_attention, flash_attention_two_pass,
-            attn_sublayer_two_pass, attn_sublayer_bwd_long)
+            attn_sublayer_two_pass, attn_sublayer_bwd_long, vq_argmin_narrow)
 
 
 def launch_counts() -> dict:

@@ -5,26 +5,42 @@ Counterpart of ``open_muse_tpu/ops/pallas/vq_argmin.py vq_argmin``: for z
 row norm |z|^2 does not change the argmin and is dropped), the earliest
 index on ties.  Any N, C and K.
 
-On the card the products run on the bf16 tensor cores with fp32's accuracy:
-a split pass writes each operand as three bf16 parts side by side
-(``vq_split_plain`` is its plain twin), and one GEMM sums the six part
-products that carry fp32's bits (``vq_split_scores_plain``), its epilogue
-taking the row minima.
+On the card the products run on the bf16 tensor cores with fp32's accuracy,
+by one of two routes that the C source chooses on C alone (``vq_route``
+reads the rule and the route's scratch from the built library):
+
+- the split route (C above ``NARROW_MAX_C``): a split pass writes each
+  operand as three bf16 parts side by side (``vq_split_plain`` is its plain
+  twin), and one GEMM sums the six part products that carry fp32's bits
+  (``vq_split_scores_plain``), its epilogue taking the row minima;
+- the narrow route (C 1 - ``NARROW_MAX_C``: the MOVQ and Paella latents'
+  4): the six part spans side by side along one K of ``packed_width(C)``
+  (32 at C 4), e_sq folded in as three more columns
+  (``vq_pack_plain``, ``vq_packed_scores_plain``), the row minima taken from
+  the accumulators in registers.  ``vq_argmin_narrow`` counts its launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import on_cpu, require_cuda, stream_handle
+from . import LaunchCounter, on_cpu, require_cuda, stream_handle
 from ._build import check, library
 
 __all__ = ["vq_argmin", "vq_argmin_plain", "vq_scores", "vq_near_ties", "vq_split",
-           "vq_split_plain", "vq_split_scores_plain", "SPLIT_PRODUCTS"]
+           "vq_split_plain", "vq_split_scores_plain", "SPLIT_PRODUCTS", "NARROW_MAX_C",
+           "packed_width", "vq_pack", "vq_pack_plain", "vq_packed_scores_plain", "vq_route",
+           "vq_argmin_narrow"]
 
 # the (z part, codebook part) pairs the product sums, 0 hi, 1 mid, 2 lo:
 # hi.hi, hi.mid, mid.hi, hi.lo, mid.mid, lo.hi
 SPLIT_PRODUCTS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+# the widest latents the narrow route takes (csrc/vq_argmin.cu narrow::kMaxC)
+NARROW_MAX_C = 10
+# the vq_argmin launches that take the narrow route
+vq_argmin_narrow = LaunchCounter("vq_argmin_narrow")
 
 
 def vq_scores(z, codebook):
@@ -97,6 +113,83 @@ def vq_split_scores_plain(z, codebook):
     return codebook.float().square().sum(1)[None] + dots[:, :k]
 
 
+def packed_width(c: int) -> int:
+    """The narrow route's K: six C-wide spans and e_sq's three parts,
+    rounded up to 32 (csrc/vq_argmin.cu narrow::width)."""
+    return -(-(6 * c + 3) // 32) * 32
+
+
+def _pack_codebook(codebook):
+    """B of ``vq_pack_plain``: the codebook's spans, then e_sq's parts."""
+    k, c = codebook.shape
+    if not 1 <= c <= NARROW_MAX_C:
+        raise ValueError(f"vq_pack: C {c} outside the narrow route's 1 - {NARROW_MAX_C}")
+    cb = codebook.float()
+    e_sq = torch.zeros(k, dtype=torch.float32, device=cb.device)
+    for j in range(c):  # each product and sum rounded to fp32, as the kernel sums
+        e_sq = e_sq + cb[:, j] * cb[:, j]
+    parts = _split_parts(cb)
+    b = torch.zeros(k, packed_width(c), dtype=torch.bfloat16, device=cb.device)
+    for s, (_, pb) in enumerate(SPLIT_PRODUCTS):
+        b[:, s * c:(s + 1) * c] = parts[pb]
+    b[:, 6 * c:6 * c + 3] = torch.stack(_split_parts(e_sq), dim=1)
+    return b
+
+
+def vq_pack_plain(z, codebook):
+    """The narrow route's operands: z (N, C), codebook (K, C) -> A (N, W)
+    and B (K, W) bf16, W = packed_width(C).  Span s (C columns) of A holds
+    part SPLIT_PRODUCTS[s][0] of -2 z and of B part SPLIT_PRODUCTS[s][1] of
+    the codebook; then A (1, 1, 1) against B's three parts of e_sq (|e|^2
+    summed in fp32 in column order); zeros after.  The card builds B in its
+    pack pass and A in registers."""
+    b = _pack_codebook(codebook)
+    n, c = z.shape
+    parts = _split_parts(-2 * z.float())
+    a = torch.zeros(n, b.shape[1], dtype=torch.bfloat16, device=z.device)
+    for s, (pa, _) in enumerate(SPLIT_PRODUCTS):
+        a[:, s * c:(s + 1) * c] = parts[pa]
+    a[:, 6 * c:6 * c + 3] = 1
+    return a, b
+
+
+def vq_packed_scores_plain(z, codebook):
+    """The (N, K) scores of the narrow route in fp32: A B^T of the packed
+    operands, e_sq included (bf16 x bf16 products are exact in fp32; the
+    sum's order is not the tensor cores')."""
+    a, b = vq_pack_plain(z, codebook)
+    return a.float() @ b.float().t()
+
+
+def vq_route(n: int, c: int, k: int):
+    """(narrow, scratch) for a search of (N, C) latents over K codes, by the
+    rule in csrc/vq_argmin.cu (read from the built library: the rule lives
+    in C alone); scratch: the element counts of z' and cb' (bf16) and of
+    best (int64) that the route takes."""
+    counts = (ctypes.c_int64 * 3)()
+    route = library().muse_vq_route(n, c, k, counts)
+    if route < 0:
+        raise ValueError(f"vq_argmin: empty shape N {n}, C {c}, K {k}")
+    return bool(route), tuple(counts)
+
+
+def vq_pack(codebook):
+    """The narrow route's pack pass alone, as ``vq_argmin`` runs it on the
+    card (for the tests; no path calls it): B of ``vq_pack_plain`` for CPU
+    tensors."""
+    if on_cpu(codebook):
+        return _pack_codebook(codebook)
+    codebook = codebook.float().contiguous()
+    require_cuda("vq_pack", (torch.float32,), codebook)
+    k, c = codebook.shape
+    if not 1 <= c <= NARROW_MAX_C:
+        raise ValueError(f"vq_pack: C {c} outside the narrow route's 1 - {NARROW_MAX_C}")
+    out = torch.empty(k, packed_width(c), dtype=torch.bfloat16, device=codebook.device)
+    check(library().muse_vq_pack(codebook.data_ptr(), k, c, out.data_ptr(),
+                                 stream_handle(codebook)), "vq_pack")
+    return out
+
+
 def vq_split(z, codebook):
     """The split pass alone, as ``vq_argmin`` runs it on the card (for the
     tests; no path calls it): ``vq_split_plain`` for CPU tensors."""
@@ -126,17 +219,19 @@ def vq_argmin(z, codebook):
     codebook = codebook.float().contiguous()
     require_cuda("vq_argmin", (torch.float32,), z, codebook)
     (n, c), k = z.shape, codebook.shape[0]
-    cp, kp = _split_shapes(c, k)
-    e_sq = codebook.square().sum(1)
+    narrow, (zp_n, cbp_n, best_n) = vq_route(n, c, k)
+    e_sq = None if narrow else codebook.square().sum(1)  # the narrow route packs its own
     ids = torch.empty(n, dtype=torch.int32, device=z.device)
-    best = torch.empty(n, dtype=torch.int64, device=z.device)  # packed (score, id) scratch
-    zp = torch.empty(n, 3 * cp, dtype=torch.bfloat16, device=z.device)  # the split operands
-    cbp = torch.empty(kp, 3 * cp, dtype=torch.bfloat16, device=z.device)
-    check(library().muse_vq_argmin(z.data_ptr(), codebook.data_ptr(), e_sq.data_ptr(), n, c,
-                                   k, zp.data_ptr(), cbp.data_ptr(), best.data_ptr(),
+    best = torch.empty(best_n, dtype=torch.int64, device=z.device)  # packed (score, id) scratch
+    zp = torch.empty(zp_n, dtype=torch.bfloat16, device=z.device)  # the split operands
+    cbp = torch.empty(cbp_n, dtype=torch.bfloat16, device=z.device)
+    check(library().muse_vq_argmin(z.data_ptr(), codebook.data_ptr(),
+                                   None if e_sq is None else e_sq.data_ptr(), n, c, k,
+                                   zp.data_ptr(), cbp.data_ptr(), best.data_ptr(),
                                    ids.data_ptr(), stream_handle(z)),
           "vq_argmin")
     vq_argmin.launches += 1
+    vq_argmin_narrow.launches += int(narrow)
     return ids
 
 

@@ -18,7 +18,8 @@ from open_muse_tpu_torch import kernels
 from open_muse_tpu_torch.kernels import attn_sublayer as A
 from open_muse_tpu_torch.kernels.fused_sample import (draw_seed, fused_categorical_cfg_plain,
                                                       fused_categorical_plain, philox_gumbel_plain)
-from open_muse_tpu_torch.kernels.vq_argmin import (vq_argmin_plain, vq_near_ties, vq_split,
+from open_muse_tpu_torch.kernels.vq_argmin import (NARROW_MAX_C, vq_argmin_plain, vq_near_ties,
+                                                   vq_pack, vq_pack_plain, vq_split,
                                                    vq_split_plain)
 from open_muse_tpu_torch.kernels.glu_matmul import (glu_down_matmul_bwd_plain,
                                                     glu_down_matmul_plain)
@@ -251,25 +252,62 @@ def test_vq_split_kernel_matches_plain(device, n, c, k):
 
 @pytest.mark.parametrize("n,c,k", [(256, 256, 8192), (1000, 100, 3000), (5, 7, 130),
                                    (512, 256, 8191), (300, 37, 1000), (4096, 4, 16384),
-                                   (2000, 4, 8192), (2048, 256, 1024)])
+                                   (2000, 4, 8192), (2048, 256, 1024), (16384, 4, 16384),
+                                   (1000, 10, 3001), (1000, 11, 3001), (5, 4, 131),
+                                   (1000, 4, 2049), (777, 3, 99), (64, 1, 16384)])
 def test_vq_argmin_kernel_matches_plain(device, n, c, k):
     """fp32, TF32 off: ids equal except at rows whose two best plain scores
     lie within 1e-5 of the squared distances' scale (the split product's
     roundings and summation order), where the kernel's pick is within that
     of the minimum; two calls bit-equal; ragged rows, an odd codebook, C
-    not a multiple of 8, the MOVQ / Paella latents' C 4, and the VQGAN
-    trainer's batch of 8 x 16 x 16 latents against its 1024 codes."""
+    not a multiple of 8, the MOVQ / Paella latents' C 4 (train_movq_class's
+    16 x 1024 rows against 16384 codes among them), both sides of the
+    narrow route's bound, fewer rows than one 64-row tile and rows not a
+    multiple of the narrow route's 512, odd K, and the VQGAN trainer's batch
+    of 8 x 16 x 16 latents against its 1024 codes.  C up to NARROW_MAX_C
+    takes the narrow route, wider C the split route (the route counter)."""
     gen = torch.Generator().manual_seed(n)
     z = torch.randn(n, c, generator=gen).to(device)
     cb = torch.randn(k, c, generator=gen).to(device)
-    before = kernels.vq_argmin.launches
+    before, narrow = kernels.vq_argmin.launches, kernels.vq_argmin_narrow.launches
     ids = kernels.vq_argmin(z, cb)
     assert kernels.vq_argmin.launches == before + 1
+    assert kernels.vq_argmin_narrow.launches == narrow + (c <= NARROW_MAX_C)
     assert torch.equal(ids, kernels.vq_argmin(z, cb))
     ref = vq_argmin_plain(z, cb)
     near, _, pick_gap = vq_near_ties(ids, z, cb)
     assert bool(((ids == ref) | near).all())
     assert bool((pick_gap[ids != ref] <= 0).all())
+
+
+@pytest.mark.parametrize("c,k", [(4, 16384), (3, 131), (10, 1001), (1, 7)])
+def test_vq_pack_kernel_matches_plain(device, c, k):
+    """The narrow route's pack pass bit-equal to ``vq_pack_plain``'s B: the
+    spans' round-to-nearest parts, e_sq summed in column order with each
+    product and sum rounded, zeros after."""
+    gen = torch.Generator().manual_seed(k)
+    cb = torch.randn(k, c, generator=gen)
+    _, want = vq_pack_plain(cb[:1], cb)
+    assert torch.equal(vq_pack(cb.to(device)).cpu(), want)
+
+
+@pytest.mark.parametrize("c", [4, 10])
+def test_vq_argmin_duplicate_codes_take_the_earlier_index(device, c):
+    """A codebook whose codes 0 - 99 reappear at 8000 - 8099, in other code
+    tiles and code ranges; each row lies next to one duplicated code: its id
+    is the earlier copy's, as the plain search's first minimum, whether a
+    row's codes are split over many blocks (64 rows), a few (20000) or none
+    (70000 rows: more row blocks of 512 than the card has SMs)."""
+    gen = torch.Generator().manual_seed(c)
+    cb = torch.randn(8192, c, generator=gen)
+    cb[8000:8100] = cb[:100]
+    cb = cb.to(device)
+    for n in (64, 20000, 70000):
+        pick = torch.randint(0, 100, (n,), generator=gen)
+        z = (cb.cpu()[pick] + 1e-3 * torch.randn(n, c, generator=gen)).to(device)
+        ids = kernels.vq_argmin(z, cb)
+        assert torch.equal(ids, vq_argmin_plain(z, cb))
+        assert torch.equal(ids.cpu(), pick.to(torch.int32))
 
 
 # -- backward kernels ------------------------------------------------------------

@@ -1,13 +1,17 @@
 """The arithmetic of the redesigned ``vq_argmin`` and sampler kernels, on the
-CPU: the split-bf16 product of the codebook search against the JAX kernel
-(interpret mode), and the Philox4x32-10 stream of the sampler against
-Random123's published known answers.
+CPU: the split-bf16 product of the codebook search (both routes: the split
+GEMM's and the narrow route's K-packed product) against the JAX kernel
+(interpret mode), the narrow route's rule against the C source, and the
+Philox4x32-10 stream of the sampler against Random123's published known
+answers.
 
 The card's kernels are held against these plain twins in
 ``tests/test_torch_cuda.py``.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,8 +21,13 @@ import torch
 from open_muse_tpu.ops.pallas.vq_argmin import vq_argmin as jax_vq_argmin
 from open_muse_tpu_torch.kernels.fused_sample import (draw_seed, philox4x32_plain,
                                                       philox_gumbel_plain)
-from open_muse_tpu_torch.kernels.vq_argmin import (vq_near_ties, vq_split_plain,
+from open_muse_tpu_torch.kernels.vq_argmin import (NARROW_MAX_C, SPLIT_PRODUCTS, packed_width,
+                                                   vq_near_ties, vq_pack_plain,
+                                                   vq_packed_scores_plain, vq_split_plain,
                                                    vq_split_scores_plain)
+
+CSRC = (Path(__file__).resolve().parent.parent / "open_muse_tpu_torch" / "csrc"
+        / "vq_argmin.cu").read_text()
 
 
 @pytest.fixture(autouse=True)
@@ -62,23 +71,80 @@ def test_vq_split_plain_parts(n, c, k):
     assert not bool(cbp.float()[k:].any())
 
 
-@pytest.mark.parametrize("n,c,k", [(300, 16, 1024), (2048, 32, 2048), (1500, 8, 3072)])
+@pytest.mark.parametrize("n,c,k", [(300, 16, 1024), (2048, 32, 2048), (1500, 8, 3072),
+                                   (512, 4, 2048), (300, 3, 1024), (256, 11, 1024)])
 def test_split_route_matches_jax_kernel(fp32_products, n, c, k):
     """The kernel's route on the CPU -- the split parts, their six products
-    summed in fp32 (bf16 x bf16 products are exact there), e_sq added, the
-    first minimum -- against the JAX kernel in interpret mode at
-    test_torch_encode's shapes: ids equal except at rows whose two best
-    plain fp32 scores lie within 1e-5 of the squared distances' scale, where
-    the pick lies within that of the minimum."""
+    summed in fp32 (bf16 x bf16 products are exact there), e_sq added (up to
+    NARROW_MAX_C channels the narrow route's K-packed product, e_sq folded
+    in as three more columns), the first minimum -- against the JAX kernel
+    in interpret mode at test_torch_encode's shapes, the MOVQ / Paella
+    latents' C 4, C 3 and either side of the narrow route's bound: ids equal
+    except at rows whose two best plain fp32 scores lie within 1e-5 of the
+    squared distances' scale, where the pick lies within that of the
+    minimum."""
     z, cb = _latents(n + k, n, c, k)
     want = torch.from_numpy(np.array(jax_vq_argmin(jnp.asarray(z), jnp.asarray(cb),
                                                    interpret=True))).to(torch.int32)
     z, cb = torch.from_numpy(z), torch.from_numpy(cb)
-    got = torch.argmin(vq_split_scores_plain(z, cb), dim=1).to(torch.int32)
+    twin = vq_packed_scores_plain if c <= NARROW_MAX_C else vq_split_scores_plain
+    got = torch.argmin(twin(z, cb), dim=1).to(torch.int32)
     near, _, over = vq_near_ties(got, z, cb, 1e-5)
     differ = got != want
     assert bool((~differ | near).all())
     assert bool((over[differ] <= 0).all())
+
+
+@pytest.mark.parametrize("n,c,k", [(300, 4, 1024), (5, 3, 131), (64, 10, 257), (7, 1, 10)])
+def test_vq_pack_plain_parts(n, c, k):
+    """The narrow route's K-packed operands, packed_width(C) wide: span s of
+    A and of B is part SPLIT_PRODUCTS[s] of -2 z and of the codebook,
+    bit-equal to the split pass's parts; A's next three columns are 1 and
+    B's the three parts of e_sq (|e|^2 in fp32 in column order), which carry
+    it to 2^-23; zeros after.  So A B^T in fp64 is the six part products'
+    sum plus e_sq's parts, exactly."""
+    z, cb = (torch.from_numpy(x) for x in _latents(n + k + c, n, c, k))
+    a, b = vq_pack_plain(z, cb)
+    w = packed_width(c)
+    assert a.shape == (n, w) and b.shape == (k, w) and a.dtype == b.dtype == torch.bfloat16
+    zp, cbp = vq_split_plain(z, cb)
+    cp = zp.shape[1] // 3
+    for s, (pa, pb) in enumerate(SPLIT_PRODUCTS):
+        assert torch.equal(a[:, s * c:(s + 1) * c], zp[:, pa * cp:pa * cp + c])
+        assert torch.equal(b[:, s * c:(s + 1) * c], cbp[:k, pb * cp:pb * cp + c])
+    assert bool((a[:, 6 * c:6 * c + 3].float() == 1).all())
+    e_sq = torch.zeros(k)
+    for j in range(c):
+        e_sq = e_sq + cb[:, j] * cb[:, j]
+    parts = b[:, 6 * c:6 * c + 3].double()
+    assert bool(((parts.sum(1) - e_sq.double()).abs() <= 2.0 ** -23 * e_sq.double()).all())
+    assert not bool(a[:, 6 * c + 3:].float().any()) and not bool(b[:, 6 * c + 3:].float().any())
+    six = sum(zp[:, pa * cp:pa * cp + c].double() @ cbp[:k, pb * cp:pb * cp + c].double().t()
+              for pa, pb in SPLIT_PRODUCTS)
+    assert torch.equal(a.double() @ b.double().t(), six + parts.sum(1)[None])
+
+
+def _narrow_constant(name):
+    body = CSRC[CSRC.index("namespace narrow {"):CSRC.index("}  // namespace narrow")]
+    return int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
+
+
+@pytest.mark.parametrize("c,narrow", [(1, True), (4, True), (5, True), (NARROW_MAX_C, True),
+                                      (NARROW_MAX_C + 1, False), (256, False)])
+def test_narrow_route_rule_is_the_c_source(c, narrow):
+    """The route is the C source's alone (``narrow::takes``, answered by
+    ``muse_vq_route`` and taken by ``muse_vq_argmin``): C 1 - kMaxC narrow,
+    wider C the split route.  The Python side's bound and packed width are
+    the C constants and formula, and the bound is the widest C whose packed
+    K fits the one 128-byte TMA row (64 bf16) the kernel reads."""
+    assert _narrow_constant("kMaxC") == NARROW_MAX_C == 10
+    assert "constexpr bool takes(int C) { return C >= 1 && C <= kMaxC; }" in CSRC
+    assert "constexpr int width(int C) { return (6 * C + 3 + 31) / 32 * 32; }" in CSRC
+    assert CSRC.count("if (narrow::takes(C))") == 2  # muse_vq_route and muse_vq_argmin
+    assert 6 * NARROW_MAX_C + 3 <= 64 < 6 * (NARROW_MAX_C + 1) + 3
+    assert (1 <= c <= NARROW_MAX_C) == narrow
+    if narrow:
+        assert packed_width(c) == (6 * c + 3 + 31) // 32 * 32 == (32 if c <= 4 else 64)
 
 
 # -- the Philox stream of the sampler ------------------------------------------

@@ -7,6 +7,7 @@ into a git-ignored directory, so that both run in one chip call):
     python3 tools/chip_measure.py host TREE     # host enqueue cost a call
     python3 tools/chip_measure.py serving TREE  # request latency around a profile
     python3 tools/chip_measure.py attn_norm TREE  # kernel 5 and SDPA, kernels 1 / 2 wide
+    python3 tools/chip_measure.py vq TREE       # kernel 6 alone, at VQ_SHAPES
 
 ``split`` times the samplers (kernels 3 and 4, the Philox route at the
 serving shape), ``vq_argmin`` (kernel 6, at the pre-encode and inpainting
@@ -35,7 +36,12 @@ rule takes) beside SDPA, with each one's error against the plain version,
 its bound (bytes or two products) and its MUFU floor (two exponentials a
 score, 16 a clock an SM),
 and kernels 1 and 2 at NORM_SHAPES in both stagings beside F.rms_norm /
-F.layer_norm.
+F.layer_norm.  ``vq`` prints ptxas's report of kernel 6's entries, then
+holds kernel 6 at VQ_SHAPES against its plain version (ids equal but at
+near-ties, two calls bit-equal), times it by graph replay beside its bound
+(12 N K C bf16 operations or bytes, the larger), the floor of its per-score
+minimum (N K comparisons, one a lane a clock) and the plain search, and
+splits each call by launch.
 """
 
 from __future__ import annotations
@@ -373,13 +379,62 @@ def attn_norm(tree):
                       f"{C.graph_ms(lib) * 1e3:.2f} us", flush=True)
 
 
+# kernel 6 (N, C, K): chip_smoke.py's VQ_SHAPES, train_movq_class's 16 x
+# 1024 MOVQ latents among them, here so that a parent tree is timed at the
+# same shapes
+VQ_SHAPES = {"pre_encode": (64 * 256, 256, 8192), "inpainting": (256, 256, 8192),
+             "class_inpainting": (256, 256, 1024), "train_raw": (16 * 256, 256, 8192),
+             "train_class": (64 * 256, 256, 1024), "movq_class": (4 * 1024, 4, 16384),
+             "paella": (64 * 4096, 4, 8192), "vqgan_train": (8 * 256, 256, 1024),
+             "train_movq_class": (16 * 1024, 4, 16384)}
+# one comparison a lane a clock: 132 SMs x 128 fp32 lanes x the 1.98 GHz boost clock
+COMPARES_PER_S = 132 * 128 * 1.98e9
+
+
+def vq(tree):
+    tree, C = _load(tree)
+    from open_muse_tpu_torch.kernels import _build
+    from open_muse_tpu_torch.kernels.vq_argmin import vq_argmin, vq_argmin_plain, vq_near_ties
+
+    name = os.path.basename(tree)
+    for line in C.ptxas_report(_build.build_log, ("vq_",)):
+        print(f"[ptxas] {name} {line}", flush=True)
+    for line in _build.build_log.splitlines():
+        if "C75" in line:
+            print(f"[ptxas] {name} {line.strip()}", flush=True)
+    dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
+    calls = {}
+    for path, (n, c, k) in VQ_SHAPES.items():
+        z = torch.randn(n, c, generator=gen).to(dev)
+        cb = torch.randn(k, c, generator=gen).to(dev)
+        ids = vq_argmin(z, cb)
+        twice = torch.equal(ids, vq_argmin(z, cb))
+        near, _, over = vq_near_ties(ids, z, cb, 1e-5)
+        differ = ids != vq_argmin_plain(z, cb)
+        ok = twice and bool((~differ | near).all()) and bool((over[differ] <= 0).all())
+        fn = functools.partial(vq_argmin, z, cb)
+        us = C.graph_ms(fn) * 1e3
+        plain_us = C.graph_ms(functools.partial(vq_argmin_plain, z, cb), reps=5, trials=3) * 1e3
+        bound, by = C.bound_of(C.nbytes(z, cb, ids), 12 * n * k * c, "bf16")
+        print(f"[vq] {name} {path} z ({n}, {c}) cb ({k}, {c}): {us:.2f} us (graph replay), plain "
+              f"{plain_us:.2f} us; bound {bound * 1e3:.2f} us ({by}), {us / (bound * 1e3):.1f}x; "
+              f"comparison floor {n * k / COMPARES_PER_S * 1e6:.2f} us; {int(differ.sum())} ids "
+              f"differ from plain, all at near-ties, two calls bit-equal: {'ok' if ok else 'FAIL'}",
+              flush=True)
+        calls[f"k6 vq_argmin ({path}) z ({n}, {c}) cb ({k}, {c})"] = fn
+        del z, cb, ids, near, over, differ
+    for label, fn in calls.items():
+        C.log_split(label, fn)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("split", "kernels", "host", "serving", "attn_norm"))
+    parser.add_argument("what", choices=("split", "kernels", "host", "serving", "attn_norm",
+                                         "vq"))
     parser.add_argument("tree", help="the checkout whose kernels to measure")
     args = parser.parse_args()
     {"split": split, "kernels": kernels, "host": host, "serving": serving,
-     "attn_norm": attn_norm}[args.what](args.tree)
+     "attn_norm": attn_norm, "vq": vq}[args.what](args.tree)
     return 0
 
 
